@@ -11,8 +11,9 @@ final line:
 3. kernel  — the kernel against its plain PyTorch version on the card:
              random fleets (K in {3, 6, 32}, W in {64, 512}) with
              head-pointer rows, ties and a priced network, and inputs
-             captured from the scenario-1 run; then its time at the main
-             path's shapes (CUDA events around a CUDA graph of 1000
+             captured from each of the four main-path runs (so every
+             (K, W) the main path gives the kernel is checked); then its
+             time at those shapes (CUDA events around a CUDA graph of 1000
              launches, and around 1000 eager calls) beside the plain
              version's and the byte bound;
 4. main    — ``repro_torch.fleetsim.simulate`` on ``paper/scenario1..3``
@@ -323,19 +324,30 @@ def main() -> int:
                     args = random_args(rng, K, W, speeds, dev, tie=tie)
                     max_err = max(max_err, check_kernel(args, exact))
                     n_checked += 1
+    # inputs captured from every main-path run, so each (K, W) the main
+    # path gives the kernel is checked on its own run's data; the last
+    # input of each shape is the one timed below
     runs = golden["runs"]
-    captured = capture_inputs(runs[0], golden, dev)
-    for args in captured:
-        max_err = max(max_err, check_kernel(args))
-        n_checked += 1
-    print(f"kernel: {n_checked} inputs ({len(captured)} captured from "
-          f"{runs[0]['name']}) match the plain version, max abs err "
+    shape_args, n_captured = {}, 0
+    for spec in runs:
+        captured = capture_inputs(spec, golden, dev)
+        if not captured:
+            fail(f"no event_select inputs captured from {spec['name']}")
+        for args in captured:
+            max_err = max(max_err, check_kernel(args))
+        n_checked += len(captured)
+        n_captured += len(captured)
+        shape_args.setdefault(tuple(captured[-1][12].shape), captured[-1])
+    main_shapes = {(s["n_nodes"], s["depth"]) for s in runs}
+    if set(shape_args) != main_shapes:
+        fail(f"captured shapes {sorted(shape_args)} are not the main "
+             f"path's {sorted(main_shapes)}")
+    print(f"kernel: {n_checked} inputs ({n_captured} captured from the "
+          f"{len(runs)} main-path runs, shapes (K, W) "
+          f"{sorted(shape_args)}) match the plain version, max abs err "
           f"{max_err}", flush=True)
 
     shapes = []
-    shape_args = {(3, 1024): captured[-1]}
-    for K, W in ((6, 1024), (32, 512)):
-        shape_args[(K, W)] = random_args(rng, K, W, np.ones(K), dev)
     for (K, W), args in shape_args.items():
         packed = packed_args(args)
         kern = lambda: es_mod.event_select(*packed)

@@ -1,9 +1,11 @@
 """Build the CUDA kernels of the port at first use and load them.
 
 Each ``csrc/<name>.cu`` has a plain C interface.  ``nvcc`` compiles it
-for Hopper (``sm_90a``) into a shared library under ``build/kernels/`` at
-the checkout's root, named by a hash of the source and the flags, so an
-edited source never loads a stale build.  The library is loaded with
+for Hopper (``sm_90a``) into a shared library, named by a hash of the
+source and the flags, so an edited source never loads a stale build.  The
+library goes into ``$REPRO_TORCH_BUILD_DIR`` when that is set, else into
+``build/kernels/`` at the root of a source checkout, else (an installed
+package) into ``~/.cache/repro_torch/kernels``.  It is loaded with
 ``ctypes``; a failed build raises.  Nothing here runs at import time.
 """
 from __future__ import annotations
@@ -18,7 +20,8 @@ from pathlib import Path
 from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+# src/repro_torch/kernels/build.py -> the checkout's root
+_CHECKOUT = Path(__file__).resolve().parents[3]
 
 # IEEE arithmetic only: no implicit FMA contraction (each fused
 # multiply-add a kernel needs is written out, to match the plain version
@@ -41,17 +44,29 @@ def nvcc_path() -> str:
                        "the port's CUDA kernels are built from source")
 
 
+def build_dir() -> Path:
+    """Where built libraries go (see the module's docstring)."""
+    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
+    if env:
+        return Path(env)
+    if (_CHECKOUT / "pyproject.toml").is_file() and \
+            (_CHECKOUT / "src" / "repro_torch").is_dir():
+        return _CHECKOUT / "build" / "kernels"
+    return Path.home() / ".cache" / "repro_torch" / "kernels"
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless an identical build exists; return
     the shared library's path."""
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{name}-{digest}.so"
+    out_dir = build_dir()
+    out = out_dir / f"lib{name}-{digest}.so"
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
     try:
         proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(src)],

@@ -9,10 +9,12 @@ interpret mode, as its own tests do.
 
 Bar: exact on ``outcome``, ``served_by``, ``forwards_used`` and the
 never-silent counters ``overflow``, ``window_saturation`` and
-``event_overflow``; ``completion`` and ``transfer_used`` exact as well
-(the port follows the reference's f32 arithmetic operation for
-operation), held here to ``validate.py``'s ``TRANSFER_ATOL`` = 1e-2 as the
-stated ceiling.
+``event_overflow``; ``completion`` and ``transfer_used`` bit for bit as
+well (the port follows the reference's f32 arithmetic operation for
+operation, its fused multiply-adds included), far inside ``validate.py``'s
+``TRANSFER_ATOL`` = 1e-2, the ceiling a port could be held to.  The
+whole-slice check, ``paper/scenario1`` at full volume, lives in
+tests/test_torch_golden.py, which runs it once for both packages.
 """
 import numpy as np
 import pytest
@@ -23,17 +25,14 @@ from repro.core.request import Request as JRequest, Service as JService
 from repro.netsim import LinkModel as JLinkModel
 from repro.orchestration import (Topology as JTopology,
                                  UniformWorkload as JUniformWorkload,
-                                 Workload as JWorkload,
-                                 get_workload as jget_workload)
+                                 Workload as JWorkload)
 import repro_torch.fleetsim as tfs
 from repro_torch.core.request import Request as TRequest, Service as TService
 from repro_torch.netsim import LinkModel as TLinkModel
 from repro_torch.orchestration import (Topology as TTopology,
                                        UniformWorkload as TUniformWorkload,
-                                       Workload as TWorkload,
-                                       get_workload as tget_workload)
+                                       Workload as TWorkload)
 
-TRANSFER_ATOL = 1e-2
 # tests/test_fleetsim.py's HOT fleet: 3 nodes deep in overload
 HOT_COUNTS = [{"S1": 30, "S4": 30, "S5": 25, "S6": 25}] * 3
 EXACT = ("outcome", "served_by", "forwards_used")
@@ -74,8 +73,9 @@ def _assert_parity(a, b):
     for f in COUNTERS:
         assert int(getattr(a, f)) == int(getattr(b, f)), f
     for f in ("completion", "transfer_used"):
-        err = np.abs(np.asarray(getattr(a, f)) - getattr(b, f).numpy()).max()
-        assert err <= TRANSFER_ATOL, (f, err)
+        x, y = np.asarray(getattr(a, f)), getattr(b, f).numpy()
+        assert x.dtype == y.dtype and np.array_equal(x, y), \
+            (f, np.abs(x - y).max())
     for f in ("mean_response_time", "end_time", "transfer_time"):
         x, y = float(getattr(a, f)), float(getattr(b, f))
         assert abs(x - y) <= 1e-5 * max(1.0, abs(x)), (f, x, y)
@@ -153,19 +153,6 @@ def test_batched_feasible_scores_post_retire_state():
                      depth=16)
     _assert_parity(a, b)
     assert int(a.forwards) == int(b.forwards) == 0
-
-
-def test_paper_scenario1_full_volume_matches_reference():
-    """The whole slice: scenario 1 (6,000 requests, 3 nodes) under campus
-    pricing through batched_feasible, at the golden file's sizing."""
-    ja, ta = _pair(jget_workload("paper/scenario1"),
-                   tget_workload("paper/scenario1"))
-    a, b = _run_both(ja, ta, 3, net="campus", policy="batched_feasible",
-                     capacity=4096, depth=1024, max_events=18000)
-    _assert_parity(a, b)
-    assert int(b.forwards) > 0
-    for f in ("overflow", "window_saturation", "event_overflow"):
-        assert int(getattr(b, f)) == 0, f
 
 
 def test_unported_paths_raise():

@@ -20,6 +20,7 @@ against the plain version there.
 """
 import fractions
 import random
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -212,8 +213,22 @@ def test_candidate_buffers_follow_the_kernel_layout():
     assert is_.dtype == torch.int32 and is_.tolist() == [7, 1, 9, 0]
 
 
+def test_build_dir_follows_env_checkout_then_home(monkeypatch, tmp_path):
+    monkeypatch.delenv("REPRO_TORCH_BUILD_DIR", raising=False)
+    root = Path(__file__).resolve().parents[1]
+    assert build.build_dir() == root / "build" / "kernels"
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "b"))
+    assert build.build_dir() == tmp_path / "b"
+    # an installed package: no checkout around the module
+    monkeypatch.delenv("REPRO_TORCH_BUILD_DIR")
+    monkeypatch.setattr(build, "_CHECKOUT", tmp_path / "site")
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))
+    assert build.build_dir() == (tmp_path / "home" / ".cache" / "repro_torch"
+                                 / "kernels")
+
+
 def test_failed_build_raises(monkeypatch, tmp_path):
-    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
     monkeypatch.setattr(build, "nvcc_path", lambda: "false")
     with pytest.raises(RuntimeError, match="nvcc failed"):
         build.build("event_select")
