@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -6,27 +6,66 @@ Phases, in order; any mismatch or exception exits non-zero before the
 final line:
 
 1. card    — the GPU's name and power limit (nvidia-smi);
-2. build   — ``nvcc`` builds the ``event_select`` kernel from
-             ``src/repro_torch/kernels/csrc/``;
-3. kernel  — the kernel against its plain PyTorch version on the card:
-             random fleets (K in {3, 6, 32}, W in {64, 512}) with
-             head-pointer rows, ties and a priced network, and inputs
-             captured from each of the four main-path runs (so every
-             (K, W) the main path gives the kernel is checked); then its
-             time at those shapes (CUDA events around a CUDA graph of 1000
-             launches, and around 1000 eager calls) beside the plain
-             version's and the byte bound;
-4. main    — ``repro_torch.fleetsim.simulate`` on ``paper/scenario1..3``
-             and the 32-node fleet (seed 0, full mesh, campus pricing,
-             ``batched_feasible``), each held against the JAX reference's
-             digests in ``tests/data/torch_fleetsim_golden.json``, with
-             the kernel's launch count equal to the run's event steps;
+2. build   — ``nvcc`` builds the ``event_select`` and ``flash_attention``
+             kernels from ``src/repro_torch/kernels/csrc/``, one process
+             each, started together, and prints ``ptxas``'s registers,
+             shared memory and spills of each kernel;
+3. fleet   — the event-time fleet simulator (``repro_torch.fleetsim.
+             simulate``, seed 0, full mesh, campus pricing,
+             ``batched_feasible``):
+             a. ``event_select`` against its plain PyTorch version on
+                random fleets (K in {3, 6, 32}, W in {64, 512}) with
+                head-pointer rows, ties and a priced network;
+             b. a profiled 500-event segment of ``paper/scenario1``;
+             c. the main path: ``paper/scenario1..3`` and the first 8,000
+                requests of the 32-node fleet, each held against the JAX
+                reference's digests in ``tests/data/
+                torch_fleetsim_golden.json``, with the kernel's launch
+                count (set to 0 before each run) equal to the run's event
+                steps; every 150th kernel input of each run's first 1,500
+                events is kept;
+             d. the kernel against its plain version on those kept inputs
+                (every (K, W) the main path gives it), then its time at
+                those shapes beside the plain version's and the bound;
+4. vision  — the deadline-aware serving path with DeiT-B at full width:
+             a. ``flash_attention`` against its plain version on a random
+                sweep (causal / window / GQA, S in {1, 127, 129, 578,
+                1024}, D in {64, 80, 128}, f32 and bf16), held to
+                ``ref.flash_attention_tolerance``, a tolerance scaled to
+                each case;
+             b. DeiT-B logits (seeded weights, two seeded images at 224
+                and 384 px, f32 and bf16) against the JAX reference's in
+                ``tests/data/torch_vit_golden.json``, with 0 kernel
+                launches at 224 px (198 tokens take the naive path) and
+                12 at 384 px (578 tokens, one per layer);
+             c. the main path: ``DeadlineAwareEngine`` over three bf16
+                DeiT-B replicas serving the 64-frame campus surveillance
+                stream of ``examples/serve_surveillance.py`` (4K and FHD
+                frames at 384 px, HD at 224 px) with the preferential
+                queue and with FIFO, each run's decisions equal to the
+                golden's and its kernel launches (set to 0 before the run)
+                equal to 12 x its 384-px batches; the kernel's inputs of
+                each batch size served are kept and held against the
+                plain version, elementwise and by rms error against the
+                plain version in f32 (within ``RMS_RATIO``); each check
+                is shown to reject a kernel that drops the last key (the
+                rms one on the served inputs, the elementwise one on
+                random inputs of the served shape at B=8);
+             d. the kernel's time at each batch size served and at B=8
+                (S=578, 12 heads, D=64, bf16) beside the plain version's,
+                ``scaled_dot_product_attention``'s (the yardstick; the
+                port never calls it) and the bound; the f32 kernel at
+                B=8; where the device time of one 384-px batch of 8 goes;
+                the engine's measured step times per class and batch
+                size;
 5. the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import concurrent.futures
+import dataclasses
 import hashlib
 import json
 import os
@@ -37,23 +76,49 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 GOLDEN = os.path.join(ROOT, "tests", "data", "torch_fleetsim_golden.json")
+VIT_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_vit_golden.json")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.configs import deit_b  # noqa: E402
 from repro_torch.fleetsim import simulate, topology_arrays  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import event_select as es_mod  # noqa: E402
+from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import vit  # noqa: E402
 from repro_torch.netsim import LinkModel  # noqa: E402
 from repro_torch.orchestration import (Topology, fleet_workload,  # noqa: E402
                                        get_workload)
+from repro_torch.serving import measure_step_times  # noqa: E402
 
 BIG = 1e30
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor-core peak
 NAMES = ("take_fresh", "t", "node", "feasible", "arrive", "j", "cap", "load")
-KERNEL_SOURCE = "src/repro_torch/kernels/csrc/event_select.cu"
-KERNEL_REPLACES = "src/repro/kernels/event_select.py:43"
+KERNELS = {
+    "event_select": ("src/repro_torch/kernels/csrc/event_select.cu",
+                     "src/repro/kernels/event_select.py:43"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:32"),
+}
 LOAD_RTOL = 1e-6                   # load of non-dyadic sizes (sum order)
+# On the served inputs attention is near uniform over 578 keys, so one key
+# moves an output by less than a bf16 unit and no elementwise tolerance
+# sees a dropped key there.  The rms error against the plain version in
+# f32 does: the kernel's must stay within this multiple of the plain bf16
+# version's (both are dominated by rounding the output to bf16; on an H100
+# they agree to 4 digits), and the plain version without the last key
+# must exceed it (17% above on an H100).
+RMS_RATIO = 1.05
+# DeiT-B logits against the JAX reference (|logit| <= 3.4 here).  f32
+# with TF32 off: only the summation order differs (2.4e-6 on the CPU).
+# bf16 keeps 8 significant bits and the card rounds at other places than
+# XLA on the CPU (cuBLAS's GEMMs, the kernel's unnormalised p): the port
+# on the CPU is 0.025 from the reference, and 0.1 leaves 4x that margin
+LOGIT_ATOL = {"float32": 1e-4, "bfloat16": 0.1}
+FLEET_CAPTURE_EVENTS, FLEET_CAPTURE_EVERY = 1500, 150
 
 
 def fail(msg: str) -> None:
@@ -80,8 +145,68 @@ def digest(t: torch.Tensor) -> str:
                           ).hexdigest()
 
 
+def timed_ms(fn, reps: int) -> float:
+    """Device time per call: CUDA events around ``reps`` calls."""
+    fn()
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Device time per call with the launch overhead taken out: ``reps``
+    calls captured into one CUDA graph, replayed under CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                    # warm-up outside capture
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    g.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+class Spy:
+    """Wraps a kernel entry point of ``module`` while a main path runs and
+    keeps clones of the arguments that ``keep(call_index, args)`` picks;
+    the real entry point (and its launch counter) runs unchanged."""
+
+    def __init__(self, module, name: str, keep):
+        self.module, self.name, self.keep = module, name, keep
+        self.real = getattr(module, name)
+        self.calls, self.kept = 0, []
+
+    def __call__(self, *args, **kw):
+        if self.keep(self.calls, args):
+            self.kept.append((tuple(a.clone() if torch.is_tensor(a) else a
+                                    for a in args), dict(kw)))
+        self.calls += 1
+        return self.real(*args, **kw)
+
+    def __enter__(self):
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
 # ---------------------------------------------------------------------------
-# phase 3: the kernel against its plain version
+# phase 3: the fleet simulator and event_select
 # ---------------------------------------------------------------------------
 def random_args(rng, K, W, speeds, dev, tie=False):
     """A random head-pointer fleet window and two candidate events, as
@@ -133,7 +258,7 @@ def random_args(rng, K, W, speeds, dev, tie=False):
             *(torch.from_numpy(a).to(dev) for a in (busy, lat, ibw)))
 
 
-def check_kernel(args, exact_load=True) -> float:
+def check_event_select(args, exact_load=True) -> float:
     """Kernel vs plain version on one input; returns the max abs error
     over the float outputs.  Integer and bool outputs, t, arrive and cap
     must match bit for bit; load too when the sizes are dyadic."""
@@ -156,71 +281,11 @@ def check_kernel(args, exact_load=True) -> float:
     return err
 
 
-def capture_inputs(spec, golden, dev, limit=1500, every=150):
-    """Inputs of every ``every``-th event_select call in the first
-    ``limit`` events of a run (its outputs are discarded)."""
-    captured = []
-    real = ops.event_select
-
-    def spy(*args):
-        if (len(captured) + 1) * every == spy.calls + 1:
-            captured.append(tuple(a.clone() for a in args))
-        spy.calls += 1
-        return real(*args)
-
-    spy.calls = 0
-    reqs, topo, net = main_inputs(spec)
-    ops.event_select = spy
-    try:
-        simulate(reqs, topo, policy=golden["policy"],
-                 max_forwards=golden["max_forwards"],
-                 capacity=spec["capacity"], depth=spec["depth"], net=net,
-                 max_events=limit, device=dev)
-    finally:
-        ops.event_select = real
-    return captured
-
-
 def packed_args(args):
     """``ops.event_select`` arguments as the kernel wrapper takes them: the
     twelve candidate scalars in one f32 and one int32 device buffer."""
     return (*ops.candidate_buffers(*args[:12]), *args[12:16],
             args[16].to(torch.int32), *args[17:])
-
-
-def timed_ms(fn, reps: int) -> float:
-    """Device time per call: CUDA events around ``reps`` calls."""
-    fn()
-    torch.cuda.synchronize()
-    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
-
-
-def graph_ms(fn, reps: int) -> float:
-    """Device time per call with the launch overhead taken out: ``reps``
-    calls captured into one CUDA graph, replayed under CUDA events."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()                                    # warm-up outside capture
-    torch.cuda.current_stream().wait_stream(side)
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for _ in range(reps):
-            fn()
-    g.replay()
-    torch.cuda.synchronize()
-    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    t0.record()
-    g.replay()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
 
 
 def profile_segment(spec, golden, dev, events=500):
@@ -244,9 +309,7 @@ def profile_segment(spec, golden, dev, events=500):
         torch.cuda.synchronize()
         wall_us = (time.time() - t0) * 1e6
     ka = prof.key_averages()
-    dev_key = ("self_device_time_total"
-               if hasattr(ka[0], "self_device_time_total")
-               else "self_cuda_time_total")
+    dev_key = device_time_key(ka)
     # a CPU op also carries the time of the kernels it launched: count the
     # device's own entries (kernels, copies, fills) only
     on_dev = [e for e in ka if e.device_type == DeviceType.CUDA]
@@ -271,7 +334,13 @@ def profile_segment(spec, golden, dev, events=500):
                         for e in top_dev])
 
 
-def bound_ms(K: int, W: int) -> float:
+def device_time_key(ka) -> str:
+    return ("self_device_time_total"
+            if hasattr(ka[0], "self_device_time_total")
+            else "self_cuda_time_total")
+
+
+def event_select_bound_ms(K: int, W: int) -> float:
     """Least time for the work: each input read once, each output written
     once — three (K, W) f32 windows, four (K,) vectors, the selected (K,)
     latency and inverse-bandwidth rows, 48 bytes of candidate scalars;
@@ -280,38 +349,20 @@ def bound_ms(K: int, W: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-# ---------------------------------------------------------------------------
-# phase 4: the main path
-# ---------------------------------------------------------------------------
 def main_inputs(spec):
     reqs, _ = workload_of(spec).to_arrays(0)
+    n = spec["workload"].get("prefix")
+    if n is not None:                 # the first n requests in arrival order
+        reqs = type(reqs)(*(a[:n] for a in reqs))
     topo = Topology.full_mesh(spec["n_nodes"])
     return (reqs, topology_arrays(topo),
             LinkModel.campus(topo).net_params())
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this script "
-              "runs the port on an NVIDIA GPU", file=sys.stderr)
-        return 2
-    dev = torch.device("cuda")
+def fleet_phase(dev):
+    """Phase 3; returns the ``event_select`` entry of the kernels line."""
     with open(GOLDEN) as f:
         golden = json.load(f)
-    t_start = time.time()
-
-    # -- 1. card
-    card = card_line()
-    print(f"card: {card}", flush=True)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"device {torch.cuda.get_device_name(0)}", flush=True)
-
-    # -- 2. build
-    t0 = time.time()
-    build.load("event_select")
-    print(f"build: event_select {time.time() - t0:.2f} s", flush=True)
-
-    # -- 3. kernel against its plain version
     rng = np.random.default_rng(0)
     max_err, n_checked = 0.0, 0
     for K in (3, 6, 32):
@@ -322,49 +373,17 @@ def main() -> int:
             for speeds, exact, tie in cases:
                 for _ in range(3):
                     args = random_args(rng, K, W, speeds, dev, tie=tie)
-                    max_err = max(max_err, check_kernel(args, exact))
+                    max_err = max(max_err, check_event_select(args, exact))
                     n_checked += 1
-    # inputs captured from every main-path run, so each (K, W) the main
-    # path gives the kernel is checked on its own run's data; the last
-    # input of each shape is the one timed below
-    runs = golden["runs"]
-    shape_args, n_captured = {}, 0
-    for spec in runs:
-        captured = capture_inputs(spec, golden, dev)
-        if not captured:
-            fail(f"no event_select inputs captured from {spec['name']}")
-        for args in captured:
-            max_err = max(max_err, check_kernel(args))
-        n_checked += len(captured)
-        n_captured += len(captured)
-        shape_args.setdefault(tuple(captured[-1][12].shape), captured[-1])
-    main_shapes = {(s["n_nodes"], s["depth"]) for s in runs}
-    if set(shape_args) != main_shapes:
-        fail(f"captured shapes {sorted(shape_args)} are not the main "
-             f"path's {sorted(main_shapes)}")
-    print(f"kernel: {n_checked} inputs ({n_captured} captured from the "
-          f"{len(runs)} main-path runs, shapes (K, W) "
-          f"{sorted(shape_args)}) match the plain version, max abs err "
-          f"{max_err}", flush=True)
+    print(f"fleet kernel: {n_checked} random inputs match the plain "
+          f"version, max abs err {max_err}", flush=True)
 
-    shapes = []
-    for (K, W), args in shape_args.items():
-        packed = packed_args(args)
-        kern = lambda: es_mod.event_select(*packed)
-        plain = lambda: ref.event_select_ref(*args)
-        row = dict(K=K, W=W, ms=graph_ms(kern, 1000),
-                   ms_eager=timed_ms(kern, 1000),
-                   plain_ms=graph_ms(plain, 200),
-                   plain_ms_eager=timed_ms(plain, 200),
-                   bound_ms=bound_ms(K, W))
-        shapes.append(row)
-        print(f"kernel time K={K} W={W}: {row['ms'] * 1e3:.2f} us "
-              f"(eager {row['ms_eager'] * 1e3:.2f} us), plain "
-              f"{row['plain_ms'] * 1e3:.2f} us (eager "
-              f"{row['plain_ms_eager'] * 1e3:.2f} us), bound "
-              f"{row['bound_ms'] * 1e3:.4f} us", flush=True)
-
-    # -- 4. the main path: where a step's time goes, then the four runs
+    # the main path's runs: the three paper scenarios at full volume and
+    # the first 8,000 requests of the 32-node fleet (its full run is in
+    # the golden file too, for the CPU tests)
+    by_name = {r["name"]: r for r in golden["runs"]}
+    runs = [by_name[n] for n in ("paper/scenario1", "paper/scenario2",
+                                 "paper/scenario3", "fleet32_div4_first8000")]
     prof = profile_segment(runs[0], golden, dev)
     print(f"trace {runs[0]['name']} first {prof['events']} events: "
           f"{prof['wall_us'] / prof['events']:.1f} us/event wall, device "
@@ -376,20 +395,25 @@ def main() -> int:
           f"us/event; top host ops (name, calls, self us): "
           f"{prof['top_host_ops']}; top device ops (name, calls, self us): "
           f"{prof['top_device_ops']}", flush=True)
-    launches = {}
+
+    launches, captured = {}, {}
+    keep = lambda i, args: (i < FLEET_CAPTURE_EVENTS
+                            and (i + 1) % FLEET_CAPTURE_EVERY == 0)
     for spec in runs:
         reqs, topo, net = main_inputs(spec)
         torch.cuda.synchronize()
-        es_mod.event_select.launches = 0
-        t0 = time.time()
-        m = simulate(reqs, topo, policy=golden["policy"],
-                     max_forwards=golden["max_forwards"],
-                     capacity=spec["capacity"], depth=spec["depth"],
-                     net=net, max_events=spec["max_events"], device=dev)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-        n_launch = es_mod.event_select.launches
+        with Spy(ops, "event_select", keep) as spy:
+            es_mod.event_select.launches = 0
+            t0 = time.time()
+            m = simulate(reqs, topo, policy=golden["policy"],
+                         max_forwards=golden["max_forwards"],
+                         capacity=spec["capacity"], depth=spec["depth"],
+                         net=net, max_events=spec["max_events"], device=dev)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            n_launch = es_mod.event_select.launches
         launches[spec["name"]] = n_launch
+        captured[spec["name"]] = [args for args, _ in spy.kept]
         R = int(m.total)
         print(f"main {spec['name']}: {R} requests, {m.events} events, "
               f"{wall:.2f} s, {m.events / wall:.1f} events/s, "
@@ -412,16 +436,401 @@ def main() -> int:
             fail(f"{spec['name']}: {n_launch} event_select launches for "
                  f"{m.events} event steps")
 
-    # -- 5. the records
+    # the kernel on the inputs kept from every main-path run, so each
+    # (K, W) the main path gives it is checked on its own run's data; the
+    # last input of each shape is the one timed below
+    shape_args, n_captured = {}, 0
+    for name, kept in captured.items():
+        if not kept:
+            fail(f"no event_select inputs kept from {name}")
+        for args in kept:
+            max_err = max(max_err, check_event_select(args))
+        n_captured += len(kept)
+        shape_args[tuple(kept[-1][12].shape)] = kept[-1]
+    main_shapes = {(s["n_nodes"], s["depth"]) for s in runs}
+    if set(shape_args) != main_shapes:
+        fail(f"kept shapes {sorted(shape_args)} are not the main path's "
+             f"{sorted(main_shapes)}")
+    print(f"fleet kernel: {n_captured} inputs kept from the {len(runs)} "
+          f"main-path runs, shapes (K, W) {sorted(shape_args)}, match the "
+          f"plain version; max abs err over all {n_checked + n_captured} "
+          f"inputs {max_err}", flush=True)
+
+    shapes = []
+    for (K, W), args in sorted(shape_args.items()):
+        packed = packed_args(args)
+        kern = lambda: es_mod.event_select(*packed)
+        plain = lambda: ref.event_select_ref(*args)
+        row = dict(K=K, W=W, ms=graph_ms(kern, 1000),
+                   ms_eager=timed_ms(kern, 1000),
+                   plain_ms=graph_ms(plain, 200),
+                   plain_ms_eager=timed_ms(plain, 200),
+                   bound_ms=event_select_bound_ms(K, W))
+        shapes.append(row)
+        print(f"fleet kernel time K={K} W={W}: {row['ms'] * 1e3:.2f} us "
+              f"(eager {row['ms_eager'] * 1e3:.2f} us), plain "
+              f"{row['plain_ms'] * 1e3:.2f} us (eager "
+              f"{row['plain_ms_eager'] * 1e3:.2f} us), bound "
+              f"{row['bound_ms'] * 1e3:.4f} us", flush=True)
     fleet = next(r for r in shapes if (r["K"], r["W"]) == (32, 512))
+    return dict(launches=sum(launches.values()), launches_by_run=launches,
+                max_abs_err=max_err, ms=fleet["ms"],
+                plain_ms=fleet["plain_ms"], bound_ms=fleet["bound_ms"],
+                bound_by="bytes", library_ms=None, shapes=shapes)
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the vision serving path and flash_attention
+# ---------------------------------------------------------------------------
+def check_flash(q, k, v, causal, window):
+    """Kernel vs plain version on one input, held to
+    ``ref.flash_attention_tolerance``; returns the max abs error and the
+    largest error as a share of what the tolerance allows there."""
+    got = fa_mod.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    if got.dtype != want.dtype or got.shape != want.shape:
+        fail(f"flash_attention: {got.dtype}{tuple(got.shape)} vs "
+             f"{want.dtype}{tuple(want.shape)}")
+    g, w = got.float(), want.float()
+    tol = ref.flash_attention_tolerance(want, v)
+    share = float(((g - w).abs() / (tol["atol"] + tol["rtol"] * w.abs())
+                   ).max())
+    if not torch.isfinite(g).all() or not share <= 1.0:
+        fail(f"flash_attention differs from the plain version at q "
+             f"{tuple(q.shape)} kv heads {k.shape[2]} {q.dtype} causal "
+             f"{causal} window {window}: max abs err "
+             f"{float((g - w).abs().max())}, {share} of the tolerance "
+             f"{tol}")
+    return float((g - w).abs().max()), share
+
+
+def flash_rejects_dropped_key(q, k, v) -> float:
+    """The check's own test on one non-causal input: the plain version
+    over all keys but the last (a kernel that drops the last key of the
+    ragged tail tile) must fail the tolerance; returns its largest error
+    as a share of the tolerance."""
+    want = ref.flash_attention_ref(q, k, v, causal=False).float()
+    bad = ref.flash_attention_ref(q, k[:, :-1], v[:, :-1], causal=False)
+    tol = ref.flash_attention_tolerance(want, v)
+    share = float(((bad.float() - want).abs()
+                   / (tol["atol"] + tol["rtol"] * want.abs())).max())
+    if share <= 1.0:
+        fail(f"the flash_attention check passes a kernel that drops the "
+             f"last key at q {tuple(q.shape)}")
+    return share
+
+
+def flash_rms_errors(q, k, v):
+    """Root-mean-square errors against the plain version in f32 on the
+    same bf16 inputs: of the kernel, of the plain version in bf16, and of
+    the plain version without the last key."""
+    exact = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                    causal=False)
+    rms = lambda x: float((x.float() - exact).pow(2).mean().sqrt())
+    return (rms(fa_mod.flash_attention(q, k, v, causal=False)),
+            rms(ref.flash_attention_ref(q, k, v, causal=False)),
+            rms(ref.flash_attention_ref(q, k[:, :-1], v[:, :-1],
+                                        causal=False)))
+
+
+def flash_sweep(dev) -> float:
+    gen = torch.Generator().manual_seed(0)
+    variants = ((False, None, 12, 12), (True, None, 8, 2),
+                (True, 100, 8, 1), (False, 64, 4, 4))
+    err, share, n = 0.0, {}, 0
+    for dt in (torch.float32, torch.bfloat16):
+        for S in (1, 127, 129, 578, 1024):
+            for D in (64, 80, 128):
+                for causal, window, H, KV in variants:
+                    q, k, v = (torch.randn(2, S, h, D, generator=gen).to(
+                        device=dev, dtype=dt) for h in (H, KV, KV))
+                    e, sh = check_flash(q, k, v, causal, window)
+                    err, share[dt] = max(err, e), max(share.get(dt, 0.0), sh)
+                    n += 1
+    print(f"vision kernel: {n} random inputs (f32 and bf16, S in 1..1024, "
+          f"D in 64/80/128, causal, window, GQA) match the plain version, "
+          f"max abs err {err}; largest error as a share of the tolerance: "
+          f"f32 {share[torch.float32]}, bf16 {share[torch.bfloat16]}",
+          flush=True)
+    return err
+
+
+def golden_images():
+    """The generator's images: per resolution, (2, res, res, 3) f32."""
+    rng = np.random.default_rng(1)
+    return {r: rng.random((2, r, r, 3), dtype=np.float32) for r in (224, 384)}
+
+
+def logits_check(tree, vgold, dev):
+    """DeiT-B at full width against the JAX reference's logits."""
+    for dt in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(deit_b.CONFIG, attn_impl="pallas",
+                                  param_dtype=dt)
+        params = vit.params_from_numpy(tree, cfg, dev)
+        for res, img in golden_images().items():
+            want = np.asarray(vgold["logits"][str(res)][dt], np.float32)
+            fa_mod.flash_attention.launches = 0
+            got = vit.forward(params, torch.from_numpy(img).to(dev), cfg)
+            n_launch = fa_mod.flash_attention.launches
+            got = got.cpu().numpy()
+            err = float(np.abs(got - want).max())
+            S = cfg.n_tokens(res)
+            expect = cfg.n_layers if S > cfg.attn_chunk else 0
+            print(f"vision DeiT-B {dt} {res} px ({S} tokens): max abs err "
+                  f"{err} against the JAX logits (atol {LOGIT_ATOL[dt]}), "
+                  f"{n_launch} flash_attention launches", flush=True)
+            if not np.isfinite(got).all() or got.shape != want.shape:
+                fail(f"DeiT-B {dt} {res}: logits {got.shape} not finite "
+                     f"or not {want.shape}")
+            if err > LOGIT_ATOL[dt]:
+                fail(f"DeiT-B {dt} {res}: logits {err} from the reference")
+            if dt == "float32" and not np.array_equal(got.argmax(-1),
+                                                      want.argmax(-1)):
+                fail(f"DeiT-B {dt} {res}: argmax differs")
+            if n_launch != expect:
+                fail(f"DeiT-B {dt} {res}: {n_launch} flash_attention "
+                     f"launches, expected {expect}")
+
+
+def flash_bound_ms(B, S, H, KV, D, itemsize):
+    """Least time for one call: 4*B*H*S^2*D FLOPs at the bf16 tensor-core
+    peak, or q, k, v read once and out written once at the HBM rate,
+    whichever is larger."""
+    ops_ms = 4 * B * H * S * S * D / BF16_FLOP_PER_S * 1e3
+    bytes_ms = B * S * (2 * H + 2 * KV) * D * itemsize / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def batch_breakdown(params, cfg, frame, b=8):
+    """Device time of one forward of ``b`` frames by kind of kernel:
+    flash_attention, matrix products (cuBLAS), the rest."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+    x = torch.stack([frame] * b)
+    vit.forward(params, x, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.time()
+        vit.forward(params, x, cfg)
+        torch.cuda.synchronize()
+        wall_us = (time.time() - t0) * 1e6
+    ka = prof.key_averages()
+    key = device_time_key(ka)
+    kinds = {"flash_attention": 0.0, "matmul": 0.0, "other": 0.0}
+    for e in ka:
+        if e.device_type != DeviceType.CUDA:
+            continue
+        name = e.key.lower()
+        kind = ("flash_attention" if "flash_attention" in name else
+                "matmul" if any(s in name for s in (
+                    "gemm", "xmma", "cutlass", "nvjet", "matmul"))
+                else "other")
+        kinds[kind] += getattr(e, key)
+    return wall_us, kinds
+
+
+def flash_times(q, k, v, reps=100) -> dict:
+    """Graph-replayed times of the kernel, its plain version and SDPA (the
+    yardstick) on one non-causal input, with the bound."""
+    B, S, H, D = q.shape
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    row = dict(B=B, S=S, H=H, D=D,
+               ms=graph_ms(lambda: fa_mod.flash_attention(
+                   q, k, v, causal=False), reps),
+               plain_ms=graph_ms(lambda: ref.flash_attention_ref(
+                   q, k, v, causal=False), reps // 2),
+               library_ms=graph_ms(lambda: sdpa(qt, kt, vt), reps))
+    row["bound_ms"], row["bound_by"] = flash_bound_ms(
+        B, S, H, k.shape[2], D, q.element_size())
+    return row
+
+
+def print_flash_row(label, row):
+    print(f"vision kernel time {label} B={row['B']} S={row['S']} "
+          f"H={row['H']} D={row['D']}: {row['ms'] * 1e3:.2f} us, plain "
+          f"{row['plain_ms'] * 1e3:.2f} us, SDPA "
+          f"{row['library_ms'] * 1e3:.2f} us, bound "
+          f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})", flush=True)
+
+
+def vision_phase(dev):
+    """Phase 4; returns the ``flash_attention`` entry of the kernels line."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(VIT_GOLDEN) as f:
+        vgold = json.load(f)
+    max_err = flash_sweep(dev)
+
+    t0 = time.time()
+    tree = vit.numpy_params(deit_b.CONFIG, vgold["weight_seed"])
+    print(f"vision weights: DeiT-B seed {vgold['weight_seed']}, "
+          f"{time.time() - t0:.1f} s", flush=True)
+    logits_check(tree, vgold, dev)
+
+    # the main path: bf16 DeiT-B at full width behind the serving engine
+    cfg = dataclasses.replace(deit_b.CONFIG, attn_impl="pallas")
+    params = vit.params_from_numpy(tree, cfg, dev)
+    del tree
+    imgs = golden_images()
+    spec = vgold["serving"]
+    frames = [torch.from_numpy(imgs[c["model_res"]][0]).to(dev)
+              for c in spec["classes"]]
+    on_kernel = {c["name"] for c in spec["classes"]
+                 if cfg.n_tokens(c["model_res"]) > cfg.attn_chunk}
+    run_batch = serve.make_run_batch(params, cfg)
+    for f in frames:                                   # warm-up
+        run_batch("warmup", [f])
+    torch.cuda.synchronize()
+    seen = set()
+
+    def keep(i, args):                 # one input per batch size served
+        b = args[0].shape[0]
+        if b in seen:
+            return False
+        seen.add(b)
+        return True
+
+    launches, kept, kernel_batches, walls = {}, [], {}, {}
+    for queue in ("preferential", "fifo"):
+        with Spy(ops, "flash_attention", keep) as spy:
+            fa_mod.flash_attention.launches = 0
+            t0 = time.time()
+            got = serve.record_run(spec, queue, run_batch, frames,
+                                   device=dev)
+            torch.cuda.synchronize()
+            walls[queue] = time.time() - t0
+            n_launch = fa_mod.flash_attention.launches
+        kept += spy.kept
+        want = spec["runs"][queue]
+        for k in ("stats", "classes", "done_at", "forwards", "replica",
+                  "batches"):
+            if got[k] != want[k]:
+                fail(f"serving {queue}: {k} differs from the JAX engine's")
+        if any(not isinstance(r, int) or not 0 <= r < cfg.n_classes
+               for r in got["results"]):
+            fail(f"serving {queue}: a frame got no class")
+        n_kb = sum(1 for _, c, _ in got["batches"] if c in on_kernel)
+        launches[queue], kernel_batches[queue] = n_launch, n_kb
+        print(f"serving {queue}: {spec['requests']} frames, "
+              f"{walls[queue]:.3f} s, {spec['requests'] / walls[queue]:.1f} "
+              f"frames/s, stats {got['stats']}, {n_kb} batches at 384 px, "
+              f"{n_launch} flash_attention launches; decisions equal the "
+              f"JAX engine's", flush=True)
+        if n_launch != cfg.n_layers * n_kb or n_launch == 0:
+            fail(f"serving {queue}: {n_launch} flash_attention launches for "
+                 f"{n_kb} batches at 384 px of {cfg.n_layers} layers")
+
+    sizes = sorted(args[0].shape[0] for args, _ in kept)
+    served = sorted({s for q in spec["runs"].values()
+                     for _, c, s in q["batches"] if c in on_kernel})
+    if sizes != served:
+        fail(f"kept batch sizes {sizes} are not the served {served}")
+    share = 0.0
+    for (q, k, v), kw in kept:
+        e, sh = check_flash(q, k, v, kw.get("causal", True), kw.get("window"))
+        max_err, share = max(max_err, e), max(share, sh)
+        got, plain, dropped = flash_rms_errors(q, k, v)
+        print(f"vision kernel: served q {tuple(q.shape)}: largest error "
+              f"{sh} of the tolerance; rms error against the f32 plain "
+              f"version: kernel {got}, plain bf16 {plain}, plain bf16 "
+              f"without the last key {dropped}", flush=True)
+        if not got <= RMS_RATIO * plain:
+            fail(f"flash_attention rms error {got} above {RMS_RATIO} x the "
+                 f"plain bf16 version's {plain} at q {tuple(q.shape)}")
+        if not dropped > RMS_RATIO * plain:
+            fail(f"the rms check passes a kernel that drops the last key "
+                 f"at q {tuple(q.shape)}")
+    print(f"vision kernel: the inputs of every batch size served match the "
+          f"plain version, largest error {share} of the tolerance; max abs "
+          f"err over all checks {max_err}", flush=True)
+
+    # the kernel's time at each batch size served, on its kept input, and
+    # at the engine's largest batch (max_batch 8) on random inputs
+    rows = []
+    for (q, k, v), _ in sorted(kept, key=lambda a: a[0][0].shape[0]):
+        rows.append(flash_times(q, k, v))
+        print_flash_row("served bf16", rows[-1])
+    B, S, H, D = 8, cfg.n_tokens(384), cfg.n_heads, cfg.d_model // cfg.n_heads
+    gen = torch.Generator().manual_seed(1)
+    q, k, v = (torch.randn(B, S, H, D, generator=gen).to(
+        device=dev, dtype=torch.bfloat16) for _ in range(3))
+    fault = flash_rejects_dropped_key(q, k, v)
+    print(f"vision kernel: at B={B}, random inputs, a kernel that drops the "
+          f"last key errs by {fault} of the tolerance and is rejected",
+          flush=True)
+    row = flash_times(q, k, v)
+    row["ms_eager"] = timed_ms(lambda: fa_mod.flash_attention(
+        q, k, v, causal=False), 100)
+    q32, k32, v32 = (x.float() for x in (q, k, v))
+    row["ms_f32"] = graph_ms(lambda: fa_mod.flash_attention(
+        q32, k32, v32, causal=False), 20)
+    rows.append(row)
+    print_flash_row("bf16", row)
+    print(f"vision kernel time B={B}: eager {row['ms_eager'] * 1e3:.2f} us; "
+          f"f32 kernel {row['ms_f32'] * 1e3:.2f} us", flush=True)
+
+    wall_us, kinds = batch_breakdown(params, cfg, frames[0])
+    total = sum(kinds.values())
+    print(f"vision batch of 8 at 384 px (profiled): {wall_us:.0f} us wall, "
+          f"device {total:.0f} us: " + ", ".join(
+              f"{k} {v:.0f} us ({v / total:.3f})" for k, v in kinds.items()),
+          flush=True)
+    for cls, frame in zip(serve.service_classes(spec), frames):
+        measure_step_times(run_batch, cls, frame)
+        print(f"vision step times {cls.name} ({frame.shape[0]} px), wall s "
+              f"per batch size: {cls.batch_proc_time}", flush=True)
+    return dict(launches=sum(launches.values()), launches_by_run=launches,
+                batches_at_384=kernel_batches, max_abs_err=max_err,
+                ms=row["ms"], plain_ms=row["plain_ms"],
+                bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                library_ms=row["library_ms"], serving_wall_s=walls,
+                shapes=rows)
+
+
+def timed_build(name: str) -> float:
+    t0 = time.time()
+    build.load(name)
+    return time.time() - t0
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "runs the port on an NVIDIA GPU", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    t_start = time.time()
+
+    # -- 1. card
+    card = card_line()
     print(f"card: {card}", flush=True)
-    print(json.dumps({"kernels": [dict(
-        name="event_select", route="cuda", source=KERNEL_SOURCE,
-        replaces=KERNEL_REPLACES, launches=sum(launches.values()),
-        launches_by_run=launches, checked=True, max_abs_err=max_err,
-        ms=fleet["ms"], plain_ms=fleet["plain_ms"],
-        bound_ms=fleet["bound_ms"], bound_by="bytes", library_ms=None,
-        shapes=shapes)]}), flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}", flush=True)
+
+    # -- 2. build, one nvcc per kernel, all started together
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as ex:
+        secs = {n: ex.submit(timed_build, n) for n in KERNELS}
+        for name, fut in secs.items():
+            print(f"build: {name} {fut.result():.2f} s", flush=True)
+            print(build.ptxas_report(name), end="", flush=True)
+
+    # -- 3. the fleet simulator, 4. the vision serving path
+    t0 = time.time()
+    entries = {"event_select": fleet_phase(dev)}
+    print(f"fleet phase: {time.time() - t0:.1f} s", flush=True)
+    t0 = time.time()
+    entries["flash_attention"] = vision_phase(dev)
+    print(f"vision phase: {time.time() - t0:.1f} s", flush=True)
+
+    # -- 5. the records
+    print(f"card: {card}", flush=True)
+    print(json.dumps({"kernels": [
+        dict(name=name, route="cuda", source=KERNELS[name][0],
+             replaces=KERNELS[name][1], **entry)
+        for name, entry in entries.items()]}), flush=True)
     print(f"chip_smoke: {time.time() - t_start:.1f} s", file=sys.stderr)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

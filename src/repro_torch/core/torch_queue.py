@@ -84,6 +84,45 @@ def _search(led: Ledger, p, d, cpu_free
     return feasible & (cap > cpu_free), j, cap
 
 
+def feasible_nodes(leds: Ledger, ps: torch.Tensor, d, cpu_frees: torch.Tensor
+                   ) -> torch.Tensor:
+    """ONE request scored against K candidate nodes' ledgers at once: the
+    port of ``jax_queue.feasible_nodes`` (the reference vmaps
+    :func:`_search` over the rows; here the rows are a batch axis).
+
+    ``leds`` holds stacked (K, N) arrays and a (K,) ``n``; ``ps`` is the
+    request's (K,) processing time per candidate (already divided by each
+    node's speed), ``d`` its absolute deadline, ``cpu_frees`` (K,).
+    Returns the (K,) bool mask of candidates that can still admit it —
+    what the router's ``batched_feasible`` policy calls per forwarding
+    decision.  Each row follows :func:`_search` operation for operation.
+    """
+    starts, ends, sizes, n = leds
+    K, N = starts.shape
+    n = n.reshape(K, 1)
+    idx = torch.arange(N, dtype=torch.int32, device=starts.device)
+    cap_idx = (starts < d).sum(-1, dtype=torch.int32)
+    e_hi = (ends < d).sum(-1, dtype=torch.int32)
+    prev_ends = torch.cat([ends.new_full((K, 1), -BIG), ends[:, :-1]], 1)
+    has_gap = (starts > prev_ends) & (idx >= 1) & (idx < n)
+    gap_ok = has_gap & (idx <= e_hi[:, None])
+    prev_gap = torch.where(gap_ok, idx, 0).amax(-1)
+    no_straddle = e_hi >= cap_idx
+    j = torch.where(no_straddle, e_hi, prev_gap)
+    row_at = lambda a, i: a.gather(1, i.long()[:, None])[:, 0]
+    start_j = torch.where(j < n[:, 0],
+                          row_at(starts, torch.clamp(j, max=N - 1)), BIG)
+    cap = torch.where(no_straddle, d, torch.minimum(start_j, d))
+    start0 = torch.where(n[:, 0] > 0, starts[:, 0], BIG)
+    front = ~no_straddle & (prev_gap == 0)
+    cap = torch.where(front, torch.minimum(start0, d), cap)
+    j = torch.where(front, 0, j)
+    pw = torch.cat([sizes.new_zeros((K, 1)), torch.cumsum(sizes, 1)], 1)
+    pw_j = row_at(pw, torch.clamp(j, max=N))
+    feasible = cap - (cpu_frees + pw_j) >= ps - 1e-6
+    return feasible & (cap > cpu_frees)
+
+
 def insert_at(starts, ends, sizes, head, n, feasible, forced_ok, j, cap, p,
               cpu_free, meta: Tuple[torch.Tensor, ...] = (),
               meta_vals: Tuple[torch.Tensor, ...] = ()):

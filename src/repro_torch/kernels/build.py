@@ -6,7 +6,9 @@ source and the flags, so an edited source never loads a stale build.  The
 library goes into ``$REPRO_TORCH_BUILD_DIR`` when that is set, else into
 ``build/kernels/`` at the root of a source checkout, else (an installed
 package) into ``~/.cache/repro_torch/kernels``.  It is loaded with
-``ctypes``; a failed build raises.  Nothing here runs at import time.
+``ctypes``; a failed build raises.  ``ptxas``'s resource report of each
+build (registers, shared memory and spills per kernel instantiation) is
+kept beside the library.  Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -28,7 +30,8 @@ _CHECKOUT = Path(__file__).resolve().parents[3]
 # operation for operation) and never --use_fast_math (p / speed must be a
 # correctly rounded division)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -55,14 +58,19 @@ def build_dir() -> Path:
     return Path.home() / ".cache" / "repro_torch" / "kernels"
 
 
+def _library(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return build_dir() / f"lib{name}-{digest}.so"
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless an identical build exists; return
     the shared library's path."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out_dir = build_dir()
-    out = out_dir / f"lib{name}-{digest}.so"
+    out = _library(name)
+    out_dir = out.parent
     if out.exists():
         return out
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -74,11 +82,23 @@ def build(name: str) -> Path:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed to build {src.name} "
                                f"(exit {proc.returncode}):\n{proc.stderr}")
+        out.with_suffix(".ptxas").write_text("\n".join(
+            line for line in proc.stderr.splitlines()
+            if "ptxas info" in line and ("Compiling" in line
+                                          or "registers" in line)
+            or "spill" in line) + "\n")
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
     return out
+
+
+def ptxas_report(name: str) -> str:
+    """``ptxas``'s report of the build of kernel ``name`` that
+    :func:`build` made: per kernel instantiation, its registers, shared
+    memory and spill stores and loads."""
+    return _library(name).with_suffix(".ptxas").read_text()
 
 
 def load(name: str) -> ctypes.CDLL:

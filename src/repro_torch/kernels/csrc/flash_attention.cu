@@ -1,0 +1,527 @@
+// flash_attention for Hopper (sm_90a): forward online-softmax attention.
+//
+// Replaces the TPU kernel repro/kernels/flash_attention.py (_fa_kernel,
+// flash_attention_fwd; pallas_call at :105) together with its wrapper
+// repro/kernels/ops.py::flash_attention, which folds batch and heads,
+// repeats the KV heads for GQA and pads D to 128 lanes.  It computes what
+// those compute, and what the plain version
+// repro_torch/kernels/ref.py::flash_attention_ref computes:
+//
+//   out[b, i, h] = sum_j softmax_j(q[b, i, h] . k[b, j, g] * D^-0.5) v[b, j, g]
+//
+// with g = h / (H / KV), over the keys the causal / sliding-window masks
+// allow, where a masked score is the finite -1e30 (never -inf).  The
+// running max m, sum l and accumulator acc are f32; each tile's
+// probabilities p = exp(s - m_new) are rounded to v's dtype before the PV
+// product (l sums them unrounded), and the result is acc / max(l, 1e-30)
+// cast to q's dtype last.  A key tile that is fully masked for a row
+// gives p = exp(0) = 1 there until a later valid tile wipes it with
+// alpha = exp(-1e30 - m) = 0, exactly as in the Pallas kernel; every tile
+// is visited, none skipped.
+//
+// Design.  The TPU kernel walks a sequential grid axis over KV blocks and
+// keeps (m, l, acc) in VMEM scratch between grid steps.  Here one CTA owns
+// one (batch*head, 64-row query tile) and loops over the KV tiles itself;
+// blocks are independent and run in any order.  Q and each K / V tile are
+// staged in shared memory, zero-filled past S and past D, so any D up to
+// 128 is taken padded only to the next of 32 / 64 / 128 inside the block
+// (zeros add nothing to a dot product), and the tail tile of a ragged S is
+// masked by q_pos < S and k_pos < S.  Tensors are read and written in
+// their (B, S, H, D) / (B, S, KV, D) layouts: the GQA head mapping is an
+// index, no repeat is materialised, and no transpose or pad copy runs
+// around the kernel.  Output rows are staged through the Q tile so that
+// the stores are coalesced.  Two kernels share that frame:
+//
+//   * bf16 (the serving path): 4 warps, 16 query rows each, 64-key tiles,
+//     both products on the tensor cores with mma.sync.m16n8k16 (bf16 in,
+//     f32 accumulation: the products of bf16 values are exact in f32, as
+//     in the reference's f32 dot).  S = Q K^T stays in registers in the
+//     mma C layout, which is also the A layout of the PV product, so the
+//     rounded p never leaves registers; V is stored transposed in shared
+//     memory so that its B fragments are 32-bit loads.  Each thread keeps
+//     m and a partial l for its two rows; the row max is taken over the
+//     four lanes that share a row, l summed over them at the end.
+//   * f32: one thread per query row with m, l and acc[DP] in registers,
+//     scalar fmaf products against 32-key tiles read as float4 broadcasts
+//     (the tensor cores would round f32 inputs to TF32).
+//
+// Bound on this card, at the serving path's shape (B=8, S=578, H=KV=12,
+// D=64, bf16): 4*B*H*S^2*D = 8.21 GFLOP, 8.3 us at the 989 TFLOP/s bf16
+// tensor-core peak; q, k, v and out are 7.1 MB each, 28.4 MB in all, 8.5
+// us at 3.35 TB/s.  So about 8.5 us, bytes by a hair.  mma.sync reaches
+// only part of the tensor-core rate, the tiles are loaded without overlap
+// (no cp.async / TMA pipeline) and two bytes a thread, and the 64-row
+// tiles pad S=578 to 640 rows; wgmma fed by TMA is later work.
+//
+// Arithmetic.  Built with --fmad=false like every kernel of the port:
+// the f32 dot products are explicit fmaf chains over d in ascending
+// order; expf and the divisions are the IEEE-accurate forms (no fast
+// math).  The summation order differs from XLA's, so the kernels agree
+// with the plain version to rounding, not bit for bit.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstddef>
+#include <cstdint>
+
+namespace {
+
+constexpr float kNeg = -1e30f;   // the reference's finite mask value
+
+// ---------------------------------------------------------------------------
+// f32: one thread per query row, scalar fused multiply-adds
+// ---------------------------------------------------------------------------
+constexpr int kBQ = 64;          // query rows per CTA, one thread each
+constexpr int kBK = 32;          // keys per KV tile
+
+template <int DP>
+constexpr size_t smem_bytes() {
+  return (static_cast<size_t>(kBQ) * (DP + 1) + 2 * kBK * DP +
+          kBQ * (kBK + 1)) * sizeof(float);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kBQ)
+flash_attention_f32_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v, float* __restrict__ o,
+                           int S, int H, int KV, int D, float scale,
+                           int causal, int window) {
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                      // kBQ x (DP + 1): Q tile, then out
+  float* ks = qs + kBQ * (DP + 1);       // kBK x DP
+  float* vs = ks + kBK * DP;             // kBK x DP
+  float* ps = vs + kBK * DP;             // kBQ x (kBK + 1): p
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int kvh = h / (H / KV);
+  const int q0 = blockIdx.y * kBQ;
+  const int qp = q0 + tid;
+
+  for (int e = tid; e < kBQ * DP; e += kBQ) {
+    const int r = e / DP, c = e - r * DP;
+    const int s = q0 + r;
+    float x = 0.0f;
+    if (s < S && c < D)
+      x = q[((static_cast<size_t>(b) * S + s) * H + h) * D + c];
+    qs[r * (DP + 1) + c] = x;
+  }
+
+  float acc[DP];
+#pragma unroll
+  for (int d = 0; d < DP; ++d) acc[d] = 0.0f;
+  float m = kNeg, l = 0.0f;
+  const float* qrow = qs + tid * (DP + 1);   // stride DP + 1: no bank conflicts
+  float* prow = ps + tid * (kBK + 1);
+
+  for (int k0 = 0; k0 < S; k0 += kBK) {
+    __syncthreads();          // Q tile written / previous K, V tile consumed
+    for (int e = tid; e < kBK * DP; e += kBQ) {
+      const int r = e / DP, c = e - r * DP;
+      const int s = k0 + r;
+      float kx = 0.0f, vx = 0.0f;
+      if (s < S && c < D) {
+        const size_t off = ((static_cast<size_t>(b) * S + s) * KV + kvh) * D + c;
+        kx = k[off];
+        vx = v[off];
+      }
+      ks[e] = kx;
+      vs[e] = vx;
+    }
+    __syncthreads();
+
+    // scores of this row against the tile's keys
+    float sc[kBK];
+#pragma unroll
+    for (int j = 0; j < kBK; ++j) sc[j] = 0.0f;
+#pragma unroll 2
+    for (int d = 0; d < DP; d += 4) {
+      const float a0 = qrow[d], a1 = qrow[d + 1], a2 = qrow[d + 2],
+                  a3 = qrow[d + 3];
+#pragma unroll
+      for (int j = 0; j < kBK; ++j) {
+        const float4 kk = *reinterpret_cast<const float4*>(ks + j * DP + d);
+        float t = sc[j];
+        t = fmaf(a0, kk.x, t);
+        t = fmaf(a1, kk.y, t);
+        t = fmaf(a2, kk.z, t);
+        t = fmaf(a3, kk.w, t);
+        sc[j] = t;
+      }
+    }
+
+    // scale, mask, online softmax
+    float m_cur = kNeg;
+#pragma unroll
+    for (int j = 0; j < kBK; ++j) {
+      const int kp = k0 + j;
+      bool ok = qp < S && kp < S;
+      if (causal) ok = ok && qp >= kp;
+      if (window > 0) ok = ok && qp - kp < window;
+      sc[j] = ok ? sc[j] * scale : kNeg;
+      m_cur = fmaxf(m_cur, sc[j]);
+    }
+    const float m_new = fmaxf(m, m_cur);
+    const float alpha = expf(m - m_new);
+    float psum = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kBK; ++j) {
+      const float p = expf(sc[j] - m_new);
+      psum += p;
+      prow[j] = p;             // v is f32: p needs no rounding
+    }
+    l = l * alpha + psum;
+#pragma unroll
+    for (int d = 0; d < DP; ++d) acc[d] *= alpha;
+#pragma unroll 2
+    for (int j = 0; j < kBK; ++j) {
+      const float p = prow[j];
+#pragma unroll
+      for (int d = 0; d < DP; d += 4) {
+        const float4 vv = *reinterpret_cast<const float4*>(vs + j * DP + d);
+        acc[d] = fmaf(p, vv.x, acc[d]);
+        acc[d + 1] = fmaf(p, vv.y, acc[d + 1]);
+        acc[d + 2] = fmaf(p, vv.z, acc[d + 2]);
+        acc[d + 3] = fmaf(p, vv.w, acc[d + 3]);
+      }
+    }
+    m = m_new;
+  }
+
+  // normalise into this thread's own row of the Q tile (only it reads that
+  // row), then store the tile with neighbouring threads on neighbouring
+  // addresses
+  const float denom = fmaxf(l, 1e-30f);
+  float* orow = qs + tid * (DP + 1);
+#pragma unroll
+  for (int d = 0; d < DP; ++d) orow[d] = acc[d] / denom;
+  __syncthreads();
+  for (int e = tid; e < kBQ * D; e += kBQ) {
+    const int r = e / D, c = e - r * D;
+    const int s = q0 + r;
+    if (s < S)
+      o[((static_cast<size_t>(b) * S + s) * H + h) * D + c] =
+          qs[r * (DP + 1) + c];
+  }
+}
+
+template <int DP>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
+               int S, int H, int KV, int D, float scale, int causal,
+               int window, cudaStream_t stream) {
+  auto kernel = flash_attention_f32_kernel<DP>;
+  const size_t smem = smem_bytes<DP>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
+  kernel<<<grid, kBQ, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), S, H, KV, D,
+      scale, causal, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_f32_d(const void* q, const void* k, const void* v, void* o, int B,
+                 int S, int H, int KV, int D, float scale, int causal,
+                 int window, cudaStream_t stream) {
+  if (D <= 32)
+    return launch_f32<32>(q, k, v, o, B, S, H, KV, D, scale, causal, window,
+                          stream);
+  if (D <= 64)
+    return launch_f32<64>(q, k, v, o, B, S, H, KV, D, scale, causal, window,
+                          stream);
+  return launch_f32<128>(q, k, v, o, B, S, H, KV, D, scale, causal, window,
+                         stream);
+}
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores through mma.sync.m16n8k16 (f32 accumulation)
+// ---------------------------------------------------------------------------
+constexpr int kMQ = 64;          // query rows per CTA: 4 warps x 16 rows
+constexpr int kMK = 64;          // keys per KV tile
+constexpr int kMThreads = 128;
+
+template <int DP>
+constexpr size_t mma_smem_bytes() {
+  // Q tile and K tile (rows padded by 8 bf16 against bank conflicts), V^T
+  return (static_cast<size_t>(kMQ) * (DP + 8) + kMK * (DP + 8) +
+          DP * (kMK + 8)) * sizeof(__nv_bfloat16);
+}
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);   // .x (lo) in bits 0..15
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// d += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kMThreads)
+flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v,
+                           __nv_bfloat16* __restrict__ o, int S, int H,
+                           int KV, int D, float scale, int causal,
+                           int window, bool vec) {
+  constexpr int QS = DP + 8;             // row stride of the Q and K tiles
+  constexpr int VS = kMK + 8;            // row stride of the V^T tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* ks = qs + kMQ * QS;
+  __nv_bfloat16* vt = ks + kMK * QS;
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;     // mma fragment row / column pair
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int kvh = h / (H / KV);
+  const int q0 = blockIdx.y * kMQ;
+  const int row0 = q0 + warp * 16 + g;       // this thread's two rows
+  const int row1 = row0 + 8;
+
+  // vec: every row starts 16-byte aligned, so copy 8 values a thread
+  // (uint4); otherwise one at a time
+  if (vec) {
+    for (int e = tid; e < kMQ * DP / 8; e += kMThreads) {
+      const int r = e / (DP / 8), c = (e - r * (DP / 8)) * 8;
+      const int s = q0 + r;
+      uint4 x = make_uint4(0, 0, 0, 0);
+      if (s < S && c < D)
+        x = *reinterpret_cast<const uint4*>(
+            q + ((static_cast<size_t>(b) * S + s) * H + h) * D + c);
+      *reinterpret_cast<uint4*>(qs + r * QS + c) = x;
+    }
+  } else {
+    for (int e = tid; e < kMQ * DP; e += kMThreads) {
+      const int r = e / DP, c = e - r * DP;
+      const int s = q0 + r;
+      qs[r * QS + c] = (s < S && c < D)
+          ? q[((static_cast<size_t>(b) * S + s) * H + h) * D + c] : zero;
+    }
+  }
+  __syncthreads();
+  uint32_t qa[DP / 16][4];                   // this warp's Q rows as A
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const __nv_bfloat16* base = qs + (warp * 16 + g) * QS + kk * 16 + t * 2;
+    qa[kk][0] = ld32(base);
+    qa[kk][1] = ld32(base + 8 * QS);
+    qa[kk][2] = ld32(base + 8);
+    qa[kk][3] = ld32(base + 8 * QS + 8);
+  }
+
+  float acc[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+  float m0 = kNeg, m1 = kNeg, l0 = 0.0f, l1 = 0.0f;   // l: this thread's part
+
+  for (int k0 = 0; k0 < S; k0 += kMK) {
+    __syncthreads();                 // the previous K, V tiles are consumed
+    if (vec) {
+      for (int e = tid; e < kMK * DP / 8; e += kMThreads) {
+        const int r = e / (DP / 8), c = (e - r * (DP / 8)) * 8;
+        const int s = k0 + r;
+        uint4 kx = make_uint4(0, 0, 0, 0), vx = kx;
+        if (s < S && c < D) {
+          const size_t off =
+              ((static_cast<size_t>(b) * S + s) * KV + kvh) * D + c;
+          kx = *reinterpret_cast<const uint4*>(k + off);
+          vx = *reinterpret_cast<const uint4*>(v + off);
+        }
+        *reinterpret_cast<uint4*>(ks + r * QS + c) = kx;
+        const __nv_bfloat16* vv = reinterpret_cast<const __nv_bfloat16*>(&vx);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) vt[(c + i) * VS + r] = vv[i];
+      }
+    } else {
+      for (int e = tid; e < kMK * DP; e += kMThreads) {
+        const int r = e / DP, c = e - r * DP;
+        const int s = k0 + r;
+        __nv_bfloat16 kx = zero, vx = zero;
+        if (s < S && c < D) {
+          const size_t off =
+              ((static_cast<size_t>(b) * S + s) * KV + kvh) * D + c;
+          kx = k[off];
+          vx = v[off];
+        }
+        ks[r * QS + c] = kx;
+        vt[c * VS + r] = vx;
+      }
+    }
+    __syncthreads();
+
+    // S = Q K^T for this warp's 16 rows and the tile's 64 keys
+    float sc[kMK / 8][4];
+#pragma unroll
+    for (int n = 0; n < kMK / 8; ++n) {
+      sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const __nv_bfloat16* base = ks + (n * 8 + g) * QS + kk * 16 + t * 2;
+        mma_bf16(sc[n], qa[kk], ld32(base), ld32(base + 8));
+      }
+    }
+
+    // scale, mask, row max over the quad that shares a row
+    float mx0 = kNeg, mx1 = kNeg;
+#pragma unroll
+    for (int n = 0; n < kMK / 8; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int qp = i < 2 ? row0 : row1;
+        const int kp = k0 + n * 8 + t * 2 + (i & 1);
+        bool ok = qp < S && kp < S;
+        if (causal) ok = ok && qp >= kp;
+        if (window > 0) ok = ok && qp - kp < window;
+        sc[n][i] = ok ? sc[n][i] * scale : kNeg;
+      }
+      mx0 = fmaxf(mx0, fmaxf(sc[n][0], sc[n][1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[n][2], sc[n][3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float alpha0 = expf(m0 - mn0), alpha1 = expf(m1 - mn1);
+
+    // p = exp(s - m_new): summed unrounded into l, rounded to bf16 into the
+    // A fragments of the PV product (the C layout of S is the A layout)
+    uint32_t pa[kMK / 16][4];
+    float ls0 = 0.0f, ls1 = 0.0f;
+#pragma unroll
+    for (int n = 0; n < kMK / 8; ++n) {
+      const float p0 = expf(sc[n][0] - mn0), p1 = expf(sc[n][1] - mn0);
+      const float p2 = expf(sc[n][2] - mn1), p3 = expf(sc[n][3] - mn1);
+      ls0 += p0;
+      ls0 += p1;
+      ls1 += p2;
+      ls1 += p3;
+      pa[n / 2][(n & 1) * 2] = pack_bf16(p0, p1);
+      pa[n / 2][(n & 1) * 2 + 1] = pack_bf16(p2, p3);
+    }
+    l0 = l0 * alpha0 + ls0;
+    l1 = l1 * alpha1 + ls1;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      acc[n][0] *= alpha0;
+      acc[n][1] *= alpha0;
+      acc[n][2] *= alpha1;
+      acc[n][3] *= alpha1;
+    }
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+#pragma unroll
+      for (int kk = 0; kk < kMK / 16; ++kk) {
+        const __nv_bfloat16* base = vt + (n * 8 + g) * VS + kk * 16 + t * 2;
+        mma_bf16(acc[n], pa[kk], ld32(base), ld32(base + 8));
+      }
+    }
+    m0 = mn0;
+    m1 = mn1;
+  }
+
+  // l over the quad, normalise into this warp's own rows of the Q tile
+  // (only this warp reads them), then store them coalesced
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  __nv_bfloat16* orow = qs + (warp * 16 + g) * QS + t * 2;
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n) {
+    orow[n * 8] = __float2bfloat16_rn(acc[n][0] / d0);
+    orow[n * 8 + 1] = __float2bfloat16_rn(acc[n][1] / d0);
+    orow[8 * QS + n * 8] = __float2bfloat16_rn(acc[n][2] / d1);
+    orow[8 * QS + n * 8 + 1] = __float2bfloat16_rn(acc[n][3] / d1);
+  }
+  __syncwarp();
+  for (int e = lane; e < 16 * D; e += 32) {
+    const int r = e / D, c = e - r * D;
+    const int s = q0 + warp * 16 + r;
+    if (s < S)
+      o[((static_cast<size_t>(b) * S + s) * H + h) * D + c] =
+          qs[(warp * 16 + r) * QS + c];
+  }
+}
+
+template <int DP>
+int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
+               int S, int H, int KV, int D, float scale, int causal,
+               int window, cudaStream_t stream) {
+  auto kernel = flash_attention_mma_kernel<DP>;
+  const size_t smem = mma_smem_bytes<DP>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(B * H, (S + kMQ - 1) / kMQ);
+  const bool vec = D % 8 == 0 && (reinterpret_cast<uintptr_t>(q) |
+                                  reinterpret_cast<uintptr_t>(k) |
+                                  reinterpret_cast<uintptr_t>(v)) % 16 == 0;
+  kernel<<<grid, kMThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S,
+      H, KV, D, scale, causal, window, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
+                int S, int H, int KV, int D, float scale, int causal,
+                int window, cudaStream_t stream) {
+  if (D <= 32)
+    return launch_mma<32>(q, k, v, o, B, S, H, KV, D, scale, causal, window,
+                          stream);
+  if (D <= 64)
+    return launch_mma<64>(q, k, v, o, B, S, H, KV, D, scale, causal, window,
+                          stream);
+  return launch_mma<128>(q, k, v, o, B, S, H, KV, D, scale, causal, window,
+                         stream);
+}
+
+}  // namespace
+
+// q (B, S, H, D), k and v (B, S, KV, D), out (B, S, H, D), all contiguous
+// and of one dtype: f32 (is_bf16 = 0) or bf16 (is_bf16 = 1).  window <= 0
+// means no sliding window.  Returns a cudaError_t (0 on a good launch).
+extern "C" int flash_attention_launch(const void* q, const void* k,
+                                      const void* v, void* o, int B, int S,
+                                      int H, int KV, int D, float scale,
+                                      int causal, int window, int is_bf16,
+                                      int device, cudaStream_t stream) {
+  if (B < 1 || S < 1 || H < 1 || KV < 1 || H % KV != 0 || D < 1 ||
+      D > 128 || (S + kBQ - 1) / kBQ > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // this library links its own CUDA runtime, whose current device is not
+  // PyTorch's: select the tensors' device before launching on its stream
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (is_bf16)
+    return launch_bf16(q, k, v, o, B, S, H, KV, D, scale, causal, window,
+                       stream);
+  return launch_f32_d(q, k, v, o, B, S, H, KV, D, scale, causal, window,
+                      stream);
+}

@@ -5,10 +5,30 @@ two and no error is caught here.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import event_select as _es
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    block_q: int = 128, block_k: int = 128) -> torch.Tensor:
+    """Forward attention, with the signature of
+    ``repro.kernels.ops.flash_attention``: q (B,S,H,D); k, v (B,S,KV,D)
+    -> (B,S,H,D), GQA by head mapping, D up to 128, f32 or bf16.
+
+    ``block_q`` / ``block_k`` exist only for signature parity with the
+    reference and have no effect: the CUDA kernels tile 64 query rows by
+    64 (bf16) or 32 (f32) keys, and the result does not depend on tiling.
+    """
+    if q.device.type != "cuda":
+        _fa.check_args(q, k, v, window)
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    return _fa.flash_attention(q, k, v, causal=causal, window=window)
 
 
 def candidate_buffers(t_a, node_a, d_a, p_a, pay_a, avail_a,

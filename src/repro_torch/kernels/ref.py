@@ -1,6 +1,6 @@
-"""Plain PyTorch versions of the scheduling kernels (the port of the
-``fleet_search_ref`` / ``event_select_ref`` oracles in
-``repro/kernels/ref.py``).
+"""Plain PyTorch versions of the port's kernels (the port of the
+``flash_attention_ref``, ``fleet_search_ref`` and ``event_select_ref``
+oracles in ``repro/kernels/ref.py``).
 
 They follow the JAX oracles operation for operation.  :mod:`.ops` runs
 them for tensors that lie on the CPU; on the card they are only the
@@ -8,9 +8,59 @@ yardstick the CUDA kernel is held against.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 BIG = 1e30
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True,
+                        window: Optional[int] = None) -> torch.Tensor:
+    """q (B,S,H,D); k,v (B,S,KV,D) -> (B,S,H,D).  f32 scores and softmax,
+    masked entries -1e30, GQA by head grouping (q head h reads kv head
+    h // (H // KV)); the probabilities are rounded to v's dtype before the
+    PV product and the result is cast to q's dtype."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, Sq, KV, G, D)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) \
+        * (D ** -0.5)
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    ok = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= qpos >= kpos
+    if window is not None:
+        ok &= qpos - kpos < window
+    s = torch.where(ok, s, -BIG)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype), v)
+    return out.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def flash_attention_tolerance(want: torch.Tensor, v: torch.Tensor) -> dict:
+    """``rtol`` and ``atol`` of ``torch.allclose`` for a flash-attention
+    kernel's output against :func:`flash_attention_ref` ``want`` on the
+    same inputs (``v`` the values, whose dtype picks the rule; ``want``
+    may be upcast).
+
+    f32: 1e-5 both, the JAX package's own tolerance for its kernel against
+    its oracle; only the order of the sums differs.  bf16: both sides
+    round the output to 8 significant bits, so ``rtol`` is one unit in the
+    last place, 2^-7; the kernel rounds the unnormalised probabilities
+    where the plain version rounds the normalised ones (a relative 2^-8
+    per probability), and an element that cancels to near zero keeps the
+    rounding of the terms it sums, so ``atol = 2^-7 (max|want| +
+    max|v| / 8)``, scaled to the case.  At 578 keys of random inputs that
+    is ~0.01, a tenth of what dropping one key changes.
+    """
+    if v.dtype == torch.float32:
+        return dict(rtol=1e-5, atol=1e-5)
+    scale = float(want.float().abs().max()) + float(v.float().abs().max()) / 8
+    return dict(rtol=2.0 ** -7, atol=2.0 ** -7 * scale)
 
 
 def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,107 @@
+"""Shared model-building utilities (the port of ``repro/models/common.py``).
+
+Parameters are nested dicts of tensors.  A model module defines a
+``param_defs(cfg) -> dict[path, ParamDef]`` table; :func:`init_params`
+builds real tensors from it with an explicit ``torch.Generator``, and
+:func:`numpy_params` builds the same tree as seeded numpy arrays, the
+form both packages can consume (the tests and the golden generator feed
+them to the JAX reference too).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.device import DeviceLike, resolve_device
+
+PyTree = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    shape: Tuple[int, ...]
+    init: str = "normal"        # normal | zeros | ones
+    scale: float = 1.0
+    dtype: str = "bfloat16"
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """``"bfloat16"`` -> ``torch.bfloat16`` (the configs name dtypes as
+    strings, as the reference's do)."""
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"unknown dtype {name!r}")
+    return dt
+
+
+def _std(d: ParamDef) -> float:
+    fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
+    return d.scale / math.sqrt(max(1, fan_in))
+
+
+def init_params(defs: Dict[str, ParamDef], generator: torch.Generator,
+                device: DeviceLike = None) -> PyTree:
+    """Random parameters: zeros / ones, else normal with std ``scale /
+    sqrt(fan_in)`` drawn in f32 from ``generator`` (a CPU generator; the
+    tensors then move to ``device``), cast to each def's dtype."""
+    dev = resolve_device(device)
+    out: Dict[str, Any] = {}
+    for path, d in sorted(defs.items()):
+        dt = torch_dtype(d.dtype)
+        if d.init == "zeros":
+            val = torch.zeros(d.shape, dtype=dt)
+        elif d.init == "ones":
+            val = torch.ones(d.shape, dtype=dt)
+        else:
+            val = (torch.randn(d.shape, generator=generator,
+                               dtype=torch.float32) * _std(d)).to(dt)
+        assign(out, path, val.to(dev))
+    return out
+
+
+def numpy_params(defs: Dict[str, ParamDef], seed: int) -> PyTree:
+    """Seeded f32 numpy weights in the same tree and layouts: one
+    ``np.random.default_rng(seed)`` stream over the defs in sorted path
+    order.  Each package casts them to the config's dtype itself (numpy
+    has no bfloat16)."""
+    rng = np.random.default_rng(seed)
+    out: Dict[str, Any] = {}
+    for path, d in sorted(defs.items()):
+        if d.init == "zeros":
+            val = np.zeros(d.shape, np.float32)
+        elif d.init == "ones":
+            val = np.ones(d.shape, np.float32)
+        else:
+            val = (rng.standard_normal(d.shape, dtype=np.float32)
+                   * np.float32(_std(d)))
+        assign(out, path, val)
+    return out
+
+
+def assign(tree: Dict[str, Any], path: str, val: Any) -> None:
+    parts = path.split("/")
+    node = tree
+    for p in parts[:-1]:
+        node = node.setdefault(p, {})
+    node[parts[-1]] = val
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm over the last axis in f32 (population variance), cast
+    back to ``x``'s dtype — ``repro.models.common.layer_norm``."""
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = (x32 - mu).square().mean(-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh form, as ``jax.nn.gelu(approximate=True)``."""
+    return F.gelu(x, approximate="tanh")

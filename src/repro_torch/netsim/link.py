@@ -88,6 +88,7 @@ class LinkModel:
         edge = np.zeros((n, n), bool)
         for u, v in topology.edges():
             edge[u, v] = edge[v, u] = True
+        self._edge = edge
         # non-edges and the diagonal are priced 0: nothing forwards across
         # them, and zeros keep the device tensors inf/NaN-free
         self._lat = np.where(edge, lat, 0.0)
@@ -101,6 +102,18 @@ class LinkModel:
         if got is not None:
             return float(got)
         return service.pixels * self.bytes_per_pixel / 1e6
+
+    def transfer_delay(self, src: int, dst: int, service: Service) -> float:
+        """Wire cost of referring ``service`` over the edge ``src→dst``
+        (what the router's network-aware ``batched_feasible`` scores)."""
+        if src == dst:
+            return 0.0
+        if not self._edge[src, dst]:
+            raise ValueError(f"({src}, {dst}) is not an edge of "
+                             f"{self.topology.name!r}; referrals only "
+                             "traverse topology links")
+        return float(self._lat[src, dst]
+                     + self.payload_of(service) * self._inv_bw[src, dst])
 
     def net_params(self, dtype=np.float32) -> NetParams:
         """The (K, K) arrays the fleet simulator prices hops with."""

@@ -12,7 +12,9 @@ seed 0 on a full mesh under the ``campus`` link profile with the
   on 3 / 3 / 6 nodes), capacity 4096, depth 1024;
 * the 32-node fleet regime of ``benchmarks/fleetsim_bench.py``
   (``make_fleet_workload(32, div=4)``: 16,000 requests), capacity 1024,
-  depth 512.
+  depth 512;
+* the first 8,000 requests (in arrival order) of that fleet, the run
+  ``chip_smoke.py`` drives to stay inside its time budget.
 
 Sizing follows ``bench_fleetsim``: one probe run at the worst-case event
 bound measures the forwards, then ``max_events = min(R * 3, R + 4 *
@@ -50,6 +52,9 @@ RUNS = (
          n_nodes=6, capacity=4096, depth=1024),
     dict(name="fleet32_div4", workload={"fleet": 32, "div": 4},
          n_nodes=32, capacity=1024, depth=512),
+    dict(name="fleet32_div4_first8000",
+         workload={"fleet": 32, "div": 4, "prefix": 8000},
+         n_nodes=32, capacity=1024, depth=512),
 )
 INT_AGGREGATES = ("total", "processed", "met_deadline", "forwards",
                   "discarded", "overflow", "window_saturation",
@@ -70,6 +75,13 @@ def reference_workload(spec: Dict):
                            name=f"fleet{n}_div{div}")
 
 
+def first(reqs, spec: Dict):
+    """The request arrays cut to the spec's ``prefix`` (the first requests
+    in arrival order), or whole."""
+    n = spec.get("prefix")
+    return reqs if n is None else type(reqs)(*(a[:n] for a in reqs))
+
+
 def digest(a) -> str:
     return hashlib.sha256(np.ascontiguousarray(a, np.int32).tobytes()
                           ).hexdigest()
@@ -86,6 +98,7 @@ def summarize(m) -> Dict:
 def run_reference(spec: Dict, max_events=None):
     """``repro.fleetsim.simulate`` on one run spec."""
     reqs, _ = reference_workload(spec["workload"]).to_arrays(SEED)
+    reqs = first(reqs, spec["workload"])
     topo = Topology.full_mesh(spec["n_nodes"])
     return simulate(reqs, topology_arrays(topo), SimParams.make(SEED),
                     policy=POLICY, max_forwards=MAX_FORWARDS,

@@ -1,0 +1,117 @@
+"""Write ``tests/data/torch_vit_golden.json``: the JAX reference's results
+on the PyTorch port's vision serving path.
+
+Not a test (it imports JAX): it produces the file that ``chip_smoke.py``
+holds the port against on the GPU, where JAX is not installed.  Both
+packages get the same inputs, made with numpy:
+
+* **logits** of DeiT-B at full width (``repro.configs.deit_b.CONFIG``
+  with ``attn_impl="pallas"``: the flash-attention kernel, in interpret
+  mode on the CPU, for sequences longer than 512) with the seeded weights
+  ``repro_torch.models.vit.numpy_params(CONFIG, 0)``, on two seeded
+  images (uniform [0, 1), ``default_rng(1)``) at 224 px (198 tokens, the
+  naive path) and then at 384 px (578 tokens, the kernel), in float32
+  and in bfloat16;
+* **engine decisions** of ``repro.serving.engine.DeadlineAwareEngine``
+  with a constant runner (its decisions do not depend on the model's
+  output) on the serving run ``chip_smoke.py`` drives,
+  ``repro_torch.launch.serve.SURVEILLANCE``: the stream of
+  ``examples/serve_surveillance.py --requests 64`` (its 4K / FHD / HD
+  classes, mix, seeds, three replicas and ``max_batch`` 8, the
+  ``random`` forwarding policy), with the preferential queue and with
+  FIFO: per request its completion time, forwards and serving replica,
+  every batch (replica, class, size) in execution order, and the
+  engine's stats.
+
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/make_torch_vit_golden.py
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import sys
+import time
+from types import SimpleNamespace
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+from repro.configs import deit_b
+from repro.core.queues import FIFOQueue
+from repro.models import vit
+from repro.serving import engine
+from repro_torch.configs import deit_b as torch_deit_b
+from repro_torch.launch.serve import SURVEILLANCE, record_run
+from repro_torch.models import vit as torch_vit
+
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                      "torch_vit_golden.json")
+RESOLUTIONS = (224, 384)
+N_IMAGES, IMAGE_SEED, WEIGHT_SEED = 2, 1, 0
+
+
+def images(res_list=RESOLUTIONS):
+    """The golden images: per resolution, (N_IMAGES, res, res, 3) f32."""
+    rng = np.random.default_rng(IMAGE_SEED)
+    return {r: rng.random((N_IMAGES, r, r, 3), dtype=np.float32)
+            for r in res_list}
+
+
+def logits_golden():
+    cfg = dataclasses.replace(deit_b.CONFIG, attn_impl="pallas")
+    tree = torch_vit.numpy_params(
+        dataclasses.replace(torch_deit_b.CONFIG, attn_impl="pallas"),
+        WEIGHT_SEED)
+    out = {}
+    for dt in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, param_dtype=dt)
+        params = jax.tree_util.tree_map(lambda a: jnp.asarray(a).astype(dt),
+                                        tree)
+        fwd = jax.jit(lambda p, x: vit.forward(p, x, c))
+        for res, img in images().items():
+            t0 = time.time()
+            lg = np.asarray(fwd(params, jnp.asarray(img)), np.float32)
+            print(f"logits {res} {dt}: {time.time() - t0:.1f} s, max "
+                  f"|logit| {np.abs(lg).max():.3f}", flush=True)
+            assert np.isfinite(lg).all()
+            out.setdefault(str(res), {})[dt] = [
+                [float(f"{x:.8g}") for x in row] for row in lg]
+    return out
+
+
+def decisions(queue):
+    """The JAX engine's decisions on the serving run."""
+    ref_engine = SimpleNamespace(
+        DeadlineAwareEngine=engine.DeadlineAwareEngine,
+        ServingReplica=engine.ServingReplica,
+        ServiceClass=engine.ServiceClass, FIFOQueue=FIFOQueue)
+    run = record_run(SURVEILLANCE, queue,
+                     lambda cls_name, frames: [0] * len(frames),
+                     [None] * len(SURVEILLANCE["classes"]),
+                     engine=ref_engine)
+    del run["results"]
+    return run
+
+
+def main() -> int:
+    serving = dict(SURVEILLANCE, runs={q: decisions(q)
+                                       for q in ("preferential", "fifo")})
+    for q, run in serving["runs"].items():
+        print(f"serving {q}: {run['stats']}", flush=True)
+    golden = dict(
+        arch="deit-b", attn_impl="pallas", weight_seed=WEIGHT_SEED,
+        image_seed=IMAGE_SEED, n_images=N_IMAGES,
+        resolutions=list(RESOLUTIONS), logits=logits_golden(),
+        serving=serving)
+    os.makedirs(os.path.dirname(GOLDEN), exist_ok=True)
+    with open(GOLDEN, "w") as f:
+        json.dump(golden, f, separators=(",", ":"))
+        f.write("\n")
+    print(f"wrote {GOLDEN} ({os.path.getsize(GOLDEN)} bytes)")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -47,7 +47,9 @@ def test_golden_file_covers_the_main_path():
 def test_port_workloads_reproduce_reference_arrays(name):
     spec = RUNS[name]
     ja, _ = mk.reference_workload(spec["workload"]).to_arrays(GOLDEN["seed"])
+    ja = mk.first(ja, spec["workload"])
     ta, _ = _port_workload(spec).to_arrays(GOLDEN["seed"])
+    ta = mk.first(ta, spec["workload"])
     assert len(ta.arrival) == spec["aggregates"]["total"]
     for field, a, b in zip(ja._fields, ja, ta):
         assert a.dtype == b.dtype and np.array_equal(a, b), field

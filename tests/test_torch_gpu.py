@@ -1,19 +1,24 @@
-"""The port on an NVIDIA GPU: the hand-written event_select kernel against
-its plain PyTorch version, and the simulator on the card against the
-same simulator on the CPU.  Imports no JAX, so it runs on a machine that
-has only PyTorch:
+"""The port on an NVIDIA GPU: the hand-written event_select and
+flash_attention kernels against their plain PyTorch versions, and the
+simulator and the ViT on the card against the same code on the CPU.
+Imports no JAX, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Every test skips where ``torch.cuda.is_available()`` is false.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_smoke_config
 from repro_torch.fleetsim import simulate, topology_arrays
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import event_select as es
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.models import vit
 from repro_torch.netsim import LinkModel
 from repro_torch.orchestration import Topology, UniformWorkload
 
@@ -92,3 +97,79 @@ def test_simulate_on_gpu_matches_cpu():
     for f in ("outcome", "served_by", "forwards_used", "completion",
               "transfer_used"):
         assert torch.equal(getattr(gpu, f).cpu(), getattr(cpu, f)), f
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,H,KV,D,causal,window", [
+    (1, 4, 4, 64, False, None), (129, 8, 2, 80, True, None),
+    (578, 12, 12, 64, False, None), (300, 4, 1, 128, True, 50),
+    (77, 6, 3, 12, False, 20)])
+def test_flash_attention_kernel_matches_plain_version(S, H, KV, D, causal,
+                                                      window, dtype):
+    _need_gpu()
+    g = torch.Generator().manual_seed(S * 7 + D)
+    q, k, v = (torch.randn(2, S, h, D, generator=g).to("cuda", dtype)
+               for h in (H, KV, KV))
+    before = fa.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(),
+                               **ref.flash_attention_tolerance(want, v))
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernel_on_misaligned_tensors():
+    """Views one element into their storage: rows are no longer 16-byte
+    aligned, which the kernel's loads must not assume."""
+    _need_gpu()
+    g = torch.Generator().manual_seed(3)
+    n = 2 * 130 * 4 * 64
+    buf = torch.randn(3 * n + 1, generator=g).to("cuda", torch.bfloat16)
+    q, k, v = (buf[1 + i * n:1 + (i + 1) * n].view(2, 130, 4, 64)
+               for i in range(3))
+    got = ops.flash_attention(q, k, v, causal=True)
+    want = ref.flash_attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **ref.flash_attention_tolerance(want, v))
+
+
+@pytest.mark.gpu
+def test_flash_attention_check_rejects_a_dropped_key():
+    """At the served shape the kernel passes the tolerance and a planted
+    fault, the output without the last key of the ragged tail tile, does
+    not."""
+    _need_gpu()
+    g = torch.Generator().manual_seed(4)
+    q, k, v = (torch.randn(2, 578, 12, 64, generator=g).to("cuda",
+                                                            torch.bfloat16)
+               for _ in range(3))
+    want = ref.flash_attention_ref(q, k, v, causal=False).float()
+    tol = ref.flash_attention_tolerance(want, v)
+    got = ops.flash_attention(q, k, v, causal=False).float()
+    dropped = ref.flash_attention_ref(q, k[:, :-1], v[:, :-1], causal=False)
+    assert torch.allclose(got, want, **tol)
+    assert not torch.allclose(dropped.float(), want, **tol)
+
+
+@pytest.mark.gpu
+def test_vit_on_gpu_matches_cpu():
+    """The smoke DeiT in f32 on the kernel path (S = 18 > 16): one launch
+    per layer; logits as on the CPU within 1e-4 (TF32 off)."""
+    _need_gpu()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke_config("deit-b"), attn_impl="pallas",
+                              attn_chunk=16, param_dtype="float32")
+    tree = vit.numpy_params(cfg, 0)
+    img = torch.from_numpy(np.random.default_rng(0).random(
+        (3, 32, 32, 3), dtype=np.float32))
+    cpu = vit.forward(vit.params_from_numpy(tree, cfg, "cpu"), img, cfg)
+    fa.flash_attention.launches = 0
+    gpu = vit.forward(vit.params_from_numpy(tree, cfg, "cuda"), img.cuda(),
+                      cfg)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == cfg.n_layers
+    torch.testing.assert_close(gpu.cpu(), cpu, rtol=0, atol=1e-4)

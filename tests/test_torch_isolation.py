@@ -11,10 +11,14 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch.configs import get_smoke_config
 from repro_torch.core import torch_queue as tq
 from repro_torch.device import resolve_device
 from repro_torch.fleetsim import simulate, to_device, topology_arrays
-from repro_torch.orchestration import Topology, UniformWorkload
+from repro_torch.launch import serve
+from repro_torch.models import vit
+from repro_torch.orchestration import Router, Topology, UniformWorkload
+from repro_torch.serving import DeadlineAwareEngine, ServingReplica
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(ROOT, "src")
@@ -74,6 +78,31 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     m = simulate(reqs, topo, policy="least_loaded", capacity=16,
                  device="cpu")
     assert m.outcome.device.type == "cpu" and int(m.processed) == 8
+
+
+def test_serving_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke_config("deit-b")
+    tree = vit.numpy_params(cfg, 0)
+    reps = [ServingReplica(i, lambda c, p: [0] * len(p)) for i in range(2)]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DeadlineAwareEngine(reps)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Router(Topology.full_mesh(2))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        vit.params_from_numpy(tree, cfg)
+    args = serve.parser().parse_args(["--requests", "3"])
+    assert args.device is None
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.run(args)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--requests", "3"])
+    # asked for explicitly, the CPU runs the plain versions
+    eng, reqs = serve.run(serve.parser().parse_args(
+        ["--requests", "3", "--device", "cpu"]))
+    assert len(reqs) == 3 and eng.router.device.type == "cpu"
+    params = vit.params_from_numpy(tree, cfg, "cpu")
+    assert params["head"]["w"].device.type == "cpu"
 
 
 def test_chip_smoke_fails_without_a_gpu_or_the_repo(tmp_path):
