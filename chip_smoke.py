@@ -6,10 +6,12 @@ Phases, in order; any mismatch or exception exits non-zero before the
 final line:
 
 1. card    — the GPU's name and power limit (nvidia-smi);
-2. build   — ``nvcc`` builds the ``event_select`` and ``flash_attention``
-             kernels from ``src/repro_torch/kernels/csrc/``, one process
-             each, started together, and prints ``ptxas``'s registers,
-             shared memory and spills of each kernel;
+2. build   — ``nvcc`` builds every kernel source in
+             ``src/repro_torch/kernels/csrc/`` (``event_select``,
+             ``flash_attention``, ``admission`` — which holds
+             ``fleet_feasibility`` and ``link_cost`` —, ``rmsnorm``,
+             ``moe_gemm``), one process each, started together, and prints
+             ``ptxas``'s registers, shared memory and spills of each kernel;
 3. fleet   — the event-time fleet simulator (``repro_torch.fleetsim.
              simulate``, seed 0, full mesh, campus pricing,
              ``batched_feasible``):
@@ -58,7 +60,37 @@ final line:
                 B=8; where the device time of one 384-px batch of 8 goes;
                 the engine's measured step times per class and batch
                 size;
-5. the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+5. entry points — the kernels that only ``repro_torch.kernels.ops`` reaches
+             (no fleet or vision path calls them; each of their launch
+             counts, set to 0 before phase 3, is still 0 after phase 4):
+             a. ``fleet_feasibility`` and ``link_cost`` against their plain
+                versions on random head-pointer fleets (K in {1, 5, 12, 32,
+                256}, N in {8, 64, 1024}) with full and empty rows,
+                deadlines on block edges and a priced network: bit for bit,
+                ``load`` within ``LOAD_RTOL`` where sizes are not dyadic;
+             b. on every ``event_select`` input kept in phase 3, the
+                selected event scored by ``link_cost`` from its node's
+                network row equals ``event_select``'s feasible, arrive and
+                load, and ``fleet_feasibility`` from max(arrive, busy) its
+                feasible and load, bit for bit;
+             c. ``rmsnorm`` at (4096, 5376) (Gemma-3 27B), (4096, 1536)
+                (Granite-3.0 MoE) and (7, 7168) (Kimi-K2), f32 and bf16, and
+                a misaligned view, held to ``ref.rmsnorm_tolerance``, which
+                is shown to reject a row normalised without its last column;
+             d. ``moe_gemm`` at the Granite-3.0 MoE gate/up (40, 1024, 1536)
+                x (40, 1536, 512) and down (40, 1024, 512) x (40, 512, 1536)
+                products and a ragged C = 1000, f = 500 one, bf16 and f32,
+                against the plain version with TF32 off, held to
+                ``ref.moe_gemm_tolerance``, which is shown to reject an
+                output without the last 16 of d;
+             e. the entry points driven once at those full-width shapes with
+                the four launch counts set to 0 (each must launch), their
+                outputs held against the plain versions; then each kernel's
+                time beside its plain version's, the one PyTorch call that
+                computes the same function where there is one
+                (``F.rms_norm``, ``torch.bmm``; timed only, never called by
+                the port) and the bound;
+6. the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -83,9 +115,12 @@ import torch  # noqa: E402
 
 from repro_torch.configs import deit_b  # noqa: E402
 from repro_torch.fleetsim import simulate, topology_arrays  # noqa: E402
+from repro_torch.kernels import admission as ad_mod  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import event_select as es_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
+from repro_torch.kernels import moe_gemm as mg_mod  # noqa: E402
+from repro_torch.kernels import rmsnorm as rn_mod  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import vit  # noqa: E402
 from repro_torch.netsim import LinkModel  # noqa: E402
@@ -96,13 +131,21 @@ from repro_torch.serving import measure_step_times  # noqa: E402
 BIG = 1e30
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor-core peak
+F32_FLOP_PER_S = 67e12             # H100 SXM f32 outside the tensor cores
 NAMES = ("take_fresh", "t", "node", "feasible", "arrive", "j", "cap", "load")
-KERNELS = {
-    "event_select": ("src/repro_torch/kernels/csrc/event_select.cu",
+CSRC = "src/repro_torch/kernels/csrc/"
+KERNELS = {           # name: (source, the TPU kernel it replaces)
+    "event_select": (CSRC + "event_select.cu",
                      "src/repro/kernels/event_select.py:43"),
-    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_attention": (CSRC + "flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:32"),
+    "fleet_feasibility": (CSRC + "admission.cu",
+                          "src/repro/kernels/fleet_feasibility.py:39"),
+    "link_cost": (CSRC + "admission.cu", "src/repro/kernels/link_cost.py:40"),
+    "rmsnorm": (CSRC + "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:16"),
+    "moe_gemm": (CSRC + "moe_gemm.cu", "src/repro/kernels/moe_gemm.py:18"),
 }
+SOURCES = sorted({os.path.basename(src)[:-3] for src, _ in KERNELS.values()})
 LOAD_RTOL = 1e-6                   # load of non-dyadic sizes (sum order)
 # On the served inputs attention is near uniform over 578 keys, so one key
 # moves an output by less than a bf16 unit and no elementwise tolerance
@@ -258,26 +301,32 @@ def random_args(rng, K, W, speeds, dev, tie=False):
             *(torch.from_numpy(a).to(dev) for a in (busy, lat, ibw)))
 
 
-def check_event_select(args, exact_load=True) -> float:
-    """Kernel vs plain version on one input; returns the max abs error
-    over the float outputs.  Integer and bool outputs, t, arrive and cap
-    must match bit for bit; load too when the sizes are dyadic."""
-    got = ops.event_select(*args)
-    want = ref.event_select_ref(*args)
+OUTPUTS = {"event_select": NAMES,
+           "fleet_feasibility": ("feasible", "load"),
+           "link_cost": ("feasible", "arrive", "load")}
+
+
+def check_exact(kernel, args, exact_load=True) -> float:
+    """``ops.<kernel>`` (the kernel) vs ``ref.<kernel>_ref`` on one input;
+    returns the max abs error over the float outputs.  Every output must
+    match bit for bit, ``load`` too when the sizes are dyadic, else within
+    ``LOAD_RTOL``."""
+    got = getattr(ops, kernel)(*args)
+    want = getattr(ref, kernel + "_ref")(*args)
     torch.cuda.synchronize()
     err = 0.0
-    for name, g, w in zip(NAMES, got, want):
+    for name, g, w in zip(OUTPUTS[kernel], got, want):
         if g.dtype != w.dtype or g.shape != w.shape:
-            fail(f"event_select {name}: {g.dtype}{tuple(g.shape)} vs "
+            fail(f"{kernel} {name}: {g.dtype}{tuple(g.shape)} vs "
                  f"{w.dtype}{tuple(w.shape)}")
         if g.dtype.is_floating_point:
             err = max(err, float((g - w).abs().max()))
         if name == "load" and not exact_load:
             if not torch.allclose(g, w, rtol=LOAD_RTOL, atol=0.0):
-                fail("event_select load outside rtol")
+                fail(f"{kernel} load outside rtol {LOAD_RTOL}")
         elif not torch.equal(g, w):
-            fail(f"event_select {name} differs from the plain version: "
-                 f"{g.tolist()} vs {w.tolist()}")
+            fail(f"{kernel} {name} differs from the plain version: "
+                 f"{g.flatten()[:8].tolist()} vs {w.flatten()[:8].tolist()}")
     return err
 
 
@@ -360,7 +409,8 @@ def main_inputs(spec):
 
 
 def fleet_phase(dev):
-    """Phase 3; returns the ``event_select`` entry of the kernels line."""
+    """Phase 3; returns the ``event_select`` entry of the kernels line and
+    the kernel inputs kept from each main-path run."""
     with open(GOLDEN) as f:
         golden = json.load(f)
     rng = np.random.default_rng(0)
@@ -373,7 +423,8 @@ def fleet_phase(dev):
             for speeds, exact, tie in cases:
                 for _ in range(3):
                     args = random_args(rng, K, W, speeds, dev, tie=tie)
-                    max_err = max(max_err, check_event_select(args, exact))
+                    max_err = max(max_err,
+                                  check_exact("event_select", args, exact))
                     n_checked += 1
     print(f"fleet kernel: {n_checked} random inputs match the plain "
           f"version, max abs err {max_err}", flush=True)
@@ -444,7 +495,7 @@ def fleet_phase(dev):
         if not kept:
             fail(f"no event_select inputs kept from {name}")
         for args in kept:
-            max_err = max(max_err, check_event_select(args))
+            max_err = max(max_err, check_exact("event_select", args))
         n_captured += len(kept)
         shape_args[tuple(kept[-1][12].shape)] = kept[-1]
     main_shapes = {(s["n_nodes"], s["depth"]) for s in runs}
@@ -476,12 +527,21 @@ def fleet_phase(dev):
     return dict(launches=sum(launches.values()), launches_by_run=launches,
                 max_abs_err=max_err, ms=fleet["ms"],
                 plain_ms=fleet["plain_ms"], bound_ms=fleet["bound_ms"],
-                bound_by="bytes", library_ms=None, shapes=shapes)
+                bound_by="bytes", library_ms=None, shapes=shapes), captured
 
 
 # ---------------------------------------------------------------------------
 # phase 4: the vision serving path and flash_attention
 # ---------------------------------------------------------------------------
+def tolerance_share(got, want, tol) -> float:
+    """The largest error as a share of what ``tol`` allows there (an exact
+    element counts 0, also where nothing is allowed)."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    share = err / (tol["atol"] + tol["rtol"] * w.abs())
+    return float(torch.where(err == 0, 0.0, share).max())
+
+
 def check_flash(q, k, v, causal, window):
     """Kernel vs plain version on one input, held to
     ``ref.flash_attention_tolerance``; returns the max abs error and the
@@ -494,8 +554,7 @@ def check_flash(q, k, v, causal, window):
              f"{want.dtype}{tuple(want.shape)}")
     g, w = got.float(), want.float()
     tol = ref.flash_attention_tolerance(want, v)
-    share = float(((g - w).abs() / (tol["atol"] + tol["rtol"] * w.abs())
-                   ).max())
+    share = tolerance_share(g, w, tol)
     if not torch.isfinite(g).all() or not share <= 1.0:
         fail(f"flash_attention differs from the plain version at q "
              f"{tuple(q.shape)} kv heads {k.shape[2]} {q.dtype} causal "
@@ -512,9 +571,7 @@ def flash_rejects_dropped_key(q, k, v) -> float:
     as a share of the tolerance."""
     want = ref.flash_attention_ref(q, k, v, causal=False).float()
     bad = ref.flash_attention_ref(q, k[:, :-1], v[:, :-1], causal=False)
-    tol = ref.flash_attention_tolerance(want, v)
-    share = float(((bad.float() - want).abs()
-                   / (tol["atol"] + tol["rtol"] * want.abs())).max())
+    share = tolerance_share(bad, want, ref.flash_attention_tolerance(want, v))
     if share <= 1.0:
         fail(f"the flash_attention check passes a kernel that drops the "
              f"last key at q {tuple(q.shape)}")
@@ -593,13 +650,19 @@ def logits_check(tree, vgold, dev):
                      f"launches, expected {expect}")
 
 
+def bound(bytes_ms, ops_ms):
+    """The least time, the larger of the two, and which one it is."""
+    return max(bytes_ms, ops_ms), \
+        "bytes" if bytes_ms >= ops_ms else "operations"
+
+
 def flash_bound_ms(B, S, H, KV, D, itemsize):
     """Least time for one call: 4*B*H*S^2*D FLOPs at the bf16 tensor-core
     peak, or q, k, v read once and out written once at the HBM rate,
     whichever is larger."""
     ops_ms = 4 * B * H * S * S * D / BF16_FLOP_PER_S * 1e3
     bytes_ms = B * S * (2 * H + 2 * KV) * D * itemsize / HBM_BYTES_PER_S * 1e3
-    return max(ops_ms, bytes_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+    return bound(bytes_ms, ops_ms)
 
 
 def batch_breakdown(params, cfg, frame, b=8):
@@ -790,6 +853,373 @@ def vision_phase(dev):
                 shapes=rows)
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the entry-point kernels
+# ---------------------------------------------------------------------------
+ENTRY_POINTS = {"fleet_feasibility": ad_mod.fleet_feasibility,
+                "link_cost": ad_mod.link_cost, "rmsnorm": rn_mod.rmsnorm,
+                "moe_gemm": mg_mod.moe_gemm}
+# (R, d): a 4,096-token prefill batch at the widths of
+# src/repro/configs/gemma3_27b.py and granite_moe_3b_a800m.py; the
+# Kimi-K2 width of tests/test_kernels.py
+RMSNORM_SHAPES = ((4096, 5376), (4096, 1536), (7, 7168))
+# (E, C, d, f): Granite-3.0 MoE (40 experts, top-8, d_model 1536, expert
+# d_ff 512) at 4,096 tokens, capacity int(4096 * 8 * 1.25 / 40) = 1024
+MOE_SHAPES = {"gate_up": (40, 1024, 1536, 512), "down": (40, 1024, 512, 1536),
+              "ragged": (40, 1000, 1536, 500)}
+FLEET_K, FLEET_N = (1, 5, 12, 32, 256), (8, 64, 1024)
+# the shape each kernel's entry in the kernels line reports
+HEADLINE = {"fleet_feasibility": dict(K=256, N=1024),
+            "link_cost": dict(K=256, N=1024),
+            "rmsnorm": dict(R=4096, d=5376, dtype="bfloat16"),
+            "moe_gemm": dict(name="gate_up", dtype="bfloat16")}
+
+
+def random_ledgers(rng, K, N, dyadic, dev):
+    """Head-pointer ledgers as ``ops.fleet_feasibility`` takes them, with
+    15% of the rows full, and row 0 full and row 1 empty for K > 2; times on
+    a 0.5 grid (sizes 20 / 44 / 180 over speeds 0.5 / 1 / 2) or, not
+    dyadic, sizes over speeds 1 / 3.  Returns the tensors, the per-node
+    scores ``ps``, ``busy`` and network rows, and the block edges."""
+    head = rng.integers(0, N // 4 + 1, K)
+    n = rng.integers(0, N - head + 1)
+    n = np.where(rng.random(K) < 0.15, N - head, n)
+    if K > 2:
+        n[0], n[1] = N - head[0], 0
+    speeds = rng.choice([0.5, 1.0, 2.0] if dyadic else [1.0, 3.0], K)
+    idx = np.arange(N)[None, :]
+    live = (idx >= head[:, None]) & (idx < (head + n)[:, None])
+    size = rng.choice([20.0, 44.0, 180.0], (K, N)) / speeds[:, None] * live
+    gap = np.where(rng.random((K, N)) < 0.6, 0.0,
+                   rng.integers(1, 100, (K, N)) / 2) * live
+    ends = rng.integers(0, 400, K)[:, None] / 2 + np.cumsum(gap + size, 1)
+    starts = ends - size
+    retired = idx < head[:, None]
+    starts = np.where(live, starts, np.where(retired, -BIG, BIG))
+    ends = np.where(live, ends, np.where(retired, -BIG, BIG))
+    f = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    i = lambda a: torch.tensor(np.asarray(a, np.int32), device=dev)
+    ps = rng.choice([20.0, 44.0, 180.0], K) / speeds
+    return dict(
+        led=(f(starts), f(ends), f(size), i(n)), head=i(head), ps=f(ps),
+        busy=f(rng.integers(0, 400, K) / 2),
+        lat=f(rng.uniform(0, 120, K)),
+        ibw=f(rng.choice([0.0, 0.1, 0.8, 1.0], K)),
+        edges=np.asarray(starts, np.float32)[live])
+
+
+def admission_args(L, kernel, d, t, payload, dev):
+    """``ops.<kernel>`` arguments for ledgers ``L``, scalars on the card."""
+    sc = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
+    if kernel == "fleet_feasibility":
+        return (*L["led"], L["ps"], sc(d), L["busy"], L["head"])
+    return (*L["led"], L["ps"], sc(d), L["busy"], L["head"], sc(t),
+            L["lat"], L["ibw"], sc(payload))
+
+
+def event_select_identity(args):
+    """Scores one kept ``event_select`` input three ways and fails unless
+    ``link_cost`` from the selected node's network row gives its feasible,
+    arrive and load and ``fleet_feasibility`` from max(arrive, busy) its
+    feasible and load, bit for bit (tests/test_netsim.py:570-593)."""
+    take, t, node, feas, arrive, _, _, load = ops.event_select(*args)
+    starts, ends, sizes, n, head, speeds, busy, lat, ibw = args[12:]
+    K = starts.shape[0]
+    pick = lambda a, b: torch.where(take, a, b).reshape(())
+    d, ps = pick(args[2], args[8]), pick(args[3], args[9]) / speeds
+    row = node.reshape(1).long()
+    lc = ops.link_cost(starts, ends, sizes, n, ps, d, busy, head, t,
+                       lat.index_select(0, row).reshape(K),
+                       ibw.index_select(0, row).reshape(K),
+                       pick(args[4], args[10]))
+    ff = ops.fleet_feasibility(starts, ends, sizes, n, ps, d,
+                               torch.maximum(arrive, busy), head)
+    torch.cuda.synchronize()
+    for what, g, w in (("link_cost feasible", lc[0], feas),
+                       ("link_cost arrive", lc[1], arrive),
+                       ("link_cost load", lc[2], load),
+                       ("fleet_feasibility feasible", ff[0], feas),
+                       ("fleet_feasibility load", ff[1], load)):
+        if not torch.equal(g, w):
+            fail(f"{what} differs from event_select's at K={K}")
+
+
+def admission_bound_ms(K, N, link) -> float:
+    """Each input read once, each output written once: three (K, N) f32
+    ledgers, (K,) n, head, ps and cpu_free / busy, for link_cost the two
+    (K,) network rows and three scalars, else one; out (K,) feasible and
+    load, and arrive for link_cost."""
+    nbytes = 12 * K * N + 16 * K + (8 * K + 12 if link else 4) \
+        + 5 * K + (4 * K if link else 0)
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def admission_checks(dev, kept):
+    """Phase 5a and 5b; returns each kernel's largest error."""
+    rng = np.random.default_rng(5)
+    pays = [0.9216, 2.7648, 6.2208, 24.8832]
+    errs, n_checked = {"fleet_feasibility": 0.0, "link_cost": 0.0}, 0
+    for K in FLEET_K:
+        for N in FLEET_N:
+            for dyadic in (True, False):
+                L = random_ledgers(rng, K, N, dyadic, dev)
+                edges = L["edges"] if L["edges"].size else [500.0]
+                for d in (float(rng.choice(edges)), float(rng.choice(edges)),
+                          float(rng.integers(0, 40000)) / 2):
+                    t = float(rng.integers(0, 800)) / 2
+                    pay = float(rng.choice(pays))
+                    for kernel in errs:
+                        errs[kernel] = max(errs[kernel], check_exact(
+                            kernel, admission_args(L, kernel, d, t, pay, dev),
+                            dyadic))
+                        n_checked += 1
+    print(f"entry kernels: fleet_feasibility and link_cost match their "
+          f"plain versions on {n_checked} random inputs (K in {FLEET_K}, N "
+          f"in {FLEET_N}, full and empty head-pointer rows, deadlines on "
+          f"block edges, a priced network); max abs err {errs}", flush=True)
+    shapes = set()
+    for args_list in kept.values():
+        for args in args_list:
+            event_select_identity(args)
+            shapes.add(tuple(args[12].shape))
+    print(f"entry kernels: on the {sum(map(len, kept.values()))} "
+          f"event_select inputs kept from the fleet runs, shapes (K, W) "
+          f"{sorted(shapes)}, link_cost and fleet_feasibility score the "
+          f"selected event as event_select does, bit for bit", flush=True)
+    return errs
+
+
+def check_close(what, got, want, tol) -> float:
+    """Fails unless ``got`` is finite and within ``tol`` of ``want``;
+    returns the max abs error."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        fail(f"{what}: {got.dtype}{tuple(got.shape)} vs "
+             f"{want.dtype}{tuple(want.shape)}")
+    share = tolerance_share(got, want, tol)
+    if not torch.isfinite(got).all() or not share <= 1.0:
+        fail(f"{what} differs from the plain version: {share} of the "
+             f"tolerance {tol}")
+    return float((got.float() - want.float()).abs().max())
+
+
+def randn(shape, seed, dev, dtype, scale=1.0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+
+def rmsnorm_inputs(R, d, dtype, dev):
+    return (randn((R, d), R + d, dev, dtype),
+            randn((d,), d, dev, dtype, 0.1))
+
+
+def rmsnorm_checks(dev) -> float:
+    """Phase 5c; returns the max abs error."""
+    err = 0.0
+    for R, d in RMSNORM_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            x, s = rmsnorm_inputs(R, d, dt, dev)
+            err = max(err, check_close(f"rmsnorm ({R}, {d}) {dt}",
+                                       rn_mod.rmsnorm(x, s),
+                                       ref.rmsnorm_ref(x, s),
+                                       ref.rmsnorm_tolerance(dt)))
+    R, d = RMSNORM_SHAPES[0]
+    for dt in (torch.float32, torch.bfloat16):
+        x, s = rmsnorm_inputs(R, d, dt, dev)
+        buf = torch.empty(R * d + 1, dtype=dt, device=dev)
+        view = buf[1:].view(R, d)                # off 16-byte alignment
+        view.copy_(x)
+        err = max(err, check_close(f"rmsnorm misaligned ({R}, {d}) {dt}",
+                                   rn_mod.rmsnorm(view, s),
+                                   ref.rmsnorm_ref(x, s),
+                                   ref.rmsnorm_tolerance(dt)))
+    # the check's own test: a row normalised without its last column
+    x, s = rmsnorm_inputs(R, d, torch.float32, dev)
+    want = ref.rmsnorm_ref(x, s)
+    var = x[:, :-1].square().sum(-1, keepdim=True) / d
+    bad = x * torch.rsqrt(var + rn_mod.EPS) * (1.0 + s)
+    f32_share = tolerance_share(bad, want, ref.rmsnorm_tolerance(x.dtype))
+    bf16_share = tolerance_share(bad, want,
+                                 ref.rmsnorm_tolerance(torch.bfloat16))
+    if f32_share <= 1.0:
+        fail("the f32 rmsnorm check passes a row without its last column")
+    print(f"entry kernels: rmsnorm matches its plain version at (R, d) "
+          f"{RMSNORM_SHAPES}, f32 and bf16, and on misaligned views; max abs "
+          f"err {err}; a row normalised without its last column errs by "
+          f"{f32_share} of the f32 tolerance (rejected) and {bf16_share} of "
+          f"the bf16 one", flush=True)
+    return err
+
+
+def moe_inputs(E, C, d, f, dtype, dev):
+    return (randn((E, C, d), C + d, dev, dtype, 0.1),
+            randn((E, d, f), d + f, dev, dtype, 0.1))
+
+
+def moe_checks(dev) -> float:
+    """Phase 5d; returns the max abs error."""
+    err = 0.0
+    for name, (E, C, d, f) in MOE_SHAPES.items():
+        for dt in (torch.bfloat16, torch.float32):
+            x, w = moe_inputs(E, C, d, f, dt, dev)
+            tol = ref.moe_gemm_tolerance(x, w)
+            want = ref.moe_gemm_ref(x, w)
+            got = mg_mod.moe_gemm(x, w)
+            e = check_close(f"moe_gemm {name} {dt}", got, want, tol)
+            err = max(err, e)
+            if name == "gate_up":
+                bad = ref.moe_gemm_ref(x[..., :-16], w[:, :-16])
+                share = tolerance_share(bad, want, tol)
+                if share <= 1.0:
+                    fail(f"the moe_gemm check passes an output without the "
+                         f"last 16 of d ({dt})")
+                print(f"entry kernels: moe_gemm {name} {dt}: max abs err "
+                      f"{e}, {tolerance_share(got, want, tol)} of the "
+                      f"tolerance {tol}; an output without the last 16 of d "
+                      f"errs by {share} of it (rejected)", flush=True)
+            del x, w, want, got
+    print(f"entry kernels: moe_gemm matches its plain version at "
+          f"{MOE_SHAPES}, bf16 and f32; max abs err {err}", flush=True)
+    return err
+
+
+def rmsnorm_bound_ms(R, d, itemsize):
+    """x read and out written once, scale read once; ~5 f32 operations an
+    element (square, add, two multiplies, 1 + scale) at the f32 peak."""
+    bytes_ms = (2 * R * d * itemsize + 4 * d) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 5 * R * d / F32_FLOP_PER_S * 1e3
+    return bound(bytes_ms, ops_ms)
+
+
+def moe_bound_ms(E, C, d, f, itemsize):
+    """2 E C d f operations at the bf16 tensor-core peak (f32: the f32
+    units' peak), or x and w read once and out written once."""
+    peak = BF16_FLOP_PER_S if itemsize == 2 else F32_FLOP_PER_S
+    ops_ms = 2 * E * C * d * f / peak * 1e3
+    bytes_ms = (E * C * d + E * d * f + E * C * f) * itemsize \
+        / HBM_BYTES_PER_S * 1e3
+    return bound(bytes_ms, ops_ms)
+
+
+def drive_entry_points(dev, fleet):
+    """This slice's path: each entry point once at its full-width shapes,
+    with the four launch counts set to 0 before; every output is held
+    against its plain version after (which launches none of them).
+    Returns the launch counts."""
+    calls = [("fleet_feasibility", admission_args(fleet, "fleet_feasibility",
+                                                   9000.0, 0, 0, dev)),
+             ("link_cost", admission_args(fleet, "link_cost", 9000.0, 120.5,
+                                          24.8832, dev))]
+    calls += [("rmsnorm", rmsnorm_inputs(R, d, torch.bfloat16, dev))
+              for R, d in RMSNORM_SHAPES[:2]]
+    calls += [("moe_gemm", moe_inputs(*MOE_SHAPES[k], torch.bfloat16, dev))
+              for k in ("gate_up", "down")]
+    for fn in ENTRY_POINTS.values():
+        fn.launches = 0
+    outs = [getattr(ops, name)(*args) for name, args in calls]
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in ENTRY_POINTS.items()}
+    for (name, args), got in zip(calls, outs):
+        want = getattr(ref, name + "_ref")(*args)
+        if name == "rmsnorm":
+            check_close("rmsnorm run", got, want, ref.rmsnorm_tolerance(
+                args[0].dtype))
+        elif name == "moe_gemm":
+            check_close("moe_gemm run", got, want,
+                        ref.moe_gemm_tolerance(*args))
+        elif not all(torch.equal(g, w) for g, w in zip(got, want)):
+            fail(f"{name} run differs from the plain version")
+    if not all(launches.values()):
+        fail(f"an entry point did not launch its kernel: {launches}")
+    print(f"entry kernels: the entry points at full width launched "
+          f"{launches}; outputs match the plain versions", flush=True)
+    return launches
+
+
+def entry_times(dev, kept, fleet):
+    """Phase 5e: graph-replayed times of each kernel, its plain version
+    and the library call where one computes the same function, with the
+    bound, at the checked shapes.  Returns rows per kernel."""
+    rows = {name: [] for name in ENTRY_POINTS}
+    inputs = {(256, 1024): fleet}
+    for args_list in kept.values():                # the main path's shapes
+        starts, ends, sizes, n, head, speeds, busy, lat, ibw = \
+            args_list[-1][12:]
+        K = starts.shape[0]
+        inputs[tuple(starts.shape)] = dict(
+            led=(starts, ends, sizes, n), head=head,
+            ps=torch.full((K,), 44.0, device=dev) / speeds, busy=busy,
+            lat=lat[0].contiguous(), ibw=ibw[0].contiguous())
+    for (K, N), L in sorted(inputs.items()):
+        for kernel in ("fleet_feasibility", "link_cost"):
+            args = admission_args(L, kernel, 9000.0, 120.5, 24.8832, dev)
+            rows[kernel].append(dict(
+                K=K, N=N,
+                ms=graph_ms(lambda: getattr(ops, kernel)(*args), 1000),
+                plain_ms=graph_ms(lambda: getattr(ref, kernel + "_ref")(
+                    *args), 200),
+                library_ms=None,
+                bound_ms=admission_bound_ms(K, N, kernel == "link_cost"),
+                bound_by="bytes"))
+    for R, d in RMSNORM_SHAPES:
+        for dt in (torch.bfloat16, torch.float32):
+            x, s = rmsnorm_inputs(R, d, dt, dev)
+            weight = (1.0 + s.float()).to(dt)
+            lib = torch.nn.functional.rms_norm
+            row = dict(R=R, d=d, dtype=str(dt)[6:],
+                       ms=graph_ms(lambda: rn_mod.rmsnorm(x, s), 200),
+                       plain_ms=graph_ms(lambda: ref.rmsnorm_ref(x, s), 50),
+                       library_ms=graph_ms(lambda: lib(
+                           x, (d,), weight=weight, eps=rn_mod.EPS), 200))
+            row["bound_ms"], row["bound_by"] = rmsnorm_bound_ms(
+                R, d, x.element_size())
+            rows["rmsnorm"].append(row)
+    for name, (E, C, d, f) in MOE_SHAPES.items():
+        for dt in (torch.bfloat16, torch.float32):
+            if dt == torch.float32 and name != "gate_up":
+                continue
+            x, w = moe_inputs(E, C, d, f, dt, dev)
+            reps = 20 if dt == torch.bfloat16 else 5
+            row = dict(name=name, E=E, C=C, d=d, f=f, dtype=str(dt)[6:],
+                       ms=graph_ms(lambda: mg_mod.moe_gemm(x, w), reps),
+                       plain_ms=graph_ms(lambda: ref.moe_gemm_ref(x, w), 5),
+                       library_ms=graph_ms(lambda: torch.bmm(x, w), reps))
+            row["bound_ms"], row["bound_by"] = moe_bound_ms(
+                E, C, d, f, x.element_size())
+            rows["moe_gemm"].append(row)
+            del x, w
+    for name, rs in rows.items():
+        for r in rs:
+            shape = ", ".join(f"{k}={v}" for k, v in r.items()
+                              if not k.endswith(("ms", "_by")))
+            lib = "none" if r["library_ms"] is None \
+                else f"{r['library_ms'] * 1e3:.2f} us"
+            print(f"entry kernel time {name} {shape}: {r['ms'] * 1e3:.2f} us, "
+                  f"plain {r['plain_ms'] * 1e3:.2f} us, library {lib}, bound "
+                  f"{r['bound_ms'] * 1e3:.3f} us ({r['bound_by']})",
+                  flush=True)
+    return rows
+
+
+def entry_point_phase(dev, kept):
+    """Phase 5; returns the kernels-line entries of the four kernels."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    errs = admission_checks(dev, kept)
+    errs["rmsnorm"] = rmsnorm_checks(dev)
+    errs["moe_gemm"] = moe_checks(dev)
+    fleet = random_ledgers(np.random.default_rng(6), 256, 1024, True, dev)
+    launches = drive_entry_points(dev, fleet)
+    rows = entry_times(dev, kept, fleet)
+    out = {}
+    for name in ENTRY_POINTS:
+        top = next(r for r in rows[name]
+                   if all(r[k] == v for k, v in HEADLINE[name].items()))
+        out[name] = dict(launches=launches[name], max_abs_err=errs[name],
+                         ms=top["ms"], plain_ms=top["plain_ms"],
+                         bound_ms=top["bound_ms"], bound_by=top["bound_by"],
+                         library_ms=top["library_ms"], shapes=rows[name])
+    return out
+
+
 def timed_build(name: str) -> float:
     t0 = time.time()
     build.load(name)
@@ -810,22 +1240,37 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
-    # -- 2. build, one nvcc per kernel, all started together
-    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as ex:
-        secs = {n: ex.submit(timed_build, n) for n in KERNELS}
+    # -- 2. build, one nvcc per source, all started together
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as ex:
+        secs = {n: ex.submit(timed_build, n) for n in SOURCES}
         for name, fut in secs.items():
             print(f"build: {name} {fut.result():.2f} s", flush=True)
             print(build.ptxas_report(name), end="", flush=True)
 
-    # -- 3. the fleet simulator, 4. the vision serving path
+    # -- 3. the fleet simulator, 4. the vision serving path; the entry-point
+    # kernels must not launch there
+    for fn in ENTRY_POINTS.values():
+        fn.launches = 0
     t0 = time.time()
-    entries = {"event_select": fleet_phase(dev)}
+    entries = {}
+    entries["event_select"], kept = fleet_phase(dev)
     print(f"fleet phase: {time.time() - t0:.1f} s", flush=True)
     t0 = time.time()
     entries["flash_attention"] = vision_phase(dev)
     print(f"vision phase: {time.time() - t0:.1f} s", flush=True)
+    on_paths = {name: fn.launches for name, fn in ENTRY_POINTS.items()}
+    if any(on_paths.values()):
+        fail(f"entry-point kernels launched on the fleet or vision path: "
+             f"{on_paths}")
 
-    # -- 5. the records
+    # -- 5. the entry points
+    t0 = time.time()
+    entries.update(entry_point_phase(dev, kept))
+    print(f"entry-point phase: {time.time() - t0:.1f} s", flush=True)
+    for name in ENTRY_POINTS:
+        entries[name]["launches_fleet_vision"] = on_paths[name]
+
+    # -- 6. the records
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0],

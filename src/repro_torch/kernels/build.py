@@ -9,6 +9,10 @@ package) into ``~/.cache/repro_torch/kernels``.  It is loaded with
 ``ctypes``; a failed build raises.  ``ptxas``'s resource report of each
 build (registers, shared memory and spills per kernel instantiation) is
 kept beside the library.  Nothing here runs at import time.
+
+Also here: what every launch wrapper needs around the library, the
+argument checks (:func:`check_tensors`) and the launch target
+(:func:`stream_of`).
 """
 from __future__ import annotations
 
@@ -19,7 +23,9 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 # src/repro_torch/kernels/build.py -> the checkout's root
@@ -107,3 +113,26 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         lib = _loaded[name] = ctypes.CDLL(str(build(name)))
     return lib
+
+
+def check_tensors(kernel: str, dev: torch.device, specs) -> None:
+    """Raise unless each ``(name, tensor, dtype, shape)`` of ``specs`` is a
+    contiguous tensor of that dtype and shape on ``dev``."""
+    for name, x, dtype, shape in specs:
+        if x.device != dev:
+            raise ValueError(f"{kernel}: {name} is on {x.device}, "
+                             f"expected {dev}")
+        if x.dtype != dtype:
+            raise TypeError(f"{kernel}: {name} is {x.dtype}, expected {dtype}")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{kernel}: {name} has shape {tuple(x.shape)}, "
+                             f"expected {shape}")
+        if not x.is_contiguous():
+            raise ValueError(f"{kernel}: {name} is not contiguous")
+
+
+def stream_of(dev: torch.device) -> Tuple[int, int]:
+    """The CUDA device index of ``dev`` and the raw handle of PyTorch's
+    current stream there, as every kernel's C launcher takes them."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return index, torch.cuda.current_stream(index).cuda_stream

@@ -33,19 +33,6 @@ def _lib():
     return fn
 
 
-def _check(name, x, dtype, shape, dev):
-    if x.device != dev:
-        raise ValueError(f"event_select: {name} is on {x.device}, "
-                         f"expected {dev}")
-    if x.dtype != dtype:
-        raise TypeError(f"event_select: {name} is {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != shape:
-        raise ValueError(f"event_select: {name} has shape "
-                         f"{tuple(x.shape)}, expected {shape}")
-    if not x.is_contiguous():
-        raise ValueError(f"event_select: {name} is not contiguous")
-
-
 def event_select(fscal: torch.Tensor, iscal: torch.Tensor,
                  starts: torch.Tensor, ends: torch.Tensor,
                  sizes: torch.Tensor, n: torch.Tensor, head: torch.Tensor,
@@ -66,14 +53,13 @@ def event_select(fscal: torch.Tensor, iscal: torch.Tensor,
         raise ValueError(f"event_select launches on CUDA tensors, got {dev}")
     K, W = starts.shape
     f32, i32 = torch.float32, torch.int32
-    for name, x, dtype, shape in (
-            ("fscal", fscal, f32, (8,)), ("iscal", iscal, i32, (4,)),
-            ("starts", starts, f32, (K, W)), ("ends", ends, f32, (K, W)),
-            ("sizes", sizes, f32, (K, W)), ("n", n, i32, (K,)),
-            ("head", head, i32, (K,)), ("speeds", speeds, f32, (K,)),
-            ("busy", busy, f32, (K,)), ("latency", latency, f32, (K, K)),
-            ("inv_bw", inv_bw, f32, (K, K))):
-        _check(name, x, dtype, shape, dev)
+    build.check_tensors("event_select", dev, (
+        ("fscal", fscal, f32, (8,)), ("iscal", iscal, i32, (4,)),
+        ("starts", starts, f32, (K, W)), ("ends", ends, f32, (K, W)),
+        ("sizes", sizes, f32, (K, W)), ("n", n, i32, (K,)),
+        ("head", head, i32, (K,)), ("speeds", speeds, f32, (K,)),
+        ("busy", busy, f32, (K,)), ("latency", latency, f32, (K, K)),
+        ("inv_bw", inv_bw, f32, (K, K))))
     take = torch.empty((), dtype=torch.bool, device=dev)
     t = torch.empty((), dtype=f32, device=dev)
     node = torch.empty((), dtype=i32, device=dev)
@@ -85,9 +71,7 @@ def event_select(fscal: torch.Tensor, iscal: torch.Tensor,
     ptrs = [x.data_ptr() for x in (fscal, iscal, starts, ends, sizes, n, head,
                                    speeds, busy, latency, inv_bw, take, t,
                                    node, feas, arrive, j, cap, load)]
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    stream = torch.cuda.current_stream(index).cuda_stream
-    err = _lib()(*ptrs, K, W, EPS, index, stream)
+    err = _lib()(*ptrs, K, W, EPS, *build.stream_of(dev))
     if err != 0:
         raise RuntimeError(f"event_select launch failed: CUDA error {err}")
     event_select.launches += 1

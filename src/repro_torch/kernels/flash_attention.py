@@ -83,13 +83,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    dev = q.device
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    stream = torch.cuda.current_stream(index).cuda_stream
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  B, S, H, k.shape[2], D, D ** -0.5, int(causal),
                  0 if window is None else int(window),
-                 int(q.dtype == torch.bfloat16), index, stream)
+                 int(q.dtype == torch.bfloat16), *build.stream_of(q.device))
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     flash_attention.launches += 1

@@ -9,9 +9,12 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import admission as _ad
 from repro_torch.kernels import event_select as _es
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import moe_gemm as _mg
 from repro_torch.kernels import ref
+from repro_torch.kernels import rmsnorm as _rn
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -78,3 +81,80 @@ def event_select(t_a, node_a, d_a, p_a, pay_a, avail_a,
     shape = t_a.shape
     return (take.reshape(shape), t.reshape(shape), node.reshape(shape),
             *rest)
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """x (..., d) RMS-normalised over its last axis and scaled by ``1 +
+    scale``, with the signature of ``repro.kernels.ops.rmsnorm``: f32 math,
+    eps 1e-6, the result in x's dtype (f32 or bf16 on the card).  Leading
+    axes are flattened into rows, as the reference does."""
+    if x.device.type != "cuda":
+        return ref.rmsnorm_ref(x, scale, eps=_rn.EPS)
+    shape = x.shape
+    return _rn.rmsnorm(x.reshape(-1, shape[-1]), scale).reshape(shape)
+
+
+def moe_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(E, C, d) x (E, d, f) -> (E, C, f) grouped GEMM with f32
+    accumulation and the result in x's dtype, with the signature of
+    ``repro.kernels.ops.moe_gemm``."""
+    if x.device.type != "cuda":
+        return ref.moe_gemm_ref(x, w)
+    return _mg.moe_gemm(x, w)
+
+
+def _ledger_args(starts, n, ps, head):
+    """``n`` and ``head`` as (K,) int32 (``head=None`` means 0) and ``ps``
+    as (K,) f32 on the ledgers' device."""
+    K, dev, i32 = starts.shape[0], starts.device, torch.int32
+    head = torch.zeros(K, dtype=i32, device=dev) if head is None \
+        else head.reshape(K).to(i32)
+    return (n.reshape(K).to(i32), _vector(ps, K, dev), head)
+
+
+def _vector(v, K: int, dev) -> torch.Tensor:
+    return torch.as_tensor(v, dtype=torch.float32, device=dev).reshape(K)
+
+
+def _scalar(v, dev) -> torch.Tensor:
+    """A scalar as the kernels take it: a (1,) f32 tensor on the device,
+    so that a launch needs no host read."""
+    return torch.as_tensor(v, dtype=torch.float32, device=dev).reshape(1)
+
+
+def fleet_feasibility(starts: torch.Tensor, ends: torch.Tensor,
+                      sizes: torch.Tensor, n: torch.Tensor, ps, d, cpu_free,
+                      head=None):
+    """Stacked (K, N) ledgers -> ``((K,) feasible, (K,) load)`` for one
+    request of per-node work ``ps`` at deadline ``d`` from each node's
+    ``cpu_free``, with the signature of
+    ``repro.kernels.ops.fleet_feasibility``.  ``head`` marks retired slots
+    (head-pointer rows; ``None`` means 0); a full row is infeasible."""
+    if starts.device.type != "cuda":
+        return ref.fleet_feasibility_ref(starts, ends, sizes, n, ps, d,
+                                         cpu_free, head, eps=_ad.EPS)
+    dev, K = starts.device, starts.shape[0]
+    n, ps, head = _ledger_args(starts, n, ps, head)
+    return _ad.fleet_feasibility(starts, ends, sizes, n, ps, _scalar(d, dev),
+                                 _vector(cpu_free, K, dev), head)
+
+
+def link_cost(starts: torch.Tensor, ends: torch.Tensor, sizes: torch.Tensor,
+              n: torch.Tensor, ps, d, busy, head, t_src, lat_row, inv_bw_row,
+              payload):
+    """Referral scoring with the signature of
+    ``repro.kernels.ops.link_cost``: one request at a source node at
+    ``t_src`` against K candidates' stacked (K, N) ledgers, delayed by
+    the wire cost ``lat_row + payload * inv_bw_row`` (the source's rows of
+    the network tensors, one rounding) and admitted from ``max(arrive,
+    busy)``.  Returns ``((K,) feasible, (K,) arrive, (K,) load)``."""
+    if starts.device.type != "cuda":
+        return ref.link_cost_ref(starts, ends, sizes, n, ps, d, busy, head,
+                                 t_src, lat_row, inv_bw_row, payload,
+                                 eps=_ad.EPS)
+    dev, K = starts.device, starts.shape[0]
+    n, ps, head = _ledger_args(starts, n, ps, head)
+    return _ad.link_cost(starts, ends, sizes, n, ps, _scalar(d, dev),
+                         _vector(busy, K, dev), head, _scalar(t_src, dev),
+                         _vector(lat_row, K, dev), _vector(inv_bw_row, K, dev),
+                         _scalar(payload, dev))

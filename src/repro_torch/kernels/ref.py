@@ -1,6 +1,7 @@
-"""Plain PyTorch versions of the port's kernels (the port of the
-``flash_attention_ref``, ``fleet_search_ref`` and ``event_select_ref``
-oracles in ``repro/kernels/ref.py``).
+"""Plain PyTorch versions of the port's kernels (the port of the oracles
+in ``repro/kernels/ref.py``: ``flash_attention_ref``, ``rmsnorm_ref``,
+``moe_gemm_ref``, ``fleet_feasibility_ref``, ``link_cost_ref``,
+``event_select_ref`` and ``fleet_search_ref``).
 
 They follow the JAX oracles operation for operation.  :mod:`.ops` runs
 them for tensors that lie on the CPU; on the card they are only the
@@ -61,6 +62,63 @@ def flash_attention_tolerance(want: torch.Tensor, v: torch.Tensor) -> dict:
         return dict(rtol=1e-5, atol=1e-5)
     scale = float(want.float().abs().max()) + float(v.float().abs().max()) / 8
     return dict(rtol=2.0 ** -7, atol=2.0 ** -7 * scale)
+
+
+def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor,
+                eps: float = 1e-6) -> torch.Tensor:
+    """Row RMSNorm over the last axis, scaled by ``1 + scale``, the math in
+    f32 and the result in ``x``'s dtype: ``x * rsqrt(mean(x^2) + eps) *
+    (1 + scale)``."""
+    x32 = x.float()
+    var = x32.square().mean(-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(x.dtype)
+
+
+def rmsnorm_tolerance(dtype: torch.dtype) -> dict:
+    """``rtol`` and ``atol`` of ``torch.allclose`` for an rmsnorm kernel
+    against :func:`rmsnorm_ref` on the same inputs.
+
+    The output is a product, so its error is relative.  f32: rtol 2e-6,
+    atol 1e-6 — the sum of squares is taken in another order, and rsqrt
+    is not correctly rounded everywhere (XLA's is not; PyTorch's is
+    ``1/sqrt`` on the CPU and the approximate ``rsqrtf`` on the card), a
+    few ulp in all.  bf16: one unit in the last place, rtol 2^-7: the f32
+    values agree to a few ulp and each side rounds once to bf16.  A
+    kernel that drops one element of a 5376-wide row from the sum errs by
+    1e-4 to 1e-3 relative: the f32 rule rejects it, the bf16 one cannot.
+    """
+    if dtype == torch.float32:
+        return dict(rtol=2e-6, atol=1e-6)
+    return dict(rtol=2.0 ** -7, atol=0.0)
+
+
+def moe_gemm_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Grouped per-expert GEMM ``(E, C, d) @ (E, d, f) -> (E, C, f)``: the
+    inputs upcast to f32, contracted in f32 (the reference's
+    ``preferred_element_type=f32``), the result cast to ``x``'s dtype.  On
+    the card the caller keeps TF32 off
+    (``torch.backends.cuda.matmul.allow_tf32 = False``, the default)."""
+    return torch.bmm(x.float(), w.float()).to(x.dtype)
+
+
+def moe_gemm_tolerance(x: torch.Tensor, w: torch.Tensor) -> dict:
+    """``rtol`` and ``atol`` of ``torch.allclose`` for a grouped-GEMM kernel
+    against :func:`moe_gemm_ref` on the same inputs.
+
+    Both sum d f32 products in different orders; a sequential f32 sum errs
+    by up to ~4.4 * 2^-24 * sqrt(d) max|x| max|w| on random inputs
+    (measured on the CPU against f64 at d = 512 and 1536), so ``atol =
+    2^-18 sqrt(d) max|x| max|w|`` (64 * 2^-24) leaves a margin of ~14 and
+    grows with sqrt(d).  ``rtol``: 1e-5 in f32; one bf16 unit, 2^-7, in
+    bf16, where each side rounds its f32 sum once.  Dropping a 16-wide
+    slice of d moves an output by about four typical products, thousands
+    of times ``atol``.
+    """
+    d = x.shape[-1]
+    scale = d ** 0.5 * float(x.float().abs().max()) \
+        * float(w.float().abs().max())
+    return dict(rtol=1e-5 if x.dtype == torch.float32 else 2.0 ** -7,
+                atol=2.0 ** -18 * scale)
 
 
 def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -125,6 +183,40 @@ def fleet_search_ref(starts: torch.Tensor, ends: torch.Tensor,
     pw_j = torch.where(idx < j, sizes, 0.0).sum(1, keepdim=True)
     feasible = (cap - (free + pw_j) >= p - eps) & (cap > free) & (tail < N)
     return feasible[:, 0], j[:, 0], cap[:, 0], sizes.sum(1)
+
+
+def fleet_feasibility_ref(starts: torch.Tensor, ends: torch.Tensor,
+                          sizes: torch.Tensor, n: torch.Tensor, ps, d,
+                          cpu_free, head=None, eps: float = 1e-6):
+    """Cross-node admission verdict for one request at deadline ``d``
+    from each node's ``cpu_free``: ``((K,) feasible, (K,) load)`` of the
+    stacked (K, N) ledgers (:func:`fleet_search_ref` without ``j`` and
+    ``cap``)."""
+    feas, _, _, load = fleet_search_ref(starts, ends, sizes, n, ps, d,
+                                        cpu_free, head, eps)
+    return feas, load
+
+
+def link_cost_ref(starts: torch.Tensor, ends: torch.Tensor,
+                  sizes: torch.Tensor, n: torch.Tensor, ps, d,
+                  busy: torch.Tensor, head, t_src, lat_row: torch.Tensor,
+                  inv_bw_row: torch.Tensor, payload, eps: float = 1e-6):
+    """Referral scoring of one request sitting at a source node at
+    ``t_src``: its wire-delayed arrival at each of K candidates,
+    ``fma(payload, inv_bw_row, t_src + lat_row)`` with one rounding
+    (:func:`fma32`, as XLA contracts the reference's jitted ``t_src +
+    lat_row + payload * inv_bw_row``), then the admission verdict from
+    ``max(arrive, busy)``.  Returns ``((K,) feasible, (K,) arrive, (K,)
+    load)``."""
+    K = starts.shape[0]
+    f32, dev = starts.dtype, starts.device
+    scalar = lambda v: torch.as_tensor(v, dtype=f32, device=dev).reshape(())
+    arrive = fma32(scalar(payload).expand(K), inv_bw_row.reshape(K),
+                   scalar(t_src) + lat_row.reshape(K))
+    free = torch.maximum(arrive, busy.reshape(K))
+    feas, _, _, load = fleet_search_ref(starts, ends, sizes, n, ps, d,
+                                        free, head, eps)
+    return feas, arrive, load
 
 
 def event_select_ref(t_a, node_a, d_a, p_a, pay_a, avail_a,

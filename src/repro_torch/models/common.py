@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import ref
 
 PyTree = Any
 
@@ -100,6 +101,12 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     var = (x32 - mu).square().mean(-1, keepdim=True)
     y = (x32 - mu) * torch.rsqrt(var + eps)
     return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+# RMSNorm over the last axis in f32, scaled by ``1 + scale``, cast back to
+# ``x``'s dtype (``repro.models.common.rms_norm``): the rmsnorm kernel's
+# plain version; as in the reference, no model calls the kernel
+rms_norm = ref.rmsnorm_ref
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

@@ -173,3 +173,174 @@ def test_vit_on_gpu_matches_cpu():
     torch.cuda.synchronize()
     assert fa.flash_attention.launches == cfg.n_layers
     torch.testing.assert_close(gpu.cpu(), cpu, rtol=0, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the entry-point kernels: fleet_feasibility, link_cost, rmsnorm, moe_gemm
+# ---------------------------------------------------------------------------
+def _ledgers(rng, K, N, dev):
+    """Head-pointer ledgers on a half grid, row 0 full (head + n == N) and
+    row 1 empty, with per-node ps / busy and the source's network rows."""
+    starts = np.full((K, N), BIG, np.float32)
+    ends = np.full((K, N), BIG, np.float32)
+    sizes = np.zeros((K, N), np.float32)
+    head = rng.integers(0, N // 4 + 1, K).astype(np.int32)
+    n = np.asarray([rng.integers(0, N - h + 1) for h in head], np.int32)
+    n[0] = N - head[0]
+    if K > 1:
+        n[1] = 0
+    for k in range(K):
+        starts[k, :head[k]] = ends[k, :head[k]] = -BIG
+        gaps = np.where(rng.random(n[k]) < 0.6, 0.0,
+                        rng.integers(1, 60, n[k]) / 2)
+        size = rng.choice([20.0, 44.0, 180.0], n[k])
+        s = float(rng.integers(0, 200)) + np.cumsum(gaps + size) - size
+        starts[k, head[k]:head[k] + n[k]] = s
+        ends[k, head[k]:head[k] + n[k]] = s + size
+        sizes[k, head[k]:head[k] + n[k]] = size
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    live = starts[(starts > -BIG) & (starts < BIG)]
+    return dict(
+        starts=f(starts), ends=f(ends), sizes=f(sizes),
+        n=torch.from_numpy(n).to(dev), head=torch.from_numpy(head).to(dev),
+        ps=f(rng.choice([5.0, 20.0, 44.0, 180.0], K)),
+        busy=f(rng.integers(0, 200, K) / 2),
+        lat=f(rng.uniform(0, 120, K)), ibw=f(rng.choice([0.0, 0.1, 0.8], K)),
+        edges=live.tolist())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,N", [(1, 8), (5, 64), (37, 100), (256, 1024)])
+def test_admission_kernels_match_plain_versions(K, N):
+    """Both kernels, bit for bit, with deadlines on block edges; one launch
+    per call."""
+    _need_gpu()
+    from repro_torch.kernels import admission
+    rng = np.random.default_rng(K * 100 + N)
+    L = _ledgers(rng, K, N, torch.device("cuda"))
+    led = (L["starts"], L["ends"], L["sizes"], L["n"])
+    deadlines = [500.0, 9000.0] + [float(rng.choice(L["edges"]))] * bool(
+        L["edges"])
+    for d in deadlines:
+        dt = torch.tensor(d, device="cuda")
+        before = admission.fleet_feasibility.launches
+        got = ops.fleet_feasibility(*led, L["ps"], dt, L["busy"], L["head"])
+        want = ref.fleet_feasibility_ref(*led, L["ps"], dt, L["busy"],
+                                         L["head"])
+        assert admission.fleet_feasibility.launches == before + 1
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+        t, pay = torch.tensor(10.5, device="cuda"), torch.tensor(
+            24.8832, device="cuda")
+        before = admission.link_cost.launches
+        got = ops.link_cost(*led, L["ps"], dt, L["busy"], L["head"], t,
+                            L["lat"], L["ibw"], pay)
+        want = ref.link_cost_ref(*led, L["ps"], dt, L["busy"], L["head"], t,
+                                 L["lat"], L["ibw"], pay)
+        torch.cuda.synchronize()
+        assert admission.link_cost.launches == before + 1
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+    assert not bool(got[0][0])                        # the full row
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,W", [(3, 64), (32, 512)])
+def test_event_select_scores_as_link_cost_on_gpu(K, W):
+    """The three kernels on one input: event_select's feasible, arrive and
+    load are link_cost's from the selected node's network row, and
+    fleet_feasibility's from max(arrive, busy)."""
+    _need_gpu()
+    rng = np.random.default_rng(K + W)
+    for _ in range(4):
+        args = _fleet_args(rng, K, W, torch.device("cuda"))
+        take, t, node, feas, arrive, _, _, load = ops.event_select(*args)
+        starts, ends, sizes, n, head, speeds, busy, lat, ibw = args[12:]
+        pick = lambda a, b: torch.where(take, a, b)
+        d, ps = pick(args[2], args[8]), pick(args[3], args[9]) / speeds
+        lc = ops.link_cost(starts, ends, sizes, n, ps, d, busy, head, t,
+                           lat[node.long()], ibw[node.long()],
+                           pick(args[4], args[10]))
+        ff = ops.fleet_feasibility(starts, ends, sizes, n, ps, d,
+                                   torch.maximum(arrive, busy), head)
+        for g, w in ((lc[0], feas), (lc[1], arrive), (lc[2], load),
+                     (ff[0], feas), (ff[1], load)):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,d", [(1, 7), (5, 64), (300, 128), (7, 7168),
+                                 (3, 5376), (2, 20000)])
+def test_rmsnorm_kernel_matches_plain_version(R, d, dtype):
+    _need_gpu()
+    from repro_torch.kernels import rmsnorm as rn
+    g = torch.Generator().manual_seed(R * 7 + d)
+    x = torch.randn(R, d, generator=g).to("cuda", dtype)
+    s = (torch.randn(d, generator=g) * 0.1).to("cuda", dtype)
+    before = rn.rmsnorm.launches
+    got = ops.rmsnorm(x, s)
+    want = ref.rmsnorm_ref(x, s)
+    torch.cuda.synchronize()
+    assert rn.rmsnorm.launches == before + 1
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(),
+                               **ref.rmsnorm_tolerance(dtype))
+
+
+@pytest.mark.gpu
+def test_rmsnorm_kernel_on_misaligned_and_non_contiguous_tensors():
+    """A view one element into its storage takes the scalar path; a
+    non-contiguous one is refused."""
+    _need_gpu()
+    g = torch.Generator().manual_seed(5)
+    for dtype in (torch.float32, torch.bfloat16):
+        buf = torch.randn(4 * 512 + 1, generator=g).to("cuda", dtype)
+        x = buf[1:].view(4, 512)
+        s = torch.randn(512, generator=g).to("cuda") * 0.1
+        torch.testing.assert_close(ops.rmsnorm(x, s).float(),
+                                   ref.rmsnorm_ref(x, s).float(),
+                                   **ref.rmsnorm_tolerance(dtype))
+        with pytest.raises(ValueError, match="contiguous"):
+            ops.rmsnorm(torch.randn(8, 64, device="cuda", dtype=dtype).t(),
+                        torch.zeros(8, device="cuda"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,C,d,f", [(4, 64, 128, 256), (8, 100, 64, 96),
+                                     (3, 37, 40, 21), (2, 130, 1536, 500)])
+def test_moe_gemm_kernel_matches_plain_version(E, C, d, f, dtype):
+    _need_gpu()
+    from repro_torch.kernels import moe_gemm as mg
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(E * 1000 + C + d + f)
+    x = torch.randn(E, C, d, generator=g).to("cuda", dtype)
+    w = torch.randn(E, d, f, generator=g).to("cuda", dtype)
+    before = mg.moe_gemm.launches
+    got = ops.moe_gemm(x, w)
+    want = ref.moe_gemm_ref(x, w)
+    torch.cuda.synchronize()
+    assert mg.moe_gemm.launches == before + 1
+    assert got.dtype == dtype and got.shape == (E, C, f)
+    tol = ref.moe_gemm_tolerance(x, w)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    dropped = ref.moe_gemm_ref(x[..., :-8], w[:, :-8])
+    assert not torch.allclose(dropped.float(), want.float(), **tol)
+
+
+@pytest.mark.gpu
+def test_moe_gemm_kernel_on_misaligned_and_non_contiguous_tensors():
+    _need_gpu()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(6)
+    E, C, d, f = 2, 70, 64, 48
+    buf = torch.randn(E * C * d + E * d * f + 1, generator=g).to(
+        "cuda", torch.bfloat16)
+    x = buf[1:1 + E * C * d].view(E, C, d)
+    w = buf[1 + E * C * d:].view(E, d, f)
+    want = ref.moe_gemm_ref(x, w)
+    torch.testing.assert_close(ops.moe_gemm(x, w).float(), want.float(),
+                               **ref.moe_gemm_tolerance(x, w))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.moe_gemm(x, w.transpose(1, 2).contiguous().transpose(1, 2))
