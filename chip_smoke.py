@@ -31,8 +31,10 @@ final line:
                 those shapes beside the plain version's and the bound;
 4. vision  — the deadline-aware serving path with DeiT-B at full width:
              a. ``flash_attention`` against its plain version on a random
-                sweep (causal / window / GQA, S in {1, 127, 129, 578,
-                1024}, D in {64, 80, 128}, f32 and bf16), held to
+                sweep (causal / window / GQA, S in {1, 63, 65, 127, 129,
+                578, 1024}, D in {64, 80, 128}, f32 and bf16: every variant
+                of the wrapper, ``tma_wgmma`` with and without split keys,
+                ``mma_sync`` and ``f32_simt``), held to
                 ``ref.flash_attention_tolerance``, a tolerance scaled to
                 each case;
              b. DeiT-B logits (seeded weights, two seeded images at 224
@@ -54,10 +56,11 @@ final line:
                 rms one on the served inputs, the elementwise one on
                 random inputs of the served shape at B=8);
              d. the kernel's time at each batch size served and at B=8
-                (S=578, 12 heads, D=64, bf16) beside the plain version's,
-                ``scaled_dot_product_attention``'s (the yardstick; the
-                port never calls it) and the bound; the f32 kernel at
-                B=8; where the device time of one 384-px batch of 8 goes;
+                (S=578, 12 heads, D=64, bf16), with its variant, beside the
+                plain version's, ``scaled_dot_product_attention``'s (the
+                yardstick; the port never calls it), their ratio and the
+                bound; the f32 kernel and SDPA in f32 at B=8; where the
+                device time of one 384-px batch of 8 goes;
                 the engine's measured step times per class and batch
                 size;
 5. entry points — the kernels that only ``repro_torch.kernels.ops`` reaches
@@ -79,8 +82,10 @@ final line:
                 is shown to reject a row normalised without its last column;
              d. ``moe_gemm`` at the Granite-3.0 MoE gate/up (40, 1024, 1536)
                 x (40, 1536, 512) and down (40, 1024, 512) x (40, 512, 1536)
-                products and a ragged C = 1000, f = 500 one, bf16 and f32,
-                against the plain version with TF32 off, held to
+                products, a ragged C = 1000, f = 504 one (``tma_wgmma``) and
+                a ragged C = 1000, f = 500 one (``mma_sync``), bf16 and
+                f32, each with the variant the wrapper chose, against the
+                plain version with TF32 off, held to
                 ``ref.moe_gemm_tolerance``, which is shown to reject an
                 output without the last 16 of d;
              e. the entry points driven once at those full-width shapes with
@@ -89,7 +94,7 @@ final line:
                 time beside its plain version's, the one PyTorch call that
                 computes the same function where there is one
                 (``F.rms_norm``, ``torch.bmm``; timed only, never called by
-                the port) and the bound;
+                the port), the ratio of the two and the bound;
 6. the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX or of the JAX package.
@@ -527,7 +532,8 @@ def fleet_phase(dev):
     return dict(launches=sum(launches.values()), launches_by_run=launches,
                 max_abs_err=max_err, ms=fleet["ms"],
                 plain_ms=fleet["plain_ms"], bound_ms=fleet["bound_ms"],
-                bound_by="bytes", library_ms=None, shapes=shapes), captured
+                bound_by="bytes", library_ms=None, ratio=None,
+                shapes=shapes), captured
 
 
 # ---------------------------------------------------------------------------
@@ -595,21 +601,29 @@ def flash_sweep(dev) -> float:
     gen = torch.Generator().manual_seed(0)
     variants = ((False, None, 12, 12), (True, None, 8, 2),
                 (True, 100, 8, 1), (False, 64, 4, 4))
-    err, share, n = 0.0, {}, 0
+    err, share, n, paths = 0.0, {}, 0, {}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for dt in (torch.float32, torch.bfloat16):
-        for S in (1, 127, 129, 578, 1024):
+        for S in (1, 63, 65, 127, 129, 578, 1024):
             for D in (64, 80, 128):
                 for causal, window, H, KV in variants:
                     q, k, v = (torch.randn(2, S, h, D, generator=gen).to(
                         device=dev, dtype=dt) for h in (H, KV, KV))
                     e, sh = check_flash(q, k, v, causal, window)
                     err, share[dt] = max(err, e), max(share.get(dt, 0.0), sh)
+                    path = fa_mod.variant(q, k, v)
+                    if path == "tma_wgmma":
+                        path += " split" if fa_mod.split_keys(
+                            2, S, H, sms) else " full"
+                    paths[path] = paths.get(path, 0) + 1
                     n += 1
     print(f"vision kernel: {n} random inputs (f32 and bf16, S in 1..1024, "
           f"D in 64/80/128, causal, window, GQA) match the plain version, "
           f"max abs err {err}; largest error as a share of the tolerance: "
-          f"f32 {share[torch.float32]}, bf16 {share[torch.bfloat16]}",
-          flush=True)
+          f"f32 {share[torch.float32]}, bf16 {share[torch.bfloat16]}; "
+          f"inputs per variant {paths}", flush=True)
+    if len(paths) != 4:
+        fail(f"the flash sweep missed a variant or path: {paths}")
     return err
 
 
@@ -700,12 +714,15 @@ def flash_times(q, k, v, reps=100) -> dict:
     B, S, H, D = q.shape
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    row = dict(B=B, S=S, H=H, D=D,
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    row = dict(B=B, S=S, H=H, D=D, variant=fa_mod.variant(q, k, v),
+               split=fa_mod.split_keys(B, S, H, sms),
                ms=graph_ms(lambda: fa_mod.flash_attention(
                    q, k, v, causal=False), reps),
                plain_ms=graph_ms(lambda: ref.flash_attention_ref(
                    q, k, v, causal=False), reps // 2),
                library_ms=graph_ms(lambda: sdpa(qt, kt, vt), reps))
+    row["ratio"] = row["ms"] / row["library_ms"]
     row["bound_ms"], row["bound_by"] = flash_bound_ms(
         B, S, H, k.shape[2], D, q.element_size())
     return row
@@ -713,10 +730,12 @@ def flash_times(q, k, v, reps=100) -> dict:
 
 def print_flash_row(label, row):
     print(f"vision kernel time {label} B={row['B']} S={row['S']} "
-          f"H={row['H']} D={row['D']}: {row['ms'] * 1e3:.2f} us, plain "
+          f"H={row['H']} D={row['D']} ({row['variant']}, split keys "
+          f"{row['split']}): {row['ms'] * 1e3:.2f} us, plain "
           f"{row['plain_ms'] * 1e3:.2f} us, SDPA "
-          f"{row['library_ms'] * 1e3:.2f} us, bound "
-          f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})", flush=True)
+          f"{row['library_ms'] * 1e3:.2f} us, kernel / SDPA "
+          f"{row['ratio']:.3f}, bound {row['bound_ms'] * 1e3:.2f} us "
+          f"({row['bound_by']})", flush=True)
 
 
 def vision_phase(dev):
@@ -830,10 +849,16 @@ def vision_phase(dev):
     q32, k32, v32 = (x.float() for x in (q, k, v))
     row["ms_f32"] = graph_ms(lambda: fa_mod.flash_attention(
         q32, k32, v32, causal=False), 20)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q32, k32, v32))
+    row["library_ms_f32"] = graph_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt),
+        20)
     rows.append(row)
     print_flash_row("bf16", row)
     print(f"vision kernel time B={B}: eager {row['ms_eager'] * 1e3:.2f} us; "
-          f"f32 kernel {row['ms_f32'] * 1e3:.2f} us", flush=True)
+          f"f32 kernel (f32_simt) {row['ms_f32'] * 1e3:.2f} us, SDPA f32 "
+          f"{row['library_ms_f32'] * 1e3:.2f} us, kernel / SDPA "
+          f"{row['ms_f32'] / row['library_ms_f32']:.3f}", flush=True)
 
     wall_us, kinds = batch_breakdown(params, cfg, frames[0])
     total = sum(kinds.values())
@@ -849,8 +874,8 @@ def vision_phase(dev):
                 batches_at_384=kernel_batches, max_abs_err=max_err,
                 ms=row["ms"], plain_ms=row["plain_ms"],
                 bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-                library_ms=row["library_ms"], serving_wall_s=walls,
-                shapes=rows)
+                library_ms=row["library_ms"], variant=row["variant"],
+                ratio=row["ratio"], serving_wall_s=walls, shapes=rows)
 
 
 # ---------------------------------------------------------------------------
@@ -865,7 +890,9 @@ ENTRY_POINTS = {"fleet_feasibility": ad_mod.fleet_feasibility,
 RMSNORM_SHAPES = ((4096, 5376), (4096, 1536), (7, 7168))
 # (E, C, d, f): Granite-3.0 MoE (40 experts, top-8, d_model 1536, expert
 # d_ff 512) at 4,096 tokens, capacity int(4096 * 8 * 1.25 / 40) = 1024
+# a ragged C and f that a tensor map takes (f = 504), and one it does not
 MOE_SHAPES = {"gate_up": (40, 1024, 1536, 512), "down": (40, 1024, 512, 1536),
+              "ragged_tma": (40, 1000, 1536, 504),
               "ragged": (40, 1000, 1536, 500)}
 FLEET_K, FLEET_N = (1, 5, 12, 32, 256), (8, 64, 1024)
 # the shape each kernel's entry in the kernels line reports
@@ -1066,7 +1093,10 @@ def moe_checks(dev) -> float:
             got = mg_mod.moe_gemm(x, w)
             e = check_close(f"moe_gemm {name} {dt}", got, want, tol)
             err = max(err, e)
-            if name == "gate_up":
+            print(f"entry kernels: moe_gemm {name} {(E, C, d, f)} {dt}: "
+                  f"variant {mg_mod.variant(x, w)}, max abs err {e}",
+                  flush=True)
+            if name in ("gate_up", "ragged_tma"):
                 bad = ref.moe_gemm_ref(x[..., :-16], w[:, :-16])
                 share = tolerance_share(bad, want, tol)
                 if share <= 1.0:
@@ -1180,6 +1210,7 @@ def entry_times(dev, kept, fleet):
             x, w = moe_inputs(E, C, d, f, dt, dev)
             reps = 20 if dt == torch.bfloat16 else 5
             row = dict(name=name, E=E, C=C, d=d, f=f, dtype=str(dt)[6:],
+                       variant=mg_mod.variant(x, w),
                        ms=graph_ms(lambda: mg_mod.moe_gemm(x, w), reps),
                        plain_ms=graph_ms(lambda: ref.moe_gemm_ref(x, w), 5),
                        library_ms=graph_ms(lambda: torch.bmm(x, w), reps))
@@ -1189,10 +1220,13 @@ def entry_times(dev, kept, fleet):
             del x, w
     for name, rs in rows.items():
         for r in rs:
+            r["ratio"] = None if r["library_ms"] is None \
+                else r["ms"] / r["library_ms"]
             shape = ", ".join(f"{k}={v}" for k, v in r.items()
-                              if not k.endswith(("ms", "_by")))
+                              if not k.endswith(("ms", "_by", "ratio")))
             lib = "none" if r["library_ms"] is None \
-                else f"{r['library_ms'] * 1e3:.2f} us"
+                else (f"{r['library_ms'] * 1e3:.2f} us, kernel / library "
+                      f"{r['ratio']:.3f}")
             print(f"entry kernel time {name} {shape}: {r['ms'] * 1e3:.2f} us, "
                   f"plain {r['plain_ms'] * 1e3:.2f} us, library {lib}, bound "
                   f"{r['bound_ms'] * 1e3:.3f} us ({r['bound_by']})",
@@ -1216,7 +1250,10 @@ def entry_point_phase(dev, kept):
         out[name] = dict(launches=launches[name], max_abs_err=errs[name],
                          ms=top["ms"], plain_ms=top["plain_ms"],
                          bound_ms=top["bound_ms"], bound_by=top["bound_by"],
-                         library_ms=top["library_ms"], shapes=rows[name])
+                         library_ms=top["library_ms"], ratio=top["ratio"],
+                         shapes=rows[name])
+        if "variant" in top:
+            out[name]["variant"] = top["variant"]
     return out
 
 

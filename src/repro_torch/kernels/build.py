@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface.  ``nvcc`` compiles it
 for Hopper (``sm_90a``) into a shared library, named by a hash of the
-source and the flags, so an edited source never loads a stale build.  The
-library goes into ``$REPRO_TORCH_BUILD_DIR`` when that is set, else into
+source, the ``csrc/*.cuh`` headers it includes and the flags, so an
+edited source or header never loads a stale build.  The library goes
+into ``$REPRO_TORCH_BUILD_DIR`` when that is set, else into
 ``build/kernels/`` at the root of a source checkout, else (an installed
 package) into ``~/.cache/repro_torch/kernels``.  It is loaded with
 ``ctypes``; a failed build raises.  ``ptxas``'s resource report of each
@@ -19,11 +20,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -64,11 +66,32 @@ def build_dir() -> Path:
     return Path.home() / ".cache" / "repro_torch" / "kernels"
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every header of ``csrc`` that it includes,
+    directly or through another header, in the order first met."""
+    seen: List[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [CSRC / inc.decode() for inc in _INCLUDE.findall(
+            path.read_bytes()) if (CSRC / inc.decode()).is_file()]
+    return seen
+
+
 def _library(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return build_dir() / f"lib{name}-{digest}.so"
+    """The library's path: named by a hash of the source, the headers it
+    includes and the flags, so an edited header never loads a stale
+    build either."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:
@@ -92,7 +115,8 @@ def build(name: str) -> Path:
             line for line in proc.stderr.splitlines()
             if "ptxas info" in line and ("Compiling" in line
                                           or "registers" in line)
-            or "spill" in line) + "\n")
+            or "spill" in line or "wgmma" in line
+            or "setmaxnreg" in line) + "\n")
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
@@ -129,6 +153,22 @@ def check_tensors(kernel: str, dev: torch.device, specs) -> None:
                              f"expected {shape}")
         if not x.is_contiguous():
             raise ValueError(f"{kernel}: {name} is not contiguous")
+
+
+# hopper.cuh: a failed cuTensorMapEncodeTiled comes back as this plus its
+# CUresult, apart from every cudaError_t
+ENCODE_ERROR = 100000
+
+
+def raise_on(kernel: str, err: int) -> None:
+    """Raise unless a C launcher's return code ``err`` is 0 (a good
+    launch); names a failed tensor-map encode as such."""
+    if err == 0:
+        return
+    if err >= ENCODE_ERROR:
+        raise RuntimeError(f"{kernel}: tensor-map encode failed "
+                           f"(CUresult {err - ENCODE_ERROR})")
+    raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
 
 
 def stream_of(dev: torch.device) -> Tuple[int, int]:

@@ -20,43 +20,70 @@
 // is visited, none skipped.
 //
 // Design.  The TPU kernel walks a sequential grid axis over KV blocks and
-// keeps (m, l, acc) in VMEM scratch between grid steps.  Here one CTA owns
-// one (batch*head, 64-row query tile) and loops over the KV tiles itself;
-// blocks are independent and run in any order.  Q and each K / V tile are
-// staged in shared memory, zero-filled past S and past D, so any D up to
-// 128 is taken padded only to the next of 32 / 64 / 128 inside the block
-// (zeros add nothing to a dot product), and the tail tile of a ragged S is
-// masked by q_pos < S and k_pos < S.  Tensors are read and written in
-// their (B, S, H, D) / (B, S, KV, D) layouts: the GQA head mapping is an
-// index, no repeat is materialised, and no transpose or pad copy runs
-// around the kernel.  Output rows are staged through the Q tile so that
-// the stores are coalesced.  Two kernels share that frame:
+// keeps (m, l, acc) in VMEM scratch between grid steps.  Here a CTA owns
+// (batch*head, query tile) work and loops over the KV tiles itself;
+// blocks are independent and run in any order.  Tensors are read and
+// written in their (B, S, H, D) / (B, S, KV, D) layouts: the GQA head
+// mapping is an index, no repeat is materialised, and no transpose or pad
+// copy runs around the kernel; the tail tile of a ragged S is masked by
+// k_pos < S.  Three kernels; the wrapper (flash_attention.py::variant)
+// picks one before the launch from dtype, D and alignment, never as a
+// fallback:
 //
-//   * bf16 (the serving path): 4 warps, 16 query rows each, 64-key tiles,
-//     both products on the tensor cores with mma.sync.m16n8k16 (bf16 in,
-//     f32 accumulation: the products of bf16 values are exact in f32, as
-//     in the reference's f32 dot).  S = Q K^T stays in registers in the
-//     mma C layout, which is also the A layout of the PV product, so the
-//     rounded p never leaves registers; V is stored transposed in shared
-//     memory so that its B fragments are 32-bit loads.  Each thread keeps
-//     m and a partial l for its two rows; the row max is taken over the
-//     four lanes that share a row, l summed over them at the end.
-//   * f32: one thread per query row with m, l and acc[DP] in registers,
-//     scalar fmaf products against 32-key tiles read as float4 broadcasts
-//     (the tensor cores would round f32 inputs to TF32).
+//   * tma_wgmma (bf16, D = 64 or 128, q, k, v 16-byte aligned; the serving
+//     path).  Q, K and V come in through 4-D tensor maps, boxes of (64 d,
+//     1 head, 64 rows, 1 batch) with 128-byte swizzle and zero fill past
+//     S.  A block is two consumer warpgroups and a producer warp, of
+//     which one thread loads the Q tile(s) and keeps a 3-stage K / V ring
+//     full (full / empty mbarriers per stage).  A consumer warpgroup
+//     computes S = Q K^T for its 64 query rows and a 64-key tile by wgmma
+//     m64n64k16 (Q and K from shared memory, both K-major over d), the
+//     online softmax in registers (the wgmma C layout gives each warp 16
+//     rows, a thread rows g and g + 8: the row max and sum run over the
+//     four lanes of a quad), and acc += P V by wgmma with P from registers
+//     (the C layout of S is the register A layout, so the bf16-rounded p
+//     never leaves registers) and V from shared memory as an MN-major B
+//     (no transposed copy).  P V is left running while the next tile's
+//     Q K^T is issued; one wait takes both.  Only a tile that some mask
+//     reaches (the tail of S, keys past the diagonal or outside the window
+//     of a row of the tile) is masked element by element.  Where one
+//     warpgroup per 64-row query tile would fill less than two waves of
+//     SMs (flash_attention.py::split_keys; DeiT-B at B <= 2), both
+//     warpgroups take the same query tile and alternate its key tiles,
+//     and warpgroup 1 hands its (m, l, acc) to warpgroup 0 through shared
+//     memory: m = max(m_a, m_b), each half scaled by exp(m_half - m), so a
+//     half whose tiles were all masked for a row (m = -1e30) is wiped as a
+//     later valid tile wipes it in the sequential loop.  Otherwise the two
+//     warpgroups take two neighbouring query tiles and share every K / V
+//     tile, which halves the K / V traffic from L2.  Two blocks fit an SM
+//     at D = 64 (96 registers a thread, 82 KB of shared memory each).
+//   * mma_sync (other bf16 inputs: D = 80 of ViT-H/14, D <= 32, misaligned
+//     views): one CTA per (batch*head, 64-row query tile), 4 warps of 16
+//     rows, Q and each K / V tile staged in shared memory by the threads,
+//     zero-filled past S and past D (padded to 32 / 64 / 128), both
+//     products by mma.sync.m16n8k16 (bf16 in, f32 accumulation: the
+//     products of bf16 values are exact in f32, as in the reference's f32
+//     dot), V stored transposed so its B fragments are 32-bit loads;
+//     output rows staged through the Q tile for coalesced stores.
+//   * f32_simt (f32): one thread per query row with m, l and acc[DP] in
+//     registers, scalar fmaf products against 32-key tiles read as float4
+//     broadcasts (the tensor cores would round f32 inputs to TF32).
 //
 // Bound on this card, at the serving path's shape (B=8, S=578, H=KV=12,
 // D=64, bf16): 4*B*H*S^2*D = 8.21 GFLOP, 8.3 us at the 989 TFLOP/s bf16
 // tensor-core peak; q, k, v and out are 7.1 MB each, 28.4 MB in all, 8.5
-// us at 3.35 TB/s.  So about 8.5 us, bytes by a hair.  mma.sync reaches
-// only part of the tensor-core rate, the tiles are loaded without overlap
-// (no cp.async / TMA pipeline) and two bytes a thread, and the 64-row
-// tiles pad S=578 to 640 rows; wgmma fed by TMA is later work.
+// us at 3.35 TB/s.  So about 8.5 us, bytes by a hair.  The tma_wgmma
+// kernel's products take a small share of its time: the softmax's
+// instructions between the two products and the wgmma latency within a
+// warpgroup hold it (at 96 registers ptxas serialises the wgmma groups);
+// PERF.md has the measurements.
 //
 // Arithmetic.  Built with --fmad=false like every kernel of the port:
 // the f32 dot products are explicit fmaf chains over d in ascending
-// order; expf and the divisions are the IEEE-accurate forms (no fast
-// math).  The summation order differs from XLA's, so the kernels agree
+// order; the divisions are the IEEE-accurate forms (no fast math).  The
+// f32 and mma_sync kernels use the accurate expf; tma_wgmma computes exp
+// through ex2.approx (relative error ~2^-22, far below the bf16 rounding
+// of p).  The summation order differs from XLA's, so the kernels agree
 // with the plain version to rounding, not bit for bit.
 
 #include <cuda_bf16.h>
@@ -64,6 +91,8 @@
 
 #include <cstddef>
 #include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -502,6 +531,368 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
                          stream);
 }
 
+// ---------------------------------------------------------------------------
+// bf16, TMA + wgmma (D = 64 or 128)
+// ---------------------------------------------------------------------------
+namespace wg {
+
+constexpr int kRows = 64;               // query rows of one consumer warpgroup
+constexpr int kKeys = 64;               // keys of one K / V tile
+constexpr int kStages = 3;              // K / V ring
+constexpr int kThreads = 2 * 128 + 32;  // two consumer warpgroups, a producer
+constexpr int kBox = 64 * 128;          // a (64 rows, 64 d) box: 8 KB
+
+template <int DP>
+struct Layout {
+  static constexpr int kTile = kBox * (DP / 64);     // 64 rows of Q, K or V
+  static constexpr int kRing = 2 * kTile;            // after two Q tiles
+  static constexpr int kStage = 2 * kTile;           // K, then V
+  static constexpr int kMerge = kRing + kStages * kStage;
+  static constexpr int kBars = kMerge + (kRows * DP + 2 * kRows) * 4;
+  static constexpr size_t kSmem = 1024 + kBars + (2 * kStages + 1) * 8;
+};
+
+// exp(x) = 2^(x log2 e) through the SFU's ex2.approx (relative error of
+// ~2^-22, plus one rounding of the product: far below the bf16 rounding of
+// p); exp(0) = 1 and exp(-1e30 - m) = 0, as the masking needs
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float exp_ex2(float x) {
+  return ex2(x * 1.4426950408889634f);
+}
+
+// p = exp(s - m) of a thread's 32 scores (rows g and g + 8 of its warp,
+// m = mn0 / mn1), summed unrounded into ls0 / ls1 and rounded to bf16
+// into the A fragments pa of the P V product.  kRaw: the scores are
+// unscaled (an unmasked tile) and p = 2^(s (scale log2 e) - m log2 e),
+// one fused multiply-add; else they are scaled or the mask's -1e30, and
+// p = exp_ex2(s - m), which keeps exp(-1e30 - (-1e30)) = 1
+template <bool kRaw>
+__device__ __forceinline__ void probs(const float (&sc)[kKeys / 2], float mn0,
+                                      float mn1, float scale,
+                                      uint32_t (&pa)[kKeys / 16][4],
+                                      float& ls0, float& ls1) {
+  constexpr float kLog2e = 1.4426950408889634f;
+  const float c = scale * kLog2e;
+  const float b0 = -mn0 * kLog2e, b1 = -mn1 * kLog2e;
+  float p[kKeys / 2];
+#pragma unroll
+  for (int i = 0; i < kKeys / 2; ++i) {
+    const bool hi = (i & 2) != 0;            // row g + 8
+    p[i] = kRaw ? ex2(__fmaf_rn(sc[i], c, hi ? b1 : b0))
+                : exp_ex2(sc[i] - (hi ? mn1 : mn0));
+  }
+#pragma unroll
+  for (int n = 0; n < kKeys / 8; ++n) {
+    ls0 += p[4 * n];
+    ls0 += p[4 * n + 1];
+    ls1 += p[4 * n + 2];
+    ls1 += p[4 * n + 3];
+    pa[n / 2][(n & 1) * 2] = pack_bf16(p[4 * n], p[4 * n + 1]);
+    pa[n / 2][(n & 1) * 2 + 1] = pack_bf16(p[4 * n + 2], p[4 * n + 3]);
+  }
+}
+
+// grid (query-tile groups, B * H); split: both consumer warpgroups on
+// query tile blockIdx.x, warpgroup w taking the key tiles i with i % 2 ==
+// w; else warpgroup w on query tile 2 blockIdx.x + w, both on every key
+// tile of one ring
+template <int DP>
+__global__ void __launch_bounds__(kThreads, DP == 64 ? 2 : 1)
+flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
+                             const __grid_constant__ CUtensorMap tmk,
+                             const __grid_constant__ CUtensorMap tmv,
+                             __nv_bfloat16* __restrict__ o, int S, int H,
+                             int KV, float scale, int causal, int window,
+                             int split) {
+  using L = Layout<DP>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* empty = full + kStages;
+  uint64_t* qbar = empty + kStages;
+
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int kvh = h / (H / KV);
+  const int qt0 = split ? blockIdx.x : 2 * blockIdx.x;
+  const int n_kv = (S + kKeys - 1) / kKeys;
+  const int wgi = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 2);
+    }
+    hopper::mbar_init(qbar, 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wgi == 2) {
+    // -- producer: the Q tile(s), then every K / V tile through the ring
+    if (threadIdx.x == 256) {
+      const int n_q = split ? 1 : 2;
+      hopper::mbar_arrive_expect_tx(qbar, n_q * L::kTile);
+      for (int qi = 0; qi < n_q; ++qi)
+        for (int x = 0; x < DP / 64; ++x)
+          hopper::tma_load_4d(smem + qi * L::kTile + x * kBox, &tmq, qbar,
+                              64 * x, h, (qt0 + qi) * kRows, b);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int i = 0; i < n_kv; ++i) {
+        hopper::mbar_wait(&empty[stage], phase ^ 1);
+        unsigned char* st = smem + L::kRing + stage * L::kStage;
+        hopper::mbar_arrive_expect_tx(&full[stage], L::kStage);
+        for (int x = 0; x < DP / 64; ++x) {
+          hopper::tma_load_4d(st + x * kBox, &tmk, &full[stage], 64 * x, kvh,
+                              i * kKeys, b);
+          hopper::tma_load_4d(st + L::kTile + x * kBox, &tmv, &full[stage],
+                              64 * x, kvh, i * kKeys, b);
+        }
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // -- consumers
+  const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;     // C-fragment row / column pair
+  const int qt = split ? qt0 : qt0 + wgi;
+  const unsigned char* qs = smem + (split ? 0 : wgi * L::kTile);
+  const int row0 = qt * kRows + warp * 16 + g;   // this thread's two rows
+  const int row1 = row0 + 8;
+
+  float acc[DP / 2], sc[kKeys / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kKeys / 2; ++i) sc[i] = 0.0f;
+  float m0 = kNeg, m1 = kNeg, l0 = 0.0f, l1 = 0.0f;  // l: this thread's part
+
+  hopper::mbar_wait(qbar, 0);
+  const bool leader = threadIdx.x % 128 == 0;
+  int stage = 0, pending = -1;   // pending: the stage whose P V may run on
+  uint32_t phase = 0;
+  for (int i = 0; i < n_kv; ++i) {
+    hopper::mbar_wait(&full[stage], phase);
+    if (split && (i & 1) != wgi) {           // the other warpgroup's tile
+      if (leader) hopper::mbar_arrive(&empty[stage]);
+    } else {
+      const unsigned char* ks = smem + L::kRing + stage * L::kStage;
+      const unsigned char* vs = ks + L::kTile;
+      const int k0 = i * kKeys;
+
+      // S = Q K^T: both K-major over d, 16 deep a step (32 bytes into the
+      // 128-byte rows of a box, the next box every 4 steps).  The last
+      // tile's P V runs on the tensor cores meanwhile; the wait takes both.
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const int off = (kk / 4) * kBox + (kk % 4) * 32;
+        hopper::wgmma_ss<0>(sc, hopper::desc_k_major(qs + off),
+                            hopper::desc_k_major(ks + off), kk > 0);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+      hopper::fence_regs(acc);
+      if (pending >= 0 && leader) hopper::mbar_arrive(&empty[pending]);
+
+      // mask (only a tile that some mask reaches: the tail of S, or keys
+      // past the diagonal or outside the window of some row of this query
+      // tile; rows past S are never stored) and scale; row max over the
+      // quad that shares a row.  An unmasked tile stays unscaled here:
+      // rounding is monotonic, so max(s * scale) = max(s) * scale
+      const int q_lo = qt * kRows;
+      const bool masked = k0 + kKeys > S ||
+                          (causal && k0 + kKeys - 1 > q_lo) ||
+                          (window > 0 && q_lo + kRows - 1 - k0 >= window);
+      float mx0 = kNeg, mx1 = kNeg;
+      if (masked) {
+#pragma unroll
+        for (int n = 0; n < kKeys / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qp = e < 2 ? row0 : row1;
+            const int kp = k0 + n * 8 + t * 2 + (e & 1);
+            bool ok = kp < S;
+            if (causal) ok = ok && qp >= kp;
+            if (window > 0) ok = ok && qp - kp < window;
+            sc[4 * n + e] = ok ? sc[4 * n + e] * scale : kNeg;
+          }
+      }
+#pragma unroll
+      for (int n = 0; n < kKeys / 8; ++n) {
+        mx0 = fmaxf(mx0, fmaxf(sc[4 * n], sc[4 * n + 1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[4 * n + 2], sc[4 * n + 3]));
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      if (!masked) {
+        mx0 *= scale;
+        mx1 *= scale;
+      }
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float alpha0 = exp_ex2(m0 - mn0), alpha1 = exp_ex2(m1 - mn1);
+
+      // p = exp(s - m_new): summed unrounded into l, rounded to bf16 into
+      // the A fragments of the PV product (the C layout of S is the
+      // register A layout of wgmma)
+      uint32_t pa[kKeys / 16][4];
+      float ls0 = 0.0f, ls1 = 0.0f;
+      if (masked)
+        probs<false>(sc, mn0, mn1, scale, pa, ls0, ls1);
+      else
+        probs<true>(sc, mn0, mn1, scale, pa, ls0, ls1);
+      l0 = l0 * alpha0 + ls0;
+      l1 = l1 * alpha1 + ls1;
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n) {
+        acc[4 * n] *= alpha0;
+        acc[4 * n + 1] *= alpha0;
+        acc[4 * n + 2] *= alpha1;
+        acc[4 * n + 3] *= alpha1;
+      }
+
+      // acc += P V: V MN-major (d contiguous), 16 keys (rows) a step; left
+      // running into the next tile's Q K^T
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk)
+        hopper::wgmma_rs<1>(acc, pa[kk],
+                            hopper::desc_mn_major(vs + kk * 16 * 128, kBox),
+                            1);
+      hopper::wgmma_commit();
+      pending = stage;
+      m0 = mn0;
+      m1 = mn1;
+    }
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(acc);
+  if (pending >= 0 && leader) hopper::mbar_arrive(&empty[pending]);
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+
+  if (split) {
+    // warpgroup 1 hands its (m, l, acc) to warpgroup 0, which merges:
+    // m = max(m_a, m_b), each half scaled by exp(m_half - m), so a half
+    // whose tiles were all masked for a row (m = -1e30) is wiped as a
+    // later valid tile wipes it in the sequential loop
+    float* macc = reinterpret_cast<float*>(smem + L::kMerge);
+    float* mm = macc + kRows * DP;
+    float* ml = mm + kRows;
+    const int r = warp * 16 + g;
+    if (wgi == 1) {
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n) {
+        const int c = n * 8 + t * 2;
+        macc[r * DP + c] = acc[4 * n];
+        macc[r * DP + c + 1] = acc[4 * n + 1];
+        macc[(r + 8) * DP + c] = acc[4 * n + 2];
+        macc[(r + 8) * DP + c + 1] = acc[4 * n + 3];
+      }
+      if (t == 0) {
+        mm[r] = m0;
+        mm[r + 8] = m1;
+        ml[r] = l0;
+        ml[r + 8] = l1;
+      }
+    }
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    if (wgi == 1) return;
+    const float mb0 = mm[r], mb1 = mm[r + 8];
+    const float mt0 = fmaxf(m0, mb0), mt1 = fmaxf(m1, mb1);
+    const float a0 = expf(m0 - mt0), b0 = expf(mb0 - mt0);
+    const float a1 = expf(m1 - mt1), b1 = expf(mb1 - mt1);
+    l0 = l0 * a0 + ml[r] * b0;
+    l1 = l1 * a1 + ml[r + 8] * b1;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      const int c = n * 8 + t * 2;
+      acc[4 * n] = acc[4 * n] * a0 + macc[r * DP + c] * b0;
+      acc[4 * n + 1] = acc[4 * n + 1] * a0 + macc[r * DP + c + 1] * b0;
+      acc[4 * n + 2] = acc[4 * n + 2] * a1 + macc[(r + 8) * DP + c] * b1;
+      acc[4 * n + 3] = acc[4 * n + 3] * a1 + macc[(r + 8) * DP + c + 1] * b1;
+    }
+  }
+
+  // normalise and store: a quad writes 16 contiguous bytes of a row
+  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n) {
+    const int c = n * 8 + t * 2;
+    if (row0 < S)
+      *reinterpret_cast<__nv_bfloat162*>(
+          o + ((static_cast<size_t>(b) * S + row0) * H + h) * DP + c) =
+          __floats2bfloat162_rn(acc[4 * n] / d0, acc[4 * n + 1] / d0);
+    if (row1 < S)
+      *reinterpret_cast<__nv_bfloat162*>(
+          o + ((static_cast<size_t>(b) * S + row1) * H + h) * DP + c) =
+          __floats2bfloat162_rn(acc[4 * n + 2] / d1, acc[4 * n + 3] / d1);
+  }
+}
+
+// tensor maps over (B, S, heads, D) bf16 (sizes innermost first), boxes
+// of (64 d, 1 head, 64 rows, 1 batch)
+int encode_bshd(CUtensorMap* map, const void* base, int B, int S, int heads,
+                int D) {
+  const cuuint64_t size[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t stride[3] = {static_cast<cuuint64_t>(D) * 2,
+                                static_cast<cuuint64_t>(heads) * D * 2,
+                                static_cast<cuuint64_t>(S) * heads * D * 2};
+  const cuuint32_t box[4] = {64, 1, kRows, 1};
+  return hopper::encode_bf16(map, base, 4, size, stride, box);
+}
+
+template <int DP>
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int S, int H, int KV, float scale, int causal, int window,
+           int split, cudaStream_t stream) {
+  CUtensorMap tmq, tmk, tmv;
+  int code = encode_bshd(&tmq, q, B, S, H, DP);
+  if (code == 0) code = encode_bshd(&tmk, k, B, S, KV, DP);
+  if (code == 0) code = encode_bshd(&tmv, v, B, S, KV, DP);
+  if (code != 0) return code;
+  auto kernel = flash_attention_wgmma_kernel<DP>;
+  const size_t smem = Layout<DP>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int q_tiles = (S + kRows - 1) / kRows;
+  const dim3 grid(split ? q_tiles : (q_tiles + 1) / 2, B * H);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      tmq, tmk, tmv, static_cast<__nv_bfloat16*>(o), S, H, KV, scale, causal,
+      window, split);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wg
+
 }  // namespace
 
 // q (B, S, H, D), k and v (B, S, KV, D), out (B, S, H, D), all contiguous
@@ -524,4 +915,32 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                        stream);
   return launch_f32_d(q, k, v, o, B, S, H, KV, D, scale, causal, window,
                       stream);
+}
+
+// The TMA / wgmma bf16 kernel: D = 64 or 128, q, k, v 16-byte aligned
+// (the wrapper, flash_attention.py::variant, sends every other input to
+// flash_attention_launch).  split != 0 splits each query tile's key tiles
+// between the block's two consumer warpgroups (flash_attention.py::
+// split_keys).  Returns 0, a cudaError_t, or hopper::kEncodeError plus the
+// CUresult of a failed tensor-map encode.
+extern "C" int flash_attention_wgmma_launch(const void* q, const void* k,
+                                            const void* v, void* o, int B,
+                                            int S, int H, int KV, int D,
+                                            float scale, int causal,
+                                            int window, int split, int device,
+                                            cudaStream_t stream) {
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q) |
+                         reinterpret_cast<uintptr_t>(k) |
+                         reinterpret_cast<uintptr_t>(v);
+  if (B < 1 || S < 1 || H < 1 || KV < 1 || H % KV != 0 ||
+      (D != 64 && D != 128) || ptrs % 16 != 0 ||
+      static_cast<long long>(B) * H > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (D == 64)
+    return wg::launch<64>(q, k, v, o, B, S, H, KV, scale, causal, window,
+                          split, stream);
+  return wg::launch<128>(q, k, v, o, B, S, H, KV, scale, causal, window,
+                         split, stream);
 }

@@ -18,29 +18,50 @@
 // f32 units (the tensor cores would round f32 to TF32; the reference is a
 // true f32 dot): 961 us.
 //
-// Design.  The TPU grid (expert, C tile, f tile) becomes the CUDA grid;
-// blocks are independent.  The TPU kernel loads whole d strips into VMEM;
-// here a block walks d in slices staged through shared memory.  Ragged C,
-// f and d edges are zero-filled in shared memory and masked on the store,
-// so no padded copy of x, w or out is made (the reference pads with
-// jnp.pad).
+// Design.  Three kernels; the wrapper (moe_gemm.py::variant) picks one
+// before the launch from dtype, shape and alignment, never as a fallback:
 //
-//   * bf16: a 128 x 128 output tile per block of 8 warps (2 x 4), each warp
-//     64 x 32 from 4 x 4 mma.sync.m16n8k16 tiles (bf16 in, f32 accumulators:
-//     products of bf16 values are exact in f32, as in the reference's f32
-//     dot).  32-deep slices of x and w are copied to shared memory, 16
-//     bytes a thread where d (resp. f) is a multiple of 8 and the pointer
-//     is 16-byte aligned, one element otherwise.  A fragments are 32-bit
-//     loads from the row-major x tile (rows padded by 8 against bank
-//     conflicts); B fragments come from the row-major w tile through
-//     ldmatrix.trans, which hands each lane its (k, k + 1) pairs of one
-//     column.  The copy of a slice does not overlap the products of the
-//     last (no cp.async / TMA pipeline), and mma.sync reaches only part of
-//     the tensor-core rate: wgmma fed by TMA is later work.
-//   * f32: a 64 x 64 tile per block of 256 threads, each thread 4 x 4
-//     outputs strided by 16 (conflict-free shared reads, coalesced
-//     stores), 16-deep slices, one fmaf per product in ascending k.
-//
+//   * tma_wgmma (bf16, d and f multiples of 8, x and w 16-byte aligned:
+//     what a tensor map can describe).  A persistent grid, one block per
+//     SM, walks the (expert, C tile, f tile) tiles in that order, so the
+//     blocks in flight share x rows and an expert's w in L2.  A block is
+//     three warpgroups: a producer, of which one thread keeps a ring of
+//     3 stages full by TMA (a (128 C, 64 d) box of x, K-major, and four
+//     (64 d, 64 f) boxes of w, MN-major, all 128-byte swizzled, completion
+//     on a "full" mbarrier per stage), and two consumer warpgroups, each
+//     multiplying 64 rows of the 128 x 256 output tile by 4 wgmma
+//     m64n256k16 per stage (w through the transpose bit), one stage's
+//     group kept in flight while the next is issued, releasing a stage on
+//     its "empty" mbarrier when its products are done.  TMA's zero fill
+//     of out-of-bounds boxes replaces the zero-filling of ragged C and d;
+//     the epilogue rounds to bf16 into a swizzled staging tile and TMA
+//     stores it, which clips ragged C and f, while the producer already
+//     loads the next tile.  Budget: 128 f32 accumulators a consumer
+//     thread (setmaxnreg: consumers 232 registers, the producer 40); shared
+//     memory 3 x 48 KB ring + 2 x 32 KB staging = 208 KB of 227 KB, so 3
+//     stages, not 4 (a 128 x 128 tile would fit 5 stages but read 50% more
+//     from L2 per product).  down (d = 512) has 8 stages a tile: there the
+//     persistent grid and the asynchronous store keep the tensor cores fed
+//     across tiles.
+//   * mma_sync (every other bf16 input, e.g. f = 500): a 128 x 128 output
+//     tile per block of 8 warps (2 x 4), each warp 64 x 32 from 4 x 4
+//     mma.sync.m16n8k16 tiles (bf16 in, f32 accumulators: products of
+//     bf16 values are exact in f32, as in the reference's f32 dot).
+//     32-deep slices of x and w are copied to shared memory by the
+//     threads, 16 bytes a thread where d (resp. f) is a multiple of 8 and
+//     the pointer is 16-byte aligned, one element otherwise, zero-filled
+//     past C, f and d; A fragments are 32-bit loads from the row-major x
+//     tile (rows padded by 8 against bank conflicts); B fragments come
+//     from the row-major w tile through ldmatrix.trans.  No copy overlaps
+//     a product.
+//   * f32_simt (f32): a 128 x 128 tile per block of 256 threads, each
+//     thread 8 x 8 outputs (rows strided by 16, columns as two float4s),
+//     16-deep slices double-buffered with cp.async (16 bytes a copy where
+//     d and f are multiples of 4 and the pointers 16-byte aligned, else 4;
+//     zero fill past the edges), one __fmaf_rn per product in ascending k.
+//     No padded copy of x, w or out is made (the reference pads with
+//     jnp.pad).
+
 // Arithmetic: built with --fmad=false, never fast math.  The sums run in
 // another order than the plain version's (cuBLAS on the card, with TF32
 // off), so the kernel agrees with it to rounding
@@ -49,6 +70,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -218,15 +241,71 @@ moe_gemm_bf16_kernel(const __nv_bfloat16* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------------
-// f32: scalar FMAs
+// f32: scalar FMAs, cp.async double buffering
 // ---------------------------------------------------------------------------
-constexpr int kFM = 64, kFN = 64, kFK = 16;
+constexpr int kFM = 128, kFN = 128, kFK = 16;
+constexpr int kFAS = kFK + 4;          // row stride of the x tile (16-byte rows)
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         int src_bytes, int bytes) {
+  // copies src_bytes (0 or bytes) and zero-fills the rest of the bytes
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(d), "l"(src), "r"(src_bytes) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(d), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// one 16-deep slice: x (128, 16) row-major with rows kFAS apart, w (16,
+// 128) row-major; VEC copies 16 bytes a thread (d, f multiples of 4 and
+// 16-byte aligned bases), else 4; out-of-range elements are zero-filled
+template <bool VEC>
+__device__ __forceinline__ void f32_stage(float* xs, float* ws,
+                                          const float* xe, const float* we,
+                                          int m0, int n0, int k0, int C,
+                                          int d, int f, int tid) {
+  constexpr int V = VEC ? 4 : 1;
+#pragma unroll
+  for (int u = 0; u < kFM * kFK / V / kThreads; ++u) {
+    const int c = tid + u * kThreads;
+    const int r = c / (kFK / V), k = (c % (kFK / V)) * V;
+    const bool ok = m0 + r < C && k0 + k < d;
+    const float* src = ok ? xe + static_cast<size_t>(m0 + r) * d + k0 + k
+                          : xe;
+    cp_async(xs + r * kFAS + k, src, ok ? 4 * V : 0, 4 * V);
+  }
+#pragma unroll
+  for (int u = 0; u < kFK * kFN / V / kThreads; ++u) {
+    const int c = tid + u * kThreads;
+    const int r = c / (kFN / V), n = (c % (kFN / V)) * V;
+    const bool ok = k0 + r < d && n0 + n < f;
+    const float* src = ok ? we + static_cast<size_t>(k0 + r) * f + n0 + n
+                          : we;
+    cp_async(ws + r * kFN + n, src, ok ? 4 * V : 0, 4 * V);
+  }
+  cp_async_commit();
+}
+
+// a 128 x 128 tile per block of 256 threads (16 x 16); thread (ty, tx)
+// owns rows ty + 16 i (i < 8) and columns 4 tx + 64 j + c (j < 2, c < 4):
+// x reads are broadcasts, w reads float4s of neighbouring columns
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads, 2)
 moe_gemm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
                     float* __restrict__ out, int C, int d, int f) {
-  __shared__ float xs[kFM][kFK + 1];
-  __shared__ float ws[kFK][kFN];
+  __shared__ __align__(16) float xs[2][kFM * kFAS];
+  __shared__ __align__(16) float ws[2][kFK * kFN];
   const int e = blockIdx.z;
   const int m0 = blockIdx.y * kFM, n0 = blockIdx.x * kFN;
   const float* xe = x + static_cast<size_t>(e) * C * d;
@@ -234,52 +313,214 @@ moe_gemm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
   float* oe = out + static_cast<size_t>(e) * C * f;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
 
-  float acc[4][4];
+  float acc[8][8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
 
-  for (int k0 = 0; k0 < d; k0 += kFK) {
-    for (int i = tid; i < kFM * kFK; i += kThreads) {
-      const int r = i / kFK, c = i % kFK;
-      const int gr = m0 + r, gc = k0 + c;
-      xs[r][c] = (gr < C && gc < d) ? xe[static_cast<size_t>(gr) * d + gc]
-                                    : 0.0f;
-    }
-    for (int i = tid; i < kFK * kFN; i += kThreads) {
-      const int r = i / kFN, c = i % kFN;
-      const int gk = k0 + r, gn = n0 + c;
-      ws[r][c] = (gk < d && gn < f) ? we[static_cast<size_t>(gk) * f + gn]
-                                    : 0.0f;
+  const int nk = (d + kFK - 1) / kFK;
+  f32_stage<VEC>(xs[0], ws[0], xe, we, m0, n0, 0, C, d, f, tid);
+  for (int kt = 0; kt < nk; ++kt) {
+    const int cur = kt & 1;
+    if (kt + 1 < nk) {                 // the next slice loads meanwhile
+      f32_stage<VEC>(xs[cur ^ 1], ws[cur ^ 1], xe, we, m0, n0,
+                     (kt + 1) * kFK, C, d, f, tid);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    const float* xt = xs[cur];
+    const float* wt = ws[cur];
 #pragma unroll
     for (int kk = 0; kk < kFK; ++kk) {
-      float a[4], b[4];
+      float a[8], b[8];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = xs[ty + 16 * i][kk];
+      for (int i = 0; i < 8; ++i) a[i] = xt[(ty + 16 * i) * kFAS + kk];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = ws[kk][tx + 16 * j];
+      for (int j = 0; j < 2; ++j) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            wt + kk * kFN + 4 * tx + 64 * j);
+        b[4 * j] = v.x;
+        b[4 * j + 1] = v.y;
+        b[4 * j + 2] = v.z;
+        b[4 * j + 3] = v.w;
+      }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+        for (int j = 0; j < 8; ++j)
           acc[i][j] = __fmaf_rn(a[i], b[j], acc[i][j]);
     }
-    __syncthreads();
+    __syncthreads();                   // the slice is consumed
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < 8; ++i) {
     const int r = m0 + ty + 16 * i;
     if (r >= C) continue;
+    float* orow = oe + static_cast<size_t>(r) * f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = n0 + tx + 16 * j;
-      if (c < f) oe[static_cast<size_t>(r) * f + c] = acc[i][j];
+    for (int j = 0; j < 2; ++j) {
+      const int c = n0 + 4 * tx + 64 * j;
+      if (VEC) {
+        if (c < f)
+          *reinterpret_cast<float4*>(orow + c) = make_float4(
+              acc[i][4 * j], acc[i][4 * j + 1], acc[i][4 * j + 2],
+              acc[i][4 * j + 3]);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (c + q < f) orow[c + q] = acc[i][4 * j + q];
+      }
     }
   }
 }
+
+// ---------------------------------------------------------------------------
+// bf16, TMA + wgmma: a persistent, warp-specialised kernel
+// ---------------------------------------------------------------------------
+namespace tma {
+
+constexpr int kBM = 128, kBN = 256, kBK = 64;
+constexpr int kStages = 3;
+constexpr int kConsumers = 2;               // warpgroups, 64 rows each
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr int kABytes = kBM * kBK * 2;      // x slice (128, 64): 16 KB
+constexpr int kBox = kBK * 64 * 2;          // w box (64 k, 64 n): 8 KB
+constexpr int kStageBytes = kABytes + (kBN / 64) * kBox;   // 48 KB
+constexpr int kOutBytes = 64 * kBN * 2;     // a warpgroup's output: 32 KB
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+constexpr size_t kSmem = 1024 + kStages * kStageBytes +
+                         kConsumers * kOutBytes + 2 * kStages * 8;
+
+__global__ void __launch_bounds__(kThreads, 1)
+moe_gemm_tma_kernel(const __grid_constant__ CUtensorMap tmx,
+                    const __grid_constant__ CUtensorMap tmw,
+                    const __grid_constant__ CUtensorMap tmo, int E, int C,
+                    int d, int f) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      smem + kStages * kStageBytes + kConsumers * kOutBytes);
+  uint64_t* empty = full + kStages;
+
+  const int tiles_m = (C + kBM - 1) / kBM, tiles_n = (f + kBN - 1) / kBN;
+  const int tiles = E * tiles_m * tiles_n;
+  const int nk = (d + kBK - 1) / kBK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kConsumers);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    // -- producer: one thread keeps the ring full, tile after tile
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == kConsumers * 128) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int e = tile / (tiles_m * tiles_n);
+        const int rem = tile - e * tiles_m * tiles_n;
+        const int m0 = (rem / tiles_n) * kBM, n0 = (rem % tiles_n) * kBN;
+        for (int kb = 0; kb < nk; ++kb) {
+          hopper::mbar_wait(&empty[stage], phase ^ 1);
+          unsigned char* st = smem + stage * kStageBytes;
+          hopper::mbar_arrive_expect_tx(&full[stage], kStageBytes);
+          hopper::tma_load_3d(st, &tmx, &full[stage], kb * kBK, m0, e);
+#pragma unroll
+          for (int j = 0; j < kBN / 64; ++j)
+            hopper::tma_load_3d(st + kABytes + j * kBox, &tmw, &full[stage],
+                                n0 + 64 * j, kb * kBK, e);
+          if (++stage == kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // -- consumers: warpgroup wg multiplies rows 64 wg .. 64 wg + 63 of the
+  // tile; 4 x m64n256k16 per 64-deep stage, one group in flight while the
+  // next stage is issued
+  hopper::setmaxnreg_inc<kConsumerRegs>();
+  const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const bool leader = threadIdx.x % 128 == 0;
+  unsigned char* staged = smem + kStages * kStageBytes + wg * kOutBytes;
+  float acc[kBN / 2];
+#pragma unroll
+  for (int i = 0; i < kBN / 2; ++i) acc[i] = 0.0f;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int e = tile / (tiles_m * tiles_n);
+    const int rem = tile - e * tiles_m * tiles_n;
+    const int m0 = (rem / tiles_n) * kBM, n0 = (rem % tiles_n) * kBN;
+    int prev = 0;
+    for (int kb = 0; kb < nk; ++kb) {
+      hopper::mbar_wait(&full[stage], phase);
+      const unsigned char* st = smem + stage * kStageBytes;
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        hopper::wgmma_ss<1>(
+            acc, hopper::desc_k_major(st + wg * 64 * 128 + kk * 32),
+            hopper::desc_mn_major(st + kABytes + kk * 16 * 128, kBox),
+            kb > 0 || kk > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();         // the previous stage's products
+      if (kb > 0 && threadIdx.x % 128 == 0) hopper::mbar_arrive(&empty[prev]);
+      prev = stage;
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    if (threadIdx.x % 128 == 0) hopper::mbar_arrive(&empty[prev]);
+
+    // epilogue (the producer is already loading the next tile): the
+    // warpgroup's 64 x 256 outputs, rounded to bf16, go to shared memory
+    // in the 128-byte-swizzled layout of four (64, 64) boxes, and TMA
+    // stores them, clipping ragged C and f.  A thread holds rows r and
+    // r + 8 (r % 8 == g), columns 8 j + 2 t and + 1 of each chunk j.
+    if (leader) hopper::bulk_wait_read<0>();   // the last tile's store read
+    hopper::named_barrier(1 + wg, 128);
+    const int r = warp * 16 + g;
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+      unsigned char* p = staged + (j / 8) * (64 * 128) + r * 128 +
+                         (((j % 8) ^ g) * 16) + t * 4;
+      *reinterpret_cast<__nv_bfloat162*>(p) =
+          __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(p + 8 * 128) =
+          __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+    hopper::fence_async_shared();
+    hopper::named_barrier(1 + wg, 128);
+    if (leader) {
+#pragma unroll
+      for (int b = 0; b < kBN / 64; ++b)
+        hopper::tma_store_3d(&tmo, staged + b * 64 * 128, n0 + 64 * b,
+                             m0 + 64 * wg, e);
+      hopper::bulk_commit();
+    }
+  }
+  if (leader) hopper::bulk_wait<0>();
+}
+
+}  // namespace tma
 
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
@@ -302,9 +543,81 @@ extern "C" int moe_gemm_launch(const void* x, const void* w, void* out, int E,
         C, d, f, d % 8 == 0 && aligned16(x), f % 8 == 0 && aligned16(w));
   } else {
     const dim3 grid((f + kFN - 1) / kFN, (C + kFM - 1) / kFM, E);
-    moe_gemm_f32_kernel<<<grid, kThreads, 0, stream>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w),
-        static_cast<float*>(out), C, d, f);
+    const float* xf = static_cast<const float*>(x);
+    const float* wf = static_cast<const float*>(w);
+    float* of = static_cast<float*>(out);
+    if (d % 4 == 0 && f % 4 == 0 && aligned16(x) && aligned16(w) &&
+        aligned16(out))
+      moe_gemm_f32_kernel<true><<<grid, kThreads, 0, stream>>>(xf, wf, of, C,
+                                                                d, f);
+    else
+      moe_gemm_f32_kernel<false><<<grid, kThreads, 0, stream>>>(xf, wf, of,
+                                                                 C, d, f);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The TMA / wgmma bf16 kernel.  Takes what a tensor map can describe: d
+// and f multiples of 8 (row strides of 16 bytes), x and w 16-byte aligned;
+// the wrapper (moe_gemm.py::variant) sends every other shape to
+// moe_gemm_launch.  Returns 0, a cudaError_t, or hopper::kEncodeError plus
+// the CUresult of a failed tensor-map encode.
+extern "C" int moe_gemm_tma_launch(const void* x, const void* w, void* out,
+                                   int E, int C, int d, int f, int device,
+                                   cudaStream_t stream) {
+  if (E < 1 || C < 1 || d < 8 || f < 8 || d % 8 != 0 || f % 8 != 0 ||
+      !aligned16(x) || !aligned16(w) || !aligned16(out))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  namespace t = tma;
+  CUtensorMap tmx, tmw, tmo;
+  const cuuint64_t x_size[3] = {static_cast<cuuint64_t>(d),
+                                static_cast<cuuint64_t>(C),
+                                static_cast<cuuint64_t>(E)};
+  const cuuint64_t x_stride[2] = {static_cast<cuuint64_t>(d) * 2,
+                                  static_cast<cuuint64_t>(C) * d * 2};
+  const cuuint32_t x_box[3] = {t::kBK, t::kBM, 1};
+  int code = hopper::encode_bf16(&tmx, x, 3, x_size, x_stride, x_box);
+  if (code != 0) return code;
+  const cuuint64_t w_size[3] = {static_cast<cuuint64_t>(f),
+                                static_cast<cuuint64_t>(d),
+                                static_cast<cuuint64_t>(E)};
+  const cuuint64_t w_stride[2] = {static_cast<cuuint64_t>(f) * 2,
+                                  static_cast<cuuint64_t>(d) * f * 2};
+  const cuuint32_t w_box[3] = {64, t::kBK, 1};
+  code = hopper::encode_bf16(&tmw, w, 3, w_size, w_stride, w_box);
+  if (code != 0) return code;
+  const cuuint64_t o_size[3] = {static_cast<cuuint64_t>(f),
+                                static_cast<cuuint64_t>(C),
+                                static_cast<cuuint64_t>(E)};
+  const cuuint64_t o_stride[2] = {static_cast<cuuint64_t>(f) * 2,
+                                  static_cast<cuuint64_t>(C) * f * 2};
+  const cuuint32_t o_box[3] = {64, 64, 1};
+  code = hopper::encode_bf16(&tmo, out, 3, o_size, o_stride, o_box);
+  if (code != 0) return code;
+
+  // setmaxnreg moves registers between the warpgroups of one block: the
+  // block must hold what the consumers take plus what the producer keeps
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, t::moe_gemm_tma_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (attr.numRegs * t::kThreads <
+      128 * (t::kConsumers * t::kConsumerRegs + t::kProducerRegs))
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  err = cudaFuncSetAttribute(t::moe_gemm_tma_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(t::kSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long tiles = static_cast<long long>(E) *
+                          ((C + t::kBM - 1) / t::kBM) *
+                          ((f + t::kBN - 1) / t::kBN);
+  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = static_cast<int>(tiles < sms ? tiles : sms);
+  t::moe_gemm_tma_kernel<<<grid, t::kThreads, t::kSmem, stream>>>(
+      tmx, tmw, tmo, E, C, d, f);
   return static_cast<int>(cudaGetLastError());
 }

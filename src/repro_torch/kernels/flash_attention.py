@@ -10,6 +10,14 @@ output, launches on PyTorch's current stream and raises on a refused
 launch.  It never synchronises and never falls back: a CPU tensor is
 refused here (the dispatch in :mod:`repro_torch.kernels.ops` sends those
 to the plain version).  ``flash_attention.launches`` counts the launches.
+
+Three variants, chosen by :func:`variant` before the launch from dtype,
+head width and alignment alone (never as a fallback after a failure):
+``tma_wgmma`` for bf16 at D = 64 or 128 with 16-byte aligned q, k, v (TMA
+into an mbarrier ring, ``wgmma`` for Q K^T and, with P from registers,
+for P V; the key tiles split between two warpgroups where
+:func:`split_keys` says so); ``mma_sync`` for other bf16 inputs;
+``f32_simt`` for f32.
 """
 from __future__ import annotations
 
@@ -23,18 +31,49 @@ from repro_torch.kernels import build
 MAX_HEAD_DIM = 128
 DTYPES = (torch.float32, torch.bfloat16)
 
+VARIANTS = ("tma_wgmma", "mma_sync", "f32_simt")
+WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_MAX_HEADS = 65535         # B * H: the tma_wgmma grid's y dimension
+ROWS = 64                       # query rows of one warpgroup (tma_wgmma)
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# both launchers: q, k, v, out, B, S, H, KV, D, scale, causal, window, then
+# is_bf16 (flash_attention_launch) or split (flash_attention_wgmma_launch),
+# device, stream
 _ARGTYPES = [_P] * 4 + [_I] * 5 + [ctypes.c_float] + [_I] * 4 + [_P]
 
 
-def _lib():
-    lib = build.load("flash_attention")
-    fn = lib.flash_attention_launch
+def _lib(name: str):
+    fn = getattr(build.load("flash_attention"), name)
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
     return fn
+
+
+def variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel that :func:`flash_attention` launches: ``tma_wgmma`` for
+    bf16 with D in (64, 128), q, k, v 16-byte aligned (what a tensor map
+    takes) and B * H within its grid, ``mma_sync`` for other bf16,
+    ``f32_simt`` for f32.  A pure function of dtype, shape and alignment;
+    touches no device."""
+    if q.dtype == torch.float32:
+        return "f32_simt"
+    if q.shape[-1] in WGMMA_HEAD_DIMS \
+            and q.shape[0] * q.shape[2] <= WGMMA_MAX_HEADS \
+            and all(t.data_ptr() % 16 == 0 for t in (q, k, v)):
+        return "tma_wgmma"
+    return "mma_sync"
+
+
+def split_keys(B: int, S: int, H: int, sm_count: int) -> bool:
+    """Whether the ``tma_wgmma`` kernel splits each query tile's key tiles
+    between its two consumer warpgroups: where one 64-row warpgroup per
+    query tile, B * H * ceil(S / 64) of them, would fill less than two
+    waves of the card's SMs.  Else each block's two warpgroups take two
+    query tiles and share every K / V tile."""
+    return B * H * -(-S // ROWS) < 2 * sm_count
 
 
 def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -83,12 +122,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 B, S, H, k.shape[2], D, D ** -0.5, int(causal),
-                 0 if window is None else int(window),
-                 int(q.dtype == torch.bfloat16), *build.stream_of(q.device))
-    if err != 0:
-        raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
+    kind = variant(q, k, v)
+    index, stream = build.stream_of(q.device)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
+            H, k.shape[2], D, D ** -0.5, int(causal),
+            0 if window is None else int(window))
+    if kind == "tma_wgmma":
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        err = _lib("flash_attention_wgmma_launch")(
+            *args, int(split_keys(B, S, H, sms)), index, stream)
+    else:
+        err = _lib("flash_attention_launch")(
+            *args, int(q.dtype == torch.bfloat16), index, stream)
+    build.raise_on(f"flash_attention ({kind})", err)
     flash_attention.launches += 1
     return out
 

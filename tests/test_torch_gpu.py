@@ -344,3 +344,71 @@ def test_moe_gemm_kernel_on_misaligned_and_non_contiguous_tensors():
                                **ref.moe_gemm_tolerance(x, w))
     with pytest.raises(ValueError, match="contiguous"):
         ops.moe_gemm(x, w.transpose(1, 2).contiguous().transpose(1, 2))
+
+
+# ---------------------------------------------------------------------------
+# the TMA / wgmma kernels at the edges of their design
+# ---------------------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("E,C,d,f", [
+    (1, 256, 256, 256),      # one expert
+    (3, 1, 64, 256),         # one row of a 128-row tile
+    (2, 127, 512, 264),      # C one short of a tile; f 8 past a 256 tile
+    (2, 129, 512, 512),      # C one past a tile
+    (2, 1000, 1536, 504),    # ragged C and f
+    (4, 64, 8, 64),          # d = 8: a single partial 64-deep stage
+    (2, 256, 1536, 256)])    # 24 stages through a 3-stage ring, many wraps
+def test_moe_gemm_tma_kernel_at_its_edges(E, C, d, f):
+    _need_gpu()
+    from repro_torch.kernels import moe_gemm as mg
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(E * 7 + C + d + f)
+    x = torch.randn(E, C, d, generator=g).to("cuda", torch.bfloat16)
+    w = torch.randn(E, d, f, generator=g).to("cuda", torch.bfloat16)
+    assert mg.variant(x, w) == "tma_wgmma"
+    before = mg.moe_gemm.launches
+    got = ops.moe_gemm(x, w)
+    want = ref.moe_gemm_ref(x, w)
+    torch.cuda.synchronize()
+    assert mg.moe_gemm.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (E, C, f)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **ref.moe_gemm_tolerance(x, w))
+
+
+_FLASH_MASKS = [(False, None, 12, 12), (True, None, 12, 4), (True, 100, 12, 12),
+                (False, 40, 12, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal,window,H,KV", _FLASH_MASKS)
+@pytest.mark.parametrize("S", [1, 63, 65, 578, 1024])
+@pytest.mark.parametrize("B", [1, 8])
+def test_flash_attention_wgmma_kernel_at_its_edges(B, S, causal, window, H,
+                                                   KV):
+    """The key tiles split between two warpgroups (B = 1, and B = 8 at
+    S <= 65) and the full grid (B = 8 at S = 578 and 1024), causal, window
+    and GQA, D = 64 and 128."""
+    _need_gpu()
+    for D in (64, 128):
+        g = torch.Generator().manual_seed(B * S + D + H * KV)
+        q, k, v = (torch.randn(B, S, h, D, generator=g).to("cuda",
+                                                           torch.bfloat16)
+                   for h in (H, KV, KV))
+        assert fa.variant(q, k, v) == "tma_wgmma"
+        before = fa.flash_attention.launches
+        got = ops.flash_attention(q, k, v, causal=causal, window=window)
+        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        assert fa.flash_attention.launches == before + 1
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **ref.flash_attention_tolerance(want, v))
+
+
+def test_flash_edge_cases_take_both_paths():
+    """The parameters above reach both the split-key and the full-grid
+    path on a 132-SM card (decided on the CPU)."""
+    paths = {fa.split_keys(B, S, 12, 132) for B in (1, 8)
+             for S in (1, 63, 65, 578, 1024)}
+    assert paths == {True, False}

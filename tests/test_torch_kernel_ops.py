@@ -29,6 +29,7 @@ from repro.core import jax_queue as jq
 from repro.kernels import ops as jops
 from repro.models.common import rms_norm as jax_rms_norm
 from repro_torch.kernels import admission, build, ops, ref
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import moe_gemm as mg
 from repro_torch.kernels import rmsnorm as rn
 from repro_torch.models.common import rms_norm
@@ -410,3 +411,69 @@ def test_cpu_runs_plain_versions_and_kernels_refuse_cpu(monkeypatch):
         rn.rmsnorm(x, s)
     with pytest.raises(ValueError, match="CUDA"):
         mg.moe_gemm(xe, we)
+
+
+# ---------------------------------------------------------------------------
+# the kernel variants: chosen by the wrappers from dtype, shape and
+# alignment before any launch (no CUDA needed to decide)
+# ---------------------------------------------------------------------------
+def _shaped(shape, dtype=torch.bfloat16, offset=0):
+    """A tensor of ``shape`` over one small allocation (stride 0), its
+    data pointer ``offset`` elements into the allocation."""
+    return torch.empty(offset + 1, dtype=dtype)[offset:].expand(*shape)
+
+
+@pytest.mark.parametrize("E,C,d,f", [(40, 1024, 1536, 512),
+                                     (40, 1024, 512, 1536),
+                                     (40, 1000, 1536, 504), (1, 1, 8, 8)])
+def test_moe_gemm_variant_is_tma_where_a_tensor_map_fits(E, C, d, f):
+    """Granite-3.0 MoE gate/up and down, ragged C with f = 504, one slice."""
+    assert mg.variant(_shaped((E, C, d)), _shaped((E, d, f))) == "tma_wgmma"
+
+
+@pytest.mark.parametrize("d,f,x_off,w_off", [(1536, 500, 0, 0),
+                                             (1539, 512, 0, 0),
+                                             (1536, 512, 1, 0),
+                                             (1536, 512, 0, 1), (4, 64, 0, 0)])
+def test_moe_gemm_variant_is_mma_sync_where_it_does_not(d, f, x_off, w_off):
+    """A ragged f (500), an odd d (1539), a view 2 bytes off 16-byte
+    alignment, d below one 8-wide row of a tensor map."""
+    x = _shaped((40, 1000, d), offset=x_off)
+    w = _shaped((40, d, f), offset=w_off)
+    assert mg.variant(x, w) == "mma_sync"
+
+
+def test_moe_gemm_variant_of_f32_is_simt():
+    x, w = _shaped((40, 1024, 1536), torch.float32), \
+        _shaped((40, 1536, 512), torch.float32)
+    assert mg.variant(x, w) == "f32_simt"
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_variant_is_tma_at_d64_and_d128(D):
+    q, k = _shaped((8, 578, 12, D)), _shaped((8, 578, 4, D))
+    assert fa.variant(q, k, k) == "tma_wgmma"
+
+
+@pytest.mark.parametrize("B,D,offset,dtype", [(2, 80, 0, torch.bfloat16),
+                                              (2, 32, 0, torch.bfloat16),
+                                              (2, 64, 1, torch.bfloat16),
+                                              (16384, 64, 0, torch.bfloat16),
+                                              (2, 64, 0, torch.float32)])
+def test_flash_variant_elsewhere(B, D, offset, dtype):
+    """ViT-H/14's D = 80 and D = 32 stay on mma_sync, as do a view 2 bytes
+    off alignment and B * H = 65536 (past the tma_wgmma grid); f32 takes
+    the scalar kernel."""
+    q = _shaped((B, 130, 4, D), dtype, offset)
+    k = _shaped((B, 130, 4, D), dtype)
+    want = "f32_simt" if dtype == torch.float32 else "mma_sync"
+    assert fa.variant(q, k, k) == want
+    assert fa.variant(k, q, k) == want
+
+
+@pytest.mark.parametrize("B,split", [(1, True), (2, True), (3, False),
+                                     (5, False), (8, False)])
+def test_flash_splits_keys_below_two_waves(B, split):
+    """DeiT-B at 384 px (S = 578, 12 heads) on 132 SMs: B * 12 * 10
+    warpgroup tiles against 264."""
+    assert fa.split_keys(B, 578, 12, 132) is split

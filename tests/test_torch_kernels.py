@@ -233,3 +233,34 @@ def test_failed_build_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc failed"):
         build.build("event_select")
     assert list(tmp_path.iterdir()) == []
+
+
+def test_library_name_hashes_the_headers_a_source_includes(monkeypatch,
+                                                           tmp_path):
+    """An edit of csrc/hopper.cuh renames the libraries of the sources that
+    include it, so no stale build loads; a source without it keeps its
+    name.  Needs no nvcc: only the names are computed."""
+    import shutil
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "b"))
+    names = ("moe_gemm", "flash_attention", "rmsnorm")
+    before = {n: build._library(n) for n in names}
+    assert build._sources("moe_gemm") == [csrc / "moe_gemm.cu",
+                                          csrc / "hopper.cuh"]
+    header = csrc / "hopper.cuh"
+    header.write_text(header.read_text() + "\n// an edit\n")
+    after = {n: build._library(n) for n in names}
+    assert after["moe_gemm"] != before["moe_gemm"]
+    assert after["flash_attention"] != before["flash_attention"]
+    assert after["rmsnorm"] == before["rmsnorm"]
+
+
+def test_launch_errors_name_a_failed_tensor_map_encode():
+    build.raise_on("k", 0)
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        build.raise_on("k", 700)
+    with pytest.raises(RuntimeError, match="tensor-map encode failed "
+                                           r"\(CUresult 1\)"):
+        build.raise_on("k", build.ENCODE_ERROR + 1)
