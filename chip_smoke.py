@@ -12,6 +12,9 @@ final line:
              ``fleet_feasibility`` and ``link_cost`` —, ``rmsnorm``,
              ``moe_gemm``), one process each, started together, and prints
              ``ptxas``'s registers, shared memory and spills of each kernel;
+             then one ``rmsnorm`` call at each shape of phase 5c, f32 and
+             bf16 with the scale in x's dtype, shown to run one device
+             kernel (profiled here, before anything else is profiled);
 3. fleet   — the event-time fleet simulator (``repro_torch.fleetsim.
              simulate``, seed 0, full mesh, campus pricing,
              ``batched_feasible``):
@@ -34,7 +37,7 @@ final line:
                 sweep (causal / window / GQA, S in {1, 63, 65, 127, 129,
                 578, 1024}, D in {64, 80, 128}, f32 and bf16: every variant
                 of the wrapper, ``tma_wgmma`` with and without split keys,
-                ``mma_sync`` and ``f32_simt``), held to
+                ``mma_sync`` and ``f32_regtile``), held to
                 ``ref.flash_attention_tolerance``, a tolerance scaled to
                 each case;
              b. DeiT-B logits (seeded weights, two seeded images at 224
@@ -59,8 +62,10 @@ final line:
                 (S=578, 12 heads, D=64, bf16), with its variant, beside the
                 plain version's, ``scaled_dot_product_attention``'s (the
                 yardstick; the port never calls it), their ratio and the
-                bound; the f32 kernel and SDPA in f32 at B=8; where the
-                device time of one 384-px batch of 8 goes;
+                bound; the f32 kernel at B=1 and B=8 beside its plain
+                version, SDPA in f32, their ratio and its bound at the
+                f32 peak outside the tensor cores; where the device time
+                of one 384-px batch of 8 goes;
                 the engine's measured step times per class and batch
                 size;
 5. entry points — the kernels that only ``repro_torch.kernels.ops`` reaches
@@ -94,7 +99,12 @@ final line:
                 time beside its plain version's, the one PyTorch call that
                 computes the same function where there is one
                 (``F.rms_norm``, ``torch.bmm``; timed only, never called by
-                the port), the ratio of the two and the bound;
+                the port), the ratio of the two and the bound; ``rmsnorm``
+                and ``F.rms_norm`` twice, warm (the same input every call,
+                as L2 keeps it) and with L2 cold (each call on the next of
+                as many input copies as exceed the 50 MB L2 twice over,
+                rotated inside the graph), each pair timed in turns
+                (kernel, library, library, kernel; the better of two each);
 6. the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX or of the JAX package.
@@ -104,6 +114,7 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import hashlib
+import itertools
 import json
 import os
 import subprocess
@@ -226,6 +237,31 @@ def graph_ms(fn, reps: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+L2_BYTES = 50e6                    # H100 SXM L2 cache
+
+
+def cold_ms(fn, inputs) -> float:
+    """Device time per call with L2 cold for the inputs: one call on each
+    of as many copies of ``inputs`` as exceed twice the L2, captured in
+    one CUDA graph in turn, replayed under CUDA events (each call finds
+    its copy evicted by the others')."""
+    nbytes = sum(t.numel() * t.element_size() for t in inputs)
+    n = max(2, -(-int(2 * L2_BYTES) // nbytes))
+    copies = [tuple(t.clone() for t in inputs) for _ in range(n)]
+    order = itertools.cycle(copies)
+    ms = graph_ms(lambda: fn(*next(order)), n)
+    del copies
+    return ms
+
+
+def in_turns(time_a, time_b):
+    """Two timings compared in turns, a, b, b, a, each the better of its
+    two: the first timing after other work can find L2 and the clocks in
+    another state, which at a few microseconds a call shows."""
+    a1, b1, b2, a2 = time_a(), time_b(), time_b(), time_a()
+    return min(a1, a2), min(b1, b2)
 
 
 class Spy:
@@ -671,10 +707,12 @@ def bound(bytes_ms, ops_ms):
 
 
 def flash_bound_ms(B, S, H, KV, D, itemsize):
-    """Least time for one call: 4*B*H*S^2*D FLOPs at the bf16 tensor-core
-    peak, or q, k, v read once and out written once at the HBM rate,
+    """Least time for one call: 4*B*H*S^2*D FLOPs at the dtype's peak (bf16
+    on the tensor cores; f32 outside them, since TF32 would round the
+    inputs), or q, k, v read once and out written once at the HBM rate,
     whichever is larger."""
-    ops_ms = 4 * B * H * S * S * D / BF16_FLOP_PER_S * 1e3
+    peak = BF16_FLOP_PER_S if itemsize == 2 else F32_FLOP_PER_S
+    ops_ms = 4 * B * H * S * S * D / peak * 1e3
     bytes_ms = B * S * (2 * H + 2 * KV) * D * itemsize / HBM_BYTES_PER_S * 1e3
     return bound(bytes_ms, ops_ms)
 
@@ -715,8 +753,10 @@ def flash_times(q, k, v, reps=100) -> dict:
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    row = dict(B=B, S=S, H=H, D=D, variant=fa_mod.variant(q, k, v),
-               split=fa_mod.split_keys(B, S, H, sms),
+    kind = fa_mod.variant(q, k, v)
+    row = dict(B=B, S=S, H=H, D=D, dtype=str(q.dtype)[6:], variant=kind,
+               split=fa_mod.split_keys(B, S, H, sms)
+               if kind == "tma_wgmma" else None,
                ms=graph_ms(lambda: fa_mod.flash_attention(
                    q, k, v, causal=False), reps),
                plain_ms=graph_ms(lambda: ref.flash_attention_ref(
@@ -730,8 +770,8 @@ def flash_times(q, k, v, reps=100) -> dict:
 
 def print_flash_row(label, row):
     print(f"vision kernel time {label} B={row['B']} S={row['S']} "
-          f"H={row['H']} D={row['D']} ({row['variant']}, split keys "
-          f"{row['split']}): {row['ms'] * 1e3:.2f} us, plain "
+          f"H={row['H']} D={row['D']} {row['dtype']} ({row['variant']}, "
+          f"split keys {row['split']}): {row['ms'] * 1e3:.2f} us, plain "
           f"{row['plain_ms'] * 1e3:.2f} us, SDPA "
           f"{row['library_ms'] * 1e3:.2f} us, kernel / SDPA "
           f"{row['ratio']:.3f}, bound {row['bound_ms'] * 1e3:.2f} us "
@@ -846,19 +886,15 @@ def vision_phase(dev):
     row = flash_times(q, k, v)
     row["ms_eager"] = timed_ms(lambda: fa_mod.flash_attention(
         q, k, v, causal=False), 100)
-    q32, k32, v32 = (x.float() for x in (q, k, v))
-    row["ms_f32"] = graph_ms(lambda: fa_mod.flash_attention(
-        q32, k32, v32, causal=False), 20)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q32, k32, v32))
-    row["library_ms_f32"] = graph_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt),
-        20)
     rows.append(row)
     print_flash_row("bf16", row)
-    print(f"vision kernel time B={B}: eager {row['ms_eager'] * 1e3:.2f} us; "
-          f"f32 kernel (f32_simt) {row['ms_f32'] * 1e3:.2f} us, SDPA f32 "
-          f"{row['library_ms_f32'] * 1e3:.2f} us, kernel / SDPA "
-          f"{row['ms_f32'] / row['library_ms_f32']:.3f}", flush=True)
+    print(f"vision kernel time B={B}: eager {row['ms_eager'] * 1e3:.2f} us",
+          flush=True)
+    # the f32 kernel (the f32 logits check's) at B=1 and at B=8
+    for qf, kf, vf in ((x[:1].float() for x in (q, k, v)),
+                       (x.float() for x in (q, k, v))):
+        rows.append(flash_times(qf, kf, vf, reps=20))
+        print_flash_row("f32", rows[-1])
 
     wall_us, kinds = batch_breakdown(params, cfg, frames[0])
     total = sum(kinds.values())
@@ -1165,7 +1201,38 @@ def drive_entry_points(dev, fleet):
     return launches
 
 
-def entry_times(dev, kept, fleet):
+def rmsnorm_device_kernels(dev) -> dict:
+    """Phase 2b: the device kernels one ``rmsnorm`` call runs at each of
+    ``RMSNORM_SHAPES``, f32 and bf16 with the scale in x's dtype, which
+    must be one (the kernel reads the scale in its own dtype: no cast
+    beside it).  Profiled before anything else in the run is.
+    Returns the counts."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+    counts = {}
+    for R, d in RMSNORM_SHAPES:
+        for dt in (torch.bfloat16, torch.float32):
+            x, s = rmsnorm_inputs(R, d, dt, dev)
+            rn_mod.rmsnorm(x, s)                       # built and warm
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA],
+                         acc_events=True) as prof:
+                rn_mod.rmsnorm(x, s)
+                torch.cuda.synchronize()
+            names = {e.key: e.count for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA}
+            if sum(names.values()) != 1:
+                fail(f"rmsnorm ({R}, {d}) {dt} with a {s.dtype} scale ran "
+                     f"device kernels {names}, not one")
+            counts[(R, d, dt)] = 1
+    print(f"entry kernels: one rmsnorm call is one device kernel at (R, d) "
+          f"{RMSNORM_SHAPES}, f32 and bf16, the scale in x's dtype "
+          f"(profiled)", flush=True)
+    return counts
+
+
+def entry_times(dev, kept, fleet, one_kernel):
     """Phase 5e: graph-replayed times of each kernel, its plain version
     and the library call where one computes the same function, with the
     bound, at the checked shapes.  Returns rows per kernel."""
@@ -1190,16 +1257,25 @@ def entry_times(dev, kept, fleet):
                 library_ms=None,
                 bound_ms=admission_bound_ms(K, N, kernel == "link_cost"),
                 bound_by="bytes"))
+    lib = torch.nn.functional.rms_norm
     for R, d in RMSNORM_SHAPES:
         for dt in (torch.bfloat16, torch.float32):
             x, s = rmsnorm_inputs(R, d, dt, dev)
             weight = (1.0 + s.float()).to(dt)
-            lib = torch.nn.functional.rms_norm
-            row = dict(R=R, d=d, dtype=str(dt)[6:],
-                       ms=graph_ms(lambda: rn_mod.rmsnorm(x, s), 200),
+            ms, library_ms = in_turns(
+                lambda: graph_ms(lambda: rn_mod.rmsnorm(x, s), 200),
+                lambda: graph_ms(lambda: lib(x, (d,), weight=weight,
+                                             eps=rn_mod.EPS), 200))
+            ms_cold, library_ms_cold = in_turns(
+                lambda: cold_ms(rn_mod.rmsnorm, (x, s)),
+                lambda: cold_ms(lambda xc, wc: lib(
+                    xc, (d,), weight=wc, eps=rn_mod.EPS), (x, weight)))
+            row = dict(R=R, d=d, dtype=str(dt)[6:], ms=ms,
                        plain_ms=graph_ms(lambda: ref.rmsnorm_ref(x, s), 50),
-                       library_ms=graph_ms(lambda: lib(
-                           x, (d,), weight=weight, eps=rn_mod.EPS), 200))
+                       library_ms=library_ms, ms_cold=ms_cold,
+                       library_ms_cold=library_ms_cold,
+                       device_kernels=one_kernel[(R, d, dt)])
+            row["ratio_cold"] = row["ms_cold"] / row["library_ms_cold"]
             row["bound_ms"], row["bound_by"] = rmsnorm_bound_ms(
                 R, d, x.element_size())
             rows["rmsnorm"].append(row)
@@ -1223,10 +1299,15 @@ def entry_times(dev, kept, fleet):
             r["ratio"] = None if r["library_ms"] is None \
                 else r["ms"] / r["library_ms"]
             shape = ", ".join(f"{k}={v}" for k, v in r.items()
-                              if not k.endswith(("ms", "_by", "ratio")))
+                              if not k.endswith(("ms", "_by", "ratio",
+                                                 "_cold")))
             lib = "none" if r["library_ms"] is None \
                 else (f"{r['library_ms'] * 1e3:.2f} us, kernel / library "
                       f"{r['ratio']:.3f}")
+            if "ms_cold" in r:
+                lib += (f"; L2 cold: kernel {r['ms_cold'] * 1e3:.2f} us, "
+                        f"library {r['library_ms_cold'] * 1e3:.2f} us, "
+                        f"kernel / library {r['ratio_cold']:.3f}")
             print(f"entry kernel time {name} {shape}: {r['ms'] * 1e3:.2f} us, "
                   f"plain {r['plain_ms'] * 1e3:.2f} us, library {lib}, bound "
                   f"{r['bound_ms'] * 1e3:.3f} us ({r['bound_by']})",
@@ -1234,7 +1315,7 @@ def entry_times(dev, kept, fleet):
     return rows
 
 
-def entry_point_phase(dev, kept):
+def entry_point_phase(dev, kept, one_kernel):
     """Phase 5; returns the kernels-line entries of the four kernels."""
     torch.backends.cuda.matmul.allow_tf32 = False
     errs = admission_checks(dev, kept)
@@ -1242,7 +1323,7 @@ def entry_point_phase(dev, kept):
     errs["moe_gemm"] = moe_checks(dev)
     fleet = random_ledgers(np.random.default_rng(6), 256, 1024, True, dev)
     launches = drive_entry_points(dev, fleet)
-    rows = entry_times(dev, kept, fleet)
+    rows = entry_times(dev, kept, fleet, one_kernel)
     out = {}
     for name in ENTRY_POINTS:
         top = next(r for r in rows[name]
@@ -1284,6 +1365,9 @@ def main() -> int:
             print(f"build: {name} {fut.result():.2f} s", flush=True)
             print(build.ptxas_report(name), end="", flush=True)
 
+    # -- 2b. one rmsnorm call, one device kernel (the first profiled)
+    one_kernel = rmsnorm_device_kernels(dev)
+
     # -- 3. the fleet simulator, 4. the vision serving path; the entry-point
     # kernels must not launch there
     for fn in ENTRY_POINTS.values():
@@ -1302,7 +1386,7 @@ def main() -> int:
 
     # -- 5. the entry points
     t0 = time.time()
-    entries.update(entry_point_phase(dev, kept))
+    entries.update(entry_point_phase(dev, kept, one_kernel))
     print(f"entry-point phase: {time.time() - t0:.1f} s", flush=True)
     for name in ENTRY_POINTS:
         entries[name]["launches_fleet_vision"] = on_paths[name]

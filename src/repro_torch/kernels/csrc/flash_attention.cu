@@ -65,9 +65,25 @@
 //     products of bf16 values are exact in f32, as in the reference's f32
 //     dot), V stored transposed so its B fragments are 32-bit loads;
 //     output rows staged through the Q tile for coalesced stores.
-//   * f32_simt (f32): one thread per query row with m, l and acc[DP] in
-//     registers, scalar fmaf products against 32-key tiles read as float4
-//     broadcasts (the tensor cores would round f32 inputs to TF32).
+//   * f32_regtile (f32, every shape and alignment): register tiles on the
+//     FMA pipes (the tensor cores would round f32 inputs to TF32).  A
+//     block of 128 threads owns 64 query rows of one (batch, head); Q is
+//     staged once in shared memory, and K / V tiles of 64 keys (32 at D =
+//     128) come in through cp.async (16 bytes a copy, 4 where D % 4 != 0
+//     or a view is off alignment; zero-filled past S and D) as two groups
+//     in flight: the next K tile loads while this tile's P V runs, the
+//     next V tile while the next Q K^T and softmax run.  Each thread
+//     holds a 4 x 8 micro-tile of S (4 x 4 at D = 128): per 4-deep d step,
+//     4 Q and 8 K float4 reads feed 128 FMAs, where the scalar kernel it
+//     replaces read one float4 of K for every 4 FMAs and stalled on its
+//     loads, which no computation overlapped.  Each score stays one fmaf
+//     chain over d in ascending order.  The row max and sum go over the 8
+//     lanes that share a row by shuffles, P goes to shared memory once a
+//     tile, and O is a 4-row x D/8-column register tile accumulated from
+//     P and V (p unrounded: v is f32).  Only a tile that a mask reaches is
+//     masked element by element.  One K and one V buffer (68 KB of shared
+//     memory at D = 64, 75 KB at D = 128) and at most 170 registers a
+//     thread (__launch_bounds__) let three blocks share an SM at D = 64.
 //
 // Bound on this card, at the serving path's shape (B=8, S=578, H=KV=12,
 // D=64, bf16): 4*B*H*S^2*D = 8.21 GFLOP, 8.3 us at the 989 TFLOP/s bf16
@@ -76,15 +92,18 @@
 // kernel's products take a small share of its time: the softmax's
 // instructions between the two products and the wgmma latency within a
 // warpgroup hold it (at 96 registers ptxas serialises the wgmma groups);
-// PERF.md has the measurements.
+// PERF.md has the measurements.  In f32 the same 8.21 GFLOP at 67 TFLOP/s
+// outside the tensor cores take 122.5 us (operations; the 56.8 MB take
+// 17.0 us); f32_regtile computes 640 x 640 padded scores a (batch, head)
+// where 578 x 578 are needed, 1.23x the work.
 //
 // Arithmetic.  Built with --fmad=false like every kernel of the port:
 // the f32 dot products are explicit fmaf chains over d in ascending
 // order; the divisions are the IEEE-accurate forms (no fast math).  The
-// f32 and mma_sync kernels use the accurate expf; tma_wgmma computes exp
-// through ex2.approx (relative error ~2^-22, far below the bf16 rounding
-// of p).  The summation order differs from XLA's, so the kernels agree
-// with the plain version to rounding, not bit for bit.
+// f32_regtile and mma_sync kernels use the accurate expf; tma_wgmma
+// computes exp through ex2.approx (relative error ~2^-22, far below the
+// bf16 rounding of p).  The summation order differs from XLA's, so the
+// kernels agree with the plain version to rounding, not bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -99,175 +118,286 @@ namespace {
 constexpr float kNeg = -1e30f;   // the reference's finite mask value
 
 // ---------------------------------------------------------------------------
-// f32: one thread per query row, scalar fused multiply-adds
+// f32 (f32_regtile): register tiles on the FMA pipes, cp.async ring of 2
 // ---------------------------------------------------------------------------
-constexpr int kBQ = 64;          // query rows per CTA, one thread each
-constexpr int kBK = 32;          // keys per KV tile
+namespace rt {
+
+constexpr int kRows = 64;        // query rows a block
+constexpr int kThreads = 128;    // 16 row groups x 8 key / column groups
 
 template <int DP>
-constexpr size_t smem_bytes() {
-  return (static_cast<size_t>(kBQ) * (DP + 1) + 2 * kBK * DP +
-          kBQ * (kBK + 1)) * sizeof(float);
+struct Tiles {
+  static constexpr int kKeys = DP <= 64 ? 64 : 32;   // keys a K / V tile
+  static constexpr int kKpt = kKeys / 8;             // keys a thread scores
+  static constexpr int kGroups = DP / 32;            // float4 columns of O
+  static constexpr int kLd = DP + 4;       // floats between rows of Q, K, V
+  static constexpr int kPLd = kRows + 4;   // floats between keys of P
+  static constexpr int kTile = kKeys * kLd;
+  static constexpr size_t kSmem =
+      (static_cast<size_t>(kRows) * kLd + 2 * kTile + kKeys * kPLd) *
+      sizeof(float);
+};
+
+// N rows from row r0 of one head of a (B, S, heads, D) tensor (src: the
+// head's row 0, rows `stride` floats apart) into a tile of DP-float rows
+// kLd apart, zero past S and past D; VEC floats a copy
+template <int VEC, int DP, int N>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          size_t stride, int r0, int S,
+                                          int D) {
+  constexpr int kChunks = DP / VEC;
+#pragma unroll 4
+  for (int e = threadIdx.x; e < N * kChunks; e += kThreads) {
+    const int r = e / kChunks;
+    const int c = (e - r * kChunks) * VEC;
+    const bool in = r0 + r < S && c < D;
+    hopper::cp_async<VEC>(
+        dst + r * Tiles<DP>::kLd + c,
+        in ? src + static_cast<size_t>(r0 + r) * stride + c : src, in);
+  }
 }
 
-template <int DP>
-__global__ void __launch_bounds__(kBQ)
+// A block owns 64 query rows of one (batch, head); thread (rg, kg) of the
+// 16 x 8 owns rows rg + 16 i (i < 4), scores keys kg + 8 j of each tile
+// and accumulates output columns g * 32 + kg * 4 + e.  Those strides keep
+// every shared-memory read of a warp to distinct banks or broadcasts.
+template <int DP, int VEC>
+__global__ void __launch_bounds__(kThreads, 3)
 flash_attention_f32_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ o,
                            int S, int H, int KV, int D, float scale,
                            int causal, int window) {
+  using L = Tiles<DP>;
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                      // kBQ x (DP + 1): Q tile, then out
-  float* ks = qs + kBQ * (DP + 1);       // kBK x DP
-  float* vs = ks + kBK * DP;             // kBK x DP
-  float* ps = vs + kBK * DP;             // kBQ x (kBK + 1): p
+  float* qs = smem;                       // kRows x kLd
+  float* ks = qs + kRows * L::kLd;        // kKeys x kLd
+  float* vs = ks + L::kTile;              // kKeys x kLd
+  float* ps = vs + L::kTile;              // p[key][rg * 4 + i], kPLd a key
 
-  const int tid = threadIdx.x;
+  const int kg = threadIdx.x & 7;
+  const int rg = threadIdx.x >> 3;
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh - b * H;
   const int kvh = h / (H / KV);
-  const int q0 = blockIdx.y * kBQ;
-  const int qp = q0 + tid;
+  const int q0 = blockIdx.y * kRows;
+  const size_t kv_stride = static_cast<size_t>(KV) * D;
+  const float* qh = q + (static_cast<size_t>(b) * S * H + h) * D;
+  const float* kh = k + (static_cast<size_t>(b) * S * KV + kvh) * D;
+  const float* vh = v + (static_cast<size_t>(b) * S * KV + kvh) * D;
 
-  for (int e = tid; e < kBQ * DP; e += kBQ) {
-    const int r = e / DP, c = e - r * DP;
-    const int s = q0 + r;
-    float x = 0.0f;
-    if (s < S && c < D)
-      x = q[((static_cast<size_t>(b) * S + s) * H + h) * D + c];
-    qs[r * (DP + 1) + c] = x;
+  // two cp.async groups in flight: K of a tile loads while the previous
+  // tile's P V runs, V while this tile's Q K^T and softmax run
+  load_tile<VEC, DP, kRows>(qs, qh, static_cast<size_t>(H) * D, q0, S, D);
+  load_tile<VEC, DP, L::kKeys>(ks, kh, kv_stride, 0, S, D);
+  hopper::cp_async_commit();
+  load_tile<VEC, DP, L::kKeys>(vs, vh, kv_stride, 0, S, D);
+  hopper::cp_async_commit();
+
+  float acc[4][4 * L::kGroups];
+  float m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNeg;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 4 * L::kGroups; ++c) acc[i][c] = 0.0f;
   }
 
-  float acc[DP];
-#pragma unroll
-  for (int d = 0; d < DP; ++d) acc[d] = 0.0f;
-  float m = kNeg, l = 0.0f;
-  const float* qrow = qs + tid * (DP + 1);   // stride DP + 1: no bank conflicts
-  float* prow = ps + tid * (kBK + 1);
+  const int n_tiles = (S + L::kKeys - 1) / L::kKeys;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * L::kKeys;
+    const int k_next = k0 + L::kKeys;
+    hopper::cp_async_wait<1>();
+    __syncthreads();   // K of tile t is in; P is free
 
-  for (int k0 = 0; k0 < S; k0 += kBK) {
-    __syncthreads();          // Q tile written / previous K, V tile consumed
-    for (int e = tid; e < kBK * DP; e += kBQ) {
-      const int r = e / DP, c = e - r * DP;
-      const int s = k0 + r;
-      float kx = 0.0f, vx = 0.0f;
-      if (s < S && c < D) {
-        const size_t off = ((static_cast<size_t>(b) * S + s) * KV + kvh) * D + c;
-        kx = k[off];
-        vx = v[off];
-      }
-      ks[e] = kx;
-      vs[e] = vx;
-    }
-    __syncthreads();
-
-    // scores of this row against the tile's keys
-    float sc[kBK];
+    // each score one fmaf chain over d in ascending order
+    float sc[4][L::kKpt];
 #pragma unroll
-    for (int j = 0; j < kBK; ++j) sc[j] = 0.0f;
-#pragma unroll 2
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < L::kKpt; ++j) sc[i][j] = 0.0f;
+    // -- Q K^T products
+#pragma unroll 4
     for (int d = 0; d < DP; d += 4) {
-      const float a0 = qrow[d], a1 = qrow[d + 1], a2 = qrow[d + 2],
-                  a3 = qrow[d + 3];
+      float4 a[4];
 #pragma unroll
-      for (int j = 0; j < kBK; ++j) {
-        const float4 kk = *reinterpret_cast<const float4*>(ks + j * DP + d);
-        float t = sc[j];
-        t = fmaf(a0, kk.x, t);
-        t = fmaf(a1, kk.y, t);
-        t = fmaf(a2, kk.z, t);
-        t = fmaf(a3, kk.w, t);
-        sc[j] = t;
+      for (int i = 0; i < 4; ++i)
+        a[i] = *reinterpret_cast<const float4*>(qs + (rg + 16 * i) * L::kLd +
+                                                d);
+#pragma unroll
+      for (int j = 0; j < L::kKpt; ++j) {
+        const float4 kk =
+            *reinterpret_cast<const float4*>(ks + (kg + 8 * j) * L::kLd + d);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float s = sc[i][j];
+          s = fmaf(a[i].x, kk.x, s);
+          s = fmaf(a[i].y, kk.y, s);
+          s = fmaf(a[i].z, kk.z, s);
+          s = fmaf(a[i].w, kk.w, s);
+          sc[i][j] = s;
+        }
       }
+    }
+    // -- end Q K^T
+
+    // scale, mask, online softmax; a row's scores lie with the 8 lanes of
+    // its row group, which reduce by shuffles.  Masks element by element
+    // only where one reaches the tile: its keys past S, or past the
+    // diagonal or outside the window of a row of the block (rows past S
+    // are never stored, so they need no mask of their own)
+    const bool whole = k0 + L::kKeys <= S &&
+                       (!causal || k0 + L::kKeys - 1 <= q0) &&
+                       (window <= 0 || q0 + kRows - 1 - k0 < window);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qp = q0 + rg + 16 * i;
+      float m_cur = kNeg;
+#pragma unroll
+      for (int j = 0; j < L::kKpt; ++j) {
+        if (whole) {
+          sc[i][j] *= scale;
+        } else {
+          const int kp = k0 + kg + 8 * j;
+          bool ok = qp < S && kp < S;
+          if (causal) ok = ok && qp >= kp;
+          if (window > 0) ok = ok && qp - kp < window;
+          sc[i][j] = ok ? sc[i][j] * scale : kNeg;
+        }
+        m_cur = fmaxf(m_cur, sc[i][j]);
+      }
+#pragma unroll
+      for (int x = 1; x < 8; x <<= 1)
+        m_cur = fmaxf(m_cur, __shfl_xor_sync(0xffffffffu, m_cur, x));
+      const float m_new = fmaxf(m[i], m_cur);
+      const float alpha = expf(m[i] - m_new);
+      float psum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < L::kKpt; ++j) {
+        sc[i][j] = expf(sc[i][j] - m_new);   // v is f32: p needs no rounding
+        psum += sc[i][j];
+      }
+#pragma unroll
+      for (int x = 1; x < 8; x <<= 1)
+        psum += __shfl_xor_sync(0xffffffffu, psum, x);
+      l[i] = l[i] * alpha + psum;
+#pragma unroll
+      for (int c = 0; c < 4 * L::kGroups; ++c) acc[i][c] *= alpha;
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < L::kKpt; ++j)
+      *reinterpret_cast<float4*>(ps + (kg + 8 * j) * L::kPLd + rg * 4) =
+          make_float4(sc[0][j], sc[1][j], sc[2][j], sc[3][j]);
+    hopper::cp_async_wait<0>();
+    __syncthreads();   // P is complete, V of tile t is in, K is free
+    if (k_next < S) {
+      load_tile<VEC, DP, L::kKeys>(ks, kh, kv_stride, k_next, S, D);
+      hopper::cp_async_commit();
     }
 
-    // scale, mask, online softmax
-    float m_cur = kNeg;
+    // -- P V products
+#pragma unroll 4
+    for (int j = 0; j < L::kKeys; ++j) {
+      const float4 p4 =
+          *reinterpret_cast<const float4*>(ps + j * L::kPLd + rg * 4);
+      const float p[4] = {p4.x, p4.y, p4.z, p4.w};
 #pragma unroll
-    for (int j = 0; j < kBK; ++j) {
-      const int kp = k0 + j;
-      bool ok = qp < S && kp < S;
-      if (causal) ok = ok && qp >= kp;
-      if (window > 0) ok = ok && qp - kp < window;
-      sc[j] = ok ? sc[j] * scale : kNeg;
-      m_cur = fmaxf(m_cur, sc[j]);
-    }
-    const float m_new = fmaxf(m, m_cur);
-    const float alpha = expf(m - m_new);
-    float psum = 0.0f;
+      for (int g = 0; g < L::kGroups; ++g) {
+        const float4 vv = *reinterpret_cast<const float4*>(
+            vs + j * L::kLd + g * 32 + kg * 4);
 #pragma unroll
-    for (int j = 0; j < kBK; ++j) {
-      const float p = expf(sc[j] - m_new);
-      psum += p;
-      prow[j] = p;             // v is f32: p needs no rounding
-    }
-    l = l * alpha + psum;
-#pragma unroll
-    for (int d = 0; d < DP; ++d) acc[d] *= alpha;
-#pragma unroll 2
-    for (int j = 0; j < kBK; ++j) {
-      const float p = prow[j];
-#pragma unroll
-      for (int d = 0; d < DP; d += 4) {
-        const float4 vv = *reinterpret_cast<const float4*>(vs + j * DP + d);
-        acc[d] = fmaf(p, vv.x, acc[d]);
-        acc[d + 1] = fmaf(p, vv.y, acc[d + 1]);
-        acc[d + 2] = fmaf(p, vv.z, acc[d + 2]);
-        acc[d + 3] = fmaf(p, vv.w, acc[d + 3]);
+        for (int i = 0; i < 4; ++i) {
+          acc[i][4 * g] = fmaf(p[i], vv.x, acc[i][4 * g]);
+          acc[i][4 * g + 1] = fmaf(p[i], vv.y, acc[i][4 * g + 1]);
+          acc[i][4 * g + 2] = fmaf(p[i], vv.z, acc[i][4 * g + 2]);
+          acc[i][4 * g + 3] = fmaf(p[i], vv.w, acc[i][4 * g + 3]);
+        }
       }
     }
-    m = m_new;
+    // -- end P V
+    __syncthreads();   // V and P are free
+    if (k_next < S) {
+      load_tile<VEC, DP, L::kKeys>(vs, vh, kv_stride, k_next, S, D);
+      hopper::cp_async_commit();
+    }
   }
 
-  // normalise into this thread's own row of the Q tile (only it reads that
-  // row), then store the tile with neighbouring threads on neighbouring
-  // addresses
-  const float denom = fmaxf(l, 1e-30f);
-  float* orow = qs + tid * (DP + 1);
+  // acc / max(l, 1e-30), IEEE division, straight from registers: 8 lanes
+  // store 128 contiguous bytes of a row
 #pragma unroll
-  for (int d = 0; d < DP; ++d) orow[d] = acc[d] / denom;
-  __syncthreads();
-  for (int e = tid; e < kBQ * D; e += kBQ) {
-    const int r = e / D, c = e - r * D;
-    const int s = q0 + r;
-    if (s < S)
-      o[((static_cast<size_t>(b) * S + s) * H + h) * D + c] =
-          qs[r * (DP + 1) + c];
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + rg + 16 * i;
+    if (row >= S) continue;
+    const float denom = fmaxf(l[i], 1e-30f);
+    float* orow = o + ((static_cast<size_t>(b) * S + row) * H + h) * D;
+#pragma unroll
+    for (int g = 0; g < L::kGroups; ++g) {
+      const int c = g * 32 + kg * 4;
+      if constexpr (VEC == 4) {
+        if (c < D)
+          *reinterpret_cast<float4*>(orow + c) = make_float4(
+              acc[i][4 * g] / denom, acc[i][4 * g + 1] / denom,
+              acc[i][4 * g + 2] / denom, acc[i][4 * g + 3] / denom);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (c + e < D) orow[c + e] = acc[i][4 * g + e] / denom;
+      }
+    }
   }
 }
 
-template <int DP>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int S, int H, int KV, int D, float scale, int causal,
-               int window, cudaStream_t stream) {
-  auto kernel = flash_attention_f32_kernel<DP>;
-  const size_t smem = smem_bytes<DP>();
+template <int DP, int VEC>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
+           int H, int KV, int D, float scale, int causal, int window,
+           cudaStream_t stream) {
+  auto kernel = flash_attention_f32_kernel<DP, VEC>;
+  const size_t smem = Tiles<DP>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
-  kernel<<<grid, kBQ, smem, stream>>>(
+  const dim3 grid(B * H, (S + kRows - 1) / kRows);
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), S, H, KV, D,
       scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_f32_d(const void* q, const void* k, const void* v, void* o, int B,
-                 int S, int H, int KV, int D, float scale, int causal,
-                 int window, cudaStream_t stream) {
+// D padded to 32 / 64 / 128; 16-byte copies and stores where D % 4 == 0
+// and every tensor is 16-byte aligned, 4-byte ones otherwise
+template <int DP>
+int launch_vec(const void* q, const void* k, const void* v, void* o, int B,
+               int S, int H, int KV, int D, float scale, int causal,
+               int window, cudaStream_t stream) {
+  const uintptr_t ptrs =
+      reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+      reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
+  if (D % 4 == 0 && ptrs % 16 == 0)
+    return launch<DP, 4>(q, k, v, o, B, S, H, KV, D, scale, causal, window,
+                         stream);
+  return launch<DP, 1>(q, k, v, o, B, S, H, KV, D, scale, causal, window,
+                       stream);
+}
+
+int launch_d(const void* q, const void* k, const void* v, void* o, int B,
+             int S, int H, int KV, int D, float scale, int causal, int window,
+             cudaStream_t stream) {
   if (D <= 32)
-    return launch_f32<32>(q, k, v, o, B, S, H, KV, D, scale, causal, window,
+    return launch_vec<32>(q, k, v, o, B, S, H, KV, D, scale, causal, window,
                           stream);
   if (D <= 64)
-    return launch_f32<64>(q, k, v, o, B, S, H, KV, D, scale, causal, window,
+    return launch_vec<64>(q, k, v, o, B, S, H, KV, D, scale, causal, window,
                           stream);
-  return launch_f32<128>(q, k, v, o, B, S, H, KV, D, scale, causal, window,
+  return launch_vec<128>(q, k, v, o, B, S, H, KV, D, scale, causal, window,
                          stream);
 }
+
+}  // namespace rt
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores through mma.sync.m16n8k16 (f32 accumulation)
@@ -904,7 +1034,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int causal, int window, int is_bf16,
                                       int device, cudaStream_t stream) {
   if (B < 1 || S < 1 || H < 1 || KV < 1 || H % KV != 0 || D < 1 ||
-      D > 128 || (S + kBQ - 1) / kBQ > 65535)
+      D > 128 || (S + rt::kRows - 1) / rt::kRows > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   // this library links its own CUDA runtime, whose current device is not
   // PyTorch's: select the tensors' device before launching on its stream
@@ -913,7 +1043,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (is_bf16)
     return launch_bf16(q, k, v, o, B, S, H, KV, D, scale, causal, window,
                        stream);
-  return launch_f32_d(q, k, v, o, B, S, H, KV, D, scale, causal, window,
+  return rt::launch_d(q, k, v, o, B, S, H, KV, D, scale, causal, window,
                       stream);
 }
 

@@ -12,6 +12,8 @@
 //     wgmma with A from shared memory (N = 64, 128, 256) and with A from
 //     registers (N = 64, 128);
 //   * setmaxnreg;
+//   * cp.async of 16 or 4 bytes with zero fill, its commit and wait
+//     (the f32 flash_attention kernel);
 //   * on the host, cuTensorMapEncodeTiled, taken from the driver through
 //     the runtime's entry-point query, so the libraries link only cudart.
 //
@@ -157,6 +159,32 @@ __device__ __forceinline__ void bulk_wait_read() {
 template <int N>
 __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// cp.async: VEC floats (4: 16 bytes, .cg; 1: 4 bytes, .ca) global ->
+// shared, or VEC zeros where !in (src is then not read, but must be a
+// valid address)
+template <int VEC>
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         bool in) {
+  static_assert(VEC == 1 || VEC == 4, "cp.async copies 4 or 16 bytes");
+  const int bytes = in ? 4 * VEC : 0;
+  if constexpr (VEC == 4)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// waits until at most N cp.async groups of this thread are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // orders this thread's shared-memory writes before later async-proxy

@@ -1,43 +1,55 @@
 // rmsnorm for Hopper (sm_90a): row RMS normalisation scaled by (1 + scale).
 //
-// Replaces the TPU kernel repro/kernels/rmsnorm.py (_rmsnorm_kernel,
-// rmsnorm_fwd; pallas_call at :32).  It computes what that computes, and
-// what the plain version repro_torch/kernels/ref.py::rmsnorm_ref computes,
-// for x (R, d) in f32 or bf16 and an f32 scale (d,):
+// Replaces the TPU kernel repro/kernels/rmsnorm.py (_rmsnorm_kernel at
+// :16, rmsnorm_fwd at :23, pallas_call at :32).  It computes what that
+// computes, and what the plain version repro_torch/kernels/ref.py::
+// rmsnorm_ref computes, for x (R, d) in f32 or bf16 and scale (d,) in f32
+// or bf16:
 //
 //   out[r, c] = x[r, c] * 1 / sqrt(mean_c(x[r, c]^2) + eps) * (1 + scale[c])
 //
 // with every step in f32 and the result rounded once to x's dtype.
 //
 // Bound on this card: bytes.  A launch reads x once and writes out once
-// (2 R d times the element size, plus 4 d bytes of scale): at R = 4096,
-// d = 5376 in bf16, 88.1 MB, 26.3 us at 3.35 TB/s; its ~4 R d flops are
-// nothing beside that.  Design: the row is read from device memory once.
-// A row belongs to tpr threads (a power of two from 32 to 512, chosen so
-// that each thread holds at most kCache 16-byte vectors of it), and a
-// block holds 256 / tpr rows where rows are narrow, so that a block has at
-// least 256 threads; the TPU kernel's (256, d) row tiles in VMEM become
-// this.  Each thread loads its vectors into registers and sums their
-// squares; the sum is reduced over the warp with shuffles and over the
-// row's warps through shared memory; the second pass scales the values
-// held in registers and stores them.  Loads and stores are 16 bytes a
-// thread (8 bf16 or 4 f32) where d is a multiple of that width and the
-// pointers are 16-byte aligned, one element otherwise (d = 7, views that
-// start off alignment).  Rows longer than tpr * kCache vectors (d > 16384
-// bf16 or 8192 f32 on the vector path) read the rest again in the second
-// pass.
+// (2 R d times the element size, plus d of scale): at R = 4096, d = 5376
+// in bf16, 88.1 MB, 26.3 us at 3.35 TB/s; its ~5 R d flops are nothing
+// beside that.  At (7, 7168) the bound is 0.07 us and the launch is what
+// takes the time.
+//
+// Design.  One launch per call: the scale is read in its own dtype (bf16
+// to f32 is exact), so no cast runs beside the kernel.  A row belongs to
+// tpr threads (a multiple of 32, at most 512) that hold its 16-byte
+// vectors (8 bf16 or 4 f32) evenly, PER of them each (at most kCache; a
+// template parameter, so a thread keeps only those registers): the
+// launcher picks PER and tpr so that tpr * PER covers the row with the
+// fewest idle slots (d = 5376 bf16: 224 threads of 3 vectors, where a
+// power of two left the third vector to 160 of 256 threads).  Narrow rows
+// share a block (256 / tpr rows a block).  The grid is persistent: as many
+// blocks as the SMs hold at once, rows strided over them, so each thread
+// reads (1 + scale) for its columns once, into registers, instead of once
+// a row; a small R (7 rows) keeps one block a row.  Each block has its
+// next row's loads in flight, in a second set of registers, while the
+// current row reduces (warp shuffles, then the row's warps through shared
+// memory, one barrier a row) and stores.  Loads of x stream (ld.global.cs:
+// evict first) and so do the stores.  Vectors are used where d is a
+// multiple of the vector width and x and out are 16-byte aligned, single
+// elements otherwise (d = 7, views that start off alignment).  Rows longer
+// than tpr * kCache vectors read the rest again in the second pass, with
+// their scale, without the prefetch.
 //
 // Arithmetic: built with --fmad=false, never fast math.  The inverse root
 // is 1.0f / sqrtf(var + eps): IEEE square root and division, each
-// correctly rounded (the approximate rsqrtf is off by up to 2 ulp).  The
-// sum of squares is taken in another order than the plain version's, and
-// neither XLA's nor PyTorch's CUDA rsqrt is correctly rounded, so the
-// kernel agrees with the plain version to a few ulp, not bit for bit
-// (ref.py::rmsnorm_tolerance).
+// correctly rounded (the approximate rsqrtf is off by up to 2 ulp); each
+// output is (x * inv) * (1 + s) in that order.  The sum of squares is
+// taken in another order than the plain version's, and neither XLA's nor
+// PyTorch's CUDA rsqrt is correctly rounded, so the kernel agrees with the
+// plain version to a few ulp, not bit for bit (ref.py::rmsnorm_tolerance).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -59,21 +71,35 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// V consecutive elements at p: one 16-byte access when V > 1
+// V consecutive elements of x in their own dtype, as loaded: one 16-byte
+// vector (V > 1) or one element
 template <typename T, int V>
-__device__ __forceinline__ void load_vec(const T* p, float (&out)[V]) {
+using Raw = typename std::conditional<V == 1, T, uint4>::type;
+
+// vectors stream (evict first: x is read once, out written once); single
+// elements (misaligned views, odd d) are plain accesses
+template <typename T, int V>
+__device__ __forceinline__ void load_x(const T* p, Raw<T, V>& out) {
   if constexpr (V == 1) {
-    out[0] = to_float(*p);
+    out = *p;
   } else {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const T* e = reinterpret_cast<const T*>(&raw);
+    out = __ldcs(reinterpret_cast<const uint4*>(p));
+  }
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void unpack(const Raw<T, V>& in, float (&out)[V]) {
+  if constexpr (V == 1) {
+    out[0] = to_float(in);
+  } else {
+    const T* e = reinterpret_cast<const T*>(&in);
 #pragma unroll
     for (int i = 0; i < V; ++i) out[i] = to_float(e[i]);
   }
 }
 
 template <typename T, int V>
-__device__ __forceinline__ void store_vec(T* p, const float (&in)[V]) {
+__device__ __forceinline__ void store_out(T* p, const float (&in)[V]) {
   if constexpr (V == 1) {
     *p = from_float<T>(in[0]);
   } else {
@@ -81,137 +107,230 @@ __device__ __forceinline__ void store_vec(T* p, const float (&in)[V]) {
     T* e = reinterpret_cast<T*>(&raw);
 #pragma unroll
     for (int i = 0; i < V; ++i) e[i] = from_float<T>(in[i]);
-    *reinterpret_cast<uint4*>(p) = raw;
+    __stcs(reinterpret_cast<uint4*>(p), raw);
   }
 }
 
-template <int V>
-__device__ __forceinline__ void load_scale(const float* p, float (&out)[V]) {
-  if constexpr (V == 1) {
-    out[0] = *p;
-  } else {
+// 1 + scale for V consecutive columns, scale in its own dtype (read once a
+// thread on the persistent path, so single loads do)
+template <typename S, int V>
+__device__ __forceinline__ void load_scale(const S* p, float (&out)[V]) {
+  // -- scale read
 #pragma unroll
-    for (int i = 0; i < V; i += 4) {
-      const float4 s = *reinterpret_cast<const float4*>(p + i);
-      out[i] = s.x;
-      out[i + 1] = s.y;
-      out[i + 2] = s.z;
-      out[i + 3] = s.w;
-    }
-  }
+  for (int i = 0; i < V; ++i) out[i] = __fadd_rn(1.0f, to_float(p[i]));
+  // -- end scale read
+}
+
+template <typename T, int V>
+__device__ __forceinline__ float sum_squares(const Raw<T, V>& x, float ss) {
+  float f[V];
+  unpack<T, V>(x, f);
+#pragma unroll
+  for (int i = 0; i < V; ++i) ss = __fadd_rn(ss, __fmul_rn(f[i], f[i]));
+  return ss;
 }
 
 // y = (x * inv) * (1 + s), in the plain version's order
 template <typename T, int V>
-__device__ __forceinline__ void scale_store(T* o, const float* s_ptr,
-                                            const float (&x)[V], float inv) {
-  float s[V], y[V];
-  load_scale<V>(s_ptr, s);
+__device__ __forceinline__ void scale_store(T* o, const Raw<T, V>& x,
+                                            const float (&w)[V], float inv) {
+  float f[V], y[V];
+  unpack<T, V>(x, f);
 #pragma unroll
-  for (int i = 0; i < V; ++i)
-    y[i] = __fmul_rn(__fmul_rn(x[i], inv), __fadd_rn(1.0f, s[i]));
-  store_vec<T, V>(o, y);
+  for (int i = 0; i < V; ++i) y[i] = __fmul_rn(__fmul_rn(f[i], inv), w[i]);
+  store_out<T, V>(o, y);
 }
 
-// blockDim = (tpr, rows per block); V elements per access (16 bytes, or 1)
-template <typename T, int V>
+// blockDim = (tpr, rows a block); each thread holds PER <= kCache vectors
+// of a row, v = tid + it * tpr (only those registers: the fewer a thread
+// holds, the more blocks an SM takes); V elements a vector (16 bytes, or
+// 1).  Rows r = blockIdx.x * rows + threadIdx.y, stepping by gridDim.x *
+// rows; every thread walks the same number of steps (the barrier).
+template <typename T, typename S, int V, int PER>
 __global__ void __launch_bounds__(kMaxTpr)
-rmsnorm_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+rmsnorm_kernel(const T* __restrict__ x, const S* __restrict__ scale,
                T* __restrict__ out, int R, int d, float eps) {
-  __shared__ float partial[kMaxTpr / 32];    // one per warp of the block
+  __shared__ float partial[2][kMaxTpr / 32];   // a warp's sum, two rows
   const int tpr = blockDim.x;
   const int tid = threadIdx.x;
-  const int row = blockIdx.x * blockDim.y + threadIdx.y;
-  const bool live = row < R;
+  const int rows = blockDim.y;
   const int nvec = d / V;
-  const T* xr = x + static_cast<size_t>(live ? row : 0) * d;
-  T* orow = out + static_cast<size_t>(live ? row : 0) * d;
+  const int wpr = tpr >> 5;                    // warps a row
+  const int warp = (threadIdx.y * tpr + tid) >> 5;
+  const int step = gridDim.x * rows;
 
-  float cache[kCache][V];
-  float ss = 0.0f;
-  if (live) {
+  // the first row's loads go out before the scale's, whose 1 + s would
+  // otherwise hold them back by one memory round trip
+  Raw<T, V> cur[PER], nxt[PER];
+  int row = blockIdx.x * rows + threadIdx.y;
 #pragma unroll
-    for (int it = 0; it < kCache; ++it) {
+  for (int it = 0; it < PER; ++it) {
+    const int v = tid + it * tpr;
+    if (row < R && v < nvec)
+      load_x<T, V>(x + static_cast<size_t>(row) * d + v * V, cur[it]);
+  }
+  float w[PER][V];                             // 1 + scale, read once
+#pragma unroll
+  for (int it = 0; it < PER; ++it) {
+    const int v = tid + it * tpr;
+    if (v < nvec) load_scale<S, V>(scale + v * V, w[it]);
+  }
+
+  for (int base = blockIdx.x * rows, parity = 0; base < R;
+       base += step, parity ^= 1) {
+    const bool live = row < R;
+    const int next = row + step;
+    // the next row's loads go out before this row's sum needs a barrier
+#pragma unroll
+    for (int it = 0; it < PER; ++it) {
       const int v = tid + it * tpr;
-      if (v < nvec) {
-        load_vec<T, V>(xr + v * V, cache[it]);
+      if (next < R && v < nvec)
+        load_x<T, V>(x + static_cast<size_t>(next) * d + v * V, nxt[it]);
+    }
+    const T* xr = x + static_cast<size_t>(live ? row : 0) * d;
+    T* orow = out + static_cast<size_t>(live ? row : 0) * d;
+
+    float ss = 0.0f;
+    if (live) {
 #pragma unroll
-        for (int i = 0; i < V; ++i)
-          ss = __fadd_rn(ss, __fmul_rn(cache[it][i], cache[it][i]));
+      for (int it = 0; it < PER; ++it) {
+        const int v = tid + it * tpr;
+        if (v < nvec) ss = sum_squares<T, V>(cur[it], ss);
+      }
+      for (int v = tid + PER * tpr; v < nvec; v += tpr) {
+        Raw<T, V> rest;
+        load_x<T, V>(xr + v * V, rest);
+        ss = sum_squares<T, V>(rest, ss);
       }
     }
-    for (int v = tid + kCache * tpr; v < nvec; v += tpr) {
-      float vals[V];
-      load_vec<T, V>(xr + v * V, vals);
-#pragma unroll
-      for (int i = 0; i < V; ++i)
-        ss = __fadd_rn(ss, __fmul_rn(vals[i], vals[i]));
+
+    // the row's sum: over the warp, then over the row's warps
+    for (int o = 16; o > 0; o >>= 1)
+      ss = __fadd_rn(ss, __shfl_xor_sync(kFull, ss, o));
+    if (wpr > 1) {
+      if ((tid & 31) == 0) partial[parity][warp] = ss;
+      __syncthreads();
+      ss = 0.0f;
+      for (int i = 0; i < wpr; ++i)
+        ss = __fadd_rn(ss, partial[parity][threadIdx.y * wpr + i]);
     }
-  }
 
-  // the row's sum: over the warp, then over the row's warps
-  for (int o = 16; o > 0; o >>= 1)
-    ss = __fadd_rn(ss, __shfl_xor_sync(kFull, ss, o));
-  const int wpr = tpr >> 5;                  // warps per row
-  if (wpr > 1) {
-    const int warp = (threadIdx.y * tpr + tid) >> 5;
-    if ((tid & 31) == 0) partial[warp] = ss;
-    __syncthreads();
-    ss = 0.0f;
-    for (int i = 0; i < wpr; ++i)
-      ss = __fadd_rn(ss, partial[threadIdx.y * wpr + i]);
-  }
-  if (!live) return;
-  const float var = __fdiv_rn(ss, static_cast<float>(d));
-  const float inv = 1.0f / sqrtf(__fadd_rn(var, eps));
-
+    if (live) {
+      const float var = __fdiv_rn(ss, static_cast<float>(d));
+      const float inv = 1.0f / sqrtf(__fadd_rn(var, eps));
 #pragma unroll
-  for (int it = 0; it < kCache; ++it) {
-    const int v = tid + it * tpr;
-    if (v < nvec)
-      scale_store<T, V>(orow + v * V, scale + v * V, cache[it], inv);
-  }
-  for (int v = tid + kCache * tpr; v < nvec; v += tpr) {
-    float vals[V];
-    load_vec<T, V>(xr + v * V, vals);
-    scale_store<T, V>(orow + v * V, scale + v * V, vals, inv);
+      for (int it = 0; it < PER; ++it) {
+        const int v = tid + it * tpr;
+        if (v < nvec) scale_store<T, V>(orow + v * V, cur[it], w[it], inv);
+      }
+      for (int v = tid + PER * tpr; v < nvec; v += tpr) {
+        Raw<T, V> rest;
+        float ws[V];
+        load_x<T, V>(xr + v * V, rest);
+        load_scale<S, V>(scale + v * V, ws);
+        scale_store<T, V>(orow + v * V, rest, ws, inv);
+      }
+    }
+#pragma unroll
+    for (int it = 0; it < PER; ++it) cur[it] = nxt[it];
+    row = next;
   }
 }
 
-template <typename T, int V>
-int launch(const void* x, const float* scale, void* out, int R, int d,
-           float eps, cudaStream_t stream) {
-  const int nvec = d / V;
-  int tpr = 32;
-  while (tpr < kMaxTpr && tpr * kCache < nvec) tpr *= 2;
+// The row's split: PER vectors a thread (1..kCache) and tpr threads (a
+// multiple of 32, at most kMaxTpr) with the fewest idle vector slots, the
+// larger PER on a tie; rows past kMaxTpr * kCache vectors take the widest.
+void split_row(int nvec, int* per_out, int* tpr_out) {
+  int best_per = kCache, best_tpr = kMaxTpr;
+  long best_idle = -1;
+  for (int per = 1; per <= kCache; ++per) {
+    const int need = (nvec + per - 1) / per;
+    const int tpr = (need + 31) / 32 * 32;
+    if (tpr > kMaxTpr) continue;
+    const long idle = static_cast<long>(tpr) * per - nvec;
+    if (best_idle < 0 || idle <= best_idle) {
+      best_idle = idle;
+      best_per = per;
+      best_tpr = tpr;
+    }
+  }
+  *per_out = best_per;
+  *tpr_out = best_tpr;
+}
+
+template <typename T, typename S, int V, int PER>
+int launch_per(const void* x, const void* scale, void* out, int R, int d,
+               int tpr, float eps, cudaStream_t stream) {
   const int rows = tpr >= kMinThreads ? 1 : kMinThreads / tpr;
   const dim3 block(tpr, rows);
-  const int grid = (R + rows - 1) / rows;
-  rmsnorm_kernel<T, V><<<grid, block, 0, stream>>>(
-      static_cast<const T*>(x), scale, static_cast<T*>(out), R, d, eps);
+  auto kernel = rmsnorm_kernel<T, S, V, PER>;
+  int device, sms, resident;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel,
+                                                        tpr * rows, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int needed = (R + rows - 1) / rows;
+  const int grid = needed < sms * resident ? needed : sms * resident;
+  kernel<<<grid, block, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const S*>(scale),
+      static_cast<T*>(out), R, d, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+template <typename T, typename S, int V>
+int launch(const void* x, const void* scale, void* out, int R, int d,
+           float eps, cudaStream_t stream) {
+  int per, tpr;
+  split_row(d / V, &per, &tpr);
+  switch (per) {
+    case 1:
+      return launch_per<T, S, V, 1>(x, scale, out, R, d, tpr, eps, stream);
+    case 2:
+      return launch_per<T, S, V, 2>(x, scale, out, R, d, tpr, eps, stream);
+    case 3:
+      return launch_per<T, S, V, 3>(x, scale, out, R, d, tpr, eps, stream);
+    default:
+      return launch_per<T, S, V, kCache>(x, scale, out, R, d, tpr, eps,
+                                         stream);
+  }
+}
+
+template <typename T, typename S>
+int launch_aligned(const void* x, const void* scale, void* out, int R, int d,
+                   float eps, cudaStream_t stream) {
+  constexpr int kVec = 16 / sizeof(T);
+  const bool vec = ((reinterpret_cast<uintptr_t>(x) |
+                     reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  if (vec && d % kVec == 0)
+    return launch<T, S, kVec>(x, scale, out, R, d, eps, stream);
+  return launch<T, S, 1>(x, scale, out, R, d, eps, stream);
 }
 
 }  // namespace
 
-extern "C" int rmsnorm_launch(const void* x, const float* scale, void* out,
-                              int R, int d, float eps, int bf16, int device,
+// x (R, d) and out (R, d) contiguous, of one dtype (bf16 = 1: bf16, else
+// f32); scale (d,) contiguous, bf16 (scale_bf16 = 1) or f32.  Returns a
+// cudaError_t (0 on a good launch).
+extern "C" int rmsnorm_launch(const void* x, const void* scale, void* out,
+                              int R, int d, float eps, int bf16,
+                              int scale_bf16, int device,
                               cudaStream_t stream) {
+  if (R < 1 || d < 1) return static_cast<int>(cudaErrorInvalidValue);
   // this library links its own CUDA runtime, whose current device is not
   // PyTorch's: select the tensors' device before launching on its stream
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const bool vec = aligned16(x) && aligned16(scale) && aligned16(out);
-  if (bf16) {
-    if (vec && d % 8 == 0)
-      return launch<__nv_bfloat16, 8>(x, scale, out, R, d, eps, stream);
-    return launch<__nv_bfloat16, 1>(x, scale, out, R, d, eps, stream);
-  }
-  if (vec && d % 4 == 0)
-    return launch<float, 4>(x, scale, out, R, d, eps, stream);
-  return launch<float, 1>(x, scale, out, R, d, eps, stream);
+  if (bf16)
+    return scale_bf16
+        ? launch_aligned<__nv_bfloat16, __nv_bfloat16>(x, scale, out, R, d,
+                                                       eps, stream)
+        : launch_aligned<__nv_bfloat16, float>(x, scale, out, R, d, eps,
+                                               stream);
+  return scale_bf16
+      ? launch_aligned<float, __nv_bfloat16>(x, scale, out, R, d, eps, stream)
+      : launch_aligned<float, float>(x, scale, out, R, d, eps, stream);
 }

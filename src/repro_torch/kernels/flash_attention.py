@@ -2,8 +2,9 @@
 (``csrc/flash_attention.cu``).
 
 The kernel replaces the TPU kernel ``repro/kernels/flash_attention.py``
-(``_fa_kernel`` / ``flash_attention_fwd``) and the head folding, GQA
-repeat and D padding of its wrapper ``repro/kernels/ops.py``; its plain
+(``_fa_kernel`` :32 / ``flash_attention_fwd`` :76, ``pallas_call`` :105)
+and the head folding, GQA repeat and D padding of its wrapper
+``repro/kernels/ops.py``; its plain
 version is :func:`repro_torch.kernels.ref.flash_attention_ref`.  This
 wrapper checks device, dtype, shape and contiguity, allocates the
 output, launches on PyTorch's current stream and raises on a refused
@@ -17,7 +18,12 @@ head width and alignment alone (never as a fallback after a failure):
 into an mbarrier ring, ``wgmma`` for Q K^T and, with P from registers,
 for P V; the key tiles split between two warpgroups where
 :func:`split_keys` says so); ``mma_sync`` for other bf16 inputs;
-``f32_simt`` for f32.
+``f32_regtile`` for every f32 input.  The f32 kernel is bound by
+operations on the FMA pipes (TF32 would round the inputs): 122.5 us at
+DeiT-B's B=8, S=578, H=12, D=64 on an H100 (67 TFLOP/s).  It holds 4 x 8
+register tiles of scores a thread, so each shared-memory read feeds 8 to
+10 FMAs where the scalar kernel it replaces fed 4, and double-buffers its
+K / V tiles through cp.async (see the source's note).
 """
 from __future__ import annotations
 
@@ -31,7 +37,7 @@ from repro_torch.kernels import build
 MAX_HEAD_DIM = 128
 DTYPES = (torch.float32, torch.bfloat16)
 
-VARIANTS = ("tma_wgmma", "mma_sync", "f32_simt")
+VARIANTS = ("tma_wgmma", "mma_sync", "f32_regtile")
 WGMMA_HEAD_DIMS = (64, 128)
 WGMMA_MAX_HEADS = 65535         # B * H: the tma_wgmma grid's y dimension
 ROWS = 64                       # query rows of one warpgroup (tma_wgmma)
@@ -56,10 +62,11 @@ def variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The kernel that :func:`flash_attention` launches: ``tma_wgmma`` for
     bf16 with D in (64, 128), q, k, v 16-byte aligned (what a tensor map
     takes) and B * H within its grid, ``mma_sync`` for other bf16,
-    ``f32_simt`` for f32.  A pure function of dtype, shape and alignment;
-    touches no device."""
+    ``f32_regtile`` for f32 (any shape and alignment: the kernel copies 4
+    bytes at a time where 16 do not fit).  A pure function of dtype, shape
+    and alignment; touches no device."""
     if q.dtype == torch.float32:
-        return "f32_simt"
+        return "f32_regtile"
     if q.shape[-1] in WGMMA_HEAD_DIMS \
             and q.shape[0] * q.shape[2] <= WGMMA_MAX_HEADS \
             and all(t.data_ptr() % 16 == 0 for t in (q, k, v)):

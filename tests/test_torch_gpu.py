@@ -412,3 +412,80 @@ def test_flash_edge_cases_take_both_paths():
     paths = {fa.split_keys(B, S, 12, 132) for B in (1, 8)
              for S in (1, 63, 65, 578, 1024)}
     assert paths == {True, False}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,KV,D,causal,window", [
+    (8, 578, 12, 12, 64, False, None), (2, 1, 4, 4, 80, True, None),
+    (2, 63, 8, 2, 80, True, None), (2, 65, 8, 1, 80, True, 20),
+    (2, 65, 4, 4, 80, False, 40), (2, 129, 6, 3, 128, True, None),
+    (2, 100, 4, 2, 12, False, None), (2, 70, 4, 4, 7, True, 30)])
+def test_flash_attention_f32_kernel_at_its_edges(B, S, H, KV, D, causal,
+                                                 window):
+    """The register-tiled f32 kernel at DeiT-B's shape at 384 px and at
+    ragged S (a single key, one past and one short of a 64-key tile),
+    causal, window and GQA, D = 80 (padded to 128 with 32-key tiles),
+    128, 12, and D = 7 (4-byte copies)."""
+    _need_gpu()
+    g = torch.Generator().manual_seed(B * S + D + H * KV)
+    q, k, v = (torch.randn(B, S, h, D, generator=g).to("cuda")
+               for h in (H, KV, KV))
+    assert fa.variant(q, k, v) == "f32_regtile"
+    before = fa.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    torch.testing.assert_close(got, want,
+                               **ref.flash_attention_tolerance(want, v))
+
+
+@pytest.mark.gpu
+def test_flash_attention_f32_kernel_on_misaligned_tensors():
+    """f32 views one element into their storage: the kernel copies 4
+    bytes at a time there."""
+    _need_gpu()
+    g = torch.Generator().manual_seed(6)
+    n = 2 * 130 * 4 * 64
+    buf = torch.randn(3 * n + 1, generator=g).to("cuda")
+    q, k, v = (buf[1 + i * n:1 + (i + 1) * n].view(2, 130, 4, 64)
+               for i in range(3))
+    assert fa.variant(q, k, v) == "f32_regtile"
+    got = ops.flash_attention(q, k, v, causal=True, window=50)
+    want = ref.flash_attention_ref(q, k, v, causal=True, window=50)
+    torch.testing.assert_close(got, want,
+                               **ref.flash_attention_tolerance(want, v))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,d", [(1000, 5376), (1, 5376), (300, 7),
+                                 (333, 20008), (4096, 1536)])
+def test_rmsnorm_kernel_scale_dtypes_and_grid(R, d, dtype, scale_dtype):
+    """The scale read in its own dtype (f32 or bf16) by one launch; R not a
+    multiple of the persistent grid, one row, d = 7 (single elements) and
+    a d past the register cache (20008: the rest read again)."""
+    _need_gpu()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import rmsnorm as rn
+    g = torch.Generator().manual_seed(R + d)
+    x = torch.randn(R, d, generator=g).to("cuda", dtype)
+    s = (torch.randn(d, generator=g) * 0.1).to("cuda", scale_dtype)
+    want = ref.rmsnorm_ref(x, s)
+    before = rn.rmsnorm.launches
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        got = ops.rmsnorm(x, s)
+        torch.cuda.synchronize()
+    assert rn.rmsnorm.launches == before + 1
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA}
+    assert list(kernels.values()) == [1], kernels
+    assert "rmsnorm" in next(iter(kernels)), kernels
+    torch.testing.assert_close(got.float(), want.float(),
+                               **ref.rmsnorm_tolerance(dtype))

@@ -463,12 +463,43 @@ def test_flash_variant_is_tma_at_d64_and_d128(D):
 def test_flash_variant_elsewhere(B, D, offset, dtype):
     """ViT-H/14's D = 80 and D = 32 stay on mma_sync, as do a view 2 bytes
     off alignment and B * H = 65536 (past the tma_wgmma grid); f32 takes
-    the scalar kernel."""
+    the register-tiled kernel."""
     q = _shaped((B, 130, 4, D), dtype, offset)
     k = _shaped((B, 130, 4, D), dtype)
-    want = "f32_simt" if dtype == torch.float32 else "mma_sync"
+    want = "f32_regtile" if dtype == torch.float32 else "mma_sync"
     assert fa.variant(q, k, k) == want
     assert fa.variant(k, q, k) == want
+
+
+@pytest.mark.parametrize("B,S,D,offset", [(8, 578, 64, 0), (1, 1, 80, 0),
+                                          (2, 65, 128, 0), (2, 63, 7, 0),
+                                          (2, 1024, 64, 1), (16384, 130, 64, 0),
+                                          (2, 130, 80, 3)])
+def test_flash_variant_of_f32_is_regtile_everywhere(B, S, D, offset):
+    """Every f32 shape and alignment takes the register-tiled kernel:
+    DeiT-B at 384 px, ragged S, D = 80 / 128 / 7, views off 16-byte
+    alignment, B * H past the tma_wgmma grid."""
+    q = _shaped((B, S, 4, D), torch.float32, offset)
+    k = _shaped((B, S, 2, D), torch.float32)
+    assert fa.variant(q, k, k) == "f32_regtile"
+    assert fa.variant(k, q, k) == "f32_regtile"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_scale_passes_through_in_f32_and_bf16(dtype):
+    """The kernel reads an f32 or bf16 scale itself: no cast, no copy."""
+    s = torch.randn(96).to(dtype)
+    assert rn.kernel_scale(s) is s
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+def test_rmsnorm_scale_of_other_dtypes_is_cast_to_f32(dtype):
+    """Other float dtypes take the reference's astype(f32); a strided
+    scale is made contiguous."""
+    s = torch.randn(192, dtype=torch.float64).to(dtype)[::2]
+    got = rn.kernel_scale(s)
+    assert got.dtype == torch.float32 and got.is_contiguous()
+    assert torch.equal(got, s.to(torch.float32))
 
 
 @pytest.mark.parametrize("B,split", [(1, True), (2, True), (3, False),

@@ -1,22 +1,37 @@
-"""Where the time of the two TMA / wgmma kernels goes, on one NVIDIA GPU.
+"""Where the time of the port's redesigned kernels goes, on one NVIDIA GPU.
 
-    python3 tools/kernel_ablation.py
+    python3 tools/kernel_ablation.py [--root CHECKOUT] [--only GROUP ...]
 
-Builds four versions of ``moe_gemm.cu`` and ``flash_attention.cu`` from
-patched copies of ``src/repro_torch/kernels/csrc`` (under
-``build/ablation/``): as they are, without the products (no wgmma is
-issued: what remains is the loads, the pipeline's waits and, for
-flash_attention, the softmax), without the loads (the producer arrives on
-each stage without a TMA copy: products on stale tiles), and without
-either.  Times each with CUDA events around launches replayed from one
-CUDA graph, at the Granite-3.0 MoE gate/up and down products (bf16) and
-at DeiT-B's attention at 384 px (S=578, 12 heads, D=64, bf16) for B=1
-(split keys) and B=8, beside ``torch.bmm`` and
-``scaled_dot_product_attention``.  The patched kernels compute garbage;
-only their times mean anything.  Prints one JSON object per line.
+Builds versions of the kernel sources from patched copies of
+``src/repro_torch/kernels/csrc`` (under ``build/ablation/``) and times
+each with CUDA events around launches replayed from one CUDA graph.
+``--root`` takes the sources and the wrappers from another checkout (an
+unpacked older commit, to measure the kernels it had).  Three groups:
+
+- ``wgmma``: the TMA / ``wgmma`` kernels of ``moe_gemm`` (Granite-3.0 MoE
+  gate/up and down, bf16) and ``flash_attention`` (DeiT-B's attention at
+  384 px: S=578, 12 heads, D=64, bf16, B=1 with split keys and B=8), as
+  built, without the products (no wgmma issued: what remains is the
+  loads, the pipeline's waits and, for flash_attention, the softmax),
+  without the loads (the producer arrives on each stage without a TMA
+  copy: products on stale tiles), and without either; beside
+  ``torch.bmm`` and ``scaled_dot_product_attention``;
+- ``flash_f32``: the f32 ``flash_attention`` kernel at the same shape in
+  f32, B=1 and B=8, as built, without its products (neither Q K^T nor
+  P V), without its K / V loads (the tiles in shared memory stay
+  stale), and without either; beside SDPA in f32;
+- ``rmsnorm``: ``rmsnorm`` at (4096, 5376), (4096, 1536) and (7, 7168),
+  bf16 and f32, as built (the wrapper called as a user calls it, scale
+  in x's dtype), with the scale cast to f32 outside the timed call, and
+  with every read of the scale replaced by a constant; beside
+  ``F.rms_norm`` with its weight built outside the timed call.
+
+The patched kernels compute garbage; only their times mean anything.
+Prints one JSON object per line, the card's name and power limit first.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import re
 import shutil
@@ -25,55 +40,98 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT / "src"))
 
-import torch  # noqa: E402
-
-from repro_torch.kernels import build  # noqa: E402
-from repro_torch.kernels import flash_attention as fa  # noqa: E402
-from repro_torch.kernels import moe_gemm as mg  # noqa: E402
-
-# (pattern, replacement) per source: the products, then the loads
-PRODUCTS = {
-    "moe_gemm": [(r"hopper::wgmma_ss<1>\(.*?kb > 0 \|\| kk > 0\);", "")],
-    "flash_attention": [
+# A cut is, per source, a list of alternatives, each a list of (pattern,
+# replacement); the first alternative whose patterns all match is applied
+# (one per kernel design a checkout may hold).
+WGMMA_PRODUCTS = {
+    "moe_gemm": [[(r"hopper::wgmma_ss<1>\(.*?kb > 0 \|\| kk > 0\);", "")]],
+    "flash_attention": [[
         (r"hopper::wgmma_ss<0>\(sc,.*?kk > 0\);", ""),
-        (r"hopper::wgmma_rs<1>\(acc, pa\[kk\],.*?1\);", "")],
+        (r"hopper::wgmma_rs<1>\(acc, pa\[kk\],.*?1\);", "")]],
 }
-LOADS = {
-    "moe_gemm": [
+WGMMA_LOADS = {
+    "moe_gemm": [[
         (r"hopper::mbar_arrive_expect_tx\(&full\[stage\], kStageBytes\);",
          "hopper::mbar_arrive(&full[stage]);"),
-        (r"hopper::tma_load_3d\(st, &tmx.*?kb \* kBK, e\);", "")],
-    "flash_attention": [
+        (r"hopper::tma_load_3d\(st, &tmx.*?kb \* kBK, e\);", "")]],
+    "flash_attention": [[
         (r"hopper::mbar_arrive_expect_tx\(&full\[stage\], L::kStage\);",
          "hopper::mbar_arrive(&full[stage]);"),
         (r"hopper::tma_load_4d\(st \+ x \* kBox, &tmk.*?i \* kKeys, b\);", ""),
-        (r"hopper::tma_load_4d\(st \+ L::kTile.*?i \* kKeys, b\);", "")],
+        (r"hopper::tma_load_4d\(st \+ L::kTile.*?i \* kKeys, b\);", "")]],
 }
-VERSIONS = {"as built": (), "no products": (PRODUCTS,), "no loads": (LOADS,),
-            "neither": (PRODUCTS, LOADS)}
+F32_PRODUCTS = {"flash_attention": [
+    # register tiles: the two products are marked blocks
+    [(r"// -- Q K\^T products\n.*?// -- end Q K\^T\n", ""),
+     (r"// -- P V products\n.*?// -- end P V\n", "")],
+    # one thread per query row
+    [(r"#pragma unroll 2\n    for \(int d = 0; d < DP; d \+= 4\) \{\n"
+      r"      const float a0.*?sc\[j\] = t;\n      \}\n    \}\n", ""),
+     (r"#pragma unroll 2\n    for \(int j = 0; j < kBK; \+\+j\) \{\n"
+      r"      const float p = prow\[j\];.*?acc\[d \+ 3\]\);\n      \}\n"
+      r"    \}\n", "")],
+]}
+F32_LOADS = {"flash_attention": [
+    [(r"load_tile<VEC, DP, L::kKeys>\(ks[^;]*;\n", ""),
+     (r"load_tile<VEC, DP, L::kKeys>\(vs[^;]*;\n", "")],
+    [(r"kx = k\[off\];\n        vx = v\[off\];",
+      "kx = 1.0f;\n        vx = 1.0f;")],
+]}
+CONST_SCALE = {"rmsnorm": [
+    [(r"// -- scale read\n.*?// -- end scale read\n",
+      "for (int i = 0; i < V; ++i) out[i] = 1.1f;\n")],
+    [(r"load_scale<V>\(s_ptr, s\);",
+      "for (int i = 0; i < V; ++i) s[i] = 0.1f;")],
+]}
 
 
-def patched_csrc(name: str, cuts) -> Path:
+def merge(*cuts):
+    out = {}
+    for cut in cuts:
+        for source, alts in cut.items():
+            out.setdefault(source, []).append(alts)
+    return out
+
+
+VERSIONS = {
+    "as built": {},
+    "no products": merge(WGMMA_PRODUCTS, F32_PRODUCTS),
+    "no loads": merge(WGMMA_LOADS, F32_LOADS),
+    "neither": merge(WGMMA_PRODUCTS, F32_PRODUCTS, WGMMA_LOADS, F32_LOADS),
+    "constant scale": merge(CONST_SCALE),
+}
+GROUP_VERSIONS = {
+    "wgmma": ("as built", "no products", "no loads", "neither"),
+    "flash_f32": ("as built", "no products", "no loads", "neither"),
+    "rmsnorm": ("as built", "constant scale"),
+}
+
+
+def patched_csrc(csrc: Path, name: str, cuts) -> Path:
+    """A copy of ``csrc`` with ``cuts`` applied, under build/ablation."""
     out = ROOT / "build" / "ablation" / name.replace(" ", "_") / "csrc"
     if out.exists():
         shutil.rmtree(out)
-    shutil.copytree(build.CSRC, out)
-    for source in ("moe_gemm", "flash_attention"):
+    shutil.copytree(csrc, out)
+    for source, cut_list in cuts.items():
         path = out / f"{source}.cu"
         text = path.read_text()
-        for cut in cuts:
-            for pattern, repl in cut[source]:
-                text, n = re.subn(pattern, repl, text, flags=re.DOTALL)
-                if n == 0:
-                    raise SystemExit(f"kernel_ablation: {pattern!r} not "
-                                     f"found in {source}.cu")
+        for alts in cut_list:
+            for alt in alts:
+                if all(re.search(p, text, flags=re.DOTALL) for p, _ in alt):
+                    for pattern, repl in alt:
+                        text = re.sub(pattern, repl, text, flags=re.DOTALL)
+                    break
+            else:
+                raise SystemExit(f"kernel_ablation: no cut of {name!r} "
+                                 f"matches {source}.cu")
         path.write_text(text)
     return out
 
 
 def graph_ms(fn, reps: int) -> float:
+    import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -93,49 +151,102 @@ def graph_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def emit(**row) -> None:
+    print(json.dumps(row), flush=True)
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", type=Path, default=ROOT,
+                    help="checkout whose kernels and wrappers to measure")
+    ap.add_argument("--only", nargs="+", choices=sorted(GROUP_VERSIONS),
+                    default=sorted(GROUP_VERSIONS))
+    args = ap.parse_args()
+    sys.path.insert(0, str(args.root.resolve() / "src"))
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gemm as mg
+    from repro_torch.kernels import rmsnorm as rn
+
     if not torch.cuda.is_available():
         print("kernel_ablation: needs an NVIDIA GPU", file=sys.stderr)
         return 2
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
-    print(json.dumps({"card": card}), flush=True)
-    dirs = {v: patched_csrc(v, cuts) for v, cuts in VERSIONS.items()}
+    emit(card=card, root=str(args.root), groups=args.only)
+    csrc = build.CSRC
+    wanted = [v for v in VERSIONS
+              if any(v in GROUP_VERSIONS[g] for g in args.only)]
+    dirs = {v: patched_csrc(csrc, v, VERSIONS[v]) for v in wanted}
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    moe = {"gate_up": (40, 1024, 1536, 512), "down": (40, 1024, 512, 1536)}
-    moe_in = {k: ((torch.randn(E, C, d, generator=gen, device=dev) * 0.1).to(
-        torch.bfloat16), (torch.randn(E, d, f, generator=gen, device=dev)
-                          * 0.1).to(torch.bfloat16))
-        for k, (E, C, d, f) in moe.items()}
-    fl_in = {B: tuple(torch.randn(B, 578, 12, 64, generator=gen,
-                                  device=dev).to(torch.bfloat16)
-                      for _ in range(3)) for B in (1, 8)}
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for k, (x, w) in moe_in.items():
-        print(json.dumps({"moe_gemm": k, "library": "torch.bmm",
-                          "ms": graph_ms(lambda: torch.bmm(x, w), 20)}),
-              flush=True)
-    for B, (q, kk, v) in fl_in.items():
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, kk, v))
-        print(json.dumps({"flash_attention": B, "library": "sdpa",
-                          "ms": graph_ms(lambda: sdpa(qt, kt, vt), 100)}),
-              flush=True)
+    rms = torch.nn.functional.rms_norm
+
+    moe = {"gate_up": (40, 1024, 1536, 512), "down": (40, 1024, 512, 1536)}
+    moe_in = {k: tuple((torch.randn(*s, generator=gen, device=dev) * 0.1)
+                       .to(torch.bfloat16) for s in ((E, C, d), (E, d, f)))
+              for k, (E, C, d, f) in moe.items()}
+    fl_in = {B: tuple(torch.randn(B, 578, 12, 64, generator=gen, device=dev)
+                      for _ in range(3)) for B in (1, 8)}
+    rn_in = {(R, d, dt): ((torch.randn(R, d, generator=gen, device=dev))
+                          .to(dt), (torch.randn(d, generator=gen, device=dev)
+                                    * 0.1).to(dt))
+             for R, d in ((4096, 5376), (4096, 1536), (7, 7168))
+             for dt in (torch.bfloat16, torch.float32)}
+
+    if "wgmma" in args.only:
+        for k, (x, w) in moe_in.items():
+            emit(moe_gemm=k, library="torch.bmm",
+                 ms=graph_ms(lambda: torch.bmm(x, w), 20))
+        for B, t in fl_in.items():
+            qt, kt, vt = (a.bfloat16().transpose(1, 2).contiguous()
+                          for a in t)
+            emit(flash_attention=B, dtype="bfloat16", library="sdpa",
+                 ms=graph_ms(lambda: sdpa(qt, kt, vt), 100))
+    if "flash_f32" in args.only:
+        for B, t in fl_in.items():
+            qt, kt, vt = (a.transpose(1, 2).contiguous() for a in t)
+            emit(flash_attention=B, dtype="float32", library="sdpa",
+                 ms=graph_ms(lambda: sdpa(qt, kt, vt), 20))
+    if "rmsnorm" in args.only:
+        for (R, d, dt), (x, s) in rn_in.items():
+            weight = (1.0 + s.float()).to(dt)
+            emit(rmsnorm=[R, d], dtype=str(dt)[6:], library="F.rms_norm",
+                 ms=graph_ms(lambda: rms(x, (d,), weight=weight,
+                                         eps=rn.EPS), 200))
+
     for version, path in dirs.items():       # each version built anew
         build.CSRC = path
         build._loaded.clear()
-        for k, (x, w) in moe_in.items():
-            assert mg.variant(x, w) == "tma_wgmma"
-            print(json.dumps({"moe_gemm": k, "version": version,
-                              "ms": graph_ms(lambda: mg.moe_gemm(x, w), 20)}),
-                  flush=True)
-        for B, (q, kk, v) in fl_in.items():
-            assert fa.variant(q, kk, v) == "tma_wgmma"
-            print(json.dumps({"flash_attention": B, "version": version,
-                              "ms": graph_ms(lambda: fa.flash_attention(
-                                  q, kk, v, causal=False), 100)}),
-                  flush=True)
+        if "wgmma" in args.only and version in GROUP_VERSIONS["wgmma"]:
+            for k, (x, w) in moe_in.items():
+                assert mg.variant(x, w) == "tma_wgmma"
+                emit(moe_gemm=k, version=version,
+                     ms=graph_ms(lambda: mg.moe_gemm(x, w), 20))
+            for B, t in fl_in.items():
+                q, kk, v = (a.bfloat16() for a in t)
+                assert fa.variant(q, kk, v) == "tma_wgmma"
+                emit(flash_attention=B, dtype="bfloat16", version=version,
+                     ms=graph_ms(lambda: fa.flash_attention(
+                         q, kk, v, causal=False), 100))
+        if "flash_f32" in args.only and version in GROUP_VERSIONS["flash_f32"]:
+            for B, (q, kk, v) in fl_in.items():
+                emit(flash_attention=B, dtype="float32", version=version,
+                     variant=fa.variant(q, kk, v),
+                     ms=graph_ms(lambda: fa.flash_attention(
+                         q, kk, v, causal=False), 20))
+        if "rmsnorm" in args.only and version in GROUP_VERSIONS["rmsnorm"]:
+            for (R, d, dt), (x, s) in rn_in.items():
+                emit(rmsnorm=[R, d], dtype=str(dt)[6:], version=version,
+                     ms=graph_ms(lambda: rn.rmsnorm(x, s), 200))
+                if version == "as built" and dt == torch.bfloat16:
+                    s32 = s.float()
+                    emit(rmsnorm=[R, d], dtype="bfloat16",
+                         version="scale cast outside",
+                         ms=graph_ms(lambda: rn.rmsnorm(x, s32), 200))
     return 0
 
 
