@@ -7,9 +7,9 @@ final line:
 
 1. card    — the GPU's name and power limit (nvidia-smi);
 2. build   — ``nvcc`` builds every kernel source in
-             ``src/repro_torch/kernels/csrc/`` (``event_select``,
-             ``flash_attention``, ``admission`` — which holds
-             ``fleet_feasibility`` and ``link_cost`` —, ``rmsnorm``,
+             ``src/repro_torch/kernels/csrc/`` (``event_scan``,
+             ``event_select``, ``flash_attention``, ``admission`` — which
+             holds ``fleet_feasibility`` and ``link_cost`` —, ``rmsnorm``,
              ``moe_gemm``), one process each, started together, and prints
              ``ptxas``'s registers, shared memory and spills of each kernel;
              then one ``rmsnorm`` call at each shape of phase 5c, f32 and
@@ -17,21 +17,36 @@ final line:
              kernel (profiled here, before anything else is profiled);
 3. fleet   — the event-time fleet simulator (``repro_torch.fleetsim.
              simulate``, seed 0, full mesh, campus pricing,
-             ``batched_feasible``):
+             ``batched_feasible``), whose CUDA path is one ``event_scan``
+             launch per run:
              a. ``event_select`` against its plain PyTorch version on
                 random fleets (K in {3, 6, 32}, W in {64, 512}) with
                 head-pointer rows, ties and a priced network;
-             b. a profiled 500-event segment of ``paper/scenario1``;
-             c. the main path: ``paper/scenario1..3`` and the first 8,000
-                requests of the 32-node fleet, each held against the JAX
-                reference's digests in ``tests/data/
-                torch_fleetsim_golden.json``, with the kernel's launch
-                count (set to 0 before each run) equal to the run's event
-                steps; every 150th kernel input of each run's first 1,500
-                events is kept;
-             d. the kernel against its plain version on those kept inputs
-                (every (K, W) the main path gives it), then its time at
-                those shapes beside the plain version's and the bound;
+             b. for each main-path run, its first 500 events through the
+                eager per-event loop on the card (``fleetsim.core.
+                _simulate_eager``, ``event_scan``'s plain version): wall
+                time per event, keeping every 150th ``event_select``
+                input; then its first 100 events profiled (device busy,
+                idle share, launches per event);
+             c. the main path: ``paper/scenario1..3`` and the full
+                16,000-request 32-node fleet, each held against the JAX
+                reference's aggregates, digests and floats in
+                ``tests/data/torch_fleetsim_golden.json``, with exactly one
+                ``event_scan`` and no ``event_select`` launch per run (the
+                counts set to 0 before each run);
+             d. ``event_scan`` against the eager loop on the CPU, on a hot
+                3-node fleet under the four deterministic policies, priced
+                and not: every per-request field and counter equal; the
+                check is shown to reject a planted fault (one request's
+                ``served_by`` changed, one request's deadline moved);
+             e. ``event_scan``'s time: each whole run in one launch, and
+                each run's first 500 events beside the eager loop's time
+                there, with the bound per event (the bytes of one step,
+                the live blocks it scores counted by the kernel, at the
+                HBM rate) beside the serial chain between events;
+                then ``event_select`` against its plain version on the
+                kept inputs (every (K, W) of the main path) and its time
+                there beside the plain version's and the bound;
 4. vision  — the deadline-aware serving path with DeiT-B at full width:
              a. ``flash_attention`` against its plain version on a random
                 sweep (causal / window / GQA, S in {1, 63, 65, 127, 129,
@@ -64,8 +79,10 @@ final line:
                 yardstick; the port never calls it), their ratio and the
                 bound; the f32 kernel at B=1 and B=8 beside its plain
                 version, SDPA in f32, their ratio and its bound at the
-                f32 peak outside the tensor cores; where the device time
-                of one 384-px batch of 8 goes;
+                f32 peak outside the tensor cores; the ``mma_sync``
+                variant (bf16, D = 80: ViT-H/14's 16 heads at B=8,
+                S=578) checked, then timed beside SDPA and its bound;
+                where the device time of one 384-px batch of 8 goes;
                 the engine's measured step times per class and batch
                 size;
 5. entry points — the kernels that only ``repro_torch.kernels.ops`` reaches
@@ -76,7 +93,7 @@ final line:
                 256}, N in {8, 64, 1024}) with full and empty rows,
                 deadlines on block edges and a priced network: bit for bit,
                 ``load`` within ``LOAD_RTOL`` where sizes are not dyadic;
-             b. on every ``event_select`` input kept in phase 3, the
+             b. on every ``event_select`` input kept in phase 3b, the
                 selected event scored by ``link_cost`` from its node's
                 network row equals ``event_select``'s feasible, arrive and
                 load, and ``fleet_feasibility`` from max(arrive, busy) its
@@ -130,9 +147,11 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs import deit_b  # noqa: E402
+from repro_torch.fleetsim import core as fleet_core  # noqa: E402
 from repro_torch.fleetsim import simulate, topology_arrays  # noqa: E402
 from repro_torch.kernels import admission as ad_mod  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels import event_scan as scan_mod  # noqa: E402
 from repro_torch.kernels import event_select as es_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import moe_gemm as mg_mod  # noqa: E402
@@ -140,7 +159,8 @@ from repro_torch.kernels import rmsnorm as rn_mod  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import vit  # noqa: E402
 from repro_torch.netsim import LinkModel  # noqa: E402
-from repro_torch.orchestration import (Topology, fleet_workload,  # noqa: E402
+from repro_torch.orchestration import (Topology,  # noqa: E402
+                                       UniformWorkload, fleet_workload,
                                        get_workload)
 from repro_torch.serving import measure_step_times  # noqa: E402
 
@@ -151,6 +171,8 @@ F32_FLOP_PER_S = 67e12             # H100 SXM f32 outside the tensor cores
 NAMES = ("take_fresh", "t", "node", "feasible", "arrive", "j", "cap", "load")
 CSRC = "src/repro_torch/kernels/csrc/"
 KERNELS = {           # name: (source, the TPU kernel it replaces)
+    "event_scan": (CSRC + "event_scan.cu",
+                   "src/repro/kernels/event_select.py:43"),
     "event_select": (CSRC + "event_select.cu",
                      "src/repro/kernels/event_select.py:43"),
     "flash_attention": (CSRC + "flash_attention.cu",
@@ -177,7 +199,9 @@ RMS_RATIO = 1.05
 # XLA on the CPU (cuBLAS's GEMMs, the kernel's unnormalised p): the port
 # on the CPU is 0.025 from the reference, and 0.1 leaves 4x that margin
 LOGIT_ATOL = {"float32": 1e-4, "bfloat16": 0.1}
-FLEET_CAPTURE_EVENTS, FLEET_CAPTURE_EVERY = 1500, 150
+# the eager loop's segment of each main-path run, how often it keeps an
+# event_select input there, and how much of it is profiled
+SEGMENT_EVENTS, FLEET_CAPTURE_EVERY, PROFILED_EVENTS = 500, 150, 100
 
 
 def fail(msg: str) -> None:
@@ -378,26 +402,39 @@ def packed_args(args):
             args[16].to(torch.int32), *args[17:])
 
 
-def profile_segment(spec, golden, dev, events=500):
-    """The first ``events`` events of a run under ``torch.profiler``:
-    wall time, device busy time (the sum of kernel times), kernel
-    launches per event, the host's time in device-to-host syncs, and the
-    costliest host ops and device kernels.  The profiler slows the host,
-    so the idle share it shows is an upper bound for an unprofiled run."""
+def eager_segment(spec, golden, dev, keep):
+    """The first events of a run through the eager per-event loop on the
+    card (``fleetsim.core._simulate_eager``, the plain version of
+    ``event_scan``): ``SEGMENT_EVENTS`` timed, with ``ops.event_select``'s
+    inputs kept where ``keep`` picks them, then the first
+    ``PROFILED_EVENTS`` under ``torch.profiler`` (its trace of ~190
+    launches an event takes the profiler ~0.1 s an event to digest).
+    Returns the wall time, the device busy time (the sum of the device's
+    own entries), kernel launches per event, the host's time in
+    device-to-host syncs, the costliest host ops and device kernels, and
+    the kept inputs.  The profiler slows the host, so the idle share it
+    shows is an upper bound for an unprofiled run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     reqs, topo, net = main_inputs(spec)
     kw = dict(policy=golden["policy"], max_forwards=golden["max_forwards"],
               capacity=spec["capacity"], depth=spec["depth"], net=net,
-              max_events=events, device=dev)
-    simulate(reqs, topo, **kw)                     # warm-up
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA], acc_events=True) as prof:
+              device=dev)
+    with Spy(ops, "event_select", keep) as spy:
         torch.cuda.synchronize()
         t0 = time.time()
-        m = simulate(reqs, topo, **kw)
+        m = fleet_core._simulate_eager(reqs, topo, max_events=SEGMENT_EVENTS,
+                                       **kw)
         torch.cuda.synchronize()
         wall_us = (time.time() - t0) * 1e6
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        traced = fleet_core._simulate_eager(
+            reqs, topo, max_events=PROFILED_EVENTS, **kw)
+        torch.cuda.synchronize()
+        traced_us = (time.time() - t0) * 1e6
     ka = prof.key_averages()
     dev_key = device_time_key(ka)
     # a CPU op also carries the time of the kernels it launched: count the
@@ -413,15 +450,19 @@ def profile_segment(spec, golden, dev, events=500):
     top = sorted(ka, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
     top_dev = sorted(on_dev, key=lambda e: getattr(e, dev_key),
                      reverse=True)[:6]
+    n = traced.events
     return dict(
-        events=m.events, wall_us=wall_us, device_busy_us=busy_us,
-        idle_share=(1.0 - busy_us / wall_us) if busy_us > 0 else None,
-        launches_per_event=launches / m.events,
-        retire_iterations=m.retire_iterations, sync_us=sync_us,
+        events=m.events, wall_us=wall_us, traced_events=n,
+        traced_us_per_event=traced_us / n, busy_us_per_event=busy_us / n,
+        idle_share=(1.0 - busy_us / traced_us) if busy_us > 0 else None,
+        launches_per_event=launches / n,
+        retire_iterations=m.retire_iterations,
+        sync_us_per_event=sync_us / n,
         top_host_ops=[(e.key, e.count, round(e.self_cpu_time_total))
                       for e in top],
         top_device_ops=[(e.key[:60], e.count, round(getattr(e, dev_key)))
-                        for e in top_dev])
+                        for e in top_dev],
+        kept=[args for args, _ in spy.kept])
 
 
 def device_time_key(ka) -> str:
@@ -439,19 +480,123 @@ def event_select_bound_ms(K: int, W: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
+def scan_bound_ms(K: int, events: int, scored: int) -> float:
+    """Least time for a run's ``batched_feasible`` steps: each reads the
+    live ledger blocks it scores (12 bytes a block; ``scored``, the
+    kernel's count, sums them over the run), the per-node head, count,
+    busy time, speed and load (20 K), the event node's latency and
+    inverse-bandwidth (8 K) and adjacency (K) rows and the request's
+    16-byte row, and writes the new block (16 bytes) and the request's
+    record and completion (8).  The insert's shifted blocks are not
+    counted (data-dependent and, at these loads, a few)."""
+    nbytes = 12 * scored + events * (29 * K + 40)
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
 def main_inputs(spec):
     reqs, _ = workload_of(spec).to_arrays(0)
-    n = spec["workload"].get("prefix")
-    if n is not None:                 # the first n requests in arrival order
-        reqs = type(reqs)(*(a[:n] for a in reqs))
     topo = Topology.full_mesh(spec["n_nodes"])
     return (reqs, topology_arrays(topo),
             LinkModel.campus(topo).net_params())
 
 
+def check_golden(spec, m):
+    """A run's aggregates, per-request digests and floats against the JAX
+    reference's in the golden file."""
+    for k, want in spec["aggregates"].items():
+        if int(getattr(m, k)) != want:
+            fail(f"{spec['name']} {k}: {int(getattr(m, k))} != {want}")
+    for k, want in spec["digests"].items():
+        if digest(getattr(m, k)) != want:
+            fail(f"{spec['name']} per-request {k} differs from the JAX "
+                 "reference")
+    for k, want in spec["floats"].items():
+        got = float(getattr(m, k))
+        if not np.isfinite(got) or abs(got - want) > 1e-5 * abs(want):
+            fail(f"{spec['name']} {k}: {got} vs {want}")
+
+
+PER_REQUEST = ("outcome", "served_by", "forwards_used", "completion",
+               "transfer_used")
+COUNTERS = ("overflow", "window_saturation", "event_overflow", "forwards",
+            "met_deadline", "processed", "discarded", "events",
+            "retire_iterations")
+
+
+def fleet_diffs(got, want):
+    """The per-request fields and counters on which two runs differ."""
+    diffs = [f for f in PER_REQUEST if not torch.equal(
+        getattr(got, f).cpu(), getattr(want, f).cpu())]
+    return diffs + [f for f in COUNTERS
+                    if int(getattr(got, f)) != int(getattr(want, f))]
+
+
+def scan_vs_eager(dev) -> float:
+    """Phase 3d: ``event_scan`` on the card against the eager loop on the
+    CPU, on tests/test_fleetsim.py's hot 3-node fleet under the four
+    deterministic policies with and without campus pricing; then the
+    check's own test on two planted faults.  Returns the max abs error of
+    the float fields (completion, transfer_used)."""
+    hot = [{"S1": 30, "S4": 30, "S5": 25, "S6": 25}] * 3
+    reqs, _ = UniformWorkload(hot, window=1200.0, name="hot").to_arrays(0)
+    topo = Topology.full_mesh(3)
+    ta = topology_arrays(topo)
+    R, err = reqs.arrival.shape[0], 0.0
+    for policy in ("batched_feasible", "round_robin", "least_loaded",
+                   "trace"):
+        targets = None if policy != "trace" else \
+            np.random.default_rng(1).integers(-1, 3, (R, 2)).astype(np.int32)
+        for net in (None, LinkModel.campus(topo).net_params()):
+            kw = dict(policy=policy, capacity=512, depth=256, net=net,
+                      targets=targets)
+            cpu = simulate(reqs, ta, device="cpu", **kw)
+            scan_mod.event_scan.launches = 0
+            es_mod.event_select.launches = 0
+            gpu = simulate(reqs, ta, device=dev, **kw)
+            torch.cuda.synchronize()
+            launches = (scan_mod.event_scan.launches,
+                        es_mod.event_select.launches)
+            priced = "campus" if net is not None else "no net"
+            if launches != (1, 0):
+                fail(f"hot fleet {policy} {priced}: (event_scan, "
+                     f"event_select) launches {launches}, not (1, 0)")
+            diffs = fleet_diffs(gpu, cpu)
+            if diffs:
+                fail(f"hot fleet {policy} {priced}: event_scan differs from "
+                     f"the eager loop on {diffs}")
+            err = max(err, *(float((getattr(gpu, f).cpu() - getattr(
+                cpu, f)).abs().max()) for f in ("completion",
+                                                 "transfer_used")))
+    print(f"fleet scan: event_scan on the card equals the eager loop on "
+          f"the CPU on every per-request field and counter of the hot "
+          f"fleet ({R} requests, {gpu.events} events under trace with "
+          f"campus pricing) under batched_feasible, round_robin, "
+          f"least_loaded and trace, priced and not; max abs err {err}",
+          flush=True)
+
+    # the check's own test: a kernel output with one request served
+    # elsewhere, and a kernel run with one met request's deadline moved
+    i = int(torch.nonzero(cpu.outcome == 1)[0])
+    bad = gpu._replace(served_by=gpu.served_by.clone())
+    bad.served_by[i] = (bad.served_by[i] + 1) % 3
+    moved = reqs.rel_deadline.copy()
+    moved[i] = 1.0
+    late = simulate(reqs._replace(rel_deadline=moved), ta, device=dev, **kw)
+    faults = {"served_by changed": fleet_diffs(bad, cpu),
+              "deadline moved": fleet_diffs(late, cpu)}
+    if not all(faults.values()):
+        fail(f"the event_scan check passes a planted fault: {faults}")
+    print(f"fleet scan: the check rejects request {i} served elsewhere "
+          f"(differs on {faults['served_by changed']}) and a run with its "
+          f"deadline moved to 1 UT (differs on {faults['deadline moved']})",
+          flush=True)
+    return err
+
+
 def fleet_phase(dev):
-    """Phase 3; returns the ``event_select`` entry of the kernels line and
-    the kernel inputs kept from each main-path run."""
+    """Phase 3; returns the ``event_select`` and ``event_scan`` entries of
+    the kernels line and the ``event_select`` inputs kept from each
+    main-path run's eager segment."""
     with open(GOLDEN) as f:
         golden = json.load(f)
     rng = np.random.default_rng(0)
@@ -469,33 +614,45 @@ def fleet_phase(dev):
                     n_checked += 1
     print(f"fleet kernel: {n_checked} random inputs match the plain "
           f"version, max abs err {max_err}", flush=True)
+    t_sub = time.time()
 
-    # the main path's runs: the three paper scenarios at full volume and
-    # the first 8,000 requests of the 32-node fleet (its full run is in
-    # the golden file too, for the CPU tests)
+    # b. the eager loop on the card over each main-path run's first events:
+    # the before numbers, and event_select's inputs
     by_name = {r["name"]: r for r in golden["runs"]}
     runs = [by_name[n] for n in ("paper/scenario1", "paper/scenario2",
-                                 "paper/scenario3", "fleet32_div4_first8000")]
-    prof = profile_segment(runs[0], golden, dev)
-    print(f"trace {runs[0]['name']} first {prof['events']} events: "
-          f"{prof['wall_us'] / prof['events']:.1f} us/event wall, device "
-          f"busy {prof['device_busy_us'] / prof['events']:.1f} us/event, "
-          f"idle share {prof['idle_share']}, "
-          f"{prof['launches_per_event']:.1f} launches/event, "
-          f"{prof['retire_iterations']} retire iterations, host in "
-          f"device-to-host syncs {prof['sync_us'] / prof['events']:.1f} "
-          f"us/event; top host ops (name, calls, self us): "
-          f"{prof['top_host_ops']}; top device ops (name, calls, self us): "
-          f"{prof['top_device_ops']}", flush=True)
+                                 "paper/scenario3", "fleet32_div4")]
+    keep = lambda i, args: (i + 1) % FLEET_CAPTURE_EVERY == 0
+    reqs, topo, net = main_inputs(runs[0])
+    fleet_core._simulate_eager(reqs, topo, capacity=runs[0]["capacity"],
+                               depth=runs[0]["depth"], net=net,
+                               max_events=50, device=dev)      # warm-up
+    segments, captured = {}, {}
+    for spec in runs:
+        seg = segments[spec["name"]] = eager_segment(spec, golden, dev, keep)
+        captured[spec["name"]] = seg.pop("kept")
+        print(f"eager {spec['name']} first {seg['events']} events: "
+              f"{seg['wall_us'] / seg['events']:.1f} us/event wall, "
+              f"{seg['retire_iterations']} retire iterations; first "
+              f"{seg['traced_events']} profiled: "
+              f"{seg['traced_us_per_event']:.1f} us/event wall, device busy "
+              f"{seg['busy_us_per_event']:.1f} us/event, idle share "
+              f"{seg['idle_share']}, {seg['launches_per_event']:.1f} "
+              f"launches/event, host in device-to-host syncs "
+              f"{seg['sync_us_per_event']:.1f} us/event; top host ops (name, "
+              f"calls, self us): {seg['top_host_ops']}; top device ops "
+              f"(name, calls, self us): {seg['top_device_ops']}", flush=True)
+    print(f"fleet phase b (eager segments): {time.time() - t_sub:.1f} s",
+          flush=True)
+    t_sub = time.time()
 
-    launches, captured = {}, {}
-    keep = lambda i, args: (i < FLEET_CAPTURE_EVENTS
-                            and (i + 1) % FLEET_CAPTURE_EVERY == 0)
+    # c. the main path: each run one event_scan launch, no event_select
+    launches, scan_args = {}, {}
     for spec in runs:
         reqs, topo, net = main_inputs(spec)
         torch.cuda.synchronize()
-        with Spy(ops, "event_select", keep) as spy:
-            es_mod.event_select.launches = 0
+        scan_mod.event_scan.launches = 0
+        es_mod.event_select.launches = 0
+        with Spy(scan_mod, "event_scan", lambda i, args: True) as spy:
             t0 = time.time()
             m = simulate(reqs, topo, policy=golden["policy"],
                          max_forwards=golden["max_forwards"],
@@ -503,34 +660,96 @@ def fleet_phase(dev):
                          net=net, max_events=spec["max_events"], device=dev)
             torch.cuda.synchronize()
             wall = time.time() - t0
-            n_launch = es_mod.event_select.launches
-        launches[spec["name"]] = n_launch
-        captured[spec["name"]] = [args for args, _ in spy.kept]
+        n_scan = scan_mod.event_scan.launches
+        n_select = es_mod.event_select.launches
+        launches[spec["name"]] = (n_scan, n_select)
+        scan_args[spec["name"]] = spy.kept[0]
         R = int(m.total)
         print(f"main {spec['name']}: {R} requests, {m.events} events, "
-              f"{wall:.2f} s, {m.events / wall:.1f} events/s, "
-              f"{R / wall:.1f} requests/s, {m.retire_iterations} retire "
-              f"iterations, {n_launch} event_select launches, "
+              f"{wall:.4f} s, {m.events / wall:.1f} events/s, "
+              f"{R / wall:.1f} requests/s, {wall / m.events * 1e6:.2f} "
+              f"us/event, {m.retire_iterations} retire iterations, "
+              f"{n_scan} event_scan and {n_select} event_select launches, "
               f"{int(m.forwards)} forwards, {int(m.met_deadline)} met",
               flush=True)
-        for k, want in spec["aggregates"].items():
-            if int(getattr(m, k)) != want:
-                fail(f"{spec['name']} {k}: {int(getattr(m, k))} != {want}")
-        for k, want in spec["digests"].items():
-            if digest(getattr(m, k)) != want:
-                fail(f"{spec['name']} per-request {k} differs from the "
-                     "JAX reference")
-        for k, want in spec["floats"].items():
-            got = float(getattr(m, k))
-            if not np.isfinite(got) or abs(got - want) > 1e-5 * abs(want):
-                fail(f"{spec['name']} {k}: {got} vs {want}")
-        if n_launch != m.events or m.events == 0:
-            fail(f"{spec['name']}: {n_launch} event_select launches for "
-                 f"{m.events} event steps")
+        check_golden(spec, m)
+        if (n_scan, n_select) != (1, 0) or m.events == 0:
+            fail(f"{spec['name']}: {n_scan} event_scan and {n_select} "
+                 f"event_select launches for {m.events} event steps")
+        segments[spec["name"]].update(
+            R=R, K=spec["n_nodes"], W=spec["depth"], run_events=m.events,
+            run_wall_s=wall)
 
-    # the kernel on the inputs kept from every main-path run, so each
-    # (K, W) the main path gives it is checked on its own run's data; the
-    # last input of each shape is the one timed below
+    print(f"fleet phase c (main path): {time.time() - t_sub:.1f} s",
+          flush=True)
+    t_sub = time.time()
+
+    # d. event_scan against the eager loop, and the check's own test
+    scan_err = scan_vs_eager(dev)
+    print(f"fleet phase d (event_scan against the eager loop): "
+          f"{time.time() - t_sub:.1f} s", flush=True)
+
+    # e. event_scan's time: each whole run in one launch, and the first
+    # SEGMENT_EVENTS events of each run beside the eager loop's time there
+    rows = []
+    for spec in runs:
+        seg = segments[spec["name"]]
+        args, kw = scan_args[spec["name"]]
+        K, W = seg["K"], seg["W"]
+        seg_kw = dict(kw, max_events=SEGMENT_EVENTS)
+        run_n, seg_n = (dict(zip(scan_mod.COUNTS, scan_mod.event_scan(
+            *args, **k).counts.tolist())) for k in (kw, seg_kw))
+        run_ms = timed_ms(lambda: scan_mod.event_scan(*args, **kw), 2)
+        seg_ms = timed_ms(lambda: scan_mod.event_scan(*args, **seg_kw), 5)
+        row = dict(run=spec["name"], K=K, W=W, events=run_n["events"],
+                   ms=run_ms, us_per_event=run_ms * 1e3 / run_n["events"],
+                   scored_per_event=run_n["scored"] / run_n["events"],
+                   bound_ms=scan_bound_ms(K, run_n["events"],
+                                          run_n["scored"]),
+                   segment_events=seg_n["events"], segment_ms=seg_ms,
+                   segment_plain_ms=seg["wall_us"] * 1e-3,
+                   segment_bound_ms=scan_bound_ms(K, seg_n["events"],
+                                                  seg_n["scored"]),
+                   eager_us_per_event=seg["wall_us"] / seg["events"],
+                   eager_busy_us_per_event=seg["busy_us_per_event"],
+                   eager_idle_share=seg["idle_share"],
+                   eager_launches_per_event=seg["launches_per_event"],
+                   wall_s=seg["run_wall_s"])
+        if (row["events"], row["segment_events"]) != (
+                seg["run_events"], seg["events"]):
+            fail(f"{spec['name']}: event_scan ran {row['events']} / "
+                 f"{row['segment_events']} events, simulate "
+                 f"{seg['run_events']} and the eager loop {seg['events']}")
+        rows.append(row)
+        seg_us = seg_ms * 1e3 / row["segment_events"]
+        print(f"fleet scan time {spec['name']} (K={K}, W={W}): whole run "
+              f"{row['events']} events in {run_ms:.3f} ms, "
+              f"{row['us_per_event']:.3f} us/event, "
+              f"{row['events'] / run_ms * 1e3:.0f} events/s (simulate wall "
+              f"{row['wall_s']:.4f} s); first {row['segment_events']} "
+              f"events {seg_ms:.3f} ms, {seg_us:.3f} us/event against the "
+              f"eager loop's {row['eager_us_per_event']:.1f} us/event (x"
+              f"{row['eager_us_per_event'] / seg_us:.0f}); bound "
+              f"{row['bound_ms'] * 1e3 / row['events']:.4f} us/event by "
+              f"bytes ({row['scored_per_event']:.1f} live blocks scored a "
+              f"step, at 3.35 TB/s), beside the serial chain between "
+              f"events (each step reads what the last wrote: its barriers "
+              f"and dependent L2 round trips), which no bandwidth removes",
+              flush=True)
+    top = rows[-1]                                   # fleet32_div4
+    scan_entry = dict(
+        launches=sum(n for n, _ in launches.values()),
+        launches_by_run={k: n for k, (n, _) in launches.items()},
+        also_replaces="src/repro/fleetsim/core.py:570",
+        max_abs_err=scan_err, ms=top["segment_ms"],
+        plain_ms=top["segment_plain_ms"], bound_ms=top["segment_bound_ms"],
+        bound_by="bytes", library_ms=None,
+        timed=f"{top['run']}, first {top['segment_events']} events",
+        runs=rows)
+
+    # event_select on the inputs kept from every main-path run's eager
+    # segment, so each (K, W) the main path gives it is checked on its own
+    # run's data; the last input of each shape is the one timed below
     shape_args, n_captured = {}, 0
     for name, kept in captured.items():
         if not kept:
@@ -544,7 +763,7 @@ def fleet_phase(dev):
         fail(f"kept shapes {sorted(shape_args)} are not the main path's "
              f"{sorted(main_shapes)}")
     print(f"fleet kernel: {n_captured} inputs kept from the {len(runs)} "
-          f"main-path runs, shapes (K, W) {sorted(shape_args)}, match the "
+          f"eager segments, shapes (K, W) {sorted(shape_args)}, match the "
           f"plain version; max abs err over all {n_checked + n_captured} "
           f"inputs {max_err}", flush=True)
 
@@ -565,11 +784,13 @@ def fleet_phase(dev):
               f"{row['plain_ms_eager'] * 1e3:.2f} us), bound "
               f"{row['bound_ms'] * 1e3:.4f} us", flush=True)
     fleet = next(r for r in shapes if (r["K"], r["W"]) == (32, 512))
-    return dict(launches=sum(launches.values()), launches_by_run=launches,
-                max_abs_err=max_err, ms=fleet["ms"],
-                plain_ms=fleet["plain_ms"], bound_ms=fleet["bound_ms"],
-                bound_by="bytes", library_ms=None, ratio=None,
-                shapes=shapes), captured
+    select_entry = dict(
+        launches=sum(n for _, n in launches.values()),
+        launches_by_run={k: n for k, (_, n) in launches.items()},
+        max_abs_err=max_err, ms=fleet["ms"], plain_ms=fleet["plain_ms"],
+        bound_ms=fleet["bound_ms"], bound_by="bytes", library_ms=None,
+        ratio=None, shapes=shapes)
+    return select_entry, scan_entry, captured
 
 
 # ---------------------------------------------------------------------------
@@ -895,6 +1116,16 @@ def vision_phase(dev):
                        (x.float() for x in (q, k, v))):
         rows.append(flash_times(qf, kf, vf, reps=20))
         print_flash_row("f32", rows[-1])
+    # the mma_sync variant (bf16 at D not 64 or 128) at DeiT-B's sequence
+    # with ViT-H/14's 16 heads of width 80 (configs/vit_h14.py)
+    q, k, v = (torch.randn(B, S, 16, 80, generator=gen).to(
+        device=dev, dtype=torch.bfloat16) for _ in range(3))
+    if fa_mod.variant(q, k, v) != "mma_sync":
+        fail(f"D=80 bf16 takes {fa_mod.variant(q, k, v)}, not mma_sync")
+    e, _ = check_flash(q, k, v, False, None)
+    max_err = max(max_err, e)
+    rows.append(flash_times(q, k, v))
+    print_flash_row("bf16 ViT-H/14 heads", rows[-1])
 
     wall_us, kinds = batch_breakdown(params, cfg, frames[0])
     total = sum(kinds.values())
@@ -1374,7 +1605,7 @@ def main() -> int:
         fn.launches = 0
     t0 = time.time()
     entries = {}
-    entries["event_select"], kept = fleet_phase(dev)
+    entries["event_select"], entries["event_scan"], kept = fleet_phase(dev)
     print(f"fleet phase: {time.time() - t0:.1f} s", flush=True)
     t0 = time.time()
     entries["flash_attention"] = vision_phase(dev)

@@ -1,9 +1,9 @@
 """repro_torch.fleetsim — the event-time fleet simulator in PyTorch.
 
 The port of :mod:`repro.fleetsim`: the same strategy as stacked
-``(num_nodes, capacity)`` ledger tensors, one event per step, with the
-``batched_feasible`` policy scoring the fleet through the hand-written
-Hopper ``event_select`` kernel.
+``(num_nodes, capacity)`` ledger tensors, one event per step.  On CUDA a
+whole run is one launch of the hand-written Hopper ``event_scan`` kernel;
+on the CPU the eager per-event loop, its plain version, runs.
 
     from repro_torch.fleetsim import simulate, topology_arrays
     from repro_torch.netsim import LinkModel

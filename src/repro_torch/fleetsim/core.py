@@ -14,22 +14,27 @@ vectors, and the run advances one *event* per step — the earlier of
 
 processed as a single hop: retire every completion due strictly before
 the event, score the event's node (``batched_feasible`` scores the whole
-fleet through the hand-written ``event_select`` kernel), route an
-infeasible request and push its re-arrival at ``t + transfer_delay``,
-then apply admission through the closed-form cascade ``insert_at`` and
-record the terminal outcome.
+fleet), route an infeasible request and push its re-arrival at ``t +
+transfer_delay``, then apply admission through the closed-form cascade
+``insert_at`` and record the terminal outcome.
 
-Where JAX runs a ``lax.scan`` of ``max_events`` steps, this is a Python
-loop that stops at the first step with no live event (every later step
-would be a no-op), then drains the ledgers; events still pending at
-``max_events`` count into ``event_overflow`` exactly as in the scan.
-Each step makes one host read — the merge verdict, the buffer head's
-identity and whether a completion is due — so the event's request, node
-and hop are host ints from then on; the ``_retire`` loop reads its
-condition once more per further iteration.  Everything that depends on
-the ledgers (feasibility, routing, admission) stays on the device, and
-its arithmetic follows the JAX step operation for operation, so
-per-request outcomes match the reference exactly.
+Where JAX runs a ``lax.scan`` of ``max_events`` steps, two loops stop at
+the first step with no live event (every later step would be a no-op),
+then drain the ledgers; events still pending at ``max_events`` count into
+``event_overflow`` exactly as in the scan:
+
+* on CUDA, the hand-written ``event_scan`` kernel runs the whole loop in
+  one launch (one block owns the run; :mod:`repro_torch.kernels.
+  event_scan`), and the host reads its counts once, after it ends;
+* on the CPU, the eager loop (``_estep``, the kernel's plain version)
+  makes one host read per step — the merge verdict, the buffer head's
+  identity and whether a completion is due — so the event's request,
+  node and hop are host ints from then on; the ``_retire`` loop reads its
+  condition once more per further iteration.  ``batched_feasible`` scores
+  the fleet through ``kernels.ops.event_select``.
+
+Both follow the JAX step operation for operation, so per-request
+outcomes match the reference exactly.
 
 JAX's ``mode="drop"`` scatter of retired completions at index ``R``
 becomes a write into a dump slot at ``R`` of the completion buffer,
@@ -37,6 +42,7 @@ sliced off at the end.
 """
 from __future__ import annotations
 
+import inspect
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -45,6 +51,7 @@ from repro_torch.core import torch_queue as tq
 from repro_torch.device import DeviceLike
 from repro_torch.fleetsim.arrays import (RequestArrays, TopologyArrays,
                                          event_bound, to_device)
+from repro_torch.kernels import event_scan as kscan
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.netsim.link import NetParams
@@ -406,21 +413,29 @@ def _estep(state: EventState, run: _Run
 
 
 # ---------------------------------------------------------------------------
-# public entry points
+# the two loops over one run: the eager per-event loop (the CPU's, and the
+# plain version) and the event_scan kernel (CUDA)
 # ---------------------------------------------------------------------------
-def _simulate(reqs: RequestArrays, topo: TopologyArrays, params: SimParams,
-              targets: torch.Tensor, net: Optional[NetParams], *,
-              policy: str, max_forwards: int, discard_on_exhaust: bool,
-              capacity: int, depth: int, max_events: Optional[int],
-              event_buf: Optional[int]) -> FleetMetrics:
+class _Loop(NamedTuple):
+    """What the loop hands to the aggregates: the final state, the live
+    event steps, the ``_retire`` iterations (drain included) and the events
+    left at ``max_events``."""
+    state: EventState
+    events: int
+    retire_iterations: int
+    unprocessed: object             # int, or a (1,) tensor
+
+
+def _eager_loop(reqs: RequestArrays, topo: TopologyArrays,
+                targets: torch.Tensor, cols: torch.Tensor, lat, inv_bw, *,
+                policy: str, max_forwards: int, discard_on_exhaust: bool,
+                capacity: int, depth: int, E: int, B: int, hop_bits: int,
+                priced: bool) -> _Loop:
     R = reqs.arrival.shape[0]
     K = topo.speeds.shape[0]
     N = capacity
     dev = reqs.arrival.device
     f32 = torch.float32
-    E = event_bound(R, max_forwards) if max_events is None else max_events
-    B = min(R, 1024) if event_buf is None else event_buf
-    hop_bits = max(max_forwards + 1, 2).bit_length()
     one_i = lambda: torch.zeros((1,), dtype=I32, device=dev)
     state = EventState(
         starts=torch.full((K, N), tq.BIG, dtype=f32, device=dev),
@@ -440,21 +455,12 @@ def _simulate(reqs: RequestArrays, topo: TopologyArrays, params: SimParams,
         reqinfo=torch.zeros((R,), dtype=I32, device=dev),
         transfer=torch.zeros((R,), dtype=f32, device=dev),
     )
-    d_abs = kref.fma32(reqs.rel_deadline,
-                       torch.full_like(reqs.arrival, params.sla_scale),
-                       reqs.arrival)
-    payload = (reqs.payload if reqs.payload is not None
-               else torch.zeros_like(reqs.arrival))
-    zero_net = torch.zeros((K, K), dtype=f32, device=dev)
     row_base = torch.arange(K, device=dev) * N
     cols_w = torch.arange(depth, device=dev)
     run = _Run(
         topo=topo, policy=policy, max_forwards=max_forwards,
         discard_on_exhaust=discard_on_exhaust, capacity=capacity,
-        depth=depth, R=R, priced=net is not None,
-        lat=zero_net if net is None else net.latency,
-        inv_bw=zero_net if net is None else net.inv_bw,
-        cols=torch.stack([reqs.arrival, d_abs, reqs.proc, payload], dim=1),
+        depth=depth, R=R, priced=priced, lat=lat, inv_bw=inv_bw, cols=cols,
         origin=reqs.origin, origin_h=reqs.origin.tolist(),
         degree_h=topo.degree.tolist(),
         targets_h=targets.tolist() if policy == "trace" else None,
@@ -474,7 +480,56 @@ def _simulate(reqs: RequestArrays, topo: TopologyArrays, params: SimParams,
         retire_iters += it
     unprocessed = (R - state.cursor) + state.ev_n
     state, it = _retire(state, float("inf"), run)            # drain
-    retire_iters += it
+    return _Loop(state, events, retire_iters + it, unprocessed)
+
+
+def _scan_loop(reqs: RequestArrays, topo: TopologyArrays,
+               targets: torch.Tensor, cols: torch.Tensor, lat, inv_bw, *,
+               policy: str, max_forwards: int, discard_on_exhaust: bool,
+               capacity: int, depth: int, E: int, B: int, hop_bits: int,
+               priced: bool) -> _Loop:
+    out = kscan.event_scan(
+        cols, reqs.origin, targets, topo.adj, topo.degree, topo.speeds, lat,
+        inv_bw, policy=policy, max_forwards=max_forwards,
+        discard_on_exhaust=discard_on_exhaust, capacity=capacity,
+        depth=depth, event_buf=B, max_events=E, priced=priced,
+        hop_bits=hop_bits)
+    # the run's one host read, after the kernel has ended
+    events, retire_iters, unprocessed, cursor, error, _ = out.counts.tolist()
+    if error:
+        raise ValueError(f"event_scan stopped on {kscan.ERRORS[error]}")
+    state = EventState(cursor=cursor, **{
+        f: getattr(out, f) for f in EventState._fields if f != "cursor"})
+    return _Loop(state, events, retire_iters, unprocessed)
+
+
+def _simulate(reqs: RequestArrays, topo: TopologyArrays, params: SimParams,
+              targets: torch.Tensor, net: Optional[NetParams], *,
+              policy: str, max_forwards: int, discard_on_exhaust: bool,
+              capacity: int, depth: int, max_events: Optional[int],
+              event_buf: Optional[int], eager: bool) -> FleetMetrics:
+    R = reqs.arrival.shape[0]
+    K = topo.speeds.shape[0]
+    dev = reqs.arrival.device
+    d_abs = kref.fma32(reqs.rel_deadline,
+                       torch.full_like(reqs.arrival, params.sla_scale),
+                       reqs.arrival)
+    payload = (reqs.payload if reqs.payload is not None
+               else torch.zeros_like(reqs.arrival))
+    zero_net = torch.zeros((K, K), dtype=torch.float32, device=dev)
+    loop = _eager_loop if eager else _scan_loop
+    state, events, retire_iters, unprocessed = loop(
+        reqs, topo, targets,
+        torch.stack([reqs.arrival, d_abs, reqs.proc, payload], dim=1),
+        zero_net if net is None else net.latency,
+        zero_net if net is None else net.inv_bw,
+        policy=policy, max_forwards=max_forwards,
+        discard_on_exhaust=discard_on_exhaust, capacity=capacity,
+        depth=depth,
+        E=event_bound(R, max_forwards) if max_events is None else max_events,
+        B=min(R, 1024) if event_buf is None else event_buf,
+        hop_bits=max(max_forwards + 1, 2).bit_length(),
+        priced=net is not None)
 
     info = state.reqinfo
     completion = state.completion[:R]
@@ -516,6 +571,9 @@ def _simulate(reqs: RequestArrays, topo: TopologyArrays, params: SimParams,
     )
 
 
+# ---------------------------------------------------------------------------
+# public entry points
+# ---------------------------------------------------------------------------
 def simulate(reqs: RequestArrays, topo: TopologyArrays,
              params: Optional[SimParams] = None, *,
              policy: str = "batched_feasible", max_forwards: int = 2,
@@ -526,7 +584,9 @@ def simulate(reqs: RequestArrays, topo: TopologyArrays,
              event_buf: Optional[int] = None,
              telemetry=None, device: DeviceLike = None) -> FleetMetrics:
     """Run the fleet simulation on ``device`` (``None`` means CUDA, and
-    raises without it; ``"cpu"`` runs the kernels' plain versions).
+    raises without it; ``"cpu"`` runs the eager per-event loop, the plain
+    version).  On CUDA the whole run is one launch of the hand-written
+    ``event_scan`` kernel.
 
     Same contract as ``repro.fleetsim.simulate``: ``reqs``/``topo`` are
     the packed arrays of :mod:`repro_torch.fleetsim.arrays` (or the JAX
@@ -541,11 +601,27 @@ def simulate(reqs: RequestArrays, topo: TopologyArrays,
     shape (R, max_forwards)); ``net`` prices every referral hop
     ``latency[u, v] + payload · inv_bw[u, v]``.
 
-    The default policy is ``batched_feasible`` — the main path, scored
-    by the ``event_select`` kernel.  Not yet ported (ROADMAP.md, open
-    items): ``random``/``power_of_two`` (item 1, bit-exact threefry) and
-    ``telemetry`` (item 2).
+    The default policy is ``batched_feasible``, the main path.  Not yet
+    ported (ROADMAP.md, open items): ``random``/``power_of_two`` (item 1,
+    bit-exact threefry) and ``telemetry`` (item 2).
     """
+    return _run(False, reqs, topo, params, policy, max_forwards,
+                discard_on_exhaust, capacity, depth, targets, net,
+                max_events, event_buf, telemetry, device)
+
+
+def _simulate_eager(reqs, topo, params=None, **kw) -> FleetMetrics:
+    """:func:`simulate` through the eager per-event loop on any device,
+    CUDA included: the yardstick the ``event_scan`` kernel is held
+    against on the card (``chip_smoke.py``)."""
+    bound = inspect.signature(simulate).bind(reqs, topo, params, **kw)
+    bound.apply_defaults()
+    return _run(True, **bound.arguments)
+
+
+def _run(eager, reqs, topo, params, policy, max_forwards, discard_on_exhaust,
+         capacity, depth, targets, net, max_events, event_buf, telemetry,
+         device) -> FleetMetrics:
     if policy not in POLICIES:
         raise ValueError(f"unknown fleetsim policy {policy!r}; "
                          f"options: {sorted(POLICIES)}")
@@ -571,13 +647,14 @@ def simulate(reqs: RequestArrays, topo: TopologyArrays,
         targets = torch.full((R, max(max_forwards, 1)), -1, dtype=I32,
                              device=dev)
     else:
-        targets = torch.as_tensor(targets, dtype=I32, device=dev)
+        targets = torch.as_tensor(targets, dtype=I32, device=dev).contiguous()
     depth = capacity if depth is None else min(depth, capacity)
     return _simulate(reqs, topo, params or SimParams.make(), targets, net,
                      policy=policy, max_forwards=max_forwards,
                      discard_on_exhaust=discard_on_exhaust,
                      capacity=capacity, depth=depth, max_events=max_events,
-                     event_buf=event_buf)
+                     event_buf=event_buf,
+                     eager=eager or dev.type != "cuda")
 
 
 def simulate_fn(**_):

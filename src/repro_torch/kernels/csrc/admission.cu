@@ -20,11 +20,10 @@
 //                   ps - eps && cap > free && head + n < N, and load =
 //                   sum(sizes).
 //
-// The geometry is admission_row below, a copy of the per-row part of
-// csrc/event_select.cu (which also merges two candidate events and picks
-// its network row by node); the two are to be merged with the
-// device-resident scan.  One source holds both kernels, so the build,
-// which hashes the source, never loads a stale library for either.
+// The geometry is fleet_row.cuh's, which event_select.cu and
+// event_scan.cu share.  One source holds both kernels, so the build,
+// which hashes the source and the headers it includes, never loads a
+// stale library for either.
 //
 // Bound on this card: bytes.  A launch must read the three (K, N) f32
 // ledgers once (12 K N bytes) plus a few (K,) vectors and scalars, and
@@ -50,69 +49,11 @@
 
 #include <cuda_runtime.h>
 
+#include "fleet_row.cuh"
+
 namespace {
 
-constexpr float kBig = 1e30f;
 constexpr int kWarps = 4;                   // node rows per block
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = __fadd_rn(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-
-// The admission geometry of one (N,) ledger row with head h and nk live
-// blocks, for a request of work ps at deadline d on a CPU free from
-// `free`; evaluated by the whole warp, every lane gets the verdict and
-// the row's load.
-__device__ __forceinline__ void admission_row(
-    const float* __restrict__ st, const float* __restrict__ en,
-    const float* __restrict__ sz, int N, int h, int nk, float d, float ps,
-    float free, float eps, int lane, bool* feasible, float* load_out) {
-  const int tail = h + nk;
-
-  // -- pass 1: searchsorted as masked counts, and the row's load
-  unsigned c_start = 0, c_end = 0;
-  float load = 0.0f;
-  for (int i = lane; i < N; i += 32) {
-    c_start += st[i] < d;
-    c_end += en[i] < d;
-    load = __fadd_rn(load, sz[i]);
-  }
-  const int cap_idx = static_cast<int>(__reduce_add_sync(kFull, c_start));
-  const int e_hi = static_cast<int>(__reduce_add_sync(kFull, c_end));
-  load = warp_sum(load);
-
-  // -- pass 2: the last interior gap at or before e_hi (default: head)
-  int gap = h;
-  for (int i = lane; i < N; i += 32) {
-    const float prev = i == 0 ? -kBig : en[i - 1];
-    if (st[i] > prev && i >= h + 1 && i < tail && i <= e_hi) gap = max(gap, i);
-  }
-  const int prev_gap = __reduce_max_sync(kFull, gap);
-
-  // -- the insertion slot and the window's right edge
-  const bool no_straddle = e_hi >= cap_idx;
-  int j = no_straddle ? e_hi : prev_gap;
-  const float start_j = j < tail ? st[min(j, N - 1)] : kBig;
-  float cap = no_straddle ? d : fminf(start_j, d);
-  if (!no_straddle && prev_gap == h) {        // front fallback
-    const float start_h = nk > 0 ? st[min(h, N - 1)] : kBig;
-    cap = fminf(start_h, d);
-    j = h;
-  }
-
-  // -- pass 3: prefix work ahead of the slot
-  float pw = 0.0f;
-  const int jn = min(j, N);
-  for (int i = lane; i < jn; i += 32) pw = __fadd_rn(pw, sz[i]);
-  pw = warp_sum(pw);
-
-  *feasible = (__fsub_rn(cap, __fadd_rn(free, pw)) >= __fsub_rn(ps, eps)) &&
-              (cap > free) && (tail < N);
-  *load_out = load;
-}
 
 __global__ void __launch_bounds__(kWarps * 32)
 fleet_feasibility_kernel(const float* __restrict__ starts,   // (K, N)
@@ -130,13 +71,12 @@ fleet_feasibility_kernel(const float* __restrict__ starts,   // (K, N)
   const int k = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (k >= K) return;
   const size_t row = static_cast<size_t>(k) * N;
-  bool feas;
-  float load;
-  admission_row(starts + row, ends + row, sizes + row, N, head[k], n[k], *d,
-                ps[k], cpu_free[k], eps, lane, &feas, &load);
+  const fleet::Row r = fleet::fleet_row(starts + row, ends + row,
+                                        sizes + row, N, head[k], n[k], *d,
+                                        ps[k], cpu_free[k], eps, lane, 0, N);
   if (lane == 0) {
-    feas_out[k] = feas;
-    load_out[k] = load;
+    feas_out[k] = r.feasible;
+    load_out[k] = r.load;
   }
 }
 
@@ -164,14 +104,13 @@ link_cost_kernel(const float* __restrict__ starts,      // (K, N)
       __fmaf_rn(*payload, inv_bw_row[k], __fadd_rn(*t_src, lat_row[k]));
   const float free = fmaxf(arrive, busy[k]);
   const size_t row = static_cast<size_t>(k) * N;
-  bool feas;
-  float load;
-  admission_row(starts + row, ends + row, sizes + row, N, head[k], n[k], *d,
-                ps[k], free, eps, lane, &feas, &load);
+  const fleet::Row r = fleet::fleet_row(starts + row, ends + row,
+                                        sizes + row, N, head[k], n[k], *d,
+                                        ps[k], free, eps, lane, 0, N);
   if (lane == 0) {
-    feas_out[k] = feas;
+    feas_out[k] = r.feasible;
     arrive_out[k] = arrive;
-    load_out[k] = load;
+    load_out[k] = r.load;
   }
 }
 

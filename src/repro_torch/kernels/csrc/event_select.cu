@@ -17,17 +17,21 @@
 //      feasible = cap - (free + pw_j) >= ps - eps && cap > free &&
 //      tail < W, and load = sum(sizes).
 //
+// No path of the simulator launches it any more: since the fleet loop
+// became one event_scan.cu launch per run, it is the entry point
+// repro_torch.kernels.ops.event_select only, the counterpart of
+// repro.kernels.ops.event_select.
+//
 // Bound on this card: bytes.  Per launch it must read the three (K, W)
 // windows once (12*K*W bytes), four (K,) per-node vectors, the selected
 // (K,) latency / inverse-bandwidth rows and 48 bytes of candidate scalars,
 // and write 17*K + 9 bytes: about 197 KB, 59 ns at 3.35 TB/s, for K=32,
 // W=512.  Its arithmetic is a few comparisons and adds per element.  At
-// the simulator's shapes (K=3..32) the launch itself (a few microseconds)
-// dominates, so the design is the simple one: one warp per node row, lanes
-// striding the window with coalesced loads, warp shuffles for the counts,
-// the max and the two sums, and the three passes over the row re-reading
-// it from L1.  The merge scalars are recomputed by every warp, as every
-// Pallas grid program does, and block 0 writes take_fresh, t and node.
+// such shapes the launch itself (a few microseconds) dominates, so the
+// design is the simple one: one warp per node row, scored by
+// fleet_row.cuh (the geometry every fleet kernel shares).  The merge
+// scalars are recomputed by every warp, as every Pallas grid program
+// does, and block 0 writes take_fresh, t and node.
 //
 // Arithmetic matches the plain version bit for bit: every add and divide
 // is an explicit IEEE round-to-nearest intrinsic in the plain version's
@@ -35,23 +39,17 @@
 // one multiply is the fused multiply-add arrive = fma(payload, inv_bw,
 // t + lat) — what XLA's CPU compiler makes of the reference simulator's
 // jitted step, and what ref.py::fma32 computes.  The two sums pw_j and
-// load are taken in warp-tree order; they
-// are exact whenever the sizes are integers or dyadic (the paper's
-// services are 20/44/180 UT), and otherwise agree to a relative 1e-6.
+// load are taken in warp-tree order; they are exact whenever the sizes
+// are integers or dyadic (the paper's services are 20/44/180 UT), and
+// otherwise agree to a relative 1e-6.
 
 #include <cuda_runtime.h>
 
+#include "fleet_row.cuh"
+
 namespace {
 
-constexpr float kBig = 1e30f;
 constexpr int kWarps = 4;                   // node rows per block
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = __fadd_rn(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
 
 __global__ void __launch_bounds__(kWarps * 32)
 event_select_kernel(const float* __restrict__ fs,      // (8,) t,d,p,pay of a then b
@@ -88,63 +86,22 @@ event_select_kernel(const float* __restrict__ fs,      // (8,) t,d,p,pay of a th
   }
   if (k >= K) return;
 
-  const float* st = starts + static_cast<size_t>(k) * W;
-  const float* en = ends + static_cast<size_t>(k) * W;
-  const float* sz = sizes + static_cast<size_t>(k) * W;
-  const int h = head[k], nk = n[k], tail = h + nk;
-
-  // -- pass 1: searchsorted as masked counts, and the row's load
-  unsigned c_start = 0, c_end = 0;
-  float load = 0.0f;
-  for (int i = lane; i < W; i += 32) {
-    c_start += st[i] < d;
-    c_end += en[i] < d;
-    load = __fadd_rn(load, sz[i]);
-  }
-  const int cap_idx = static_cast<int>(__reduce_add_sync(kFull, c_start));
-  const int e_hi = static_cast<int>(__reduce_add_sync(kFull, c_end));
-  load = warp_sum(load);
-
-  // -- pass 2: the last interior gap at or before e_hi (default: head)
-  int gap = h;
-  for (int i = lane; i < W; i += 32) {
-    const float prev = i == 0 ? -kBig : en[i - 1];
-    if (st[i] > prev && i >= h + 1 && i < tail && i <= e_hi) gap = max(gap, i);
-  }
-  const int prev_gap = __reduce_max_sync(kFull, gap);
-
-  // -- the insertion slot and the window's right edge
-  const bool no_straddle = e_hi >= cap_idx;
-  int j = no_straddle ? e_hi : prev_gap;
-  const float start_j = j < tail ? st[min(j, W - 1)] : kBig;
-  float cap = no_straddle ? d : fminf(start_j, d);
-  if (!no_straddle && prev_gap == h) {        // front fallback
-    const float start_h = nk > 0 ? st[min(h, W - 1)] : kBig;
-    cap = fminf(start_h, d);
-    j = h;
-  }
-
-  // -- pass 3: prefix work ahead of the slot
-  float pw = 0.0f;
-  const int jw = min(j, W);
-  for (int i = lane; i < jw; i += 32) pw = __fadd_rn(pw, sz[i]);
-  pw = warp_sum(pw);
-
+  const size_t row = static_cast<size_t>(k) * W;
+  // a node id outside [0, K) selects an all-zero row, as the TPU's one-hot
+  // sum does; the simulator never produces one
+  const bool in_range = node >= 0 && node < K;
+  const float lat_v = in_range ? lat[static_cast<size_t>(node) * K + k] : 0.0f;
+  const float ibw_v = in_range ? inv_bw[static_cast<size_t>(node) * K + k] : 0.0f;
+  const float arrive = __fmaf_rn(pay, ibw_v, __fadd_rn(t, lat_v));
+  const fleet::Row r = fleet::fleet_row(
+      starts + row, ends + row, sizes + row, W, head[k], n[k], d,
+      __fdiv_rn(p, speeds[k]), fmaxf(arrive, busy[k]), eps, lane, 0, W);
   if (lane == 0) {
-    // a node id outside [0, K) selects an all-zero row, as the TPU's
-    // one-hot sum does; the simulator never produces one
-    const bool in_range = node >= 0 && node < K;
-    const float lat_v = in_range ? lat[static_cast<size_t>(node) * K + k] : 0.0f;
-    const float ibw_v = in_range ? inv_bw[static_cast<size_t>(node) * K + k] : 0.0f;
-    const float arrive = __fmaf_rn(pay, ibw_v, __fadd_rn(t, lat_v));
-    const float free = fmaxf(arrive, busy[k]);
-    const float ps = __fdiv_rn(p, speeds[k]);
-    feas_out[k] = (__fsub_rn(cap, __fadd_rn(free, pw)) >= __fsub_rn(ps, eps)) &&
-                  (cap > free) && (tail < W);
+    feas_out[k] = r.feasible;
     arrive_out[k] = arrive;
-    j_out[k] = j;
-    cap_out[k] = cap;
-    load_out[k] = load;
+    j_out[k] = r.j;
+    cap_out[k] = r.cap;
+    load_out[k] = r.load;
   }
 }
 

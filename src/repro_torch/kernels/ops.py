@@ -26,7 +26,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     ``block_q`` / ``block_k`` exist only for signature parity with the
     reference and have no effect: the CUDA kernels tile 64 query rows by
-    64 (bf16) or 32 (f32) keys, and the result does not depend on tiling.
+    64 keys (bf16; f32 at D <= 64) or 32 (f32 above), and the result does
+    not depend on tiling.
     """
     if q.device.type != "cuda":
         _fa.check_args(q, k, v, window)
@@ -63,6 +64,12 @@ def event_select(t_a, node_a, d_a, p_a, pay_a, avail_a,
     means 0); (K, K) latency / inverse-bandwidth tensors (zeros for a
     network-free run).  Returns ``(take_fresh, t, node, feasible (K,),
     arrive (K,), j (K,), cap (K,), load (K,))``.
+
+    No path of the port calls it on the card: the fleet simulator's CUDA
+    path runs each run as one ``event_scan`` launch, which scores the
+    fleet with the same row geometry (``csrc/fleet_row.cuh``).  On the CPU
+    the simulator's eager loop (the plain version of ``event_scan``)
+    still calls it, as the reference's step does.
     """
     if head is None:
         head = torch.zeros_like(n, dtype=torch.int32)

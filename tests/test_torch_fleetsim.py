@@ -169,6 +169,109 @@ def test_unported_paths_raise():
         tfs.simulate(ta, topo, policy="nope", device="cpu")
 
 
+def test_eager_entry_refuses_what_simulate_refuses():
+    """The eager loop's private entry (the plain version ``chip_smoke.py``
+    runs on the card) refuses the unported paths as ``simulate`` does,
+    naming their ROADMAP items."""
+    from repro_torch.fleetsim import core
+    ta, _ = TUniformWorkload(HOT_COUNTS, window=1200.0).to_arrays(0)
+    topo = tfs.topology_arrays(TTopology.full_mesh(3))
+    for policy in ("random", "power_of_two"):
+        with pytest.raises(NotImplementedError, match="item 1"):
+            core._simulate_eager(ta, topo, policy=policy, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 2"):
+        core._simulate_eager(ta, topo, telemetry=object(), device="cpu")
+
+
+def test_simulate_on_cpu_runs_the_eager_loop_and_launches_nothing(
+        monkeypatch):
+    """On the CPU ``simulate`` is the eager per-event loop: no kernel
+    wrapper is called, and it gives what the private eager entry gives."""
+    from repro_torch.fleetsim import core
+    from repro_torch.kernels import event_scan, event_select
+
+    def refuse(*_, **__):
+        raise AssertionError("a kernel wrapper was called on the CPU")
+
+    monkeypatch.setattr(event_scan, "event_scan", refuse)
+    monkeypatch.setattr(event_select, "event_select", refuse)
+    ta, _ = TUniformWorkload(HOT_COUNTS, window=1200.0).to_arrays(0)
+    topo = tfs.topology_arrays(TTopology.full_mesh(3))
+    kw = dict(policy="batched_feasible", capacity=512, depth=256,
+              device="cpu")
+    a = tfs.simulate(ta, topo, **kw)
+    b = core._simulate_eager(ta, topo, **kw)
+    assert a.events == b.events > int(a.total)
+    for f in ("outcome", "served_by", "forwards_used", "completion"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+def _scan_inputs(R=5, K=3, M=2, dev="cpu"):
+    return (torch.zeros(R, 4, device=dev),
+            torch.zeros(R, dtype=torch.int32, device=dev),
+            torch.zeros(R, M, dtype=torch.int32, device=dev),
+            torch.zeros(K, K, dtype=torch.bool, device=dev),
+            torch.zeros(K, dtype=torch.int32, device=dev),
+            torch.ones(K, device=dev), torch.zeros(K, K, device=dev),
+            torch.zeros(K, K, device=dev))
+
+
+_SCAN_KW = dict(policy="batched_feasible", max_forwards=2,
+                discard_on_exhaust=False, capacity=8, depth=8, event_buf=4,
+                max_events=15, priced=False, hop_bits=2)
+
+
+def test_event_scan_wrapper_refuses_cpu_tensors():
+    from repro_torch.kernels import event_scan
+    before = event_scan.event_scan.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        event_scan.event_scan(*_scan_inputs(), **_SCAN_KW)
+    assert event_scan.event_scan.launches == before
+
+
+@pytest.mark.parametrize("bad", ["cols", "targets", "adj_dtype", "depth",
+                                 "policy", "noncontiguous", "misaligned"])
+def test_event_scan_wrapper_refuses_malformed_inputs(bad):
+    """Shapes, dtypes, contiguity and sizes are checked before the device,
+    so each is refused on the CPU too."""
+    from repro_torch.kernels import event_scan
+    args, kw = list(_scan_inputs()), dict(_SCAN_KW)
+    if bad == "cols":
+        args[0] = torch.zeros(5, 3)
+    elif bad == "targets":
+        args[2] = torch.zeros(4, 2, dtype=torch.int32)
+    elif bad == "adj_dtype":
+        args[3] = torch.zeros(3, 3, dtype=torch.int32)
+    elif bad == "depth":
+        kw["depth"] = 9
+    elif bad == "policy":
+        kw["policy"] = "random"
+    elif bad == "noncontiguous":
+        args[6] = torch.zeros(6, 3)[::2]
+    else:                                # rows read as 16-byte vectors
+        args[0] = torch.zeros(5 * 4 + 1)[1:].view(5, 4)
+    with pytest.raises((ValueError, TypeError)) as err:
+        event_scan.event_scan(*args, **kw)
+    assert "CUDA" not in str(err.value)
+
+
+def test_event_scan_shared_memory_layout():
+    """Nine (K,) arrays, the ring of (time, rid, meta) beside them where it
+    fits; the ctypes record is csrc/event_scan.cu's ScanArgs."""
+    import ctypes
+
+    from repro_torch.kernels import event_scan
+    assert event_scan.shared_bytes(3, 1024, True) == 96 + 4 + 12 * 1024
+    assert event_scan.shared_bytes(256, 1024, False) == 32 * 256 + 256
+    assert event_scan.shared_bytes(256, 1024, True) <= event_scan.SHARED_LIMIT
+    fields = [n for n, _ in event_scan._ScanArgs._fields_]
+    assert fields[:8] == ["cols", "origin", "targets", "adj", "degree",
+                          "speeds", "lat", "inv_bw"] and fields[-1] == "eps"
+    assert ctypes.sizeof(event_scan._ScanArgs) == 30 * 8 + 13 * 4 + 4
+    assert set(event_scan.POLICIES) | {"random", "power_of_two"} == \
+        set(tfs.POLICIES)
+
+
 def test_outputs_are_typed_like_the_reference():
     ta, _ = TUniformWorkload(HOT_COUNTS, window=1200.0).to_arrays(0)
     m = tfs.simulate(ta, tfs.topology_arrays(TTopology.full_mesh(3)),

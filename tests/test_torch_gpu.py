@@ -1,6 +1,6 @@
-"""The port on an NVIDIA GPU: the hand-written event_select and
-flash_attention kernels against their plain PyTorch versions, and the
-simulator and the ViT on the card against the same code on the CPU.
+"""The port on an NVIDIA GPU: the hand-written kernels against their plain
+PyTorch versions, and the simulator (the event_scan kernel) and the ViT
+on the card against the same code on the CPU.
 Imports no JAX, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -16,6 +16,7 @@ import torch
 from repro_torch.configs import get_smoke_config
 from repro_torch.fleetsim import simulate, topology_arrays
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import event_scan as scan
 from repro_torch.kernels import event_select as es
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models import vit
@@ -81,22 +82,138 @@ def test_event_select_kernel_matches_plain_version(K, W):
             assert g.dtype == w.dtype and torch.equal(g, w), name
 
 
+# the simulator's per-request fields and counters: event_scan on the card
+# must give the CPU eager loop's, all of them exactly
+PER_REQUEST = ("outcome", "served_by", "forwards_used", "completion",
+               "transfer_used")
+COUNTERS = ("overflow", "window_saturation", "event_overflow", "forwards",
+            "met_deadline", "processed", "discarded", "events",
+            "retire_iterations")
+HOT = [{"S1": 30, "S4": 30, "S5": 25, "S6": 25}] * 3
+
+
+def _hot_requests():
+    return UniformWorkload(HOT, window=1200.0, name="hot").to_arrays(0)[0]
+
+
+def _scan_matches_eager(reqs, topo, **kw):
+    """One ``simulate`` on the CPU (the eager loop) and one on the card,
+    which must be one event_scan launch and no event_select launch, and
+    agree on every per-request field and counter; returns the card's."""
+    cpu = simulate(reqs, topology_arrays(topo), device="cpu", **kw)
+    scan.event_scan.launches = es.event_select.launches = 0
+    gpu = simulate(reqs, topology_arrays(topo), device="cuda", **kw)
+    torch.cuda.synchronize()
+    assert scan.event_scan.launches == 1 and es.event_select.launches == 0
+    for f in PER_REQUEST:
+        g, c = getattr(gpu, f), getattr(cpu, f)
+        assert g.device.type == "cuda" and g.dtype == c.dtype, f
+        assert torch.equal(g.cpu(), c), f
+    for f in COUNTERS:
+        assert int(getattr(gpu, f)) == int(getattr(cpu, f)), f
+    return gpu
+
+
 @pytest.mark.gpu
 def test_simulate_on_gpu_matches_cpu():
     _need_gpu()
-    counts = [{"S1": 30, "S4": 30, "S5": 25, "S6": 25}] * 3
-    reqs, _ = UniformWorkload(counts, window=1200.0, name="hot").to_arrays(0)
+    topo = Topology.full_mesh(3)
+    gpu = _scan_matches_eager(_hot_requests(), topo,
+                              policy="batched_feasible", capacity=512,
+                              depth=256,
+                              net=LinkModel.campus(topo).net_params())
+    assert int(gpu.forwards) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("net", [None, "campus"])
+@pytest.mark.parametrize("policy", ["batched_feasible", "round_robin",
+                                    "least_loaded", "trace"])
+def test_event_scan_matches_eager_loop(policy, net):
+    _need_gpu()
+    reqs = _hot_requests()
+    topo = Topology.full_mesh(3)
+    targets = None
+    if policy == "trace":
+        targets = np.random.default_rng(1).integers(
+            -1, 3, (reqs.arrival.shape[0], 2)).astype(np.int32)
+    gpu = _scan_matches_eager(
+        reqs, topo, policy=policy, capacity=512, depth=256, targets=targets,
+        net=None if net is None else LinkModel.preset(topo, net).net_params())
+    assert int(gpu.forwards) > 0
+    assert gpu.events == int(gpu.total) + int(gpu.forwards)
+
+
+@pytest.mark.gpu
+def test_event_scan_discard_variant_and_sla_scale():
+    _need_gpu()
+    from repro_torch.fleetsim import SimParams
+    topo = Topology.full_mesh(3)
+    gpu = _scan_matches_eager(_hot_requests(), topo, params=SimParams.make(
+        0, 0.7), policy="least_loaded", capacity=512, depth=256,
+        discard_on_exhaust=True, net=LinkModel.campus(topo).net_params())
+    assert int(gpu.discarded) > 0
+
+
+@pytest.mark.gpu
+def test_event_scan_undersized_event_plane():
+    """An 8-entry re-arrival buffer and 200 steps: pushes are dropped and
+    events are left, and both count into event_overflow."""
+    _need_gpu()
+    gpu = _scan_matches_eager(_hot_requests(), Topology.full_mesh(3),
+                              policy="round_robin", capacity=512, depth=256,
+                              max_events=200, event_buf=8)
+    assert int(gpu.event_overflow) > 0 and gpu.events == 200
+
+
+@pytest.mark.gpu
+def test_event_scan_saturated_window():
+    """A 4-slot live window that fills: window_saturation counts the
+    events that met it full, and forced requests overflow."""
+    _need_gpu()
+    gpu = _scan_matches_eager(_hot_requests(), Topology.full_mesh(3),
+                              policy="least_loaded", capacity=512, depth=4,
+                              max_forwards=1)
+    assert int(gpu.window_saturation) > 0
+
+
+@pytest.mark.gpu
+def test_event_scan_heterogeneous_ring():
+    _need_gpu()
+    topo = Topology.ring(3, speeds=[1.0, 2.0, 0.5])
+    _scan_matches_eager(_hot_requests(), topo, policy="batched_feasible",
+                        capacity=512, depth=256,
+                        net=LinkModel.campus(topo).net_params())
+
+
+@pytest.mark.gpu
+def test_event_scan_256_node_fleet():
+    """benchmarks/fleetsim_bench.py's largest fleet, K = 256, at 3,520
+    requests (every eighth node as hot as the 3-node fleet, the rest idle
+    neighbours): rows past the block's 32 warps, routing over 256 nodes,
+    a ring in shared memory beside 256 nodes' scalars."""
+    _need_gpu()
+    reqs, _ = UniformWorkload([HOT[0] if i % 8 == 0 else {}
+                               for i in range(256)], window=1200.0,
+                              name="hot256").to_arrays(0)
+    topo = Topology.full_mesh(256)
+    gpu = _scan_matches_eager(reqs, topo, policy="batched_feasible",
+                              capacity=256, depth=128,
+                              net=LinkModel.campus(topo).net_params())
+    assert int(gpu.total) == 3520 and int(gpu.forwards) > 0
+
+
+@pytest.mark.gpu
+def test_event_scan_ring_in_global_memory(monkeypatch):
+    """A buffer too large for shared memory lives in global scratch: the
+    same run as with the ring in shared memory."""
+    _need_gpu()
     topo = Topology.full_mesh(3)
     kw = dict(policy="batched_feasible", capacity=512, depth=256,
               net=LinkModel.campus(topo).net_params())
-    cpu = simulate(reqs, topology_arrays(topo), device="cpu", **kw)
-    es.event_select.launches = 0
-    gpu = simulate(reqs, topology_arrays(topo), device="cuda", **kw)
-    torch.cuda.synchronize()
-    assert es.event_select.launches == gpu.events == cpu.events
-    for f in ("outcome", "served_by", "forwards_used", "completion",
-              "transfer_used"):
-        assert torch.equal(getattr(gpu, f).cpu(), getattr(cpu, f)), f
+    monkeypatch.setattr(scan, "SHARED_LIMIT", 2048)
+    assert scan.shared_bytes(3, 340, True) > scan.SHARED_LIMIT
+    _scan_matches_eager(_hot_requests(), topo, **kw)
 
 
 @pytest.mark.gpu

@@ -52,6 +52,14 @@ def test_no_port_module_imports_jax_or_repro():
     assert int(n) >= 15 and bad.strip() == "[]"
 
 
+def test_probe_walks_the_fleet_kernel_modules():
+    """The walk above imports the fleet kernels' wrappers too (each builds
+    nothing at import)."""
+    _, bad = _run_probe("assert {'repro_torch.kernels.event_scan', "
+                        "'repro_torch.kernels.event_select'} <= set(names)")
+    assert bad.strip() == "[]"
+
+
 def test_chip_smoke_imports_neither_jax_nor_repro():
     _, bad = _run_probe(f"sys.path.insert(0, {ROOT!r}); import chip_smoke")
     assert bad.strip() == "[]"
