@@ -29,24 +29,46 @@ final line:
                 input; then its first 100 events profiled (device busy,
                 idle share, launches per event);
              c. the main path: ``paper/scenario1..3`` and the full
-                16,000-request 32-node fleet, each held against the JAX
+                16,000-request 32-node fleet, then ``paper/scenario1``,
+                ``paper/scenario3`` and the 32-node fleet under the
+                stochastic policies ``random`` and ``power_of_two`` (the
+                kernel's threefry draws), each held against the JAX
                 reference's aggregates, digests and floats in
                 ``tests/data/torch_fleetsim_golden.json``, with exactly one
                 ``event_scan`` and no ``event_select`` launch per run (the
                 counts set to 0 before each run);
              d. ``event_scan`` against the eager loop on the CPU, on a hot
-                3-node fleet under the four deterministic policies, priced
-                and not: every per-request field and counter equal; the
-                check is shown to reject a planted fault (one request's
-                ``served_by`` changed, one request's deadline moved);
+                3-node fleet under the four deterministic policies and the
+                two stochastic ones, priced and not, and under the
+                stochastic ones on a 2-node mesh, a 4-node star (degree 1)
+                and a 32-node mesh with four hot nodes (degree 31): every
+                per-request field and counter equal; the check is shown to
+                reject a planted fault (one request's ``served_by``
+                changed, one request's deadline moved);
              e. ``event_scan``'s time: each whole run in one launch, and
                 each run's first 500 events beside the eager loop's time
                 there, with the bound per event (the bytes of one step,
                 the live blocks it scores counted by the kernel, at the
                 HBM rate) beside the serial chain between events;
-                then ``event_select`` against its plain version on the
-                kept inputs (every (K, W) of the main path) and its time
-                there beside the plain version's and the bound;
+                each stochastic run's whole time; then ``event_select``
+                against its plain version on the kept inputs (every (K, W)
+                of the main path) and its time there beside the plain
+                version's and the bound;
+             f. the event heap, the main path's checker (host Python, its
+                ``batched_feasible`` router scoring on the card): the port's
+                ``run_simulation`` against all 18 entries of
+                ``tests/golden_simulator.json`` (the paper's Table II grid:
+                every integer field equal, the mean response time within
+                1e-9 relative); ``fleetsim.validate.run_validation`` on
+                ``paper/scenario1..3`` under campus pricing, the fleet side
+                one ``event_scan`` launch, ``batched_feasible`` and
+                ``round_robin`` replayed directly and ``random`` and
+                ``power_of_two`` by the heap's trace, each report the JAX
+                reference's in the golden file (exact but in one cell,
+                where the reference's f32 / f64 flips show in both
+                packages); the check shown to reject a trace with one
+                recorded forward target changed; each heap run's wall time
+                beside its fleet run's;
 4. vision  — the deadline-aware serving path with DeiT-B at full width:
              a. ``flash_attention`` against its plain version on a random
                 sweep (causal / window / GQA, S in {1, 63, 65, 127, 129,
@@ -147,8 +169,10 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs import deit_b  # noqa: E402
+from repro_torch.core.simulator import SimConfig, run_simulation  # noqa: E402
 from repro_torch.fleetsim import core as fleet_core  # noqa: E402
 from repro_torch.fleetsim import simulate, topology_arrays  # noqa: E402
+from repro_torch.fleetsim import validate  # noqa: E402
 from repro_torch.kernels import admission as ad_mod  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import event_scan as scan_mod  # noqa: E402
@@ -202,6 +226,9 @@ LOGIT_ATOL = {"float32": 1e-4, "bfloat16": 0.1}
 # the eager loop's segment of each main-path run, how often it keeps an
 # event_select input there, and how much of it is profiled
 SEGMENT_EVENTS, FLEET_CAPTURE_EVERY, PROFILED_EVENTS = 500, 150, 100
+# the forwarding policies that draw from threefry (the golden file's runs
+# that name one of them)
+STOCHASTIC = ("random", "power_of_two")
 
 
 def fail(msg: str) -> None:
@@ -289,21 +316,27 @@ def in_turns(time_a, time_b):
 
 
 class Spy:
-    """Wraps a kernel entry point of ``module`` while a main path runs and
-    keeps clones of the arguments that ``keep(call_index, args)`` picks;
-    the real entry point (and its launch counter) runs unchanged."""
+    """Wraps a function of ``module`` (a kernel entry point, a phase of a
+    run) while a path runs, keeps clones of the arguments that
+    ``keep(call_index, args)`` picks and sums the wall time of the calls
+    (a device time only where the function reads its result back, as
+    ``simulate`` reads the kernel's counts); the real function (and its
+    launch counter) runs unchanged."""
 
-    def __init__(self, module, name: str, keep):
+    def __init__(self, module, name: str, keep=lambda i, args: False):
         self.module, self.name, self.keep = module, name, keep
         self.real = getattr(module, name)
-        self.calls, self.kept = 0, []
+        self.calls, self.kept, self.seconds = 0, [], 0.0
 
     def __call__(self, *args, **kw):
         if self.keep(self.calls, args):
             self.kept.append((tuple(a.clone() if torch.is_tensor(a) else a
                                     for a in args), dict(kw)))
         self.calls += 1
-        return self.real(*args, **kw)
+        t0 = time.time()
+        out = self.real(*args, **kw)
+        self.seconds += time.time() - t0
+        return out
 
     def __enter__(self):
         setattr(self.module, self.name, self)
@@ -534,48 +567,73 @@ def fleet_diffs(got, want):
 def scan_vs_eager(dev) -> float:
     """Phase 3d: ``event_scan`` on the card against the eager loop on the
     CPU, on tests/test_fleetsim.py's hot 3-node fleet under the four
-    deterministic policies with and without campus pricing; then the
-    check's own test on two planted faults.  Returns the max abs error of
-    the float fields (completion, transfer_used)."""
+    deterministic policies and the two stochastic ones, with and without
+    campus pricing, and under the stochastic ones on a 2-node mesh and a
+    4-node star (``power_of_two`` at degree 1) and a 32-node mesh with
+    four hot nodes (degree 31), priced; then the check's own test on two
+    planted faults.  Returns the max abs error of the float fields
+    (completion, transfer_used)."""
     hot = [{"S1": 30, "S4": 30, "S5": 25, "S6": 25}] * 3
     reqs, _ = UniformWorkload(hot, window=1200.0, name="hot").to_arrays(0)
     topo = Topology.full_mesh(3)
     ta = topology_arrays(topo)
-    R, err = reqs.arrival.shape[0], 0.0
-    for policy in ("batched_feasible", "round_robin", "least_loaded",
-                   "trace"):
+    R, err, n_cases = reqs.arrival.shape[0], 0.0, 0
+    fleets, traced = {"hot mesh3": (reqs, topo)}, None
+    for name, counts, t in (
+            ("mesh2", hot[:2], Topology.full_mesh(2)),
+            ("star4", [{"S6": 4}] + hot, Topology.star(4)),
+            ("mesh32", [hot[0]] * 4 + [{"S6": 2}] * 28,
+             Topology.full_mesh(32))):
+        fleets[name] = (UniformWorkload(counts, window=1200.0,
+                                        name=name).to_arrays(0)[0], t)
+    cases = [("hot mesh3", policy, net)
+             for policy in ("batched_feasible", "round_robin",
+                            "least_loaded", "trace", *STOCHASTIC)
+             for net in (False, True)]
+    cases += [(name, policy, True) for name in ("mesh2", "star4", "mesh32")
+              for policy in STOCHASTIC]
+    for fleet, policy, priced in cases:
+        f_reqs, f_topo = fleets[fleet]
         targets = None if policy != "trace" else \
             np.random.default_rng(1).integers(-1, 3, (R, 2)).astype(np.int32)
-        for net in (None, LinkModel.campus(topo).net_params()):
-            kw = dict(policy=policy, capacity=512, depth=256, net=net,
-                      targets=targets)
-            cpu = simulate(reqs, ta, device="cpu", **kw)
-            scan_mod.event_scan.launches = 0
-            es_mod.event_select.launches = 0
-            gpu = simulate(reqs, ta, device=dev, **kw)
-            torch.cuda.synchronize()
-            launches = (scan_mod.event_scan.launches,
-                        es_mod.event_select.launches)
-            priced = "campus" if net is not None else "no net"
-            if launches != (1, 0):
-                fail(f"hot fleet {policy} {priced}: (event_scan, "
-                     f"event_select) launches {launches}, not (1, 0)")
-            diffs = fleet_diffs(gpu, cpu)
-            if diffs:
-                fail(f"hot fleet {policy} {priced}: event_scan differs from "
-                     f"the eager loop on {diffs}")
-            err = max(err, *(float((getattr(gpu, f).cpu() - getattr(
-                cpu, f)).abs().max()) for f in ("completion",
-                                                 "transfer_used")))
+        net = LinkModel.campus(f_topo).net_params() if priced else None
+        kw = dict(policy=policy, capacity=512, depth=256, net=net,
+                  targets=targets)
+        f_ta = topology_arrays(f_topo)
+        cpu = simulate(f_reqs, f_ta, device="cpu", **kw)
+        scan_mod.event_scan.launches = 0
+        es_mod.event_select.launches = 0
+        gpu = simulate(f_reqs, f_ta, device=dev, **kw)
+        torch.cuda.synchronize()
+        launches = (scan_mod.event_scan.launches,
+                    es_mod.event_select.launches)
+        label = f"{fleet} {policy} {'campus' if priced else 'no net'}"
+        if launches != (1, 0):
+            fail(f"{label}: (event_scan, event_select) launches "
+                 f"{launches}, not (1, 0)")
+        diffs = fleet_diffs(gpu, cpu)
+        if diffs:
+            fail(f"{label}: event_scan differs from the eager loop on "
+                 f"{diffs}")
+        if int(cpu.forwards) == 0:
+            fail(f"{label}: no forward to check")
+        err = max(err, *(float((getattr(gpu, f).cpu() - getattr(
+            cpu, f)).abs().max()) for f in ("completion", "transfer_used")))
+        n_cases += 1
+        if (fleet, policy, priced) == ("hot mesh3", "trace", True):
+            traced = cpu, gpu, kw
     print(f"fleet scan: event_scan on the card equals the eager loop on "
-          f"the CPU on every per-request field and counter of the hot "
-          f"fleet ({R} requests, {gpu.events} events under trace with "
-          f"campus pricing) under batched_feasible, round_robin, "
-          f"least_loaded and trace, priced and not; max abs err {err}",
+          f"the CPU on every per-request field and counter in {n_cases} "
+          f"runs: the hot fleet ({R} requests) under batched_feasible, "
+          f"round_robin, least_loaded, trace, random and power_of_two, "
+          f"priced and not; a 2-node mesh, a 4-node star and a 32-node "
+          f"mesh under random and power_of_two, priced; max abs err {err}",
           flush=True)
 
-    # the check's own test: a kernel output with one request served
-    # elsewhere, and a kernel run with one met request's deadline moved
+    # the check's own test, on the hot fleet's priced trace run: a kernel
+    # output with one request served elsewhere, and a kernel run with one
+    # met request's deadline moved
+    cpu, gpu, kw = traced
     i = int(torch.nonzero(cpu.outcome == 1)[0])
     bad = gpu._replace(served_by=gpu.served_by.clone())
     bad.served_by[i] = (bad.served_by[i] + 1) % 3
@@ -623,7 +681,8 @@ def fleet_phase(dev):
                                  "paper/scenario3", "fleet32_div4")]
     keep = lambda i, args: (i + 1) % FLEET_CAPTURE_EVERY == 0
     reqs, topo, net = main_inputs(runs[0])
-    fleet_core._simulate_eager(reqs, topo, capacity=runs[0]["capacity"],
+    fleet_core._simulate_eager(reqs, topo, policy=golden["policy"],
+                               capacity=runs[0]["capacity"],
                                depth=runs[0]["depth"], net=net,
                                max_events=50, device=dev)      # warm-up
     segments, captured = {}, {}
@@ -645,16 +704,19 @@ def fleet_phase(dev):
           flush=True)
     t_sub = time.time()
 
-    # c. the main path: each run one event_scan launch, no event_select
-    launches, scan_args = {}, {}
-    for spec in runs:
+    # c. the main path, then the same fleets under the stochastic policies:
+    # each run one event_scan launch, no event_select
+    launches, scan_args, run_walls = {}, {}, {}
+    drawn = [r for r in golden["runs"] if r.get("policy") in STOCHASTIC]
+    for spec in runs + drawn:
         reqs, topo, net = main_inputs(spec)
+        policy = spec.get("policy", golden["policy"])
         torch.cuda.synchronize()
         scan_mod.event_scan.launches = 0
         es_mod.event_select.launches = 0
         with Spy(scan_mod, "event_scan", lambda i, args: True) as spy:
             t0 = time.time()
-            m = simulate(reqs, topo, policy=golden["policy"],
+            m = simulate(reqs, topo, policy=policy,
                          max_forwards=golden["max_forwards"],
                          capacity=spec["capacity"], depth=spec["depth"],
                          net=net, max_events=spec["max_events"], device=dev)
@@ -664,8 +726,10 @@ def fleet_phase(dev):
         n_select = es_mod.event_select.launches
         launches[spec["name"]] = (n_scan, n_select)
         scan_args[spec["name"]] = spy.kept[0]
+        run_walls[spec["name"]] = wall
         R = int(m.total)
-        print(f"main {spec['name']}: {R} requests, {m.events} events, "
+        print(f"main {spec['name']} ({policy}): {R} requests, {m.events} "
+              f"events, "
               f"{wall:.4f} s, {m.events / wall:.1f} events/s, "
               f"{R / wall:.1f} requests/s, {wall / m.events * 1e6:.2f} "
               f"us/event, {m.retire_iterations} retire iterations, "
@@ -676,9 +740,10 @@ def fleet_phase(dev):
         if (n_scan, n_select) != (1, 0) or m.events == 0:
             fail(f"{spec['name']}: {n_scan} event_scan and {n_select} "
                  f"event_select launches for {m.events} event steps")
-        segments[spec["name"]].update(
-            R=R, K=spec["n_nodes"], W=spec["depth"], run_events=m.events,
-            run_wall_s=wall)
+        if spec in runs:
+            segments[spec["name"]].update(
+                R=R, K=spec["n_nodes"], W=spec["depth"], run_events=m.events,
+                run_wall_s=wall)
 
     print(f"fleet phase c (main path): {time.time() - t_sub:.1f} s",
           flush=True)
@@ -736,6 +801,25 @@ def fleet_phase(dev):
               f"events (each step reads what the last wrote: its barriers "
               f"and dependent L2 round trips), which no bandwidth removes",
               flush=True)
+    drawn_rows = []
+    for spec in drawn:
+        args, kw = scan_args[spec["name"]]
+        n = dict(zip(scan_mod.COUNTS,
+                     scan_mod.event_scan(*args, **kw).counts.tolist()))
+        ms = timed_ms(lambda: scan_mod.event_scan(*args, **kw), 2)
+        row = dict(run=spec["name"], policy=kw["policy"],
+                   K=spec["n_nodes"], W=spec["depth"], events=n["events"],
+                   ms=ms, us_per_event=ms * 1e3 / n["events"],
+                   bound_ms=scan_bound_ms(spec["n_nodes"], n["events"],
+                                          n["scored"]),
+                   wall_s=run_walls[spec["name"]])
+        drawn_rows.append(row)
+        print(f"fleet scan time {spec['name']}: whole run {row['events']} "
+              f"events in {ms:.3f} ms, {row['us_per_event']:.3f} us/event, "
+              f"{row['events'] / ms * 1e3:.0f} events/s (simulate wall "
+              f"{row['wall_s']:.4f} s); bound "
+              f"{row['bound_ms'] * 1e3 / row['events']:.4f} us/event by "
+              f"bytes", flush=True)
     top = rows[-1]                                   # fleet32_div4
     scan_entry = dict(
         launches=sum(n for n, _ in launches.values()),
@@ -744,8 +828,10 @@ def fleet_phase(dev):
         max_abs_err=scan_err, ms=top["segment_ms"],
         plain_ms=top["segment_plain_ms"], bound_ms=top["segment_bound_ms"],
         bound_by="bytes", library_ms=None,
-        timed=f"{top['run']}, first {top['segment_events']} events",
-        runs=rows)
+        timed=f"{top['run']}, first {top['segment_events']} events, "
+              f"{golden['policy']}",
+        policies=[golden["policy"], *STOCHASTIC],
+        runs=rows + drawn_rows)
 
     # event_select on the inputs kept from every main-path run's eager
     # segment, so each (K, W) the main path gives it is checked on its own
@@ -791,6 +877,113 @@ def fleet_phase(dev):
         bound_ms=fleet["bound_ms"], bound_by="bytes", library_ms=None,
         ratio=None, shapes=shapes)
     return select_entry, scan_entry, captured
+
+
+# ---------------------------------------------------------------------------
+# phase 3f: the event heap (host Python) and the fleet's cross-validation
+# ---------------------------------------------------------------------------
+SIM_GOLDEN = os.path.join(ROOT, "tests", "golden_simulator.json")
+SIM_INT_FIELDS = ("total_requests", "processed", "met_deadline", "forwards",
+                  "discarded", "per_node_forwards")
+
+
+def planted_trace(real):
+    """``validate._host_run`` with one recorded forward target changed to
+    another node than it and the request's origin."""
+    def host_run(*args, **kw):
+        out = real(*args, **kw)
+        requests, targets = out[0], out[2]
+        i, h = map(int, np.argwhere(targets >= 0)[0])
+        bad = {int(targets[i, h]), requests[i].origin_node}
+        targets[i, h] = min(set(range(3)) - bad)
+        return out
+    return host_run
+
+
+def heap_phase(dev) -> dict:
+    """Phase 3f: the port's ``run_simulation`` against all 18 entries of
+    tests/golden_simulator.json (the router on the card), then
+    ``run_validation`` on ``paper/scenario1..3`` under campus pricing with
+    ``batched_feasible`` and ``round_robin`` replayed directly and
+    ``random`` and ``power_of_two`` by trace, each with one ``event_scan``
+    launch and no ``event_select`` launch and each report equal to the
+    reference's in the golden file: exact where the reference's is (11 of
+    12), the same mismatch counts where it is not (``paper/scenario2``
+    under ``round_robin``: 16 requests served by another node than the
+    heap's, f32 ledgers against f64, in the reference as in the port);
+    then the check shown to reject a trace with one recorded forward
+    target changed.  Returns the wall times."""
+    with open(SIM_GOLDEN) as f:
+        golden = json.load(f)
+    t_grid = time.time()
+    for key, want in golden.items():
+        scenario, queue, seed = key.split("-")
+        t0 = time.time()
+        got = run_simulation(SimConfig(scenario=int(scenario), queue=queue,
+                                       seed=int(seed)), device=dev)
+        wall = time.time() - t0
+        bad = [f for f in SIM_INT_FIELDS if getattr(got, f) != want[f]]
+        ref_resp = want["mean_response_time"]
+        if abs(got.mean_response_time - ref_resp) > 1e-9 * abs(ref_resp):
+            bad.append("mean_response_time")
+        if bad:
+            fail(f"run_simulation {key} differs from "
+                 f"tests/golden_simulator.json on {bad}")
+        print(f"heap simulator {key}: met {got.met_deadline}/"
+              f"{got.total_requests}, {got.forwards} forwards, mean "
+              f"response {got.mean_response_time!r} UT, {wall:.3f} s",
+              flush=True)
+    grid_s = time.time() - t_grid
+    print(f"heap simulator: all {len(golden)} runs equal "
+          f"tests/golden_simulator.json, {grid_s:.1f} s", flush=True)
+
+    with open(GOLDEN) as f:
+        reference = json.load(f)["validation"]
+    t_val, cells = time.time(), []
+    for want in reference:
+        sc, policy = want["scenario"], want["policy"]
+        network = LinkModel.campus(Topology.full_mesh(
+            get_workload(sc).n_nodes))
+        scan_mod.event_scan.launches = 0
+        es_mod.event_select.launches = 0
+        with Spy(validate, "_host_run") as host, \
+                Spy(validate.fcore, "simulate") as fleet:
+            rep = validate.run_validation(sc, 0, policy=policy,
+                                          network=network, device=dev)
+        launches = (scan_mod.event_scan.launches,
+                    es_mod.event_select.launches)
+        got = dict(exact=rep.exact,
+                   outcome_mismatches=rep.outcome_mismatches,
+                   node_mismatches=rep.node_mismatches,
+                   capacity=rep.capacity,
+                   host={k: int(rep.host[k]) for k in want["host"]},
+                   fleet={k: int(rep.fleet[k]) for k in want["fleet"]})
+        bad = [k for k, v in got.items() if v != want[k]]
+        if launches != (1, 0) or bad:
+            fail(f"run_validation {sc} {policy}: {rep.row()}, differs from "
+                 f"the reference's report on {bad}; (event_scan, "
+                 f"event_select) launches {launches}")
+        cells.append(dict(scenario=sc, policy=policy, exact=rep.exact,
+                          heap_s=host.seconds, fleet_s=fleet.seconds,
+                          forwards=rep.host["forwards"]))
+        print(f"heap validate {rep.row()}  heap {host.seconds:.3f} s, "
+              f"fleet (event_scan) {fleet.seconds:.4f} s; the reference's "
+              f"report", flush=True)
+    validate_s = time.time() - t_val
+
+    real = validate._host_run
+    validate._host_run = planted_trace(real)
+    try:
+        rep = validate.run_validation(
+            "paper/scenario3", 0, policy="random", device=dev,
+            network=LinkModel.campus(Topology.full_mesh(6)))
+    finally:
+        validate._host_run = real
+    if rep.exact:
+        fail(f"run_validation passes a changed trace: {rep.row()}")
+    print(f"heap validate: a trace with one forward target changed is "
+          f"rejected ({rep.row()})", flush=True)
+    return dict(grid_s=grid_s, validate_s=validate_s, cells=cells)
 
 
 # ---------------------------------------------------------------------------
@@ -1607,6 +1800,9 @@ def main() -> int:
     entries = {}
     entries["event_select"], entries["event_scan"], kept = fleet_phase(dev)
     print(f"fleet phase: {time.time() - t0:.1f} s", flush=True)
+    t0 = time.time()
+    entries["event_scan"]["heap"] = heap_phase(dev)
+    print(f"heap phase: {time.time() - t0:.1f} s", flush=True)
     t0 = time.time()
     entries["flash_attention"] = vision_phase(dev)
     print(f"vision phase: {time.time() - t0:.1f} s", flush=True)

@@ -58,6 +58,12 @@ class Request:
         """Absolute deadline."""
         return self.arrival_time + self.service.deadline
 
+    @property
+    def met_deadline(self) -> bool:
+        if self.completion_time is None:
+            return False
+        return self.completion_time <= self.deadline + 1e-9
+
 
 # ---------------------------------------------------------------------------
 # Table I of the paper.

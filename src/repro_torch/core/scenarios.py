@@ -7,7 +7,10 @@ times are i.i.d. uniform over ``DEFAULT_ARRIVAL_WINDOW``.
 """
 from __future__ import annotations
 
+import random
 from typing import Dict, List
+
+from repro_torch.core.request import Request, SERVICES, SERVICE_ORDER
 
 # Table II. counts[node_index][service_name]
 SCENARIOS: Dict[int, List[Dict[str, int]]] = {
@@ -37,3 +40,34 @@ TOTAL_REQUESTS = {1: 6000, 2: 8000, 3: 9800}
 # Calibrated so scenario 1 sits in the paper's "<20% met" overload regime
 # (EXPERIMENTS.md §Paper-reproduction).
 DEFAULT_ARRIVAL_WINDOW = 110_000.0
+
+
+def total_requests(scenario: int) -> int:
+    return sum(sum(c.values()) for c in SCENARIOS[scenario])
+
+
+def generate_requests(scenario: int, seed: int,
+                      arrival_window: float = DEFAULT_ARRIVAL_WINDOW
+                      ) -> List[Request]:
+    """Deterministic request list for one simulation seed.
+
+    The same (scenario, seed, window) always yields identical arrival times
+    and service mix, so different queue disciplines are compared on an
+    identical workload — the paper's "a copy of the requisition list
+    simulates each load distribution approach".
+    """
+    if scenario not in SCENARIOS:
+        raise ValueError(f"unknown scenario {scenario}; options {sorted(SCENARIOS)}")
+    rng = random.Random((scenario, seed, round(arrival_window)).__hash__())
+    requests: List[Request] = []
+    for node_idx, counts in enumerate(SCENARIOS[scenario]):
+        for sname in SERVICE_ORDER:
+            svc = SERVICES[sname]
+            for _ in range(counts.get(sname, 0)):
+                requests.append(Request(
+                    service=svc,
+                    arrival_time=rng.uniform(0.0, arrival_window),
+                    origin_node=node_idx,
+                ))
+    requests.sort(key=lambda r: (r.arrival_time, r.rid))
+    return requests

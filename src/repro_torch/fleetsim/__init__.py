@@ -18,7 +18,8 @@ on the CPU the eager per-event loop, its plain version, runs.
 """
 from repro_torch.fleetsim.arrays import (RequestArrays, TopologyArrays,
                                          event_bound, pack_requests,
-                                         to_device, topology_arrays)
+                                         scenario_arrays, to_device,
+                                         topology_arrays)
 from repro_torch.fleetsim.core import (DISCARDED, LATE, MET, OVERFLOW,
                                        PENDING, POLICIES, FleetMetrics,
                                        SimParams, simulate, simulate_fn)
@@ -26,7 +27,7 @@ from repro_torch.netsim.link import NetParams
 
 __all__ = [
     "RequestArrays", "TopologyArrays", "event_bound", "pack_requests",
-    "to_device", "topology_arrays",
+    "scenario_arrays", "to_device", "topology_arrays",
     "FleetMetrics", "NetParams", "SimParams", "simulate", "simulate_fn",
     "POLICIES", "PENDING", "MET", "LATE", "DISCARDED", "OVERFLOW",
 ]

@@ -89,6 +89,14 @@ def topology_arrays(topology: Topology, dtype=np.float32) -> TopologyArrays:
                           speeds=np.asarray(topology.speeds, dtype))
 
 
+def scenario_arrays(workload, seed: int, dtype=np.float32
+                    ) -> Tuple[RequestArrays, Tuple[str, ...]]:
+    """``workload.generate(seed)`` packed for the device (drops the host-rid
+    mapping, which only cross-validation needs)."""
+    arrays, names, _ = pack_requests(workload.generate(seed), dtype)
+    return arrays, names
+
+
 _REQ_DTYPES = (torch.float32, torch.float32, torch.float32, torch.int32,
                torch.int32, torch.float32)
 _TOPO_DTYPES = (torch.bool, torch.int32, torch.int32, torch.float32)

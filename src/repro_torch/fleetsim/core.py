@@ -34,7 +34,10 @@ then drain the ledgers; events still pending at ``max_events`` count into
   the fleet through ``kernels.ops.event_select``.
 
 Both follow the JAX step operation for operation, so per-request
-outcomes match the reference exactly.
+outcomes match the reference exactly; the ``random`` and
+``power_of_two`` policies draw from JAX's threefry bit for bit
+(:mod:`repro_torch.fleetsim.rng` here, ``csrc/threefry.cuh`` in the
+kernel), keyed ``fold_in(fold_in(PRNGKey(seed), rid), hop)``.
 
 JAX's ``mode="drop"`` scatter of retired completions at index ``R``
 becomes a write into a dump slot at ``R`` of the completion buffer,
@@ -49,6 +52,7 @@ import torch
 
 from repro_torch.core import torch_queue as tq
 from repro_torch.device import DeviceLike
+from repro_torch.fleetsim import rng
 from repro_torch.fleetsim.arrays import (RequestArrays, TopologyArrays,
                                          event_bound, to_device)
 from repro_torch.kernels import event_scan as kscan
@@ -72,8 +76,8 @@ I32 = torch.int32
 
 
 class SimParams(NamedTuple):
-    """Per-run parameters: the forwarding rng seed (read by the stochastic
-    policies, not yet ported) and the SLA scale on relative deadlines."""
+    """Per-run parameters: the forwarding rng seed (the ``PRNGKey`` of the
+    stochastic policies) and the SLA scale on relative deadlines."""
     seed: int = 0
     sla_scale: float = 1.0
 
@@ -151,6 +155,8 @@ class _Run(NamedTuple):
     origin: torch.Tensor             # (R,) i32
     origin_h: list                   # the same, on the host
     degree_h: list                   # (K,) out-degrees, on the host
+    neighbors_h: list                # (K, D) neighbour lists, on the host
+    key: rng.Key                     # PRNGKey(seed) (random, power_of_two)
     targets_h: Optional[list]        # (R, M) recorded choices (trace)
     hop_bits: int
     row_base: torch.Tensor           # (K,) i64 k * N
@@ -219,12 +225,27 @@ def _pick(row: torch.Tensor, i) -> torch.Tensor:
 def _route_next(run: _Run, load, cur: int, hop: int, rid: int, feas_all,
                 rr):
     """Forwarding target of node ``cur`` at hop ``hop`` — a host int for
-    ``trace``, else a (1,) i32 tensor; returns ``(next_node,
-    advanced_rr)`` (callers commit ``advanced_rr`` only on a forward)."""
+    ``trace``, ``random`` and a ``power_of_two`` node of degree <= 1, else a
+    (1,) i32 tensor; returns ``(next_node, advanced_rr)`` (callers commit
+    ``advanced_rr`` only on a forward)."""
     policy = run.policy
     if policy == "trace":
         row = run.targets_h[rid]
         return max(row[min(hop, len(row) - 1)], 0), rr
+    if policy in ("random", "power_of_two"):
+        deg, nb = run.degree_h[cur], run.neighbors_h[cur]
+        kh = rng.fold_in(rng.fold_in(run.key, rid), hop)
+        if policy == "random":
+            return nb[rng.scaled_index(rng.uniform(kh), deg)], rr
+        if deg <= 1:
+            return nb[0], rr
+        k1, k2 = rng.split(kh)
+        i1 = rng.scaled_index(rng.uniform(k1), deg)
+        i2 = rng.scaled_index(rng.uniform(k2), deg - 1)
+        if i2 >= i1:                         # sampling without replacement
+            i2 += 1
+        a, b = nb[i1], nb[min(i2, deg - 1)]
+        return torch.where(load[a:a + 1] <= load[b:b + 1], a, b).to(I32), rr
     adj_row = run.topo.adj[cur]
     inf = float("inf")
     if policy == "round_robin":
@@ -428,9 +449,9 @@ class _Loop(NamedTuple):
 
 def _eager_loop(reqs: RequestArrays, topo: TopologyArrays,
                 targets: torch.Tensor, cols: torch.Tensor, lat, inv_bw, *,
-                policy: str, max_forwards: int, discard_on_exhaust: bool,
-                capacity: int, depth: int, E: int, B: int, hop_bits: int,
-                priced: bool) -> _Loop:
+                seed: int, policy: str, max_forwards: int,
+                discard_on_exhaust: bool, capacity: int, depth: int, E: int,
+                B: int, hop_bits: int, priced: bool) -> _Loop:
     R = reqs.arrival.shape[0]
     K = topo.speeds.shape[0]
     N = capacity
@@ -462,7 +483,8 @@ def _eager_loop(reqs: RequestArrays, topo: TopologyArrays,
         discard_on_exhaust=discard_on_exhaust, capacity=capacity,
         depth=depth, R=R, priced=priced, lat=lat, inv_bw=inv_bw, cols=cols,
         origin=reqs.origin, origin_h=reqs.origin.tolist(),
-        degree_h=topo.degree.tolist(),
+        degree_h=topo.degree.tolist(), neighbors_h=topo.neighbors.tolist(),
+        key=rng.prng_key(seed),
         targets_h=targets.tolist() if policy == "trace" else None,
         hop_bits=hop_bits, row_base=row_base,
         row_cols=row_base[:, None] + cols_w, cols_w=cols_w,
@@ -485,15 +507,15 @@ def _eager_loop(reqs: RequestArrays, topo: TopologyArrays,
 
 def _scan_loop(reqs: RequestArrays, topo: TopologyArrays,
                targets: torch.Tensor, cols: torch.Tensor, lat, inv_bw, *,
-               policy: str, max_forwards: int, discard_on_exhaust: bool,
-               capacity: int, depth: int, E: int, B: int, hop_bits: int,
-               priced: bool) -> _Loop:
+               seed: int, policy: str, max_forwards: int,
+               discard_on_exhaust: bool, capacity: int, depth: int, E: int,
+               B: int, hop_bits: int, priced: bool) -> _Loop:
     out = kscan.event_scan(
         cols, reqs.origin, targets, topo.adj, topo.degree, topo.speeds, lat,
-        inv_bw, policy=policy, max_forwards=max_forwards,
-        discard_on_exhaust=discard_on_exhaust, capacity=capacity,
-        depth=depth, event_buf=B, max_events=E, priced=priced,
-        hop_bits=hop_bits)
+        inv_bw, topo.neighbors, seed=seed, policy=policy,
+        max_forwards=max_forwards, discard_on_exhaust=discard_on_exhaust,
+        capacity=capacity, depth=depth, event_buf=B, max_events=E,
+        priced=priced, hop_bits=hop_bits)
     # the run's one host read, after the kernel has ended
     events, retire_iters, unprocessed, cursor, error, _ = out.counts.tolist()
     if error:
@@ -523,7 +545,7 @@ def _simulate(reqs: RequestArrays, topo: TopologyArrays, params: SimParams,
         torch.stack([reqs.arrival, d_abs, reqs.proc, payload], dim=1),
         zero_net if net is None else net.latency,
         zero_net if net is None else net.inv_bw,
-        policy=policy, max_forwards=max_forwards,
+        seed=params.seed, policy=policy, max_forwards=max_forwards,
         discard_on_exhaust=discard_on_exhaust, capacity=capacity,
         depth=depth,
         E=event_bound(R, max_forwards) if max_events is None else max_events,
@@ -576,7 +598,7 @@ def _simulate(reqs: RequestArrays, topo: TopologyArrays, params: SimParams,
 # ---------------------------------------------------------------------------
 def simulate(reqs: RequestArrays, topo: TopologyArrays,
              params: Optional[SimParams] = None, *,
-             policy: str = "batched_feasible", max_forwards: int = 2,
+             policy: str = "random", max_forwards: int = 2,
              discard_on_exhaust: bool = False, capacity: int = 256,
              depth: Optional[int] = None, targets=None,
              net: Optional[NetParams] = None,
@@ -601,9 +623,11 @@ def simulate(reqs: RequestArrays, topo: TopologyArrays,
     shape (R, max_forwards)); ``net`` prices every referral hop
     ``latency[u, v] + payload · inv_bw[u, v]``.
 
-    The default policy is ``batched_feasible``, the main path.  Not yet
-    ported (ROADMAP.md, open items): ``random``/``power_of_two`` (item 1,
-    bit-exact threefry) and ``telemetry`` (item 2).
+    The default policy is ``random``, the reference's (the paper's
+    forward to a random neighbour; ``random`` and ``power_of_two`` draw
+    JAX's threefry stream bit for bit, keyed by ``params.seed``); the main
+    path passes ``policy="batched_feasible"``.  Not yet ported
+    (ROADMAP.md, open items): ``telemetry`` (item 2).
     """
     return _run(False, reqs, topo, params, policy, max_forwards,
                 discard_on_exhaust, capacity, depth, targets, net,
@@ -625,10 +649,6 @@ def _run(eager, reqs, topo, params, policy, max_forwards, discard_on_exhaust,
     if policy not in POLICIES:
         raise ValueError(f"unknown fleetsim policy {policy!r}; "
                          f"options: {sorted(POLICIES)}")
-    if policy in ("random", "power_of_two"):
-        raise NotImplementedError(
-            f"policy {policy!r} draws from jax.random's threefry stream; the "
-            "port needs a bit-exact threefry first (ROADMAP.md open item 1)")
     if telemetry is not None:
         raise NotImplementedError("telemetry is not ported yet (ROADMAP.md "
                                   "open item 2)")

@@ -4,7 +4,9 @@
 // Replaces the TPU kernel repro/kernels/event_select.py
 // (_event_select_kernel at :43, event_select_fwd; pallas_call at :172)
 // together with the loop around it, the reference's jax.lax.scan over
-// _estep (repro/fleetsim/core.py:570).  The eager loop of
+// _estep (repro/fleetsim/core.py:570), and the threefry draws of its
+// stochastic routing policies (_route_next, core.py:246-263, with the
+// keys of :393 and :553).  The eager loop of
 // repro_torch/fleetsim/core.py (_estep) is its plain version: same
 // events, same order, same arithmetic.  One block runs one run: it owns
 // the event loop and stops at the first step with no live event or after
@@ -31,7 +33,17 @@
 //            neighbours, else discard or force; route (trace: max(row[
 //            min(hop, M - 1)], 0); round_robin: the first neighbour from
 //            the pointer, advanced only on a forward; least_loaded and
-//            batched_feasible: argmin of load, ties to the lowest id);
+//            batched_feasible: argmin of load, ties to the lowest id;
+//            random and power_of_two: lane 0 draws from JAX's threefry,
+//            bit for bit (threefry.cuh), the key fold_in(fold_in(
+//            PRNGKey(seed), rid), hop): random takes neighbours[cur,
+//            min(int(u * deg), deg - 1)]; power_of_two splits the key,
+//            draws a second index over deg - 1 shifted past the first,
+//            and takes the less loaded of the two (ties to the first;
+//            deg <= 1: neighbours[cur, 0]).  The draws are a few hundred
+//            integer operations on one lane for each event that may
+//            forward (hops < max_forwards), then one __fmul_rn and a
+//            truncation per index);
 //            push the re-arrival at t + fma(payload, inv_bw, lat) (t when
 //            unpriced) by a stable sorted insert at #(keys <= key), or
 //            count it into ev_dropped when the buffer is full; write the
@@ -88,6 +100,7 @@
 #include <math_constants.h>
 
 #include "fleet_row.cuh"
+#include "threefry.cuh"
 
 // One run, as event_scan.py's _ScanArgs lays it out field for field.
 struct ScanArgs {
@@ -100,6 +113,7 @@ struct ScanArgs {
   const float* speeds;   // (K,)
   const float* lat;      // (K, K), zeros for an unpriced run
   const float* inv_bw;   // (K, K)
+  const int* neighbors;  // (K, D) ascending, padded with the own id
   // the final EventState (written whole by the kernel)
   float* starts;         // (K, N)
   float* ends;           // (K, N)
@@ -125,9 +139,10 @@ struct ScanArgs {
   float* ring_time;      // (B,)
   int* ring_rid;         // (B,)
   int* ring_meta;        // (B,)
-  int R, K, N, W, B, M, E;
+  int R, K, N, W, B, M, D, E;
   int max_forwards, hop_bits, policy, discard, priced, ring_in_shared;
   float eps;
+  unsigned seed;         // the run's PRNGKey seed (random, power_of_two)
 };
 
 namespace {
@@ -138,13 +153,14 @@ constexpr float kBig = fleet::kBig;
 constexpr unsigned kFull = fleet::kFull;
 
 // routing policies, as event_scan.py numbers them (0: least_loaded)
-constexpr int kRoundRobin = 1, kBatched = 2, kTrace = 3;
+constexpr int kRoundRobin = 1, kBatched = 2, kTrace = 3, kRandom = 4,
+              kPowerOfTwo = 5;
 // the packed terminal record (fleetsim/core.py)
 constexpr int kInfoDisc = 1 << 8, kInfoOvf = 1 << 9, kInfoServed = 10;
 // counts[]: what the host reads after the launch
 constexpr int kEvents = 0, kRetire = 1, kUnprocessed = 2, kCursor = 3,
               kError = 4, kScored = 5;
-// errors: a node id outside [0, K)
+// errors: a node id outside [0, K) (an origin; a forwarding target)
 constexpr int kBadOrigin = 1, kBadTarget = 2;
 
 // the selected event and the loop's scalars (thread 0 / lane 0 write)
@@ -275,6 +291,24 @@ __device__ __forceinline__ int warp_argmin(const Shared& s, int K,
   return idx;
 }
 
+// random / power_of_two: the reference's draw for the event (one thread).
+__device__ __forceinline__ int draw(const ScanArgs& a, const Shared& s,
+                                    const Loop& ev) {
+  using namespace threefry;
+  const int deg = s.degree[ev.cur];
+  const int* nb = a.neighbors + static_cast<long long>(ev.cur) * a.D;
+  const Key kh = fold_in(fold_in(prng_key(a.seed), ev.rid), ev.hops);
+  if (a.policy == kRandom) return nb[scaled_index(uniform(kh), deg)];
+  if (deg <= 1) return nb[0];
+  Key k1, k2;
+  split(kh, &k1, &k2);
+  const int i1 = scaled_index(uniform(k1), deg);
+  int i2 = scaled_index(uniform(k2), deg - 1);
+  if (i2 >= i1) ++i2;                     // sampling without replacement
+  const int x = nb[i1], y = nb[min(i2, deg - 1)];
+  return s.load[x] <= s.load[y] ? x : y;
+}
+
 // The forwarding target of the event at node cur (warp 0, every lane);
 // *rr_adv is the round-robin pointer after a forward.
 __device__ __forceinline__ int route(const ScanArgs& a, const Shared& s,
@@ -286,6 +320,11 @@ __device__ __forceinline__ int route(const ScanArgs& a, const Shared& s,
   if (a.policy == kTrace) {
     const int m = min(ev.hops, a.M - 1);
     return max(a.targets[static_cast<long long>(ev.rid) * a.M + m], 0);
+  }
+  if (a.policy == kRandom || a.policy == kPowerOfTwo) {
+    int nxt = 0;
+    if (lane == 0) nxt = draw(a, s, ev);
+    return __shfl_sync(kFull, nxt, 0);
   }
   if (a.policy == kRoundRobin) {
     // probe rr, rr + 1, ... (mod K); the first neighbour wins (none: rr)
@@ -385,7 +424,7 @@ __device__ __forceinline__ void decide(const ScanArgs& a, const Shared& s,
   if (fwd_path) {
     int rr_adv;
     const int nxt = route(a, s, ev, &rr_adv);
-    if (nxt >= K) {                       // a recorded choice off the fleet
+    if (nxt < 0 || nxt >= K) {            // a target off the fleet
       if (lane == 0) ev.error = kBadTarget;
       return;
     }

@@ -3,13 +3,16 @@ whole event-time fleet simulation in one launch.
 
 The kernel replaces the TPU kernel ``repro/kernels/event_select.py``
 together with the reference's ``lax.scan`` over ``_estep``
-(``repro/fleetsim/core.py``); its plain version is the eager per-event
-loop of :mod:`repro_torch.fleetsim.core`.  This wrapper checks shape,
-dtype, device and contiguity, allocates the final ``EventState`` tensors
-and the counts with ``torch.empty`` (the kernel writes them whole, the
-initial state included), launches on PyTorch's current stream and raises
-on a refused launch.  It never synchronises and never falls back: a CPU
-tensor is refused here.  ``event_scan.launches`` counts the launches.
+(``repro/fleetsim/core.py``), the threefry draws of its ``random`` and
+``power_of_two`` routing included (``csrc/threefry.cuh``); its plain
+version is the eager per-event loop of :mod:`repro_torch.fleetsim.core`
+(with :mod:`repro_torch.fleetsim.rng` for the draws).  This wrapper
+checks shape, dtype, device and contiguity, allocates the final
+``EventState`` tensors and the counts with ``torch.empty`` (the kernel
+writes them whole, the initial state included), launches on PyTorch's
+current stream and raises on a refused launch.  It never synchronises
+and never falls back: a CPU tensor is refused here.
+``event_scan.launches`` counts the launches.
 """
 from __future__ import annotations
 
@@ -23,22 +26,24 @@ from repro_torch.kernels import build
 EPS = 1e-6
 # the routing policies the kernel runs, as csrc/event_scan.cu numbers them
 POLICIES = {"least_loaded": 0, "round_robin": 1, "batched_feasible": 2,
-            "trace": 3}
+            "trace": 3, "random": 4, "power_of_two": 5}
 # what counts[] holds after the launch
 COUNTS = ("events", "retire_iterations", "unprocessed", "cursor", "error",
           "scored")
 ERRORS = {1: "an origin node outside [0, K)",
-          2: "a recorded forwarding target (trace) outside [0, K)"}
+          2: "a forwarding target (a recorded choice under trace, a "
+             "neighbours entry) outside [0, K)"}
 # dynamic shared memory a block may take on Hopper, less the kernel's own
 SHARED_LIMIT = 227 * 1024 - 1024
 
 _P = ctypes.c_void_p
 _POINTERS = ("cols", "origin", "targets", "adj", "degree", "speeds", "lat",
-             "inv_bw", "starts", "ends", "sizes", "slot_rid", "head", "nq",
-             "busy", "load", "rr", "ev_time", "ev_rid", "ev_meta", "ev_n",
-             "ev_dropped", "sat_events", "completion", "reqinfo", "transfer",
-             "counts", "ring_time", "ring_rid", "ring_meta")
-_INTS = ("R", "K", "N", "W", "B", "M", "E", "max_forwards", "hop_bits",
+             "inv_bw", "neighbors", "starts", "ends", "sizes", "slot_rid",
+             "head", "nq", "busy", "load", "rr", "ev_time", "ev_rid",
+             "ev_meta", "ev_n", "ev_dropped", "sat_events", "completion",
+             "reqinfo", "transfer", "counts", "ring_time", "ring_rid",
+             "ring_meta")
+_INTS = ("R", "K", "N", "W", "B", "M", "D", "E", "max_forwards", "hop_bits",
          "policy", "discard", "priced", "ring_in_shared")
 
 
@@ -46,7 +51,7 @@ class _ScanArgs(ctypes.Structure):
     """``ScanArgs`` of csrc/event_scan.cu, field for field."""
     _fields_ = ([(n, _P) for n in _POINTERS]
                 + [(n, ctypes.c_int) for n in _INTS]
-                + [("eps", ctypes.c_float)])
+                + [("eps", ctypes.c_float), ("seed", ctypes.c_uint)])
 
 
 class ScanOut(NamedTuple):
@@ -92,37 +97,43 @@ def _lib():
 def event_scan(cols: torch.Tensor, origin: torch.Tensor,
                targets: torch.Tensor, adj: torch.Tensor,
                degree: torch.Tensor, speeds: torch.Tensor,
-               latency: torch.Tensor, inv_bw: torch.Tensor, *, policy: str,
-               max_forwards: int, discard_on_exhaust: bool, capacity: int,
-               depth: int, event_buf: int, max_events: int, priced: bool,
-               hop_bits: int) -> ScanOut:
+               latency: torch.Tensor, inv_bw: torch.Tensor,
+               neighbors: torch.Tensor, *, policy: str, max_forwards: int,
+               discard_on_exhaust: bool, capacity: int, depth: int,
+               event_buf: int, max_events: int, priced: bool, hop_bits: int,
+               seed: int = 0) -> ScanOut:
     """Launch the kernel over one run.
 
     ``cols`` is the (R, 4) f32 request table ``(arrival, d_abs, proc,
     payload)`` in arrival order, ``origin`` (R,) int32, ``targets`` (R, M)
     int32 recorded choices (read by ``trace``), ``adj`` (K, K) bool,
     ``degree`` (K,) int32, ``speeds`` (K,) f32, ``latency`` / ``inv_bw``
-    (K, K) f32 (zeros for an unpriced run).  ``capacity`` is the ledger
-    width N, ``depth`` the live window W, ``event_buf`` the re-arrival
-    buffer B, ``max_events`` the step bound, ``hop_bits`` the width of
-    the hop count in a buffered event's meta.
+    (K, K) f32 (zeros for an unpriced run), ``neighbors`` (K, D) int32,
+    each row's ``degree`` neighbours ascending, then padding (read by
+    ``random`` and ``power_of_two``).  ``capacity`` is the ledger width
+    N, ``depth`` the live window W, ``event_buf`` the re-arrival buffer
+    B, ``max_events`` the step bound, ``hop_bits`` the width of the hop
+    count in a buffered event's meta, ``seed`` the ``PRNGKey`` seed of
+    the stochastic policies (taken mod 2**32).
     """
     dev = cols.device
     R, K, M = cols.shape[0], speeds.shape[0], targets.shape[1]
+    D = neighbors.shape[1] if neighbors.dim() == 2 else 0
     N, W, B, E = capacity, depth, event_buf, max_events
     f32, i32 = torch.float32, torch.int32
     build.check_tensors("event_scan", dev, (
         ("cols", cols, f32, (R, 4)), ("origin", origin, i32, (R,)),
         ("targets", targets, i32, (R, M)), ("adj", adj, torch.bool, (K, K)),
         ("degree", degree, i32, (K,)), ("speeds", speeds, f32, (K,)),
-        ("latency", latency, f32, (K, K)), ("inv_bw", inv_bw, f32, (K, K))))
+        ("latency", latency, f32, (K, K)), ("inv_bw", inv_bw, f32, (K, K)),
+        ("neighbors", neighbors, i32, (K, D))))
     if policy not in POLICIES:
         raise ValueError(f"event_scan runs the policies {sorted(POLICIES)}, "
                          f"not {policy!r}")
-    if not (R >= 1 and K >= 1 and M >= 1 and 1 <= W <= N and B >= 0
-            and 0 <= E < 2 ** 31 and K * N < 2 ** 31):
+    if not (R >= 1 and K >= 1 and M >= 1 and D >= 1 and 1 <= W <= N
+            and B >= 0 and 0 <= E < 2 ** 31 and K * N < 2 ** 31):
         raise ValueError(f"event_scan: no run of R={R}, K={K}, M={M}, "
-                         f"N={N}, W={W}, B={B}, max_events={E}")
+                         f"D={D}, N={N}, W={W}, B={B}, max_events={E}")
     if cols.data_ptr() % 16:
         raise ValueError("event_scan reads each row of cols as one 16-byte "
                          "vector: cols must be 16-byte aligned")
@@ -148,13 +159,15 @@ def event_scan(cols: torch.Tensor, origin: torch.Tensor,
         [empty((B,), f32), empty((B,), i32), empty((B,), i32)]
     tensors = dict(cols=cols, origin=origin, targets=targets, adj=adj,
                    degree=degree, speeds=speeds, lat=latency, inv_bw=inv_bw,
+                   neighbors=neighbors,
                    ring_time=ring[0], ring_rid=ring[1], ring_meta=ring[2],
                    **out._asdict())
     args = _ScanArgs(
         *(None if tensors[n] is None else tensors[n].data_ptr()
           for n in _POINTERS),
-        R, K, N, W, B, M, E, max_forwards, hop_bits, POLICIES[policy],
-        int(discard_on_exhaust), int(priced), int(ring_in_shared), EPS)
+        R, K, N, W, B, M, D, E, max_forwards, hop_bits, POLICIES[policy],
+        int(discard_on_exhaust), int(priced), int(ring_in_shared), EPS,
+        seed & 0xFFFFFFFF)
     build.raise_on("event_scan", _lib()(ctypes.byref(args),
                                         *build.stream_of(dev)))
     _wrapper.launches += 1

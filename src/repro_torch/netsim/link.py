@@ -1,5 +1,6 @@
 """Wired 5G-MEC network model: what a referral costs (the port's copy of
-the parts of ``repro/netsim/link.py`` the fleet simulator needs).
+``repro/netsim/link.py``; the radio model of ``repro/netsim/radio.py`` is
+not ported).
 
 A referral over the edge ``(u, v)`` costs ``latency[u, v] + payload ·
 inv_bw[u, v]`` UT; a request's payload is its camera frame
@@ -10,7 +11,7 @@ hop with; non-edges and the diagonal are 0.
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Optional, Sequence, Union
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -33,6 +34,26 @@ class NetParams(NamedTuple):
     (``0`` = infinite bandwidth), both (K, K) f32 with a zero diagonal."""
     latency: np.ndarray
     inv_bw: np.ndarray
+
+    @classmethod
+    def zero(cls, n_nodes: int) -> "NetParams":
+        """The free network: every hop costs exactly 0.0 UT."""
+        z = np.zeros((n_nodes, n_nodes), np.float32)
+        return cls(latency=z, inv_bw=z.copy())
+
+    @classmethod
+    def uniform(cls, n_nodes: int, latency: float,
+                inv_bw: float = 0.0) -> "NetParams":
+        """Every hop priced identically (zero diagonal)."""
+        lat = np.full((n_nodes, n_nodes), latency, np.float32)
+        ibw = np.full((n_nodes, n_nodes), inv_bw, np.float32)
+        np.fill_diagonal(lat, 0.0)
+        np.fill_diagonal(ibw, 0.0)
+        return cls(latency=lat, inv_bw=ibw)
+
+    @property
+    def n_nodes(self) -> int:
+        return self.latency.shape[-1]
 
 
 # (latency UT, bandwidth MB/UT) per link class, calibrated to the paper's
@@ -66,19 +87,24 @@ def _as_matrix(value: MatrixLike, n: int, name: str) -> np.ndarray:
 class LinkModel:
     """Per-edge latency + bandwidth over a :class:`Topology`, with a
     per-service payload model (``payloads`` overrides it by service
-    name)."""
+    name).  ``uplink_latency`` / ``uplink_bandwidth`` price the camera →
+    MEC ingress leg."""
 
     def __init__(self, topology: Topology,
                  latency: MatrixLike = 0.0,
                  bandwidth: MatrixLike = math.inf, *,
                  payloads: Optional[Dict[str, float]] = None,
                  bytes_per_pixel: float = BYTES_PER_PIXEL,
+                 uplink_latency: float = 0.0,
+                 uplink_bandwidth: float = math.inf,
                  name: str = "custom"):
         n = topology.n_nodes
         self.topology = topology
         self.name = name
         self.payloads = dict(payloads or {})
         self.bytes_per_pixel = float(bytes_per_pixel)
+        self.uplink_latency = float(uplink_latency)
+        self.uplink_bandwidth = float(uplink_bandwidth)
         lat = _as_matrix(latency, n, "latency")
         bw = _as_matrix(bandwidth, n, "bandwidth")
         if (lat < 0).any():
@@ -95,6 +121,10 @@ class LinkModel:
         with np.errstate(divide="ignore"):
             self._inv_bw = np.where(edge, np.where(np.isinf(bw), 0.0,
                                                    1.0 / bw), 0.0)
+
+    @property
+    def n_nodes(self) -> int:
+        return self.topology.n_nodes
 
     def payload_of(self, service: Service) -> float:
         """Request payload in MB (override table, else the frame model)."""
@@ -115,15 +145,37 @@ class LinkModel:
         return float(self._lat[src, dst]
                      + self.payload_of(service) * self._inv_bw[src, dst])
 
+    def uplink_delay(self, service: Service) -> float:
+        """Camera → MEC ingress cost with the model's default uplink."""
+        if math.isinf(self.uplink_bandwidth):
+            return self.uplink_latency
+        return self.uplink_latency + self.payload_of(service) / self.uplink_bandwidth
+
+    @property
+    def is_zero(self) -> bool:
+        """True iff every hop (and the uplink) costs exactly 0.0."""
+        return (not self._lat.any() and not self._inv_bw.any()
+                and self.uplink_latency == 0.0
+                and math.isinf(self.uplink_bandwidth))
+
     def net_params(self, dtype=np.float32) -> NetParams:
         """The (K, K) arrays the fleet simulator prices hops with."""
         return NetParams(latency=self._lat.astype(dtype),
                          inv_bw=self._inv_bw.astype(dtype))
 
+    def __repr__(self) -> str:
+        return (f"LinkModel({self.name!r}, n={self.n_nodes}, "
+                f"{'zero' if self.is_zero else 'priced'})")
+
     @classmethod
     def zero(cls, topology: Topology) -> "LinkModel":
         """The free network."""
         return cls(topology, 0.0, math.inf, name="zero")
+
+    @classmethod
+    def uniform(cls, topology: Topology, latency: float, bandwidth: float,
+                name: str = "uniform", **kw) -> "LinkModel":
+        return cls(topology, latency, bandwidth, name=name, **kw)
 
     @classmethod
     def preset(cls, topology: Topology, profile: str = "campus",
@@ -140,10 +192,20 @@ class LinkModel:
         for c in cloud_nodes:
             lat[c, :] = lat[:, c] = p["backhaul_latency"]
             bw[c, :] = bw[:, c] = p["backhaul_bandwidth"]
-        return cls(topology, lat, bw, name=profile)
+        return cls(topology, lat, bw,
+                   uplink_latency=p["uplink_latency"],
+                   uplink_bandwidth=p["uplink_bandwidth"],
+                   name=profile)
 
     @classmethod
     def campus(cls, topology: Topology,
                cloud_nodes: Sequence[int] = ()) -> "LinkModel":
         """The paper's venue: one campus aggregation network."""
         return cls.preset(topology, "campus", cloud_nodes)
+
+
+def paper_campus(n_nodes: int = 3) -> Tuple[Topology, "LinkModel"]:
+    """The paper's 5G campus: ``n_nodes`` MEC nodes on a full mesh with
+    campus-LAN link pricing.  Returns ``(topology, link_model)``."""
+    topo = Topology.full_mesh(n_nodes)
+    return topo, LinkModel.campus(topo)

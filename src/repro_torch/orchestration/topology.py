@@ -58,6 +58,10 @@ class Topology:
     def speeds(self) -> Tuple[float, ...]:
         return self._speeds
 
+    @property
+    def homogeneous(self) -> bool:
+        return all(s == 1.0 for s in self._speeds)
+
     def degree(self, node_id: int) -> int:
         return len(self._neighbors[node_id])
 
@@ -67,10 +71,9 @@ class Topology:
                      for v in self._neighbors[u] if u < v)
 
     def __repr__(self) -> str:
-        homog = all(s == 1.0 for s in self._speeds)
         return (f"Topology({self.name!r}, n={self.n_nodes}, "
                 f"edges={len(self.edges())}, "
-                f"speeds={'homogeneous' if homog else self._speeds})")
+                f"speeds={'homogeneous' if self.homogeneous else self._speeds})")
 
     @classmethod
     def full_mesh(cls, n_nodes: int,

@@ -1,5 +1,6 @@
 """Write ``tests/data/torch_fleetsim_golden.json``: the JAX reference's
-results on the PyTorch port's four main-path runs.
+results on the PyTorch port's four main-path runs, and on three of them
+under the stochastic forwarding policies.
 
 Not a test (it imports JAX): it produces the file the port is held
 against — by ``tests/test_torch_golden.py`` on the CPU and by
@@ -14,7 +15,23 @@ seed 0 on a full mesh under the ``campus`` link profile with the
   (``make_fleet_workload(32, div=4)``: 16,000 requests), capacity 1024,
   depth 512;
 * the first 8,000 requests (in arrival order) of that fleet, the run
-  ``chip_smoke.py`` drives to stay inside its time budget.
+  ``chip_smoke.py`` drove to stay inside its time budget;
+* ``paper/scenario1``, ``paper/scenario3`` and the full 32-node fleet
+  under ``random`` and ``power_of_two`` (the reference's default policy,
+  the paper's forward to a random neighbour, and its two-choice variant,
+  both drawing from ``jax.random``'s threefry), sized as above; each such
+  run names its ``policy``, the others take the file's.
+
+The file also keeps the reference's cross-validation reports
+(``repro.fleetsim.validate.run_validation``: its fleet simulator against
+its event heap) on ``paper/scenario1..3`` under the same pricing, with
+``batched_feasible`` and ``round_robin`` replayed directly and
+``random`` and ``power_of_two`` by the heap's trace: the mismatch counts
+and the integer aggregates of both engines, which the port's
+``run_validation`` must reproduce on the card.  All are exact but
+``paper/scenario2`` under ``round_robin``, where 16 requests are served
+by another node than the heap's (f32 ledgers against the heap's f64, the
+flips the reference's contract allows).
 
 Sizing follows ``bench_fleetsim``: one probe run at the worst-case event
 bound measures the forwards, then ``max_events = min(R * 3, R + 4 *
@@ -56,11 +73,20 @@ RUNS = (
          workload={"fleet": 32, "div": 4, "prefix": 8000},
          n_nodes=32, capacity=1024, depth=512),
 )
+STOCHASTIC = ("random", "power_of_two")
+RUNS = RUNS + tuple(
+    dict(base, name=f"{base['name']}@{policy}", policy=policy)
+    for policy in STOCHASTIC for base in RUNS
+    if base["name"] in ("paper/scenario1", "paper/scenario3", "fleet32_div4"))
 INT_AGGREGATES = ("total", "processed", "met_deadline", "forwards",
                   "discarded", "overflow", "window_saturation",
                   "event_overflow")
 FLOAT_AGGREGATES = ("mean_response_time", "end_time", "transfer_time")
 DIGESTS = ("outcome", "served_by", "forwards_used")
+VALIDATED = ("batched_feasible", "round_robin") + STOCHASTIC
+VALIDATED_SCENARIOS = ("paper/scenario1", "paper/scenario2",
+                       "paper/scenario3")
+REPORT_COUNTS = ("met_deadline", "processed", "forwards", "discarded")
 
 
 def reference_workload(spec: Dict):
@@ -101,11 +127,32 @@ def run_reference(spec: Dict, max_events=None):
     reqs = first(reqs, spec["workload"])
     topo = Topology.full_mesh(spec["n_nodes"])
     return simulate(reqs, topology_arrays(topo), SimParams.make(SEED),
-                    policy=POLICY, max_forwards=MAX_FORWARDS,
+                    policy=spec.get("policy", POLICY),
+                    max_forwards=MAX_FORWARDS,
                     capacity=spec["capacity"], depth=spec["depth"],
                     use_pallas=True,
                     net=LinkModel.preset(topo, NET).net_params(),
                     max_events=max_events)
+
+
+def validation_reports():
+    """The reference's ``run_validation`` on each (scenario, policy) cell:
+    the fields the port's report must equal."""
+    from repro.fleetsim.validate import run_validation
+    out = []
+    for scenario in VALIDATED_SCENARIOS:
+        topo = Topology.full_mesh(get_workload(scenario).n_nodes)
+        for policy in VALIDATED:
+            rep = run_validation(scenario, SEED, policy=policy,
+                                 network=LinkModel.preset(topo, NET))
+            out.append(dict(
+                scenario=scenario, policy=policy, exact=rep.exact,
+                outcome_mismatches=rep.outcome_mismatches,
+                node_mismatches=rep.node_mismatches, capacity=rep.capacity,
+                host={k: int(rep.host[k]) for k in REPORT_COUNTS},
+                fleet={k: int(rep.fleet[k]) for k in REPORT_COUNTS}))
+            print(rep.row(), file=sys.stderr)
+    return out
 
 
 def main() -> None:
@@ -128,6 +175,7 @@ def main() -> None:
             raise SystemExit(f"{spec['name']}: undersized run {bad}")
         out["runs"].append(dict(spec, max_events=max_events, **got))
         print(spec["name"], got["aggregates"], file=sys.stderr)
+    out["validation"] = validation_reports()
     os.makedirs(os.path.dirname(GOLDEN), exist_ok=True)
     with open(GOLDEN, "w") as f:
         json.dump(out, f, indent=1)

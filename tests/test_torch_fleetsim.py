@@ -5,7 +5,9 @@ request.
 Both packages pack their own copies of the same workload; the arrays are
 checked equal and then each package simulates them.  The JAX side runs
 ``batched_feasible`` through the Pallas ``event_select`` kernel in
-interpret mode, as its own tests do.
+interpret mode, as its own tests do.  Under ``random`` and
+``power_of_two`` both draw from threefry (``jax.random`` and the port's
+bit-exact ``fleetsim.rng``), so those runs are held to the same bar.
 
 Bar: exact on ``outcome``, ``served_by``, ``forwards_used`` and the
 never-silent counters ``overflow``, ``window_saturation`` and
@@ -50,7 +52,7 @@ def _pair(jwl, twl, seed=0):
 
 
 def _run_both(ja, ta, K, *, net=None, topo=None, targets=None, sla=1.0,
-              **kw):
+              seed=0, **kw):
     jtopo = topo[0] if topo else JTopology.full_mesh(K)
     ttopo = topo[1] if topo else TTopology.full_mesh(K)
     jnet = tnet = None
@@ -59,10 +61,12 @@ def _run_both(ja, ta, K, *, net=None, topo=None, targets=None, sla=1.0,
         tnet = TLinkModel.preset(ttopo, net).net_params()
         assert all(np.array_equal(a, b) for a, b in zip(jnet, tnet))
     use_pallas = kw.get("policy") == "batched_feasible"
-    a = jfs.simulate(ja, jfs.topology_arrays(jtopo), jfs.SimParams.make(0, sla),
-                     net=jnet, targets=targets, use_pallas=use_pallas, **kw)
-    b = tfs.simulate(ta, tfs.topology_arrays(ttopo), tfs.SimParams.make(0, sla),
-                     net=tnet, targets=targets, device="cpu", **kw)
+    a = jfs.simulate(ja, jfs.topology_arrays(jtopo),
+                     jfs.SimParams.make(seed, sla), net=jnet,
+                     targets=targets, use_pallas=use_pallas, **kw)
+    b = tfs.simulate(ta, tfs.topology_arrays(ttopo),
+                     tfs.SimParams.make(seed, sla), net=tnet,
+                     targets=targets, device="cpu", **kw)
     return a, b
 
 
@@ -96,6 +100,45 @@ def test_hot_fleet_matches_reference(policy, net):
                      depth=256, targets=targets)
     _assert_parity(a, b)
     assert int(b.forwards) > 0 and b.events == int(b.total) + int(b.forwards)
+
+
+@pytest.mark.parametrize("net", [None, "campus"])
+@pytest.mark.parametrize("policy", ["random", "power_of_two"])
+def test_stochastic_policies_match_reference_on_hot_fleet(policy, net):
+    """The reference's threefry draws, keyed by the run's seed, each
+    request's row and its hop: every forward lands where JAX sends it."""
+    ja, ta = _pair(JUniformWorkload(HOT_COUNTS, window=1200.0, name="hot"),
+                   TUniformWorkload(HOT_COUNTS, window=1200.0, name="hot"))
+    for seed in (0, 2 ** 31 - 1):
+        a, b = _run_both(ja, ta, 3, net=net, policy=policy, capacity=512,
+                         depth=256, seed=seed)
+        _assert_parity(a, b)
+        assert int(b.forwards) > 0
+
+
+# a 32-node mesh with four hot nodes: their referrals pick among 31
+# neighbours; a star's leaves have one neighbour (power_of_two's deg <= 1)
+STAR_COUNTS = [{"S6": 4}] + [HOT_COUNTS[0]] * 3
+MESH32_COUNTS = [HOT_COUNTS[0]] * 4 + [{"S6": 2}] * 28
+
+
+@pytest.mark.parametrize("shape", ["star", "mesh32"])
+@pytest.mark.parametrize("policy", ["random", "power_of_two"])
+def test_stochastic_policies_match_reference_on_star_and_wide_mesh(
+        policy, shape):
+    counts = STAR_COUNTS if shape == "star" else MESH32_COUNTS
+    K = len(counts)
+    ja, ta = _pair(JUniformWorkload(counts, window=1200.0, name=shape),
+                   TUniformWorkload(counts, window=1200.0, name=shape))
+    topo = ((JTopology.star(K), TTopology.star(K)) if shape == "star"
+            else (JTopology.full_mesh(K), TTopology.full_mesh(K)))
+    a, b = _run_both(ja, ta, K, net="campus", topo=topo, policy=policy,
+                     capacity=512, depth=256)
+    _assert_parity(a, b)
+    assert int(b.forwards) > 0
+    if shape == "mesh32":              # the hot nodes refer widely
+        served = set(b.served_by.tolist())
+        assert len(served - {0, 1, 2, 3}) > 8
 
 
 def test_discard_variant_and_sla_scale_match_reference():
@@ -156,11 +199,16 @@ def test_batched_feasible_scores_post_retire_state():
 
 
 def test_unported_paths_raise():
+    """Telemetry and simulate_fn still raise; the stochastic policies run
+    (ROADMAP item 1), ``random`` by default, as in the reference."""
     ta, _ = TUniformWorkload(HOT_COUNTS, window=1200.0).to_arrays(0)
     topo = tfs.topology_arrays(TTopology.full_mesh(3))
-    for policy in ("random", "power_of_two"):
-        with pytest.raises(NotImplementedError, match="threefry"):
-            tfs.simulate(ta, topo, policy=policy, device="cpu")
+    kw = dict(capacity=512, depth=256, device="cpu")
+    default = tfs.simulate(ta, topo, **kw)
+    drawn = tfs.simulate(ta, topo, policy="random", **kw)
+    assert torch.equal(default.served_by, drawn.served_by)
+    assert int(tfs.simulate(ta, topo, policy="power_of_two",
+                            **kw).forwards) > 0
     with pytest.raises(NotImplementedError, match="telemetry"):
         tfs.simulate(ta, topo, telemetry=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="simulate_fn"):
@@ -172,13 +220,15 @@ def test_unported_paths_raise():
 def test_eager_entry_refuses_what_simulate_refuses():
     """The eager loop's private entry (the plain version ``chip_smoke.py``
     runs on the card) refuses the unported paths as ``simulate`` does,
-    naming their ROADMAP items."""
+    naming their ROADMAP items, and defaults to ``random`` as it does."""
     from repro_torch.fleetsim import core
     ta, _ = TUniformWorkload(HOT_COUNTS, window=1200.0).to_arrays(0)
     topo = tfs.topology_arrays(TTopology.full_mesh(3))
-    for policy in ("random", "power_of_two"):
-        with pytest.raises(NotImplementedError, match="item 1"):
-            core._simulate_eager(ta, topo, policy=policy, device="cpu")
+    with pytest.raises(ValueError, match="unknown fleetsim policy"):
+        core._simulate_eager(ta, topo, policy="nope", device="cpu")
+    kw = dict(capacity=512, depth=256, device="cpu")
+    assert torch.equal(core._simulate_eager(ta, topo, **kw).served_by,
+                       tfs.simulate(ta, topo, **kw).served_by)
     with pytest.raises(NotImplementedError, match="item 2"):
         core._simulate_eager(ta, topo, telemetry=object(), device="cpu")
 
@@ -213,7 +263,8 @@ def _scan_inputs(R=5, K=3, M=2, dev="cpu"):
             torch.zeros(K, K, dtype=torch.bool, device=dev),
             torch.zeros(K, dtype=torch.int32, device=dev),
             torch.ones(K, device=dev), torch.zeros(K, K, device=dev),
-            torch.zeros(K, K, device=dev))
+            torch.zeros(K, K, device=dev),
+            torch.zeros(K, K - 1, dtype=torch.int32, device=dev))
 
 
 _SCAN_KW = dict(policy="batched_feasible", max_forwards=2,
@@ -230,7 +281,8 @@ def test_event_scan_wrapper_refuses_cpu_tensors():
 
 
 @pytest.mark.parametrize("bad", ["cols", "targets", "adj_dtype", "depth",
-                                 "policy", "noncontiguous", "misaligned"])
+                                 "policy", "noncontiguous", "misaligned",
+                                 "neighbors"])
 def test_event_scan_wrapper_refuses_malformed_inputs(bad):
     """Shapes, dtypes, contiguity and sizes are checked before the device,
     so each is refused on the CPU too."""
@@ -245,7 +297,9 @@ def test_event_scan_wrapper_refuses_malformed_inputs(bad):
     elif bad == "depth":
         kw["depth"] = 9
     elif bad == "policy":
-        kw["policy"] = "random"
+        kw["policy"] = "nope"
+    elif bad == "neighbors":
+        args[8] = torch.zeros(2, 2, dtype=torch.int32)
     elif bad == "noncontiguous":
         args[6] = torch.zeros(6, 3)[::2]
     else:                                # rows read as 16-byte vectors
@@ -265,11 +319,11 @@ def test_event_scan_shared_memory_layout():
     assert event_scan.shared_bytes(256, 1024, False) == 32 * 256 + 256
     assert event_scan.shared_bytes(256, 1024, True) <= event_scan.SHARED_LIMIT
     fields = [n for n, _ in event_scan._ScanArgs._fields_]
-    assert fields[:8] == ["cols", "origin", "targets", "adj", "degree",
-                          "speeds", "lat", "inv_bw"] and fields[-1] == "eps"
-    assert ctypes.sizeof(event_scan._ScanArgs) == 30 * 8 + 13 * 4 + 4
-    assert set(event_scan.POLICIES) | {"random", "power_of_two"} == \
-        set(tfs.POLICIES)
+    assert fields[:9] == ["cols", "origin", "targets", "adj", "degree",
+                          "speeds", "lat", "inv_bw", "neighbors"]
+    assert fields[-2:] == ["eps", "seed"]
+    assert ctypes.sizeof(event_scan._ScanArgs) == 31 * 8 + 14 * 4 + 4 + 4
+    assert set(event_scan.POLICIES) == set(tfs.POLICIES)
 
 
 def test_outputs_are_typed_like_the_reference():

@@ -9,6 +9,10 @@ it: digests and integer aggregates exactly, the float aggregates to a
 relative 1e-5 (sums over 6,000 requests in another order).  The same two
 runs are the slice's whole-volume parity check: the port against the
 reference per request, ``completion`` and ``transfer_used`` included.
+Of the entries under the stochastic policies, the port recomputes
+``paper/scenario3@random`` in tests/test_torch_golden_stochastic.py (the
+full-volume runs here already take most of a minute); ``chip_smoke.py``
+holds the card to all of them.
 """
 import json
 
@@ -35,12 +39,31 @@ def _port_workload(spec):
 def test_golden_file_covers_the_main_path():
     assert [r["name"] for r in GOLDEN["runs"]] == [r["name"] for r in mk.RUNS]
     assert (GOLDEN["policy"], GOLDEN["net"]) == ("batched_feasible", "campus")
+    drawn = [r["name"] for r in GOLDEN["runs"] if "policy" in r]
+    assert drawn == [f"{n}@{p}" for p in mk.STOCHASTIC for n in (
+        "paper/scenario1", "paper/scenario3", "fleet32_div4")]
     for run in GOLDEN["runs"]:
         agg = run["aggregates"]
         assert agg["overflow"] == agg["window_saturation"] == \
             agg["event_overflow"] == 0, run["name"]
         assert agg["total"] < run["max_events"] <= 3 * agg["total"]
         assert set(run["digests"]) == set(mk.DIGESTS)
+
+
+def test_golden_file_keeps_the_reference_validation_reports():
+    """The 12 cells ``chip_smoke.py`` holds the port's ``run_validation``
+    to: exact but ``paper/scenario2`` under ``round_robin``, whose 16 node
+    flips stay inside the reference's own contract (<= 0.5% of requests,
+    no outcome flipped)."""
+    cells = GOLDEN["validation"]
+    assert [(c["scenario"], c["policy"]) for c in cells] == [
+        (s, p) for s in mk.VALIDATED_SCENARIOS for p in mk.VALIDATED]
+    inexact = [(c["scenario"], c["policy"]) for c in cells if not c["exact"]]
+    assert inexact == [("paper/scenario2", "round_robin")]
+    for c in cells:
+        assert c["host"] == c["fleet"], c
+        assert c["outcome_mismatches"] == 0
+        assert c["node_mismatches"] <= 0.005 * c["host"]["processed"]
 
 
 @pytest.mark.parametrize("name", [r["name"] for r in mk.RUNS])

@@ -144,6 +144,38 @@ def test_event_scan_matches_eager_loop(policy, net):
     assert gpu.events == int(gpu.total) + int(gpu.forwards)
 
 
+# the stochastic policies' fleets: the hot 3-node mesh, a 2-node mesh and
+# a star (power_of_two at deg <= 1), and a 32-node mesh with four hot
+# nodes (deg 31)
+STOCHASTIC_FLEETS = {
+    "mesh3": (HOT, Topology.full_mesh(3)),
+    "mesh2": (HOT[:2], Topology.full_mesh(2)),
+    "star4": ([{"S6": 4}] + HOT, Topology.star(4)),
+    "mesh32": ([HOT[0]] * 4 + [{"S6": 2}] * 28, Topology.full_mesh(32)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("net", [None, "campus"])
+@pytest.mark.parametrize("fleet", sorted(STOCHASTIC_FLEETS))
+@pytest.mark.parametrize("policy", ["random", "power_of_two"])
+def test_event_scan_stochastic_policies_match_eager_loop(policy, fleet, net):
+    """The kernel's threefry draws (csrc/threefry.cuh) equal the eager
+    loop's (fleetsim/rng.py), forward for forward, at two seeds."""
+    _need_gpu()
+    from repro_torch.fleetsim import SimParams
+    counts, topo = STOCHASTIC_FLEETS[fleet]
+    reqs, _ = UniformWorkload(counts, window=1200.0,
+                              name=fleet).to_arrays(0)
+    for seed in (0, 2 ** 31 - 1):
+        gpu = _scan_matches_eager(
+            reqs, topo, params=SimParams.make(seed), policy=policy,
+            capacity=512, depth=256,
+            net=None if net is None else
+            LinkModel.preset(topo, net).net_params())
+        assert int(gpu.forwards) > 0
+
+
 @pytest.mark.gpu
 def test_event_scan_discard_variant_and_sla_scale():
     _need_gpu()

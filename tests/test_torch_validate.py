@@ -1,0 +1,124 @@
+"""The port's cross-validation (``repro_torch.fleetsim.validate``: the fleet
+simulator against the port's event heap) against the reference's
+(``repro.fleetsim.validate``), on the CPU.
+
+Each cell runs four engines on the same workload: the two heaps (which
+agree exactly, tests/test_torch_orchestration.py) and the two fleet
+simulators (the port's eager loop on the CPU, the reference's
+``lax.scan``), the deterministic policies replayed directly and the
+stochastic ones by the heap's recorded trace.  The port's report must be
+``exact`` and equal the reference's field by field: host and fleet
+aggregates, the mismatch counts, the wire-time error, the capacity; the
+fleet's two f32 sums over requests to 1e-5 relative.
+"""
+import dataclasses
+
+import pytest
+import torch
+
+from repro.fleetsim.validate import run_validation as j_run_validation
+from repro.netsim import LinkModel as JLinkModel
+from repro.orchestration import (Topology as JTopology,
+                                 UniformWorkload as JUniformWorkload)
+from repro_torch.fleetsim import validate
+from repro_torch.netsim import LinkModel as TLinkModel
+from repro_torch.orchestration import (Topology as TTopology,
+                                       UniformWorkload as TUniformWorkload)
+
+# tests/test_fleetsim.py's HOT fleet
+HOT_COUNTS = [{"S1": 30, "S4": 30, "S5": 25, "S6": 25}] * 3
+JHOT = JUniformWorkload(HOT_COUNTS, window=1200.0, name="hot")
+THOT = TUniformWorkload(HOT_COUNTS, window=1200.0, name="hot")
+POLICIES = ("random", "power_of_two", "least_loaded", "round_robin",
+            "batched_feasible")
+# the fleet's f32 sums over requests, which PyTorch and XLA take in
+# another order: within 1e-5 relative, as in tests/test_torch_fleetsim.py
+FLEET_SUMS = ("mean_response_time", "transfer_time")
+
+
+def _both(seed, policy, topo=None, net=None, **kw):
+    jtopo, ttopo = topo or (None, None)
+    jnet = tnet = None
+    if net is not None:
+        jtopo, ttopo = jtopo or JTopology.full_mesh(3), \
+            ttopo or TTopology.full_mesh(3)
+        jnet, tnet = JLinkModel.preset(jtopo, net), TLinkModel.preset(ttopo,
+                                                                      net)
+    a = j_run_validation(JHOT, seed, policy=policy, topology=jtopo,
+                         network=jnet, **kw)
+    b = validate.run_validation(THOT, seed, policy=policy, topology=ttopo,
+                                network=tnet, device="cpu", **kw)
+    return a, b
+
+
+def _assert_same_report(a, b):
+    assert a.telemetry is None
+    for f in dataclasses.fields(b):
+        if f.name != "fleet":
+            assert getattr(a, f.name) == getattr(b, f.name), f.name
+    assert a.fleet.keys() == b.fleet.keys()
+    for k, v in a.fleet.items():
+        if k in FLEET_SUMS:
+            assert abs(b.fleet[k] - v) <= 1e-5 * abs(v), k
+        else:
+            assert b.fleet[k] == v, k
+    assert b.exact, b.row()
+    for k in ("met_deadline", "processed", "forwards", "discarded"):
+        assert b.host[k] == b.fleet[k], k
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+def test_hot_fleet_report_matches_reference(policy):
+    for seed in (0, 1):
+        a, b = _both(seed, policy)
+        _assert_same_report(a, b)
+        assert b.host["forwards"] > 0
+
+
+def test_discard_variant_matches_reference():
+    a, b = _both(0, "random", discard_on_exhaust=True)
+    _assert_same_report(a, b)
+    assert b.fleet["discarded"] > 0
+
+
+def test_heterogeneous_ring_matches_reference():
+    speeds = [1.0, 2.0, 0.5]
+    a, b = _both(0, "round_robin", topo=(JTopology.ring(3, speeds=speeds),
+                                         TTopology.ring(3, speeds=speeds)))
+    _assert_same_report(a, b)
+
+
+@pytest.mark.parametrize("policy", ["batched_feasible", "power_of_two"])
+def test_campus_pricing_matches_reference(policy):
+    a, b = _both(0, policy, net="campus")
+    _assert_same_report(a, b)
+    assert b.host["transfer_time"] > 0 and b.transfer_max_err <= 1e-3
+
+
+def test_a_changed_trace_is_caught(monkeypatch):
+    """The check is not vacuous: a replayed trace with one recorded
+    forward target changed makes the report not exact."""
+    real = validate._host_run
+
+    def planted(*args, **kw):
+        out = real(*args, **kw)
+        targets = out[2]
+        i, h = map(int, next(zip(*(targets >= 0).nonzero())))
+        targets[i, h] = (targets[i, h] + 1) % 3
+        if targets[i, h] == out[0][i].origin_node:
+            targets[i, h] = (targets[i, h] + 1) % 3
+        return out
+
+    monkeypatch.setattr(validate, "_host_run", planted)
+    rep = validate.run_validation(THOT, 0, policy="random", device="cpu")
+    assert not rep.exact and rep.node_mismatches > 0
+
+
+def test_unported_and_cuda_paths_raise(monkeypatch):
+    with pytest.raises(NotImplementedError, match="item 2"):
+        validate.run_validation(THOT, 0, telemetry=8, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        validate.run_validation(THOT, 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        validate.run_validation(THOT, 0, device="cuda")
