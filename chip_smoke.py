@@ -69,6 +69,28 @@ final line:
                 packages); the check shown to reject a trace with one
                 recorded forward target changed; each heap run's wall time
                 beside its fleet run's;
+             g. sweeps and telemetry: the 32-cell sweep of
+                ``examples/fleet_sweep.py`` (``paper/scenario1``,
+                ``random``, seeds 0-7 x ``sla_scale`` 0.5 / 0.8 / 1.0 /
+                2.0) as one ``simulate_fn`` call, one ``event_scan``
+                launch of 32 blocks, each cell its golden entry, timed
+                against the same cells launched one by one (in turns):
+                cells/s, requests/s, us per event; the 12-cell latency x
+                bandwidth grid of ``examples/mobility_sweep.py`` in one
+                launch, each cell its golden entry; telemetry on the main
+                path (``paper/scenario1..3``, 32 buckets over the golden
+                run's end time): counters and occupancy the JAX cube's,
+                the integrals within ``DERIVED_ATOL``, every other output
+                the telemetry-off run's and the golden digests, the check
+                shown to reject a moved counter and a moved busy time,
+                telemetry on against off per event (in turns); the paper
+                sweep with telemetry, each cell's cube the JAX one;
+                ``run_validation(telemetry=32)`` on ``paper/scenario1..3``
+                under ``random``, each report and agreement the
+                reference's, one Chrome trace written (``build/
+                telemetry/``) and validated; the eager loop on the CPU
+                against ``event_scan`` with telemetry on the hot fleet,
+                six policies, priced and not;
 4. vision  — the deadline-aware serving path with DeiT-B at full width:
              a. ``flash_attention`` against its plain version on a random
                 sweep (causal / window / GQA, S in {1, 63, 65, 127, 129,
@@ -168,10 +190,12 @@ VIT_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_vit_golden.json")
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch import telemetry as tel  # noqa: E402
 from repro_torch.configs import deit_b  # noqa: E402
 from repro_torch.core.simulator import SimConfig, run_simulation  # noqa: E402
 from repro_torch.fleetsim import core as fleet_core  # noqa: E402
-from repro_torch.fleetsim import simulate, topology_arrays  # noqa: E402
+from repro_torch.fleetsim import (NetParams, SimParams,  # noqa: E402
+                                  simulate, simulate_fn, topology_arrays)
 from repro_torch.fleetsim import validate  # noqa: E402
 from repro_torch.kernels import admission as ad_mod  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
@@ -327,6 +351,7 @@ class Spy:
         self.module, self.name, self.keep = module, name, keep
         self.real = getattr(module, name)
         self.calls, self.kept, self.seconds = 0, [], 0.0
+        self.last = None                       # the last call's result
 
     def __call__(self, *args, **kw):
         if self.keep(self.calls, args):
@@ -336,6 +361,7 @@ class Spy:
         t0 = time.time()
         out = self.real(*args, **kw)
         self.seconds += time.time() - t0
+        self.last = out
         return out
 
     def __enter__(self):
@@ -763,7 +789,7 @@ def fleet_phase(dev):
         K, W = seg["K"], seg["W"]
         seg_kw = dict(kw, max_events=SEGMENT_EVENTS)
         run_n, seg_n = (dict(zip(scan_mod.COUNTS, scan_mod.event_scan(
-            *args, **k).counts.tolist())) for k in (kw, seg_kw))
+            *args, **k).counts[0].tolist())) for k in (kw, seg_kw))
         run_ms = timed_ms(lambda: scan_mod.event_scan(*args, **kw), 2)
         seg_ms = timed_ms(lambda: scan_mod.event_scan(*args, **seg_kw), 5)
         row = dict(run=spec["name"], K=K, W=W, events=run_n["events"],
@@ -805,7 +831,7 @@ def fleet_phase(dev):
     for spec in drawn:
         args, kw = scan_args[spec["name"]]
         n = dict(zip(scan_mod.COUNTS,
-                     scan_mod.event_scan(*args, **kw).counts.tolist()))
+                     scan_mod.event_scan(*args, **kw).counts[0].tolist()))
         ms = timed_ms(lambda: scan_mod.event_scan(*args, **kw), 2)
         row = dict(run=spec["name"], policy=kw["policy"],
                    K=spec["n_nodes"], W=spec["depth"], events=n["events"],
@@ -984,6 +1010,353 @@ def heap_phase(dev) -> dict:
     print(f"heap validate: a trace with one forward target changed is "
           f"rejected ({rep.row()})", flush=True)
     return dict(grid_s=grid_s, validate_s=validate_s, cells=cells)
+
+
+# ---------------------------------------------------------------------------
+# phase 3g: sweeps (one event_scan block a cell) and the telemetry plane
+# ---------------------------------------------------------------------------
+TRACE_DIR = os.path.join(ROOT, "build", "telemetry")
+HOT_COUNTS = [{"S1": 30, "S4": 30, "S5": 25, "S6": 25}] * 3
+FLEET_POLICIES = ("batched_feasible", "round_robin", "least_loaded", "trace",
+                  *STOCHASTIC)
+
+
+def counted(fn):
+    """``fn()`` with the launch counts from 0, ending in a synchronise:
+    returns its result, its wall time, the arguments of its last
+    ``event_scan`` launch and the counts (``event_scan``, of those the
+    telemetry instantiation, ``event_select``)."""
+    torch.cuda.synchronize()
+    scan_mod.event_scan.launches = 0
+    scan_mod.event_scan.telemetry_launches = 0
+    es_mod.event_select.launches = 0
+    with Spy(scan_mod, "event_scan", lambda i, args: True) as spy:
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    return out, wall, spy.kept[-1] if spy.kept else None, (
+        scan_mod.event_scan.launches, scan_mod.event_scan.telemetry_launches,
+        es_mod.event_select.launches)
+
+
+def golden_summary(cube) -> "tel.TelemetrySummary":
+    """A cube of the golden file as a ``TelemetrySummary``."""
+    counts = np.asarray(cube["counts"], np.int32)
+    w = float(np.float32(cube["bucket_width"]))
+    return tel.TelemetrySummary(
+        counts=counts, queue_depth=np.asarray(cube["queue_depth"], np.float32),
+        busy_time=np.asarray(cube["busy_time"], np.float32),
+        occupancy_hwm=np.asarray(cube["occupancy_hwm"], np.int32),
+        bucket_width=w, horizon=w * counts.shape[1])
+
+
+def cube_diffs(want, got):
+    """Where summary ``got`` breaks the telemetry contract against
+    ``want``: counters and occupancy exactly, the integrals within
+    ``DERIVED_ATOL``; with the agreement."""
+    agr = tel.compare_summaries(want, got)
+    bad = [name for name, wrong in (
+        ("counts", agr.counts_mismatches),
+        ("occupancy", agr.occupancy_mismatches),
+        ("queue_depth", agr.depth_max_err > agr.depth_tol),
+        ("busy_time", agr.busy_max_err_frac > agr.busy_tol_frac)) if wrong]
+    return bad, agr
+
+
+def single_cells(args, kw):
+    """The arguments of each cell of a sweep's launch, launched alone."""
+    cut = lambda t, c: t[c:c + 1] if torch.is_tensor(t) and t.dim() == 3 \
+        and t.shape[0] > 1 else t
+    return [(tuple(cut(a, c) for a in args), dict(kw, seed=[seed]))
+            for c, seed in enumerate(kw["seed"])]
+
+
+def sweep_times(args, kw):
+    """One launch of all C cells against the C cells launched one after
+    another, in turns (CUDA events)."""
+    singles = single_cells(args, kw)
+
+    def one_by_one():
+        for a, k in singles:
+            scan_mod.event_scan(*a, **k)
+    return in_turns(
+        lambda: timed_ms(lambda: scan_mod.event_scan(*args, **kw), 2),
+        lambda: timed_ms(one_by_one, 1))
+
+
+def paper_sweep(dev, g, telemetry=None):
+    """examples/fleet_sweep.py's grid as one simulate_fn call."""
+    wl = get_workload(g["scenario"])
+    reqs, _ = wl.to_arrays(0)
+    run = simulate_fn(policy=g["policy"], capacity=g["capacity"],
+                      depth=g["depth"], telemetry=telemetry, device=dev)
+    params = SimParams.make([c["seed"] for c in g["cells"]],
+                            [c["sla_scale"] for c in g["cells"]])
+    return counted(lambda: run(reqs, topology_arrays(
+        Topology.full_mesh(wl.n_nodes)), params, None)), reqs
+
+
+def sweep_phase(dev) -> dict:
+    """Phase 3g: a. the 32-cell paper sweep as one launch of 32 blocks,
+    each cell its golden entry, timed against its cells launched one by
+    one; b. the 12-cell network grid; c. telemetry on the main path
+    (``paper/scenario1..3``, ``batched_feasible``, campus): the JAX cube,
+    every other output the telemetry-off run's and the golden digests,
+    on against off per event; d. the paper sweep with telemetry, each
+    cell's cube the JAX one; e. ``run_validation(telemetry=32)`` against
+    the reference's reports, one Chrome trace written and validated;
+    f. the eager loop against ``event_scan`` with telemetry on the hot
+    fleets of phase 3d.  Returns the numbers for the kernels line, and
+    ``launches``: the ``event_scan`` launches of each path of a-d, each
+    counted from 0 by ``counted``."""
+    with open(GOLDEN) as f:
+        golden = json.load(f)
+    sweeps = golden["sweeps"]
+    out = {"launches": {"sweep paper": 1, "sweep net_grid": 1,
+                        "sweep paper telemetry": 1}}
+
+    # a. the paper sweep, one launch of 32 blocks
+    g = sweeps["paper"]
+    (m, wall, (args, kw), n), reqs = paper_sweep(dev, g)
+    C, R = len(g["cells"]), reqs.arrival.shape[0]
+    if n != (1, 0, 0):
+        fail(f"paper sweep: (event_scan, telemetry, event_select) launches "
+             f"{n}, not (1, 0, 0)")
+    for c, want in enumerate(g["cells"]):
+        check_golden(dict(want, name=f"paper sweep cell {c}"), m.cell(c))
+    ms, singles_ms = sweep_times(args, kw)
+    events = m.events
+    out["paper"] = dict(
+        cells=C, requests=C * R, events=sum(events), launch_ms=ms,
+        singles_ms=singles_ms, wall_s=wall, cells_per_s=C / ms * 1e3,
+        requests_per_s=C * R / ms * 1e3,
+        us_per_event_longest_cell=ms * 1e3 / max(events),
+        us_per_event_singles=singles_ms * 1e3 / sum(events),
+        speedup=singles_ms / ms)
+    p = out["paper"]
+    print(f"sweep paper: {C} cells ({g['scenario']}, {g['policy']}, seeds "
+          f"{g['seeds'][0]}-{g['seeds'][-1]} x sla_scale {g['sla_scales']}; "
+          f"{C * R} requests, {sum(events)} events) in one event_scan "
+          f"launch of {C} blocks, each cell its golden entry: {ms:.3f} ms "
+          f"({p['cells_per_s']:.1f} cells/s, {p['requests_per_s']:.0f} "
+          f"requests/s, {p['us_per_event_longest_cell']:.3f} us per event "
+          f"of the longest cell; simulate_fn wall {wall:.4f} s); the same "
+          f"{C} cells launched one by one {singles_ms:.3f} ms "
+          f"({p['us_per_event_singles']:.3f} us/event): x{p['speedup']:.1f}",
+          flush=True)
+    m_off = m
+
+    # b. the network grid, one launch of 12 blocks
+    g = sweeps["net_grid"]
+    K = len(g["counts"])
+    hot, _ = UniformWorkload(g["counts"], window=g["window"],
+                             name="hot").to_arrays(0)
+    nets = [NetParams.uniform(K, c["latency"], 0.0 if c["bandwidth"] == "inf"
+                              else 1.0 / c["bandwidth"]) for c in g["cells"]]
+    net = NetParams(np.stack([x.latency for x in nets]),
+                    np.stack([x.inv_bw for x in nets]))
+    run = simulate_fn(policy=g["policy"], capacity=g["capacity"],
+                      depth=g["depth"], network=True, device=dev)
+    m, wall, (args, kw), n = counted(lambda: run(
+        hot, topology_arrays(Topology.full_mesh(K)), SimParams.make(0), None,
+        net))
+    if n != (1, 0, 0):
+        fail(f"network grid: launches {n}, not (1, 0, 0)")
+    for c, want in enumerate(g["cells"]):
+        check_golden(dict(want, name=f"network grid cell {c}"), m.cell(c))
+    ms = timed_ms(lambda: scan_mod.event_scan(*args, **kw), 5)
+    out["net_grid"] = dict(cells=len(g["cells"]), launch_ms=ms, wall_s=wall)
+    print(f"sweep network grid: {len(g['cells'])} cells (latency "
+          f"{g['latency']} x bandwidth {g['bandwidth']}, {g['policy']}, "
+          f"{hot.arrival.shape[0]} requests each) in one launch, each cell "
+          f"its golden entry: {ms:.3f} ms; met "
+          f"{m.met_deadline.tolist()}", flush=True)
+
+    # c. telemetry on the main path: the JAX cube, nothing else moved
+    by_name = {r["name"]: r for r in golden["runs"]}
+    rows, planted = [], None
+    for want in golden["telemetry"]:
+        spec = by_name[want["name"]]
+        reqs, topo, net = main_inputs(spec)
+        kw = dict(policy=golden["policy"], max_forwards=golden["max_forwards"],
+                  capacity=spec["capacity"], depth=spec["depth"], net=net,
+                  max_events=spec["max_events"], device=dev)
+        cfg = tel.TelemetryConfig(want["n_buckets"], want["horizon"])
+        off, _, off_call, n_off = counted(lambda: simulate(reqs, topo, **kw))
+        on, wall, on_call, n_on = counted(
+            lambda: simulate(reqs, topo, telemetry=cfg, **kw))
+        if (n_off, n_on) != ((1, 0, 0), (1, 1, 0)):
+            fail(f"{spec['name']} telemetry: launches off {n_off}, on "
+                 f"{n_on}, not (1, 0, 0) and (1, 1, 0)")
+        check_golden(spec, on)
+        moved = fleet_diffs(on, off)
+        if moved:
+            fail(f"{spec['name']}: telemetry moved {moved}")
+        ref_sum = golden_summary(want)
+        bad, agr = cube_diffs(ref_sum, tel.TelemetrySummary.from_frame(
+            on.telemetry))
+        if bad:
+            fail(f"{spec['name']}: the telemetry cube differs from the JAX "
+                 f"reference's on {bad}: {agr.row()}")
+        if planted is None:
+            # the check's own test: one counter moved, one bucket's busy
+            # time moved by 5% of a bucket
+            sums = [tel.TelemetrySummary.from_frame(on.telemetry)
+                    for _ in range(2)]
+            sums[0].counts[0, 0, tel.KIND_ARRIVAL] += 1
+            sums[1].busy_time[0, 0] += 0.05 * sums[1].bucket_width
+            planted = [cube_diffs(ref_sum, x)[0] for x in sums]
+            if planted != [["counts"], ["busy_time"]]:
+                fail(f"the cube check passes a planted fault: {planted}")
+        t_off, t_on = in_turns(
+            lambda: timed_ms(lambda: scan_mod.event_scan(
+                *off_call[0], **off_call[1]), 2),
+            lambda: timed_ms(lambda: scan_mod.event_scan(
+                *on_call[0], **on_call[1]), 2))
+        row = dict(run=spec["name"], events=on.events, off_ms=t_off,
+                   on_ms=t_on, off_us_per_event=t_off * 1e3 / on.events,
+                   on_us_per_event=t_on * 1e3 / on.events,
+                   depth_err=agr.depth_max_err,
+                   busy_err_frac=agr.busy_max_err_frac, wall_s=wall)
+        rows.append(row)
+        out["launches"][f"telemetry {spec['name']} (off, on)"] = 2
+        print(f"telemetry {spec['name']}: {want['n_buckets']} buckets over "
+              f"[0, {want['horizon']}): counters and occupancy equal the JAX "
+              f"cube, depth err {agr.depth_max_err:.3g} (tol "
+              f"{agr.depth_tol:.3g}), busy err {agr.busy_max_err_frac:.3g} "
+              f"of a bucket (tol {agr.busy_tol_frac}); every other output "
+              f"the telemetry-off run's and the golden digests; one launch "
+              f"each; on {t_on:.3f} ms = {row['on_us_per_event']:.3f} "
+              f"us/event against off {t_off:.3f} ms = "
+              f"{row['off_us_per_event']:.3f} us/event, in turns", flush=True)
+    print(f"telemetry: the cube check rejects a moved counter and a moved "
+          f"busy time ({planted})", flush=True)
+    out["telemetry"] = rows
+
+    # d. the paper sweep with telemetry: each cell's cube the JAX one
+    g = sweeps["paper_telemetry"]
+    cfg = tel.TelemetryConfig(g["n_buckets"], g["horizon"])
+    (m, wall, (args, kw), n), _ = paper_sweep(dev, g, cfg)
+    if n != (1, 1, 0):
+        fail(f"paper sweep with telemetry: launches {n}, not (1, 1, 0)")
+    w = float(m.telemetry.bucket_width[0])
+    for c, want in enumerate(g["cells"]):
+        mc = m.cell(c)
+        moved = fleet_diffs(mc, m_off.cell(c))
+        if moved:
+            fail(f"paper sweep cell {c}: telemetry moved {moved}")
+        got = tel.TelemetrySummary.from_frame(mc.telemetry)
+        wt = want["telemetry"]
+        if "whole" in wt:
+            bad, agr = cube_diffs(golden_summary(wt["whole"]), got)
+            if bad:
+                fail(f"paper sweep cell {c}: the cube differs from the JAX "
+                     f"one on {bad}: {agr.row()}")
+        ref = golden_summary(dict(
+            counts=got.counts, occupancy_hwm=got.occupancy_hwm,
+            queue_depth=wt["queue_depth"], busy_time=wt["busy_time"],
+            bucket_width=w))
+        bad = [k for k in ("counts", "occupancy_hwm")
+               if digest(getattr(mc.telemetry, k)) != wt[k]]
+        bad += cube_diffs(ref, got)[0]
+        if bad:
+            fail(f"paper sweep cell {c}: the cube differs from the JAX one "
+                 f"on {bad}")
+    t_off, t_on = in_turns(
+        lambda: timed_ms(lambda: scan_mod.event_scan(
+            *args, **dict(kw, telemetry=None)), 2),
+        lambda: timed_ms(lambda: scan_mod.event_scan(*args, **kw), 2))
+    out["paper_telemetry"] = dict(cells=len(g["cells"]), on_ms=t_on,
+                                  off_ms=t_off, wall_s=wall)
+    print(f"sweep paper with telemetry ({g['n_buckets']} buckets over [0, "
+          f"{g['horizon']})): one launch of {len(g['cells'])} blocks, each "
+          f"cell's counters and occupancy the JAX cube's digests, its "
+          f"integrals within DERIVED_ATOL, cells {g['whole_cubes']} whole, "
+          f"every other output the telemetry-off sweep's; {t_on:.3f} ms "
+          f"against {t_off:.3f} ms without telemetry, in turns", flush=True)
+
+    # e. the cross-validation with telemetry, and one Chrome trace
+    cells = []
+    for want in golden["validation_telemetry"]:
+        sc = want["scenario"]
+        topology = Topology.full_mesh(get_workload(sc).n_nodes)
+        with Spy(validate, "_host_run") as host, \
+                Spy(validate, "TraceRecorder") as recorder:
+            rep, wall, _, n = counted(lambda: validate.run_validation(
+                sc, 0, policy=want["policy"],
+                network=LinkModel.campus(topology),
+                telemetry=want["n_buckets"], device=dev))
+        if n != (2, 1, 0):
+            fail(f"run_validation {sc} telemetry: launches {n}, not (2, 1, "
+                 "0)")
+        got = dict(exact=rep.exact,
+                   outcome_mismatches=rep.outcome_mismatches,
+                   node_mismatches=rep.node_mismatches,
+                   capacity=rep.capacity,
+                   host={k: int(rep.host[k]) for k in want["host"]},
+                   fleet={k: int(rep.fleet[k]) for k in want["fleet"]},
+                   telemetry_ok=rep.telemetry.ok)
+        agr, ref = rep.telemetry, want["telemetry"]
+        bad = [k for k, v in got.items() if v != want[k]]
+        bad += [k for k in ("counts_mismatches", "occupancy_mismatches",
+                            "busy_tol_frac") if getattr(agr, k) != ref[k]]
+        if not agr.ok or bad or abs(agr.depth_tol - ref["depth_tol"]) > \
+                1e-6 * ref["depth_tol"]:
+            fail(f"run_validation {sc} telemetry: {rep.row()}, differs "
+                 f"from the reference's report on {bad}")
+        cells.append(dict(scenario=sc, heap_s=host.seconds, wall_s=wall,
+                          depth_err=agr.depth_max_err,
+                          busy_err_frac=agr.busy_max_err_frac))
+        print(f"telemetry validate {rep.row()}  heap {host.seconds:.3f} s, "
+              f"all {wall:.3f} s; the reference's report", flush=True)
+        if len(cells) == 1:
+            os.makedirs(TRACE_DIR, exist_ok=True)
+            path = os.path.join(TRACE_DIR, f"{sc.replace('/', '_')}.json")
+            recorder.last.write(path, host.last[0], topology)
+            with open(path) as f:
+                n_ev = tel.validate_chrome_trace(json.load(f))
+            print(f"telemetry trace: {n_ev} events of {sc}'s heap run "
+                  f"written to {os.path.relpath(path, ROOT)} and valid",
+                  flush=True)
+    out["validation"] = cells
+
+    # f. the eager loop against event_scan with telemetry on the hot fleet
+    reqs, _ = UniformWorkload(HOT_COUNTS, window=1200.0,
+                              name="hot").to_arrays(0)
+    R, depth_err, busy_err = reqs.arrival.shape[0], 0.0, 0.0
+    cfg = tel.TelemetryConfig(16, 3000.0)
+    topo = Topology.full_mesh(3)
+    for policy in FLEET_POLICIES:
+        for priced in (False, True):
+            targets = None if policy != "trace" else \
+                np.random.default_rng(1).integers(-1, 3, (R, 2)).astype(
+                    np.int32)
+            kw = dict(policy=policy, capacity=512, depth=256, targets=targets,
+                      telemetry=cfg,
+                      net=LinkModel.campus(topo).net_params() if priced
+                      else None)
+            cpu = simulate(reqs, topology_arrays(topo), device="cpu", **kw)
+            gpu, _, _, n = counted(lambda: simulate(
+                reqs, topology_arrays(topo), device=dev, **kw))
+            label = f"hot {policy} {'campus' if priced else 'no net'}"
+            if n != (1, 1, 0):
+                fail(f"{label} telemetry: launches {n}")
+            diffs = fleet_diffs(gpu, cpu)
+            bad, agr = cube_diffs(tel.TelemetrySummary.from_frame(
+                cpu.telemetry), tel.TelemetrySummary.from_frame(gpu.telemetry))
+            if diffs or bad:
+                fail(f"{label}: event_scan with telemetry differs from the "
+                     f"eager loop on {diffs + bad}")
+            depth_err = max(depth_err, agr.depth_max_err)
+            busy_err = max(busy_err, agr.busy_max_err_frac)
+    print(f"telemetry scan: event_scan's telemetry instantiation equals the "
+          f"eager loop on every per-request field, counter, event counter "
+          f"and occupancy in {2 * len(FLEET_POLICIES)} hot-fleet runs (six "
+          f"policies, priced and not), integrals within DERIVED_ATOL "
+          f"(largest depth error {depth_err:.3g}, busy {busy_err:.3g} of a "
+          f"bucket)", flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1803,6 +2176,12 @@ def main() -> int:
     t0 = time.time()
     entries["event_scan"]["heap"] = heap_phase(dev)
     print(f"heap phase: {time.time() - t0:.1f} s", flush=True)
+    t0 = time.time()
+    sweeps = entries["event_scan"]["sweeps"] = sweep_phase(dev)
+    entries["event_scan"]["launches_by_run"].update(sweeps["launches"])
+    entries["event_scan"]["launches"] += sum(sweeps["launches"].values())
+    print(f"sweep and telemetry phase: {time.time() - t0:.1f} s",
+          flush=True)
     t0 = time.time()
     entries["flash_attention"] = vision_phase(dev)
     print(f"vision phase: {time.time() - t0:.1f} s", flush=True)

@@ -21,7 +21,11 @@ of the kernels, as the tests do.
     m = simulate(reqs, topology_arrays(topo), policy="batched_feasible",
                  capacity=4096, depth=1024,
                  net=LinkModel.campus(topo).net_params())
+
+The telemetry plane (DESIGN.md §8) is :mod:`repro_torch.telemetry`, and a
+sweep over seeds, SLA scales or networks is ``fleetsim.simulate_fn``.
 """
+from repro_torch import telemetry
 from repro_torch.device import resolve_device
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "telemetry"]

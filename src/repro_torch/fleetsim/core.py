@@ -42,12 +42,29 @@ kernel), keyed ``fold_in(fold_in(PRNGKey(seed), rid), hop)``.
 JAX's ``mode="drop"`` scatter of retired completions at index ``R``
 becomes a write into a dump slot at ``R`` of the completion buffer,
 sliced off at the end.
+
+Two features of the reference ride the same loops:
+
+* **telemetry** (``simulate(telemetry=TelemetryConfig(nb, horizon))``,
+  DESIGN.md §8): each event step adds its five event kinds at (node,
+  bucket of t) and the re-arrival buffer's live count into the bucket's
+  high water — in ``_estep``, and on CUDA in ``event_scan``'s telemetry
+  instantiation — and after the run the queue depth and busy time per
+  (node, bucket) come from the terminal arrays.  With telemetry off the
+  eager state carries ``None`` and the kernel launches its instantiation
+  without the carry: nothing is allocated or computed.
+* **sweeps** (``simulate_fn``): where the reference ``vmap``s the
+  jitted run, the port takes an explicit leading cell axis on
+  ``params.seed``, ``params.sla_scale`` and the network; on CUDA the
+  cells are the blocks of one ``event_scan`` launch, on the CPU the eager
+  loop runs them one after another.
 """
 from __future__ import annotations
 
 import inspect
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import torch_queue as tq
@@ -59,6 +76,10 @@ from repro_torch.kernels import event_scan as kscan
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.netsim.link import NetParams
+from repro_torch.telemetry.timeline import (TelemetryConfig, TelemetryFrame,
+                                            bucket_of, bucket_width,
+                                            interval_histogram, reciprocal,
+                                            telemetry_init)
 
 POLICIES = ("random", "power_of_two", "least_loaded", "round_robin",
             "batched_feasible", "trace")
@@ -77,13 +98,19 @@ I32 = torch.int32
 
 class SimParams(NamedTuple):
     """Per-run parameters: the forwarding rng seed (the ``PRNGKey`` of the
-    stochastic policies) and the SLA scale on relative deadlines."""
+    stochastic policies) and the SLA scale on relative deadlines.  Under
+    :func:`simulate_fn` either may hold one value per sweep cell."""
     seed: int = 0
     sla_scale: float = 1.0
 
     @classmethod
-    def make(cls, seed: int = 0, sla_scale: float = 1.0) -> "SimParams":
-        return cls(int(seed), float(sla_scale))
+    def make(cls, seed=0, sla_scale=1.0) -> "SimParams":
+        """Scalars for one run; a sequence (or 1-D array) of C values puts
+        a cell axis on that parameter (:func:`simulate_fn`)."""
+        def one(v, name, cast):
+            values, axis = _cell_axis(v, name)
+            return tuple(map(cast, values)) if axis else cast(values[0])
+        return cls(one(seed, "seed", int), one(sla_scale, "sla_scale", float))
 
 
 class EventState(NamedTuple):
@@ -109,12 +136,19 @@ class EventState(NamedTuple):
     completion: torch.Tensor           # (R + 1,) f32, slot R is the dump
     reqinfo: torch.Tensor              # (R,) i32 packed terminal record
     transfer: torch.Tensor             # (R,) f32 wire time on referrals
+    # the carried half of the telemetry cube; None when telemetry is off
+    tel_counts: Optional[torch.Tensor] = None   # (K, NB, N_KINDS) i32
+    tel_occ: Optional[torch.Tensor] = None      # (NB,) i32 ev_n high water
 
 
 class FleetMetrics(NamedTuple):
     """Headline aggregates + the per-request arrays they reduce, plus the
     host-side counts of the run (``events``: live event steps;
-    ``retire_iterations``: ``_retire`` loop bodies, drain included)."""
+    ``retire_iterations``: ``_retire`` loop bodies, drain included) and,
+    with ``telemetry``, the time-binned cube.  A sweep's metrics
+    (:func:`simulate_fn` with a cell axis) hold C cells: each tensor a
+    leading ``(C,)``, ``events`` and ``retire_iterations`` one int a cell;
+    :meth:`cell` picks one."""
     total: torch.Tensor
     processed: torch.Tensor
     met_deadline: torch.Tensor
@@ -133,10 +167,18 @@ class FleetMetrics(NamedTuple):
     event_overflow: torch.Tensor     # events dropped or left at max_events
     events: int
     retire_iterations: int
+    telemetry: Optional[TelemetryFrame] = None  # simulate(telemetry=...)
 
     @property
     def met_rate(self):
-        return self.met_deadline / max(1, int(self.total))
+        return self.met_deadline / torch.clamp(self.total, min=1)
+
+    def cell(self, c: int) -> "FleetMetrics":
+        """The metrics of sweep cell ``c``."""
+        return FleetMetrics(
+            *(v[c] for v in self[:-1]),
+            telemetry=None if self.telemetry is None
+            else self.telemetry.cell(c))
 
 
 class _Run(NamedTuple):
@@ -165,6 +207,8 @@ class _Run(NamedTuple):
     ids_k: torch.Tensor              # (K,) i64
     yes: torch.Tensor                # (1,) True
     no: torch.Tensor                 # (1,) False
+    tel_w: Optional[np.float32]      # telemetry bucket width, or None
+    tel_nb: int                      # telemetry buckets
 
 
 # ---------------------------------------------------------------------------
@@ -430,6 +474,21 @@ def _estep(state: EventState, run: _Run
     state.load[c1] += torch.where(queue_it, ps_c, 0.0)
     state.busy[c1] = torch.where(start_now, c_now, busy_c)
     state.sat_events.add_(sat_evt.to(I32))
+
+    if state.tel_counts is not None:
+        # the carried half of the telemetry cube: the event's five kinds at
+        # (cur, bucket of t), and the buffer's live count after the push
+        # into the bucket's high water
+        b = bucket_of(t, run.tel_w, run.tel_nb).long()
+        drop = disc_evt if disc_evt is not None else \
+            ovf_evt if forced_req is not None else run.no
+        kinds = torch.cat([run.yes if take_h else run.no,
+                           run.no if take_h else run.yes,
+                           run.no if fwd is None else fwd, drop,
+                           admitted]).to(I32)
+        state.tel_counts[cur].index_add_(0, b, kinds[None])
+        state.tel_occ.index_put_((b,), torch.maximum(state.tel_occ[b],
+                                                     state.ev_n))
     return state, retired
 
 
@@ -438,26 +497,42 @@ def _estep(state: EventState, run: _Run
 # plain version) and the event_scan kernel (CUDA)
 # ---------------------------------------------------------------------------
 class _Loop(NamedTuple):
-    """What the loop hands to the aggregates: the final state, the live
-    event steps, the ``_retire`` iterations (drain included) and the events
-    left at ``max_events``."""
+    """What the loops hand to the aggregates, for C cells: the final
+    states (each tensor with a leading (C,)), and per cell the live event
+    steps, the ``_retire`` iterations (drain included) and the events left
+    at ``max_events`` ((C,) tensor)."""
     state: EventState
-    events: int
-    retire_iterations: int
-    unprocessed: object             # int, or a (1,) tensor
+    events: List[int]
+    retire_iterations: List[int]
+    unprocessed: torch.Tensor
+
+
+class _Cells(NamedTuple):
+    """A run's cells: one seed each, and the request table (C or 1, R, 4)
+    and network (C or 1, K, K) they read."""
+    seeds: List[int]
+    cols: torch.Tensor
+    lat: torch.Tensor
+    inv_bw: torch.Tensor
 
 
 def _eager_loop(reqs: RequestArrays, topo: TopologyArrays,
                 targets: torch.Tensor, cols: torch.Tensor, lat, inv_bw, *,
                 seed: int, policy: str, max_forwards: int,
                 discard_on_exhaust: bool, capacity: int, depth: int, E: int,
-                B: int, hop_bits: int, priced: bool) -> _Loop:
+                B: int, hop_bits: int, priced: bool,
+                tel: Optional[Tuple[int, np.float32]]):
+    """One cell through the eager per-event loop; returns (final state,
+    events, retire iterations, events left at max_events)."""
     R = reqs.arrival.shape[0]
     K = topo.speeds.shape[0]
     N = capacity
     dev = reqs.arrival.device
     f32 = torch.float32
     one_i = lambda: torch.zeros((1,), dtype=I32, device=dev)
+    tel_counts = tel_occ = None
+    if tel is not None:
+        tel_counts, tel_occ = telemetry_init(K, tel[0], dev)
     state = EventState(
         starts=torch.full((K, N), tq.BIG, dtype=f32, device=dev),
         ends=torch.full((K, N), tq.BIG, dtype=f32, device=dev),
@@ -475,6 +550,7 @@ def _eager_loop(reqs: RequestArrays, topo: TopologyArrays,
         completion=torch.zeros((R + 1,), dtype=f32, device=dev),
         reqinfo=torch.zeros((R,), dtype=I32, device=dev),
         transfer=torch.zeros((R,), dtype=f32, device=dev),
+        tel_counts=tel_counts, tel_occ=tel_occ,
     )
     row_base = torch.arange(K, device=dev) * N
     cols_w = torch.arange(depth, device=dev)
@@ -490,7 +566,9 @@ def _eager_loop(reqs: RequestArrays, topo: TopologyArrays,
         row_cols=row_base[:, None] + cols_w, cols_w=cols_w,
         ids_k=torch.arange(K, device=dev),
         yes=torch.ones((1,), dtype=torch.bool, device=dev),
-        no=torch.zeros((1,), dtype=torch.bool, device=dev))
+        no=torch.zeros((1,), dtype=torch.bool, device=dev),
+        tel_w=None if tel is None else tel[1],
+        tel_nb=0 if tel is None else tel[0])
 
     events = retire_iters = 0
     for _ in range(E):
@@ -502,59 +580,90 @@ def _eager_loop(reqs: RequestArrays, topo: TopologyArrays,
         retire_iters += it
     unprocessed = (R - state.cursor) + state.ev_n
     state, it = _retire(state, float("inf"), run)            # drain
-    return _Loop(state, events, retire_iters + it, unprocessed)
+    return state, events, retire_iters + it, unprocessed
 
 
-def _scan_loop(reqs: RequestArrays, topo: TopologyArrays,
-               targets: torch.Tensor, cols: torch.Tensor, lat, inv_bw, *,
-               seed: int, policy: str, max_forwards: int,
-               discard_on_exhaust: bool, capacity: int, depth: int, E: int,
-               B: int, hop_bits: int, priced: bool) -> _Loop:
+def _eager_cells(reqs: RequestArrays, topo: TopologyArrays,
+                 targets: torch.Tensor, cells: _Cells, **kw) -> _Loop:
+    """The plain version of a sweep: the cells one after another."""
+    pick = lambda t, c: t[c if t.shape[0] > 1 else 0]
+    runs = [_eager_loop(reqs, topo, targets, pick(cells.cols, c),
+                        pick(cells.lat, c), pick(cells.inv_bw, c), seed=seed,
+                        **kw)
+            for c, seed in enumerate(cells.seeds)]
+    states = [r[0] for r in runs]
+    state = EventState(**{
+        f: None if getattr(states[0], f) is None
+        else torch.stack([getattr(x, f) for x in states])
+        for f in EventState._fields if f != "cursor"},
+        cursor=[x.cursor for x in states])
+    return _Loop(state, [r[1] for r in runs], [r[2] for r in runs],
+                 torch.stack([r[3] for r in runs]))
+
+
+def _scan_cells(reqs: RequestArrays, topo: TopologyArrays,
+                targets: torch.Tensor, cells: _Cells, *, policy: str, max_forwards: int, discard_on_exhaust: bool,
+                capacity: int, depth: int, E: int, B: int, hop_bits: int,
+                priced: bool, tel: Optional[Tuple[int, np.float32]]) -> _Loop:
+    """Every cell in one ``event_scan`` launch, one block a cell."""
     out = kscan.event_scan(
-        cols, reqs.origin, targets, topo.adj, topo.degree, topo.speeds, lat,
-        inv_bw, topo.neighbors, seed=seed, policy=policy,
-        max_forwards=max_forwards, discard_on_exhaust=discard_on_exhaust,
-        capacity=capacity, depth=depth, event_buf=B, max_events=E,
-        priced=priced, hop_bits=hop_bits)
-    # the run's one host read, after the kernel has ended
-    events, retire_iters, unprocessed, cursor, error, _ = out.counts.tolist()
-    if error:
-        raise ValueError(f"event_scan stopped on {kscan.ERRORS[error]}")
-    state = EventState(cursor=cursor, **{
+        cells.cols, reqs.origin, targets, topo.adj, topo.degree, topo.speeds,
+        cells.lat, cells.inv_bw, topo.neighbors, seed=cells.seeds,
+        policy=policy, max_forwards=max_forwards,
+        discard_on_exhaust=discard_on_exhaust, capacity=capacity,
+        depth=depth, event_buf=B, max_events=E, priced=priced,
+        hop_bits=hop_bits, telemetry=tel)
+    # the launch's one host read, after the kernel has ended
+    counts = out.counts.tolist()
+    for c, (_, _, _, _, error, _) in enumerate(counts):
+        if error:
+            raise ValueError(f"event_scan stopped on {kscan.ERRORS[error]} "
+                             f"in sweep cell {c} of {len(counts)}")
+    state = EventState(cursor=[n[3] for n in counts], **{
         f: getattr(out, f) for f in EventState._fields if f != "cursor"})
-    return _Loop(state, events, retire_iters, unprocessed)
+    return _Loop(state, [n[0] for n in counts], [n[1] for n in counts],
+                 out.counts[:, 2:3].to(I32))
 
 
-def _simulate(reqs: RequestArrays, topo: TopologyArrays, params: SimParams,
-              targets: torch.Tensor, net: Optional[NetParams], *,
-              policy: str, max_forwards: int, discard_on_exhaust: bool,
-              capacity: int, depth: int, max_events: Optional[int],
-              event_buf: Optional[int], eager: bool) -> FleetMetrics:
+def _simulate(reqs: RequestArrays, topo: TopologyArrays, seeds: List[int],
+              sla: List[float], targets: torch.Tensor,
+              net: Optional[NetParams], *, policy: str, max_forwards: int,
+              discard_on_exhaust: bool, capacity: int, depth: int,
+              max_events: Optional[int], event_buf: Optional[int],
+              eager: bool, tel: Optional[Tuple[int, np.float32]]
+              ) -> FleetMetrics:
+    """C cells (``len(seeds)``; ``sla`` and the network hold 1 or C), as
+    metrics with a leading (C,)."""
     R = reqs.arrival.shape[0]
     K = topo.speeds.shape[0]
+    C = len(seeds)
     dev = reqs.arrival.device
-    d_abs = kref.fma32(reqs.rel_deadline,
-                       torch.full_like(reqs.arrival, params.sla_scale),
-                       reqs.arrival)
+    f32 = torch.float32
+    scale = torch.tensor(sla, dtype=f32, device=dev)[:, None]
+    d_abs = kref.fma32(reqs.rel_deadline, scale, reqs.arrival)   # (1|C, R)
     payload = (reqs.payload if reqs.payload is not None
                else torch.zeros_like(reqs.arrival))
-    zero_net = torch.zeros((K, K), dtype=torch.float32, device=dev)
-    loop = _eager_loop if eager else _scan_loop
+    if net is None:
+        lat = inv_bw = torch.zeros((1, K, K), dtype=f32, device=dev)
+    else:
+        lat, inv_bw = (x if x.dim() == 3 else x[None] for x in net)
+    cols = torch.stack([reqs.arrival.expand_as(d_abs), d_abs,
+                        reqs.proc.expand_as(d_abs),
+                        payload.expand_as(d_abs)], dim=-1)
+    loop = _eager_cells if eager else _scan_cells
     state, events, retire_iters, unprocessed = loop(
-        reqs, topo, targets,
-        torch.stack([reqs.arrival, d_abs, reqs.proc, payload], dim=1),
-        zero_net if net is None else net.latency,
-        zero_net if net is None else net.inv_bw,
-        seed=params.seed, policy=policy, max_forwards=max_forwards,
+        reqs, topo, targets, _Cells(seeds, cols, lat, inv_bw),
+        policy=policy, max_forwards=max_forwards,
         discard_on_exhaust=discard_on_exhaust, capacity=capacity,
         depth=depth,
         E=event_bound(R, max_forwards) if max_events is None else max_events,
         B=min(R, 1024) if event_buf is None else event_buf,
         hop_bits=max(max_forwards + 1, 2).bit_length(),
-        priced=net is not None)
+        priced=net is not None, tel=tel)
 
+    d_abs = d_abs.expand(C, R)
     info = state.reqinfo
-    completion = state.completion[:R]
+    completion = state.completion[:, :R]
     transfer = state.transfer
     nfwd = info & ((1 << 8) - 1)
     disc = (info & _INFO_DISC) != 0
@@ -567,29 +676,52 @@ def _simulate(reqs: RequestArrays, topo: TopologyArrays, params: SimParams,
         torch.where(ovf, OVERFLOW,
                     torch.where(met, MET, torch.where(has_c, LATE, PENDING))
                     )).to(I32)
-    n_proc = has_c.sum(dtype=I32)
-    resp = torch.where(has_c, completion - reqs.arrival, 0.0).sum()
-    end_time = torch.maximum(completion.amax().clamp(min=0.0),
+    n_proc = has_c.sum(-1, dtype=I32)
+    resp = torch.where(has_c, completion - reqs.arrival, 0.0).sum(-1)
+    end_time = torch.maximum(completion.amax(-1).clamp(min=0.0),
                              reqs.arrival.amax().clamp(min=0.0))
+    telemetry = None
+    if tel is not None:
+        # the derived half: every served request's ledger interval [admit,
+        # start) and service interval [start, completion) come from the
+        # terminal arrays, so depth and busy time need no carry
+        nb, w = tel
+        r = torch.tensor(reciprocal(w), device=dev)
+        served = served_by >= 0
+        ps_served = reqs.proc / topo.speeds[
+            torch.clamp(served_by, 0, K - 1).long()]
+        admit_t = reqs.arrival + transfer
+        start_t = completion - ps_served
+        depth_ut = interval_histogram(admit_t, start_t, served_by, served, K,
+                                      w, nb)
+        busy = interval_histogram(start_t, completion, served_by, served, K,
+                                  w, nb)
+        telemetry = TelemetryFrame(
+            counts=state.tel_counts,
+            # / w as the compiled reference computes it: · f32(1 / w)
+            queue_depth=depth_ut * r, busy_time=busy,
+            occupancy_hwm=state.tel_occ,
+            bucket_width=torch.full((C,), w, dtype=f32, device=dev))
     return FleetMetrics(
-        total=torch.tensor(R, dtype=I32, device=dev),
+        total=torch.full((C,), R, dtype=I32, device=dev),
         processed=n_proc,
-        met_deadline=met.sum(dtype=I32),
-        forwards=nfwd.sum(dtype=I32),
-        discarded=disc.sum(dtype=I32),
-        overflow=ovf.sum(dtype=I32),
-        window_saturation=state.sat_events.reshape(()),
+        met_deadline=met.sum(-1, dtype=I32),
+        forwards=nfwd.sum(-1, dtype=I32),
+        discarded=disc.sum(-1, dtype=I32),
+        overflow=ovf.sum(-1, dtype=I32),
+        window_saturation=state.sat_events.reshape(C),
         mean_response_time=resp / torch.clamp(n_proc, min=1),
         end_time=end_time,
         outcome=outcome,
         completion=completion,
         served_by=served_by,
         forwards_used=nfwd,
-        transfer_time=transfer.sum(),
+        transfer_time=transfer.sum(-1),
         transfer_used=transfer,
-        event_overflow=(state.ev_dropped + unprocessed).reshape(()),
+        event_overflow=(state.ev_dropped + unprocessed).reshape(C),
         events=events,
         retire_iterations=retire_iters,
+        telemetry=telemetry,
     )
 
 
@@ -604,7 +736,8 @@ def simulate(reqs: RequestArrays, topo: TopologyArrays,
              net: Optional[NetParams] = None,
              max_events: Optional[int] = None,
              event_buf: Optional[int] = None,
-             telemetry=None, device: DeviceLike = None) -> FleetMetrics:
+             telemetry: Optional[TelemetryConfig] = None,
+             device: DeviceLike = None) -> FleetMetrics:
     """Run the fleet simulation on ``device`` (``None`` means CUDA, and
     raises without it; ``"cpu"`` runs the eager per-event loop, the plain
     version).  On CUDA the whole run is one launch of the hand-written
@@ -626,8 +759,17 @@ def simulate(reqs: RequestArrays, topo: TopologyArrays,
     The default policy is ``random``, the reference's (the paper's
     forward to a random neighbour; ``random`` and ``power_of_two`` draw
     JAX's threefry stream bit for bit, keyed by ``params.seed``); the main
-    path passes ``policy="batched_feasible"``.  Not yet ported
-    (ROADMAP.md, open items): ``telemetry`` (item 2).
+    path passes ``policy="batched_feasible"``.
+
+    ``telemetry`` (a :class:`repro_torch.telemetry.TelemetryConfig`)
+    turns on the time series: ``metrics.telemetry`` becomes a
+    :class:`~repro_torch.telemetry.TelemetryFrame` binning the run into
+    ``n_buckets`` buckets over ``[0, horizon)`` — per-node event-kind
+    counters, time-averaged queue depth, CPU busy time, and the
+    re-arrival buffer's occupancy high-water mark (DESIGN.md §8).  With
+    ``telemetry=None`` (the default) nothing of it is allocated or
+    computed, and every other output is bit-identical either way.  For a
+    sweep over seeds, SLA scales or networks, see :func:`simulate_fn`.
     """
     return _run(False, reqs, topo, params, policy, max_forwards,
                 discard_on_exhaust, capacity, depth, targets, net,
@@ -643,15 +785,29 @@ def _simulate_eager(reqs, topo, params=None, **kw) -> FleetMetrics:
     return _run(True, **bound.arguments)
 
 
+def _cell_axis(x, name: str):
+    """``(values, has_axis)``: a scalar as one value, a 1-D sequence,
+    array or tensor as one value a cell."""
+    a = x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+    if a.ndim > 1:
+        raise ValueError(f"{name} takes at most one leading cell axis, got "
+                         f"shape {a.shape}")
+    return a.reshape(-1).tolist(), a.ndim == 1
+
+
 def _run(eager, reqs, topo, params, policy, max_forwards, discard_on_exhaust,
          capacity, depth, targets, net, max_events, event_buf, telemetry,
-         device) -> FleetMetrics:
+         device, sweep=False) -> FleetMetrics:
     if policy not in POLICIES:
         raise ValueError(f"unknown fleetsim policy {policy!r}; "
                          f"options: {sorted(POLICIES)}")
+    tel = None
     if telemetry is not None:
-        raise NotImplementedError("telemetry is not ported yet (ROADMAP.md "
-                                  "open item 2)")
+        n_buckets, horizon = int(telemetry.n_buckets), float(telemetry.horizon)
+        if n_buckets < 1 or not horizon > 0:
+            raise ValueError(f"telemetry needs n_buckets >= 1 and a "
+                             f"positive horizon, got {telemetry}")
+        tel = (n_buckets, bucket_width(horizon, n_buckets))
     if max_forwards >= (1 << 8):
         raise ValueError("max_forwards must be < 256 (packed terminal "
                          f"record), got {max_forwards}")
@@ -669,17 +825,77 @@ def _run(eager, reqs, topo, params, policy, max_forwards, discard_on_exhaust,
     else:
         targets = torch.as_tensor(targets, dtype=I32, device=dev).contiguous()
     depth = capacity if depth is None else min(depth, capacity)
-    return _simulate(reqs, topo, params or SimParams.make(), targets, net,
-                     policy=policy, max_forwards=max_forwards,
-                     discard_on_exhaust=discard_on_exhaust,
-                     capacity=capacity, depth=depth, max_events=max_events,
-                     event_buf=event_buf,
-                     eager=eager or dev.type != "cuda")
+
+    # the cell axis: seeds, SLA scales and the network may each carry one
+    params = params or SimParams.make()
+    seeds, seed_axis = _cell_axis(params.seed, "params.seed")
+    sla, sla_axis = _cell_axis(params.sla_scale, "params.sla_scale")
+    axes = {"params.seed": len(seeds)} if seed_axis else {}
+    if sla_axis:
+        axes["params.sla_scale"] = len(sla)
+    if net is not None:
+        if net.latency.shape != net.inv_bw.shape:
+            raise ValueError("net.latency and net.inv_bw differ in shape: "
+                             f"{tuple(net.latency.shape)} vs "
+                             f"{tuple(net.inv_bw.shape)}")
+        if net.latency.dim() == 3:
+            axes["net"] = net.latency.shape[0]
+    if len(set(axes.values())) > 1:
+        raise ValueError(f"the cell axes disagree in length: {axes}")
+    if axes and not sweep:
+        raise ValueError(f"simulate runs one cell, but {sorted(axes)} carry "
+                         "a cell axis: sweep with simulate_fn")
+    C = next(iter(axes.values()), 1)
+    m = _simulate(reqs, topo, seeds * (C // len(seeds)), sla, targets, net,
+                  policy=policy, max_forwards=max_forwards,
+                  discard_on_exhaust=discard_on_exhaust,
+                  capacity=capacity, depth=depth, max_events=max_events,
+                  event_buf=event_buf,
+                  eager=eager or dev.type != "cuda", tel=tel)
+    return m if axes else m.cell(0)
 
 
-def simulate_fn(**_):
-    """The JAX package's vmappable entry point; the port will take an
-    explicit leading cell axis instead (ROADMAP.md open item 3)."""
-    raise NotImplementedError("simulate_fn (sweeps over a leading cell "
-                              "axis) is not ported yet (ROADMAP.md open "
-                              "item 3)")
+def simulate_fn(*, policy: str = "random", max_forwards: int = 2,
+                discard_on_exhaust: bool = False, capacity: int = 256,
+                depth: Optional[int] = None, network: bool = False,
+                max_events: Optional[int] = None,
+                event_buf: Optional[int] = None,
+                telemetry: Optional[TelemetryConfig] = None,
+                device: DeviceLike = None):
+    """The simulator with its settings bound: the port of the reference's
+    ``simulate_fn``, whose result the reference ``jax.vmap``s.  Here the
+    sweep is an explicit leading cell axis.
+
+    Returns ``run(reqs, topo, params, targets)`` — with ``network=True``
+    ``run(reqs, topo, params, targets, net)`` — which runs on ``device``
+    (``None`` means CUDA).  ``params.seed``, ``params.sla_scale`` and
+    ``net.latency`` / ``net.inv_bw`` may each carry one leading cell axis
+    of length C (a sequence, 1-D array or tensor; (C, K, K) for the
+    network); scalars and (K, K) matrices are shared by every cell, as
+    are ``reqs``, ``topo`` and ``targets`` (None: no recorded choices).
+    Every field of the returned :class:`FleetMetrics`, the telemetry
+    cube included, gains the leading ``(C,)`` (``metrics.cell(c)`` picks
+    one); a (seeds × scales) grid is flattened by the caller::
+
+        run = fleetsim.simulate_fn(policy="random", capacity=4096,
+                                   depth=1024)
+        seeds, scales = np.meshgrid(np.arange(8), SLA_SCALES, indexing="ij")
+        m = run(reqs, topo, SimParams.make(seeds.ravel(), scales.ravel()),
+                None)                                # m.met_deadline: (32,)
+
+    On CUDA the C cells are one ``event_scan`` launch of C blocks; on the
+    CPU the eager loop runs them one after another.  With no cell axis
+    the result is one run's, as :func:`simulate`'s.  The sizing must
+    cover the heaviest cell: check ``event_overflow`` across the sweep.
+    """
+    def run(reqs, topo, params=None, targets=None, net=None):
+        if network and net is None:
+            raise ValueError("simulate_fn(network=True): pass the network, "
+                             "run(reqs, topo, params, targets, net)")
+        if not network and net is not None:
+            raise ValueError("simulate_fn(network=False) takes no net; "
+                             "bind network=True to price referrals")
+        return _run(False, reqs, topo, params, policy, max_forwards,
+                    discard_on_exhaust, capacity, depth, targets, net,
+                    max_events, event_buf, telemetry, device, sweep=True)
+    return run

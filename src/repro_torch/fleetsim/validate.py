@@ -26,14 +26,16 @@ so the tolerance is measured, not assumed.
 ``device`` (``--device``) is where both engines compute: the fleet side
 is one ``event_scan`` launch a run on CUDA (``None`` means CUDA and
 raises without it) and the eager per-event loop on the CPU; the heap's
-router scores ``batched_feasible`` there too.  The telemetry contract
-(``telemetry=``, ``--telemetry``) waits for the port of the telemetry
-plane (ROADMAP.md open item 2).
+router scores ``batched_feasible`` there too.  ``telemetry=`` /
+``--telemetry`` extends the contract from outcomes to dynamics
+(DESIGN.md §8): the heap's trace and the fleet's telemetry cube must
+agree bucket for bucket.
 
     PYTHONPATH=src python -m repro_torch.fleetsim.validate   # 3 scenarios, CUDA
     PYTHONPATH=src python -m repro_torch.fleetsim.validate --device cpu
     PYTHONPATH=src python -m repro_torch.fleetsim.validate --policy round_robin
     PYTHONPATH=src python -m repro_torch.fleetsim.validate --net campus
+    PYTHONPATH=src python -m repro_torch.fleetsim.validate --telemetry --device cpu
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ import dataclasses
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.core.block_queue import FastPreferentialQueue
 from repro_torch.device import DeviceLike
@@ -49,6 +52,9 @@ from repro_torch.fleetsim.arrays import pack_requests, topology_arrays
 from repro_torch.netsim import LinkModel
 from repro_torch.orchestration import (Hooks, Orchestrator, Router, Topology,
                                        Workload, get_workload)
+from repro_torch.telemetry import (TelemetryAgreement, TelemetryConfig,
+                                   TelemetrySummary, TraceRecorder,
+                                   compare_summaries)
 
 # host policies fleetsim replays move-for-move without a trace
 DETERMINISTIC = ("round_robin", "batched_feasible")
@@ -70,37 +76,44 @@ class ValidationReport:
     transfer_max_err: float          # max |per-request wire time| difference
     met_diff_pp: float               # |met-rate difference| in percent points
     capacity: int
+    telemetry: Optional[TelemetryAgreement] = None   # --telemetry only
 
     @property
     def exact(self) -> bool:
         return (self.outcome_mismatches == 0 and self.node_mismatches == 0
-                and self.transfer_max_err <= TRANSFER_ATOL)
+                and self.transfer_max_err <= TRANSFER_ATOL
+                and (self.telemetry is None or self.telemetry.ok))
 
     def row(self) -> str:
         tag = "exact" if self.exact else \
             f"{self.outcome_mismatches}o/{self.node_mismatches}n mismatches"
+        tel = "" if self.telemetry is None else f"  tel: {self.telemetry.row()}"
         return (f"{self.scenario:18s} seed={self.seed} {self.policy:16s} "
                 f"met {self.host['met_deadline']:6.0f}/{self.fleet['met_deadline']:6.0f} "
                 f"fwd {self.host['forwards']:6.0f}/{self.fleet['forwards']:6.0f} "
                 f"disc {self.host['discarded']:5.0f}/{self.fleet['discarded']:5.0f} "
                 f"dmet {self.met_diff_pp:5.3f}pp "
-                f"dwire {self.transfer_max_err:7.1e}  [{tag}]")
+                f"dwire {self.transfer_max_err:7.1e}  [{tag}]{tel}")
 
 
 def _host_run(workload: Workload, topology: Topology, seed: int,
               policy: str, max_forwards: int, discard_on_exhaust: bool,
               network: Optional[LinkModel] = None,
-              device: DeviceLike = None):
+              device: DeviceLike = None, record_trace: bool = False):
     """Event-heap reference run.
 
-    Returns ``(requests, result, targets, peak, depth, transfer)`` —
+    Returns ``(requests, result, targets, peak, depth, transfer,
+    recorder)`` —
     ``targets[dense_idx, hop]`` records every forwarding
     choice in the order the heap consumed it, ``transfer[dense_idx]`` the
     wire time the request paid on referrals, ``peak`` the largest
     per-node admission count (sizes the fleet slot buffer: head-pointer
     rows retire slots without reusing them, so capacity tracks total
     admissions, not peak depth), ``depth`` the deepest queue observed.
-    The router runs on ``device``.
+    The router runs on ``device``.  With ``record_trace`` the run also
+    streams through a :class:`repro_torch.telemetry.TraceRecorder`
+    (chained ahead of the local hooks) and returns it; otherwise
+    ``recorder`` is None.
     """
     requests = workload.generate(seed)
     idx = {r.rid: j for j, r in enumerate(requests)}
@@ -122,6 +135,10 @@ def _host_run(workload: Workload, topology: Topology, seed: int,
         depth = max(depth, len(node.queue))
 
     hooks = Hooks(on_forward=on_forward, on_admit=on_admit)
+    recorder = None
+    if record_trace:
+        recorder = TraceRecorder(network=network, hooks=hooks)
+        hooks = recorder.hooks
     orch = Orchestrator(topology, FastPreferentialQueue,
                         Router(topology, policy, seed=seed, device=device),
                         max_forwards=max_forwards,
@@ -130,7 +147,7 @@ def _host_run(workload: Workload, topology: Topology, seed: int,
                         hooks=hooks)
     result = orch.run(requests)
     peak = max(n.admitted for n in result.per_node)
-    return requests, result, targets, peak, depth, transfer
+    return requests, result, targets, peak, depth, transfer, recorder
 
 
 def _host_outcomes(requests, result):
@@ -163,14 +180,15 @@ def run_validation(scenario: str = "paper/scenario1", seed: int = 0,
 
     ``device`` is where both engines compute (module docstring); on CUDA
     the fleet side is one ``event_scan`` launch, which runs or raises.
-    ``telemetry`` (a bucket count; the contract from outcomes to
-    dynamics, DESIGN.md §8) is not ported yet and raises.
+
+    ``telemetry`` (a bucket count) extends the contract from outcomes to
+    dynamics (DESIGN.md §8): the host run streams through a
+    :class:`~repro_torch.telemetry.TraceRecorder`, a second fleet run
+    carries the telemetry cube, and the two time-binned summaries must
+    agree bucket for bucket — counters and occupancy exactly, derived
+    integrals within ``DERIVED_ATOL``.  The telemetry run is also checked
+    bit-identical to the plain run on every shared output.
     """
-    if telemetry is not None:
-        raise NotImplementedError(
-            "run_validation(telemetry=...) needs the telemetry plane "
-            "(TraceRecorder, TelemetrySummary), which is not ported yet "
-            "(ROADMAP.md open item 2)")
     workload = get_workload(scenario) if isinstance(scenario, str) \
         else scenario
     name = scenario if isinstance(scenario, str) else workload.name
@@ -179,9 +197,9 @@ def run_validation(scenario: str = "paper/scenario1", seed: int = 0,
             else Topology.full_mesh(workload.n_nodes)
     if network is not None and network.n_nodes != topology.n_nodes:
         raise ValueError("network and topology disagree on node count")
-    requests, result, targets, peak, depth, host_tr = _host_run(
+    requests, result, targets, peak, depth, host_tr, recorder = _host_run(
         workload, topology, seed, policy, max_forwards, discard_on_exhaust,
-        network=network, device=device)
+        network=network, device=device, record_trace=telemetry is not None)
 
     if capacity is None:
         capacity = 1 << max(3, (peak + 2 - 1).bit_length())
@@ -194,18 +212,36 @@ def run_validation(scenario: str = "paper/scenario1", seed: int = 0,
     reqs, _, _ = pack_requests(
         requests, payload_fn=network.payload_of if network else None)
     fleet_policy = policy if policy in DETERMINISTIC else "trace"
-    m = fcore.simulate(reqs, topology_arrays(topology), fcore.SimParams.make(seed),
-                       policy=fleet_policy, max_forwards=max_forwards,
-                       discard_on_exhaust=discard_on_exhaust,
-                       capacity=capacity, depth=window, targets=targets,
-                       net=network.net_params() if network else None,
-                       max_events=max_events, device=device)
+    fleet_kw = dict(policy=fleet_policy, max_forwards=max_forwards,
+                    discard_on_exhaust=discard_on_exhaust,
+                    capacity=capacity, depth=window, targets=targets,
+                    net=network.net_params() if network else None,
+                    max_events=max_events, device=device)
+    m = fcore.simulate(reqs, topology_arrays(topology),
+                       fcore.SimParams.make(seed), **fleet_kw)
     assert int(m.overflow) == 0 and int(m.window_saturation) == 0, \
         f"fleet capacity {capacity}/depth {window} saturated " \
         f"(host peak admissions {peak}, depth {depth})"
     assert int(m.event_overflow) == 0, \
         f"event plane saturated (max_events {max_events}, " \
         f"host forwards {result.forwards})"
+
+    agreement = None
+    if telemetry is not None:
+        horizon = float(result.end_time)
+        m_tel = fcore.simulate(
+            reqs, topology_arrays(topology), fcore.SimParams.make(seed),
+            telemetry=TelemetryConfig(telemetry, horizon), **fleet_kw)
+        # carrying the cube must not perturb a single output bit
+        for fld in ("outcome", "served_by", "completion", "forwards_used",
+                    "transfer_used", "met_deadline", "processed",
+                    "forwards", "discarded", "overflow",
+                    "window_saturation", "event_overflow"):
+            if not torch.equal(getattr(m, fld), getattr(m_tel, fld)):
+                raise AssertionError(f"the telemetry run perturbed {fld}")
+        host_sum = recorder.summary(requests, topology, telemetry, horizon)
+        dev_sum = TelemetrySummary.from_frame(m_tel.telemetry)
+        agreement = compare_summaries(host_sum, dev_sum)
 
     host_out, host_served = _host_outcomes(requests, result)
     mismatches = int(np.sum(host_out != m.outcome.cpu().numpy()))
@@ -228,7 +264,7 @@ def run_validation(scenario: str = "paper/scenario1", seed: int = 0,
         node_mismatches=node_mismatches, transfer_max_err=transfer_max_err,
         met_diff_pp=100.0 * abs(host["met_deadline"]
                                 - fleet["met_deadline"]) / max(1, total),
-        capacity=capacity)
+        capacity=capacity, telemetry=agreement)
 
 
 def main() -> List[ValidationReport]:
@@ -247,8 +283,11 @@ def main() -> List[ValidationReport]:
                          "(DESIGN.md §7)")
     ap.add_argument("--telemetry", nargs="?", type=int, const=32,
                     default=None, metavar="BUCKETS",
-                    help="the telemetry contract (DESIGN.md §8); not "
-                         "ported yet (ROADMAP.md open item 2): raises")
+                    help="also enforce the telemetry contract (DESIGN.md "
+                         "§8): host trace and fleet time series must "
+                         "agree bucket for bucket, and the telemetry run "
+                         "must be bit-identical to the plain one.  "
+                         "Optional value = bucket count (default 32)")
     ap.add_argument("--device", default=None,
                     help="where both engines compute (default CUDA: one "
                          "event_scan launch a fleet run; 'cpu': the eager "
@@ -274,7 +313,8 @@ def main() -> List[ValidationReport]:
     violations = [r for r in reports
                   if r.met_diff_pp > 0.5
                   or r.outcome_mismatches > 0.005 * r.total
-                  or r.node_mismatches > 0.005 * r.total]
+                  or r.node_mismatches > 0.005 * r.total
+                  or (r.telemetry is not None and not r.telemetry.ok)]
     print(f"# {n_exact}/{len(reports)} cells exact; "
           f"worst met-rate delta {worst:.3f}pp "
           f"(contract: exact or <= 0.5pp f32-boundary flips, "

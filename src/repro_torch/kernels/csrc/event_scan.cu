@@ -4,14 +4,22 @@
 // Replaces the TPU kernel repro/kernels/event_select.py
 // (_event_select_kernel at :43, event_select_fwd; pallas_call at :172)
 // together with the loop around it, the reference's jax.lax.scan over
-// _estep (repro/fleetsim/core.py:570), and the threefry draws of its
+// _estep (repro/fleetsim/core.py:570), the threefry draws of its
 // stochastic routing policies (_route_next, core.py:246-263, with the
-// keys of :393 and :553).  The eager loop of
-// repro_torch/fleetsim/core.py (_estep) is its plain version: same
-// events, same order, same arithmetic.  One block runs one run: it owns
-// the event loop and stops at the first step with no live event or after
-// max_events steps, then drains the ledgers.  Each step, in _estep's
-// order:
+// keys of :393 and :553), the carried half of its telemetry cube
+// (core.py:472-489), and the jax.vmap of simulate_fn over sweep cells
+// (core.py:729-777).  The eager loop of repro_torch/fleetsim/core.py
+// (_estep) is its plain version: same events, same order, same
+// arithmetic.  One block runs one run, a sweep cell: it owns the event
+// loop and stops at the first step with no live event or after
+// max_events steps, then drains the ledgers.  The grid is one block per
+// cell; in a sweep (kSweep) a block offsets every buffer by its cell
+// (for_cell), reading the request table and the network at a cell
+// stride of 0 where the cells share them.  A single run launches the
+// instantiation without the offsets, which reads every pointer from the
+// launch's parameters: the offset pointers, held in registers, take a
+// sweep's block from 56 to 64 registers a thread and each of its steps
+// 2-4% longer.  Each step, in _estep's order:
 //
 //   merge    thread 0: the fresh arrival at the cursor against the head
 //            of the re-arrival buffer; fresh wins ties.  The merge has
@@ -47,7 +55,15 @@
 //            push the re-arrival at t + fma(payload, inv_bw, lat) (t when
 //            unpriced) by a stable sorted insert at #(keys <= key), or
 //            count it into ev_dropped when the buffer is full; write the
-//            terminal record and the event node's nq / load / busy.
+//            terminal record and the event node's nq / load / busy; with
+//            telemetry (the kTel instantiation; the other is the code
+//            without it), lane 0 bins the event, b = (int) fminf(fmaxf(
+//            __fmul_rn(t, 1 / w), 0), NB - 1) (the compiled reference's
+//            t / w: XLA multiplies by the f32 reciprocal of the constant
+//            width), adds its five kinds (fresh arrival, re-arrival,
+//            forward, discard or overflow, admission) at [cur, b] and
+//            maxes occupancy[b] with the ring's live count after the
+//            push.
 //   insert   all threads, when the request queues at a busy node: the
 //            closed-form cascade of core/torch_queue.py::insert_at.  A
 //            feasible insert right-aligns the block at cap and moves each
@@ -63,8 +79,9 @@
 // where it fits beside them (12 B bytes), else in global scratch.  The
 // (K, N) ledgers, slot_rid, completion, reqinfo and transfer live in
 // global memory and stay L2-resident at the simulator's sizes (<= 0.5 MB
-// for K = 32, N = 1024).  The grid is one block; a leading sweep-cell
-// axis (ROADMAP item 3) only has to offset every buffer by blockIdx.x.
+// a cell for K = 32, N = 1024; 32 cells of K = 3, N = 4096 hold 6.4 MB of
+// the 50 MB L2), as does the telemetry cube (K x NB x 5 counters and NB
+// high-water marks a cell).
 //
 // Bound on this card: bytes per step, and the chain between steps.  A
 // batched_feasible step must read every node's live blocks (12 bytes a
@@ -79,7 +96,11 @@
 // chain in shared memory, reads a request's row as one 16-byte vector,
 // scores only live blocks, gives the wide stages (scoring, the cascade,
 // the retire) the whole block, and leaves the narrow ones (merge, route,
-// push) to one warp or thread without a barrier.
+// push, the telemetry update) to one warp or thread without a barrier.
+// No chain crosses cells, so a sweep's cells run side by side, one block
+// an SM (56-64 registers a thread leave room for one 1,024-thread
+// block): a launch of C <= 132 cells takes about as long as its longest
+// cell.
 //
 // Arithmetic matches the eager loop bit for bit on the simulator's runs:
 // each operation is the eager step's, as an explicit round-to-nearest
@@ -102,7 +123,8 @@
 #include "fleet_row.cuh"
 #include "threefry.cuh"
 
-// One run, as event_scan.py's _ScanArgs lays it out field for field.
+// A launch, as event_scan.py's _ScanArgs lays it out field for field: the
+// pointers are cell 0's, and every output holds C cells back to back.
 struct ScanArgs {
   // the run (read only)
   const float* cols;     // (R, 4) arrival, d_abs, proc, payload
@@ -139,10 +161,18 @@ struct ScanArgs {
   float* ring_time;      // (B,)
   int* ring_rid;         // (B,)
   int* ring_meta;        // (B,)
+  // the carried telemetry cube (the kTel instantiation), else null
+  int* tel_counts;       // (K, NB, 5) event kinds per node and bucket
+  int* tel_occ;          // (NB,) the ring's live-count high water
+  const unsigned* seeds; // (C,) each cell's PRNGKey seed (random,
+                         //      power_of_two)
+  long long cols_cell;   // cols' cell stride: R * 4, or 0 (shared)
+  long long net_cell;    // lat's and inv_bw's: K * K, or 0 (shared)
   int R, K, N, W, B, M, D, E;
   int max_forwards, hop_bits, policy, discard, priced, ring_in_shared;
+  int NB;                // telemetry buckets
   float eps;
-  unsigned seed;         // the run's PRNGKey seed (random, power_of_two)
+  float tel_inv_w;       // f32(1 / telemetry bucket width)
 };
 
 namespace {
@@ -159,16 +189,19 @@ constexpr int kRoundRobin = 1, kBatched = 2, kTrace = 3, kRandom = 4,
 constexpr int kInfoDisc = 1 << 8, kInfoOvf = 1 << 9, kInfoServed = 10;
 // counts[]: what the host reads after the launch
 constexpr int kEvents = 0, kRetire = 1, kUnprocessed = 2, kCursor = 3,
-              kError = 4, kScored = 5;
+              kError = 4, kScored = 5, kCounts = 6;
+// telemetry event kinds (telemetry/timeline.py); a cube cell is 5 ints
+constexpr int kKinds = 5;
 // errors: a node id outside [0, K) (an origin; a forwarding target)
 constexpr int kBadOrigin = 1, kBadTarget = 2;
 
 // the selected event and the loop's scalars (thread 0 / lane 0 write)
 struct Loop {
-  int live, rid, cur, hops;
+  int live, fresh, rid, cur, hops;
   float t, d, p, pay;
   int cursor, ring_head, ring_n, rr, dropped, sat, events, retire, error;
   int max_pops;
+  unsigned seed;         // the cell's PRNGKey seed
 };
 
 // what the cascade at the event's node needs (warp 0 writes)
@@ -297,7 +330,7 @@ __device__ __forceinline__ int draw(const ScanArgs& a, const Shared& s,
   using namespace threefry;
   const int deg = s.degree[ev.cur];
   const int* nb = a.neighbors + static_cast<long long>(ev.cur) * a.D;
-  const Key kh = fold_in(fold_in(prng_key(a.seed), ev.rid), ev.hops);
+  const Key kh = fold_in(fold_in(prng_key(ev.seed), ev.rid), ev.hops);
   if (a.policy == kRandom) return nb[scaled_index(uniform(kh), deg)];
   if (deg <= 1) return nb[0];
   Key k1, k2;
@@ -406,7 +439,26 @@ __device__ __forceinline__ void push(const Shared& s, Loop& ev, int B,
   __syncwarp();
 }
 
+// The carried telemetry of one event (one thread, after the push): its
+// five kinds at [cur, bucket of t], and the ring's live count into the
+// bucket's high water.
+__device__ __forceinline__ void record(const ScanArgs& a, const Loop& ev,
+                                       bool fwd, bool drop, bool admitted) {
+  const float x = fminf(fmaxf(__fmul_rn(ev.t, a.tel_inv_w), 0.0f),
+                        static_cast<float>(a.NB - 1));
+  const int b = static_cast<int>(x);
+  int* c = a.tel_counts + (static_cast<long long>(ev.cur) * a.NB + b) *
+                              kKinds;
+  c[0] += ev.fresh;
+  c[1] += !ev.fresh;
+  c[2] += fwd;
+  c[3] += drop;
+  c[4] += admitted;
+  a.tel_occ[b] = max(a.tel_occ[b], ev.ring_n);
+}
+
 // decide, route, push, and the event node's bookkeeping (warp 0)
+template <bool kTel>
 __device__ __forceinline__ void decide(const ScanArgs& a, const Shared& s,
                                        Loop& ev, Insert& ins) {
   const int lane = threadIdx.x & 31;
@@ -486,6 +538,7 @@ __device__ __forceinline__ void decide(const ScanArgs& a, const Shared& s,
   s.load[cur] = __fadd_rn(s.load[cur], queue_it ? ps : 0.0f);
   s.busy[cur] = start_now ? c_now : busy_c;
   ev.sat += tail >= a.W;
+  if (kTel) record(a, ev, fwd, disc || (forced && !room), admitted);
 }
 
 // The cascade at the event's node (all threads; ins.queue_it).  Chunks of
@@ -571,13 +624,53 @@ __device__ __forceinline__ void insert(const ScanArgs& a, const Insert& ins,
   }
 }
 
+// The launch's arguments moved to cell c: each output by its cell's
+// extent, cols and the network by their cell strides (0 when shared).
+__device__ __forceinline__ ScanArgs for_cell(ScanArgs a, int c) {
+  const long long K = a.K, KN = K * a.N, B = a.B, R = a.R;
+  a.cols += c * a.cols_cell;
+  a.lat += c * a.net_cell;
+  a.inv_bw += c * a.net_cell;
+  a.starts += c * KN;
+  a.ends += c * KN;
+  a.sizes += c * KN;
+  a.slot_rid += c * KN;
+  a.head += c * K;
+  a.nq += c * K;
+  a.busy += c * K;
+  a.load += c * K;
+  a.rr += c;
+  a.ev_time += c * B;
+  a.ev_rid += c * B;
+  a.ev_meta += c * B;
+  a.ev_n += c;
+  a.ev_dropped += c;
+  a.sat_events += c;
+  a.completion += c * (R + 1);
+  a.reqinfo += c * R;
+  a.transfer += c * R;
+  a.counts += c * kCounts;
+  if (!a.ring_in_shared) {
+    a.ring_time += c * B;
+    a.ring_rid += c * B;
+    a.ring_meta += c * B;
+  }
+  if (a.tel_counts != nullptr) {
+    a.tel_counts += c * K * a.NB * kKinds;
+    a.tel_occ += c * static_cast<long long>(a.NB);
+  }
+  return a;
+}
+
+template <bool kTel, bool kSweep>
 __global__ void __launch_bounds__(kThreads, 1)
-event_scan_kernel(const ScanArgs a) {
+event_scan_kernel(const ScanArgs args) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ Loop ev;
   __shared__ Insert ins;
   __shared__ float warp_tot[kWarps], warp_excl[32], chunk_tot;
 
+  const ScanArgs a = kSweep ? for_cell(args, blockIdx.x) : args;
   const int tid = threadIdx.x;
   const int K = a.K, B = a.B, R = a.R;
   Shared s;
@@ -623,9 +716,15 @@ event_scan_kernel(const ScanArgs a) {
     s.load[k] = 0.0f;
     s.speed[k] = a.speeds[k];
   }
+  if (kTel) {
+    const long long cube = static_cast<long long>(K) * a.NB * kKinds;
+    for (long long i = tid; i < cube; i += blockDim.x) a.tel_counts[i] = 0;
+    for (int i = tid; i < a.NB; i += blockDim.x) a.tel_occ[i] = 0;
+  }
   if (tid == 0) {
     ev.cursor = ev.ring_head = ev.ring_n = ev.rr = 0;
     ev.dropped = ev.sat = ev.events = ev.retire = ev.error = 0;
+    ev.seed = a.seeds[blockIdx.x];
     a.counts[kScored] = 0;
   }
   long long scored = 0;     // live blocks this warp's lane 0 has scored
@@ -646,6 +745,7 @@ event_scan_kernel(const ScanArgs a) {
         const float4 fa = avail_a ? rows[ci] : make_float4(0, 0, 0, 0);
         const bool take = avail_a && (fa.x <= t_b || !avail_b);
         float4 row;
+        ev.fresh = take;
         if (take) {
           row = fa;
           ev.rid = ci;
@@ -685,7 +785,7 @@ event_scan_kernel(const ScanArgs a) {
 
     // -- decide, route, push, record (warp 0)
     if (tid < 32) {
-      decide(a, s, ev, ins);
+      decide<kTel>(a, s, ev, ins);
       if (tid == 0) ev.retire += ev.max_pops;
     }
     __syncthreads();
@@ -740,19 +840,32 @@ int shared_bytes(int K, int B, bool ring_in_shared) {
   return 32 * K + ((K + 3) & ~3) + (ring_in_shared ? 12 * B : 0);
 }
 
+// One block per cell, with or without the telemetry carry and the
+// per-cell offsets.
+template <bool kTel, bool kSweep>
+int launch(const ScanArgs& args, int cells, cudaStream_t stream) {
+  const int bytes = shared_bytes(args.K, args.B, args.ring_in_shared);
+  cudaError_t err = cudaFuncSetAttribute(
+      event_scan_kernel<kTel, kSweep>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  event_scan_kernel<kTel, kSweep><<<cells, kThreads, bytes, stream>>>(args);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Selects the tensors' device first: this library links its own CUDA
-// runtime, whose current device is not PyTorch's.
-extern "C" int event_scan_launch(const ScanArgs* args, int device,
+// runtime, whose current device is not PyTorch's.  telemetry picks the
+// instantiation that carries the cube.
+extern "C" int event_scan_launch(const ScanArgs* args, int cells,
+                                 int telemetry, int device,
                                  cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int bytes = shared_bytes(args->K, args->B, args->ring_in_shared);
-  err = cudaFuncSetAttribute(event_scan_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  event_scan_kernel<<<1, kThreads, bytes, stream>>>(*args);
-  return static_cast<int>(cudaGetLastError());
+  if (cells > 1)
+    return telemetry ? launch<true, true>(*args, cells, stream)
+                     : launch<false, true>(*args, cells, stream);
+  return telemetry ? launch<true, false>(*args, cells, stream)
+                   : launch<false, false>(*args, cells, stream);
 }

@@ -39,22 +39,47 @@ forwards + 256)``; the overflow, window-saturation and event-overflow
 counters must all be 0.  Per-request outcome, serving node and forwards
 used are stored as sha256 digests of their int32 bytes.
 
+Three later sections, for the telemetry plane and the sweeps:
+
+* ``sweeps``: the vmapped ``simulate_fn`` of ``examples/fleet_sweep.py``
+  (``paper/scenario1``, ``random``, capacity 4096, depth 1024, full mesh,
+  no network; seeds 0-7 x ``sla_scale`` 0.5 / 0.8 / 1.0 / 2.0, cell ``s *
+  4 + j``, the scan at its default sizing), once without and once with
+  ``TelemetryConfig(32, 110000)`` (each cell's counts and occupancy as
+  digests, its depth and busy time whole, and the whole cube of cells 0
+  and 31); and the latency x bandwidth grid of
+  ``examples/mobility_sweep.py:63-87`` (the hot 3-node mix,
+  ``least_loaded``, capacity 256, depth 128; latency 0 / 5 / 30 / 120 x
+  bandwidth inf / 1.25 / 0.3125, cell ``i * 3 + j``);
+* ``telemetry``: ``paper/scenario1..3`` as in ``runs``
+  (``batched_feasible``, campus) with ``TelemetryConfig(32, end_time)``,
+  the end time of that run: the whole cube;
+* ``validation_telemetry``: the reference's ``run_validation(...,
+  telemetry=32)`` on ``paper/scenario1..3``, campus, seed 0, under
+  ``random``: the report's fields as in ``validation`` and its
+  ``TelemetryAgreement``.
+
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/make_torch_golden.py
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import os
 import sys
 from typing import Dict
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 
 from repro.core.scenarios import SCENARIOS
-from repro.fleetsim import SimParams, event_bound, simulate, topology_arrays
+from repro.fleetsim import (NetParams, SimParams, event_bound, simulate,
+                            simulate_fn, topology_arrays)
 from repro.netsim import LinkModel
 from repro.orchestration import Topology, UniformWorkload, get_workload
+from repro.telemetry import TelemetryConfig
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                       "torch_fleetsim_golden.json")
@@ -87,6 +112,17 @@ VALIDATED = ("batched_feasible", "round_robin") + STOCHASTIC
 VALIDATED_SCENARIOS = ("paper/scenario1", "paper/scenario2",
                        "paper/scenario3")
 REPORT_COUNTS = ("met_deadline", "processed", "forwards", "discarded")
+# the sweeps of examples/fleet_sweep.py and examples/mobility_sweep.py
+PAPER_SWEEP = dict(scenario="paper/scenario1", policy="random",
+                   capacity=4096, depth=1024, seeds=list(range(8)),
+                   sla_scales=[0.5, 0.8, 1.0, 2.0])
+SWEEP_TELEMETRY = dict(n_buckets=32, horizon=110_000.0)
+WHOLE_CUBES = (0, 31)
+NET_GRID = dict(counts=[{"S1": 30, "S4": 30, "S5": 25, "S6": 25}] * 3,
+                window=1200.0, policy="least_loaded", capacity=256,
+                depth=128, latency=[0.0, 5.0, 30.0, 120.0],
+                bandwidth=["inf", 1.25, 0.3125])
+TELEMETRY_BUCKETS = 32
 
 
 def reference_workload(spec: Dict):
@@ -121,7 +157,7 @@ def summarize(m) -> Dict:
         digests={k: digest(np.asarray(getattr(m, k))) for k in DIGESTS})
 
 
-def run_reference(spec: Dict, max_events=None):
+def run_reference(spec: Dict, max_events=None, telemetry=None):
     """``repro.fleetsim.simulate`` on one run spec."""
     reqs, _ = reference_workload(spec["workload"]).to_arrays(SEED)
     reqs = first(reqs, spec["workload"])
@@ -132,30 +168,149 @@ def run_reference(spec: Dict, max_events=None):
                     capacity=spec["capacity"], depth=spec["depth"],
                     use_pallas=True,
                     net=LinkModel.preset(topo, NET).net_params(),
-                    max_events=max_events)
+                    max_events=max_events, telemetry=telemetry)
 
 
-def validation_reports():
+def cell_of(m, c: int):
+    """Cell ``c`` of vmapped metrics."""
+    return jax.tree_util.tree_map(lambda x: x[c], m)
+
+
+def checked(name: str, got: Dict) -> Dict:
+    bad = {k: got["aggregates"][k] for k in
+           ("overflow", "window_saturation", "event_overflow")
+           if got["aggregates"][k]}
+    if bad:
+        raise SystemExit(f"{name}: undersized run {bad}")
+    return got
+
+
+def cube(frame) -> Dict:
+    """One cell's telemetry cube, whole."""
+    return dict(counts=np.asarray(frame.counts).tolist(),
+                occupancy_hwm=np.asarray(frame.occupancy_hwm).tolist(),
+                queue_depth=np.asarray(frame.queue_depth).tolist(),
+                busy_time=np.asarray(frame.busy_time).tolist(),
+                bucket_width=float(frame.bucket_width))
+
+
+def paper_sweep(telemetry) -> list:
+    """examples/fleet_sweep.py's 32 cells as one vmapped call."""
+    sp = PAPER_SWEEP
+    wl = get_workload(sp["scenario"])
+    reqs, _ = wl.to_arrays(SEED)
+    R = reqs.arrival.shape[0]
+    run = simulate_fn(policy=sp["policy"], max_forwards=MAX_FORWARDS,
+                      capacity=sp["capacity"], depth=sp["depth"],
+                      telemetry=telemetry)
+    seeds, scales = np.meshgrid(np.asarray(sp["seeds"], np.int32),
+                                np.asarray(sp["sla_scales"], np.float32),
+                                indexing="ij")
+    m = jax.vmap(run, in_axes=(None, None, SimParams(0, 0), None))(
+        reqs, topology_arrays(Topology.full_mesh(wl.n_nodes)),
+        SimParams(jnp.asarray(seeds.ravel()), jnp.asarray(scales.ravel())),
+        jnp.full((R, MAX_FORWARDS), -1, jnp.int32))
+    cells = []
+    for c in range(seeds.size):
+        mc = cell_of(m, c)
+        got = checked(f"sweep cell {c}", summarize(mc))
+        if telemetry is not None:
+            tel = dict(counts=digest(np.asarray(mc.telemetry.counts)),
+                       occupancy_hwm=digest(
+                           np.asarray(mc.telemetry.occupancy_hwm)),
+                       queue_depth=np.asarray(
+                           mc.telemetry.queue_depth).tolist(),
+                       busy_time=np.asarray(mc.telemetry.busy_time).tolist())
+            if c in WHOLE_CUBES:
+                tel["whole"] = cube(mc.telemetry)
+            got = dict(telemetry=tel)
+        cells.append(dict(seed=int(seeds.ravel()[c]),
+                          sla_scale=float(scales.ravel()[c]), **got))
+    print(f"sweep: {len(cells)} cells, telemetry {telemetry}",
+          file=sys.stderr)
+    return cells
+
+
+def net_grid() -> list:
+    """examples/mobility_sweep.py's latency x bandwidth grid."""
+    g = NET_GRID
+    K = len(g["counts"])
+    reqs, _ = UniformWorkload(g["counts"], window=g["window"],
+                              name="hot").to_arrays(SEED)
+    R = reqs.arrival.shape[0]
+    nets = [NetParams.uniform(K, lam, 0.0 if bw == "inf" else 1.0 / bw)
+            for lam in g["latency"] for bw in g["bandwidth"]]
+    run = simulate_fn(policy=g["policy"], max_forwards=MAX_FORWARDS,
+                      capacity=g["capacity"], depth=g["depth"], network=True)
+    m = jax.vmap(run, in_axes=(None, None, None, None, 0))(
+        reqs, topology_arrays(Topology.full_mesh(K)), SimParams.make(SEED),
+        jnp.full((R, MAX_FORWARDS), -1, jnp.int32),
+        NetParams(latency=jnp.stack([n.latency for n in nets]),
+                  inv_bw=jnp.stack([n.inv_bw for n in nets])))
+    return [dict(latency=lam, bandwidth=bw, **checked(
+        f"net grid {lam} {bw}", summarize(cell_of(m, i * len(g["bandwidth"])
+                                                  + j))))
+            for i, lam in enumerate(g["latency"])
+            for j, bw in enumerate(g["bandwidth"])]
+
+
+def telemetry_runs(runs) -> list:
+    """``paper/scenario1..3`` of ``runs`` with the telemetry cube over
+    [0, end_time) of that run."""
+    out = []
+    for spec in runs:
+        if spec["name"] not in VALIDATED_SCENARIOS:
+            continue
+        horizon = spec["floats"]["end_time"]
+        m = run_reference(spec, spec["max_events"], TelemetryConfig(
+            TELEMETRY_BUCKETS, horizon))
+        if summarize(m) != {k: spec[k] for k in
+                            ("aggregates", "floats", "digests")}:
+            raise SystemExit(f"{spec['name']}: the telemetry run differs "
+                             "from the plain one")
+        out.append(dict(name=spec["name"], n_buckets=TELEMETRY_BUCKETS,
+                        horizon=horizon, **cube(m.telemetry)))
+        print(spec["name"], "telemetry", file=sys.stderr)
+    return out
+
+
+def validation_reports(policies=VALIDATED, telemetry=None):
     """The reference's ``run_validation`` on each (scenario, policy) cell:
-    the fields the port's report must equal."""
+    the fields the port's report must equal (with ``telemetry``, its
+    ``TelemetryAgreement`` too)."""
     from repro.fleetsim.validate import run_validation
     out = []
     for scenario in VALIDATED_SCENARIOS:
         topo = Topology.full_mesh(get_workload(scenario).n_nodes)
-        for policy in VALIDATED:
+        for policy in policies:
             rep = run_validation(scenario, SEED, policy=policy,
-                                 network=LinkModel.preset(topo, NET))
+                                 network=LinkModel.preset(topo, NET),
+                                 telemetry=telemetry)
             out.append(dict(
                 scenario=scenario, policy=policy, exact=rep.exact,
                 outcome_mismatches=rep.outcome_mismatches,
                 node_mismatches=rep.node_mismatches, capacity=rep.capacity,
                 host={k: int(rep.host[k]) for k in REPORT_COUNTS},
                 fleet={k: int(rep.fleet[k]) for k in REPORT_COUNTS}))
+            if telemetry is not None:
+                out[-1].update(n_buckets=telemetry,
+                               telemetry=dataclasses.asdict(rep.telemetry),
+                               telemetry_ok=rep.telemetry.ok)
             print(rep.row(), file=sys.stderr)
     return out
 
 
 def main() -> None:
+    # the sweeps and the telemetry reports first: the newest sections fail
+    # before the long runs
+    sweeps = dict(
+        net_grid=dict(NET_GRID, cells=net_grid()),
+        paper=dict(PAPER_SWEEP, cells=paper_sweep(None)),
+        paper_telemetry=dict(PAPER_SWEEP, **SWEEP_TELEMETRY,
+                             whole_cubes=list(WHOLE_CUBES),
+                             cells=paper_sweep(TelemetryConfig(
+                                 **SWEEP_TELEMETRY))))
+    validation_telemetry = validation_reports(("random",), TELEMETRY_BUCKETS)
     out = dict(policy=POLICY, net=NET, seed=SEED, topology="full_mesh",
                max_forwards=MAX_FORWARDS,
                reference="repro.fleetsim.simulate(use_pallas=True), "
@@ -167,15 +322,13 @@ def main() -> None:
         max_events = min(event_bound(R, MAX_FORWARDS),
                          R + 4 * int(probe.forwards) + 256)
         m = run_reference(spec, max_events)
-        got = summarize(m)
-        bad = {k: got["aggregates"][k] for k in
-               ("overflow", "window_saturation", "event_overflow")
-               if got["aggregates"][k]}
-        if bad:
-            raise SystemExit(f"{spec['name']}: undersized run {bad}")
+        got = checked(spec["name"], summarize(m))
         out["runs"].append(dict(spec, max_events=max_events, **got))
         print(spec["name"], got["aggregates"], file=sys.stderr)
     out["validation"] = validation_reports()
+    out["sweeps"] = sweeps
+    out["telemetry"] = telemetry_runs(out["runs"])
+    out["validation_telemetry"] = validation_telemetry
     os.makedirs(os.path.dirname(GOLDEN), exist_ok=True)
     with open(GOLDEN, "w") as f:
         json.dump(out, f, indent=1)

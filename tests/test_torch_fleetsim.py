@@ -199,8 +199,11 @@ def test_batched_feasible_scores_post_retire_state():
 
 
 def test_unported_paths_raise():
-    """Telemetry and simulate_fn still raise; the stochastic policies run
-    (ROADMAP item 1), ``random`` by default, as in the reference."""
+    """Telemetry and simulate_fn, which raised until the telemetry plane and
+    the cell axis were ported (ROADMAP items 2 and 3), now run; the
+    stochastic policies run (ROADMAP item 1), ``random`` by default, as in
+    the reference; what the reference refuses still raises."""
+    from repro_torch.telemetry import TelemetryConfig
     ta, _ = TUniformWorkload(HOT_COUNTS, window=1200.0).to_arrays(0)
     topo = tfs.topology_arrays(TTopology.full_mesh(3))
     kw = dict(capacity=512, depth=256, device="cpu")
@@ -209,19 +212,27 @@ def test_unported_paths_raise():
     assert torch.equal(default.served_by, drawn.served_by)
     assert int(tfs.simulate(ta, topo, policy="power_of_two",
                             **kw).forwards) > 0
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        tfs.simulate(ta, topo, telemetry=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="simulate_fn"):
-        tfs.simulate_fn(policy="least_loaded")
+    tel = tfs.simulate(ta, topo, telemetry=TelemetryConfig(8, 3000.0), **kw)
+    assert tel.telemetry.counts.shape == (3, 8, 5)
+    assert int(tel.telemetry.counts[..., 0].sum()) == int(tel.total)
+    assert default.telemetry is None
+    one = tfs.simulate_fn(policy="least_loaded", **kw)(ta, topo)
+    assert torch.equal(one.served_by, tfs.simulate(
+        ta, topo, policy="least_loaded", **kw).served_by)
     with pytest.raises(ValueError, match="unknown fleetsim policy"):
         tfs.simulate(ta, topo, policy="nope", device="cpu")
+    with pytest.raises(ValueError, match="positive horizon"):
+        tfs.simulate(ta, topo, telemetry=TelemetryConfig(0, 10.0), **kw)
+    with pytest.raises(ValueError, match="simulate_fn"):
+        tfs.simulate(ta, topo, tfs.SimParams.make([0, 1]), **kw)
 
 
 def test_eager_entry_refuses_what_simulate_refuses():
     """The eager loop's private entry (the plain version ``chip_smoke.py``
-    runs on the card) refuses the unported paths as ``simulate`` does,
-    naming their ROADMAP items, and defaults to ``random`` as it does."""
+    runs on the card) refuses what ``simulate`` refuses, defaults to
+    ``random`` as it does, and carries telemetry as it does."""
     from repro_torch.fleetsim import core
+    from repro_torch.telemetry import TelemetryConfig
     ta, _ = TUniformWorkload(HOT_COUNTS, window=1200.0).to_arrays(0)
     topo = tfs.topology_arrays(TTopology.full_mesh(3))
     with pytest.raises(ValueError, match="unknown fleetsim policy"):
@@ -229,8 +240,13 @@ def test_eager_entry_refuses_what_simulate_refuses():
     kw = dict(capacity=512, depth=256, device="cpu")
     assert torch.equal(core._simulate_eager(ta, topo, **kw).served_by,
                        tfs.simulate(ta, topo, **kw).served_by)
-    with pytest.raises(NotImplementedError, match="item 2"):
-        core._simulate_eager(ta, topo, telemetry=object(), device="cpu")
+    with pytest.raises(ValueError, match="positive horizon"):
+        core._simulate_eager(ta, topo, telemetry=TelemetryConfig(4, 0.0),
+                             **kw)
+    cfg = TelemetryConfig(4, 2000.0)
+    assert torch.equal(
+        core._simulate_eager(ta, topo, telemetry=cfg, **kw).telemetry.counts,
+        tfs.simulate(ta, topo, telemetry=cfg, **kw).telemetry.counts)
 
 
 def test_simulate_on_cpu_runs_the_eager_loop_and_launches_nothing(
@@ -321,8 +337,12 @@ def test_event_scan_shared_memory_layout():
     fields = [n for n, _ in event_scan._ScanArgs._fields_]
     assert fields[:9] == ["cols", "origin", "targets", "adj", "degree",
                           "speeds", "lat", "inv_bw", "neighbors"]
-    assert fields[-2:] == ["eps", "seed"]
-    assert ctypes.sizeof(event_scan._ScanArgs) == 31 * 8 + 14 * 4 + 4 + 4
+    assert fields[31:36] == ["tel_counts", "tel_occ", "seeds", "cols_cell",
+                             "net_cell"]
+    assert fields[-3:] == ["NB", "eps", "tel_inv_w"]
+    # 34 pointers, two int64 cell strides, 15 ints, two floats, padded to 8
+    assert ctypes.sizeof(event_scan._ScanArgs) == 34 * 8 + 2 * 8 + 15 * 4 \
+        + 4 + 4 + 4
     assert set(event_scan.POLICIES) == set(tfs.POLICIES)
 
 

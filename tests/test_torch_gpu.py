@@ -248,6 +248,119 @@ def test_event_scan_ring_in_global_memory(monkeypatch):
     _scan_matches_eager(_hot_requests(), topo, **kw)
 
 
+def _captured_scans(monkeypatch, fn):
+    """Run ``fn`` with every event_scan launch's arguments kept."""
+    calls, real = [], scan.event_scan
+
+    def spy(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(scan, "event_scan", spy)
+    out = fn()
+    monkeypatch.setattr(scan, "event_scan", real)
+    return out, calls
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("telemetry", [None, (8, 3000.0)])
+def test_event_scan_cells_equal_single_cell_launches(monkeypatch, telemetry):
+    """A sweep of six cells (seeds, SLA scales and networks each their own)
+    is one launch of six blocks, and each block's outputs equal, bit for
+    bit, those of its cell launched alone."""
+    _need_gpu()
+    from repro_torch.fleetsim import NetParams, SimParams, simulate_fn
+    from repro_torch.telemetry import TelemetryConfig
+    nets = [NetParams.uniform(3, lam, ibw) for lam, ibw in
+            ((0.0, 0.0), (5.0, 0.8), (30.0, 3.2))] * 2
+    net = NetParams(np.stack([n.latency for n in nets]),
+                    np.stack([n.inv_bw for n in nets]))
+    run = simulate_fn(policy="random", capacity=512, depth=256,
+                      network=True, device="cuda",
+                      telemetry=None if telemetry is None
+                      else TelemetryConfig(*telemetry))
+    scan.event_scan.launches = scan.event_scan.telemetry_launches = 0
+    m, calls = _captured_scans(monkeypatch, lambda: run(
+        _hot_requests(), topology_arrays(Topology.full_mesh(3)),
+        SimParams.make([0, 1, 2, 3, 2 ** 31 - 1, 5],
+                       [1.0, 0.7, 1.0, 1.5, 1.0, 0.5]), None, net))
+    torch.cuda.synchronize()
+    assert scan.event_scan.launches == len(calls) == 1
+    assert scan.event_scan.telemetry_launches == (telemetry is not None)
+    (args, kw), = calls
+    whole = scan.event_scan(*args, **kw)
+    assert whole.counts.shape == (6, len(scan.COUNTS))
+    for c in range(6):
+        cut = lambda t: t[c:c + 1] if t.dim() == 3 else t
+        one = scan.event_scan(*(cut(a) for a in args),
+                              **dict(kw, seed=[kw["seed"][c]]))
+        for f in scan.ScanOut._fields:
+            x, y = getattr(whole, f), getattr(one, f)
+            assert (x is None) == (y is None) == (
+                telemetry is None and f.startswith("tel_")), f
+            if x is not None:
+                assert torch.equal(x[c], y[0]), (c, f)
+    assert len(set(m.met_deadline.tolist())) > 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("net", [None, "campus"])
+@pytest.mark.parametrize("policy", ["batched_feasible", "random",
+                                    "round_robin"])
+def test_event_scan_telemetry_equals_eager_loop(policy, net):
+    """The kernel's telemetry instantiation carries the eager loop's cube:
+    counters and occupancy exactly, the integrals within DERIVED_ATOL;
+    every other output equals the run without telemetry, which launches
+    the instantiation without it."""
+    _need_gpu()
+    from repro_torch.telemetry import (TelemetryConfig, TelemetrySummary,
+                                       compare_summaries)
+    topo = Topology.full_mesh(3)
+    kw = dict(policy=policy, capacity=512, depth=256,
+              net=None if net is None else
+              LinkModel.preset(topo, net).net_params())
+    cfg = TelemetryConfig(16, 3000.0)
+    cpu = simulate(_hot_requests(), topology_arrays(topo), device="cpu",
+                   telemetry=cfg, **kw)
+    scan.event_scan.telemetry_launches = 0
+    on = _scan_matches_eager(_hot_requests(), topo, telemetry=cfg, **kw)
+    assert scan.event_scan.telemetry_launches == 1
+    off = _scan_matches_eager(_hot_requests(), topo, **kw)
+    assert scan.event_scan.telemetry_launches == 1 and off.telemetry is None
+    for f in PER_REQUEST:
+        assert torch.equal(getattr(on, f), getattr(off, f)), f
+    assert torch.equal(on.telemetry.counts.cpu(), cpu.telemetry.counts)
+    assert torch.equal(on.telemetry.occupancy_hwm.cpu(),
+                       cpu.telemetry.occupancy_hwm)
+    agr = compare_summaries(TelemetrySummary.from_frame(cpu.telemetry),
+                            TelemetrySummary.from_frame(on.telemetry))
+    assert agr.ok, agr.row()
+
+
+@pytest.mark.gpu
+def test_event_scan_error_names_the_cell():
+    """A recorded second-hop target off the fleet, read only where a
+    request is forwarded once (the cell whose SLA is tight enough to
+    forward), stops that cell and names it; an origin off the fleet stops
+    every cell, and the first is named."""
+    _need_gpu()
+    from repro_torch.fleetsim import SimParams, simulate_fn
+    reqs = _hot_requests()
+    targets = np.stack([(reqs.origin + 1) % 3,
+                        np.full_like(reqs.origin, 7)], 1).astype(np.int32)
+    run = simulate_fn(policy="trace", capacity=512, depth=256,
+                      device="cuda")
+    topo = topology_arrays(Topology.full_mesh(3))
+    with pytest.raises(ValueError, match="forwarding target.*sweep cell 1 "
+                                         "of 2"):
+        run(reqs, topo, SimParams.make(0, [1e6, 1.0]), targets)
+    origin = reqs.origin.copy()
+    origin[5] = 3
+    with pytest.raises(ValueError, match="origin node.*sweep cell 0 of 2"):
+        run(reqs._replace(origin=origin), topo, SimParams.make([0, 1]),
+            None)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,H,KV,D,causal,window", [

@@ -115,8 +115,10 @@ def test_a_changed_trace_is_caught(monkeypatch):
 
 
 def test_unported_and_cuda_paths_raise(monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 2"):
-        validate.run_validation(THOT, 0, telemetry=8, device="cpu")
+    """``telemetry=``, which raised until the telemetry plane was ported
+    (ROADMAP item 2), runs; a CUDA run without CUDA raises."""
+    rep = validate.run_validation(THOT, 0, telemetry=8, device="cpu")
+    assert rep.telemetry is not None and rep.telemetry.ok and rep.exact
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         validate.run_validation(THOT, 0)
