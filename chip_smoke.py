@@ -91,6 +91,25 @@ final line:
                 telemetry/``) and validated; the eager loop on the CPU
                 against ``event_scan`` with telemetry on the hot fleet,
                 six policies, priced and not;
+             h. the other arrival processes and the 256-node fleet: the
+                golden file's eight ``workloads`` runs (Poisson and
+                diurnal arrivals, ``paper/scenario1`` through the static
+                and the mobile campus radio, each under
+                ``batched_feasible`` and ``random``), one ``event_scan``
+                launch each, held to the reference's digests;
+                ``paper/scenario1`` written by ``dump_trace`` and replayed
+                by ``TraceWorkload`` (``build/traces/``), held to the
+                ``paper/scenario1`` entry; the 256-node, 128,000-request
+                fleet of ``benchmarks/fleetsim_bench.py`` (no network,
+                capacity 1024, depth 512) under ``random``,
+                ``least_loaded`` and ``batched_feasible``, one launch
+                each, held to the reference's digests, then timed: us per
+                event (CUDA events around one launch), ``simulate``'s
+                wall, requests/s, the bytes bound, the live blocks scored
+                a step, the ring's memory; the eager loop's first 500
+                events of the ``batched_feasible`` run beside the
+                kernel's; ``run_validation`` on the mobile radio workload
+                under ``random``, its report the reference's;
 4. vision  — the deadline-aware serving path with DeiT-B at full width:
              a. ``flash_attention`` against its plain version on a random
                 sweep (causal / window / GQA, S in {1, 63, 65, 127, 129,
@@ -206,9 +225,13 @@ from repro_torch.kernels import moe_gemm as mg_mod  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn_mod  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import vit  # noqa: E402
-from repro_torch.netsim import LinkModel  # noqa: E402
-from repro_torch.orchestration import (Topology,  # noqa: E402
-                                       UniformWorkload, fleet_workload,
+from repro_torch.core.scenarios import SCENARIOS  # noqa: E402
+from repro_torch.netsim import (LinkModel, RadioModel,  # noqa: E402
+                                RadioWorkload)
+from repro_torch.orchestration import (DiurnalWorkload,  # noqa: E402
+                                       PoissonWorkload, Topology,
+                                       TraceWorkload, UniformWorkload,
+                                       dump_trace, fleet_workload,
                                        get_workload)
 from repro_torch.serving import measure_step_times  # noqa: E402
 
@@ -255,6 +278,11 @@ SEGMENT_EVENTS, FLEET_CAPTURE_EVERY, PROFILED_EVENTS = 500, 150, 100
 STOCHASTIC = ("random", "power_of_two")
 
 
+def fleet256(spec) -> bool:
+    """A golden run of the 256-node fleet (phase 3h's)."""
+    return spec["workload"].get("fleet") == 256
+
+
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
 
@@ -268,10 +296,27 @@ def card_line() -> str:
 
 
 def workload_of(spec):
+    """The port's workload of a golden entry: a registered scenario, a
+    fleet of ``fleet_workload``, or one the entry describes whole (a
+    Poisson or diurnal process over a paper scenario's counts, a scenario
+    through the radio model priced by a link profile)."""
     w = spec["workload"]
     if "registry" in w:
         return get_workload(w["registry"])
-    return fleet_workload(w["fleet"], w["div"])
+    if "fleet" in w:
+        return fleet_workload(w["fleet"], w["div"])
+    if w["kind"] == "poisson":
+        return PoissonWorkload.from_counts(SCENARIOS[w["scenario"]],
+                                           horizon=w["horizon"])
+    if w["kind"] == "diurnal":
+        return DiurnalWorkload(SCENARIOS[w["scenario"]], window=w["window"],
+                               peaks=w["peaks"], amplitude=w["amplitude"])
+    base = get_workload(w["base"])
+    link = LinkModel.preset(Topology.full_mesh(base.n_nodes), w["link"])
+    radio = RadioModel.from_link(link)
+    if "mobility" in w:
+        radio = radio.with_random_mobility(**w["mobility"])
+    return RadioWorkload(base, radio, link=link)
 
 
 def digest(t: torch.Tensor) -> str:
@@ -552,11 +597,52 @@ def scan_bound_ms(K: int, events: int, scored: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def main_inputs(spec):
-    reqs, _ = workload_of(spec).to_arrays(0)
+def main_inputs(spec, reqs=None):
+    """A golden entry's request arrays (``reqs``, or its workload's), its
+    full mesh and its network: campus pricing unless the entry names
+    another or none."""
+    if reqs is None:
+        reqs, _ = workload_of(spec).to_arrays(0)
     topo = Topology.full_mesh(spec["n_nodes"])
+    net = spec.get("net", "campus")
     return (reqs, topology_arrays(topo),
-            LinkModel.campus(topo).net_params())
+            None if net is None else LinkModel.preset(topo, net).net_params())
+
+
+def drive_golden(spec, golden, dev, reqs=None, label=None):
+    """One golden entry through ``simulate`` on the card, the launch counts
+    set to 0 just before and read just after: it must be one
+    ``event_scan`` launch and no ``event_select`` launch, and equal the JAX
+    reference's aggregates, digests and floats.  Returns the metrics, the
+    wall time and the ``event_scan`` arguments it launched with."""
+    reqs, topo, net = main_inputs(spec, reqs)
+    policy = spec.get("policy", golden["policy"])
+    torch.cuda.synchronize()
+    scan_mod.event_scan.launches = 0
+    es_mod.event_select.launches = 0
+    with Spy(scan_mod, "event_scan", lambda i, args: True) as spy:
+        t0 = time.time()
+        m = simulate(reqs, topo, policy=policy,
+                     max_forwards=golden["max_forwards"],
+                     capacity=spec["capacity"], depth=spec["depth"],
+                     net=net, max_events=spec["max_events"], device=dev)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    n_scan = scan_mod.event_scan.launches
+    n_select = es_mod.event_select.launches
+    R = int(m.total)
+    print(f"main {label or spec['name']} ({policy}): {R} requests, "
+          f"{m.events} events, {wall:.4f} s, {m.events / wall:.1f} "
+          f"events/s, {R / wall:.1f} requests/s, "
+          f"{wall / m.events * 1e6:.2f} us/event, {m.retire_iterations} "
+          f"retire iterations, {n_scan} event_scan and {n_select} "
+          f"event_select launches, {int(m.forwards)} forwards, "
+          f"{int(m.met_deadline)} met", flush=True)
+    check_golden(spec, m)
+    if (n_scan, n_select) != (1, 0) or m.events == 0:
+        fail(f"{spec['name']}: {n_scan} event_scan and {n_select} "
+             f"event_select launches for {m.events} event steps")
+    return m, wall, spy.kept[0]
 
 
 def check_golden(spec, m):
@@ -733,43 +819,16 @@ def fleet_phase(dev):
     # c. the main path, then the same fleets under the stochastic policies:
     # each run one event_scan launch, no event_select
     launches, scan_args, run_walls = {}, {}, {}
-    drawn = [r for r in golden["runs"] if r.get("policy") in STOCHASTIC]
+    drawn = [r for r in golden["runs"]
+             if r.get("policy") in STOCHASTIC and not fleet256(r)]
     for spec in runs + drawn:
-        reqs, topo, net = main_inputs(spec)
-        policy = spec.get("policy", golden["policy"])
-        torch.cuda.synchronize()
-        scan_mod.event_scan.launches = 0
-        es_mod.event_select.launches = 0
-        with Spy(scan_mod, "event_scan", lambda i, args: True) as spy:
-            t0 = time.time()
-            m = simulate(reqs, topo, policy=policy,
-                         max_forwards=golden["max_forwards"],
-                         capacity=spec["capacity"], depth=spec["depth"],
-                         net=net, max_events=spec["max_events"], device=dev)
-            torch.cuda.synchronize()
-            wall = time.time() - t0
-        n_scan = scan_mod.event_scan.launches
-        n_select = es_mod.event_select.launches
-        launches[spec["name"]] = (n_scan, n_select)
-        scan_args[spec["name"]] = spy.kept[0]
+        m, wall, scan_args[spec["name"]] = drive_golden(spec, golden, dev)
+        launches[spec["name"]] = (1, 0)
         run_walls[spec["name"]] = wall
-        R = int(m.total)
-        print(f"main {spec['name']} ({policy}): {R} requests, {m.events} "
-              f"events, "
-              f"{wall:.4f} s, {m.events / wall:.1f} events/s, "
-              f"{R / wall:.1f} requests/s, {wall / m.events * 1e6:.2f} "
-              f"us/event, {m.retire_iterations} retire iterations, "
-              f"{n_scan} event_scan and {n_select} event_select launches, "
-              f"{int(m.forwards)} forwards, {int(m.met_deadline)} met",
-              flush=True)
-        check_golden(spec, m)
-        if (n_scan, n_select) != (1, 0) or m.events == 0:
-            fail(f"{spec['name']}: {n_scan} event_scan and {n_select} "
-                 f"event_select launches for {m.events} event steps")
         if spec in runs:
             segments[spec["name"]].update(
-                R=R, K=spec["n_nodes"], W=spec["depth"], run_events=m.events,
-                run_wall_s=wall)
+                R=int(m.total), K=spec["n_nodes"], W=spec["depth"],
+                run_events=m.events, run_wall_s=wall)
 
     print(f"fleet phase c (main path): {time.time() - t_sub:.1f} s",
           flush=True)
@@ -1357,6 +1416,158 @@ def sweep_phase(dev) -> dict:
           f"(largest depth error {depth_err:.3g}, busy {busy_err:.3g} of a "
           f"bucket)", flush=True)
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3h: the other arrival processes, the radio model, the 256-node fleet
+# ---------------------------------------------------------------------------
+TRACE_FILE = os.path.join(ROOT, "build", "traces", "paper_scenario1.jsonl")
+
+
+def fleet256_times(spec, args, kw, wall) -> dict:
+    """One 256-node run's kernel time: CUDA events around one launch of the
+    whole run (after a launch that reads its counts), beside ``simulate``'s
+    wall time, the bytes bound and the shared-memory ring path."""
+    counts = scan_mod.event_scan(*args, **kw).counts[0].tolist()
+    n = dict(zip(scan_mod.COUNTS, counts))
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    scan_mod.event_scan(*args, **kw)
+    t1.record()
+    torch.cuda.synchronize()
+    ms = t0.elapsed_time(t1)
+    K, R = spec["n_nodes"], spec["aggregates"]["total"]
+    ring = scan_mod.shared_bytes(K, kw["event_buf"], True) \
+        <= scan_mod.SHARED_LIMIT
+    row = dict(run=spec["name"], policy=kw["policy"], K=K,
+               W=spec["depth"], R=R, events=n["events"], ms=ms,
+               us_per_event=ms * 1e3 / n["events"], wall_s=wall,
+               requests_per_s=R / wall,
+               scored_per_event=n["scored"] / n["events"],
+               bound_ms=scan_bound_ms(K, n["events"], n["scored"]),
+               ring="shared" if ring else "global",
+               shared_bytes=scan_mod.shared_bytes(K, kw["event_buf"], ring),
+               event_buf=kw["event_buf"])
+    print(f"fleet256 time {spec['name']}: whole run {n['events']} events "
+          f"in one launch, {ms:.3f} ms, {row['us_per_event']:.3f} us/event "
+          f"(CUDA events); simulate wall {wall:.4f} s, "
+          f"{row['requests_per_s']:.0f} requests/s; bound "
+          f"{row['bound_ms']:.4f} ms by bytes "
+          f"({row['scored_per_event']:.1f} live blocks scored a step); ring "
+          f"of {kw['event_buf']} events in {row['ring']} memory "
+          f"({row['shared_bytes']} bytes of dynamic shared memory)",
+          flush=True)
+    return row
+
+
+def workload_phase(dev) -> dict:
+    """Phase 3h: (a) the golden file's eight ``workloads`` runs (Poisson,
+    diurnal, static and mobile radio, under ``batched_feasible`` and
+    ``random``); (b) ``paper/scenario1`` written by ``dump_trace`` and
+    replayed by ``TraceWorkload``, held to the ``paper/scenario1`` entry;
+    (c) the 256-node, 128,000-request fleet under ``random``,
+    ``least_loaded`` and ``batched_feasible``, unpriced, each one launch
+    held to the reference's digests, then timed; (d) the eager loop's
+    first events of its ``batched_feasible`` run on the card beside the
+    kernel's; (e) ``run_validation`` on the mobile radio workload under
+    ``random`` against the reference's report.  Returns the numbers for
+    the kernels line."""
+    with open(GOLDEN) as f:
+        golden = json.load(f)
+    launches = {}
+
+    # a. the arrival processes and the radio model
+    t_sub = time.time()
+    for spec in golden["workloads"]:
+        m, _, _ = drive_golden(spec, golden, dev)
+        launches[spec["name"]] = 1
+        if int(m.forwards) == 0:
+            fail(f"{spec['name']}: no forward")
+    print(f"workload phase a ({len(golden['workloads'])} runs): "
+          f"{time.time() - t_sub:.1f} s", flush=True)
+
+    # b. a trace written and replayed
+    spec = next(r for r in golden["runs"] if r["name"] == "paper/scenario1")
+    os.makedirs(os.path.dirname(TRACE_FILE), exist_ok=True)
+    dump_trace(get_workload("paper/scenario1").generate(0), TRACE_FILE)
+    replayed, _ = TraceWorkload(TRACE_FILE).to_arrays(0)
+    drive_golden(spec, golden, dev, reqs=replayed,
+                 label="paper/scenario1 replayed from its trace")
+    launches["paper/scenario1@trace_replay"] = 1
+
+    # c. the 256-node fleet
+    t_sub = time.time()
+    big = [r for r in golden["runs"] if fleet256(r)]
+    reqs, _ = workload_of(big[0]).to_arrays(0)
+    rows, kept = [], {}
+    for spec in big:
+        m, wall, (args, kw) = drive_golden(spec, golden, dev, reqs=reqs)
+        launches[spec["name"]] = 1
+        kept[spec["policy"]] = spec, args, kw
+        rows.append(fleet256_times(spec, args, kw, wall))
+    print(f"workload phase c (256-node fleet): {time.time() - t_sub:.1f} s",
+          flush=True)
+
+    # d. the first events of the batched_feasible run: eager loop against
+    # the kernel
+    spec, args, kw = kept["batched_feasible"]
+    reqs256, topo, net = main_inputs(spec, reqs)
+    eager_kw = dict(policy="batched_feasible",
+                    max_forwards=golden["max_forwards"],
+                    capacity=spec["capacity"], depth=spec["depth"], net=net,
+                    device=dev)
+    fleet_core._simulate_eager(reqs256, topo, max_events=20,
+                               **eager_kw)                      # warm-up
+    torch.cuda.synchronize()
+    t0 = time.time()
+    seg = fleet_core._simulate_eager(reqs256, topo,
+                                     max_events=SEGMENT_EVENTS, **eager_kw)
+    torch.cuda.synchronize()
+    eager_ms = (time.time() - t0) * 1e3
+    seg_kw = dict(kw, max_events=SEGMENT_EVENTS)
+    n = dict(zip(scan_mod.COUNTS, scan_mod.event_scan(
+        *args, **seg_kw).counts[0].tolist()))
+    if n["events"] != seg.events:
+        fail(f"fleet256: the kernel ran {n['events']} events where the "
+             f"eager loop ran {seg.events}")
+    seg_ms = timed_ms(lambda: scan_mod.event_scan(*args, **seg_kw), 5)
+    segment = dict(run=spec["name"], events=seg.events, ms=seg_ms,
+                   plain_ms=eager_ms,
+                   bound_ms=scan_bound_ms(spec["n_nodes"], n["events"],
+                                          n["scored"]))
+    print(f"fleet256 {spec['name']} first {seg.events} events: event_scan "
+          f"{seg_ms:.3f} ms ({seg_ms * 1e3 / seg.events:.3f} us/event), "
+          f"eager loop on the card {eager_ms:.1f} ms "
+          f"({eager_ms * 1e3 / seg.events:.1f} us/event, x"
+          f"{eager_ms / seg_ms:.0f}), bound {segment['bound_ms']:.5f} ms",
+          flush=True)
+
+    # e. the cross-validation on the mobile radio workload
+    [want] = golden["validation_radio"]
+    wl = workload_of(dict(workload=want["workload"]))
+    network = LinkModel.preset(Topology.full_mesh(wl.n_nodes),
+                               want["workload"]["link"])
+    scan_mod.event_scan.launches = 0
+    es_mod.event_select.launches = 0
+    with Spy(validate, "_host_run") as host, \
+            Spy(validate.fcore, "simulate") as fleet:
+        rep = validate.run_validation(wl, 0, policy=want["policy"],
+                                      network=network, device=dev)
+    n_launch = (scan_mod.event_scan.launches, es_mod.event_select.launches)
+    got = dict(exact=rep.exact, outcome_mismatches=rep.outcome_mismatches,
+               node_mismatches=rep.node_mismatches, capacity=rep.capacity,
+               host={k: int(rep.host[k]) for k in want["host"]},
+               fleet={k: int(rep.fleet[k]) for k in want["fleet"]})
+    bad = [k for k, v in got.items() if v != want[k]]
+    if n_launch != (1, 0) or bad:
+        fail(f"run_validation {wl.name} {want['policy']}: {rep.row()}, "
+             f"differs from the reference's report on {bad}; (event_scan, "
+             f"event_select) launches {n_launch}")
+    launches["validate radio_mobile@random"] = 1
+    print(f"radio validate {rep.row()}  heap {host.seconds:.3f} s, fleet "
+          f"(event_scan) {fleet.seconds:.4f} s; the reference's report",
+          flush=True)
+    return dict(launches=launches, fleet256=rows, fleet256_segment=segment)
 
 
 # ---------------------------------------------------------------------------
@@ -2181,6 +2392,12 @@ def main() -> int:
     entries["event_scan"]["launches_by_run"].update(sweeps["launches"])
     entries["event_scan"]["launches"] += sum(sweeps["launches"].values())
     print(f"sweep and telemetry phase: {time.time() - t0:.1f} s",
+          flush=True)
+    t0 = time.time()
+    more = entries["event_scan"]["workloads"] = workload_phase(dev)
+    entries["event_scan"]["launches_by_run"].update(more["launches"])
+    entries["event_scan"]["launches"] += sum(more["launches"].values())
+    print(f"workload, radio and 256-node phase: {time.time() - t0:.1f} s",
           flush=True)
     t0 = time.time()
     entries["flash_attention"] = vision_phase(dev)

@@ -1,6 +1,6 @@
 """Wired 5G-MEC network model: what a referral costs (the port's copy of
-``repro/netsim/link.py``; the radio model of ``repro/netsim/radio.py`` is
-not ported).
+``repro/netsim/link.py``; the radio model is
+:mod:`repro_torch.netsim.radio`).
 
 A referral over the edge ``(u, v)`` costs ``latency[u, v] + payload ·
 inv_bw[u, v]`` UT; a request's payload is its camera frame

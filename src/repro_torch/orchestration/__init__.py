@@ -18,12 +18,17 @@ from repro_torch.orchestration.orchestrator import (Hooks, Orchestrator,
                                                     ServiceStats, place)
 from repro_torch.orchestration.router import ROUTER_POLICIES, Router
 from repro_torch.orchestration.topology import Topology
-from repro_torch.orchestration.workload import (UniformWorkload, Workload,
+from repro_torch.orchestration.workload import (DiurnalWorkload,
+                                                PoissonWorkload,
+                                                TraceWorkload,
+                                                UniformWorkload, Workload,
                                                 available_workloads,
-                                                fleet_workload, get_workload,
+                                                dump_trace, fleet_workload,
+                                                get_workload,
                                                 register_workload)
 
 __all__ = ["Hooks", "Orchestrator", "OrchestratorResult", "ServiceStats",
-           "ROUTER_POLICIES", "Router", "Topology", "UniformWorkload",
-           "Workload", "available_workloads", "fleet_workload",
-           "get_workload", "place", "register_workload"]
+           "ROUTER_POLICIES", "Router", "Topology", "DiurnalWorkload",
+           "PoissonWorkload", "TraceWorkload", "UniformWorkload",
+           "Workload", "available_workloads", "dump_trace",
+           "fleet_workload", "get_workload", "place", "register_workload"]

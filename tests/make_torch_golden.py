@@ -59,10 +59,12 @@ Three later sections, for the telemetry plane and the sweeps:
   ``random``: the report's fields as in ``validation`` and its
   ``TelemetryAgreement``.
 
-    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/make_torch_golden.py
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/make_torch_golden.py \
+        [--only NAME ...]
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import hashlib
 import json
@@ -77,8 +79,9 @@ import numpy as np
 from repro.core.scenarios import SCENARIOS
 from repro.fleetsim import (NetParams, SimParams, event_bound, simulate,
                             simulate_fn, topology_arrays)
-from repro.netsim import LinkModel
-from repro.orchestration import Topology, UniformWorkload, get_workload
+from repro.netsim import LinkModel, RadioModel, RadioWorkload
+from repro.orchestration import (DiurnalWorkload, PoissonWorkload, Topology,
+                                 UniformWorkload, get_workload)
 from repro.telemetry import TelemetryConfig
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
@@ -103,6 +106,31 @@ RUNS = RUNS + tuple(
     dict(base, name=f"{base['name']}@{policy}", policy=policy)
     for policy in STOCHASTIC for base in RUNS
     if base["name"] in ("paper/scenario1", "paper/scenario3", "fleet32_div4"))
+# the 256-node fleet of benchmarks/fleetsim_bench.py, as bench_fleetsim
+# runs it
+FLEET256 = tuple(
+    dict(name=f"fleet256_div4@{policy}", workload={"fleet": 256, "div": 4},
+         n_nodes=256, capacity=1024, depth=512, policy=policy, net=None,
+         path="jnp")
+    for policy in ("random", "least_loaded", "batched_feasible"))
+RUNS = RUNS + FLEET256
+PATH_CHECKED = "fleet32_div4"
+# the arrival processes of examples/custom_topologies.py:80-85 and the
+# radio workloads of examples/mobility_sweep.py:53-59, each described whole
+# in its entry (the port builds it from there)
+HORIZON = 110_000.0
+KINDS = dict(
+    poisson=dict(kind="poisson", scenario=1, horizon=HORIZON),
+    diurnal=dict(kind="diurnal", scenario=1, window=HORIZON, peaks=2,
+                 amplitude=0.8),
+    radio_static=dict(kind="radio", base="paper/scenario1", link=NET),
+    radio_mobile=dict(kind="radio", base="paper/scenario1", link=NET,
+                      mobility=dict(n_ues=3, horizon=HORIZON,
+                                    handovers_per_ue=3.0, seed=0)))
+WORKLOADS = tuple(
+    dict(name=f"{kind}@{policy}", workload=KINDS[kind], n_nodes=3,
+         capacity=4096, depth=1024, policy=policy)
+    for kind in KINDS for policy in ("batched_feasible", "random"))
 INT_AGGREGATES = ("total", "processed", "met_deadline", "forwards",
                   "discarded", "overflow", "window_saturation",
                   "event_overflow")
@@ -130,11 +158,29 @@ def reference_workload(spec: Dict):
     ``benchmarks/fleetsim_bench.py::make_fleet_workload``)."""
     if "registry" in spec:
         return get_workload(spec["registry"])
+    if "kind" in spec:
+        return new_workload(spec)
     n, div = spec["fleet"], spec["div"]
     counts = [{s: max(1, c // div) for s, c in SCENARIOS[1][i % 3].items()}
               for i in range(n)]
     return UniformWorkload(counts, window=110_000.0 / div,
                            name=f"fleet{n}_div{div}")
+
+
+def new_workload(w: Dict):
+    """The reference's workload of a ``workloads`` entry."""
+    if w["kind"] == "poisson":
+        return PoissonWorkload.from_counts(SCENARIOS[w["scenario"]],
+                                           horizon=w["horizon"])
+    if w["kind"] == "diurnal":
+        return DiurnalWorkload(SCENARIOS[w["scenario"]], window=w["window"],
+                               peaks=w["peaks"], amplitude=w["amplitude"])
+    base = get_workload(w["base"])
+    link = LinkModel.preset(Topology.full_mesh(base.n_nodes), w["link"])
+    radio = RadioModel.from_link(link)
+    if "mobility" in w:
+        radio = radio.with_random_mobility(**w["mobility"])
+    return RadioWorkload(base, radio, link=link)
 
 
 def first(reqs, spec: Dict):
@@ -157,18 +203,69 @@ def summarize(m) -> Dict:
         digests={k: digest(np.asarray(getattr(m, k))) for k in DIGESTS})
 
 
-def run_reference(spec: Dict, max_events=None, telemetry=None):
-    """``repro.fleetsim.simulate`` on one run spec."""
+def run_reference(spec: Dict, max_events=None, telemetry=None,
+                  use_pallas=None):
+    """``repro.fleetsim.simulate`` on one run spec (``use_pallas`` defaults
+    to the spec's ``path``)."""
     reqs, _ = reference_workload(spec["workload"]).to_arrays(SEED)
     reqs = first(reqs, spec["workload"])
     topo = Topology.full_mesh(spec["n_nodes"])
+    net = spec.get("net", NET)
+    if use_pallas is None:
+        use_pallas = spec.get("path", "pallas") == "pallas"
     return simulate(reqs, topology_arrays(topo), SimParams.make(SEED),
                     policy=spec.get("policy", POLICY),
                     max_forwards=MAX_FORWARDS,
                     capacity=spec["capacity"], depth=spec["depth"],
-                    use_pallas=True,
-                    net=LinkModel.preset(topo, NET).net_params(),
+                    use_pallas=use_pallas,
+                    net=None if net is None
+                    else LinkModel.preset(topo, net).net_params(),
                     max_events=max_events, telemetry=telemetry)
+
+
+def sized_run(spec: Dict) -> Dict:
+    """One run sized as ``bench_fleetsim`` sizes it: a probe at the
+    worst-case event bound, then ``max_events = min(3R, R + 4 * forwards
+    + 256)`` (the probe itself where that is the bound)."""
+    probe = run_reference(spec)
+    R = int(probe.total)
+    bound = event_bound(R, MAX_FORWARDS)
+    max_events = min(bound, R + 4 * int(probe.forwards) + 256)
+    m = probe if max_events == bound else run_reference(spec, max_events)
+    got = checked(spec["name"], summarize(m))
+    print(spec["name"], got["aggregates"], file=sys.stderr)
+    return dict(spec, max_events=max_events, **got)
+
+
+def path_agreement(runs) -> Dict:
+    """The jnp path on a run the Pallas path produced: whether its
+    digests, aggregates and floats are the Pallas path's."""
+    spec = next(r for r in runs if r["name"] == PATH_CHECKED)
+    got = summarize(run_reference(spec, spec["max_events"],
+                                  use_pallas=False))
+    want = {k: spec[k] for k in ("aggregates", "floats", "digests")}
+    differ = sorted(f"{part}.{k}" for part in want for k in want[part]
+                    if got[part][k] != want[part][k])
+    print(PATH_CHECKED, "jnp path differs on", differ or "nothing",
+          file=sys.stderr)
+    return {PATH_CHECKED: dict(jnp_equals_pallas=not differ, differ=differ,
+                               jnp=got)}
+
+
+def radio_validation() -> list:
+    """The reference's ``run_validation`` on the mobile radio workload
+    under ``random``."""
+    from repro.fleetsim.validate import run_validation
+    wl = new_workload(KINDS["radio_mobile"])
+    rep = run_validation(wl, SEED, policy="random",
+                         network=LinkModel.preset(Topology.full_mesh(3), NET))
+    print(rep.row(), file=sys.stderr)
+    return [dict(workload=KINDS["radio_mobile"], policy="random",
+                 exact=rep.exact,
+                 outcome_mismatches=rep.outcome_mismatches,
+                 node_mismatches=rep.node_mismatches, capacity=rep.capacity,
+                 host={k: int(rep.host[k]) for k in REPORT_COUNTS},
+                 fleet={k: int(rep.fleet[k]) for k in REPORT_COUNTS})]
 
 
 def cell_of(m, c: int):
@@ -300,39 +397,73 @@ def validation_reports(policies=VALIDATED, telemetry=None):
     return out
 
 
+SECTIONS = ("sweeps", "validation_telemetry", "workloads",
+            "validation_radio", "runs", "paths", "validation", "telemetry")
+
+
+def save(out: Dict) -> None:
+    os.makedirs(os.path.dirname(GOLDEN), exist_ok=True)
+    tmp = GOLDEN + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(out, f, indent=1)
+        f.write("\n")
+    os.replace(tmp, GOLDEN)
+
+
 def main() -> None:
-    # the sweeps and the telemetry reports first: the newest sections fail
-    # before the long runs
-    sweeps = dict(
-        net_grid=dict(NET_GRID, cells=net_grid()),
-        paper=dict(PAPER_SWEEP, cells=paper_sweep(None)),
-        paper_telemetry=dict(PAPER_SWEEP, **SWEEP_TELEMETRY,
-                             whole_cubes=list(WHOLE_CUBES),
-                             cells=paper_sweep(TelemetryConfig(
-                                 **SWEEP_TELEMETRY))))
-    validation_telemetry = validation_reports(("random",), TELEMETRY_BUCKETS)
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", nargs="+", metavar="NAME", default=(),
+                    help="recompute these sections or runs and keep the "
+                         f"rest of the file (sections: {SECTIONS})")
+    only = set(ap.parse_args().only)
+    run_names = [spec["name"] for spec in RUNS]
+    unknown = only - set(SECTIONS) - set(run_names)
+    if unknown:
+        raise SystemExit(f"unknown sections or runs: {sorted(unknown)}")
     out = dict(policy=POLICY, net=NET, seed=SEED, topology="full_mesh",
                max_forwards=MAX_FORWARDS,
                reference="repro.fleetsim.simulate(use_pallas=True), "
                          "JAX on the CPU",
                runs=[])
-    for spec in RUNS:
-        probe = run_reference(spec)
-        R = int(probe.total)
-        max_events = min(event_bound(R, MAX_FORWARDS),
-                         R + 4 * int(probe.forwards) + 256)
-        m = run_reference(spec, max_events)
-        got = checked(spec["name"], summarize(m))
-        out["runs"].append(dict(spec, max_events=max_events, **got))
-        print(spec["name"], got["aggregates"], file=sys.stderr)
-    out["validation"] = validation_reports()
-    out["sweeps"] = sweeps
-    out["telemetry"] = telemetry_runs(out["runs"])
-    out["validation_telemetry"] = validation_telemetry
-    os.makedirs(os.path.dirname(GOLDEN), exist_ok=True)
-    with open(GOLDEN, "w") as f:
-        json.dump(out, f, indent=1)
-        f.write("\n")
+    if only:
+        with open(GOLDEN) as f:
+            out.update(json.load(f))
+    rerun = [n for n in run_names if not only or "runs" in only or n in only]
+
+    # the newest sections first: they fail before the long runs; the file
+    # is written after each section
+    for section in SECTIONS:
+        if only and section not in only and not (section == "runs"
+                                                 and rerun):
+            continue
+        if section == "sweeps":
+            out[section] = dict(
+                net_grid=dict(NET_GRID, cells=net_grid()),
+                paper=dict(PAPER_SWEEP, cells=paper_sweep(None)),
+                paper_telemetry=dict(PAPER_SWEEP, **SWEEP_TELEMETRY,
+                                     whole_cubes=list(WHOLE_CUBES),
+                                     cells=paper_sweep(TelemetryConfig(
+                                         **SWEEP_TELEMETRY))))
+        elif section == "validation_telemetry":
+            out[section] = validation_reports(("random",), TELEMETRY_BUCKETS)
+        elif section == "workloads":
+            out[section] = [sized_run(spec) for spec in WORKLOADS]
+        elif section == "validation_radio":
+            out[section] = radio_validation()
+        elif section == "runs":
+            kept = {r["name"]: r for r in out["runs"]}
+            for spec in RUNS:
+                if spec["name"] in rerun:
+                    kept[spec["name"]] = sized_run(spec)
+                    out["runs"] = [kept[n] for n in run_names if n in kept]
+                    save(out)
+        elif section == "paths":
+            out[section] = path_agreement(out["runs"])
+        elif section == "validation":
+            out[section] = validation_reports()
+        elif section == "telemetry":
+            out[section] = telemetry_runs(out["runs"])
+        save(out)
 
 
 if __name__ == "__main__":

@@ -235,6 +235,63 @@ def test_event_scan_256_node_fleet():
     assert int(gpu.total) == 3520 and int(gpu.forwards) > 0
 
 
+# the 256-node fleet of tests/test_torch_fleet256.py: fleet_workload(256,
+# div=200), 2,048 requests, at the paper's SLA and at sla_scale 0.05
+# (hundreds of forwards over 255 neighbours a node)
+FLEET256_POLICIES = ("batched_feasible", "round_robin", "least_loaded",
+                     "trace", "random", "power_of_two")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sla_scale", [1.0, 0.05])
+@pytest.mark.parametrize("policy", FLEET256_POLICIES)
+def test_event_scan_fleet256_div200_matches_eager_loop(policy, sla_scale):
+    _need_gpu()
+    from repro_torch.fleetsim import SimParams
+    from repro_torch.orchestration import fleet_workload
+    reqs, _ = fleet_workload(256, 200).to_arrays(0)
+    targets = None
+    if policy == "trace":
+        targets = np.random.default_rng(1).integers(
+            -1, 256, (reqs.arrival.shape[0], 2)).astype(np.int32)
+    gpu = _scan_matches_eager(reqs, Topology.full_mesh(256),
+                              params=SimParams.make(0, sla_scale),
+                              policy=policy, capacity=128, depth=64,
+                              targets=targets)
+    assert int(gpu.total) == 2048
+    assert int(gpu.overflow) == int(gpu.window_saturation) == \
+        int(gpu.event_overflow) == 0
+    if sla_scale < 1.0:
+        assert int(gpu.forwards) > 300
+
+
+@pytest.mark.gpu
+def test_radio_dead_on_arrival_on_the_card():
+    """An uplink that eats the whole SLA budget (budgets clamped to
+    ``MIN_DEADLINE``): on the card, as on the CPU, every request is
+    forced and late, and ``run_validation`` is exact against the heap."""
+    _need_gpu()
+    from repro_torch.fleetsim import validate
+    from repro_torch.netsim import CellSite, RadioModel, RadioWorkload
+    from repro_torch.netsim.radio import MIN_DEADLINE
+    topo = Topology.full_mesh(2)
+    radio = RadioModel([CellSite(0, node=0, uplink_latency=5000.0),
+                        CellSite(1, node=1, uplink_latency=5000.0)])
+    wl = RadioWorkload(UniformWorkload([{"S6": 4}, {"S6": 4}], window=200.0,
+                                       name="doa"), radio)
+    reqs, _ = wl.to_arrays(0)
+    assert (reqs.rel_deadline == np.float32(MIN_DEADLINE)).all()
+    for policy in ("round_robin", "random", "batched_feasible"):
+        gpu = _scan_matches_eager(reqs, topo, policy=policy, capacity=64,
+                                  depth=32)
+        assert int(gpu.met_deadline) == 0 and int(gpu.processed) == 8
+        rep = validate.run_validation(wl, 0, policy=policy, topology=topo,
+                                      device="cuda")
+        assert rep.exact, rep.row()
+        assert rep.fleet["met_deadline"] == 0
+        assert rep.fleet["processed"] == 8
+
+
 @pytest.mark.gpu
 def test_event_scan_ring_in_global_memory(monkeypatch):
     """A buffer too large for shared memory lives in global scratch: the

@@ -60,6 +60,20 @@ def test_probe_walks_the_fleet_kernel_modules():
     assert bad.strip() == "[]"
 
 
+def test_probe_walks_the_workload_and_radio_modules():
+    """The arrival processes and the radio model are the port's own copies
+    (the reference's are numpy-only, and still not imported)."""
+    _, bad = _run_probe(
+        "assert {'repro_torch.netsim.radio', "
+        "'repro_torch.orchestration.workload'} <= set(names)\n"
+        "from repro_torch.netsim import RadioWorkload\n"
+        "from repro_torch.orchestration import TraceWorkload, dump_trace\n"
+        "assert RadioWorkload.__module__ == 'repro_torch.netsim.radio'\n"
+        "assert TraceWorkload.__module__ == "
+        "'repro_torch.orchestration.workload'")
+    assert bad.strip() == "[]"
+
+
 def test_chip_smoke_imports_neither_jax_nor_repro():
     _, bad = _run_probe(f"sys.path.insert(0, {ROOT!r}); import chip_smoke")
     assert bad.strip() == "[]"
