@@ -110,7 +110,8 @@ final line:
                 events of the ``batched_feasible`` run beside the
                 kernel's; ``run_validation`` on the mobile radio workload
                 under ``random``, its report the reference's;
-4. vision  — the deadline-aware serving path with DeiT-B at full width:
+4. vision  — the deadline-aware serving path with DeiT-B and ResNet-50 at
+             full width:
              a. ``flash_attention`` against its plain version on a random
                 sweep (causal / window / GQA, S in {1, 63, 65, 127, 129,
                 578, 1024}, D in {64, 80, 128}, f32 and bf16: every variant
@@ -127,15 +128,25 @@ final line:
                 DeiT-B replicas serving the 64-frame campus surveillance
                 stream of ``examples/serve_surveillance.py`` (4K and FHD
                 frames at 384 px, HD at 224 px) with the preferential
-                queue and with FIFO, each run's decisions equal to the
-                golden's and its kernel launches (set to 0 before the run)
-                equal to 12 x its 384-px batches; the kernel's inputs of
-                each batch size served are kept and held against the
+                queue and with FIFO, first stepping eagerly, then through
+                the graphed step (``launch.graphs.GraphedStep``, one CUDA
+                graph per (class, batch size), every batch size captured
+                before the runs); each run's decisions equal to the
+                golden's; the eager runs' kernel launches (the wrapper's
+                count, set to 0 before each run) and the graphed runs'
+                (captured launches x replays, the replays set to 0 before
+                each run; the wrapper's count stays 0) equal to 12 x the
+                run's 384-px batches; a profiled replay of the 384-px
+                batch of 8 shows 12 kernels on the device; the kernel's
+                inputs of each batch size served are kept from the eager
+                runs (no wrapper runs in a replay) and held against the
                 plain version, elementwise and by rms error against the
                 plain version in f32 (within ``RMS_RATIO``); each check
                 is shown to reject a kernel that drops the last key (the
                 rms one on the served inputs, the elementwise one on
-                random inputs of the served shape at B=8);
+                random inputs of the served shape at B=8); the graphed
+                logits equal the eager step's bit for bit at every
+                (class, batch size) served;
              d. the kernel's time at each batch size served and at B=8
                 (S=578, 12 heads, D=64, bf16), with its variant, beside the
                 plain version's, ``scaled_dot_product_attention``'s (the
@@ -145,9 +156,25 @@ final line:
                 f32 peak outside the tensor cores; the ``mma_sync``
                 variant (bf16, D = 80: ViT-H/14's 16 heads at B=8,
                 S=578) checked, then timed beside SDPA and its bound;
-                where the device time of one 384-px batch of 8 goes;
-                the engine's measured step times per class and batch
-                size;
+                where the device time of one eager 384-px batch of 8
+                goes; the engine's measured step times per class and
+                batch size (graph replays); eager against graphed step
+                times at each class and batch size 1, 2, 4, 8 (wall in
+                turns; device busy and idle share, profiled); each
+                graph's capture time and memory;
+             e. ResNet-50 logits (f32 with TF32 off, and bf16; the two
+                images at 224 and 384 px) against the reference's in the
+                golden file's ``resnet`` section, within
+                ``RESNET_LOGIT_ATOL`` (by dtype and side), which is shown
+                to reject a forward whose max pool pads (1, 1) where XLA's
+                SAME pads (0, 1), and in f32 one with cuDNN's TF32 on;
+                each class's frame alone against the golden's within
+                ``RESNET_FRAME_ATOL``; three bf16 ResNet-50 replicas
+                serving the stream eagerly and graphed, decisions equal to
+                the golden's, each frame's class the golden's where its
+                top-1 margin exceeds that tolerance;
+                graphed against eager logits, step times and captures as
+                for DeiT-B;
 5. entry points — the kernels that only ``repro_torch.kernels.ops`` reaches
              (no fleet or vision path calls them; each of their launch
              counts, set to 0 before phase 3, is still 0 after phase 4):
@@ -191,7 +218,9 @@ Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import collections
 import concurrent.futures
+import contextlib
 import dataclasses
 import hashlib
 import itertools
@@ -210,7 +239,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import telemetry as tel  # noqa: E402
-from repro_torch.configs import deit_b  # noqa: E402
+from repro_torch.configs import deit_b, resnet50  # noqa: E402
 from repro_torch.core.simulator import SimConfig, run_simulation  # noqa: E402
 from repro_torch.fleetsim import core as fleet_core  # noqa: E402
 from repro_torch.fleetsim import (NetParams, SimParams,  # noqa: E402
@@ -224,7 +253,7 @@ from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import moe_gemm as mg_mod  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn_mod  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.models import vit  # noqa: E402
+from repro_torch.models import resnet, vit  # noqa: E402
 from repro_torch.core.scenarios import SCENARIOS  # noqa: E402
 from repro_torch.netsim import (LinkModel, RadioModel,  # noqa: E402
                                 RadioWorkload)
@@ -270,12 +299,32 @@ RMS_RATIO = 1.05
 # XLA on the CPU (cuBLAS's GEMMs, the kernel's unnormalised p): the port
 # on the CPU is 0.025 from the reference, and 0.1 leaves 4x that margin
 LOGIT_ATOL = {"float32": 1e-4, "bfloat16": 0.1}
+# ResNet-50 logits against the JAX reference (|logit| <= 3.8 here), by
+# dtype and side.  The random-init network amplifies a rounding
+# difference some 500-fold through its 16 blocks of BatchNorm on batch
+# statistics.  f32 with TF32 off: 5.9e-5 / 3.7e-5 at 224 / 384 px on an
+# H100 (6.5e-5 / 3.1e-5 for the port on the CPU), held at 3e-4.  bf16,
+# where a conv output rounds to the other neighbour wherever its f32
+# sum's order moves it across a rounding boundary: 0.342 / 0.217 on an
+# H100 (0.365 / 0.205 on the CPU), held at 0.45 / 0.3.  Two planted
+# faults must fail at every dtype and side where they apply: the max pool
+# padded (1, 1) (0.625 / 0.427 in f32, 0.538 / 0.390 in bf16 on an H100)
+# and, in f32, cuDNN's TF32.
+RESNET_LOGIT_ATOL = {("float32", 224): 3e-4, ("float32", 384): 3e-4,
+                     ("bfloat16", 224): 0.45, ("bfloat16", 384): 0.3}
+# each surveillance class's frame alone, bf16, against the golden's:
+# 0.187 / 0.117 at 224 / 384 px on an H100.  A class's served frames are
+# held to its golden class where the golden's top-1 / top-2 margin (0.39
+# / 0.30) exceeds this tolerance.
+RESNET_FRAME_ATOL = 0.25
 # the eager loop's segment of each main-path run, how often it keeps an
 # event_select input there, and how much of it is profiled
 SEGMENT_EVENTS, FLEET_CAPTURE_EVERY, PROFILED_EVENTS = 500, 150, 100
 # the forwarding policies that draw from threefry (the golden file's runs
 # that name one of them)
 STOCHASTIC = ("random", "power_of_two")
+# profiler windows that recorded no device entry, tried again (profiled)
+PROFILE_TRIES = 3
 
 
 def fleet256(spec) -> bool:
@@ -1667,6 +1716,175 @@ def golden_images():
     return {r: rng.random((2, r, r, 3), dtype=np.float32) for r in (224, 384)}
 
 
+def serving_frames(spec, dev):
+    """Each class's frame: the first golden image at its ``model_res``."""
+    imgs = golden_images()
+    return [torch.from_numpy(imgs[c["model_res"]][0]).to(dev)
+            for c in spec["classes"]]
+
+
+def warm_up(run_batch, frames, spec):
+    """Every batch size the engine can form, at each class: an eager step
+    chooses its algorithms, a graphed one captures its graph (the largest
+    batch first, so the smaller graphs' captures reuse its blocks of the
+    shared pool)."""
+    for f in frames:
+        for b in range(spec["max_batch"], 0, -1):
+            run_batch("warmup", [f] * b)
+    torch.cuda.synchronize()
+
+
+def serving_run(label, spec, queue, run_batch, frames, cfg, dev):
+    """One run of the golden stream through a fresh engine; its decisions
+    held to the JAX engine's.  Returns the run's record and wall time."""
+    t0 = time.time()
+    got = serve.record_run(spec, queue, run_batch, frames, device=dev)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    want = spec["runs"][queue]
+    for k in ("stats", "classes", "done_at", "forwards", "replica",
+              "batches"):
+        if got[k] != want[k]:
+            fail(f"serving {label} {queue}: {k} differs from the JAX "
+                 f"engine's")
+    if any(not isinstance(r, int) or not 0 <= r < cfg.n_classes
+           for r in got["results"]):
+        fail(f"serving {label} {queue}: a frame got no class")
+    print(f"serving {label} {queue}: {spec['requests']} frames, {wall:.3f} "
+          f"s, {spec['requests'] / wall:.1f} frames/s, stats "
+          f"{got['stats']}; decisions equal the JAX engine's", flush=True)
+    return got, wall
+
+
+def capture_rows(step):
+    """Each captured graph: input shape, warm-up and capture time, the
+    device memory the capture reserved, flash_attention launches in it."""
+    return [dict(shape=list(shape), capture_s=g.capture_s,
+                 reserved_bytes=g.reserved_bytes,
+                 flash_attention=g.flash_launches)
+            for (shape, _, _), g in step.graphs.items()]
+
+
+def print_captures(name, step, dev):
+    rows = capture_rows(step)
+    for r in rows:
+        print(f"vision {name} graph {tuple(r['shape'])}: warm-up and capture "
+              f"{r['capture_s'] * 1e3:.1f} ms, reserved "
+              f"{r['reserved_bytes'] / 2 ** 20:.1f} MiB, "
+              f"{r['flash_attention']} flash_attention launches captured",
+              flush=True)
+    print(f"vision {name}: {len(rows)} graphs in one pool, captured in "
+          f"{sum(r['capture_s'] for r in rows):.2f} s, reserving "
+          f"{sum(r['reserved_bytes'] for r in rows) / 2 ** 20:.1f} MiB; "
+          f"device memory reserved in all "
+          f"{torch.cuda.memory_reserved(dev) / 2 ** 20:.1f} MiB", flush=True)
+
+
+def graph_equals_eager(name, mod, params, cfg, step, spec, served, dev):
+    """For every (class, batch size) served: the graph's logits equal the
+    eager step's on the same (fresh, seeded) frames, bit for bit."""
+    res = {c["name"]: c["model_res"] for c in spec["classes"]}
+    gen = torch.Generator().manual_seed(7)
+    worst = 0.0
+    for cls, b in sorted(served):
+        r = res[cls]
+        x = torch.rand(b, r, r, 3, generator=gen).to(dev)
+        want = mod.serve_step(params, x, cfg)
+        got = step(x).clone()
+        diff = float((got - want).abs().max())
+        worst = max(worst, diff)
+        if not torch.equal(got, want):
+            fail(f"{name} {cls} batch {b}: graphed logits differ from the "
+                 f"eager step's by up to {diff}")
+    print(f"vision {name}: graphed logits equal the eager step's bit for bit "
+          f"at every (class, batch size) served: {sorted(served)}",
+          flush=True)
+
+
+def profiled(fn):
+    """One call of ``fn`` under torch.profiler: its wall time, the device's
+    busy time (its own entries: kernels, copies, fills), and each device
+    entry's count and time by name.  Now and then the profiler records no
+    device entry at all for a window (late in a long process); such a
+    window is profiled again, up to ``PROFILE_TRIES`` times in all, and a
+    window with any device entry is taken as it is."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for tries in range(1, PROFILE_TRIES + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        ka = prof.key_averages()
+        on_dev = [e for e in ka if e.device_type == DeviceType.CUDA]
+        if on_dev:
+            break
+    key = device_time_key(ka) if ka else "self_device_time_total"
+    return dict(wall_us=wall_us, tries=tries,
+                busy_us=sum(getattr(e, key) for e in on_dev),
+                device_counts={e.key: e.count for e in on_dev},
+                device_us={e.key: getattr(e, key) for e in on_dev})
+
+
+def profiled_replay(step, frame, b):
+    x = torch.stack([frame] * b)
+    step(x)
+    return profiled(lambda: step(x))
+
+
+def wall_ms(fn, reps=3) -> float:
+    """The best of ``reps`` host-clock times of ``fn`` (which returns host
+    values, so each call ends when the device's work does)."""
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t0)
+    return best * 1e3
+
+
+def step_table(name, eager_rb, graphed_rb, spec, frames):
+    """Eager against graphed step times at each class and batch size 1, 2,
+    4, 8: wall (in turns, eager, graphed, graphed, eager), then one call
+    of each profiled: device busy and idle share (the profiler slows the
+    host, so a profiled idle share is an upper bound)."""
+    rows = []
+    for c, frame in zip(spec["classes"], frames):
+        for b in (1, 2, 4, 8):
+            calls = {m: (lambda rb=rb: rb(c["name"], [frame] * b))
+                     for m, rb in (("eager", eager_rb),
+                                   ("graphed", graphed_rb))}
+            row = dict(model=name, cls=c["name"], res=c["model_res"], b=b)
+            row["eager_ms"], row["graphed_ms"] = in_turns(
+                lambda: wall_ms(calls["eager"]),
+                lambda: wall_ms(calls["graphed"]))
+            for m, fn in calls.items():
+                p = profiled(fn)
+                row[m + "_busy_ms"] = p["busy_us"] / 1e3
+                row[m + "_profiled_ms"] = p["wall_us"] / 1e3
+                row[m + "_idle"] = 1.0 - p["busy_us"] / p["wall_us"]
+                # the same busy time against the unprofiled wall
+                row[m + "_idle_unprofiled"] = max(
+                    0.0, 1.0 - row[m + "_busy_ms"] / row[m + "_ms"])
+            rows.append(row)
+            print(f"vision step {name} {c['name']} ({c['model_res']} px) "
+                  f"batch {b}: wall eager {row['eager_ms']:.3f} ms, graphed "
+                  f"{row['graphed_ms']:.3f} ms "
+                  f"(x{row['eager_ms'] / row['graphed_ms']:.2f}); "
+                  f"device busy eager {row['eager_busy_ms']:.3f} ms (idle "
+                  f"{row['eager_idle']:.3f} of {row['eager_profiled_ms']:.3f}"
+                  f" ms profiled), graphed {row['graphed_busy_ms']:.3f} ms "
+                  f"(idle {row['graphed_idle']:.3f} of "
+                  f"{row['graphed_profiled_ms']:.3f} ms); idle against the "
+                  f"unprofiled wall: eager {row['eager_idle_unprofiled']:.3f},"
+                  f" graphed {row['graphed_idle_unprofiled']:.3f}", flush=True)
+    return rows
+
+
 def logits_check(tree, vgold, dev):
     """DeiT-B at full width against the JAX reference's logits."""
     for dt in ("float32", "bfloat16"):
@@ -1698,6 +1916,150 @@ def logits_check(tree, vgold, dev):
                      f"launches, expected {expect}")
 
 
+def symmetric_pool(x):
+    """The planted fault: the 3x3/2 max pool padded (1, 1) as PyTorch pads
+    it, where XLA's SAME pads an even side (0, 1)."""
+    return torch.nn.functional.max_pool2d(x, 3, 2, padding=1)
+
+
+def resnet_forward(params, x, cfg, pool=None, tf32=False):
+    """``resnet.forward``, with its max pool replaced by ``pool`` if given,
+    and with cuDNN's TF32 on for an f32 forward if ``tf32``."""
+    real_pool, real_exact = resnet._max_pool, resnet._exact_f32
+    old = torch.backends.cudnn.allow_tf32
+    resnet._max_pool = pool or real_pool
+    if tf32:
+        resnet._exact_f32 = lambda dtype: contextlib.nullcontext()
+        torch.backends.cudnn.allow_tf32 = True
+    try:
+        return resnet.forward(params, x, cfg)
+    finally:
+        resnet._max_pool, resnet._exact_f32 = real_pool, real_exact
+        torch.backends.cudnn.allow_tf32 = old
+
+
+def resnet_logits_check(tree, rgold, dev) -> dict:
+    """ResNet-50 at full width against the JAX reference's logits, f32
+    (TF32 off) and bf16, at 224 and 384 px; each tolerance shown to reject
+    the forward with the pool padded (1, 1) and, in f32, the forward with
+    TF32 on."""
+    out = {}
+    for dt in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(resnet50.CONFIG, param_dtype=dt)
+        params = resnet.params_from_numpy(tree, cfg, dev)
+        for res, img in golden_images().items():
+            tol = RESNET_LOGIT_ATOL[dt, res]
+            want = np.asarray(rgold["logits"][str(res)][dt], np.float32)
+            x = torch.from_numpy(img).to(dev)
+            got = resnet_forward(params, x, cfg).cpu().numpy()
+            faults = {"the pool padded (1, 1)": resnet_forward(
+                params, x, cfg, symmetric_pool).cpu().numpy()}
+            if dt == "float32":
+                faults["TF32 on"] = resnet_forward(
+                    params, x, cfg, tf32=True).cpu().numpy()
+            err = float(np.abs(got - want).max())
+            rms = float(np.sqrt(((got - want) ** 2).mean()))
+            row = out[f"{dt} {res}"] = dict(max_abs_err=err, rms_err=rms,
+                                            atol=tol)
+            print(f"vision ResNet-50 {dt} {res} px: max abs err {err} (rms "
+                  f"{rms}) against the JAX logits (atol {tol})", flush=True)
+            if not np.isfinite(got).all() or got.shape != want.shape:
+                fail(f"ResNet-50 {dt} {res}: logits {got.shape} not finite "
+                     f"or not {want.shape}")
+            if err > tol:
+                fail(f"ResNet-50 {dt} {res}: logits {err} from the reference")
+            if dt == "float32" and not np.array_equal(got.argmax(-1),
+                                                      want.argmax(-1)):
+                fail(f"ResNet-50 {dt} {res}: argmax differs")
+            for fault, bad in faults.items():
+                bad_err = float(np.abs(bad - want).max())
+                bad_rms = float(np.sqrt(((bad - want) ** 2).mean()))
+                row[fault] = dict(max_abs_err=bad_err, rms_err=bad_rms)
+                print(f"vision ResNet-50 {dt} {res} px, {fault}: max abs err "
+                      f"{bad_err} (rms {bad_rms}), "
+                      f"{'rejected' if bad_err > tol else 'NOT rejected'}",
+                      flush=True)
+                if bad_err <= tol:
+                    fail(f"ResNet-50 {dt} {res}: the tolerance {tol} passes "
+                         f"a forward with {fault} ({bad_err})")
+    return out
+
+
+def resnet_phase(vgold, spec, frames, dev) -> dict:
+    """ResNet-50 at full width: its logits against the JAX reference's, then
+    three bf16 replicas serving the golden stream eagerly and through the
+    graphed step, decisions and each frame's class held to the golden's;
+    graphed against eager logits; step times; the graphs' capture cost."""
+    rgold = vgold["resnet"]
+    tree = resnet.numpy_params(resnet50.CONFIG, rgold["weight_seed"])
+    out = dict(logits=resnet_logits_check(tree, rgold, dev))
+    cfg = resnet50.CONFIG
+    params = resnet.params_from_numpy(tree, cfg, dev)
+    del tree
+    tol = RESNET_FRAME_ATOL
+    # each class's frame alone (a batch of copies has its statistics)
+    # against the golden's, and the class each served frame must get
+    # where the golden's top-1 / top-2 margin exceeds the tolerance
+    expect, out["classes"] = {}, {}
+    for c, f in zip(spec["classes"], frames):
+        want = np.asarray(rgold["classes"][c["name"]]["logits"], np.float32)
+        got = resnet.forward(params, f[None], cfg)[0].cpu().numpy()
+        top2 = np.sort(want)[-2:]
+        margin = float(top2[1] - top2[0])
+        err = float(np.abs(got - want).max())
+        out["classes"][c["name"]] = dict(max_abs_err=err, margin=margin,
+                                         golden_class=int(want.argmax()),
+                                         class_=int(got.argmax()))
+        if margin > tol:
+            expect[c["name"]] = int(want.argmax())
+        print(f"vision ResNet-50 {c['name']} frame ({c['model_res']} px, "
+              f"bf16, alone): max abs err {err} against the JAX logits, "
+              f"class {int(got.argmax())} (JAX {int(want.argmax())}, top-1 "
+              f"margin {margin}: {'held' if margin > tol else 'not held'} "
+              f"to it at atol {tol})", flush=True)
+        if not np.isfinite(got).all() or err > tol:
+            fail(f"ResNet-50 {c['name']} frame: logits {err} from the "
+                 f"reference")
+    idx = {c["name"]: i for i, c in enumerate(spec["classes"])}
+    walls, served_shapes = {}, set()
+    eager_rb = serve.make_run_batch(params, cfg, graphed=False)
+    graphed_rb = serve.make_run_batch(params, cfg)
+    step = graphed_rb.step
+    warm_up(eager_rb, frames, spec)
+    warm_up(graphed_rb, frames, spec)
+    print_captures("ResNet-50", step, dev)
+    for mode, rb in (("eager", eager_rb), ("graphed", graphed_rb)):
+        for queue in ("preferential", "fifo"):
+            step.reset_counts()
+            got, walls[f"{mode} {queue}"] = serving_run(
+                f"ResNet-50 {mode}", spec, queue, rb, frames, cfg, dev)
+            wrong = [i for i, (c, r) in enumerate(zip(got["classes"],
+                                                      got["results"]))
+                     if spec["classes"][c]["name"] in expect
+                     and r != expect[spec["classes"][c]["name"]]]
+            held = sum(spec["classes"][c]["name"] in expect
+                       for c in got["classes"])
+            given = sorted(collections.Counter(got["results"]).items())
+            print(f"serving ResNet-50 {mode} {queue}: {held} frames held to "
+                  f"their class's JAX class, {len(wrong)} differ; classes "
+                  f"given (class, frames): {given}", flush=True)
+            if wrong:
+                fail(f"serving ResNet-50 {mode} {queue}: frames {wrong} got "
+                     f"another class than the JAX logits give")
+            if mode == "graphed":
+                served_shapes.update((c, b) for _, c, b in got["batches"])
+                if step.launches() or not sum(
+                        g.replays for g in step.graphs.values()):
+                    fail("ResNet-50 graphed: no replay, or a flash_attention "
+                         "launch")
+    graph_equals_eager("ResNet-50", resnet, params, cfg, step, spec,
+                       served_shapes, dev)
+    out["serving_wall_s"] = walls
+    out["steps"] = step_table("ResNet-50", eager_rb, graphed_rb, spec, frames)
+    out["captures"] = capture_rows(step)
+    return out
+
+
 def bound(bytes_ms, ops_ms):
     """The least time, the larger of the two, and which one it is."""
     return max(bytes_ms, ops_ms), \
@@ -1716,32 +2078,20 @@ def flash_bound_ms(B, S, H, KV, D, itemsize):
 
 
 def batch_breakdown(params, cfg, frame, b=8):
-    """Device time of one forward of ``b`` frames by kind of kernel:
+    """Device time of one eager forward of ``b`` frames by kind of kernel:
     flash_attention, matrix products (cuBLAS), the rest."""
-    from torch.profiler import ProfilerActivity, profile
-    from torch.autograd import DeviceType
     x = torch.stack([frame] * b)
     vit.forward(params, x, cfg)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        t0 = time.time()
-        vit.forward(params, x, cfg)
-        torch.cuda.synchronize()
-        wall_us = (time.time() - t0) * 1e6
-    ka = prof.key_averages()
-    key = device_time_key(ka)
+    p = profiled(lambda: vit.forward(params, x, cfg))
     kinds = {"flash_attention": 0.0, "matmul": 0.0, "other": 0.0}
-    for e in ka:
-        if e.device_type != DeviceType.CUDA:
-            continue
-        name = e.key.lower()
+    for name, us in p["device_us"].items():
+        name = name.lower()
         kind = ("flash_attention" if "flash_attention" in name else
                 "matmul" if any(s in name for s in (
                     "gemm", "xmma", "cutlass", "nvjet", "matmul"))
                 else "other")
-        kinds[kind] += getattr(e, key)
-    return wall_us, kinds
+        kinds[kind] += us
+    return p["wall_us"], kinds
 
 
 def flash_times(q, k, v, reps=100) -> dict:
@@ -1790,20 +2140,18 @@ def vision_phase(dev):
           f"{time.time() - t0:.1f} s", flush=True)
     logits_check(tree, vgold, dev)
 
-    # the main path: bf16 DeiT-B at full width behind the serving engine
+    # the main path: bf16 DeiT-B at full width behind the serving engine,
+    # first stepping eagerly (the before numbers, and the kernel's served
+    # inputs kept), then replaying one CUDA graph per (class, batch size)
     cfg = dataclasses.replace(deit_b.CONFIG, attn_impl="pallas")
     params = vit.params_from_numpy(tree, cfg, dev)
     del tree
-    imgs = golden_images()
     spec = vgold["serving"]
-    frames = [torch.from_numpy(imgs[c["model_res"]][0]).to(dev)
-              for c in spec["classes"]]
+    frames = serving_frames(spec, dev)
     on_kernel = {c["name"] for c in spec["classes"]
                  if cfg.n_tokens(c["model_res"]) > cfg.attn_chunk}
-    run_batch = serve.make_run_batch(params, cfg)
-    for f in frames:                                   # warm-up
-        run_batch("warmup", [f])
-    torch.cuda.synchronize()
+    eager_rb = serve.make_run_batch(params, cfg, graphed=False)
+    warm_up(eager_rb, frames, spec)
     seen = set()
 
     def keep(i, args):                 # one input per batch size served
@@ -1817,31 +2165,55 @@ def vision_phase(dev):
     for queue in ("preferential", "fifo"):
         with Spy(ops, "flash_attention", keep) as spy:
             fa_mod.flash_attention.launches = 0
-            t0 = time.time()
-            got = serve.record_run(spec, queue, run_batch, frames,
-                                   device=dev)
-            torch.cuda.synchronize()
-            walls[queue] = time.time() - t0
+            got, walls["eager " + queue] = serving_run(
+                "DeiT-B eager", spec, queue, eager_rb, frames, cfg, dev)
             n_launch = fa_mod.flash_attention.launches
         kept += spy.kept
-        want = spec["runs"][queue]
-        for k in ("stats", "classes", "done_at", "forwards", "replica",
-                  "batches"):
-            if got[k] != want[k]:
-                fail(f"serving {queue}: {k} differs from the JAX engine's")
-        if any(not isinstance(r, int) or not 0 <= r < cfg.n_classes
-               for r in got["results"]):
-            fail(f"serving {queue}: a frame got no class")
         n_kb = sum(1 for _, c, _ in got["batches"] if c in on_kernel)
-        launches[queue], kernel_batches[queue] = n_launch, n_kb
-        print(f"serving {queue}: {spec['requests']} frames, "
-              f"{walls[queue]:.3f} s, {spec['requests'] / walls[queue]:.1f} "
-              f"frames/s, stats {got['stats']}, {n_kb} batches at 384 px, "
-              f"{n_launch} flash_attention launches; decisions equal the "
-              f"JAX engine's", flush=True)
+        launches["eager " + queue], kernel_batches[queue] = n_launch, n_kb
+        print(f"serving DeiT-B eager {queue}: {n_kb} batches at 384 px, "
+              f"{n_launch} flash_attention launches", flush=True)
         if n_launch != cfg.n_layers * n_kb or n_launch == 0:
             fail(f"serving {queue}: {n_launch} flash_attention launches for "
                  f"{n_kb} batches at 384 px of {cfg.n_layers} layers")
+
+    graphed_rb = serve.make_run_batch(params, cfg)
+    step = graphed_rb.step
+    warm_up(graphed_rb, frames, spec)
+    print_captures("DeiT-B", step, dev)
+    served_shapes = set()
+    for queue in ("preferential", "fifo"):
+        step.reset_counts()
+        fa_mod.flash_attention.launches = 0
+        got, walls[queue] = serving_run("DeiT-B graphed", spec, queue,
+                                        graphed_rb, frames, cfg, dev)
+        n_launch, eager_launches = (step.launches(),
+                                    fa_mod.flash_attention.launches)
+        n_kb = sum(1 for _, c, _ in got["batches"] if c in on_kernel)
+        launches[queue] = n_launch
+        served_shapes.update((c, b) for _, c, b in got["batches"])
+        print(f"serving DeiT-B graphed {queue}: {n_kb} batches at 384 px, "
+              f"{n_launch} flash_attention launches replayed (captured "
+              f"launches x replays), {eager_launches} through the wrapper",
+              flush=True)
+        if n_launch != cfg.n_layers * n_kb or n_launch == 0 \
+                or eager_launches:
+            fail(f"serving graphed {queue}: {n_launch} flash_attention "
+                 f"launches replayed and {eager_launches} eager for {n_kb} "
+                 f"batches at 384 px of {cfg.n_layers} layers")
+    graph_equals_eager("DeiT-B", vit, params, cfg, step, spec,
+                       served_shapes, dev)
+    replay = profiled_replay(step, frames[0], spec["max_batch"])
+    n_replayed = sum(n for name, n in replay["device_counts"].items()
+                     if "flash_attention" in name.lower())
+    print(f"vision DeiT-B graph replay at 384 px, batch of "
+          f"{spec['max_batch']} (profiled): {replay['wall_us']:.0f} us "
+          f"wall, device busy {replay['busy_us']:.0f} us, "
+          f"{n_replayed} flash_attention kernels on the device (profiler "
+          f"windows: {replay['tries']})", flush=True)
+    if n_replayed != cfg.n_layers:
+        fail(f"a profiled replay shows {n_replayed} flash_attention kernels,"
+             f" expected {cfg.n_layers}")
 
     sizes = sorted(args[0].shape[0] for args, _ in kept)
     served = sorted({s for q in spec["runs"].values()
@@ -1911,15 +2283,26 @@ def vision_phase(dev):
               f"{k} {v:.0f} us ({v / total:.3f})" for k, v in kinds.items()),
           flush=True)
     for cls, frame in zip(serve.service_classes(spec), frames):
-        measure_step_times(run_batch, cls, frame)
-        print(f"vision step times {cls.name} ({frame.shape[0]} px), wall s "
-              f"per batch size: {cls.batch_proc_time}", flush=True)
-    return dict(launches=sum(launches.values()), launches_by_run=launches,
+        measure_step_times(graphed_rb, cls, frame)
+        print(f"vision step times {cls.name} ({frame.shape[0]} px), graph "
+              f"replays, wall s per batch size: {cls.batch_proc_time}",
+              flush=True)
+    steps = {"DeiT-B": step_table("DeiT-B", eager_rb, graphed_rb, spec,
+                                  frames)}
+    captures = {"DeiT-B": capture_rows(step)}
+    del eager_rb, graphed_rb, step, params
+    resnet_out = resnet_phase(vgold, spec, frames, dev)
+    steps["ResNet-50"] = resnet_out.pop("steps")
+    captures["ResNet-50"] = resnet_out.pop("captures")
+    main = {q: launches[q] for q in ("preferential", "fifo")}
+    return dict(launches=sum(main.values()), launches_by_run=launches,
                 batches_at_384=kernel_batches, max_abs_err=max_err,
                 ms=row["ms"], plain_ms=row["plain_ms"],
                 bound_ms=row["bound_ms"], bound_by=row["bound_by"],
                 library_ms=row["library_ms"], variant=row["variant"],
-                ratio=row["ratio"], serving_wall_s=walls, shapes=rows)
+                ratio=row["ratio"], serving_wall_s=walls,
+                replay_flash_kernels=n_replayed, shapes=rows,
+                step_times=steps, captures=captures, resnet=resnet_out)
 
 
 # ---------------------------------------------------------------------------

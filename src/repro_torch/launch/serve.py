@@ -5,19 +5,24 @@ one device (the port of ``repro/launch/serve.py``, same options plus
 The paper's deployment: requests with per-resolution SLA deadlines are
 admitted by the preferential queue (or FIFO for comparison), forwarded
 between replicas on rejection, and executed in deadline-aware batches.
-The model is the arch's smoke configuration with seeded weights
-(:func:`repro_torch.models.vit.numpy_params`, seed 0); engine time is
-the reference's fixed step-time model, so the engine's decisions do not
-depend on the device.
+The model is the arch's smoke configuration (a vision transformer or
+ResNet) with seeded weights (the model module's ``numpy_params``, seed
+0); engine time is the reference's fixed step-time model, so the
+engine's decisions do not depend on the device.  On CUDA each replica
+batch replays a CUDA graph of the model's serve step, one per (class
+resolution, batch size) (:class:`repro_torch.launch.graphs.GraphedStep`,
+the counterpart of the reference's ``jax.jit``); on the CPU the step runs
+eagerly.
 
     python -m repro_torch.launch.serve --arch deit-b \\
         --replicas 3 --requests 60 --queue preferential     # on the GPU
-    python -m repro_torch.launch.serve --arch deit-b --device cpu
+    python -m repro_torch.launch.serve --arch resnet-50 --device cpu
 
 The helpers below are the pieces a caller combines for another stream:
 ``SURVEILLANCE`` is the surveillance stream that ``chip_smoke.py`` serves
-with DeiT-B at full width, and :func:`record_run` records an engine's
-decisions on it, for this package's engine or the reference's.
+with DeiT-B and ResNet-50 at full width, and :func:`record_run` records
+an engine's decisions on it, for this package's engine or the
+reference's.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ import torch
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.queues import FIFOQueue
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch.graphs import GraphedStep
 from repro_torch.launch.steps import model_module
 from repro_torch.serving.engine import (DeadlineAwareEngine, ServeRequest,
                                         ServiceClass, ServingReplica)
@@ -76,18 +82,32 @@ def service_classes(spec, service_class=ServiceClass) -> list:
     return out
 
 
-def make_run_batch(params, cfg, mod=None
+def make_run_batch(params, cfg, mod=None, graphed: Optional[bool] = None
                    ) -> Callable[[str, List[torch.Tensor]], List[int]]:
     """A replica's ``run_batch``: stack the frames (H, W, C), run the
     model's ``serve_step`` on the parameters' device, return each frame's
     argmax class as a host int (so the call ends when the device's work
-    does)."""
+    does).
+
+    ``graphed`` (default: whether the parameters are on CUDA) replays one
+    CUDA graph per input shape (:class:`GraphedStep`, kept as
+    ``run_batch.step``); the argmax reads the graph's static output before
+    the next call can overwrite it.  ``graphed=False`` runs the step
+    eagerly, the form the CPU runs and the one graphs are timed
+    against."""
     mod = mod or model_module(cfg)
+    on_cuda = params["head"]["w"].is_cuda        # both vision families
+    if graphed is None:
+        graphed = on_cuda
+    if graphed and not on_cuda:
+        raise ValueError("graphed=True needs the parameters on CUDA")
+    step = GraphedStep.for_model(mod, params, cfg) if graphed else \
+        (lambda images: mod.serve_step(params, images, cfg))
 
     def run_batch(cls_name: str, payloads: List[torch.Tensor]) -> List[int]:
-        logits = mod.serve_step(params, torch.stack(payloads), cfg)
-        return logits.argmax(-1).tolist()
+        return step(torch.stack(payloads)).argmax(-1).tolist()
 
+    run_batch.step = step
     return run_batch
 
 

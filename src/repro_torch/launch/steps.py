@@ -1,12 +1,11 @@
 """Model lookup by family (the port of ``model_module`` from
 ``repro/launch/steps.py``; the dry-run cells, training steps and the
-other families come with ROADMAP open items 7-9)."""
+other families come with ROADMAP open items 8-9)."""
 from __future__ import annotations
 
-from repro_torch.models import vit
+from repro_torch.models import resnet, vit
 
 _WAITING = {
-    "resnet": "ROADMAP open item 7 (models/resnet.py)",
     "lm": "ROADMAP open item 8 (models/transformer.py)",
     "dit": "ROADMAP open item 8 (models/dit.py)",
     "unet": "ROADMAP open item 8 (models/unet.py)",
@@ -18,6 +17,8 @@ def model_module(cfg):
     ``cfg.family``."""
     if cfg.family == "vit":
         return vit
+    if cfg.family == "resnet":
+        return resnet
     if cfg.family in _WAITING:
         raise NotImplementedError(f"family {cfg.family!r} is not ported "
                                   f"to repro_torch yet: "

@@ -26,7 +26,8 @@ The engine is host Python, as in the reference, with the same seeding
 ``np.random.default_rng(seed)`` for origins), so both packages make the
 same decisions on the same stream.  The data plane is whatever
 ``run_batch`` the replicas are given (``repro_torch.launch.serve`` builds
-one over :mod:`repro_torch.models.vit` on the card); the router's
+one over :mod:`repro_torch.models.vit` or :mod:`repro_torch.models.resnet`,
+replaying CUDA graphs on the card); the router's
 ``batched_feasible`` scoring runs on the engine's ``device``.
 """
 from __future__ import annotations
@@ -295,7 +296,10 @@ def measure_step_times(run_batch: Callable[[str, List[Any]], Any],
     """Fill cls.batch_proc_time with wall-clock measurements (and set
     proc_time to the measured batch-1 worst case).  ``run_batch`` must
     return host values (as ``launch.serve``'s does), so that the wall
-    clock covers the device's work."""
+    clock covers the device's work.  On CUDA, ``launch.serve``'s
+    ``run_batch`` replays a CUDA graph per batch shape, so these are the
+    times of graph replays (the warm-up call captures a new shape's
+    graph); its ``graphed=False`` form times the eager step."""
     for b in batches:
         payloads = [payload] * b
         for _ in range(warmup):

@@ -21,12 +21,27 @@ packages get the same inputs, made with numpy:
   ``random`` forwarding policy), with the preferential queue and with
   FIFO: per request its completion time, forwards and serving replica,
   every batch (replica, class, size) in execution order, and the
-  engine's stats.
+  engine's stats;
+* **ResNet-50 logits** (section ``resnet``): the reference's
+  ``repro.models.resnet.forward``, jitted, at full width
+  (``repro.configs.resnet50.CONFIG``) with the seeded weights
+  ``repro_torch.models.resnet.numpy_params(CONFIG, 0)`` (kernels and head
+  cast to the run's dtype, BatchNorm scales and biases kept in f32, as
+  the reference's ``param_defs`` types them), on the same two images at
+  224 and 384 px in float32 and bfloat16; and, in bfloat16, the logits of
+  each ``SURVEILLANCE`` class's frame (the first image at the class's
+  ``model_res``) as a batch of one, the batch the serving run's argmax
+  is held to (BatchNorm uses batch statistics, and a batch of copies of
+  one frame has that frame's statistics).
 
-    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/make_torch_vit_golden.py
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/make_torch_vit_golden.py \\
+        [--only logits serving resnet]
+
+``--only`` recomputes the named sections and keeps the rest of the file.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import os
@@ -38,12 +53,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from repro.configs import deit_b
+from repro.configs import deit_b, resnet50
 from repro.core.queues import FIFOQueue
-from repro.models import vit
+from repro.models import resnet, vit
 from repro.serving import engine
 from repro_torch.configs import deit_b as torch_deit_b
+from repro_torch.configs import resnet50 as torch_resnet50
 from repro_torch.launch.serve import SURVEILLANCE, record_run
+from repro_torch.models import common as torch_common
+from repro_torch.models import resnet as torch_resnet
 from repro_torch.models import vit as torch_vit
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
@@ -75,10 +93,52 @@ def logits_golden():
             lg = np.asarray(fwd(params, jnp.asarray(img)), np.float32)
             print(f"logits {res} {dt}: {time.time() - t0:.1f} s, max "
                   f"|logit| {np.abs(lg).max():.3f}", flush=True)
-            assert np.isfinite(lg).all()
-            out.setdefault(str(res), {})[dt] = [
-                [float(f"{x:.8g}") for x in row] for row in lg]
+            out.setdefault(str(res), {})[dt] = _rows(lg)
     return out
+
+
+def _rows(logits):
+    """Finite logits as JSON rows, 8 significant digits."""
+    lg = np.asarray(logits, np.float32)
+    assert np.isfinite(lg).all()
+    return [[float(f"{x:.8g}") for x in row] for row in lg]
+
+
+def resnet_reference_params(tree, tcfg):
+    """The numpy tree as the reference's parameters: each leaf cast to the
+    dtype its ``param_defs`` entry names."""
+    out = {}
+    for path, d in torch_resnet.param_defs(tcfg).items():
+        torch_common.assign(out, path, jnp.asarray(
+            torch_resnet.nested(tree, path)).astype(d.dtype))
+    return out
+
+
+def resnet_golden():
+    tree = torch_resnet.numpy_params(torch_resnet50.CONFIG, WEIGHT_SEED)
+    imgs = images()
+    logits, classes = {}, {}
+    for dt in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(resnet50.CONFIG, param_dtype=dt)
+        params = resnet_reference_params(
+            tree, dataclasses.replace(torch_resnet50.CONFIG, param_dtype=dt))
+        fwd = jax.jit(lambda p, x: resnet.forward(p, x, cfg))
+        for res, img in imgs.items():
+            t0 = time.time()
+            logits.setdefault(str(res), {})[dt] = _rows(
+                fwd(params, jnp.asarray(img)))
+            print(f"resnet logits {res} {dt}: {time.time() - t0:.1f} s",
+                  flush=True)
+        if dt == "bfloat16":
+            for c in SURVEILLANCE["classes"]:
+                frame = imgs[c["model_res"]][:1]
+                classes[c["name"]] = dict(
+                    model_res=c["model_res"], dtype=dt,
+                    logits=_rows(fwd(params, jnp.asarray(frame)))[0])
+    return dict(arch="resnet-50", weight_seed=WEIGHT_SEED,
+                image_seed=IMAGE_SEED, n_images=N_IMAGES,
+                resolutions=list(RESOLUTIONS), logits=logits,
+                classes=classes)
 
 
 def decisions(queue):
@@ -95,16 +155,34 @@ def decisions(queue):
     return run
 
 
-def main() -> int:
+def serving_golden():
     serving = dict(SURVEILLANCE, runs={q: decisions(q)
                                        for q in ("preferential", "fifo")})
     for q, run in serving["runs"].items():
         print(f"serving {q}: {run['stats']}", flush=True)
+    return serving
+
+
+SECTIONS = {"logits": logits_golden, "serving": serving_golden,
+            "resnet": resnet_golden}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", nargs="+", metavar="NAME", default=(),
+                    choices=sorted(SECTIONS),
+                    help="recompute these sections, keep the rest")
+    only = ap.parse_args().only
     golden = dict(
         arch="deit-b", attn_impl="pallas", weight_seed=WEIGHT_SEED,
         image_seed=IMAGE_SEED, n_images=N_IMAGES,
-        resolutions=list(RESOLUTIONS), logits=logits_golden(),
-        serving=serving)
+        resolutions=list(RESOLUTIONS))
+    kept = {}
+    if only:
+        with open(GOLDEN) as f:
+            kept = json.load(f)
+    for name, make in SECTIONS.items():
+        golden[name] = make() if not only or name in only else kept[name]
     os.makedirs(os.path.dirname(GOLDEN), exist_ok=True)
     with open(GOLDEN, "w") as f:
         json.dump(golden, f, separators=(",", ":"))

@@ -1,6 +1,7 @@
 """The port on an NVIDIA GPU: the hand-written kernels against their plain
-PyTorch versions, and the simulator (the event_scan kernel) and the ViT
-on the card against the same code on the CPU.
+PyTorch versions, the simulator (the event_scan kernel), the ViT and
+ResNet on the card against the same code on the CPU, and the graphed
+serve step against the eager one.
 Imports no JAX, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -13,13 +14,15 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import deit_b, get_smoke_config, resnet50
 from repro_torch.fleetsim import simulate, topology_arrays
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import event_scan as scan
 from repro_torch.kernels import event_select as es
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.models import vit
+from repro_torch.launch import serve
+from repro_torch.launch.graphs import GraphedStep
+from repro_torch.models import resnet, vit
 from repro_torch.netsim import LinkModel
 from repro_torch.orchestration import Topology, UniformWorkload
 
@@ -808,3 +811,129 @@ def test_rmsnorm_kernel_scale_dtypes_and_grid(R, d, dtype, scale_dtype):
     assert "rmsnorm" in next(iter(kernels)), kernels
     torch.testing.assert_close(got.float(), want.float(),
                                **ref.rmsnorm_tolerance(dtype))
+
+
+# ---------------------------------------------------------------------------
+# ResNet on the card, and the serve step captured as CUDA graphs
+# ---------------------------------------------------------------------------
+@pytest.mark.gpu
+def test_resnet_on_gpu_matches_cpu_in_f32():
+    """The narrow 4-stage ResNet in f32 on the card against the CPU within
+    1e-4, with cuDNN's TF32 switched on by the caller: the f32 forward
+    turns it off for its convolutions (TF32 would be ~1e-3 off) and
+    restores it."""
+    _need_gpu()
+    cfg = dataclasses.replace(resnet50.CONFIG, width=8, depths=(1, 1, 1, 1),
+                              n_classes=10, param_dtype="float32")
+    tree = resnet.numpy_params(cfg, 0)
+    img = torch.from_numpy(np.random.default_rng(0).random(
+        (2, 100, 100, 3), dtype=np.float32))
+    cpu = resnet.forward(resnet.params_from_numpy(tree, cfg, "cpu"), img, cfg)
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        gpu = resnet.forward(resnet.params_from_numpy(tree, cfg, "cuda"),
+                             img.cuda(), cfg)
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+    torch.testing.assert_close(gpu.cpu(), cpu, rtol=0, atol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def vision_models():
+    """DeiT-B (the kernel path at 384 px) and ResNet-50 at full width, bf16,
+    seeded weights, on the card."""
+    _need_gpu()
+    out = {}
+    for name, cfg, mod in (
+            ("deit-b", dataclasses.replace(deit_b.CONFIG, attn_impl="pallas"),
+             vit),
+            ("resnet-50", resnet50.CONFIG, resnet)):
+        out[name] = (mod, mod.params_from_numpy(mod.numpy_params(cfg, 0),
+                                                cfg, "cuda"), cfg)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("name,res", [("deit-b", 224), ("deit-b", 384),
+                                      ("resnet-50", 224)])
+def test_graphed_step_equals_eager_step(vision_models, name, res, b):
+    """Bit for bit at the served classes' shapes; a second replay with new
+    frames gives those frames' logits (no stale buffer)."""
+    mod, params, cfg = vision_models[name]
+    step = GraphedStep.for_model(mod, params, cfg)
+    g = torch.Generator().manual_seed(res + b)
+    x1, x2 = (torch.rand(b, res, res, 3, generator=g).cuda()
+              for _ in range(2))
+    got1 = step(x1).clone()
+    assert torch.equal(got1, mod.serve_step(params, x1, cfg))
+    got2 = step(x2)
+    assert torch.equal(got2, mod.serve_step(params, x2, cfg))
+    assert not torch.equal(got2, got1)
+    assert len(step.graphs) == 1
+    assert next(iter(step.graphs.values())).replays == 2
+
+
+@pytest.mark.gpu
+def test_graphed_deit_b_counts_its_captured_flash_launches(vision_models):
+    """A 384-px graph holds one flash_attention launch per layer; replays
+    run no wrapper, so the launches are counted as captured x replays."""
+    mod, params, cfg = vision_models["deit-b"]
+    step = GraphedStep.for_model(mod, params, cfg)
+    x = torch.rand(2, 384, 384, 3).cuda()
+    step(x)
+    assert [g.flash_launches for g in step.graphs.values()] \
+        == [cfg.n_layers]
+    wrapper = fa.flash_attention.launches
+    step(x)
+    step(x)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == wrapper
+    assert step.launches() == 3 * cfg.n_layers
+    step(x[:, :224, :224].contiguous())          # 198 tokens: naive path
+    assert sorted(g.flash_launches
+                  for g in step.graphs.values()) == [0, cfg.n_layers]
+    step.reset_counts()
+    assert step.launches() == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["deit-b", "resnet-50"])
+def test_serve_launcher_on_gpu_replays_graphs(arch, capsys):
+    """The launcher on the card (graphed by default) prints what it prints
+    on the CPU: the engine's decisions do not depend on the device."""
+    _need_gpu()
+    serve.main(["--arch", arch, "--requests", "24", "--device", "cpu"])
+    want = capsys.readouterr().out.strip().splitlines()[-1]
+    serve.main(["--arch", arch, "--requests", "24"])
+    assert capsys.readouterr().out.strip().splitlines()[-1] == want
+    cfg = get_smoke_config(arch)
+    mod = serve.model_module(cfg)
+    params = mod.params_from_numpy(mod.numpy_params(cfg, 0), cfg, "cuda")
+    run_batch = serve.make_run_batch(params, cfg)
+    assert isinstance(run_batch.step, GraphedStep)
+    img = torch.rand(cfg.img_res, cfg.img_res, 3).cuda()
+    eager = serve.make_run_batch(params, cfg, graphed=False)
+    assert run_batch("hd", [img] * 3) == eager("hd", [img] * 3)
+
+
+@pytest.mark.gpu
+def test_failed_capture_raises():
+    """A step that reads a value back to the host cannot be captured: the
+    error propagates (no eager fallback), no graph is kept, and the card
+    goes on working."""
+    _need_gpu()
+
+    def host_read(images):
+        y = images * 2
+        if float(y.sum()) < 0:
+            y = -y
+        return y
+
+    step = GraphedStep(host_read)
+    with pytest.raises(RuntimeError):
+        step(torch.ones(2, 4, device="cuda"))
+    assert not step.graphs
+    assert float(torch.ones(3, device="cuda").sum()) == 3.0

@@ -74,6 +74,18 @@ def test_probe_walks_the_workload_and_radio_modules():
     assert bad.strip() == "[]"
 
 
+def test_probe_walks_the_resnet_and_graph_modules():
+    """ResNet-50's config and model and the graphed serve step are the
+    port's own (the reference's ``ResNetConfig`` is not imported)."""
+    _, bad = _run_probe(
+        "assert {'repro_torch.models.resnet', 'repro_torch.launch.graphs', "
+        "'repro_torch.configs.resnet50'} <= set(names)\n"
+        "from repro_torch.configs import ResNetConfig, get_config\n"
+        "assert ResNetConfig.__module__ == 'repro_torch.configs.base'\n"
+        "assert type(get_config('resnet-50')) is ResNetConfig")
+    assert bad.strip() == "[]"
+
+
 def test_chip_smoke_imports_neither_jax_nor_repro():
     _, bad = _run_probe(f"sys.path.insert(0, {ROOT!r}); import chip_smoke")
     assert bad.strip() == "[]"

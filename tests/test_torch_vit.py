@@ -25,7 +25,7 @@ from repro.models import vit as jvit
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import ViTConfig
 from repro_torch.launch.steps import model_module
-from repro_torch.models import common, vit
+from repro_torch.models import common, resnet, vit
 
 ARCHS = ["deit-b", "vit-l16", "vit-h14"]
 LOGIT_ATOL = {"float32": 1e-4, "bfloat16": 5e-2}
@@ -139,27 +139,34 @@ def test_init_params_uses_the_generator():
     assert torch.equal(a["final_ln"]["scale"], torch.ones(64, dtype=torch.bfloat16))
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["resnet-50"])
 def test_configs_match_reference(arch):
+    """Every vision arch of the registry: the reference's fields, defaults
+    and parameter count; ``n_tokens`` where the family has tokens."""
     from repro.configs import get_config as jget
     for mine, theirs in ((get_config(arch), jget(arch)),
                          (get_smoke_config(arch), jax_smoke(arch))):
+        assert type(mine).__name__ == type(theirs).__name__
         assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
-        assert mine.n_tokens(384) == theirs.n_tokens(384)
         assert mine.total_params() == theirs.total_params()
-    assert model_module(get_config(arch)) is vit
+        if mine.family == "vit":
+            assert mine.n_tokens(384) == theirs.n_tokens(384)
+        else:
+            assert not hasattr(mine, "n_tokens")
+    assert model_module(get_config(arch)) is (
+        vit if get_config(arch).family == "vit" else resnet)
 
 
 def test_other_archs_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="open item 7"):
-        get_config("resnet-50")
+    with pytest.raises(NotImplementedError, match="open item 8"):
+        get_config("dit-xl2")
     with pytest.raises(NotImplementedError, match="open item 8"):
         get_smoke_config("gemma3-27b")
     with pytest.raises(ValueError, match="unknown arch"):
         get_config("vit-b32")
-    with pytest.raises(NotImplementedError, match="open item 7"):
+    with pytest.raises(NotImplementedError, match="open item 8"):
         model_module(dataclasses.replace(get_config("deit-b"),
-                                         family="resnet"))
+                                         family="dit"))
 
 
 def test_deit_b_serving_shapes():
