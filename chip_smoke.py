@@ -110,13 +110,14 @@ final line:
                 events of the ``batched_feasible`` run beside the
                 kernel's; ``run_validation`` on the mobile radio workload
                 under ``random``, its report the reference's;
-4. vision  — the deadline-aware serving path with DeiT-B and ResNet-50 at
-             full width:
+4. vision  — the deadline-aware serving path with DeiT-B, ResNet-50 and
+             ViT-H/14 at full width:
              a. ``flash_attention`` against its plain version on a random
                 sweep (causal / window / GQA, S in {1, 63, 65, 127, 129,
-                578, 1024}, D in {64, 80, 128}, f32 and bf16: every variant
-                of the wrapper, ``tma_wgmma`` with and without split keys,
-                ``mma_sync`` and ``f32_regtile``), held to
+                578, 730, 1024}, D in {32, 64, 72, 80, 128}, f32 and bf16:
+                every variant of the wrapper, ``tma_wgmma`` with and
+                without split keys at D = 64, 72, 80 and 128, ``mma_sync``
+                at D = 32 and ``f32_regtile``), held to
                 ``ref.flash_attention_tolerance``, a tolerance scaled to
                 each case;
              b. DeiT-B logits (seeded weights, two seeded images at 224
@@ -153,9 +154,12 @@ final line:
                 yardstick; the port never calls it), their ratio and the
                 bound; the f32 kernel at B=1 and B=8 beside its plain
                 version, SDPA in f32, their ratio and its bound at the
-                f32 peak outside the tensor cores; the ``mma_sync``
-                variant (bf16, D = 80: ViT-H/14's 16 heads at B=8,
-                S=578) checked, then timed beside SDPA and its bound;
+                f32 peak outside the tensor cores; ``tma_wgmma`` at heads
+                80 wide (ViT-H/14's 16 at B=8, S=578 and 730) and 72
+                wide (DiT-XL/2's 16 at B=8, S=1024), and the ``mma_sync``
+                variant on a view of (8, 578, 16, 80) one element off
+                16-byte alignment, each checked, then timed beside SDPA
+                and its bound;
                 where the device time of one eager 384-px batch of 8
                 goes; the engine's measured step times per class and
                 batch size (graph replays); eager against graphed step
@@ -175,6 +179,28 @@ final line:
                 top-1 margin exceeds that tolerance;
                 graphed against eager logits, step times and captures as
                 for DeiT-B;
+             f. ViT-H/14 (``configs/vit_h14.py``: 32 layers, d 1280, 16
+                heads 80 wide; seeded weights, 632 M parameters): logits
+                (f32 and bf16, the two images at 224 px, 257 tokens, no
+                launch, and 384 px, 730 tokens, 32 launches) against the
+                golden file's ``vit_h14`` section within
+                ``VIT_H14_LOGIT_ATOL`` and ``VIT_H14_LOGIT_RMS`` (by dtype
+                and side), shown to reject the planted faults that reach
+                each side (in f32 and bf16: the last layer skipped, a
+                kernel that drops the ragged last key tile; in f32 also a
+                kernel that drops the last key, scores scaled by 128^-0.5,
+                the padded width's scale, and the pos-embed resized with
+                its grid transposed); each class's frame alone within
+                ``VIT_H14_FRAME_ATOL``; three bf16 replicas serving the
+                stream eagerly and graphed as DeiT-B's (decisions, 32
+                launches a 384-px batch, a profiled replay of the batch of
+                8 showing 32 ``tma_wgmma`` kernels of width 80, the kept
+                inputs against the plain version, graphed = eager bit for
+                bit), each frame's class the golden's where its top-1
+                margin exceeds the frame tolerance; the kernel's time at
+                each batch size served and at (8, 730, 16, 80); where the
+                device time of a 384-px batch of 8 goes; step times and
+                captures as for DeiT-B;
 5. entry points — the kernels that only ``repro_torch.kernels.ops`` reaches
              (no fleet or vision path calls them; each of their launch
              counts, set to 0 before phase 3, is still 0 after phase 4):
@@ -212,7 +238,11 @@ final line:
                 as many input copies as exceed the 50 MB L2 twice over,
                 rotated inside the graph), each pair timed in turns
                 (kernel, library, library, kernel; the better of two each);
-6. the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+6. the ``{"kernels": [...]}`` line (one entry a kernel; ``flash_attention``
+   one a variant: ``tma_wgmma`` at D = 64 (DeiT-B) and 80 (ViT-H/14), each
+   with its main-path launches, and at 72, ``mma_sync`` and
+   ``f32_regtile``, which no served path launches), then the
+   ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -239,7 +269,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import telemetry as tel  # noqa: E402
-from repro_torch.configs import deit_b, resnet50  # noqa: E402
+from repro_torch.configs import deit_b, resnet50, vit_h14  # noqa: E402
 from repro_torch.core.simulator import SimConfig, run_simulation  # noqa: E402
 from repro_torch.fleetsim import core as fleet_core  # noqa: E402
 from repro_torch.fleetsim import (NetParams, SimParams,  # noqa: E402
@@ -253,6 +283,7 @@ from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import moe_gemm as mg_mod  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn_mod  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import resnet, vit  # noqa: E402
 from repro_torch.core.scenarios import SCENARIOS  # noqa: E402
 from repro_torch.netsim import (LinkModel, RadioModel,  # noqa: E402
@@ -317,6 +348,28 @@ RESNET_LOGIT_ATOL = {("float32", 224): 3e-4, ("float32", 384): 3e-4,
 # held to its golden class where the golden's top-1 / top-2 margin (0.39
 # / 0.30) exceeds this tolerance.
 RESNET_FRAME_ATOL = 0.25
+# ViT-H/14 logits against the JAX reference, by dtype and side (224 px: 257
+# tokens, the naive path; 384 px: 730 tokens, the kernel in every layer),
+# held by the largest error and by the rms error.  f32 with TF32 off: max
+# 3.1e-6 / 4.3e-6, rms 9.3e-7 / 1.3e-6 on an H100, held at 1e-5 / 3e-6.
+# bf16: max 0.0415 / 0.0409, rms 0.0131 / 0.0114 on an H100, held at 0.06
+# and at rms 0.0145 / 0.0128.  The rms against the reference's bf16 logits
+# is the sharper measure there: both round the same bf16 weights, so that
+# share of the rounding cancels (against the reference's f32 logits the
+# port's bf16 ones are rms 0.0126 / 0.0123 off, as the reference's own bf16
+# ones are 0.0127 / 0.0125).  The limits must reject the planted faults of
+# ``h14_faults`` that their dtype and side name (on an H100: in f32 the
+# smallest, a pos-embed with its grid transposed, is max 2.0e-5, rms
+# 4.4e-6; in bf16 the ragged last key tile dropped is rms 0.0143).
+VIT_H14_LOGIT_ATOL = {("float32", 224): 1e-5, ("float32", 384): 1e-5,
+                      ("bfloat16", 224): 0.06, ("bfloat16", 384): 0.06}
+VIT_H14_LOGIT_RMS = {("float32", 224): 3e-6, ("float32", 384): 3e-6,
+                     ("bfloat16", 224): 0.0145, ("bfloat16", 384): 0.0128}
+# each surveillance class's frame alone, bf16, against the golden's:
+# 0.0404 / 0.0487 at 224 / 384 px on an H100.  A class's served frames
+# are held to its golden class where the golden's top-1 / top-2 margin
+# (0.200 / 0.144) exceeds this tolerance.
+VIT_H14_FRAME_ATOL = 0.07
 # the eager loop's segment of each main-path run, how often it keeps an
 # event_select input there, and how much of it is profiled
 SEGMENT_EVENTS, FLEET_CAPTURE_EVERY, PROFILED_EVENTS = 500, 150, 100
@@ -1680,6 +1733,11 @@ def flash_rms_errors(q, k, v):
                                         causal=False)))
 
 
+# the sweep's head widths: DeiT-B's 64, DiT-XL/2's 72, ViT-H/14's 80 and
+# 128 on tma_wgmma in bf16, 32 on mma_sync
+SWEEP_HEAD_DIMS = (32, 64, 72, 80, 128)
+
+
 def flash_sweep(dev) -> float:
     gen = torch.Generator().manual_seed(0)
     variants = ((False, None, 12, 12), (True, None, 8, 2),
@@ -1687,8 +1745,8 @@ def flash_sweep(dev) -> float:
     err, share, n, paths = 0.0, {}, 0, {}
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for dt in (torch.float32, torch.bfloat16):
-        for S in (1, 63, 65, 127, 129, 578, 1024):
-            for D in (64, 80, 128):
+        for S in (1, 63, 65, 127, 129, 578, 730, 1024):
+            for D in SWEEP_HEAD_DIMS:
                 for causal, window, H, KV in variants:
                     q, k, v = (torch.randn(2, S, h, D, generator=gen).to(
                         device=dev, dtype=dt) for h in (H, KV, KV))
@@ -1698,15 +1756,22 @@ def flash_sweep(dev) -> float:
                     if path == "tma_wgmma":
                         path += " split" if fa_mod.split_keys(
                             2, S, H, sms) else " full"
-                    paths[path] = paths.get(path, 0) + 1
+                    key = f"{path} D={D}"
+                    paths[key] = paths.get(key, 0) + 1
                     n += 1
     print(f"vision kernel: {n} random inputs (f32 and bf16, S in 1..1024, "
-          f"D in 64/80/128, causal, window, GQA) match the plain version, "
-          f"max abs err {err}; largest error as a share of the tolerance: "
-          f"f32 {share[torch.float32]}, bf16 {share[torch.bfloat16]}; "
-          f"inputs per variant {paths}", flush=True)
-    if len(paths) != 4:
-        fail(f"the flash sweep missed a variant or path: {paths}")
+          f"D in {SWEEP_HEAD_DIMS}, causal, window, GQA) match the plain "
+          f"version, max abs err {err}; largest error as a share of the "
+          f"tolerance: f32 {share[torch.float32]}, bf16 "
+          f"{share[torch.bfloat16]}; inputs per variant and head width "
+          f"{paths}", flush=True)
+    want = {f"{p} D={D}" for D in SWEEP_HEAD_DIMS
+            for p in ("f32_regtile", "tma_wgmma split", "tma_wgmma full")
+            if p == "f32_regtile" or D in fa_mod.WGMMA_HEAD_DIMS}
+    want.add("mma_sync D=32")
+    if set(paths) != want:
+        fail(f"the flash sweep's variants and paths {sorted(paths)} are not "
+             f"{sorted(want)}")
     return err
 
 
@@ -1996,31 +2061,12 @@ def resnet_phase(vgold, spec, frames, dev) -> dict:
     cfg = resnet50.CONFIG
     params = resnet.params_from_numpy(tree, cfg, dev)
     del tree
-    tol = RESNET_FRAME_ATOL
     # each class's frame alone (a batch of copies has its statistics)
     # against the golden's, and the class each served frame must get
     # where the golden's top-1 / top-2 margin exceeds the tolerance
-    expect, out["classes"] = {}, {}
-    for c, f in zip(spec["classes"], frames):
-        want = np.asarray(rgold["classes"][c["name"]]["logits"], np.float32)
-        got = resnet.forward(params, f[None], cfg)[0].cpu().numpy()
-        top2 = np.sort(want)[-2:]
-        margin = float(top2[1] - top2[0])
-        err = float(np.abs(got - want).max())
-        out["classes"][c["name"]] = dict(max_abs_err=err, margin=margin,
-                                         golden_class=int(want.argmax()),
-                                         class_=int(got.argmax()))
-        if margin > tol:
-            expect[c["name"]] = int(want.argmax())
-        print(f"vision ResNet-50 {c['name']} frame ({c['model_res']} px, "
-              f"bf16, alone): max abs err {err} against the JAX logits, "
-              f"class {int(got.argmax())} (JAX {int(want.argmax())}, top-1 "
-              f"margin {margin}: {'held' if margin > tol else 'not held'} "
-              f"to it at atol {tol})", flush=True)
-        if not np.isfinite(got).all() or err > tol:
-            fail(f"ResNet-50 {c['name']} frame: logits {err} from the "
-                 f"reference")
-    idx = {c["name"]: i for i, c in enumerate(spec["classes"])}
+    expect, out["classes"] = frame_classes(
+        "ResNet-50", lambda f: resnet.forward(params, f[None], cfg)[0],
+        rgold, spec, frames, RESNET_FRAME_ATOL)
     walls, served_shapes = {}, set()
     eager_rb = serve.make_run_batch(params, cfg, graphed=False)
     graphed_rb = serve.make_run_batch(params, cfg)
@@ -2033,19 +2079,7 @@ def resnet_phase(vgold, spec, frames, dev) -> dict:
             step.reset_counts()
             got, walls[f"{mode} {queue}"] = serving_run(
                 f"ResNet-50 {mode}", spec, queue, rb, frames, cfg, dev)
-            wrong = [i for i, (c, r) in enumerate(zip(got["classes"],
-                                                      got["results"]))
-                     if spec["classes"][c]["name"] in expect
-                     and r != expect[spec["classes"][c]["name"]]]
-            held = sum(spec["classes"][c]["name"] in expect
-                       for c in got["classes"])
-            given = sorted(collections.Counter(got["results"]).items())
-            print(f"serving ResNet-50 {mode} {queue}: {held} frames held to "
-                  f"their class's JAX class, {len(wrong)} differ; classes "
-                  f"given (class, frames): {given}", flush=True)
-            if wrong:
-                fail(f"serving ResNet-50 {mode} {queue}: frames {wrong} got "
-                     f"another class than the JAX logits give")
+            served_class_check("ResNet-50", mode, queue, got, spec, expect)
             if mode == "graphed":
                 served_shapes.update((c, b) for _, c, b in got["batches"])
                 if step.launches() or not sum(
@@ -2126,6 +2160,371 @@ def print_flash_row(label, row):
           f"({row['bound_by']})", flush=True)
 
 
+def served_class_check(name, mode, queue, got, spec, expect):
+    """Each served frame's class against ``expect`` (class name -> the
+    golden's class, for the classes whose golden top-1 margin exceeds the
+    frame tolerance)."""
+    wrong = [i for i, (c, r) in enumerate(zip(got["classes"],
+                                              got["results"]))
+             if spec["classes"][c]["name"] in expect
+             and r != expect[spec["classes"][c]["name"]]]
+    held = sum(spec["classes"][c]["name"] in expect for c in got["classes"])
+    given = sorted(collections.Counter(got["results"]).items())
+    print(f"serving {name} {mode} {queue}: {held} frames held to their "
+          f"class's JAX class, {len(wrong)} differ; classes given (class, "
+          f"frames): {given}", flush=True)
+    if wrong:
+        fail(f"serving {name} {mode} {queue}: frames {wrong} got another "
+             f"class than the JAX logits give")
+
+
+def frame_classes(name, forward_one, gold, spec, frames, tol):
+    """Each class's frame alone, bf16, against the golden's logits within
+    ``tol``; returns the class each served frame must get where the
+    golden's top-1 / top-2 margin exceeds ``tol``, and the readings."""
+    expect, out = {}, {}
+    for c, f in zip(spec["classes"], frames):
+        want = np.asarray(gold["classes"][c["name"]]["logits"], np.float32)
+        got = forward_one(f).cpu().numpy()
+        top2 = np.sort(want)[-2:]
+        margin = float(top2[1] - top2[0])
+        err = float(np.abs(got - want).max())
+        out[c["name"]] = dict(max_abs_err=err, margin=margin,
+                              golden_class=int(want.argmax()),
+                              class_=int(got.argmax()))
+        if margin > tol:
+            expect[c["name"]] = int(want.argmax())
+        print(f"vision {name} {c['name']} frame ({c['model_res']} px, bf16, "
+              f"alone): max abs err {err} against the JAX logits, class "
+              f"{int(got.argmax())} (JAX {int(want.argmax())}, top-1 margin "
+              f"{margin}: {'held' if margin > tol else 'not held'} to it at "
+              f"atol {tol})", flush=True)
+        if not np.isfinite(got).all() or err > tol:
+            fail(f"{name} {c['name']} frame: logits {err} from the "
+                 f"reference")
+    return expect, out
+
+
+def vit_serving(name, params, cfg, spec, frames, dev, expect=None) -> dict:
+    """The serving path of one bf16 ViT at full width: three replicas behind
+    the engine serve the golden stream with the preferential queue and with
+    FIFO, first stepping eagerly (the wrapper's launches counted from 0,
+    the kernel's input of each batch size served kept), then replaying one
+    CUDA graph per (class, batch size) (captured launches x replays; the
+    wrapper's count stays 0).  Each run's decisions are the golden's and
+    its kernel launches n_layers x its 384-px batches; each frame's class
+    is ``expect``'s where given.  Then graphed logits equal eager ones bit
+    for bit, a profiled replay of the 384-px batch of 8 shows n_layers
+    tma_wgmma kernels of the model's head width on the device, and the
+    kept inputs match the plain version (elementwise, and by rms error
+    against the f32 plain version within ``RMS_RATIO``)."""
+    D = cfg.d_model // cfg.n_heads
+    on_kernel = {c["name"] for c in spec["classes"]
+                 if cfg.n_tokens(c["model_res"]) > cfg.attn_chunk}
+    eager_rb = serve.make_run_batch(params, cfg, graphed=False)
+    warm_up(eager_rb, frames, spec)
+    seen = set()
+
+    def keep(i, args):                 # one input per batch size served
+        b = args[0].shape[0]
+        if b in seen:
+            return False
+        seen.add(b)
+        return True
+
+    launches, kept, kernel_batches, walls = {}, [], {}, {}
+    for queue in ("preferential", "fifo"):
+        with Spy(ops, "flash_attention", keep) as spy:
+            fa_mod.flash_attention.launches = 0
+            got, walls["eager " + queue] = serving_run(
+                f"{name} eager", spec, queue, eager_rb, frames, cfg, dev)
+            n_launch = fa_mod.flash_attention.launches
+        kept += spy.kept
+        n_kb = sum(1 for _, c, _ in got["batches"] if c in on_kernel)
+        launches["eager " + queue], kernel_batches[queue] = n_launch, n_kb
+        print(f"serving {name} eager {queue}: {n_kb} batches at 384 px, "
+              f"{n_launch} flash_attention launches", flush=True)
+        if n_launch != cfg.n_layers * n_kb or n_launch == 0:
+            fail(f"serving {name} {queue}: {n_launch} flash_attention "
+                 f"launches for {n_kb} batches at 384 px of {cfg.n_layers} "
+                 f"layers")
+        if expect is not None:
+            served_class_check(name, "eager", queue, got, spec, expect)
+
+    graphed_rb = serve.make_run_batch(params, cfg)
+    step = graphed_rb.step
+    warm_up(graphed_rb, frames, spec)
+    print_captures(name, step, dev)
+    served_shapes = set()
+    for queue in ("preferential", "fifo"):
+        step.reset_counts()
+        fa_mod.flash_attention.launches = 0
+        got, walls[queue] = serving_run(f"{name} graphed", spec, queue,
+                                        graphed_rb, frames, cfg, dev)
+        n_launch, eager_launches = (step.launches(),
+                                    fa_mod.flash_attention.launches)
+        n_kb = sum(1 for _, c, _ in got["batches"] if c in on_kernel)
+        launches[queue] = n_launch
+        served_shapes.update((c, b) for _, c, b in got["batches"])
+        print(f"serving {name} graphed {queue}: {n_kb} batches at 384 px, "
+              f"{n_launch} flash_attention launches replayed (captured "
+              f"launches x replays), {eager_launches} through the wrapper",
+              flush=True)
+        if n_launch != cfg.n_layers * n_kb or n_launch == 0 \
+                or eager_launches:
+            fail(f"serving {name} graphed {queue}: {n_launch} "
+                 f"flash_attention launches replayed and {eager_launches} "
+                 f"eager for {n_kb} batches at 384 px of {cfg.n_layers} "
+                 f"layers")
+        if expect is not None:
+            served_class_check(name, "graphed", queue, got, spec, expect)
+    graph_equals_eager(name, vit, params, cfg, step, spec, served_shapes,
+                       dev)
+    replay = profiled_replay(step, frames[0], spec["max_batch"])
+    flash = {n: c for n, c in replay["device_counts"].items()
+             if "flash_attention" in n.lower()}
+    n_replayed = sum(flash.values())
+    print(f"vision {name} graph replay at 384 px, batch of "
+          f"{spec['max_batch']} (profiled): {replay['wall_us']:.0f} us "
+          f"wall, device busy {replay['busy_us']:.0f} us, {n_replayed} "
+          f"flash_attention kernels on the device {flash} (profiler "
+          f"windows: {replay['tries']})", flush=True)
+    if n_replayed != cfg.n_layers or not all(
+            "flash_attention_wgmma_kernel" in n and f"{D}>" in n
+            for n in flash):
+        fail(f"a profiled {name} replay shows {flash}, expected "
+             f"{cfg.n_layers} tma_wgmma kernels of width {D}")
+
+    sizes = sorted(args[0].shape[0] for args, _ in kept)
+    served = sorted({s for q in spec["runs"].values()
+                     for _, c, s in q["batches"] if c in on_kernel})
+    if sizes != served:
+        fail(f"{name}: kept batch sizes {sizes} are not the served {served}")
+    max_err, share = 0.0, 0.0
+    for (q, k, v), kw in kept:
+        if fa_mod.variant(q, k, v) != "tma_wgmma":
+            fail(f"{name}: served q {tuple(q.shape)} takes "
+                 f"{fa_mod.variant(q, k, v)}")
+        e, sh = check_flash(q, k, v, kw.get("causal", True), kw.get("window"))
+        max_err, share = max(max_err, e), max(share, sh)
+        got, plain, dropped = flash_rms_errors(q, k, v)
+        print(f"vision kernel: {name} served q {tuple(q.shape)}: largest "
+              f"error {sh} of the tolerance; rms error against the f32 "
+              f"plain version: kernel {got}, plain bf16 {plain}, plain bf16 "
+              f"without the last key {dropped}", flush=True)
+        if not got <= RMS_RATIO * plain:
+            fail(f"flash_attention rms error {got} above {RMS_RATIO} x the "
+                 f"plain bf16 version's {plain} at q {tuple(q.shape)}")
+        if not dropped > RMS_RATIO * plain:
+            fail(f"the rms check passes a kernel that drops the last key "
+                 f"at q {tuple(q.shape)}")
+    print(f"vision kernel: {name}'s inputs of every batch size served match "
+          f"the plain version, largest error {share} of the tolerance; max "
+          f"abs err {max_err}", flush=True)
+    return dict(launches=launches["preferential"] + launches["fifo"],
+                launches_by_run=launches, batches_at_384=kernel_batches,
+                serving_wall_s=walls, replay_flash_kernels=n_replayed,
+                max_abs_err=max_err, kept=kept, eager_rb=eager_rb,
+                graphed_rb=graphed_rb)
+
+
+def report_breakdown(name, wall_us, kinds):
+    total = sum(kinds.values())
+    print(f"vision {name} batch of 8 at 384 px (profiled): {wall_us:.0f} us "
+          f"wall, device {total:.0f} us: " + ", ".join(
+              f"{k} {v:.0f} us ({v / total:.3f})" for k, v in kinds.items()),
+          flush=True)
+    return dict(wall_us=wall_us, device_us=total, **{
+        k + "_us": v for k, v in kinds.items()})
+
+
+@contextlib.contextmanager
+def patched(module, name, fn):
+    """``module.name`` replaced by ``fn`` inside the block."""
+    real = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def h14_faults(cfg):
+    """The planted faults of the ViT-H/14 logits check: name -> (the sides
+    (image px) it reaches, the dtypes whose limits must reject it, a
+    context that plants it or None, the config to run).  f32 must reject
+    every fault; bf16, whose logits sit ~0.04 from the reference's by
+    rounding alone, the last layer skipped and the ragged last key tile
+    dropped (by its rms error); the kernel-level checks hold a single
+    dropped key in bf16."""
+    D = cfg.d_model // cfg.n_heads
+    real_attention, real_resize = attn_mod.attention, vit._interp_pos_embed
+
+    def padded_scale(q, k, v, **kw):     # scores scaled by 128^-0.5
+        return real_attention(q * (D / 128) ** 0.5, k, v, **kw)
+
+    def dropped(keys):
+        def attention(q, k, v, causal=True, window=None, **kw):
+            n = keys(k.shape[1])
+            return ref.flash_attention_ref(q, k[:, :n], v[:, :n],
+                                           causal=causal, window=window)
+        return attention
+
+    def swapped_resize(pos, n_extra, grid_from, grid_to):
+        out = real_resize(pos, n_extra, grid_from, grid_to)
+        grid = out[n_extra:].reshape(grid_to, grid_to, -1).transpose(0, 1)
+        return torch.cat([out[:n_extra], grid.reshape(out[n_extra:].shape)])
+
+    short = dataclasses.replace(cfg, n_layers=cfg.n_layers - 1)
+    both, f32 = ("float32", "bfloat16"), ("float32",)
+    return {
+        "the last layer skipped": ((224, 384), both, None, short),
+        "the kernel drops the ragged last key tile": (
+            (384,), both, lambda: patched(ops, "flash_attention", dropped(
+                lambda S: S // 64 * 64)), cfg),
+        "the kernel drops the last key": (
+            (384,), f32, lambda: patched(ops, "flash_attention", dropped(
+                lambda S: S - 1)), cfg),
+        "scores scaled by 128^-0.5 (the padded width)": (
+            (224, 384), f32,
+            lambda: patched(attn_mod, "attention", padded_scale), cfg),
+        "the pos-embed resized with rows and columns swapped": (
+            (384,), f32,
+            lambda: patched(vit, "_interp_pos_embed", swapped_resize), cfg),
+    }
+
+
+def vit_h14_logits_check(tree, hgold, dev) -> dict:
+    """ViT-H/14 at full width against the JAX reference's logits, f32 and
+    bf16, at 224 px (257 tokens, the naive path, no launch) and 384 px (730
+    tokens, 32 launches), within ``VIT_H14_LOGIT_ATOL`` and
+    ``VIT_H14_LOGIT_RMS`` (by dtype and side); the limits shown to reject
+    the planted faults that reach their side and that their dtype must
+    reject (``h14_faults``).  bf16 rows also give the rms error against
+    the reference's f32 logits."""
+    out = {}
+    for dt in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(vit_h14.CONFIG, attn_impl="pallas",
+                                  param_dtype=dt)
+        params = vit.params_from_numpy(tree, cfg, dev)
+        faults = h14_faults(cfg)
+        for res, img in golden_images().items():
+            tol = VIT_H14_LOGIT_ATOL[dt, res]
+            rms_tol = VIT_H14_LOGIT_RMS[dt, res]
+            want = np.asarray(hgold["logits"][str(res)][dt], np.float32)
+            truth = np.asarray(hgold["logits"][str(res)]["float32"],
+                               np.float32)
+
+            def errors(a):
+                """max, rms against the reference; rms against its f32"""
+                return (float(np.abs(a - want).max()),
+                        float(np.sqrt(((a - want) ** 2).mean())),
+                        float(np.sqrt(((a - truth) ** 2).mean())))
+
+            x = torch.from_numpy(img).to(dev)
+            fa_mod.flash_attention.launches = 0
+            got = vit.forward(params, x, cfg)
+            n_launch = fa_mod.flash_attention.launches
+            got = got.cpu().numpy()
+            err, rms, rms_f32 = errors(got)
+            S = cfg.n_tokens(res)
+            expect = cfg.n_layers if S > cfg.attn_chunk else 0
+            row = out[f"{dt} {res}"] = dict(
+                max_abs_err=err, rms_err=rms, rms_err_f32=rms_f32, atol=tol,
+                rms_tol=rms_tol, launches=n_launch)
+            print(f"vision ViT-H/14 {dt} {res} px ({S} tokens): max abs err "
+                  f"{err}, rms {rms} against the JAX logits (atol {tol}, rms "
+                  f"{rms_tol}); rms {rms_f32} against its f32 logits; "
+                  f"{n_launch} flash_attention launches", flush=True)
+            if not np.isfinite(got).all() or got.shape != want.shape:
+                fail(f"ViT-H/14 {dt} {res}: logits {got.shape} not finite "
+                     f"or not {want.shape}")
+            if err > tol or rms > rms_tol:
+                fail(f"ViT-H/14 {dt} {res}: logits {err} (rms {rms}) from "
+                     f"the reference")
+            if dt == "float32" and not np.array_equal(got.argmax(-1),
+                                                      want.argmax(-1)):
+                fail(f"ViT-H/14 {dt} {res}: argmax differs")
+            if n_launch != expect:
+                fail(f"ViT-H/14 {dt} {res}: {n_launch} flash_attention "
+                     f"launches, expected {expect}")
+            for fault, (sides, must, plant, fcfg) in faults.items():
+                if res not in sides:
+                    continue
+                with plant() if plant else contextlib.nullcontext():
+                    bad = vit.forward(params, x, fcfg).cpu().numpy()
+                bad_err, bad_rms, bad_f32 = errors(bad)
+                row[fault] = dict(max_abs_err=bad_err, rms_err=bad_rms,
+                                  rms_err_f32=bad_f32)
+                caught = bad_err > tol or bad_rms > rms_tol
+                need = "" if dt in must else f" (not required in {dt})"
+                print(f"vision ViT-H/14 {dt} {res} px, {fault}: max abs err "
+                      f"{bad_err}, rms {bad_rms} (against f32 {bad_f32}), "
+                      f"{'rejected' if caught else 'NOT rejected'}{need}",
+                      flush=True)
+                if not caught and dt in must:
+                    fail(f"ViT-H/14 {dt} {res}: the limits {tol} / {rms_tol} "
+                         f"pass a forward where {fault} ({bad_err} / "
+                         f"{bad_rms})")
+        del params
+    return out
+
+
+def vit_h14_phase(vgold, spec, frames, dev) -> dict:
+    """ViT-H/14 at full width (32 layers, d 1280, 16 heads 80 wide): its
+    logits against the JAX reference's, each class's frame alone, then
+    three bf16 replicas serving the golden stream eagerly and graphed
+    (``vit_serving``), the kernel's time at each batch size served and at
+    (8, 730, 16, 80), where a 384-px batch of 8's device time goes, the
+    step times and the graphs' capture cost."""
+    t0 = time.time()
+    hgold = vgold["vit_h14"]
+    tree = vit.numpy_params(vit_h14.CONFIG, hgold["weight_seed"])
+    print(f"vision weights: ViT-H/14 seed {hgold['weight_seed']}, "
+          f"{time.time() - t0:.1f} s", flush=True)
+    out = dict(logits=vit_h14_logits_check(tree, hgold, dev))
+    cfg = dataclasses.replace(vit_h14.CONFIG, attn_impl="pallas")
+    params = vit.params_from_numpy(tree, cfg, dev)
+    del tree
+    expect, out["classes"] = frame_classes(
+        "ViT-H/14", lambda f: vit.forward(params, f[None], cfg)[0], hgold,
+        spec, frames, VIT_H14_FRAME_ATOL)
+    served = vit_serving("ViT-H/14", params, cfg, spec, frames, dev, expect)
+    eager_rb, graphed_rb = served.pop("eager_rb"), served.pop("graphed_rb")
+    rows = []
+    for (q, k, v), _ in sorted(served.pop("kept"),
+                               key=lambda a: a[0][0].shape[0]):
+        rows.append(flash_times(q, k, v))
+        print_flash_row("ViT-H/14 served bf16", rows[-1])
+    B, S, H, D = 8, cfg.n_tokens(384), cfg.n_heads, cfg.d_model // cfg.n_heads
+    gen = torch.Generator().manual_seed(2)
+    q, k, v = (torch.randn(B, S, H, D, generator=gen).to(
+        device=dev, dtype=torch.bfloat16) for _ in range(3))
+    fault = flash_rejects_dropped_key(q, k, v)
+    print(f"vision kernel: ViT-H/14 at B={B}, random inputs, a kernel that "
+          f"drops the last key errs by {fault} of the tolerance and is "
+          f"rejected", flush=True)
+    headline = flash_times(q, k, v)
+    rows.append(headline)
+    print_flash_row("ViT-H/14 bf16", headline)
+    del q, k, v
+    out["breakdown"] = report_breakdown(
+        "ViT-H/14", *batch_breakdown(params, cfg, frames[0]))
+    share = out["breakdown"]["flash_attention_us"] / \
+        out["breakdown"]["device_us"]
+    for cls, frame in zip(serve.service_classes(spec), frames):
+        measure_step_times(graphed_rb, cls, frame)
+        print(f"vision ViT-H/14 step times {cls.name} ({frame.shape[0]} px), "
+              f"graph replays, wall s per batch size: "
+              f"{cls.batch_proc_time}", flush=True)
+    out["steps"] = step_table("ViT-H/14", eager_rb, graphed_rb, spec, frames)
+    out["captures"] = capture_rows(graphed_rb.step)
+    out.update(served, headline=headline, shapes=rows,
+               flash_share_of_batch=share)
+    print(f"vision ViT-H/14: {time.time() - t0:.1f} s", flush=True)
+    return out
+
+
 def vision_phase(dev):
     """Phase 4; returns the ``flash_attention`` entry of the kernels line."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2148,101 +2547,15 @@ def vision_phase(dev):
     del tree
     spec = vgold["serving"]
     frames = serving_frames(spec, dev)
-    on_kernel = {c["name"] for c in spec["classes"]
-                 if cfg.n_tokens(c["model_res"]) > cfg.attn_chunk}
-    eager_rb = serve.make_run_batch(params, cfg, graphed=False)
-    warm_up(eager_rb, frames, spec)
-    seen = set()
-
-    def keep(i, args):                 # one input per batch size served
-        b = args[0].shape[0]
-        if b in seen:
-            return False
-        seen.add(b)
-        return True
-
-    launches, kept, kernel_batches, walls = {}, [], {}, {}
-    for queue in ("preferential", "fifo"):
-        with Spy(ops, "flash_attention", keep) as spy:
-            fa_mod.flash_attention.launches = 0
-            got, walls["eager " + queue] = serving_run(
-                "DeiT-B eager", spec, queue, eager_rb, frames, cfg, dev)
-            n_launch = fa_mod.flash_attention.launches
-        kept += spy.kept
-        n_kb = sum(1 for _, c, _ in got["batches"] if c in on_kernel)
-        launches["eager " + queue], kernel_batches[queue] = n_launch, n_kb
-        print(f"serving DeiT-B eager {queue}: {n_kb} batches at 384 px, "
-              f"{n_launch} flash_attention launches", flush=True)
-        if n_launch != cfg.n_layers * n_kb or n_launch == 0:
-            fail(f"serving {queue}: {n_launch} flash_attention launches for "
-                 f"{n_kb} batches at 384 px of {cfg.n_layers} layers")
-
-    graphed_rb = serve.make_run_batch(params, cfg)
-    step = graphed_rb.step
-    warm_up(graphed_rb, frames, spec)
-    print_captures("DeiT-B", step, dev)
-    served_shapes = set()
-    for queue in ("preferential", "fifo"):
-        step.reset_counts()
-        fa_mod.flash_attention.launches = 0
-        got, walls[queue] = serving_run("DeiT-B graphed", spec, queue,
-                                        graphed_rb, frames, cfg, dev)
-        n_launch, eager_launches = (step.launches(),
-                                    fa_mod.flash_attention.launches)
-        n_kb = sum(1 for _, c, _ in got["batches"] if c in on_kernel)
-        launches[queue] = n_launch
-        served_shapes.update((c, b) for _, c, b in got["batches"])
-        print(f"serving DeiT-B graphed {queue}: {n_kb} batches at 384 px, "
-              f"{n_launch} flash_attention launches replayed (captured "
-              f"launches x replays), {eager_launches} through the wrapper",
-              flush=True)
-        if n_launch != cfg.n_layers * n_kb or n_launch == 0 \
-                or eager_launches:
-            fail(f"serving graphed {queue}: {n_launch} flash_attention "
-                 f"launches replayed and {eager_launches} eager for {n_kb} "
-                 f"batches at 384 px of {cfg.n_layers} layers")
-    graph_equals_eager("DeiT-B", vit, params, cfg, step, spec,
-                       served_shapes, dev)
-    replay = profiled_replay(step, frames[0], spec["max_batch"])
-    n_replayed = sum(n for name, n in replay["device_counts"].items()
-                     if "flash_attention" in name.lower())
-    print(f"vision DeiT-B graph replay at 384 px, batch of "
-          f"{spec['max_batch']} (profiled): {replay['wall_us']:.0f} us "
-          f"wall, device busy {replay['busy_us']:.0f} us, "
-          f"{n_replayed} flash_attention kernels on the device (profiler "
-          f"windows: {replay['tries']})", flush=True)
-    if n_replayed != cfg.n_layers:
-        fail(f"a profiled replay shows {n_replayed} flash_attention kernels,"
-             f" expected {cfg.n_layers}")
-
-    sizes = sorted(args[0].shape[0] for args, _ in kept)
-    served = sorted({s for q in spec["runs"].values()
-                     for _, c, s in q["batches"] if c in on_kernel})
-    if sizes != served:
-        fail(f"kept batch sizes {sizes} are not the served {served}")
-    share = 0.0
-    for (q, k, v), kw in kept:
-        e, sh = check_flash(q, k, v, kw.get("causal", True), kw.get("window"))
-        max_err, share = max(max_err, e), max(share, sh)
-        got, plain, dropped = flash_rms_errors(q, k, v)
-        print(f"vision kernel: served q {tuple(q.shape)}: largest error "
-              f"{sh} of the tolerance; rms error against the f32 plain "
-              f"version: kernel {got}, plain bf16 {plain}, plain bf16 "
-              f"without the last key {dropped}", flush=True)
-        if not got <= RMS_RATIO * plain:
-            fail(f"flash_attention rms error {got} above {RMS_RATIO} x the "
-                 f"plain bf16 version's {plain} at q {tuple(q.shape)}")
-        if not dropped > RMS_RATIO * plain:
-            fail(f"the rms check passes a kernel that drops the last key "
-                 f"at q {tuple(q.shape)}")
-    print(f"vision kernel: the inputs of every batch size served match the "
-          f"plain version, largest error {share} of the tolerance; max abs "
-          f"err over all checks {max_err}", flush=True)
+    deit = vit_serving("DeiT-B", params, cfg, spec, frames, dev)
+    max_err = max(max_err, deit["max_abs_err"])
+    eager_rb, graphed_rb = deit.pop("eager_rb"), deit.pop("graphed_rb")
 
     # the kernel's time at each batch size served, on its kept input, and
     # at the engine's largest batch (max_batch 8) on random inputs
     rows = []
-    for (q, k, v), _ in sorted(kept, key=lambda a: a[0][0].shape[0]):
+    for (q, k, v), _ in sorted(deit.pop("kept"),
+                               key=lambda a: a[0][0].shape[0]):
         rows.append(flash_times(q, k, v))
         print_flash_row("served bf16", rows[-1])
     B, S, H, D = 8, cfg.n_tokens(384), cfg.n_heads, cfg.d_model // cfg.n_heads
@@ -2265,23 +2578,42 @@ def vision_phase(dev):
                        (x.float() for x in (q, k, v))):
         rows.append(flash_times(qf, kf, vf, reps=20))
         print_flash_row("f32", rows[-1])
-    # the mma_sync variant (bf16 at D not 64 or 128) at DeiT-B's sequence
-    # with ViT-H/14's 16 heads of width 80 (configs/vit_h14.py)
-    q, k, v = (torch.randn(B, S, 16, 80, generator=gen).to(
-        device=dev, dtype=torch.bfloat16) for _ in range(3))
+    f32_row = rows[-1]
+    # heads 80 wide (ViT-H/14's 16, configs/vit_h14.py) at DeiT-B's
+    # sequence and at ViT-H/14's own 730 tokens, and 72 wide (DiT-XL/2's
+    # 16 at 512 px, 1,024 tokens): tma_wgmma, checked, then timed
+    wide = {}
+    for label, (S_, D_) in (("ViT-H/14 heads", (578, 80)),
+                            ("ViT-H/14", (730, 80)),
+                            ("DiT-XL/2 heads", (1024, 72))):
+        q, k, v = (torch.randn(B, S_, 16, D_, generator=gen).to(
+            device=dev, dtype=torch.bfloat16) for _ in range(3))
+        if fa_mod.variant(q, k, v) != "tma_wgmma":
+            fail(f"D={D_} bf16 takes {fa_mod.variant(q, k, v)}, not "
+                 f"tma_wgmma")
+        e, _ = check_flash(q, k, v, False, None)
+        max_err = max(max_err, e)
+        wide[S_, D_] = flash_times(q, k, v)
+        rows.append(wide[S_, D_])
+        print_flash_row(f"bf16 {label}", rows[-1])
+    # the mma_sync variant, on what it still takes: a view of ViT-H/14's
+    # heads at (8, 578, 16, 80) one element off 16-byte alignment
+    n = B * 578 * 16 * 80
+    buf = torch.randn(3 * n + 1, generator=gen).to(dev, torch.bfloat16)
+    q, k, v = (buf[1 + i * n:1 + (i + 1) * n].view(B, 578, 16, 80)
+               for i in range(3))
     if fa_mod.variant(q, k, v) != "mma_sync":
-        fail(f"D=80 bf16 takes {fa_mod.variant(q, k, v)}, not mma_sync")
+        fail(f"a misaligned D=80 view takes {fa_mod.variant(q, k, v)}, not "
+             f"mma_sync")
     e, _ = check_flash(q, k, v, False, None)
     max_err = max(max_err, e)
-    rows.append(flash_times(q, k, v))
-    print_flash_row("bf16 ViT-H/14 heads", rows[-1])
+    mma_row = flash_times(q, k, v)
+    rows.append(mma_row)
+    print_flash_row("bf16 misaligned ViT-H/14 heads", mma_row)
+    del q, k, v, buf
 
     wall_us, kinds = batch_breakdown(params, cfg, frames[0])
-    total = sum(kinds.values())
-    print(f"vision batch of 8 at 384 px (profiled): {wall_us:.0f} us wall, "
-          f"device {total:.0f} us: " + ", ".join(
-              f"{k} {v:.0f} us ({v / total:.3f})" for k, v in kinds.items()),
-          flush=True)
+    report_breakdown("DeiT-B", wall_us, kinds)
     for cls, frame in zip(serve.service_classes(spec), frames):
         measure_step_times(graphed_rb, cls, frame)
         print(f"vision step times {cls.name} ({frame.shape[0]} px), graph "
@@ -2289,20 +2621,38 @@ def vision_phase(dev):
               flush=True)
     steps = {"DeiT-B": step_table("DeiT-B", eager_rb, graphed_rb, spec,
                                   frames)}
-    captures = {"DeiT-B": capture_rows(step)}
-    del eager_rb, graphed_rb, step, params
+    captures = {"DeiT-B": capture_rows(graphed_rb.step)}
+    del eager_rb, graphed_rb, params
     resnet_out = resnet_phase(vgold, spec, frames, dev)
     steps["ResNet-50"] = resnet_out.pop("steps")
     captures["ResNet-50"] = resnet_out.pop("captures")
-    main = {q: launches[q] for q in ("preferential", "fifo")}
-    return dict(launches=sum(main.values()), launches_by_run=launches,
-                batches_at_384=kernel_batches, max_abs_err=max_err,
-                ms=row["ms"], plain_ms=row["plain_ms"],
-                bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-                library_ms=row["library_ms"], variant=row["variant"],
-                ratio=row["ratio"], serving_wall_s=walls,
-                replay_flash_kernels=n_replayed, shapes=rows,
-                step_times=steps, captures=captures, resnet=resnet_out)
+    h14 = vit_h14_phase(vgold, spec, frames, dev)
+    steps["ViT-H/14"] = h14.pop("steps")
+    captures["ViT-H/14"] = h14.pop("captures")
+    max_err = max(max_err, h14["max_abs_err"])
+
+    def entry(r, launches, **more):
+        return dict(launches=launches, max_abs_err=max_err, ms=r["ms"],
+                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                    bound_by=r["bound_by"], library_ms=r["library_ms"],
+                    variant=r["variant"], D=r["D"], ratio=r["ratio"], **more)
+
+    # one entry a variant: DeiT-B's D = 64 and ViT-H/14's D = 80 are on
+    # the main path (graph replays); D = 72, mma_sync and f32_regtile are
+    # on no served path
+    return {
+        "flash_attention": entry(
+            row, deit["launches"], launches_by_run=deit["launches_by_run"],
+            batches_at_384=deit["batches_at_384"],
+            serving_wall_s=deit["serving_wall_s"],
+            replay_flash_kernels=deit["replay_flash_kernels"], shapes=rows,
+            step_times=steps, captures=captures, resnet=resnet_out),
+        "flash_attention (tma_wgmma, D=80)": entry(
+            h14["headline"], h14["launches"], vit_h14=h14),
+        "flash_attention (tma_wgmma, D=72)": entry(wide[1024, 72], 0),
+        "flash_attention (mma_sync)": entry(mma_row, 0),
+        "flash_attention (f32_regtile)": entry(f32_row, 0),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -2783,7 +3133,7 @@ def main() -> int:
     print(f"workload, radio and 256-node phase: {time.time() - t0:.1f} s",
           flush=True)
     t0 = time.time()
-    entries["flash_attention"] = vision_phase(dev)
+    entries.update(vision_phase(dev))
     print(f"vision phase: {time.time() - t0:.1f} s", flush=True)
     on_paths = {name: fn.launches for name, fn in ENTRY_POINTS.items()}
     if any(on_paths.values()):
@@ -2799,9 +3149,11 @@ def main() -> int:
 
     # -- 6. the records
     print(f"card: {card}", flush=True)
+    # an entry a kernel, and for flash_attention one a variant: "name
+    # (variant, ...)" is the kernel "name"
     print(json.dumps({"kernels": [
-        dict(name=name, route="cuda", source=KERNELS[name][0],
-             replaces=KERNELS[name][1], **entry)
+        dict(name=name, route="cuda", source=KERNELS[name.split(" (")[0]][0],
+             replaces=KERNELS[name.split(" (")[0]][1], **entry)
         for name, entry in entries.items()]}), flush=True)
     print(f"chip_smoke: {time.time() - t_start:.1f} s", file=sys.stderr)
     print(json.dumps({"ok": True, "device": {

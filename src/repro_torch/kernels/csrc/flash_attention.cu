@@ -30,8 +30,9 @@
 // picks one before the launch from dtype, D and alignment, never as a
 // fallback:
 //
-//   * tma_wgmma (bf16, D = 64 or 128, q, k, v 16-byte aligned; the serving
-//     path).  Q, K and V come in through 4-D tensor maps, boxes of (64 d,
+//   * tma_wgmma (bf16, D = 64, 72, 80 or 128, q, k, v 16-byte aligned;
+//     the serving path: DeiT-B's heads are 64 wide, ViT-H/14's 80, DiT-XL/
+//     2's 72).  Q, K and V come in through 4-D tensor maps, boxes of (64 d,
 //     1 head, 64 rows, 1 batch) with 128-byte swizzle and zero fill past
 //     S.  A block is two consumer warpgroups and a producer warp, of
 //     which one thread loads the Q tile(s) and keeps a 3-stage K / V ring
@@ -57,9 +58,26 @@
 //     warpgroups take two neighbouring query tiles and share every K / V
 //     tile, which halves the K / V traffic from L2.  Two blocks fit an SM
 //     at D = 64 (96 registers a thread, 82 KB of shared memory each).
-//   * mma_sync (other bf16 inputs: D = 80 of ViT-H/14, D <= 32, misaligned
-//     views): one CTA per (batch*head, 64-row query tile), 4 warps of 16
-//     rows, Q and each K / V tile staged in shared memory by the threads,
+//     Heads 72 and 80 wide (which the mma_sync kernel pads to 128): the
+//     tile in shared memory stays two 64-wide boxes (DP = 128), but the
+//     tensor maps' innermost extent is the true D, so TMA
+//     zero-fills d in [D, 128) and the global row stride is H * D * 2
+//     bytes (a multiple of 16 as D % 8 == 0).  Q K^T runs ceil(D / 16) =
+//     5 k-steps, not 8 (the zeros past D add exact zeros); P V is one
+//     wgmma m64nDk16 (m64n80k16 / m64n72k16, 40 / 36 accumulators a
+//     thread) whose MN-major B reads the first box whole and the first
+//     D - 64 columns of the second; the store writes D columns.  So the
+//     products do D / 128 of the padded work and the accumulators hold D
+//     columns.  Both widths keep the D = 128 kernel's layout, one block an
+//     SM with a 3-stage ring of 32 KB stages: two blocks of 9 warps an SM
+//     leave 96 registers a thread (5 warps on some of the SM's 4
+//     register-file partitions), too few at D = 80 (40 accumulators, 32
+//     scores, 16 of P: ptxas spilled and the kernel took 2.2x as long;
+//     PERF.md).
+//   * mma_sync (other bf16 inputs: D < 64 or any D outside 64 / 72 / 80 /
+//     128, misaligned views, B * H > 65535): one CTA per (batch*head,
+//     64-row query tile), 4 warps of 16 rows, Q and each K / V tile
+//     staged in shared memory by the threads,
 //     zero-filled past S and past D (padded to 32 / 64 / 128), both
 //     products by mma.sync.m16n8k16 (bf16 in, f32 accumulation: the
 //     products of bf16 values are exact in f32, as in the reference's f32
@@ -92,7 +110,14 @@
 // kernel's products take a small share of its time: the softmax's
 // instructions between the two products and the wgmma latency within a
 // warpgroup hold it (at 96 registers ptxas serialises the wgmma groups);
-// PERF.md has the measurements.  In f32 the same 8.21 GFLOP at 67 TFLOP/s
+// PERF.md has the measurements.  At ViT-H/14's served shape (B=8,
+// S=730, H=KV=16, D=80, bf16): 21.83 GFLOP, 22.1 us at 989 TFLOP/s,
+// against 59.8 MB, 17.9 us at 3.35 TB/s: operations.  At (8, 578, 16,
+// 80): 13.68 GFLOP, 13.8 us, against 47.3 MB, 14.13 us: bytes.  At
+// DiT-XL/2's (8, 1024, 16, 72): 38.65 GFLOP, 39.1 us (75.5 MB, 22.5
+// us): operations.  The exponentials alone, ex2 on the SFUs at 16 a
+// cycle an SM, take ~20 us at (8, 730, 16, 80), so the softmax again
+// sets the pace there.  In f32 the same 8.21 GFLOP at 67 TFLOP/s
 // outside the tensor cores take 122.5 us (operations; the 56.8 MB take
 // 17.0 us); f32_regtile computes 640 x 640 padded scores a (batch, head)
 // where 578 x 578 are needed, 1.23x the work.
@@ -662,7 +687,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
 }
 
 // ---------------------------------------------------------------------------
-// bf16, TMA + wgmma (D = 64 or 128)
+// bf16, TMA + wgmma (D = 64, 72, 80 or 128)
 // ---------------------------------------------------------------------------
 namespace wg {
 
@@ -672,13 +697,17 @@ constexpr int kStages = 3;              // K / V ring
 constexpr int kThreads = 2 * 128 + 32;  // two consumer warpgroups, a producer
 constexpr int kBox = 64 * 128;          // a (64 rows, 64 d) box: 8 KB
 
-template <int DP>
+// DP: the width of a tile in shared memory, one or two 64-wide boxes; D:
+// the head width, D <= DP (TMA zero-fills d in [D, DP)).  A head 72 or 80
+// wide takes D = 128's layout, one block an SM: two blocks of 9 warps
+// leave 96 registers a thread, where D = 80 spills (PERF.md).
+template <int DP, int D>
 struct Layout {
   static constexpr int kTile = kBox * (DP / 64);     // 64 rows of Q, K or V
   static constexpr int kRing = 2 * kTile;            // after two Q tiles
   static constexpr int kStage = 2 * kTile;           // K, then V
   static constexpr int kMerge = kRing + kStages * kStage;
-  static constexpr int kBars = kMerge + (kRows * DP + 2 * kRows) * 4;
+  static constexpr int kBars = kMerge + (kRows * D + 2 * kRows) * 4;
   static constexpr size_t kSmem = 1024 + kBars + (2 * kStages + 1) * 8;
 };
 
@@ -731,7 +760,7 @@ __device__ __forceinline__ void probs(const float (&sc)[kKeys / 2], float mn0,
 // query tile blockIdx.x, warpgroup w taking the key tiles i with i % 2 ==
 // w; else warpgroup w on query tile 2 blockIdx.x + w, both on every key
 // tile of one ring
-template <int DP>
+template <int DP, int D>
 __global__ void __launch_bounds__(kThreads, DP == 64 ? 2 : 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
                              const __grid_constant__ CUtensorMap tmk,
@@ -739,7 +768,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
                              __nv_bfloat16* __restrict__ o, int S, int H,
                              int KV, float scale, int causal, int window,
                              int split) {
-  using L = Layout<DP>;
+  using L = Layout<DP, D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -803,9 +832,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
   const int row0 = qt * kRows + warp * 16 + g;   // this thread's two rows
   const int row1 = row0 + 8;
 
-  float acc[DP / 2], sc[kKeys / 2];
+  float acc[D / 2], sc[kKeys / 2];
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
 #pragma unroll
   for (int i = 0; i < kKeys / 2; ++i) sc[i] = 0.0f;
   float m0 = kNeg, m1 = kNeg, l0 = 0.0f, l1 = 0.0f;  // l: this thread's part
@@ -824,11 +853,12 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
       const int k0 = i * kKeys;
 
       // S = Q K^T: both K-major over d, 16 deep a step (32 bytes into the
-      // 128-byte rows of a box, the next box every 4 steps).  The last
-      // tile's P V runs on the tensor cores meanwhile; the wait takes both.
+      // 128-byte rows of a box, the next box every 4 steps), ceil(D / 16)
+      // steps: past D both tiles hold TMA's zeros.  The last tile's P V
+      // runs on the tensor cores meanwhile; the wait takes both.
       hopper::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
+      for (int kk = 0; kk < (D + 15) / 16; ++kk) {
         const int off = (kk / 4) * kBox + (kk % 4) * 32;
         hopper::wgmma_ss<0>(sc, hopper::desc_k_major(qs + off),
                             hopper::desc_k_major(ks + off), kk > 0);
@@ -890,15 +920,16 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
       l0 = l0 * alpha0 + ls0;
       l1 = l1 * alpha1 + ls1;
 #pragma unroll
-      for (int n = 0; n < DP / 8; ++n) {
+      for (int n = 0; n < D / 8; ++n) {
         acc[4 * n] *= alpha0;
         acc[4 * n + 1] *= alpha0;
         acc[4 * n + 2] *= alpha1;
         acc[4 * n + 3] *= alpha1;
       }
 
-      // acc += P V: V MN-major (d contiguous), 16 keys (rows) a step; left
-      // running into the next tile's Q K^T
+      // acc += P V: V MN-major (d contiguous), 16 keys (rows) a step, an
+      // N = D product (the d of the next box kBox further); left running
+      // into the next tile's Q K^T
       hopper::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kKeys / 16; ++kk)
@@ -930,17 +961,17 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
     // whose tiles were all masked for a row (m = -1e30) is wiped as a
     // later valid tile wipes it in the sequential loop
     float* macc = reinterpret_cast<float*>(smem + L::kMerge);
-    float* mm = macc + kRows * DP;
+    float* mm = macc + kRows * D;
     float* ml = mm + kRows;
     const int r = warp * 16 + g;
     if (wgi == 1) {
 #pragma unroll
-      for (int n = 0; n < DP / 8; ++n) {
+      for (int n = 0; n < D / 8; ++n) {
         const int c = n * 8 + t * 2;
-        macc[r * DP + c] = acc[4 * n];
-        macc[r * DP + c + 1] = acc[4 * n + 1];
-        macc[(r + 8) * DP + c] = acc[4 * n + 2];
-        macc[(r + 8) * DP + c + 1] = acc[4 * n + 3];
+        macc[r * D + c] = acc[4 * n];
+        macc[r * D + c + 1] = acc[4 * n + 1];
+        macc[(r + 8) * D + c] = acc[4 * n + 2];
+        macc[(r + 8) * D + c + 1] = acc[4 * n + 3];
       }
       if (t == 0) {
         mm[r] = m0;
@@ -958,33 +989,35 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
     l0 = l0 * a0 + ml[r] * b0;
     l1 = l1 * a1 + ml[r + 8] * b1;
 #pragma unroll
-    for (int n = 0; n < DP / 8; ++n) {
+    for (int n = 0; n < D / 8; ++n) {
       const int c = n * 8 + t * 2;
-      acc[4 * n] = acc[4 * n] * a0 + macc[r * DP + c] * b0;
-      acc[4 * n + 1] = acc[4 * n + 1] * a0 + macc[r * DP + c + 1] * b0;
-      acc[4 * n + 2] = acc[4 * n + 2] * a1 + macc[(r + 8) * DP + c] * b1;
-      acc[4 * n + 3] = acc[4 * n + 3] * a1 + macc[(r + 8) * DP + c + 1] * b1;
+      acc[4 * n] = acc[4 * n] * a0 + macc[r * D + c] * b0;
+      acc[4 * n + 1] = acc[4 * n + 1] * a0 + macc[r * D + c + 1] * b0;
+      acc[4 * n + 2] = acc[4 * n + 2] * a1 + macc[(r + 8) * D + c] * b1;
+      acc[4 * n + 3] = acc[4 * n + 3] * a1 + macc[(r + 8) * D + c + 1] * b1;
     }
   }
 
-  // normalise and store: a quad writes 16 contiguous bytes of a row
+  // normalise and store the D columns: a quad writes 16 contiguous bytes
+  // of a row
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
 #pragma unroll
-  for (int n = 0; n < DP / 8; ++n) {
+  for (int n = 0; n < D / 8; ++n) {
     const int c = n * 8 + t * 2;
     if (row0 < S)
       *reinterpret_cast<__nv_bfloat162*>(
-          o + ((static_cast<size_t>(b) * S + row0) * H + h) * DP + c) =
+          o + ((static_cast<size_t>(b) * S + row0) * H + h) * D + c) =
           __floats2bfloat162_rn(acc[4 * n] / d0, acc[4 * n + 1] / d0);
     if (row1 < S)
       *reinterpret_cast<__nv_bfloat162*>(
-          o + ((static_cast<size_t>(b) * S + row1) * H + h) * DP + c) =
+          o + ((static_cast<size_t>(b) * S + row1) * H + h) * D + c) =
           __floats2bfloat162_rn(acc[4 * n + 2] / d1, acc[4 * n + 3] / d1);
   }
 }
 
 // tensor maps over (B, S, heads, D) bf16 (sizes innermost first), boxes
-// of (64 d, 1 head, 64 rows, 1 batch)
+// of (64 d, 1 head, 64 rows, 1 batch); a box reaching past D (the second
+// box of a head 72 or 80 wide) is zero-filled there
 int encode_bshd(CUtensorMap* map, const void* base, int B, int S, int heads,
                 int D) {
   const cuuint64_t size[4] = {static_cast<cuuint64_t>(D),
@@ -998,17 +1031,17 @@ int encode_bshd(CUtensorMap* map, const void* base, int B, int S, int heads,
   return hopper::encode_bf16(map, base, 4, size, stride, box);
 }
 
-template <int DP>
+template <int DP, int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int S, int H, int KV, float scale, int causal, int window,
            int split, cudaStream_t stream) {
   CUtensorMap tmq, tmk, tmv;
-  int code = encode_bshd(&tmq, q, B, S, H, DP);
-  if (code == 0) code = encode_bshd(&tmk, k, B, S, KV, DP);
-  if (code == 0) code = encode_bshd(&tmv, v, B, S, KV, DP);
+  int code = encode_bshd(&tmq, q, B, S, H, D);
+  if (code == 0) code = encode_bshd(&tmk, k, B, S, KV, D);
+  if (code == 0) code = encode_bshd(&tmv, v, B, S, KV, D);
   if (code != 0) return code;
-  auto kernel = flash_attention_wgmma_kernel<DP>;
-  const size_t smem = Layout<DP>::kSmem;
+  auto kernel = flash_attention_wgmma_kernel<DP, D>;
+  const size_t smem = Layout<DP, D>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -1047,12 +1080,12 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                       stream);
 }
 
-// The TMA / wgmma bf16 kernel: D = 64 or 128, q, k, v 16-byte aligned
-// (the wrapper, flash_attention.py::variant, sends every other input to
-// flash_attention_launch).  split != 0 splits each query tile's key tiles
-// between the block's two consumer warpgroups (flash_attention.py::
-// split_keys).  Returns 0, a cudaError_t, or hopper::kEncodeError plus the
-// CUresult of a failed tensor-map encode.
+// The TMA / wgmma bf16 kernel: D = 64, 72, 80 or 128, q, k, v 16-byte
+// aligned (the wrapper, flash_attention.py::variant, sends every other
+// input to flash_attention_launch).  split != 0 splits each query tile's
+// key tiles between the block's two consumer warpgroups
+// (flash_attention.py::split_keys).  Returns 0, a cudaError_t, or
+// hopper::kEncodeError plus the CUresult of a failed tensor-map encode.
 extern "C" int flash_attention_wgmma_launch(const void* q, const void* k,
                                             const void* v, void* o, int B,
                                             int S, int H, int KV, int D,
@@ -1063,14 +1096,23 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k,
                          reinterpret_cast<uintptr_t>(k) |
                          reinterpret_cast<uintptr_t>(v);
   if (B < 1 || S < 1 || H < 1 || KV < 1 || H % KV != 0 ||
-      (D != 64 && D != 128) || ptrs % 16 != 0 ||
+      (D != 64 && D != 72 && D != 80 && D != 128) || ptrs % 16 != 0 ||
       static_cast<long long>(B) * H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (D == 64)
-    return wg::launch<64>(q, k, v, o, B, S, H, KV, scale, causal, window,
-                          split, stream);
-  return wg::launch<128>(q, k, v, o, B, S, H, KV, scale, causal, window,
-                         split, stream);
+  switch (D) {
+    case 64:
+      return wg::launch<64, 64>(q, k, v, o, B, S, H, KV, scale, causal,
+                                window, split, stream);
+    case 72:
+      return wg::launch<128, 72>(q, k, v, o, B, S, H, KV, scale, causal,
+                                 window, split, stream);
+    case 80:
+      return wg::launch<128, 80>(q, k, v, o, B, S, H, KV, scale, causal,
+                                 window, split, stream);
+    default:
+      return wg::launch<128, 128>(q, k, v, o, B, S, H, KV, scale, causal,
+                                  window, split, stream);
+  }
 }

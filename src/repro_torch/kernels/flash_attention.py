@@ -14,10 +14,14 @@ to the plain version).  ``flash_attention.launches`` counts the launches.
 
 Three variants, chosen by :func:`variant` before the launch from dtype,
 head width and alignment alone (never as a fallback after a failure):
-``tma_wgmma`` for bf16 at D = 64 or 128 with 16-byte aligned q, k, v (TMA
-into an mbarrier ring, ``wgmma`` for Q K^T and, with P from registers,
-for P V; the key tiles split between two warpgroups where
-:func:`split_keys` says so); ``mma_sync`` for other bf16 inputs;
+``tma_wgmma`` for bf16 at D = 64, 72, 80 or 128 with 16-byte aligned q,
+k, v (TMA into an mbarrier ring, ``wgmma`` for Q K^T and, with P from
+registers, for P V; the key tiles split between two warpgroups where
+:func:`split_keys` says so; a head 72 or 80 wide is read through tensor
+maps of its true width into 128-wide tiles, zero past D, and its P V is
+one ``wgmma`` of width D); ``mma_sync`` for other bf16 inputs (D below
+64 or outside those four, views off 16-byte alignment, B * H past the
+grid);
 ``f32_regtile`` for every f32 input.  The f32 kernel is bound by
 operations on the FMA pipes (TF32 would round the inputs): 122.5 us at
 DeiT-B's B=8, S=578, H=12, D=64 on an H100 (67 TFLOP/s).  It holds 4 x 8
@@ -38,7 +42,7 @@ MAX_HEAD_DIM = 128
 DTYPES = (torch.float32, torch.bfloat16)
 
 VARIANTS = ("tma_wgmma", "mma_sync", "f32_regtile")
-WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_HEAD_DIMS = (64, 72, 80, 128)
 WGMMA_MAX_HEADS = 65535         # B * H: the tma_wgmma grid's y dimension
 ROWS = 64                       # query rows of one warpgroup (tma_wgmma)
 
@@ -60,8 +64,9 @@ def _lib(name: str):
 
 def variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The kernel that :func:`flash_attention` launches: ``tma_wgmma`` for
-    bf16 with D in (64, 128), q, k, v 16-byte aligned (what a tensor map
-    takes) and B * H within its grid, ``mma_sync`` for other bf16,
+    bf16 with D in ``WGMMA_HEAD_DIMS`` (64, 72, 80, 128), q, k, v 16-byte
+    aligned (what a tensor map takes) and B * H within its grid,
+    ``mma_sync`` for other bf16,
     ``f32_regtile`` for f32 (any shape and alignment: the kernel copies 4
     bytes at a time where 16 do not fit).  A pure function of dtype, shape
     and alignment; touches no device."""

@@ -32,10 +32,19 @@ packages get the same inputs, made with numpy:
   each ``SURVEILLANCE`` class's frame (the first image at the class's
   ``model_res``) as a batch of one, the batch the serving run's argmax
   is held to (BatchNorm uses batch statistics, and a batch of copies of
-  one frame has that frame's statistics).
+  one frame has that frame's statistics);
+* **ViT-H/14 logits** (section ``vit_h14``): the reference's
+  ``repro.models.vit.forward``, jitted, at full width
+  (``repro.configs.vit_h14.CONFIG``: 32 layers, d 1280, 16 heads of
+  width 80) with ``attn_impl="pallas"`` (the flash-attention kernel in
+  interpret mode, D padded to 128, for sequences longer than 512) and the
+  seeded weights ``repro_torch.models.vit.numpy_params(CONFIG, 0)``, on
+  the same two images at 224 px (257 tokens, the naive path) and 384 px
+  (730 tokens, the kernel) in float32 and bfloat16; and, in bfloat16,
+  each ``SURVEILLANCE`` class's frame as a batch of one.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/make_torch_vit_golden.py \\
-        [--only logits serving resnet]
+        [--only logits serving resnet vit_h14]
 
 ``--only`` recomputes the named sections and keeps the rest of the file.
 """
@@ -53,12 +62,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from repro.configs import deit_b, resnet50
+from repro.configs import deit_b, resnet50, vit_h14
 from repro.core.queues import FIFOQueue
 from repro.models import resnet, vit
 from repro.serving import engine
 from repro_torch.configs import deit_b as torch_deit_b
 from repro_torch.configs import resnet50 as torch_resnet50
+from repro_torch.configs import vit_h14 as torch_vit_h14
 from repro_torch.launch.serve import SURVEILLANCE, record_run
 from repro_torch.models import common as torch_common
 from repro_torch.models import resnet as torch_resnet
@@ -77,24 +87,51 @@ def images(res_list=RESOLUTIONS):
             for r in res_list}
 
 
-def logits_golden():
-    cfg = dataclasses.replace(deit_b.CONFIG, attn_impl="pallas")
-    tree = torch_vit.numpy_params(
-        dataclasses.replace(torch_deit_b.CONFIG, attn_impl="pallas"),
-        WEIGHT_SEED)
-    out = {}
+def vit_logits(jcfg, tcfg, classes=False):
+    """The reference's jitted ViT forward with ``tcfg``'s seeded numpy
+    weights: logits of the golden images per resolution and dtype, and
+    with ``classes`` each ``SURVEILLANCE`` class's frame alone in bf16."""
+    tree = torch_vit.numpy_params(tcfg, WEIGHT_SEED)
+    imgs = images()
+    out, frames = {}, {}
     for dt in ("float32", "bfloat16"):
-        c = dataclasses.replace(cfg, param_dtype=dt)
+        c = dataclasses.replace(jcfg, param_dtype=dt)
         params = jax.tree_util.tree_map(lambda a: jnp.asarray(a).astype(dt),
                                         tree)
         fwd = jax.jit(lambda p, x: vit.forward(p, x, c))
-        for res, img in images().items():
+        for res, img in imgs.items():
             t0 = time.time()
             lg = np.asarray(fwd(params, jnp.asarray(img)), np.float32)
-            print(f"logits {res} {dt}: {time.time() - t0:.1f} s, max "
-                  f"|logit| {np.abs(lg).max():.3f}", flush=True)
+            print(f"{jcfg.name} logits {res} {dt}: {time.time() - t0:.1f} "
+                  f"s, max |logit| {np.abs(lg).max():.3f}", flush=True)
             out.setdefault(str(res), {})[dt] = _rows(lg)
-    return out
+        if classes and dt == "bfloat16":
+            for cl in SURVEILLANCE["classes"]:
+                frame = imgs[cl["model_res"]][:1]
+                frames[cl["name"]] = dict(
+                    model_res=cl["model_res"], dtype=dt,
+                    logits=_rows(fwd(params, jnp.asarray(frame)))[0])
+        del params, fwd
+    return out, frames
+
+
+def logits_golden():
+    return vit_logits(
+        dataclasses.replace(deit_b.CONFIG, attn_impl="pallas"),
+        dataclasses.replace(torch_deit_b.CONFIG, attn_impl="pallas"))[0]
+
+
+def vit_h14_golden():
+    jcfg = dataclasses.replace(vit_h14.CONFIG, attn_impl="pallas")
+    tcfg = dataclasses.replace(torch_vit_h14.CONFIG, attn_impl="pallas")
+    logits, classes = vit_logits(jcfg, tcfg, classes=True)
+    return dict(arch="vit-h14", attn_impl="pallas",
+                attention_path="flash_attention in interpret mode "
+                               "(S > attn_chunk 512), else naive",
+                weight_seed=WEIGHT_SEED, image_seed=IMAGE_SEED,
+                n_images=N_IMAGES, resolutions=list(RESOLUTIONS),
+                n_tokens={str(r): tcfg.n_tokens(r) for r in RESOLUTIONS},
+                logits=logits, classes=classes)
 
 
 def _rows(logits):
@@ -164,7 +201,7 @@ def serving_golden():
 
 
 SECTIONS = {"logits": logits_golden, "serving": serving_golden,
-            "resnet": resnet_golden}
+            "resnet": resnet_golden, "vit_h14": vit_h14_golden}
 
 
 def main() -> int:

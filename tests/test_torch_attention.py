@@ -60,6 +60,24 @@ def test_flash_attention_matches_reference(S, D, mask, dtype):
     _close(got, want, dtype, ref.flash_attention_tolerance(got, tv))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mask", list(MASKS))
+@pytest.mark.parametrize("D", [72, 80])
+def test_flash_attention_matches_reference_at_wide_heads(D, mask, dtype):
+    """The head widths the card's tma_wgmma kernel reads narrower than its
+    128-wide tiles, DiT-XL/2's 72 and ViT-H/14's 80 (the reference pads
+    both to 128), at a ragged S with causal, window and GQA; the plain
+    version held to ``ref.flash_attention_tolerance``."""
+    causal, window = MASKS[mask]
+    H, KV = HEADS[mask]
+    (jq, jk, jv), (tq, tk, tv) = _qkv(D * 7 + len(mask), 2, 197, H, KV, D,
+                                      dtype)
+    want = jops.flash_attention(jq, jk, jv, causal=causal, window=window)
+    got = tops.flash_attention(tq, tk, tv, causal=causal, window=window)
+    assert got.shape == (2, 197, H, D)
+    _close(got, want, dtype, ref.flash_attention_tolerance(got, tv))
+
+
 def test_bf16_tolerance_rejects_a_dropped_key():
     """The rule that holds the card's kernel to its plain version, at the
     served shape (578 tokens, 12 heads, D 64, bf16): the reference's

@@ -455,15 +455,31 @@ def test_flash_variant_is_tma_at_d64_and_d128(D):
     assert fa.variant(q, k, k) == "tma_wgmma"
 
 
-@pytest.mark.parametrize("B,D,offset,dtype", [(2, 80, 0, torch.bfloat16),
+@pytest.mark.parametrize("D", [72, 80])
+@pytest.mark.parametrize("B,S,H,KV", [(8, 730, 16, 16), (8, 1024, 16, 16),
+                                      (1, 578, 16, 4), (2, 65, 8, 1)])
+def test_flash_variant_is_tma_at_d72_and_d80(B, S, H, KV, D):
+    """DiT-XL/2's heads (72 wide) and ViT-H/14's (80 wide), aligned, take
+    the TMA / wgmma kernel: ViT-H/14 at 384 px (730 tokens), DiT-XL/2 at
+    512 px (1,024), ragged S and GQA."""
+    q, k = _shaped((B, S, H, D)), _shaped((B, S, KV, D))
+    assert fa.variant(q, k, k) == "tma_wgmma"
+    assert D in fa.WGMMA_HEAD_DIMS
+
+
+@pytest.mark.parametrize("B,D,offset,dtype", [(2, 36, 0, torch.bfloat16),
                                               (2, 32, 0, torch.bfloat16),
                                               (2, 64, 1, torch.bfloat16),
+                                              (2, 80, 1, torch.bfloat16),
+                                              (2, 96, 0, torch.bfloat16),
                                               (16384, 64, 0, torch.bfloat16),
+                                              (16384, 80, 0, torch.bfloat16),
                                               (2, 64, 0, torch.float32)])
 def test_flash_variant_elsewhere(B, D, offset, dtype):
-    """ViT-H/14's D = 80 and D = 32 stay on mma_sync, as do a view 2 bytes
-    off alignment and B * H = 65536 (past the tma_wgmma grid); f32 takes
-    the register-tiled kernel."""
+    """D = 36 (not a multiple of 8), D = 32 (below 64) and D = 96 (no
+    wgmma width of it built) stay on mma_sync, as do views 2 bytes off
+    alignment (D = 64 and 80) and B * H = 65536 (past the tma_wgmma
+    grid); f32 takes the register-tiled kernel."""
     q = _shaped((B, 130, 4, D), dtype, offset)
     k = _shaped((B, 130, 4, D), dtype)
     want = "f32_regtile" if dtype == torch.float32 else "mma_sync"

@@ -60,6 +60,45 @@ def test_forward_matches_reference(arch, scale, dtype):
         assert np.array_equal(got.numpy().argmax(-1), want.argmax(-1))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_forward_with_80_wide_heads_matches_reference(dtype):
+    """ViT-H/14's head width (80) in a narrow ViT: d_model 160, 2 heads, 2
+    layers, patch 14 at 56 px enlarged to 98 (50 tokens against
+    ``attn_chunk`` 32), so both packages take their kernel path (the
+    reference's Pallas kernel in interpret mode, D padded to 128; the
+    port's plain version on CPU tensors) and resize the pos-embed;
+    tolerances as above."""
+    kw = dict(name="vit-h14-80", img_res=56, patch=14, n_layers=2,
+              d_model=160, n_heads=2, d_ff=320, n_classes=10,
+              attn_impl="pallas", attn_chunk=32, param_dtype=dtype)
+    jcfg = dataclasses.replace(jax_smoke("vit-h14"), **kw)
+    tcfg = dataclasses.replace(get_smoke_config("vit-h14"), **kw)
+    assert tcfg.d_model // tcfg.n_heads == 80
+    assert tcfg.n_tokens(98) == 50 > tcfg.attn_chunk
+    tree = vit.numpy_params(tcfg, 3)
+    jparams = jax.tree_util.tree_map(lambda a: jnp.asarray(a).astype(dtype),
+                                     tree)
+    tparams = vit.params_from_numpy(tree, tcfg, "cpu")
+    img = np.random.default_rng(4).random((2, 98, 98, 3), dtype=np.float32)
+    want = np.asarray(jvit.forward(jparams, jnp.asarray(img), jcfg))
+    got = vit.serve_step(tparams, torch.from_numpy(img), tcfg)
+    assert got.dtype == torch.float32 and got.shape == (2, 10)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=LOGIT_ATOL[dtype])
+    if dtype == "float32":
+        assert np.array_equal(got.numpy().argmax(-1), want.argmax(-1))
+
+
+def test_vit_h14_serving_shapes():
+    """ViT-H/14 on the serving path: 224 px stays under the 512-token
+    chunk (naive attention), 384 px does not (the kernel in each of 32
+    layers, heads 80 wide)."""
+    cfg = get_config("vit-h14")
+    assert cfg.n_tokens(224) == 257 and cfg.n_tokens(384) == 730
+    assert cfg.attn_chunk == 512 and cfg.n_layers == 32
+    assert cfg.d_model // cfg.n_heads == 80
+
+
 @pytest.mark.parametrize("grid_from,grid_to", [(14, 24), (4, 6), (2, 5),
                                                (24, 14), (4, 3), (5, 5)])
 def test_interp_pos_embed_matches_reference(grid_from, grid_to):

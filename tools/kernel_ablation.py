@@ -6,7 +6,7 @@ Builds versions of the kernel sources from patched copies of
 ``src/repro_torch/kernels/csrc`` (under ``build/ablation/``) and times
 each with CUDA events around launches replayed from one CUDA graph.
 ``--root`` takes the sources and the wrappers from another checkout (an
-unpacked older commit, to measure the kernels it had).  Three groups:
+unpacked older commit, to measure the kernels it had).  Four groups:
 
 - ``wgmma``: the TMA / ``wgmma`` kernels of ``moe_gemm`` (Granite-3.0 MoE
   gate/up and down, bf16) and ``flash_attention`` (DeiT-B's attention at
@@ -20,6 +20,13 @@ unpacked older commit, to measure the kernels it had).  Three groups:
   f32, B=1 and B=8, as built, without its products (neither Q K^T nor
   P V), without its K / V loads (the tiles in shared memory stay
   stale), and without either; beside SDPA in f32;
+- ``flash_wide``: the bf16 ``flash_attention`` kernel of heads 80 wide
+  (ViT-H/14's 16 heads at B = 8 and S = 578, and at its own 730 tokens at
+  B = 1, 2 and 8) and 72 wide (DiT-XL/2's 16 at B = 8, S = 1024): as
+  built (``tma_wgmma``), without the products and without the loads (as
+  in ``wgmma``); and the ``mma_sync`` kernel on the same aligned inputs
+  (called through its C launcher: the wrapper sends these to
+  ``tma_wgmma``), the kernel these heads took before;
 - ``rmsnorm``: ``rmsnorm`` at (4096, 5376), (4096, 1536) and (7, 7168),
   bf16 and f32, as built (the wrapper called as a user calls it, scale
   in x's dtype), with the scale cast to f32 outside the timed call, and
@@ -104,6 +111,7 @@ VERSIONS = {
 GROUP_VERSIONS = {
     "wgmma": ("as built", "no products", "no loads", "neither"),
     "flash_f32": ("as built", "no products", "no loads", "neither"),
+    "flash_wide": ("as built", "no products", "no loads"),
     "rmsnorm": ("as built", "constant scale"),
 }
 
@@ -191,6 +199,11 @@ def main() -> int:
               for k, (E, C, d, f) in moe.items()}
     fl_in = {B: tuple(torch.randn(B, 578, 12, 64, generator=gen, device=dev)
                       for _ in range(3)) for B in (1, 8)}
+    wide_in = {(B, S, D): tuple(
+        torch.randn(B, S, 16, D, generator=gen, device=dev).bfloat16()
+        for _ in range(3)) for B, S, D in ((8, 578, 80), (1, 730, 80),
+                                           (2, 730, 80), (8, 730, 80),
+                                           (8, 1024, 72))}
     rn_in = {(R, d, dt): ((torch.randn(R, d, generator=gen, device=dev))
                           .to(dt), (torch.randn(d, generator=gen, device=dev)
                                     * 0.1).to(dt))
@@ -211,6 +224,11 @@ def main() -> int:
             qt, kt, vt = (a.transpose(1, 2).contiguous() for a in t)
             emit(flash_attention=B, dtype="float32", library="sdpa",
                  ms=graph_ms(lambda: sdpa(qt, kt, vt), 20))
+    if "flash_wide" in args.only:
+        for key, t in wide_in.items():
+            qt, kt, vt = (a.transpose(1, 2).contiguous() for a in t)
+            emit(flash_attention=key, dtype="bfloat16", library="sdpa",
+                 ms=graph_ms(lambda: sdpa(qt, kt, vt), 50))
     if "rmsnorm" in args.only:
         for (R, d, dt), (x, s) in rn_in.items():
             weight = (1.0 + s.float()).to(dt)
@@ -232,6 +250,25 @@ def main() -> int:
                 emit(flash_attention=B, dtype="bfloat16", version=version,
                      ms=graph_ms(lambda: fa.flash_attention(
                          q, kk, v, causal=False), 100))
+        if "flash_wide" in args.only and \
+                version in GROUP_VERSIONS["flash_wide"]:
+            for (B, S, D), (q, kk, v) in wide_in.items():
+                assert fa.variant(q, kk, v) == "tma_wgmma"
+                emit(flash_attention=[B, S, D], dtype="bfloat16",
+                     version=version, ms=graph_ms(lambda: fa.flash_attention(
+                         q, kk, v, causal=False), 50))
+                if version == "as built":
+                    out = torch.empty_like(q)
+                    mma = fa._lib("flash_attention_launch")
+
+                    def mma_sync():
+                        index, stream = build.stream_of(dev)
+                        build.raise_on("flash_attention (mma_sync)", mma(
+                            q.data_ptr(), kk.data_ptr(), v.data_ptr(),
+                            out.data_ptr(), B, S, 16, 16, D, D ** -0.5, 0,
+                            0, 1, index, stream))
+                    emit(flash_attention=[B, S, D], dtype="bfloat16",
+                         version="mma_sync", ms=graph_ms(mma_sync, 10))
         if "flash_f32" in args.only and version in GROUP_VERSIONS["flash_f32"]:
             for B, (q, kk, v) in fl_in.items():
                 emit(flash_attention=B, dtype="float32", version=version,
