@@ -55,7 +55,8 @@ final line:
                 of the main path) and its time there beside the plain
                 version's and the bound;
              f. the event heap, the main path's checker (host Python, its
-                ``batched_feasible`` router scoring on the card): the port's
+                ``batched_feasible`` router scoring on the card, one
+                ``fleet_feasibility`` launch a decision): the port's
                 ``run_simulation`` against all 18 entries of
                 ``tests/golden_simulator.json`` (the paper's Table II grid:
                 every integer field equal, the mean response time within
@@ -68,7 +69,18 @@ final line:
                 where the reference's f32 / f64 flips show in both
                 packages); the check shown to reject a trace with one
                 recorded forward target changed; each heap run's wall time
-                beside its fleet run's;
+                beside its fleet run's; in each cell, the router's
+                ``fleet_feasibility`` launches equal its decisions and
+                ``torch_queue.feasible_nodes`` is never called; then every
+                decision's verdicts (its packed inputs kept) against the
+                plain version's on the card, every 16th against
+                ``torch_queue.feasible_nodes``, the distribution of the
+                ledger width ``cap``, and the kept decisions replayed in
+                turns through the router's path (pack, one copy, one
+                launch, one read) and through the form it had until PR 21
+                (three numpy ledgers, their copies, ``feasible_nodes``'
+                launches, a read): each whole and stage by stage, and one
+                of each profiled;
              g. sweeps and telemetry: the 32-cell sweep of
                 ``examples/fleet_sweep.py`` (``paper/scenario1``,
                 ``random``, seeds 0-7 x ``sla_scale`` 0.5 / 0.8 / 1.0 /
@@ -201,14 +213,19 @@ final line:
                 each batch size served and at (8, 730, 16, 80); where the
                 device time of a 384-px batch of 8 goes; step times and
                 captures as for DeiT-B;
-5. entry points — the kernels that only ``repro_torch.kernels.ops`` reaches
-             (no fleet or vision path calls them; each of their launch
-             counts, set to 0 before phase 3, is still 0 after phase 4):
+5. entry points — the kernels that ``repro_torch.kernels.ops`` exposes
+             (their launch counts, set to 0 before phase 3, are 0 after
+             phase 4 but for ``fleet_feasibility``'s, which must equal the
+             heap router's decisions in phase 3f):
              a. ``fleet_feasibility`` and ``link_cost`` against their plain
                 versions on random head-pointer fleets (K in {1, 5, 12, 32,
-                256}, N in {8, 64, 1024}) with full and empty rows,
+                256}, N in {8, 64, 1000, 1024, 20000}: rows off 16-byte
+                alignment and rows longer than one staged chunk) with full
+                and empty rows,
                 deadlines on block edges and a priced network: bit for bit,
-                ``load`` within ``LOAD_RTOL`` where sizes are not dyadic;
+                ``load`` within ``ref.load_rtol`` where sizes are not
+                dyadic, and always the kernels' association of the sum
+                (``ref.lane_tree_sum``) bit for bit;
              b. on every ``event_select`` input kept in phase 3b, the
                 selected event scored by ``link_cost`` from its node's
                 network row equals ``event_select``'s feasible, arrive and
@@ -232,7 +249,12 @@ final line:
                 time beside its plain version's, the one PyTorch call that
                 computes the same function where there is one
                 (``F.rms_norm``, ``torch.bmm``; timed only, never called by
-                the port), the ratio of the two and the bound; ``rmsnorm``
+                the port), the ratio of the two and the bound; the
+                admission kernels also at each (K, cap) of the heap
+                router's decisions, on one of its decisions, and each
+                beside an empty kernel's launch at K blocks (the launch
+                floor, in turns) and the share of the bound reached;
+                ``rmsnorm``
                 and ``F.rms_norm`` twice, warm (the same input every call,
                 as L2 keeps it) and with L2 cold (each call on the next of
                 as many input copies as exceed the 50 MB L2 twice over,
@@ -241,7 +263,8 @@ final line:
 6. the ``{"kernels": [...]}`` line (one entry a kernel; ``flash_attention``
    one a variant: ``tma_wgmma`` at D = 64 (DeiT-B) and 80 (ViT-H/14), each
    with its main-path launches, and at 72, ``mma_sync`` and
-   ``f32_regtile``, which no served path launches), then the
+   ``f32_regtile``, which no served path launches; ``fleet_feasibility``
+   with its path, the heap router, and that path's launches), then the
    ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX or of the JAX package.
@@ -269,6 +292,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import telemetry as tel  # noqa: E402
+from repro_torch.core import torch_queue as tq  # noqa: E402
 from repro_torch.configs import deit_b, resnet50, vit_h14  # noqa: E402
 from repro_torch.core.simulator import SimConfig, run_simulation  # noqa: E402
 from repro_torch.fleetsim import core as fleet_core  # noqa: E402
@@ -286,6 +310,7 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import resnet, vit  # noqa: E402
 from repro_torch.core.scenarios import SCENARIOS  # noqa: E402
+from repro_torch.orchestration import router as router_mod  # noqa: E402,E501
 from repro_torch.netsim import (LinkModel, RadioModel,  # noqa: E402
                                 RadioWorkload)
 from repro_torch.orchestration import (DiurnalWorkload,  # noqa: E402
@@ -315,7 +340,6 @@ KERNELS = {           # name: (source, the TPU kernel it replaces)
     "moe_gemm": (CSRC + "moe_gemm.cu", "src/repro/kernels/moe_gemm.py:18"),
 }
 SOURCES = sorted({os.path.basename(src)[:-3] for src, _ in KERNELS.values()})
-LOAD_RTOL = 1e-6                   # load of non-dyadic sizes (sum order)
 # On the served inputs attention is near uniform over 578 keys, so one key
 # moves an output by less than a bf16 unit and no elementwise tolerance
 # sees a dropped key there.  The rms error against the plain version in
@@ -581,7 +605,8 @@ def check_exact(kernel, args, exact_load=True) -> float:
     """``ops.<kernel>`` (the kernel) vs ``ref.<kernel>_ref`` on one input;
     returns the max abs error over the float outputs.  Every output must
     match bit for bit, ``load`` too when the sizes are dyadic, else within
-    ``LOAD_RTOL``."""
+    ``ref.load_rtol``; ``load`` must also be the kernels' association of the
+    sum (``ref.lane_tree_sum``) bit for bit."""
     got = getattr(ops, kernel)(*args)
     want = getattr(ref, kernel + "_ref")(*args)
     torch.cuda.synchronize()
@@ -592,9 +617,14 @@ def check_exact(kernel, args, exact_load=True) -> float:
                  f"{w.dtype}{tuple(w.shape)}")
         if g.dtype.is_floating_point:
             err = max(err, float((g - w).abs().max()))
+        if name == "load" and kernel != "event_select" and not \
+                torch.equal(g, ref.lane_tree_sum(args[2])):
+            fail(f"{kernel} load is not the lane-tree sum of the sizes")
         if name == "load" and not exact_load:
-            if not torch.allclose(g, w, rtol=LOAD_RTOL, atol=0.0):
-                fail(f"{kernel} load outside rtol {LOAD_RTOL}")
+            rtol = ref.load_rtol(args[12 if kernel == "event_select"
+                                      else 0].shape[1])
+            if not torch.allclose(g, w, rtol=rtol, atol=0.0):
+                fail(f"{kernel} load outside rtol {rtol}")
         elif not torch.equal(g, w):
             fail(f"{kernel} {name} differs from the plain version: "
                  f"{g.flatten()[:8].tolist()} vs {w.flatten()[:8].tolist()}")
@@ -1087,6 +1117,229 @@ def planted_trace(real):
     return host_run
 
 
+# every this many batched_feasible decisions one is kept for the timed
+# replays and the per-decision check against torch_queue.feasible_nodes
+KEEP_DECISION = 16
+# kept decisions profiled in one window, for each form of the scoring
+PROFILED_DECISIONS = 20
+
+
+class DecisionClock:
+    """Stands in for ``router._score_feasible`` while the heap's
+    ``batched_feasible`` cells run: counts the decisions, sums their wall
+    time (host clock; each ends in the blocking read of its verdicts),
+    keeps each decision's packed host buffer (what the kernel's input was
+    copied from) and verdicts by (K, cap), and every ``KEEP_DECISION``th
+    decision's ledger rows, read again after the timed call (scoring
+    changes no queue).  ``extra`` is the time this bookkeeping adds to the
+    run."""
+
+    def __init__(self):
+        self.real = router_mod._score_feasible
+        self.rows = router_mod.ledger_rows
+        self.calls, self.seconds, self.extra = 0, 0.0, 0.0
+        self.packed = collections.defaultdict(list)
+        self.kept = []
+        self.shape = None
+
+    def watch(self, staging):
+        """Records each ``staging.pack``'s (K, cap) in ``self.shape``."""
+        real = staging.pack
+
+        def pack(*args):
+            self.shape = real(*args)
+            return self.shape
+        staging.pack = pack
+        staging.watched = True
+
+    def __call__(self, nodes, cand_ids, ps, deadline, arrivals, staging):
+        if not getattr(staging, "watched", False):
+            self.watch(staging)
+        t0 = time.perf_counter()
+        out = self.real(nodes, cand_ids, ps, deadline, arrivals, staging)
+        t1 = time.perf_counter()
+        self.seconds += t1 - t0
+        self.calls += 1
+        K, cap = self.shape
+        words = 3 * K * cap + 4 * K + 1
+        self.packed[(K, cap)].append((staging.host[:words].clone(), out))
+        if self.calls % KEEP_DECISION == 0:
+            blocks, frees = self.rows(nodes, cand_ids, arrivals)
+            self.kept.append((blocks, list(ps), deadline, frees, out))
+        self.extra += time.perf_counter() - t1
+        return out
+
+    def __enter__(self):
+        router_mod._score_feasible = self
+        return self
+
+    def __exit__(self, *exc):
+        router_mod._score_feasible = self.real
+
+
+def plain_verdicts(bufs, K, cap, dev):
+    """The plain version's verdicts, on the card, of B packed decisions of
+    one (K, cap) at once: their rows stacked into (B K, cap) ledgers, each
+    row with its decision's deadline."""
+    X = torch.stack(bufs).to(dev)
+    B, L = X.shape[0], K * cap
+    col = lambda a, b: X[:, a:b].contiguous()
+    ledger = lambda i: col(i * L, (i + 1) * L).reshape(B * K, cap)
+    vec = lambda i: col(3 * L + i * K, 3 * L + (i + 1) * K)
+    feas, _ = ref.fleet_feasibility_ref(
+        ledger(0), ledger(1), ledger(2),
+        vec(0).view(torch.int32).reshape(B * K), vec(2).reshape(B * K),
+        col(3 * L + 4 * K, 3 * L + 4 * K + 1).repeat_interleave(K, 0),
+        vec(3).reshape(B * K), vec(1).view(torch.int32).reshape(B * K))
+    return feas.reshape(B, K).tolist()
+
+
+def pr21_score(blocks, ps, deadline, frees, dev, sync):
+    """A decision scored as the router scored it until this slice (PR 21):
+    three (K, cap) numpy ledgers filled element by element, each copied to
+    the card, the scalars copied by ``torch.tensor``, then
+    ``torch_queue.feasible_nodes`` and one read.  With ``sync``, returns
+    the host time of each stage (build, copies, launches, read), each
+    ending in a synchronise; else the verdicts."""
+    t = [time.perf_counter()]
+    cap, K = router_mod.ledger_cap(blocks), len(blocks)
+    h_starts = np.full((K, cap), BIG, np.float32)
+    h_ends = np.full((K, cap), BIG, np.float32)
+    h_sizes = np.zeros((K, cap), np.float32)
+    for k, blist in enumerate(blocks):
+        for j, (s, e) in enumerate(blist):
+            h_starts[k, j] = s
+            h_ends[k, j] = e
+            h_sizes[k, j] = e - s
+    ns = [len(b) for b in blocks]
+    t.append(time.perf_counter())
+    f32 = dict(dtype=torch.float32, device=dev)
+    leds = tq.Ledger(starts=torch.from_numpy(h_starts).to(dev),
+                     ends=torch.from_numpy(h_ends).to(dev),
+                     sizes=torch.from_numpy(h_sizes).to(dev),
+                     n=torch.tensor(ns, dtype=torch.int32, device=dev))
+    ps_t, d_t = torch.tensor(ps, **f32), torch.tensor(deadline, **f32)
+    fr_t = torch.tensor(frees, **f32)
+    if sync:
+        torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    ok = tq.feasible_nodes(leds, ps_t, d_t, fr_t)
+    if sync:
+        torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    out = ok.tolist()
+    t.append(time.perf_counter())
+    return [b - a for a, b in zip(t, t[1:])] if sync else out
+
+
+def routed_score(staging, blocks, ps, deadline, frees, sync):
+    """A decision scored as the router scores it now: pack, one copy, one
+    ``ops.fleet_feasibility`` call, one read.  With ``sync``, returns the
+    host time of each stage (pack, copy, launch, read), each ending in a
+    synchronise; else the verdicts."""
+    t = [time.perf_counter()]
+    K, cap = staging.pack(blocks, ps, frees, deadline)
+    t.append(time.perf_counter())
+    views = staging.to_device(K, cap)
+    if sync:
+        torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    feas, _ = ops.fleet_feasibility(*views)
+    if sync:
+        torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    out = feas.tolist()
+    t.append(time.perf_counter())
+    return [b - a for a, b in zip(t, t[1:])] if sync else out
+
+
+def decision_split(clock, rows_s, dev) -> dict:
+    """The heap's batched_feasible decisions after the run: every one's
+    kernel verdicts against the plain version's on the card; the kept ones
+    against ``torch_queue.feasible_nodes``; the kept ones replayed, in
+    turns, through the router's path and through the PR 21 path, whole
+    (no synchronise between stages) and stage by stage; one decision of
+    each profiled (device kernels and copies)."""
+    n = 0
+    for (K, cap), rows in clock.packed.items():
+        for i in range(0, len(rows), 2048):
+            part = rows[i:i + 2048]
+            got = [out for _, out in part]
+            if plain_verdicts([b for b, _ in part], K, cap, dev) != got:
+                fail(f"router decisions at (K, cap) {(K, cap)}: the "
+                     f"kernel's verdicts differ from the plain version's")
+            n += len(part)
+    for blocks, ps, d, frees, out in clock.kept:
+        if pr21_score(blocks, ps, d, frees, dev, False) != out:
+            fail(f"a router decision (K={len(blocks)}): the kernel's "
+                 f"verdicts differ from torch_queue.feasible_nodes'")
+    staging = router_mod.FeasibilityStaging(dev)
+    whole = {"routed": 0.0, "pr21": 0.0}
+    stages = {"routed": np.zeros(4), "pr21": np.zeros(4)}
+    for blocks, ps, d, frees, _ in clock.kept:
+        for form in ("routed", "pr21", "pr21", "routed"):
+            fn = (lambda sync: routed_score(staging, blocks, ps, d, frees,
+                                            sync)) if form == "routed" \
+                else (lambda sync: pr21_score(blocks, ps, d, frees, dev,
+                                              sync))
+            t0 = time.perf_counter()
+            fn(False)
+            whole[form] += (time.perf_counter() - t0) / 2
+            stages[form] += np.asarray(fn(True)) / 2
+    m = len(clock.kept)
+    some = clock.kept[:PROFILED_DECISIONS]
+
+    def window(form):
+        """The device entries, by name, of ``PROFILED_DECISIONS`` kept
+        decisions in one profiler window."""
+        if form == "routed":
+            run = lambda: [routed_score(staging, b, p, dd, f, False)
+                           for b, p, dd, f, _ in some]
+        else:
+            run = lambda: [pr21_score(b, p, dd, f, dev, False)
+                           for b, p, dd, f, _ in some]
+        return profiled(run)["device_counts"]
+    prof = {form: window(form) for form in ("routed", "pr21")}
+    caps = collections.Counter()
+    for (K, cap), rows in clock.packed.items():
+        caps[f"K={K}, cap={cap}"] += len(rows)
+    out = dict(decisions=clock.calls, checked_plain=n,
+               checked_feasible_nodes=m,
+               decision_ms=clock.seconds / clock.calls * 1e3,
+               ledger_rows_ms=rows_s / clock.calls * 1e3,
+               caps=dict(sorted(caps.items())))
+    for form in whole:
+        out[form] = dict(
+            replay_ms=whole[form] / m * 1e3,
+            stages_ms=dict(zip(("build", "copy", "launch", "read")
+                               if form == "pr21" else
+                               ("pack", "copy", "launch", "read"),
+                               (stages[form] / m * 1e3).tolist())),
+            device_entries=prof[form],
+            device_kernels=sum(v for k, v in prof[form].items()
+                               if not k.startswith("Memcpy")),
+            device_copies=sum(v for k, v in prof[form].items()
+                              if k.startswith("Memcpy")))
+    print(f"heap router: {n} batched_feasible decisions, the kernel's "
+          f"verdicts the plain version's on every one and "
+          f"torch_queue.feasible_nodes' on {m} kept ones; caps "
+          f"{out['caps']}", flush=True)
+    print(f"heap router: a decision {out['decision_ms']:.4f} ms on the path "
+          f"(of it ledger_rows {out['ledger_rows_ms']:.4f} ms); replayed "
+          f"whole: routed {out['routed']['replay_ms']:.4f} ms, PR 21 form "
+          f"{out['pr21']['replay_ms']:.4f} ms; by stage (each ending in a "
+          f"synchronise) routed {out['routed']['stages_ms']}, PR 21 form "
+          f"{out['pr21']['stages_ms']}", flush=True)
+    print(f"heap router: {len(some)} decisions in one profiler window "
+          f"(it can miss a window's first entries): routed "
+          f"{out['routed']['device_kernels']} kernels and "
+          f"{out['routed']['device_copies']} copies "
+          f"({out['routed']['device_entries']}); PR 21 form "
+          f"{out['pr21']['device_kernels']} kernels and "
+          f"{out['pr21']['device_copies']} copies", flush=True)
+    return out
+
+
 def heap_phase(dev) -> dict:
     """Phase 3f: the port's ``run_simulation`` against all 18 entries of
     tests/golden_simulator.json (the router on the card), then
@@ -1127,16 +1380,30 @@ def heap_phase(dev) -> dict:
     with open(GOLDEN) as f:
         reference = json.load(f)["validation"]
     t_val, cells = time.time(), []
+    clock, rows_s = DecisionClock(), 0.0
     for want in reference:
         sc, policy = want["scenario"], want["policy"]
         network = LinkModel.campus(Topology.full_mesh(
             get_workload(sc).n_nodes))
         scan_mod.event_scan.launches = 0
         es_mod.event_select.launches = 0
+        decided, routed = clock.calls, ad_mod.fleet_feasibility.launches
+        extra = clock.extra
         with Spy(validate, "_host_run") as host, \
-                Spy(validate.fcore, "simulate") as fleet:
+                Spy(validate.fcore, "simulate") as fleet, \
+                Spy(router_mod, "ledger_rows") as rows, \
+                Spy(tq, "feasible_nodes") as old_scorer, clock:
             rep = validate.run_validation(sc, 0, policy=policy,
                                           network=network, device=dev)
+        rows_s += rows.seconds
+        extra = clock.extra - extra
+        decided = clock.calls - decided
+        routed = ad_mod.fleet_feasibility.launches - routed
+        if routed != decided or old_scorer.calls or \
+                (policy == "batched_feasible") != (decided > 0):
+            fail(f"run_validation {sc} {policy}: {routed} fleet_feasibility "
+                 f"launches for {decided} router decisions, "
+                 f"{old_scorer.calls} torch_queue.feasible_nodes calls")
         launches = (scan_mod.event_scan.launches,
                     es_mod.event_select.launches)
         got = dict(exact=rep.exact,
@@ -1152,11 +1419,23 @@ def heap_phase(dev) -> dict:
                  f"event_select) launches {launches}")
         cells.append(dict(scenario=sc, policy=policy, exact=rep.exact,
                           heap_s=host.seconds, fleet_s=fleet.seconds,
-                          forwards=rep.host["forwards"]))
+                          forwards=rep.host["forwards"], decisions=decided))
         print(f"heap validate {rep.row()}  heap {host.seconds:.3f} s, "
               f"fleet (event_scan) {fleet.seconds:.4f} s; the reference's "
-              f"report", flush=True)
+              f"report; {decided} router decisions, as many "
+              f"fleet_feasibility launches", flush=True)
+        if decided:
+            heap_s = host.seconds - extra
+            cells[-1].update(heap_s=heap_s, bookkeeping_s=extra)
+            print(f"heap validate {sc} batched_feasible: wall "
+                  f"{heap_s + fleet.seconds:.3f} s ({decided} decisions, "
+                  f"{heap_s / decided * 1e3:.4f} ms of heap a decision; "
+                  f"{extra:.3f} s of this script's bookkeeping taken out)",
+                  flush=True)
     validate_s = time.time() - t_val
+    launched = ad_mod.fleet_feasibility.launches
+    router = decision_split(clock, rows_s, dev)
+    ad_mod.fleet_feasibility.launches = launched   # the replays' launches
 
     real = validate._host_run
     validate._host_run = planted_trace(real)
@@ -1170,7 +1449,9 @@ def heap_phase(dev) -> dict:
         fail(f"run_validation passes a changed trace: {rep.row()}")
     print(f"heap validate: a trace with one forward target changed is "
           f"rejected ({rep.row()})", flush=True)
-    return dict(grid_s=grid_s, validate_s=validate_s, cells=cells)
+    return dict(grid_s=grid_s, validate_s=validate_s, cells=cells,
+                router=router, router_inputs={
+                    key: rows[0][0] for key, rows in clock.packed.items()})
 
 
 # ---------------------------------------------------------------------------
@@ -2671,7 +2952,7 @@ RMSNORM_SHAPES = ((4096, 5376), (4096, 1536), (7, 7168))
 MOE_SHAPES = {"gate_up": (40, 1024, 1536, 512), "down": (40, 1024, 512, 1536),
               "ragged_tma": (40, 1000, 1536, 504),
               "ragged": (40, 1000, 1536, 500)}
-FLEET_K, FLEET_N = (1, 5, 12, 32, 256), (8, 64, 1024)
+FLEET_K, FLEET_N = (1, 5, 12, 32, 256), (8, 64, 1000, 1024, 20000)
 # the shape each kernel's entry in the kernels line reports
 HEADLINE = {"fleet_feasibility": dict(K=256, N=1024),
             "link_cost": dict(K=256, N=1024),
@@ -2973,10 +3254,67 @@ def rmsnorm_device_kernels(dev) -> dict:
     return counts
 
 
-def entry_times(dev, kept, fleet, one_kernel):
+FLOOR_SOURCE = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(int blocks, int threads, int device,
+                            cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  empty_kernel<<<blocks, threads, 0, stream>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+_floor = {}
+
+
+def build_floor() -> float:
+    """Builds an empty kernel with the kernels' flags (``build/kernels/
+    floor``): the launch floor phase 5 times beside the admission kernels.
+    Returns the build's seconds."""
+    import ctypes
+    t0 = time.time()
+    out = build.build_dir() / "floor"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "empty.cu").write_text(FLOOR_SOURCE)
+    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o",
+                    str(out / "libempty.so"), str(out / "empty.cu")],
+                   check=True, capture_output=True)
+    fn = ctypes.CDLL(str(out / "libempty.so")).empty_launch
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _floor["launch"] = fn
+    return time.time() - t0
+
+
+def empty_launch(blocks: int, dev) -> None:
+    """One launch of the empty kernel: ``blocks`` blocks of 256 threads (the
+    admission kernels' largest block), on PyTorch's current stream."""
+    build.raise_on("empty kernel", _floor["launch"](blocks, 256,
+                                                    *build.stream_of(dev)))
+
+
+def admission_row(kernel, K, N, args, dev) -> dict:
+    """Graph-replayed times of one admission kernel, its plain version and
+    the empty kernel at K blocks, in turns (kernel, floor, floor, kernel),
+    with the bound and the share of it reached."""
+    ms, floor_ms = in_turns(
+        lambda: graph_ms(lambda: getattr(ops, kernel)(*args), 1000),
+        lambda: graph_ms(lambda: empty_launch(K, dev), 1000))
+    bound_ms = admission_bound_ms(K, N, kernel == "link_cost")
+    return dict(K=K, N=N, ms=ms, floor_ms=floor_ms,
+                plain_ms=graph_ms(lambda: getattr(ref, kernel + "_ref")(
+                    *args), 200),
+                library_ms=None, bound_ms=bound_ms, bound_by="bytes",
+                bound_share=bound_ms / ms)
+
+
+def entry_times(dev, kept, fleet, one_kernel, routed):
     """Phase 5e: graph-replayed times of each kernel, its plain version
     and the library call where one computes the same function, with the
-    bound, at the checked shapes.  Returns rows per kernel."""
+    bound, at the checked shapes; the admission kernels also at the heap
+    router's (K, cap) on one of its decisions each, beside the empty
+    kernel's launch.  Returns rows per kernel."""
     rows = {name: [] for name in ENTRY_POINTS}
     inputs = {(256, 1024): fleet}
     for args_list in kept.values():                # the main path's shapes
@@ -2990,14 +3328,19 @@ def entry_times(dev, kept, fleet, one_kernel):
     for (K, N), L in sorted(inputs.items()):
         for kernel in ("fleet_feasibility", "link_cost"):
             args = admission_args(L, kernel, 9000.0, 120.5, 24.8832, dev)
-            rows[kernel].append(dict(
-                K=K, N=N,
-                ms=graph_ms(lambda: getattr(ops, kernel)(*args), 1000),
-                plain_ms=graph_ms(lambda: getattr(ref, kernel + "_ref")(
-                    *args), 200),
-                library_ms=None,
-                bound_ms=admission_bound_ms(K, N, kernel == "link_cost"),
-                bound_by="bytes"))
+            rows[kernel].append(admission_row(kernel, K, N, args, dev))
+    zero = lambda K: torch.zeros(K, device=dev)
+    for (K, cap), buf in sorted(routed.items()):
+        starts, ends, sizes, n, ps, d, free, head = router_mod.staged_views(
+            buf.to(dev), K, cap)
+        for kernel, args in (
+                ("fleet_feasibility", (starts, ends, sizes, n, ps, d, free,
+                                       head)),
+                ("link_cost", (starts, ends, sizes, n, ps, d, free, head,
+                               d, zero(K), zero(K), d))):
+            row = admission_row(kernel, K, cap, args, dev)
+            row["router"] = True
+            rows[kernel].append(row)
     lib = torch.nn.functional.rms_norm
     for R, d in RMSNORM_SHAPES:
         for dt in (torch.bfloat16, torch.float32):
@@ -3041,7 +3384,7 @@ def entry_times(dev, kept, fleet, one_kernel):
                 else r["ms"] / r["library_ms"]
             shape = ", ".join(f"{k}={v}" for k, v in r.items()
                               if not k.endswith(("ms", "_by", "ratio",
-                                                 "_cold")))
+                                                 "_cold", "_share")))
             lib = "none" if r["library_ms"] is None \
                 else (f"{r['library_ms'] * 1e3:.2f} us, kernel / library "
                       f"{r['ratio']:.3f}")
@@ -3049,14 +3392,17 @@ def entry_times(dev, kept, fleet, one_kernel):
                 lib += (f"; L2 cold: kernel {r['ms_cold'] * 1e3:.2f} us, "
                         f"library {r['library_ms_cold'] * 1e3:.2f} us, "
                         f"kernel / library {r['ratio_cold']:.3f}")
-            print(f"entry kernel time {name} {shape}: {r['ms'] * 1e3:.2f} us, "
-                  f"plain {r['plain_ms'] * 1e3:.2f} us, library {lib}, bound "
-                  f"{r['bound_ms'] * 1e3:.3f} us ({r['bound_by']})",
-                  flush=True)
+            floor = "" if "floor_ms" not in r else (
+                f", empty-kernel launch {r['floor_ms'] * 1e3:.3f} us, share "
+                f"of the bound {r['bound_share']:.4f}")
+            print(f"entry kernel time {name} {shape}: {r['ms'] * 1e3:.3f} "
+                  f"us, plain {r['plain_ms'] * 1e3:.2f} us, library {lib}, "
+                  f"bound {r['bound_ms'] * 1e3:.4f} us ({r['bound_by']})"
+                  f"{floor}", flush=True)
     return rows
 
 
-def entry_point_phase(dev, kept, one_kernel):
+def entry_point_phase(dev, kept, one_kernel, routed):
     """Phase 5; returns the kernels-line entries of the four kernels."""
     torch.backends.cuda.matmul.allow_tf32 = False
     errs = admission_checks(dev, kept)
@@ -3064,7 +3410,7 @@ def entry_point_phase(dev, kept, one_kernel):
     errs["moe_gemm"] = moe_checks(dev)
     fleet = random_ledgers(np.random.default_rng(6), 256, 1024, True, dev)
     launches = drive_entry_points(dev, fleet)
-    rows = entry_times(dev, kept, fleet, one_kernel)
+    rows = entry_times(dev, kept, fleet, one_kernel, routed)
     out = {}
     for name in ENTRY_POINTS:
         top = next(r for r in rows[name]
@@ -3074,8 +3420,9 @@ def entry_point_phase(dev, kept, one_kernel):
                          bound_ms=top["bound_ms"], bound_by=top["bound_by"],
                          library_ms=top["library_ms"], ratio=top["ratio"],
                          shapes=rows[name])
-        if "variant" in top:
-            out[name]["variant"] = top["variant"]
+        for key in ("variant", "floor_ms", "bound_share"):
+            if key in top:
+                out[name][key] = top[key]
     return out
 
 
@@ -3099,18 +3446,22 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
-    # -- 2. build, one nvcc per source, all started together
-    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as ex:
+    # -- 2. build, one nvcc per source, all started together (and the
+    # empty kernel of phase 5's launch floor)
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES) + 1) as ex:
+        floor = ex.submit(build_floor)
         secs = {n: ex.submit(timed_build, n) for n in SOURCES}
         for name, fut in secs.items():
             print(f"build: {name} {fut.result():.2f} s", flush=True)
             print(build.ptxas_report(name), end="", flush=True)
+        print(f"build: empty kernel {floor.result():.2f} s", flush=True)
 
     # -- 2b. one rmsnorm call, one device kernel (the first profiled)
     one_kernel = rmsnorm_device_kernels(dev)
 
-    # -- 3. the fleet simulator, 4. the vision serving path; the entry-point
-    # kernels must not launch there
+    # -- 3. the fleet simulator, 4. the vision serving path; of the
+    # entry-point kernels only fleet_feasibility launches there, once a
+    # decision of the heap's batched_feasible router (phase 3f)
     for fn in ENTRY_POINTS.values():
         fn.launches = 0
     t0 = time.time()
@@ -3136,16 +3487,30 @@ def main() -> int:
     entries.update(vision_phase(dev))
     print(f"vision phase: {time.time() - t0:.1f} s", flush=True)
     on_paths = {name: fn.launches for name, fn in ENTRY_POINTS.items()}
-    if any(on_paths.values()):
-        fail(f"entry-point kernels launched on the fleet or vision path: "
-             f"{on_paths}")
+    heap = entries["event_scan"]["heap"]
+    want = dict.fromkeys(ENTRY_POINTS, 0)
+    want["fleet_feasibility"] = heap["router"]["decisions"]
+    if on_paths != want:
+        fail(f"entry-point kernels launched {on_paths} on the fleet and "
+             f"vision paths, not {want} (fleet_feasibility once a heap "
+             f"router decision)")
+    print(f"entry kernels on the fleet and vision paths: {on_paths} "
+          f"(fleet_feasibility: one launch for each of the heap router's "
+          f"{want['fleet_feasibility']} decisions)", flush=True)
 
     # -- 5. the entry points
     t0 = time.time()
-    entries.update(entry_point_phase(dev, kept, one_kernel))
+    routed = heap.pop("router_inputs")
+    entries.update(entry_point_phase(dev, kept, one_kernel, routed))
     print(f"entry-point phase: {time.time() - t0:.1f} s", flush=True)
     for name in ENTRY_POINTS:
-        entries[name]["launches_fleet_vision"] = on_paths[name]
+        entries[name]["launches_entry_point"] = entries[name]["launches"]
+        entries[name]["launches"] = on_paths[name] or \
+            entries[name]["launches"]
+    entries["fleet_feasibility"]["path"] = (
+        "the event heap's batched_feasible router (phase 3f: "
+        "orchestration/router.py), one launch a decision")
+    entries["fleet_feasibility"]["router"] = heap.pop("router")
 
     # -- 6. the records
     print(f"card: {card}", flush=True)

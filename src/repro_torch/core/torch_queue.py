@@ -94,8 +94,11 @@ def feasible_nodes(leds: Ledger, ps: torch.Tensor, d, cpu_frees: torch.Tensor
     request's (K,) processing time per candidate (already divided by each
     node's speed), ``d`` its absolute deadline, ``cpu_frees`` (K,).
     Returns the (K,) bool mask of candidates that can still admit it —
-    what the router's ``batched_feasible`` policy calls per forwarding
-    decision.  Each row follows :func:`_search` operation for operation.
+    what the reference's router calls per ``batched_feasible`` forwarding
+    decision (the port's router scores with
+    :func:`repro_torch.kernels.ops.fleet_feasibility`, which gives the
+    same verdicts).  Each row follows :func:`_search` operation for
+    operation.
     """
     starts, ends, sizes, n = leds
     K, N = starts.shape

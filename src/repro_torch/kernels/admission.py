@@ -7,7 +7,10 @@ The kernels replace the TPU kernels ``repro/kernels/fleet_feasibility.py``
 their plain versions are :func:`repro_torch.kernels.ref.fleet_feasibility_ref`
 and :func:`~repro_torch.kernels.ref.link_cost_ref`.  Bound by bytes: the
 three (K, N) f32 ledgers read once, 0.94 us at K=256, N=1024 on an H100
-(3.35 TB/s); one warp per node row (see the source's note).  Each wrapper
+(3.35 TB/s); one block per node row, the row staged in shared memory
+(see the source's note).  ``fleet_feasibility`` is also the event heap's
+``batched_feasible`` scorer (:mod:`repro_torch.orchestration.router`).
+Each wrapper
 checks device, dtype, shape and contiguity, allocates the outputs,
 launches on PyTorch's current stream and raises on a refused launch.  It
 never synchronises and never falls back: a CPU tensor is refused here

@@ -136,7 +136,9 @@ def fleet_feasibility(starts: torch.Tensor, ends: torch.Tensor,
     request of per-node work ``ps`` at deadline ``d`` from each node's
     ``cpu_free``, with the signature of
     ``repro.kernels.ops.fleet_feasibility``.  ``head`` marks retired slots
-    (head-pointer rows; ``None`` means 0); a full row is infeasible."""
+    (head-pointer rows; ``None`` means 0); a full row is infeasible.  The
+    event heap's ``batched_feasible`` router scores each decision with
+    it (:mod:`repro_torch.orchestration.router`)."""
     if starts.device.type != "cuda":
         return ref.fleet_feasibility_ref(starts, ends, sizes, n, ps, d,
                                          cpu_free, head, eps=_ad.EPS)

@@ -185,6 +185,41 @@ def fleet_search_ref(starts: torch.Tensor, ends: torch.Tensor,
     return feasible[:, 0], j[:, 0], cap[:, 0], sizes.sum(1)
 
 
+def lane_tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """Row sums of a (K, N) f32 tensor in the association the CUDA fleet
+    kernels use (``csrc/fleet_row.cuh``, ``csrc/admission.cu``): lane l of
+    a warp sums ``x[:, l], x[:, l + 32], ...`` in order, then the lanes
+    meet in a butterfly of adds (xor 16, 8, 4, 2, 1).  The plain versions
+    above sum in PyTorch's order instead: the two agree exactly on
+    integers and dyadic values, and otherwise within
+    :func:`sum_order_rtol`."""
+    K, N = x.shape
+    lanes = torch.nn.functional.pad(x, (0, (-N) % 32)).reshape(K, -1, 32)
+    acc = lanes[:, 0]
+    for i in range(1, lanes.shape[1]):
+        acc = acc + lanes[:, i]
+    flip = torch.arange(32, device=x.device)
+    for o in (16, 8, 4, 2, 1):
+        acc = acc + acc[:, flip ^ o]
+    return acc[:, 0]
+
+
+def sum_order_rtol(n: int) -> float:
+    """How far apart two f32 sums of the same n non-negative terms, taken
+    in different orders, can be, relative to either: each errs by at most
+    (n - 1) units of 2^-24 of the exact sum, whatever its order."""
+    return 2.0 * n * 2.0 ** -24
+
+
+def load_rtol(n: int) -> float:
+    """``rtol`` of a fleet kernel's ``load`` against the plain version's
+    over rows of n slots of non-dyadic sizes (the kernel sums in
+    :func:`lane_tree_sum`'s order): 1e-6 up to the entry points' n = 1024,
+    past it :func:`sum_order_rtol` (1.4e-6 apart at n = 20000 on an H100
+    80GB HBM3 at 700 W)."""
+    return 1e-6 if n <= 1024 else sum_order_rtol(n)
+
+
 def fleet_feasibility_ref(starts: torch.Tensor, ends: torch.Tensor,
                           sizes: torch.Tensor, n: torch.Tensor, ps, d,
                           cpu_free, head=None, eps: float = 1e-6):

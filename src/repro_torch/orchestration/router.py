@@ -19,11 +19,14 @@ Strategies (``Router(topology, policy=...)``):
   pointer indexes the global id space and skips non-neighbors, so the
   rotation never shifts meaning when the excluded node changes);
 * ``batched_feasible`` — score every neighbor's admission ledger in one
-  device call (:func:`repro_torch.core.torch_queue.feasible_nodes`, on the
-  router's ``device``) and pick the least-loaded neighbor that can still
-  meet the request's deadline; falls back to ``least_loaded`` order when
-  nobody can.  There is no host fallback: the device call runs or raises
-  (:func:`_host_feasible` stays as the pure-Python mirror of the test).
+  call of :func:`repro_torch.kernels.ops.fleet_feasibility` (on CUDA one
+  launch of the ``fleet_feasibility`` kernel, on the CPU its plain
+  version) and pick the least-loaded neighbor that can still meet the
+  request's deadline; falls back to ``least_loaded`` order when nobody
+  can.  The reference scores with ``jax_queue.feasible_nodes``; with
+  ``head = 0`` the kernel computes the same verdict per row.  There is no
+  host fallback: the device call runs or raises (:func:`_host_feasible`
+  stays as the pure-Python mirror of the test).
 
 Routed objects only need ``.queue`` (``pending_work()``, and
 ``scheduled_blocks()`` for ``batched_feasible``) and, for
@@ -33,14 +36,16 @@ replicas qualify.
 from __future__ import annotations
 
 import random
+from itertools import chain
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core import torch_queue as tq
 from repro_torch.core.request import Request
+from repro_torch.core.torch_queue import BIG
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import ops
 from repro_torch.orchestration.topology import Topology
 
 ROUTER_POLICIES = ("random", "power_of_two", "least_loaded", "round_robin",
@@ -77,6 +82,7 @@ class Router:
         self.rng = rng if rng is not None else random.Random(seed)
         self._rr = 0                         # stable-id round-robin pointer
         self.device = resolve_device(device)
+        self._staging = None                 # batched_feasible's buffers
 
     # -- public API ----------------------------------------------------------
     def candidate_ids(self, src: int) -> Tuple[int, ...]:
@@ -143,8 +149,10 @@ class Router:
                         for i in cand_ids]
         else:
             arrivals = [now] * len(cand_ids)
+        if self._staging is None:
+            self._staging = FeasibilityStaging(self.device)
         feasible = dict(zip(cand_ids, _score_feasible(
-            nodes, cand_ids, ps, request.deadline, arrivals, self.device)))
+            nodes, cand_ids, ps, request.deadline, arrivals, self._staging)))
         ranked = sorted(cand_ids, key=lambda i: (self._load(nodes[i]), i))
         for i in ranked:
             if feasible[i]:
@@ -155,15 +163,91 @@ class Router:
 # ---------------------------------------------------------------------------
 # Device-batched feasibility scoring
 # ---------------------------------------------------------------------------
-def _score_feasible(nodes, cand_ids: Sequence[int], ps: Sequence[float],
-                    deadline: float, arrivals: Sequence[float],
-                    device: torch.device) -> List[bool]:
-    """One admission-feasibility bit per candidate (``ps`` holds the
-    request's speed-scaled processing time, ``arrivals`` its per-candidate
-    arrival time — they differ under a network model), via a single
-    stacked call of :func:`torch_queue.feasible_nodes` on ``device``."""
-    blocks = []
-    frees = []
+def ledger_cap(blocks: Sequence[Sequence[Tuple[float, float]]]) -> int:
+    """The reference's pow2 ledger width: at least 8 and above the
+    longest row, so a row is never full (``head + n < N`` holds)."""
+    cap = max(8, max((len(b) for b in blocks), default=0) + 1)
+    return 1 << (cap - 1).bit_length()
+
+
+def staged_views(buf, K: int, cap: int, int32=torch.int32):
+    """``ops.fleet_feasibility``'s arguments as contiguous views of one
+    flat f32 buffer (a tensor, or with ``int32=np.int32`` an array):
+    ``(starts, ends, sizes, n, ps, d, cpu_free, head)``, the (K, cap)
+    ledgers first, then (K,) ``n`` and ``head`` as int32 (the f32 words'
+    bits), (K,) ``ps`` and ``cpu_free``, and (1,) ``d``.  The buffer holds
+    ``3 K cap + 4 K + 1`` words."""
+    L = K * cap
+    ledger = lambda i: buf[i * L:(i + 1) * L].reshape(K, cap)
+    vec = lambda i: buf[3 * L + i * K:3 * L + (i + 1) * K]
+    return (ledger(0), ledger(1), ledger(2), vec(0).view(int32), vec(2),
+            buf[3 * L + 4 * K:3 * L + 4 * K + 1], vec(3), vec(1).view(int32))
+
+
+class FeasibilityStaging:
+    """The inputs of one ``batched_feasible`` decision packed into one
+    host buffer (pinned when ``device`` is CUDA) and one device buffer,
+    both kept and grown by the router: a decision is one copy, one
+    ``ops.fleet_feasibility`` call and one read of the K verdicts."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.host = torch.empty(0, dtype=torch.float32)
+        self.dev = self.host
+        self.words = self.host.numpy()       # the host buffer, as numpy
+
+    def pack(self, blocks, ps, cpu_free, deadline) -> Tuple[int, int]:
+        """Write the (K, cap) ledgers of ``blocks`` (one list of ``(start,
+        end)`` per candidate) and the scalars into the host buffer, as the
+        reference builds its ledgers: f64 values rounded to f32, sizes
+        ``end - start`` in f64 before rounding, ``+BIG`` / 0 padding.
+        Returns ``(K, cap)``."""
+        K, cap = len(blocks), ledger_cap(blocks)
+        words = 3 * K * cap + 4 * K + 1
+        if self.host.numel() < words:
+            cuda = self.device.type == "cuda"
+            words = max(words, 2 * self.host.numel())
+            self.host = torch.empty(words, dtype=torch.float32,
+                                    pin_memory=cuda)
+            self.dev = torch.empty(words, dtype=torch.float32,
+                                   device=self.device) if cuda else self.host
+            self.words = self.host.numpy()
+        starts, ends, sizes, n, ps_v, d, free_v, head = staged_views(
+            self.words, K, cap, np.int32)
+        starts.fill(BIG)
+        ends.fill(BIG)
+        sizes.fill(0.0)
+        for k, row in enumerate(blocks):
+            m = n[k] = len(row)
+            if m:
+                se = np.fromiter(chain.from_iterable(row), np.float64,
+                                 2 * m).reshape(m, 2)
+                starts[k, :m] = se[:, 0]
+                ends[k, :m] = se[:, 1]
+                sizes[k, :m] = se[:, 1] - se[:, 0]
+        head.fill(0)
+        ps_v[:] = ps
+        free_v[:] = cpu_free
+        d[0] = deadline
+        return K, cap
+
+    def to_device(self, K: int, cap: int):
+        """The packed inputs on the device, as views for
+        ``ops.fleet_feasibility``: one ``non_blocking`` copy from the
+        pinned buffer (none on the CPU).  The copy is ordered before the
+        next :meth:`pack` rewrites the host buffer by the blocking read of
+        each decision's verdicts, which waits for the copy and the launch
+        on the same stream."""
+        words = 3 * K * cap + 4 * K + 1
+        if self.dev is not self.host:
+            self.dev[:words].copy_(self.host[:words], non_blocking=True)
+        return staged_views(self.dev, K, cap)
+
+
+def ledger_rows(nodes, cand_ids: Sequence[int], arrivals: Sequence[float]):
+    """Each candidate's scheduled ``(start, end)`` blocks and CPU free time
+    at the request's arrival there: ``(blocks, cpu_free)``."""
+    blocks, frees = [], []
     for i, arr in zip(cand_ids, arrivals):
         node = nodes[i]
         free = node.cpu_free_time(arr) if hasattr(node, "cpu_free_time") \
@@ -171,34 +255,28 @@ def _score_feasible(nodes, cand_ids: Sequence[int], ps: Sequence[float],
         frees.append(free)
         blocks.append(node.queue.scheduled_blocks(free)
                       if hasattr(node.queue, "scheduled_blocks") else [])
-    cap = max(8, max((len(b) for b in blocks), default=0) + 1)
-    cap = 1 << (cap - 1).bit_length()        # the reference's pow2 ledger
-    K = len(cand_ids)
-    ns = []
-    h_starts = np.full((K, cap), tq.BIG, np.float32)
-    h_ends = np.full((K, cap), tq.BIG, np.float32)
-    h_sizes = np.zeros((K, cap), np.float32)
-    for k, blist in enumerate(blocks):
-        for j, (s, e) in enumerate(blist):
-            h_starts[k, j] = s
-            h_ends[k, j] = e
-            h_sizes[k, j] = e - s
-        ns.append(len(blist))
-    f32 = dict(dtype=torch.float32, device=device)
-    leds = tq.Ledger(starts=torch.from_numpy(h_starts).to(device),
-                     ends=torch.from_numpy(h_ends).to(device),
-                     sizes=torch.from_numpy(h_sizes).to(device),
-                     n=torch.tensor(ns, dtype=torch.int32, device=device))
-    ok = tq.feasible_nodes(leds, torch.tensor(ps, **f32),
-                           torch.tensor(deadline, **f32),
-                           torch.tensor(frees, **f32))
-    return [bool(v) for v in ok.tolist()]
+    return blocks, frees
+
+
+def _score_feasible(nodes, cand_ids: Sequence[int], ps: Sequence[float],
+                    deadline: float, arrivals: Sequence[float],
+                    staging: FeasibilityStaging) -> List[bool]:
+    """One admission-feasibility bit per candidate (``ps`` holds the
+    request's speed-scaled processing time, ``arrivals`` its per-candidate
+    arrival time — they differ under a network model), via one call of
+    :func:`repro_torch.kernels.ops.fleet_feasibility` on ``staging``'s
+    device."""
+    blocks, frees = ledger_rows(nodes, cand_ids, arrivals)
+    K, cap = staging.pack(blocks, ps, frees, deadline)
+    feasible, _ = ops.fleet_feasibility(*staging.to_device(K, cap))
+    return feasible.tolist()
 
 
 def _host_feasible(blocks: Sequence[Tuple[float, float]], p: float, d: float,
                    cpu_free: float) -> bool:
     """Pure-python mirror of the ledger test (gap search + cumulative-slack
-    feasibility) that :func:`torch_queue.feasible_nodes` runs per row."""
+    feasibility) that :func:`repro_torch.kernels.ops.fleet_feasibility`
+    runs per row."""
     n = len(blocks)
     starts = [b[0] for b in blocks]
     ends = [b[1] for b in blocks]

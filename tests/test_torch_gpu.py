@@ -613,7 +613,7 @@ def test_admission_kernels_match_plain_versions(K, N):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("K,W", [(3, 64), (32, 512)])
+@pytest.mark.parametrize("K,W", [(3, 64), (32, 512), (6, 1024), (5, 1000)])
 def test_event_select_scores_as_link_cost_on_gpu(K, W):
     """The three kernels on one input: event_select's feasible, arrive and
     load are link_cost's from the selected node's network row, and
@@ -634,6 +634,189 @@ def test_event_select_scores_as_link_cost_on_gpu(K, W):
         for g, w in ((lc[0], feas), (lc[1], arrive), (lc[2], load),
                      (ff[0], feas), (ff[1], load)):
             assert torch.equal(g, w)
+
+
+
+
+def _wide_ledgers(rng, K, N, dyadic, dev):
+    """Head-pointer ledgers built by whole arrays (K up to 1024, N up to
+    20000): 15% of the rows full, row 0 full and row 1 empty where K > 2,
+    heads up to N / 4; times on a 0.5 grid, or sizes over speed 3 where
+    ``dyadic`` is false.  Returns the ledgers, per-node scalars and network
+    rows, and the live block edges."""
+    head = rng.integers(0, N // 4 + 1, K)
+    n = rng.integers(0, N - head + 1)
+    n = np.where(rng.random(K) < 0.15, N - head, n)
+    if K > 2:
+        n[0], n[1] = N - head[0], 0
+    speeds = rng.choice([0.5, 1.0, 2.0] if dyadic else [1.0, 3.0], K)
+    idx = np.arange(N)[None, :]
+    live = (idx >= head[:, None]) & (idx < (head + n)[:, None])
+    size = rng.choice([20.0, 44.0, 180.0], (K, N)) / speeds[:, None] * live
+    gap = np.where(rng.random((K, N)) < 0.6, 0.0,
+                   rng.integers(1, 100, (K, N)) / 2) * live
+    ends = rng.integers(0, 400, K)[:, None] / 2 + np.cumsum(gap + size, 1)
+    starts = ends - size
+    retired = idx < head[:, None]
+    starts = np.where(live, starts, np.where(retired, -BIG, BIG))
+    ends = np.where(live, ends, np.where(retired, -BIG, BIG))
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    i = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(dev)
+    return dict(led=(f(starts), f(ends), f(size), i(n)), head=i(head),
+                ps=f(rng.choice([20.0, 44.0, 180.0], K) / speeds),
+                busy=f(rng.integers(0, 400, K) / 2),
+                lat=f(rng.uniform(0, 120, K)),
+                ibw=f(rng.choice([0.0, 0.1, 0.8, 1.0], K)),
+                edges=np.asarray(starts, np.float32)[live])
+
+
+def _admission_equal(kernel, got, want, dyadic, sizes):
+    names = {"fleet_feasibility": ("feasible", "load"),
+             "link_cost": ("feasible", "arrive", "load")}[kernel]
+    for name, g, w in zip(names, got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        if name == "load":
+            assert torch.equal(g, ref.lane_tree_sum(sizes)), kernel
+        if name == "load" and not dyadic:
+            assert torch.allclose(g, w, rtol=ref.load_rtol(sizes.shape[1]),
+                                  atol=0.0), kernel
+        else:
+            assert torch.equal(g, w), (kernel, name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [1, 7, 8, 64, 1000, 1024, 20000])
+@pytest.mark.parametrize("K", [1, 2, 5, 131, 133, 256, 1024])
+def test_admission_kernels_at_their_edges(K, N):
+    """The block-per-row kernels against their plain versions: N not a
+    multiple of 4 (misaligned rows), rows longer than one staged chunk
+    (N = 20000), K on both sides of the SM count; head-pointer rows, full
+    and empty rows, deadlines on block edges and far past every block;
+    dyadic sizes (every output bit for bit) and sizes over speed 3
+    (``load`` within ``ref.load_rtol``); ``load`` always bit for bit the
+    kernels' association, ``ref.lane_tree_sum``."""
+    _need_gpu()
+    from repro_torch.kernels import admission
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(K * 100000 + N)
+    sc = lambda v: torch.tensor([v], dtype=torch.float32, device=dev)
+    for dyadic in (True, False):
+        L = _wide_ledgers(rng, K, N, dyadic, dev)
+        edges = L["edges"] if L["edges"].size else np.asarray([500.0])
+        for d in (float(rng.choice(edges)), float(rng.choice(edges)),
+                  float(rng.integers(0, 4 * N + 800)) / 2, 1e9):
+            args = (*L["led"], L["ps"], sc(d), L["busy"], L["head"])
+            before = admission.fleet_feasibility.launches
+            got = ops.fleet_feasibility(*args)
+            want = ref.fleet_feasibility_ref(*args)
+            torch.cuda.synchronize()
+            assert admission.fleet_feasibility.launches == before + 1
+            _admission_equal("fleet_feasibility", got, want, dyadic,
+                             L["led"][2])
+            args = (*L["led"], L["ps"], sc(d), L["busy"], L["head"],
+                    sc(120.5), L["lat"], L["ibw"], sc(24.8832))
+            before = admission.link_cost.launches
+            got = ops.link_cost(*args)
+            want = ref.link_cost_ref(*args)
+            torch.cuda.synchronize()
+            assert admission.link_cost.launches == before + 1
+            _admission_equal("link_cost", got, want, dyadic, L["led"][2])
+    if K > 2:
+        assert not bool(got[0][0])                # the full row
+
+
+@pytest.mark.gpu
+def test_admission_kernels_on_offset_views():
+    """Ledgers that start 1, 2 and 3 floats past a 16-byte boundary, each
+    array at another offset: every row's aligned body and its head and tail
+    are staged apart."""
+    _need_gpu()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(11)
+    K, N = 9, 1030
+    L = _wide_ledgers(rng, K, N, True, dev)
+    views = []
+    for shift, t in zip((1, 2, 3), L["led"][:3]):
+        buf = torch.empty(K * N + shift, dtype=t.dtype, device=dev)
+        v = buf[shift:].view(K, N)
+        v.copy_(t)
+        views.append(v)
+    for d in (float(rng.choice(L["edges"])), 5000.0):
+        sc = torch.tensor([d], device=dev)
+        got = ops.fleet_feasibility(*views, L["led"][3], L["ps"], sc,
+                                    L["busy"], L["head"])
+        want = ref.fleet_feasibility_ref(*L["led"], L["ps"], sc, L["busy"],
+                                         L["head"])
+        _admission_equal("fleet_feasibility", got, want, True, L["led"][2])
+
+
+def _hot_heap(device, calls=None):
+    """The event heap on the hot 3-node mix under ``batched_feasible`` with
+    campus pricing; counts the router's decisions into ``calls``."""
+    from repro_torch.fleetsim import validate
+    from repro_torch.orchestration import router as rmod
+    real = rmod.Router._batched_feasible
+
+    def decide(self, nodes, src, cand_ids, request, now):
+        if calls is not None and request is not None:
+            calls["decisions"] += 1
+        return real(self, nodes, src, cand_ids, request, now)
+
+    rmod.Router._batched_feasible = decide
+    try:
+        topo = Topology.full_mesh(3)
+        out = validate._host_run(UniformWorkload(HOT, window=1200.0,
+                                                 name="hot"),
+                                 topo, 0, "batched_feasible", 2, False,
+                                 network=LinkModel.campus(topo),
+                                 device=device)
+    finally:
+        rmod.Router._batched_feasible = real
+    return out
+
+
+@pytest.mark.gpu
+def test_router_on_gpu_matches_cpu():
+    """The heap's decisions with the router scoring through the kernel on
+    the card equal those with its plain version on the CPU, and each
+    decision is one ``fleet_feasibility`` launch."""
+    _need_gpu()
+    import collections
+    from repro_torch.kernels import admission
+    calls = collections.Counter()
+    before = admission.fleet_feasibility.launches
+    gpu = _hot_heap("cuda", calls)
+    assert admission.fleet_feasibility.launches - before == \
+        calls["decisions"] > 50
+    cpu = _hot_heap("cpu")
+    decisions = lambda run: [(r.origin_node, r.served_by, r.forwards,
+                              r.completion_time) for r in run[1].completed]
+    assert decisions(gpu) == decisions(cpu)
+    assert np.array_equal(gpu[2], cpu[2])
+
+
+@pytest.mark.gpu
+def test_routed_decisions_run_one_device_kernel_each():
+    """Under torch.profiler, the heap's routed decisions on CUDA run one
+    device kernel each, ``fleet_feasibility_kernel``, beside one copy in and
+    one copy out each (no ``torch_queue.feasible_nodes`` kernels)."""
+    _need_gpu()
+    import collections
+    calls = collections.Counter()
+
+    def run():
+        calls.clear()
+        return _hot_heap("cuda", calls)
+
+    _hot_heap("cuda")                                  # built and warm
+    _, kernels, _ = _device_kernels(run)
+    copies = {k: v for k, v in kernels.items() if k.startswith("Memcpy")}
+    other = {k: v for k, v in kernels.items() if k not in copies}
+    assert len(other) == 1, other
+    (name, count), = other.items()
+    assert "fleet_feasibility_kernel" in name
+    assert count == calls["decisions"] > 50
+    assert sorted(copies.values()) == [count, count], copies
 
 
 @pytest.mark.gpu

@@ -7,7 +7,8 @@ request ``completion_time``, ``served_by`` and ``forwards``, every field
 of the result and of ``per_node`` / ``per_service``, and the order of the
 hook calls.  The reference's ``batched_feasible`` router scores through
 ``jax_queue.feasible_nodes``, the port's through
-``torch_queue.feasible_nodes`` on the CPU.  The port's ``run_simulation``
+``repro_torch.kernels.ops.fleet_feasibility`` (on the CPU its plain
+version, ``ref.fleet_feasibility_ref``).  The port's ``run_simulation``
 is also held to ``tests/golden_simulator.json``, the reference's pinned
 Table II grid (all 18 entries).
 """

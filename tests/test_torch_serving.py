@@ -4,8 +4,10 @@ Host code (queues, router, placement, engine) must make the reference's
 decisions exactly: both packages seed the router with
 ``random.Random(f"serving-fwd:{seed}")`` and draw origins from
 ``np.random.default_rng(seed)``, and the ``batched_feasible`` policy
-scores with ``torch_queue.feasible_nodes`` where the reference uses
-``jax_queue.feasible_nodes`` (the same f32 arithmetic, bit for bit).
+scores with ``repro_torch.kernels.ops.fleet_feasibility`` (on the CPU its
+plain version) where the reference uses ``jax_queue.feasible_nodes``
+(the same verdicts; ``torch_queue.feasible_nodes``, the port of the
+latter, is held to it bit for bit below).
 Then the whole slice: ``repro_torch.launch.serve`` against
 ``repro.launch.serve`` with the same weights.
 """

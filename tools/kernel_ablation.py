@@ -6,7 +6,7 @@ Builds versions of the kernel sources from patched copies of
 ``src/repro_torch/kernels/csrc`` (under ``build/ablation/``) and times
 each with CUDA events around launches replayed from one CUDA graph.
 ``--root`` takes the sources and the wrappers from another checkout (an
-unpacked older commit, to measure the kernels it had).  Four groups:
+unpacked older commit, to measure the kernels it had).  Five groups:
 
 - ``wgmma``: the TMA / ``wgmma`` kernels of ``moe_gemm`` (Granite-3.0 MoE
   gate/up and down, bf16) and ``flash_attention`` (DeiT-B's attention at
@@ -31,7 +31,16 @@ unpacked older commit, to measure the kernels it had).  Four groups:
   bf16 and f32, as built (the wrapper called as a user calls it, scale
   in x's dtype), with the scale cast to f32 outside the timed call, and
   with every read of the scale replaced by a constant; beside
-  ``F.rms_norm`` with its weight built outside the timed call.
+  ``F.rms_norm`` with its weight built outside the timed call;
+- ``admission``: ``fleet_feasibility`` and ``link_cost`` at the entry
+  points' shapes (K, N) = (256, 1024), (32, 512), (3, 1024), (6, 1024)
+  and the event heap router's (2, 256), (2, 512), (2, 1024), (5, 256):
+  as built, the rows read in place (no staging in shared memory), with
+  empty kernel bodies (the launch floor at the same grid), and, with
+  ``--baseline CHECKOUT`` (an unpacked older commit, e.g. PR 13's to PR
+  21's one-warp-a-row design), that checkout's ``admission.cu`` through
+  the same wrappers; every version timed in turns (forward, then
+  backward through the list; the better of the two).
 
 The patched kernels compute garbage; only their times mean anything.
 Prints one JSON object per line, the card's name and power limit first.
@@ -91,6 +100,12 @@ CONST_SCALE = {"rmsnorm": [
     [(r"load_scale<V>\(s_ptr, s\);",
       "for (int i = 0; i < V; ++i) s[i] = 0.1f;")],
 ]}
+# admission.cu: the passes read the row where it lies in global memory
+IN_PLACE = {"admission": [[
+    (r"// -- staged loads\n.*?// -- end staged loads\n",
+     "r_st = st; r_en = en; r_sz = sz;\n    o_st = o_en = o_sz = 0;\n")]]}
+# admission.cu: kernels that return at once (the same launch shape)
+EMPTY_BODY = {"admission": [[(r"// -- body\n.*?// -- end body\n", "")]]}
 
 
 def merge(*cuts):
@@ -107,13 +122,46 @@ VERSIONS = {
     "no loads": merge(WGMMA_LOADS, F32_LOADS),
     "neither": merge(WGMMA_PRODUCTS, F32_PRODUCTS, WGMMA_LOADS, F32_LOADS),
     "constant scale": merge(CONST_SCALE),
+    "rows in place": merge(IN_PLACE),
+    "empty kernel": merge(EMPTY_BODY),
 }
 GROUP_VERSIONS = {
     "wgmma": ("as built", "no products", "no loads", "neither"),
     "flash_f32": ("as built", "no products", "no loads", "neither"),
     "flash_wide": ("as built", "no products", "no loads"),
     "rmsnorm": ("as built", "constant scale"),
+    "admission": ("as built", "rows in place", "empty kernel", "baseline"),
 }
+ADMISSION_SHAPES = ((256, 1024), (32, 512), (3, 1024), (6, 1024),
+                    (2, 256), (2, 512), (2, 1024), (5, 256))
+
+
+def admission_inputs(gen, K, N, dev):
+    """``ops.fleet_feasibility`` and ``ops.link_cost`` arguments: K rows of
+    N slots, the first half of each row live blocks of sizes 20 to 180 on
+    a 0.5 grid with gaps, the rest padding; head 0; a deadline inside the
+    rows."""
+    import torch
+    live = N // 2
+    size = (torch.randint(1, 10, (K, live), generator=gen, device=dev)
+            * 20.0)
+    gap = torch.randint(0, 3, (K, live), generator=gen, device=dev) * 0.5
+    ends = torch.cumsum(size + gap, 1)
+    pad = lambda a, v: torch.cat([a, torch.full((K, N - live), v,
+                                                device=dev)], 1)
+    starts, ends = pad(ends - size, 1e30), pad(ends, 1e30)
+    sizes = pad(size, 0.0)
+    n = torch.full((K,), live, dtype=torch.int32, device=dev)
+    head = torch.zeros(K, dtype=torch.int32, device=dev)
+    ps = torch.full((K,), 44.0, device=dev)
+    free = torch.zeros(K, device=dev)
+    d = ends[:, live // 2].max().reshape(1)
+    t = torch.zeros(1, device=dev)
+    ff = (starts, ends, sizes, n, ps, d, free, head)
+    lc = (*ff, t, torch.full((K,), 5.0, device=dev),
+          torch.full((K,), 0.8, device=dev), torch.full((1,), 24.8832,
+                                                        device=dev))
+    return ff, lc
 
 
 def patched_csrc(csrc: Path, name: str, cuts) -> Path:
@@ -169,10 +217,13 @@ def main() -> int:
                     help="checkout whose kernels and wrappers to measure")
     ap.add_argument("--only", nargs="+", choices=sorted(GROUP_VERSIONS),
                     default=sorted(GROUP_VERSIONS))
+    ap.add_argument("--baseline", type=Path, default=None,
+                    help="checkout whose admission.cu the admission group "
+                         "times beside this one's")
     args = ap.parse_args()
     sys.path.insert(0, str(args.root.resolve() / "src"))
     import torch
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, ops
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gemm as mg
     from repro_torch.kernels import rmsnorm as rn
@@ -188,6 +239,10 @@ def main() -> int:
     wanted = [v for v in VERSIONS
               if any(v in GROUP_VERSIONS[g] for g in args.only)]
     dirs = {v: patched_csrc(csrc, v, VERSIONS[v]) for v in wanted}
+    if "admission" in args.only and args.baseline is not None:
+        dirs["baseline"] = patched_csrc(
+            args.baseline / "src" / "repro_torch" / "kernels" / "csrc",
+            "baseline", {})
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -235,6 +290,28 @@ def main() -> int:
             emit(rmsnorm=[R, d], dtype=str(dt)[6:], library="F.rms_norm",
                  ms=graph_ms(lambda: rms(x, (d,), weight=weight,
                                          eps=rn.EPS), 200))
+
+    if "admission" in args.only:
+        adm_in = {KN: admission_inputs(gen, *KN, dev)
+                  for KN in ADMISSION_SHAPES}
+        order = [v for v in dirs if v in GROUP_VERSIONS["admission"]]
+        best = {}
+        for version in order + order[::-1]:      # in turns
+            build.CSRC = dirs[version]
+            build._loaded.clear()
+            for (K, N), (ff, lc) in adm_in.items():
+                for kernel, a in (("fleet_feasibility", ff),
+                                  ("link_cost", lc)):
+                    fn = getattr(ops, kernel)
+                    ms = graph_ms(lambda: fn(*a), 1000)
+                    key = (kernel, K, N, version)
+                    best[key] = min(best.get(key, ms), ms)
+        for (kernel, K, N, version), ms in best.items():
+            emit(admission=kernel, K=K, N=N, version=version, ms=ms)
+        dirs = {v: p for v, p in dirs.items()
+                if v not in GROUP_VERSIONS["admission"] or any(
+                    v in GROUP_VERSIONS[g] for g in args.only
+                    if g != "admission")}
 
     for version, path in dirs.items():       # each version built anew
         build.CSRC = path
