@@ -123,7 +123,7 @@ final line:
                 kernel's; ``run_validation`` on the mobile radio workload
                 under ``random``, its report the reference's;
 4. vision  — the deadline-aware serving path with DeiT-B, ResNet-50 and
-             ViT-H/14 at full width:
+             ViT-H/14 at full width, then the diffusion serve step:
              a. ``flash_attention`` against its plain version on a random
                 sweep (causal / window / GQA, S in {1, 63, 65, 127, 129,
                 578, 730, 1024}, D in {32, 64, 72, 80, 128}, f32 and bf16:
@@ -213,6 +213,29 @@ final line:
                 each batch size served and at (8, 730, 16, 80); where the
                 device time of a 384-px batch of 8 goes; step times and
                 captures as for DeiT-B;
+             g. the diffusion serve step: DiT-XL/2 (28 layers, d 1152,
+                16 heads 72 wide, 675 M parameters) and the SD 1.5 UNet
+                (785 M), built on the host from seeded numpy weights with
+                every leaf random (the golden's ``constant_std``), held
+                (f32 with TF32 off, and bf16) against the JAX reference's
+                outputs in ``tests/data/torch_diffusion_golden.npz``
+                within ``DIT_ATOL`` / ``DIT_RMS`` and ``UNET_ATOL`` /
+                ``UNET_RMS`` (DiT at 256 px, no launch, and 512 px, 28
+                launches; the UNet at latent 64), each limit shown to
+                reject the planted faults of ``dit_faults`` /
+                ``unet_faults`` its dtype must; then DiT's main path: one
+                bf16 step (``attn_impl="pallas"``) at each of
+                ``DIFFUSION_SHAPES``' ``gen_fast`` (B=16, 512 px) and
+                ``gen_1024`` (B=4, 1024 px) with the launch count from 0,
+                28 a step, each held against the plain ``chunked`` step
+                within ``DIT_STEP_REL_RMS``; each step of both models
+                timed (CUDA events, best of 3) and profiled (device busy,
+                idle share, device time by kind: matrix products, flash,
+                other; 28 ``tma_wgmma`` kernels of width 72 on the device
+                a DiT step); the kernel's inputs from each DiT shape
+                against its plain version (elementwise and by rms error);
+                the kernel at (16, 1024, 16, 72) and (4, 4096, 16, 72)
+                beside its plain version, SDPA and the bound;
 5. entry points — the kernels that ``repro_torch.kernels.ops`` exposes
              (their launch counts, set to 0 before phase 3, are 0 after
              phase 4 but for ``fleet_feasibility``'s, which must equal the
@@ -261,9 +284,9 @@ final line:
                 rotated inside the graph), each pair timed in turns
                 (kernel, library, library, kernel; the better of two each);
 6. the ``{"kernels": [...]}`` line (one entry a kernel; ``flash_attention``
-   one a variant: ``tma_wgmma`` at D = 64 (DeiT-B) and 80 (ViT-H/14), each
-   with its main-path launches, and at 72, ``mma_sync`` and
-   ``f32_regtile``, which no served path launches; ``fleet_feasibility``
+   one a variant: ``tma_wgmma`` at D = 64 (DeiT-B), 80 (ViT-H/14) and 72
+   (DiT-XL/2's steps, phase 4g), each with its main-path launches, and
+   ``mma_sync`` and ``f32_regtile``, which no served path launches; ``fleet_feasibility``
    with its path, the heap router, and that path's launches), then the
    ``{"ok": true, ...}`` line.
 
@@ -287,6 +310,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 GOLDEN = os.path.join(ROOT, "tests", "data", "torch_fleetsim_golden.json")
 VIT_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_vit_golden.json")
+DIFFUSION_GOLDEN = os.path.join(ROOT, "tests", "data",
+                                "torch_diffusion_golden.npz")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -294,6 +319,8 @@ import torch  # noqa: E402
 from repro_torch import telemetry as tel  # noqa: E402
 from repro_torch.core import torch_queue as tq  # noqa: E402
 from repro_torch.configs import deit_b, resnet50, vit_h14  # noqa: E402
+from repro_torch.configs import dit_xl2, unet_sd15  # noqa: E402
+from repro_torch.configs.shapes import DIFFUSION_SHAPES  # noqa: E402
 from repro_torch.core.simulator import SimConfig, run_simulation  # noqa: E402
 from repro_torch.fleetsim import core as fleet_core  # noqa: E402
 from repro_torch.fleetsim import (NetParams, SimParams,  # noqa: E402
@@ -308,7 +335,8 @@ from repro_torch.kernels import moe_gemm as mg_mod  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn_mod  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
-from repro_torch.models import resnet, vit  # noqa: E402
+from repro_torch.models import common as model_common  # noqa: E402
+from repro_torch.models import dit, resnet, unet, vit  # noqa: E402
 from repro_torch.core.scenarios import SCENARIOS  # noqa: E402
 from repro_torch.orchestration import router as router_mod  # noqa: E402,E501
 from repro_torch.netsim import (LinkModel, RadioModel,  # noqa: E402
@@ -402,6 +430,35 @@ SEGMENT_EVENTS, FLEET_CAPTURE_EVERY, PROFILED_EVENTS = 500, 150, 100
 STOCHASTIC = ("random", "power_of_two")
 # profiler windows that recorded no device entry, tried again (profiled)
 PROFILE_TRIES = 3
+# The diffusion serve step against the JAX reference's outputs in
+# tests/data/torch_diffusion_golden.npz (full width and depth, batch 2,
+# every weight leaf random: make_torch_diffusion_golden.CONSTANT_STD), by
+# (dtype, side): DiT-XL/2 at 256 px (256 tokens, the naive path) and 512 px
+# (1,024 tokens, the flash kernel in each layer), the UNet at its latent 64;
+# outputs of rms ~0.70.  Held by the largest error and by the rms error.
+# f32 with TF32 off: DiT max 1.0e-5 / 1.1e-5, rms 1.7e-6 at 256 / 512 px,
+# the UNet max 1.8e-5, rms 3.5e-6 on an H100; held at 5e-5 / rms 5e-6 and
+# 1e-4 / rms 1.5e-5.  bf16: DiT max 0.027 / 0.031, rms 0.0063; the UNet
+# max 0.051, rms 0.0095; held at 0.08 / rms 0.015 and 0.12 / rms 0.02.
+# Every planted fault of dit_faults / unet_faults must fail f32 (on an
+# H100 the smallest are DiT's transposed pos-embed, max 2.3e-3, rms
+# 4.1e-4, and the UNet's GroupNorm eps, max 4.3e-3, rms 7.7e-4); bf16 must
+# reject those that move the output past its own rounding (DiT's smallest
+# there, the last layer skipped, is max 0.203 / 0.266, rms 0.037; the
+# UNet's, the downsample padded (1, 1), rms 0.81).  bf16 cannot see DiT's
+# transposed pos-embed (rms 0.0063, as sound), nor the UNet's swapped skips
+# (rms 0.0125) or its GroupNorm eps (0.0093): f32 holds those.
+DIT_ATOL = {("float32", 256): 5e-5, ("float32", 512): 5e-5,
+            ("bfloat16", 256): 0.08, ("bfloat16", 512): 0.08}
+DIT_RMS = {("float32", 256): 5e-6, ("float32", 512): 5e-6,
+           ("bfloat16", 256): 0.015, ("bfloat16", 512): 0.015}
+UNET_ATOL = {("float32", 64): 1e-4, ("bfloat16", 64): 0.12}
+UNET_RMS = {("float32", 64): 1.5e-5, ("bfloat16", 64): 0.02}
+# DiT-XL/2's bf16 serve step through the flash kernel against the port's
+# plain path (attn_impl "chunked") on the same inputs and weights, at
+# gen_fast and gen_1024: the rms of the difference over the rms of the
+# plain step's output (0.0063 / 0.0062 on an H100)
+DIT_STEP_REL_RMS = 0.015
 
 
 def fleet256(spec) -> bool:
@@ -2398,15 +2455,22 @@ def batch_breakdown(params, cfg, frame, b=8):
     x = torch.stack([frame] * b)
     vit.forward(params, x, cfg)
     p = profiled(lambda: vit.forward(params, x, cfg))
+    return p["wall_us"], device_kinds(p["device_us"])
+
+
+def device_kinds(device_us) -> dict:
+    """Device time by kind of kernel: the flash kernel, matrix products
+    (cuBLAS GEMMs and cuDNN convolutions), and the rest (elementwise,
+    norms, copies, a plain attention's softmax)."""
     kinds = {"flash_attention": 0.0, "matmul": 0.0, "other": 0.0}
-    for name, us in p["device_us"].items():
+    for name, us in device_us.items():
         name = name.lower()
         kind = ("flash_attention" if "flash_attention" in name else
                 "matmul" if any(s in name for s in (
-                    "gemm", "xmma", "cutlass", "nvjet", "matmul"))
-                else "other")
+                    "gemm", "xmma", "cutlass", "nvjet", "matmul", "conv",
+                    "fprop")) else "other")
         kinds[kind] += us
-    return p["wall_us"], kinds
+    return kinds
 
 
 def flash_times(q, k, v, reps=100) -> dict:
@@ -2630,6 +2694,16 @@ def patched(module, name, fn):
         setattr(module, name, real)
 
 
+def transposed_grid(resize):
+    """``vit._interp_pos_embed`` with the resized grid's rows and columns
+    swapped (a planted fault)."""
+    def resized(pos, n_extra, grid_from, grid_to):
+        out = resize(pos, n_extra, grid_from, grid_to)
+        grid = out[n_extra:].reshape(grid_to, grid_to, -1).transpose(0, 1)
+        return torch.cat([out[:n_extra], grid.reshape(out[n_extra:].shape)])
+    return resized
+
+
 def h14_faults(cfg):
     """The planted faults of the ViT-H/14 logits check: name -> (the sides
     (image px) it reaches, the dtypes whose limits must reject it, a
@@ -2651,11 +2725,6 @@ def h14_faults(cfg):
                                            causal=causal, window=window)
         return attention
 
-    def swapped_resize(pos, n_extra, grid_from, grid_to):
-        out = real_resize(pos, n_extra, grid_from, grid_to)
-        grid = out[n_extra:].reshape(grid_to, grid_to, -1).transpose(0, 1)
-        return torch.cat([out[:n_extra], grid.reshape(out[n_extra:].shape)])
-
     short = dataclasses.replace(cfg, n_layers=cfg.n_layers - 1)
     both, f32 = ("float32", "bfloat16"), ("float32",)
     return {
@@ -2671,7 +2740,8 @@ def h14_faults(cfg):
             lambda: patched(attn_mod, "attention", padded_scale), cfg),
         "the pos-embed resized with rows and columns swapped": (
             (384,), f32,
-            lambda: patched(vit, "_interp_pos_embed", swapped_resize), cfg),
+            lambda: patched(vit, "_interp_pos_embed",
+                            transposed_grid(real_resize)), cfg),
     }
 
 
@@ -2862,8 +2932,8 @@ def vision_phase(dev):
     f32_row = rows[-1]
     # heads 80 wide (ViT-H/14's 16, configs/vit_h14.py) at DeiT-B's
     # sequence and at ViT-H/14's own 730 tokens, and 72 wide (DiT-XL/2's
-    # 16 at 512 px, 1,024 tokens): tma_wgmma, checked, then timed
-    wide = {}
+    # 16 at 512 px, 1,024 tokens, at B=8; phase 4g times its own shapes):
+    # tma_wgmma, checked, then timed
     for label, (S_, D_) in (("ViT-H/14 heads", (578, 80)),
                             ("ViT-H/14", (730, 80)),
                             ("DiT-XL/2 heads", (1024, 72))):
@@ -2874,8 +2944,7 @@ def vision_phase(dev):
                  f"tma_wgmma")
         e, _ = check_flash(q, k, v, False, None)
         max_err = max(max_err, e)
-        wide[S_, D_] = flash_times(q, k, v)
-        rows.append(wide[S_, D_])
+        rows.append(flash_times(q, k, v))
         print_flash_row(f"bf16 {label}", rows[-1])
     # the mma_sync variant, on what it still takes: a view of ViT-H/14's
     # heads at (8, 578, 16, 80) one element off 16-byte alignment
@@ -2919,8 +2988,8 @@ def vision_phase(dev):
                     variant=r["variant"], D=r["D"], ratio=r["ratio"], **more)
 
     # one entry a variant: DeiT-B's D = 64 and ViT-H/14's D = 80 are on
-    # the main path (graph replays); D = 72, mma_sync and f32_regtile are
-    # on no served path
+    # the main path (graph replays); mma_sync and f32_regtile are on no
+    # served path; D = 72 (DiT-XL/2) is phase 4g's
     return {
         "flash_attention": entry(
             row, deit["launches"], launches_by_run=deit["launches_by_run"],
@@ -2930,10 +2999,423 @@ def vision_phase(dev):
             step_times=steps, captures=captures, resnet=resnet_out),
         "flash_attention (tma_wgmma, D=80)": entry(
             h14["headline"], h14["launches"], vit_h14=h14),
-        "flash_attention (tma_wgmma, D=72)": entry(wide[1024, 72], 0),
         "flash_attention (mma_sync)": entry(mma_row, 0),
         "flash_attention (f32_regtile)": entry(f32_row, 0),
     }
+
+
+# ---------------------------------------------------------------------------
+# phase 4g: the diffusion serve step (DiT-XL/2 on the D=72 flash kernel, the
+# SD 1.5 UNet)
+# ---------------------------------------------------------------------------
+def diffusion_golden():
+    """The golden arrays by key, and the JSON meta entry."""
+    with np.load(DIFFUSION_GOLDEN) as f:
+        g = {k: f[k] for k in f.files}
+    return g, json.loads(str(g.pop("meta")))
+
+
+@contextlib.contextmanager
+def gate_one(params, d):
+    """Each layer's attention gate g1 replaced by 1: its adaLN columns 0 and
+    their bias 1 (restored after)."""
+    lay = params["layers"]
+    cols = slice(2 * d, 3 * d)
+    saved = lay["adaln"][..., cols].clone(), lay["adaln_b"][..., cols].clone()
+    lay["adaln"][..., cols] = 0
+    lay["adaln_b"][..., cols] = 1
+    try:
+        yield
+    finally:
+        lay["adaln"][..., cols], lay["adaln_b"][..., cols] = saved
+
+
+def dit_faults(cfg, params):
+    """The planted faults of the DiT-XL/2 golden check: name -> (the sides
+    (image px) it reaches, the dtypes whose limits must reject it, a
+    context that plants it or None, the config to run)."""
+    real_temb, real_resize = (model_common.timestep_embedding,
+                              vit._interp_pos_embed)
+    real_modulate = dit._modulate
+
+    def swapped_temb(t, dim, max_period=10_000.0):
+        e = real_temb(t, dim, max_period)
+        return torch.cat([e[:, dim // 2:], e[:, :dim // 2]], dim=-1)
+
+    def no_transpose(out, gh, p):
+        return out.reshape(out.shape[0], gh * p, gh * p, -1)
+
+    short = dataclasses.replace(cfg, n_layers=cfg.n_layers - 1)
+    both, f32 = ("float32", "bfloat16"), ("float32",)
+    return {
+        "the last layer skipped": ((256, 512), both, None, short),
+        "gate g1 replaced by 1": (
+            (256, 512), both, lambda: gate_one(params, cfg.d_model), cfg),
+        "shift and scale swapped in _modulate": (
+            (256, 512), both, lambda: patched(
+                dit, "_modulate", lambda x, sh, sc: real_modulate(x, sc, sh)),
+            cfg),
+        "cos and sin swapped in timestep_embedding": (
+            (256, 512), both,
+            lambda: patched(model_common, "timestep_embedding", swapped_temb),
+            cfg),
+        "unpatchify without its transpose": (
+            (256, 512), both, lambda: patched(dit, "_unpatchify",
+                                              no_transpose), cfg),
+        "the pos-embed resized with its grid transposed": (
+            (512,), f32, lambda: patched(vit, "_interp_pos_embed",
+                                         transposed_grid(real_resize)), cfg),
+    }
+
+
+def unet_faults(cfg):
+    """The planted faults of the UNet golden check, as ``dit_faults``."""
+    real_conv, real_pops = unet._conv, unet._pop_skips
+    real_norm = model_common.group_norm
+
+    def symmetric_downsample(x, w, stride=1):
+        if stride == 1:
+            return real_conv(x, w, stride)
+        return torch.nn.functional.conv2d(
+            x.permute(0, 3, 1, 2), w, stride=stride,
+            padding=w.shape[-1] // 2).permute(0, 2, 3, 1)
+
+    def swapped_pops(skips, n):
+        out = real_pops(skips, n)
+        return [out[1], out[0]] + out[2:]
+
+    def eps_1e6(x, scale, bias, groups=32, eps=1e-5):
+        return real_norm(x, scale, bias, groups, 1e-6)
+
+    both = ("float32", "bfloat16")
+    return {
+        "the stride-2 downsample padded (1, 1)": (
+            (64,), both, lambda: patched(unet, "_conv", symmetric_downsample),
+            cfg),
+        "the skip stack popped in the wrong order": (
+            (64,), ("float32",),
+            lambda: patched(unet, "_pop_skips", swapped_pops), cfg),
+        "group_norm with eps 1e-6": (
+            (64,), ("float32",),
+            lambda: patched(model_common, "group_norm", eps_1e6), cfg),
+    }
+
+
+def golden_check(name, mod, params, cfg, g, section, side, dt, args, faults,
+                 atol, rms_tol, dev, launches):
+    """One golden output: the port's ``serve_step`` on the golden's inputs
+    against the reference's within ``atol`` / ``rms_tol`` (with
+    ``launches`` flash_attention launches), then each planted fault that
+    reaches ``side`` (rejected where its dtype must).  Returns the row."""
+    want = g[f"{section}/{side}/{dt}"]
+    inputs = [torch.from_numpy(g[f"{section}/{side}/{a}"]).to(dev)
+              for a in args]
+
+    def errors(a):
+        return (float(np.abs(a - want).max()),
+                float(np.sqrt(((a - want) ** 2).mean())))
+
+    fa_mod.flash_attention.launches = 0
+    got = mod.serve_step(params, *inputs, cfg)
+    n_launch = fa_mod.flash_attention.launches
+    got = got.float().cpu().numpy()
+    err, rms = errors(got)
+    row = dict(max_abs_err=err, rms_err=rms, atol=atol, rms_tol=rms_tol,
+               launches=n_launch, out_rms=float(np.sqrt((want ** 2).mean())))
+    print(f"diffusion {name} {dt} {side}: max abs err {err}, rms {rms} "
+          f"against the JAX output (atol {atol}, rms {rms_tol}; output rms "
+          f"{row['out_rms']:.4f}); {n_launch} flash_attention launches",
+          flush=True)
+    if not np.isfinite(got).all() or got.shape != want.shape:
+        fail(f"{name} {dt} {side}: output {got.shape} not finite or not "
+             f"{want.shape}")
+    if err > atol or rms > rms_tol:
+        fail(f"{name} {dt} {side}: {err} (rms {rms}) from the reference")
+    if n_launch != launches:
+        fail(f"{name} {dt} {side}: {n_launch} flash_attention launches, "
+             f"expected {launches}")
+    for fault, (sides, must, plant, fcfg) in faults.items():
+        if side not in sides:
+            continue
+        with plant() if plant else contextlib.nullcontext():
+            bad = mod.serve_step(params, *inputs, fcfg).float().cpu().numpy()
+        bad_err, bad_rms = errors(bad)
+        row[fault] = dict(max_abs_err=bad_err, rms_err=bad_rms)
+        caught = bad_err > atol or bad_rms > rms_tol
+        need = "" if dt in must else f" (not required in {dt})"
+        print(f"diffusion {name} {dt} {side}, {fault}: max abs err "
+              f"{bad_err}, rms {bad_rms}, "
+              f"{'rejected' if caught else 'NOT rejected'}{need}", flush=True)
+        if not caught and dt in must:
+            fail(f"{name} {dt} {side}: the limits {atol} / {rms_tol} pass a "
+                 f"forward where {fault} ({bad_err} / {bad_rms})")
+    return row
+
+
+def dit_golden_check(tree, g, dev) -> dict:
+    """DiT-XL/2 at full width against the golden outputs, f32 and bf16, at
+    256 px (256 tokens, naive, no launch) and 512 px (1,024 tokens, one
+    flash_attention launch a layer)."""
+    out = {}
+    for dt in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(dit_xl2.CONFIG, attn_impl="pallas",
+                                  param_dtype=dt)
+        params = dit.params_from_numpy(tree, cfg, dev)
+        faults = dit_faults(cfg, params)
+        for side in (256, 512):
+            S = cfg.n_tokens(side)
+            out[f"{dt} {side}"] = golden_check(
+                "DiT-XL/2", dit, params, cfg, g, "dit", side, dt,
+                ("latents", "t", "y"), faults, DIT_ATOL[dt, side],
+                DIT_RMS[dt, side], dev,
+                cfg.n_layers if S > cfg.attn_chunk else 0)
+        del params, faults
+    return out
+
+
+def unet_golden_check(tree, g, dev) -> dict:
+    """The SD 1.5 UNet at full width against the golden outputs, f32 (TF32
+    off) and bf16, at its latent 64."""
+    out = {}
+    for dt in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(unet_sd15.CONFIG, param_dtype=dt)
+        params = unet.params_from_numpy(tree, cfg, dev)
+        side = cfg.latent_res
+        out[f"{dt} {side}"] = golden_check(
+            "UNet", unet, params, cfg, g, "unet", side, dt,
+            ("latents", "t", "ctx"), unet_faults(cfg), UNET_ATOL[dt, side],
+            UNET_RMS[dt, side], dev, 0)
+        del params
+    return out
+
+
+def step_inputs(family, cfg, shape, dev, seed):
+    """Seeded inputs of one serve step at a DIFFUSION_SHAPES entry: latents
+    (B, px/8, px/8, 4), timesteps, and DiT's labels (the last the
+    class-dropout label) or the UNet's context stub."""
+    gen = torch.Generator().manual_seed(seed)
+    B, lat = shape.global_batch, shape.img_res // 8
+    x = torch.randn(B, lat, lat, 4, generator=gen)
+    t = torch.randint(0, 1000, (B,), generator=gen)
+    if family == "dit":
+        c = torch.randint(0, cfg.n_classes, (B,), generator=gen)
+        c[-1] = cfg.n_classes
+    else:
+        c = torch.randn(B, cfg.ctx_len, cfg.ctx_dim, generator=gen)
+    return [a.to(dev) for a in (x, t, c)]
+
+
+def events_ms(fn, reps=3) -> float:
+    """The best of ``reps`` calls' times between CUDA events recorded
+    before and after each (an eager step: the device's span from its first
+    kernel's enqueue to its last's end)."""
+    best = float("inf")
+    for _ in range(reps):
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        t0.record()
+        fn()
+        t1.record()
+        torch.cuda.synchronize()
+        best = min(best, t0.elapsed_time(t1))
+    return best
+
+
+def step_row(name, shape, fn):
+    """One serve step timed (CUDA events, best of 3) and profiled once:
+    wall, device busy and idle share, device time by kind."""
+    ms = events_ms(fn)
+    p = profiled(fn)
+    kinds = device_kinds(p["device_us"])
+    busy = p["busy_us"] / 1e3
+    row = dict(model=name, shape=shape.name, B=shape.global_batch,
+               px=shape.img_res, ms=ms, busy_ms=busy,
+               profiled_ms=p["wall_us"] / 1e3,
+               idle=max(0.0, 1.0 - busy / ms),
+               idle_profiled=1.0 - p["busy_us"] / p["wall_us"],
+               **{k + "_ms": v / 1e3 for k, v in kinds.items()},
+               device_counts=p["device_counts"])
+    top = sorted(p["device_us"].items(), key=lambda kv: -kv[1])[:4]
+    row["top_kernels_ms"] = {k[:90]: v / 1e3 for k, v in top}
+    total = sum(kinds.values())
+    print(f"diffusion step {name} {shape.name} (B={shape.global_batch}, "
+          f"{shape.img_res} px): {ms:.3f} ms a step (CUDA events, best of "
+          f"3); device busy {busy:.3f} ms, idle {row['idle']:.3f} (profiled "
+          f"{row['idle_profiled']:.3f} of {row['profiled_ms']:.3f} ms); "
+          f"device time by kind: " + ", ".join(
+              f"{k} {v / 1e3:.3f} ms ({v / total:.3f})"
+              for k, v in kinds.items()) + "; the largest device entries: "
+          + "; ".join(f"{k} {v:.3f} ms"
+                      for k, v in row["top_kernels_ms"].items()), flush=True)
+    return row
+
+
+def dit_steps(tree, dev):
+    """DiT-XL/2's bf16 serve step at gen_fast and gen_1024 through the
+    flash kernel: the main path (launch count from 0, 28 a step, one kept
+    input a shape), held against the plain path (``chunked``) on the same
+    inputs, timed and profiled (28 tma_wgmma kernels of width 72 on the
+    device); the kept inputs against the kernel's plain version."""
+    cfg = dataclasses.replace(dit_xl2.CONFIG, attn_impl="pallas")
+    plain_cfg = dataclasses.replace(cfg, attn_impl="chunked")
+    params = dit.params_from_numpy(tree, cfg, dev)
+    D = cfg.d_model // cfg.n_heads
+    shapes = [DIFFUSION_SHAPES[n] for n in ("gen_fast", "gen_1024")]
+    inputs = {s.name: step_inputs("dit", cfg, s, dev, i)
+              for i, s in enumerate(shapes)}
+    for s in shapes:                                   # warm-up, uncounted
+        dit.serve_step(params, *inputs[s.name], cfg)
+    torch.cuda.synchronize()
+
+    # the main path: one step at each shape, the counts from 0
+    by_run, outs = {}, {}
+    with Spy(ops, "flash_attention",                   # each step's first
+             lambda i, args: i % cfg.n_layers == 0) as spy:
+        fa_mod.flash_attention.launches = 0
+        for s in shapes:
+            before = fa_mod.flash_attention.launches
+            outs[s.name] = dit.serve_step(params, *inputs[s.name], cfg)
+            torch.cuda.synchronize()
+            by_run[s.name] = fa_mod.flash_attention.launches - before
+    print(f"diffusion DiT-XL/2 main path (bf16, attn_impl 'pallas'): "
+          f"flash_attention launches {by_run}", flush=True)
+    if any(n != cfg.n_layers for n in by_run.values()):
+        fail(f"DiT-XL/2 steps launched {by_run}, expected {cfg.n_layers} "
+             f"a step")
+    out = dict(launches=sum(by_run.values()), launches_by_run=by_run,
+               steps=[], plain=[], kernel_inputs=[])
+    for s in shapes:
+        got = outs.pop(s.name).float()
+        want = dit.serve_step(params, *inputs[s.name], plain_cfg).float()
+        rel = float((got - want).pow(2).mean().sqrt()
+                    / want.pow(2).mean().sqrt())
+        err = float((got - want).abs().max())
+        print(f"diffusion DiT-XL/2 {s.name}: the kernel step against the "
+              f"plain step (chunked): max abs err {err}, rms {rel} of the "
+              f"output's (limit {DIT_STEP_REL_RMS})", flush=True)
+        if not torch.isfinite(got).all() or not rel <= DIT_STEP_REL_RMS:
+            fail(f"DiT-XL/2 {s.name}: kernel step {rel} (rms, relative) "
+                 f"from the plain step")
+        out["plain"].append(dict(shape=s.name, max_abs_err=err, rel_rms=rel))
+        del got, want
+        row = step_row("DiT-XL/2", s, lambda s=s: dit.serve_step(
+            params, *inputs[s.name], cfg))
+        flash = {n: c for n, c in row["device_counts"].items()
+                 if "flash_attention" in n.lower()}
+        row["flash_kernels"] = flash
+        if sum(flash.values()) != cfg.n_layers or not all(
+                "flash_attention_wgmma_kernel" in n and f"{D}>" in n
+                for n in flash):
+            fail(f"a profiled DiT-XL/2 {s.name} step shows {flash}, expected "
+                 f"{cfg.n_layers} tma_wgmma kernels of width {D}")
+        row["flash_share"] = row["flash_attention_ms"] / row["busy_ms"]
+        row["plain_ms"] = events_ms(lambda s=s: dit.serve_step(
+            params, *inputs[s.name], plain_cfg))
+        print(f"diffusion DiT-XL/2 {s.name}: {sum(flash.values())} "
+              f"flash_attention kernels on the device {flash}; flash share of "
+              f"the device time {row['flash_share']:.3f}; the plain step "
+              f"{row['plain_ms']:.3f} ms", flush=True)
+        del row["device_counts"]
+        out["steps"].append(row)
+    # the kernel on the inputs the model gave it, against its plain version
+    max_err = 0.0
+    for (q, k, v), kw in spy.kept:
+        if fa_mod.variant(q, k, v) != "tma_wgmma":
+            fail(f"DiT-XL/2: q {tuple(q.shape)} takes "
+                 f"{fa_mod.variant(q, k, v)}")
+        e, sh = check_flash(q, k, v, kw.get("causal", True), kw.get("window"))
+        got, plain, dropped = flash_rms_errors(q, k, v)
+        max_err = max(max_err, e)
+        out["kernel_inputs"].append(dict(
+            shape=list(q.shape), max_abs_err=e, tolerance_share=sh,
+            rms=got, plain_rms=plain, dropped_key_rms=dropped))
+        print(f"diffusion kernel: DiT-XL/2 q {tuple(q.shape)}: largest error "
+              f"{sh} of the tolerance; rms error against the f32 plain "
+              f"version: kernel {got}, plain bf16 {plain}, plain bf16 "
+              f"without the last key {dropped}", flush=True)
+        if not got <= RMS_RATIO * plain:
+            fail(f"flash_attention rms error {got} above {RMS_RATIO} x the "
+                 f"plain bf16 version's {plain} at q {tuple(q.shape)}")
+        if not dropped > RMS_RATIO * plain:
+            fail(f"the rms check passes a kernel that drops the last key "
+                 f"at q {tuple(q.shape)}")
+    if len(spy.kept) != len(shapes):
+        fail(f"DiT-XL/2: {len(spy.kept)} kernel inputs kept, expected "
+             f"{len(shapes)}")
+    out["max_abs_err"] = max_err
+    return out
+
+
+def unet_steps(tree, dev):
+    """The UNet's bf16 serve step at gen_fast and gen_1024 (no kernel on
+    its path: the reference's chunked and naive attention), timed and
+    profiled."""
+    cfg = unet_sd15.CONFIG
+    params = unet.params_from_numpy(tree, cfg, dev)
+    rows = []
+    for i, name in enumerate(("gen_fast", "gen_1024")):
+        s = DIFFUSION_SHAPES[name]
+        args = step_inputs("unet", cfg, s, dev, 10 + i)
+        fa_mod.flash_attention.launches = 0
+        got = unet.serve_step(params, *args, cfg)
+        if not torch.isfinite(got).all() or fa_mod.flash_attention.launches \
+                or got.shape != args[0].shape:
+            fail(f"UNet {name}: output {tuple(got.shape)} not finite or not "
+                 f"the latents' shape, or a flash_attention launch")
+        row = step_row("UNet", s, lambda: unet.serve_step(params, *args, cfg))
+        del row["device_counts"]
+        rows.append(row)
+    return rows
+
+
+def diffusion_phase(dev) -> dict:
+    """Phase 4g; returns the ``flash_attention (tma_wgmma, D=72)`` entry of
+    the kernels line."""
+    t_phase = time.time()
+    g, meta = diffusion_golden()
+    t0 = time.time()
+    dit_tree = dit.numpy_params(dit_xl2.CONFIG, meta["weight_seed"],
+                                meta["constant_std"])
+    unet_tree = unet.numpy_params(unet_sd15.CONFIG, meta["weight_seed"],
+                                  meta["constant_std"])
+    n = {k: sum(int(np.prod(d.shape)) for d in mod.param_defs(c).values())
+         for k, mod, c in (("dit", dit, dit_xl2.CONFIG),
+                           ("unet", unet, unet_sd15.CONFIG))}
+    print(f"diffusion weights: DiT-XL/2 {n['dit']:,} and UNet "
+          f"{n['unet']:,} parameters, seed {meta['weight_seed']}, every leaf "
+          f"random (constants' std {meta['constant_std']}), on the host in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    if n != {k: meta["sections"][k]["n_params"] for k in n}:
+        fail(f"parameter counts {n} are not the golden's")
+    out = dict(golden=dict(dit=dit_golden_check(dit_tree, g, dev),
+                           unet=unet_golden_check(unet_tree, g, dev)))
+    print(f"diffusion golden checks: {time.time() - t_phase:.1f} s",
+          flush=True)
+    steps = dit_steps(dit_tree, dev)
+    del dit_tree
+    steps["steps"] += unet_steps(unet_tree, dev)
+    del unet_tree
+    print(f"diffusion steps: {time.time() - t_phase:.1f} s", flush=True)
+
+    # the kernel at DiT-XL/2's two serve shapes, random inputs
+    rows = []
+    gen = torch.Generator().manual_seed(3)
+    for B, S in ((16, 1024), (4, 4096)):
+        q, k, v = (torch.randn(B, S, 16, 72, generator=gen).to(
+            device=dev, dtype=torch.bfloat16) for _ in range(3))
+        e, _ = check_flash(q, k, v, False, None)
+        steps["max_abs_err"] = max(steps["max_abs_err"], e)
+        rows.append(flash_times(q, k, v, reps=20))
+        print_flash_row("DiT-XL/2 bf16", rows[-1])
+        del q, k, v
+    top = rows[0]
+    print(f"diffusion phase: {time.time() - t_phase:.1f} s", flush=True)
+    return {"flash_attention (tma_wgmma, D=72)": dict(
+        launches=steps.pop("launches"), max_abs_err=steps.pop("max_abs_err"),
+        ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+        bound_by=top["bound_by"], library_ms=top["library_ms"],
+        variant=top["variant"], D=top["D"], ratio=top["ratio"], shapes=rows,
+        dit_xl2=dict(out, **steps))}
 
 
 # ---------------------------------------------------------------------------
@@ -3486,6 +3968,7 @@ def main() -> int:
     t0 = time.time()
     entries.update(vision_phase(dev))
     print(f"vision phase: {time.time() - t0:.1f} s", flush=True)
+    entries.update(diffusion_phase(dev))
     on_paths = {name: fn.launches for name, fn in ENTRY_POINTS.items()}
     heap = entries["event_scan"]["heap"]
     want = dict.fromkeys(ENTRY_POINTS, 0)

@@ -3,28 +3,32 @@
 ``get_config(arch)`` / ``get_smoke_config(arch)`` return the published
 configuration / the reduced same-family smoke configuration, as
 ``repro.configs`` does.  The port has the vision families (the vision
-transformers and ResNet-50); the other architectures of the reference
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+transformers and ResNet-50) and the diffusion family (DiT-XL/2, the SD 1.5
+UNet); the language models of the reference raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
 import importlib
 from typing import Dict, List, Union
 
-from repro_torch.configs.base import ResNetConfig, ViTConfig
+from repro_torch.configs.base import (DiTConfig, ResNetConfig, UNetConfig,
+                                      ViTConfig)
+from repro_torch.configs.shapes import (FAMILY_SHAPES, ShapeSpec,
+                                        cell_is_applicable, shapes_for)
 
 _MODULES: Dict[str, str] = {
     "vit-l16": "vit_l16",
     "vit-h14": "vit_h14",
     "deit-b": "deit_b",
     "resnet-50": "resnet50",
+    "dit-xl2": "dit_xl2",
+    "unet-sd15": "unet_sd15",
 }
 
 # the reference's other architectures, with the ROADMAP open item that
-# ports each (the diffusion models and the language models, item 8)
+# ports each (the language models, item 8)
 _WAITING: Dict[str, str] = {
-    "dit-xl2": "ROADMAP open item 8 (models/dit.py)",
-    "unet-sd15": "ROADMAP open item 8 (models/unet.py)",
     "kimi-k2-1t-a32b": "ROADMAP open item 8 (models/transformer.py, moe.py)",
     "granite-moe-3b-a800m": "ROADMAP open item 8 (models/transformer.py, moe.py)",
     "starcoder2-7b": "ROADMAP open item 8 (models/transformer.py)",
@@ -44,15 +48,18 @@ def _module(arch: str):
 
 
 VisionConfig = Union[ViTConfig, ResNetConfig]
+ArchConfig = Union[ViTConfig, ResNetConfig, DiTConfig, UNetConfig]
 
 
-def get_config(arch: str) -> VisionConfig:
+def get_config(arch: str) -> ArchConfig:
     return _module(arch).CONFIG
 
 
-def get_smoke_config(arch: str) -> VisionConfig:
+def get_smoke_config(arch: str) -> ArchConfig:
     return _module(arch).SMOKE_CONFIG
 
 
-__all__ = ["ARCHS", "ResNetConfig", "ViTConfig", "VisionConfig",
-           "get_config", "get_smoke_config"]
+__all__ = ["ARCHS", "ArchConfig", "DiTConfig", "FAMILY_SHAPES",
+           "ResNetConfig", "ShapeSpec", "UNetConfig", "ViTConfig",
+           "VisionConfig", "cell_is_applicable", "get_config",
+           "get_smoke_config", "shapes_for"]

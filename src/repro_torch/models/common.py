@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -65,15 +65,27 @@ def init_params(defs: Dict[str, ParamDef], generator: torch.Generator,
     return out
 
 
-def numpy_params(defs: Dict[str, ParamDef], seed: int) -> PyTree:
+def numpy_params(defs: Dict[str, ParamDef], seed: int,
+                 constant_std: Optional[float] = None) -> PyTree:
     """Seeded f32 numpy weights in the same tree and layouts: one
     ``np.random.default_rng(seed)`` stream over the defs in sorted path
     order.  Each package casts them to the config's dtype itself (numpy
-    has no bfloat16)."""
+    has no bfloat16).
+
+    ``constant_std`` makes every leaf random: a ``"zeros"`` or ``"ones"``
+    leaf becomes its constant plus normals of that std.  The parity checks
+    of models that zero-initialise their output paths need it (DiT's
+    adaLN-Zero gates and final layer, the UNet's ``c2`` and ``conv_out``):
+    with those leaves at 0 the output is 0 for every input, and any
+    forward at all would match.  Serving keeps the default."""
     rng = np.random.default_rng(seed)
     out: Dict[str, Any] = {}
     for path, d in sorted(defs.items()):
-        if d.init == "zeros":
+        if d.init in ("zeros", "ones") and constant_std is not None:
+            val = (rng.standard_normal(d.shape, dtype=np.float32)
+                   * np.float32(constant_std)
+                   + np.float32(d.init == "ones"))
+        elif d.init == "zeros":
             val = np.zeros(d.shape, np.float32)
         elif d.init == "ones":
             val = np.ones(d.shape, np.float32)
@@ -82,6 +94,34 @@ def numpy_params(defs: Dict[str, ParamDef], seed: int) -> PyTree:
                    * np.float32(_std(d)))
         assign(out, path, val)
     return out
+
+
+def params_from_numpy(defs: Dict[str, ParamDef], tree: Mapping, name: str,
+                      device: DeviceLike = None, layout=None) -> PyTree:
+    """The reference's parameter tree (nested dict of numpy arrays, or of
+    anything ``np.asarray`` reads, in the JAX layouts) as tensors of each
+    def's dtype on ``device`` (``None``: CUDA, raising without it), each
+    leaf's shape checked against its def (``name`` names the config in the
+    error); ``layout`` maps a leaf to the port's layout where it has
+    another."""
+    dev = resolve_device(device)
+    out: Dict[str, Any] = {}
+    for path, d in sorted(defs.items()):
+        arr = np.asarray(nested(tree, path), dtype=np.float32)
+        if arr.shape != d.shape:
+            raise ValueError(f"parameter {path}: shape {arr.shape}, "
+                             f"expected {d.shape} for {name}")
+        t = torch.from_numpy(arr).to(torch_dtype(d.dtype))
+        assign(out, path, (layout(t) if layout else t).to(dev))
+    return out
+
+
+def nested(tree: Mapping, path: str):
+    """The node at ``"a/b/c"`` of a nested parameter tree."""
+    node = tree
+    for p in path.split("/"):
+        node = node[p]
+    return node
 
 
 def assign(tree: Dict[str, Any], path: str, val: Any) -> None:
@@ -112,3 +152,34 @@ rms_norm = ref.rmsnorm_ref
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """The tanh form, as ``jax.nn.gelu(approximate=True)``."""
     return F.gelu(x, approximate="tanh")
+
+
+def silu32(x: torch.Tensor) -> torch.Tensor:
+    """SiLU in f32, cast back to ``x``'s dtype — the reference's
+    ``jax.nn.silu(h.astype(jnp.float32)).astype(x.dtype)``."""
+    return F.silu(x.float()).to(x.dtype)
+
+
+def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               groups: int = 32, eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm over the channel (last) axis of an NHWC tensor, in f32:
+    each sample's mean and population variance over (H, W, C / groups),
+    consecutive channels grouped, cast back to ``x``'s dtype —
+    ``repro.models.common.group_norm``.  ``F.group_norm`` on the NCHW
+    view groups channels the same way."""
+    y = F.group_norm(x.float().permute(0, 3, 1, 2), groups, scale.float(),
+                     bias.float(), eps)
+    return y.permute(0, 2, 3, 1).to(x.dtype)
+
+
+def timestep_embedding(t: torch.Tensor, dim: int,
+                       max_period: float = 10_000.0) -> torch.Tensor:
+    """Sinusoidal diffusion timestep embedding, (B,) -> (B, dim) in f32:
+    cosines then sines of ``t`` times ``max_period ** (-i / half)`` —
+    ``repro.models.common.timestep_embedding``."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(max_period)
+                      * torch.arange(half, dtype=torch.float32,
+                                     device=t.device) / half)
+    args = t.float()[:, None] * freqs[None, :]
+    return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)

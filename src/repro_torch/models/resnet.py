@@ -35,7 +35,6 @@ from __future__ import annotations
 import contextlib
 from typing import Any, Dict, List, Mapping, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -116,7 +115,8 @@ def init_params(cfg: ResNetConfig, generator: torch.Generator,
     out: Dict[str, Any] = {}
     tree = common.init_params(param_defs(cfg), generator, "cpu")
     for path in param_defs(cfg):
-        common.assign(out, path, to_port_layout(nested(tree, path)).to(dev))
+        common.assign(out, path,
+                      to_port_layout(common.nested(tree, path)).to(dev))
     return out
 
 
@@ -133,16 +133,8 @@ def params_from_numpy(tree: Mapping, cfg: ResNetConfig,
     anything ``np.asarray`` reads, HWIO kernels) as the port's parameters:
     each checked against :func:`param_defs`, cast to its def's dtype, the
     kernels in the port's layout (:func:`to_port_layout`), on ``device``."""
-    dev = resolve_device(device)
-    out: Dict[str, Any] = {}
-    for path, d in sorted(param_defs(cfg).items()):
-        arr = np.asarray(nested(tree, path), dtype=np.float32)
-        if arr.shape != d.shape:
-            raise ValueError(f"parameter {path}: shape {arr.shape}, "
-                             f"expected {d.shape} for {cfg.name}")
-        t = torch.from_numpy(arr).to(common.torch_dtype(d.dtype))
-        common.assign(out, path, to_port_layout(t).to(dev))
-    return out
+    return common.params_from_numpy(param_defs(cfg), tree, cfg.name, device,
+                                    layout=to_port_layout)
 
 
 def same_pads(n: int, k: int, s: int) -> Tuple[int, int]:
@@ -230,11 +222,3 @@ def forward(params: PyTree, images: torch.Tensor, cfg: ResNetConfig
 def serve_step(params: PyTree, images: torch.Tensor, cfg: ResNetConfig
                ) -> torch.Tensor:
     return forward(params, images, cfg)
-
-
-def nested(params: PyTree, path: str):
-    """The node at ``"a/b/c"`` of a nested parameter tree."""
-    node = params
-    for p in path.split("/"):
-        node = node[p]
-    return node

@@ -15,12 +15,11 @@ from __future__ import annotations
 
 from typing import Any, Dict, Mapping
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ViTConfig
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike
 from repro_torch.models import attention as attn
 from repro_torch.models import common
 
@@ -81,20 +80,7 @@ def params_from_numpy(tree: Mapping, cfg: ViTConfig,
     anything ``np.asarray`` reads, in the JAX layouts) as the port's
     parameters: tensors of ``cfg.param_dtype`` on ``device``, each checked
     against :func:`param_defs`."""
-    dev = resolve_device(device)
-    dt = common.torch_dtype(cfg.param_dtype)
-    out: Dict[str, Any] = {}
-    for path, d in sorted(param_defs(cfg).items()):
-        node = tree
-        for part in path.split("/"):
-            node = node[part]
-        arr = np.asarray(node, dtype=np.float32)
-        if arr.shape != d.shape:
-            raise ValueError(f"parameter {path}: shape {arr.shape}, "
-                             f"expected {d.shape} for {cfg.name}")
-        common.assign(out, path, torch.from_numpy(arr).to(device=dev,
-                                                         dtype=dt))
-    return out
+    return common.params_from_numpy(param_defs(cfg), tree, cfg.name, device)
 
 
 def _interp_pos_embed(pos: torch.Tensor, n_extra: int, grid_from: int,

@@ -147,7 +147,7 @@ def resnet_reference_params(tree, tcfg):
     out = {}
     for path, d in torch_resnet.param_defs(tcfg).items():
         torch_common.assign(out, path, jnp.asarray(
-            torch_resnet.nested(tree, path)).astype(d.dtype))
+            torch_common.nested(tree, path)).astype(d.dtype))
     return out
 
 

@@ -1,7 +1,8 @@
 """The port on an NVIDIA GPU: the hand-written kernels against their plain
-PyTorch versions, the simulator (the event_scan kernel), the ViT and
-ResNet on the card against the same code on the CPU, and the graphed
-serve step against the eager one.
+PyTorch versions, the simulator (the event_scan kernel), the ViT, ResNet,
+DiT and UNet on the card against the same code on the CPU (or DiT's
+kernel path against its plain path), and the graphed serve step against
+the eager one.
 Imports no JAX, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -14,7 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import deit_b, get_smoke_config, resnet50, vit_h14
+from repro_torch.configs import (deit_b, dit_xl2, get_smoke_config, resnet50,
+                                 vit_h14)
 from repro_torch.fleetsim import simulate, topology_arrays
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import event_scan as scan
@@ -22,7 +24,7 @@ from repro_torch.kernels import event_select as es
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.launch import serve
 from repro_torch.launch.graphs import GraphedStep
-from repro_torch.models import resnet, vit
+from repro_torch.models import common, dit, resnet, unet, vit
 from repro_torch.netsim import LinkModel
 from repro_torch.orchestration import Topology, UniformWorkload
 
@@ -1192,3 +1194,100 @@ def test_failed_capture_raises():
         step(torch.ones(2, 4, device="cuda"))
     assert not step.graphs
     assert float(torch.ones(3, device="cuda").sum()) == 3.0
+
+
+# ---------------------------------------------------------------------------
+# the diffusion serve step: DiT-XL/2's 72-wide heads on the flash kernel,
+# the UNet
+# ---------------------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,causal", [(1, False), (4, False), (1, True)])
+def test_flash_attention_wgmma_kernel_at_4096_keys(B, causal):
+    """DiT-XL/2 at 1024 px: 4,096 tokens, heads 72 wide, 64 key tiles a
+    query tile (the edge tests above stop at 1,024 keys)."""
+    _need_gpu()
+    g = torch.Generator().manual_seed(B + 7 * causal)
+    q, k, v = (torch.randn(B, 4096, 16, 72, generator=g).to("cuda",
+                                                            torch.bfloat16)
+               for _ in range(3))
+    assert fa.variant(q, k, v) == "tma_wgmma"
+    got = ops.flash_attention(q, k, v, causal=causal)
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **ref.flash_attention_tolerance(want, v))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("px", [512, 1024])
+def test_dit_runs_the_d72_kernel_in_each_layer(px):
+    """DiT-XL/2's width (d 1152, 16 heads 72 wide) at 2 layers, bf16,
+    every weight leaf random: at 512 px (1,024 tokens) and 1024 px (4,096)
+    a profiled step shows one tma_wgmma kernel of width 72 a layer, and
+    the step equals the plain path (``chunked``) within 1% rms of its
+    output."""
+    _need_gpu()
+    cfg = dataclasses.replace(dit_xl2.CONFIG, n_layers=2, attn_impl="pallas")
+    params = dit.params_from_numpy(dit.numpy_params(cfg, 0, 0.02), cfg,
+                                   "cuda")
+    g = torch.Generator().manual_seed(px)
+    lat = torch.randn(2, px // 8, px // 8, 4, generator=g).cuda()
+    t = torch.tensor([10, 900]).cuda()
+    y = torch.tensor([3, cfg.n_classes]).cuda()
+    before = fa.flash_attention.launches
+    got, kernels, tries = _device_kernels(
+        lambda: dit.serve_step(params, lat, t, y, cfg))
+    flash = {k: n for k, n in kernels.items() if "flash_attention" in k}
+    assert list(flash.values()) == [cfg.n_layers], kernels
+    name = next(iter(flash))
+    assert "wgmma" in name and "72>" in name, name
+    assert fa.flash_attention.launches == before + tries * cfg.n_layers
+    want = dit.serve_step(params, lat, t, y, dataclasses.replace(
+        cfg, attn_impl="chunked")).float()
+    got = got.float()
+    assert torch.isfinite(got).all()
+    assert float((got - want).pow(2).mean().sqrt()
+                 / want.pow(2).mean().sqrt()) < 0.01
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,atol", [("float32", 1e-4),
+                                        ("bfloat16", 5e-2)])
+def test_unet_on_gpu_matches_cpu(dtype, atol):
+    """The smoke UNet, every weight leaf random, on the card against the
+    CPU: f32 within 1e-4 (cuDNN's TF32 off for its convolutions), bf16
+    within 5e-2 (cuBLAS and cuDNN round elsewhere than the CPU)."""
+    _need_gpu()
+    cfg = dataclasses.replace(get_smoke_config("unet-sd15"),
+                              param_dtype=dtype)
+    tree = unet.numpy_params(cfg, 0, 0.02)
+    rng = np.random.default_rng(0)
+    lat = torch.from_numpy(rng.standard_normal((2, 8, 8, 4),
+                                               dtype=np.float32))
+    t = torch.tensor([5, 900])
+    ctx = torch.from_numpy(rng.standard_normal((2, cfg.ctx_len, cfg.ctx_dim),
+                                               dtype=np.float32))
+    cpu = unet.serve_step(unet.params_from_numpy(tree, cfg, "cpu"), lat, t,
+                          ctx, cfg)
+    gpu = unet.serve_step(unet.params_from_numpy(tree, cfg), lat.cuda(),
+                          t.cuda(), ctx.cuda(), cfg)
+    assert gpu.device.type == "cuda" and gpu.dtype == cpu.dtype
+    torch.testing.assert_close(gpu.float().cpu(), cpu.float(), rtol=0,
+                               atol=atol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mod,arch", [(dit, "dit-xl2"), (unet, "unet-sd15")])
+def test_diffusion_params_default_to_cuda(monkeypatch, mod, arch):
+    """``params_from_numpy(..., device=None)`` puts every leaf on CUDA in
+    its def's dtype, and raises once CUDA is gone."""
+    _need_gpu()
+    cfg = get_smoke_config(arch)
+    tree = mod.numpy_params(cfg, 0)
+    params = mod.params_from_numpy(tree, cfg)
+    for path, d in mod.param_defs(cfg).items():
+        leaf = common.nested(params, path)
+        assert leaf.device.type == "cuda" and str(leaf.dtype) == \
+            f"torch.{d.dtype}", path
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mod.params_from_numpy(tree, cfg)

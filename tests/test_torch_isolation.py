@@ -16,7 +16,7 @@ from repro_torch.core import torch_queue as tq
 from repro_torch.device import resolve_device
 from repro_torch.fleetsim import simulate, to_device, topology_arrays
 from repro_torch.launch import serve
-from repro_torch.models import vit
+from repro_torch.models import dit, unet, vit
 from repro_torch.orchestration import Router, Topology, UniformWorkload
 from repro_torch.serving import DeadlineAwareEngine, ServingReplica
 
@@ -86,6 +86,21 @@ def test_probe_walks_the_resnet_and_graph_modules():
     assert bad.strip() == "[]"
 
 
+def test_probe_walks_the_diffusion_modules():
+    """DiT, the UNet, their configs and the shape tables are the port's
+    own (the reference's ``DiTConfig`` / ``UNetConfig`` are not
+    imported)."""
+    _, bad = _run_probe(
+        "assert {'repro_torch.models.dit', 'repro_torch.models.unet', "
+        "'repro_torch.configs.shapes', 'repro_torch.configs.dit_xl2', "
+        "'repro_torch.configs.unet_sd15'} <= set(names)\n"
+        "from repro_torch.configs import DiTConfig, UNetConfig, get_config\n"
+        "assert type(get_config('dit-xl2')) is DiTConfig\n"
+        "assert type(get_config('unet-sd15')) is UNetConfig\n"
+        "assert DiTConfig.__module__ == 'repro_torch.configs.base'")
+    assert bad.strip() == "[]"
+
+
 def test_chip_smoke_imports_neither_jax_nor_repro():
     _, bad = _run_probe(f"sys.path.insert(0, {ROOT!r}); import chip_smoke")
     assert bad.strip() == "[]"
@@ -150,6 +165,21 @@ def test_chip_smoke_fails_without_a_gpu_or_the_repo(tmp_path):
     out = subprocess.run([sys.executable, str(alone)], capture_output=True,
                          text=True, env=env, cwd=tmp_path, timeout=300)
     assert out.returncode != 0 and '"ok"' not in out.stdout
+
+
+@pytest.mark.parametrize("mod,arch", [(dit, "dit-xl2"), (unet, "unet-sd15")])
+def test_diffusion_params_raise_without_cuda(monkeypatch, mod, arch):
+    """``params_from_numpy(..., device=None)`` means CUDA and raises
+    without it; the CPU, asked for, takes the weights."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke_config(arch)
+    tree = mod.numpy_params(cfg, 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mod.params_from_numpy(tree, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mod.params_from_numpy(tree, cfg, "cuda")
+    params = mod.params_from_numpy(tree, cfg, "cpu")
+    assert params["t_mlp"]["w1"].device.type == "cpu"
 
 
 def test_to_device_keeps_the_reference_dtypes():

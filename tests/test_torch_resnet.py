@@ -62,7 +62,7 @@ def _reference_params(tree, cfg):
     out = {}
     for path, d in resnet.param_defs(cfg).items():
         common.assign(out, path, jnp.asarray(
-            resnet.nested(tree, path)).astype(d.dtype))
+            common.nested(tree, path)).astype(d.dtype))
     return out
 
 
@@ -187,7 +187,7 @@ def test_params_from_numpy_round_trips_the_layouts():
     tree = resnet.numpy_params(cfg, 0)
     p = resnet.params_from_numpy(tree, cfg, "cpu")
     for path, d in resnet.param_defs(cfg).items():
-        got, want = resnet.nested(p, path), resnet.nested(tree, path)
+        got, want = common.nested(p, path), common.nested(tree, path)
         if len(d.shape) == 4:          # HWIO in, OIHW channels_last kept
             h, w, i, o = d.shape
             assert got.shape == (o, i, h, w)

@@ -198,14 +198,14 @@ def test_configs_match_reference(arch):
 
 def test_other_archs_name_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="open item 8"):
-        get_config("dit-xl2")
+        get_config("starcoder2-7b")
     with pytest.raises(NotImplementedError, match="open item 8"):
         get_smoke_config("gemma3-27b")
     with pytest.raises(ValueError, match="unknown arch"):
         get_config("vit-b32")
     with pytest.raises(NotImplementedError, match="open item 8"):
         model_module(dataclasses.replace(get_config("deit-b"),
-                                         family="dit"))
+                                         family="lm"))
 
 
 def test_deit_b_serving_shapes():
