@@ -123,7 +123,8 @@ final line:
                 kernel's; ``run_validation`` on the mobile radio workload
                 under ``random``, its report the reference's;
 4. vision  — the deadline-aware serving path with DeiT-B, ResNet-50 and
-             ViT-H/14 at full width, then the diffusion serve step:
+             ViT-H/14 at full width, then the diffusion serve step and the
+             language models:
              a. ``flash_attention`` against its plain version on a random
                 sweep (causal / window / GQA, S in {1, 63, 65, 127, 129,
                 578, 730, 1024}, D in {32, 64, 72, 80, 128}, f32 and bf16:
@@ -131,7 +132,10 @@ final line:
                 without split keys at D = 64, 72, 80 and 128, ``mma_sync``
                 at D = 32 and ``f32_regtile``), held to
                 ``ref.flash_attention_tolerance``, a tolerance scaled to
-                each case;
+                each case; and causal GQA at (1, 1100, 24 / 8, 64) with
+                the window a language model without a sliding window
+                passes (``transformer.NO_WINDOW``, 1 << 30), f32 and bf16,
+                equal bit for bit to no window;
              b. DeiT-B logits (seeded weights, two seeded images at 224
                 and 384 px, f32 and bf16) against the JAX reference's in
                 ``tests/data/torch_vit_golden.json``, with 0 kernel
@@ -236,10 +240,42 @@ final line:
                 against its plain version (elementwise and by rms error);
                 the kernel at (16, 1024, 16, 72) and (4, 4096, 16, 72)
                 beside its plain version, SDPA and the bound;
+             h. the language models (their launch counts of ``rmsnorm``
+                and ``moe_gemm`` checked 0 first, as in 5 below):
+                Granite-3.0 MoE at full width with 2 of its 32 layers,
+                seeded numpy weights with every leaf random, f32 (TF32
+                off) and bf16, ``attn_impl="pallas"``: a prefill of two
+                1,100-token prompts (one flash launch a layer, 2L + 1
+                ``rmsnorm``, 3L ``moe_gemm``) and 4 decode steps (no flash),
+                held against ``tests/data/torch_lm_golden.npz`` (the last
+                logits, each step's logits, the aux loss, layer 0's K / V
+                rows at 3 positions) within ``GRANITE_ATOL`` /
+                ``GRANITE_RMS``, each limit shown to reject the planted
+                faults of ``granite_faults``; the bf16 routing flips
+                against the reference's; the four SMOKE LMs in f32 within
+                ``LM_SMOKE_ATOL`` (gemma3-smoke's ring-buffer decode past
+                its window included); then the main path, Granite at full
+                width and depth (3.98 B parameters drawn on the card from
+                a seeded ``torch.Generator``), bf16: a prefill of 32,768
+                tokens (exactly 32 flash, 65 ``rmsnorm`` and 96
+                ``moe_gemm`` launches, the counts from 0), 32 greedy decode
+                steps on its cache and ``decode_32k``'s 8 steps at B=16 on
+                a 32,768-slot cache at length 16,384 (65 and 96 launches a
+                step, no flash); finite logits throughout; the kernel
+                prefill at 4,096 tokens against the plain one routed alike
+                within ``LM_PREFILL_REL_RMS``; the prefill and each decode
+                step timed (CUDA events) and profiled (busy, idle, device
+                time by kind: flash, ``moe_gemm``, ``rmsnorm``, other
+                matrix products, other); flash on layers 0 and 31 at 32k
+                (by blocks of query rows), ``rmsnorm`` on the prefill's
+                and both decodes' rows and ``moe_gemm`` at C = 6,826, 1
+                and 4, each on its main-path input, against the plain
+                version, then timed beside it, SDPA (causal) /
+                ``F.rms_norm`` / ``torch.bmm`` and the bound;
 5. entry points — the kernels that ``repro_torch.kernels.ops`` exposes
              (their launch counts, set to 0 before phase 3, are 0 after
-             phase 4 but for ``fleet_feasibility``'s, which must equal the
-             heap router's decisions in phase 3f):
+             phase 4g but for ``fleet_feasibility``'s, which must equal
+             the heap router's decisions in phase 3f):
              a. ``fleet_feasibility`` and ``link_cost`` against their plain
                 versions on random head-pointer fleets (K in {1, 5, 12, 32,
                 256}, N in {8, 64, 1000, 1024, 20000}: rows off 16-byte
@@ -284,11 +320,13 @@ final line:
                 rotated inside the graph), each pair timed in turns
                 (kernel, library, library, kernel; the better of two each);
 6. the ``{"kernels": [...]}`` line (one entry a kernel; ``flash_attention``
-   one a variant: ``tma_wgmma`` at D = 64 (DeiT-B), 80 (ViT-H/14) and 72
-   (DiT-XL/2's steps, phase 4g), each with its main-path launches, and
-   ``mma_sync`` and ``f32_regtile``, which no served path launches; ``fleet_feasibility``
-   with its path, the heap router, and that path's launches), then the
-   ``{"ok": true, ...}`` line.
+   one a variant: ``tma_wgmma`` at D = 64 (DeiT-B and Granite's prefill,
+   phase 4h), 80 (ViT-H/14) and 72 (DiT-XL/2's steps, phase 4g), each
+   with its main-path launches, and ``mma_sync`` and ``f32_regtile``,
+   which no served path launches; ``fleet_feasibility`` with its path,
+   the heap router, and that path's launches; ``rmsnorm`` and
+   ``moe_gemm`` with theirs, the LM's, its launches and its shapes' times),
+   then the ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -312,6 +350,7 @@ GOLDEN = os.path.join(ROOT, "tests", "data", "torch_fleetsim_golden.json")
 VIT_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_vit_golden.json")
 DIFFUSION_GOLDEN = os.path.join(ROOT, "tests", "data",
                                 "torch_diffusion_golden.npz")
+LM_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_lm_golden.npz")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -320,7 +359,10 @@ from repro_torch import telemetry as tel  # noqa: E402
 from repro_torch.core import torch_queue as tq  # noqa: E402
 from repro_torch.configs import deit_b, resnet50, vit_h14  # noqa: E402
 from repro_torch.configs import dit_xl2, unet_sd15  # noqa: E402
+from repro_torch.configs import granite_moe_3b_a800m  # noqa: E402
+from repro_torch.configs import get_smoke_config as get_lm_smoke  # noqa: E402
 from repro_torch.configs.shapes import DIFFUSION_SHAPES  # noqa: E402
+from repro_torch.configs.shapes import LM_SHAPES  # noqa: E402
 from repro_torch.core.simulator import SimConfig, run_simulation  # noqa: E402
 from repro_torch.fleetsim import core as fleet_core  # noqa: E402
 from repro_torch.fleetsim import (NetParams, SimParams,  # noqa: E402
@@ -337,6 +379,8 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import common as model_common  # noqa: E402
 from repro_torch.models import dit, resnet, unet, vit  # noqa: E402
+from repro_torch.models import moe as lm_moe  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
 from repro_torch.core.scenarios import SCENARIOS  # noqa: E402
 from repro_torch.orchestration import router as router_mod  # noqa: E402,E501
 from repro_torch.netsim import (LinkModel, RadioModel,  # noqa: E402
@@ -2110,6 +2154,21 @@ def flash_sweep(dev) -> float:
     if set(paths) != want:
         fail(f"the flash sweep's variants and paths {sorted(paths)} are not "
              f"{sorted(want)}")
+    # the window every layer of a language model without a sliding window
+    # passes (transformer.NO_WINDOW, 1 << 30) on causal GQA as Granite's
+    # prefill gives it: the output without a window, bit for bit
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn(1, 1100, h, 64, generator=gen).to(
+            device=dev, dtype=dt) for h in (24, 8, 8))
+        e, _ = check_flash(q, k, v, True, transformer.NO_WINDOW)
+        err = max(err, e)
+        a = fa_mod.flash_attention(q, k, v, causal=True,
+                                   window=transformer.NO_WINDOW)
+        if not torch.equal(a, fa_mod.flash_attention(q, k, v, causal=True)):
+            fail(f"flash_attention with window 1 << 30 differs from no "
+                 f"window ({dt})")
+    print("vision kernel: causal GQA (1, 1100, 24 / 8, 64) with window "
+          "1 << 30 equals no window bit for bit, f32 and bf16", flush=True)
     return err
 
 
@@ -3419,6 +3478,647 @@ def diffusion_phase(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4h: the language-model serve path (Granite-3.0 MoE: prefill and
+# decode through flash_attention, rmsnorm and moe_gemm)
+# ---------------------------------------------------------------------------
+# Granite-3.0 MoE at full width, 2 of its 32 layers, against the JAX
+# reference's outputs in tests/data/torch_lm_golden.npz (batch 2, 1,100-token
+# prompts into a 1,104-slot cache, 4 decode steps; every weight leaf random;
+# logits up to |4.7|, K / V rows ~1), by dtype: each output (the prefill's
+# last logits, the steps' logits, the aux loss, the layer-0 K / V rows at 3
+# positions) held by its largest error and its rms error.  f32 with TF32
+# off: max 1.4e-5 on the logits and 6.2e-5 on the K rows (RoPE at
+# positions up to 1,103: PyTorch's and XLA's f32 pow give frequencies an
+# ulp apart, and the angle multiplies that; the port on the CPU is as far,
+# 6.2e-5), rms 4.8e-6, on an H100; held at 1e-4 / rms 1e-5.  bf16: max
+# 0.073, rms 0.0147 on the prefill's last logits (1,606 of 35,200 routed
+# copies flip at near-ties against the reference's routing); held at 0.1 /
+# rms 0.017.  Every planted fault of granite_faults must fail both: in f32
+# the smallest is a flash kernel that drops the last key (rms 0.0128); in
+# bf16 the same fault is rms 0.0194, 14% above the limit, the sound run
+# 16% below it (on the CPU the port gives 0.0152 and 0.0200).
+GRANITE_ATOL = {"float32": 1e-4, "bfloat16": 0.1}
+GRANITE_RMS = {"float32": 1e-5, "bfloat16": 0.017}
+# the four SMOKE configs in f32 (TF32 off) against their golden entries:
+# 2.9e-6 at most on an H100; the CPU tests hold the port there within
+# 1e-5 (observed 3.3e-6)
+LM_SMOKE_ATOL = 1e-5
+# Granite's bf16 prefill at B=1, S=4,096 through the three kernels against
+# the plain path (attn_impl "chunked", the plain rmsnorm and moe_gemm),
+# routed as the kernel path was (pinned_routing): the rms of the
+# difference of the last logits over their rms, 0.0088 on an H100 (left
+# to route itself, the plain path would flip 6% of the routed copies)
+LM_PREFILL_REL_RMS = 0.015
+LM_WEIGHT_SEED = 0
+# decode steps on the main path: greedy after the 32k prefill; decode_32k
+LM_GREEDY_STEPS, LM_DECODE32K_STEPS, LM_DECODE32K_BATCH = 32, 8, 16
+LM_PLAIN_PREFILL = 4096
+LM_COUNTERS = {"flash_attention": fa_mod.flash_attention,
+               "rmsnorm": rn_mod.rmsnorm, "moe_gemm": mg_mod.moe_gemm}
+
+
+def lm_golden():
+    """The golden arrays by key, and the JSON meta entry."""
+    with np.load(LM_GOLDEN) as f:
+        g = {k: f[k] for k in f.files}
+    return g, json.loads(str(g.pop("meta")))
+
+
+def lm_counts(zero=False) -> dict:
+    """The three kernels' launch counts (set to 0 first with ``zero``)."""
+    if zero:
+        for fn in LM_COUNTERS.values():
+            fn.launches = 0
+    return {name: fn.launches for name, fn in LM_COUNTERS.items()}
+
+
+def lm_forward_counts(cfg, S: int) -> dict:
+    """Launches of one forward of S tokens a row: flash once a layer past
+    ``attn_chunk`` tokens under ``pallas``, rmsnorm twice a layer and once
+    at the end, moe_gemm three times a layer."""
+    L = cfg.n_layers
+    flash = L if cfg.attn_impl == "pallas" and S > cfg.attn_chunk else 0
+    return {"flash_attention": flash, "rmsnorm": 2 * L + 1,
+            "moe_gemm": 3 * L}
+
+
+@contextlib.contextmanager
+def recorded_routing(n: int, host: bool = True):
+    """The experts (T, K) of the first ``n`` ``route_topk`` calls of the
+    port's MoE layer, kept on the host (or on the device)."""
+    real, seen = lm_moe.route_topk, []
+
+    def recording(logits, top_k, n_real=None):
+        gates, experts = real(logits, top_k, n_real)
+        if len(seen) < n:
+            seen.append(experts.cpu().numpy() if host else experts)
+        return gates, experts
+
+    with patched(lm_moe, "route_topk", recording):
+        yield seen
+
+
+@contextlib.contextmanager
+def pinned_routing(experts):
+    """The port's MoE layer routed as another run was: ``route_topk``'s
+    i-th call takes the experts (T, K) ``experts[i]``, with its own gates
+    there (its softmax at those experts, normalised as ``route_topk``
+    does); ``flips`` counts the routed copies where its own top-k differs.
+    In bf16 a router logit that moves by rounding flips near-tied experts,
+    and a flip into a full expert drops the last token routed there (the
+    prompt's last, whose logits a prefill returns, first): two paths that
+    differ only in rounding are compared with one routing."""
+    real, calls = lm_moe.route_topk, dict(i=0, flips=0)
+
+    def pinned(logits, top_k, n_real=None):
+        _, own = real(logits, top_k, n_real)
+        e = experts[calls["i"]]
+        calls["i"] += 1
+        calls["flips"] += int((own != e).sum())
+        gates = torch.softmax(logits.float(), dim=-1).gather(1, e.long())
+        return gates / torch.clamp(gates.sum(-1, keepdim=True),
+                                   min=1e-9), e
+
+    with patched(lm_moe, "route_topk", pinned):
+        yield calls
+
+
+def granite_run(params, cfg, g, sec, dev, check_counts=False):
+    """The golden's prefill, decode steps and hidden_states on the card
+    (``sec``: the meta entry of the golden's granite section); returns
+    each output as f32 numpy, and the routing of the prompts."""
+    toks = torch.from_numpy(g["granite/tokens"]).long().to(dev)
+    steps = torch.from_numpy(g["granite/decode_tokens"]).long().to(dev)
+    S = toks.shape[1]
+    with recorded_routing(cfg.n_layers) as routing:
+        lm_counts(zero=True)
+        last, cache = transformer.prefill(params, toks, cfg, sec["max_len"])
+        prefill_counts = lm_counts()
+    logits, step_counts = [], []
+    for s in steps:
+        lm_counts(zero=True)
+        out, cache = transformer.decode_step(params, cache, s, cfg)
+        step_counts.append(lm_counts())
+        logits.append(out)
+    _, aux = transformer.hidden_states(params, toks, cfg)
+    rows = sec["cache_rows"]
+    if check_counts:
+        want = lm_forward_counts(cfg, S)
+        want1 = dict(lm_forward_counts(cfg, 1), flash_attention=0)
+        if prefill_counts != want or any(c != want1 for c in step_counts):
+            fail(f"Granite golden run launched {prefill_counts} in its "
+                 f"prefill and {step_counts} in its steps, expected {want} "
+                 f"and {want1}")
+    host = lambda t: t.float().cpu().numpy()
+    return dict(prefill_logits=host(last), decode_logits=host(
+        torch.stack(logits)), aux=host(aux), k_rows=host(
+        cache["k"][0][:, rows]), v_rows=host(cache["v"][0][:, rows])), \
+        np.stack(routing)
+
+
+def granite_faults():
+    """The planted faults of the Granite golden check: name -> (the dtypes
+    whose limits must reject it, a context that plants it)."""
+    real_input, real_layer = transformer._decode_input, \
+        transformer._decode_layer
+    real_route, real_norm = lm_moe.route_topk, ops.rmsnorm
+
+    def rope_off(params, cache, tokens, cfg):
+        pos, h, positions = real_input(params, cache, tokens, cfg)
+        return pos, h, positions + 1
+
+    def shifted(h, lp, cfg, positions, k_l, v_l, slot, n_valid, window):
+        return real_layer(h, lp, cfg, positions, k_l, v_l,
+                          min(slot + 1, k_l.shape[1] - 1), n_valid, window)
+
+    def drop_last_key(q, k, v, *, causal=True, window=None, **kw):
+        return ref.flash_attention_ref(q, k[:, :-1], v[:, :-1],
+                                       causal=causal, window=window)
+
+    both = ("float32", "bfloat16")
+    return {
+        "decode's RoPE position off by one": (
+            both, lambda: patched(transformer, "_decode_input", rope_off)),
+        "the cache written at pos + 1": (
+            both, lambda: patched(transformer, "_decode_layer", shifted)),
+        "the router masked to 40 experts (the reference's padding fixed)": (
+            both, lambda: patched(lm_moe, "route_topk",
+                                  lambda lg, k, n_real=None:
+                                  real_route(lg, k, 40))),
+        "the norm scaled by scale, not 1 + scale": (
+            both, lambda: patched(ops, "rmsnorm",
+                                  lambda x, s: real_norm(x, s - 1))),
+        "a flash kernel that drops the last key": (
+            both, lambda: patched(ops, "flash_attention", drop_last_key)),
+    }
+
+
+def lm_errors(got, g, prefix):
+    """Largest and rms error of each output against the golden's."""
+    out = {}
+    for name, a in got.items():
+        want = g[prefix + name]
+        if a.shape != want.shape or not np.isfinite(a).all():
+            fail(f"{prefix}{name}: {a.shape} not finite or not {want.shape}")
+        d = a - want
+        out[name] = (float(np.abs(d).max()), float(np.sqrt((d ** 2).mean())))
+    return out
+
+
+def granite_golden_check(g, meta, dev) -> dict:
+    """Phase 4h a: Granite at full width, depth cut to the golden's layers,
+    f32 (TF32 off) and bf16, attn_impl "pallas" (the 1,100-token prefill
+    runs the flash kernel once a layer), against the reference's outputs;
+    each planted fault rejected where its dtype must; the routing flips."""
+    sec = meta["sections"]["granite"]
+    base = dataclasses.replace(granite_moe_3b_a800m.CONFIG,
+                               n_layers=sec["n_layers"], attn_impl="pallas")
+    t0 = time.time()
+    tree = transformer.numpy_params(base, meta["weight_seed"],
+                                    meta["constant_std"])
+    n = sum(int(np.prod(d.shape))
+            for d in transformer.param_defs(base).values())
+    print(f"lm golden: Granite-3.0 MoE, {sec['n_layers']} of 32 layers at "
+          f"full width, {n:,} parameters (seed {meta['weight_seed']}, every "
+          f"leaf random), on the host in {time.time() - t0:.1f} s", flush=True)
+    if n != sec["n_params"]:
+        fail(f"Granite golden: {n} parameters, the golden's {sec['n_params']}")
+    out = {}
+    for dt in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, param_dtype=dt)
+        params = transformer.params_from_numpy(tree, cfg, dev)
+        prefix = f"granite/{dt}/"
+        atol, rms_tol = GRANITE_ATOL[dt], GRANITE_RMS[dt]
+        got, routing = granite_run(params, cfg, g, sec, dev,
+                                   check_counts=True)
+        errs = lm_errors(got, g, prefix)
+        ok = all(e <= atol and r <= rms_tol for e, r in errs.values())
+        want_r = g[prefix + "experts"].astype(np.int64)
+        flips = (routing != want_r)
+        sets = sum(int((np.sort(a, 1) != np.sort(b, 1)).any(1).sum())
+                   for a, b in zip(routing, want_r))
+        row = dict(errors=errs, atol=atol, rms_tol=rms_tol,
+                   routing_flips=int(flips.sum()),
+                   routing_flips_by_layer=flips.sum((1, 2)).tolist(),
+                   tokens_with_another_expert_set=sets,
+                   routed_copies=int(want_r.size), faults={})
+        print(f"lm golden Granite {dt}: " + "; ".join(
+            f"{k} max {e:.3g} rms {r:.3g}" for k, (e, r) in errs.items())
+            + f" (limits {atol} / rms {rms_tol}); routing flips against the "
+            f"reference: {row['routing_flips']} of {want_r.size} routed "
+            f"copies (by layer {row['routing_flips_by_layer']}), {sets} "
+            f"token-layers with another expert set", flush=True)
+        if not ok:
+            fail(f"Granite {dt}: outputs {errs} beyond {atol} / {rms_tol}")
+        for fault, (must, plant) in granite_faults().items():
+            with plant():
+                bad, _ = granite_run(params, cfg, g, sec, dev)
+            berrs = lm_errors(bad, g, prefix)
+            caught = any(e > atol or r > rms_tol for e, r in berrs.values())
+            worst = max(berrs.items(), key=lambda kv: kv[1][1] / rms_tol)
+            row["faults"][fault] = dict(errors=berrs, rejected=caught)
+            need = "" if dt in must else f" (not required in {dt})"
+            print(f"lm golden Granite {dt}, {fault}: worst output "
+                  f"{worst[0]} max {worst[1][0]:.3g} rms {worst[1][1]:.3g}; "
+                  f"{'rejected' if caught else 'NOT rejected'}{need}",
+                  flush=True)
+            if not caught and dt in must:
+                fail(f"Granite {dt}: the limits pass a forward where {fault}")
+        out[dt] = row
+        del params
+    return out
+
+
+def lm_smoke_check(g, meta, dev) -> float:
+    """Phase 4h a: the four SMOKE configs on the card in f32 against their
+    golden entries: logits_fn, hidden_states and aux, prefill (last logits
+    and the whole cache), the decode steps, and gemma3-smoke's
+    decode_step_sliding past its window.  Returns the largest error."""
+    sec = meta["sections"]["smoke"]
+    worst = 0.0
+    for arch in ("granite-moe-3b-a800m", "starcoder2-7b", "gemma3-27b",
+                 "kimi-k2-1t-a32b"):
+        cfg = dataclasses.replace(get_lm_smoke(arch), param_dtype="float32")
+        entry = sec["archs"][cfg.name]
+        params = transformer.params_from_numpy(transformer.numpy_params(
+            cfg, entry["weight_seed"], meta["constant_std"]), cfg, dev)
+        p = f"smoke/{cfg.name}/"
+        tok = lambda a: torch.from_numpy(a).long().to(dev)
+        got = {"logits": transformer.logits_fn(params, tok(g[p + "tokens"]),
+                                                cfg)}
+        got["hidden"], got["aux"] = transformer.hidden_states(
+            params, tok(g[p + "tokens"]), cfg)
+        got["prefill_logits"], cache = transformer.prefill(
+            params, tok(g[p + "tokens"]), cfg, sec["max_len"])
+        got["k"], got["v"] = cache["k"].clone(), cache["v"].clone()
+        logits = []
+        for s in g[p + "decode_tokens"]:
+            out, cache = transformer.decode_step(params, cache, tok(s), cfg)
+            logits.append(out)
+        got["decode_logits"] = torch.stack(logits)
+        if p + "sliding_tokens" in g:
+            cache = transformer.init_sliding_cache(cfg, sec["batch"],
+                                                   sec["max_len"], dev)
+            logits = []
+            for s in g[p + "sliding_tokens"]:
+                out, cache = transformer.decode_step_sliding(params, cache,
+                                                             tok(s), cfg)
+                logits.append(out)
+            got["sliding_logits"] = torch.stack(logits)
+        errs = lm_errors({k: v.float().cpu().numpy() for k, v in got.items()},
+                         g, p)
+        err = max(e for e, _ in errs.values())
+        worst = max(worst, err)
+        print(f"lm golden {cfg.name} f32: largest error {err:.3g} over "
+              f"{sorted(errs)} (limit {LM_SMOKE_ATOL})", flush=True)
+        if err > LM_SMOKE_ATOL:
+            fail(f"{cfg.name}: {errs} beyond {LM_SMOKE_ATOL}")
+    return worst
+
+
+def flash_by_blocks(q, k, v, window, block=1024) -> torch.Tensor:
+    """Causal attention by the kernel's plain version a block of ``block``
+    query rows at a time, against the keys up to the block's end
+    (``models.attention.attention_naive`` with a query offset: the same
+    f32 scores, softmax and rounding as ``ref.flash_attention_ref``, which
+    at 32k tokens would hold (B, KV, G, S, S) f32 scores, 103 GB)."""
+    S = q.shape[1]
+    return torch.cat([attn_mod.attention_naive(
+        q[:, i:i + block], k[:, :i + block], v[:, :i + block], causal=True,
+        window=window, q_offset=i) for i in range(0, S, block)], dim=1)
+
+
+def lm_flash_bound_ms(B, S, H, KV, D):
+    """Causal bf16 attention: 4 B H D S (S + 1) / 2 products (the lower
+    triangle the mask keeps) at the bf16 peak, or q, k, v read and out
+    written once."""
+    ops_ms = 4 * B * H * D * S * (S + 1) / 2 / BF16_FLOP_PER_S * 1e3
+    bytes_ms = B * S * (2 * H + 2 * KV) * D * 2 / HBM_BYTES_PER_S * 1e3
+    return bound(bytes_ms, ops_ms)
+
+
+def lm_kinds(device_us) -> dict:
+    """Device time by kind: the three kernels of the path, other matrix
+    products (cuBLAS), the rest."""
+    kinds = dict.fromkeys(("flash_attention", "moe_gemm", "rmsnorm",
+                           "matmul", "other"), 0.0)
+    for name, us in device_us.items():
+        n = name.lower()
+        kind = next((k for k in ("moe_gemm", "rmsnorm", "flash_attention")
+                     if k in n), None) or (
+            "matmul" if any(s in n for s in ("gemm", "xmma", "cutlass",
+                                             "nvjet", "matmul")) else "other")
+        kinds[kind] += us
+    return kinds
+
+
+def lm_profile(name, fn, ms) -> dict:
+    """One call of ``fn`` profiled: busy, idle share against ``ms`` (its
+    CUDA-event time), device time by kind."""
+    p = profiled(fn)
+    kinds = lm_kinds(p["device_us"])
+    busy = p["busy_us"] / 1e3
+    top = sorted(p["device_us"].items(), key=lambda kv: -kv[1])[:6]
+    row = dict(ms=ms, busy_ms=busy, idle=max(0.0, 1.0 - busy / ms),
+               profiled_ms=p["wall_us"] / 1e3,
+               **{k + "_ms": v / 1e3 for k, v in kinds.items()},
+               top_kernels_ms={k[:90]: v / 1e3 for k, v in top})
+    print(f"lm {name}: {ms:.3f} ms (CUDA events); device busy {busy:.3f} "
+          f"ms, idle {row['idle']:.3f}; device time by kind: "
+          + ", ".join(f"{k} {v / 1e3:.3f} ms ({v / max(1.0, p['busy_us']):.3f})"
+                      for k, v in kinds.items()) + "; the largest device "
+          "entries: " + "; ".join(f"{k} {v:.3f} ms" for k, v in
+                                  row["top_kernels_ms"].items()), flush=True)
+    return row
+
+
+def lm_kernel_rows(kept, dev) -> dict:
+    """Phase 4h c-d on the kernel inputs kept from the main path: each
+    against its plain version, then timed beside it, the library call and
+    the bound."""
+    rows, errs = {"flash_attention": [], "rmsnorm": [], "moe_gemm": []}, {}
+    # flash, layers 0 and 31 of the 32k prefill
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for layer, ((q, k, v), kw) in zip(kept["layers"], kept["flash"]):
+        window = kw.get("window")
+        got = fa_mod.flash_attention(q, k, v, causal=True, window=window)
+        want = flash_by_blocks(q, k, v, window)
+        share = tolerance_share(got, want,
+                                ref.flash_attention_tolerance(want, v))
+        e = float((got.float() - want.float()).abs().max())
+        del want
+        B, S, H, D = q.shape
+        KV = k.shape[2]
+        print(f"lm kernel: flash_attention layer {layer} q {tuple(q.shape)} "
+              f"kv heads {KV} causal window {window} "
+              f"({fa_mod.variant(q, k, v)}): max abs err {e}, "
+              f"{share:.3f} of the tolerance, by blocks of 1,024 query rows",
+              flush=True)
+        if fa_mod.variant(q, k, v) != "tma_wgmma" or share > 1.0:
+            fail(f"flash_attention at layer {layer}: {share} of the "
+                 f"tolerance, variant {fa_mod.variant(q, k, v)}")
+        errs["flash_attention"] = max(errs.get("flash_attention", 0.0), e)
+        del got
+        if layer:
+            continue
+        qt = q.transpose(1, 2).contiguous()
+        kt, vt = (x.repeat_interleave(H // KV, dim=2).transpose(1, 2)
+                  .contiguous() for x in (k, v))
+        row = dict(B=B, S=S, H=H, KV=KV, D=D, causal=True,
+                   variant=fa_mod.variant(q, k, v),
+                   ms=timed_ms(lambda: fa_mod.flash_attention(
+                       q, k, v, causal=True, window=window), 3),
+                   plain_ms=events_ms(lambda: flash_by_blocks(
+                       q, k, v, window), 1),
+                   plain="attention_naive by blocks of 1,024 query rows",
+                   library_ms=timed_ms(lambda: sdpa(qt, kt, vt,
+                                                    is_causal=True), 3))
+        row["bound_ms"], row["bound_by"] = lm_flash_bound_ms(B, S, H, KV, D)
+        rows["flash_attention"].append(row)
+        del qt, kt, vt
+    # rmsnorm: the prefill's first norm, decode rows at B = 1 and 16
+    lib = torch.nn.functional.rms_norm
+    for label, (x, s) in kept["rmsnorm"]:
+        x2 = x.reshape(-1, x.shape[-1])
+        R, d = x2.shape
+        e = check_close(f"rmsnorm {label}", rn_mod.rmsnorm(x2, s),
+                        ref.rmsnorm_ref(x2, s),
+                        ref.rmsnorm_tolerance(x2.dtype))
+        errs["rmsnorm"] = max(errs.get("rmsnorm", 0.0), e)
+        weight = (1.0 + s.float()).to(x2.dtype)
+        row = dict(label=label, R=R, d=d, dtype=str(x2.dtype)[6:],
+                   ms=graph_ms(lambda: rn_mod.rmsnorm(x2, s), 50),
+                   plain_ms=graph_ms(lambda: ref.rmsnorm_ref(x2, s), 10),
+                   library_ms=graph_ms(lambda: lib(x2, (d,), weight=weight,
+                                                   eps=rn_mod.EPS), 50),
+                   max_abs_err=e)
+        row["bound_ms"], row["bound_by"] = rmsnorm_bound_ms(R, d, 2)
+        rows["rmsnorm"].append(row)
+    # moe_gemm at the prefill's capacity (gate, down) and decode's C=1, 4
+    for label, (x, w) in kept["moe_gemm"]:
+        E, C, d = x.shape
+        f = w.shape[2]
+        kind = mg_mod.variant(x, w)
+        got = mg_mod.moe_gemm(x, w)
+        want = ref.moe_gemm_ref(x, w)
+        e = check_close(f"moe_gemm {label}", got, want,
+                        ref.moe_gemm_tolerance(x, w))
+        print(f"lm kernel: moe_gemm {label} ({E}, {C}, {d}) x ({E}, {d}, "
+              f"{f}), {kind}: max abs err {e}, {tolerance_share(got, want, ref.moe_gemm_tolerance(x, w)):.3f} of the tolerance", flush=True)
+        if kind != "tma_wgmma":
+            fail(f"moe_gemm {label} took {kind}")
+        errs["moe_gemm"] = max(errs.get("moe_gemm", 0.0), e)
+        reps = 5 if C > 100 else 100
+        row = dict(label=label, E=E, C=C, d=d, f=f, variant=kind,
+                   ms=graph_ms(lambda: mg_mod.moe_gemm(x, w), reps),
+                   plain_ms=graph_ms(lambda: ref.moe_gemm_ref(x, w),
+                                     max(2, reps // 10)),
+                   library_ms=graph_ms(lambda: torch.bmm(x, w), reps),
+                   max_abs_err=e)
+        row["bound_ms"], row["bound_by"] = moe_bound_ms(E, C, d, f, 2)
+        rows["moe_gemm"].append(row)
+        del got, want
+    for name, rs in rows.items():
+        for r in rs:
+            r["ratio"] = r["ms"] / r["library_ms"]
+            shape = ", ".join(f"{k}={v}" for k, v in r.items()
+                              if not k.endswith(("ms", "_by", "ratio",
+                                                 "err", "plain")))
+            print(f"lm kernel time {name} {shape}: {r['ms'] * 1e3:.2f} us, "
+                  f"plain {r['plain_ms'] * 1e3:.2f} us, library "
+                  f"{r['library_ms'] * 1e3:.2f} us, kernel / library "
+                  f"{r['ratio']:.3f}, bound {r['bound_ms'] * 1e3:.2f} us "
+                  f"({r['bound_by']})", flush=True)
+    return rows, errs
+
+
+def lm_main_path(dev) -> dict:
+    """Phase 4h b-d: Granite-3.0 MoE at full width and depth, bf16,
+    attn_impl "pallas", weights drawn on the card: a 32k-token prefill, 32
+    greedy decode steps on its cache, and decode_32k's 8 steps at B=16 on a
+    half-full 32,768-slot cache, each run's launches counted from 0; then
+    the kept kernel inputs checked and the kernels, the prefill and the
+    steps timed."""
+    cfg = dataclasses.replace(granite_moe_3b_a800m.CONFIG, attn_impl="pallas")
+    L = cfg.n_layers
+    t0 = time.time()
+    gen = torch.Generator(device=dev).manual_seed(LM_WEIGHT_SEED)
+    params = transformer.init_params(cfg, gen, dev)
+    torch.cuda.synchronize()
+    out = dict(init_s=time.time() - t0,
+               n_params=model_common.count_params(params),
+               weights_gb=sum(x.numel() * x.element_size() for x in
+                              model_common.leaves(params)) / 1e9)
+    print(f"lm main path: Granite-3.0 MoE at full width and depth, "
+          f"{out['n_params']:,} parameters ({out['weights_gb']:.2f} GB), "
+          f"drawn on the card in {out['init_s']:.3f} s", flush=True)
+    want_fwd = lm_forward_counts(cfg, LM_SHAPES["prefill_32k"].seq_len)
+    want_step = dict(lm_forward_counts(cfg, 1), flash_attention=0)
+    finite, kept = [], dict(layers=(0, L - 1), rmsnorm=[], moe_gemm=[])
+
+    # prefill: B = 1, S = 32,768 (prefill_32k's length)
+    S = LM_SHAPES["prefill_32k"].seq_len
+    max_len = S + LM_GREEDY_STEPS + PROFILE_TRIES   # + the profiled step
+    tokens = torch.randint(0, cfg.vocab_size, (1, S), generator=gen,
+                           device=dev)
+    with Spy(ops, "flash_attention",
+             lambda i, a: i in kept["layers"]) as fspy, \
+            Spy(ops, "rmsnorm", lambda i, a: i == 0) as rspy, \
+            Spy(ops, "moe_gemm", lambda i, a: i in (0, 2)) as mspy:
+        t0 = time.time()
+        lm_counts(zero=True)
+        last, cache = transformer.prefill(params, tokens, cfg, max_len)
+        torch.cuda.synchronize()
+        counts = lm_counts()
+        first_s = time.time() - t0
+    finite.append(torch.isfinite(last).all())
+    kept["flash"] = fspy.kept
+    kept["rmsnorm"].append((f"prefill B=1 S={S}", rspy.kept[0][0]))
+    C = mspy.kept[0][0][0].shape[1]
+    kept["moe_gemm"] += [(f"gate C={C}", mspy.kept[0][0]),
+                         (f"down C={C}", mspy.kept[1][0])]
+    out["prefill_launches"] = counts
+    print(f"lm main path: prefill B=1 S={S} (max_len {max_len}): launches "
+          f"{counts} (expected {want_fwd}); first call {first_s:.2f} s; "
+          f"cache {2 * cache['k'].numel() * 2 / 1e9:.2f} GB", flush=True)
+    if counts != want_fwd:
+        fail(f"the 32k prefill launched {counts}, expected {want_fwd}")
+
+    # greedy decode on the prefill's cache, each step between CUDA events
+    tok, steps, greedy, times = last.argmax(-1), [], [], []
+    with Spy(ops, "rmsnorm", lambda i, a: i == 0) as rspy, \
+            Spy(ops, "moe_gemm", lambda i, a: i == 0) as mspy:
+        for _ in range(LM_GREEDY_STEPS):
+            lm_counts(zero=True)
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            logits, cache = transformer.decode_step(params, cache, tok, cfg)
+            e1.record()
+            steps.append(lm_counts())
+            finite.append(torch.isfinite(logits).all())
+            tok = logits.argmax(-1)
+            greedy.append(tok)
+            torch.cuda.synchronize()
+            times.append(e0.elapsed_time(e1))
+    kept["rmsnorm"].append(("decode B=1", rspy.kept[0][0]))
+    kept["moe_gemm"].append((f"decode C={mspy.kept[0][0][0].shape[1]}",
+                             mspy.kept[0][0]))
+    out["greedy_tokens"] = torch.cat(greedy).tolist()
+    out["decode_launches"] = steps[0]
+    print(f"lm main path: {LM_GREEDY_STEPS} greedy decode steps at B=1, "
+          f"launches a step {steps[0]} (expected {want_step}); tokens "
+          f"{out['greedy_tokens'][:8]}...; CUDA-event times "
+          f"{[round(t, 3) for t in times]}", flush=True)
+    if any(s != want_step for s in steps):
+        fail(f"greedy decode steps launched {steps}, expected {want_step}")
+
+    # times at B = 1: a decode step (the best of the last 3), then the
+    # prefill; each profiled once more
+    step_fn = lambda: transformer.decode_step(params, cache, tok, cfg)
+    out["decode_b1"] = lm_profile(f"decode step B=1 (cache {max_len})",
+                                  step_fn, min(times[-3:]))
+    out["decode_b1"]["tokens_per_s"] = 1e3 / out["decode_b1"]["ms"]
+    del cache
+    pre_fn = lambda: transformer.prefill(params, tokens, cfg, max_len)
+    out["prefill"] = lm_profile(f"prefill B=1 S={S}", pre_fn,
+                                events_ms(pre_fn))
+    out["prefill"]["tokens_per_s"] = S / out["prefill"]["ms"] * 1e3
+
+    # the kernel prefill against the plain one at B = 1, S = 4,096, the
+    # plain one routed as the kernel one was
+    short = tokens[:, :LM_PLAIN_PREFILL]
+    with recorded_routing(L, host=False) as routing:
+        got, got_cache = transformer.prefill(params, short, cfg)
+    with patched(ops, "rmsnorm", ref.rmsnorm_ref), \
+            patched(ops, "moe_gemm", ref.moe_gemm_ref), \
+            pinned_routing(routing) as calls:
+        lm_counts(zero=True)
+        want, want_cache = transformer.prefill(
+            params, short, dataclasses.replace(cfg, attn_impl="chunked"))
+        if any(lm_counts().values()):
+            fail(f"the plain prefill launched {lm_counts()}")
+    rms = lambda x: float(x.float().pow(2).mean().sqrt())
+    rel = rms(got - want) / rms(want)
+    out["plain_prefill"] = dict(
+        S=LM_PLAIN_PREFILL, rel_rms=rel,
+        max_abs_err=float((got - want).abs().max()),
+        cache_rel_rms=rms(got_cache["k"] - want_cache["k"])
+        / rms(want_cache["k"]), routing_flips=calls["flips"],
+        routed_copies=L * LM_PLAIN_PREFILL * cfg.top_k)
+    print(f"lm main path: the kernel prefill at S={LM_PLAIN_PREFILL} "
+          f"against the plain one (chunked attention, plain rmsnorm and "
+          f"moe_gemm, routed as the kernel one): last logits rms {rel:.4g} "
+          f"of theirs (limit {LM_PREFILL_REL_RMS}), max abs err "
+          f"{out['plain_prefill']['max_abs_err']:.4g}; K cache rms "
+          f"{out['plain_prefill']['cache_rel_rms']:.4g} of its own; its own "
+          f"routing would differ in {calls['flips']} of "
+          f"{out['plain_prefill']['routed_copies']} routed copies",
+          flush=True)
+    if not torch.isfinite(got).all() or not rel <= LM_PREFILL_REL_RMS:
+        fail(f"the kernel prefill is {rel} (rms, relative) from the plain")
+    del got, want, got_cache, want_cache, routing
+
+    # decode_32k: B = 16 on a 32,768-slot cache at length 16,384
+    shape = LM_SHAPES["decode_32k"]
+    B = LM_DECODE32K_BATCH
+    cache = transformer.init_cache(cfg, B, shape.seq_len, dev)
+    cache["length"] = shape.seq_len // 2
+    tok = torch.randint(0, cfg.vocab_size, (B,), generator=gen, device=dev)
+    steps, times = [], []
+    with Spy(ops, "rmsnorm", lambda i, a: i == 0) as rspy, \
+            Spy(ops, "moe_gemm", lambda i, a: i == 0) as mspy:
+        for _ in range(LM_DECODE32K_STEPS):
+            lm_counts(zero=True)
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            logits, cache = transformer.decode_step(params, cache, tok, cfg)
+            e1.record()
+            steps.append(lm_counts())
+            finite.append(torch.isfinite(logits).all())
+            tok = logits.argmax(-1)
+            torch.cuda.synchronize()
+            times.append(e0.elapsed_time(e1))
+    kept["rmsnorm"].append((f"decode B={B}", rspy.kept[0][0]))
+    kept["moe_gemm"].append((f"decode C={mspy.kept[0][0][0].shape[1]}",
+                             mspy.kept[0][0]))
+    out["decode_32k_launches"] = steps[0]
+    print(f"lm main path: decode_32k, B={B} on a {shape.seq_len}-slot cache "
+          f"({2 * cache['k'].numel() * 2 / 1e9:.2f} GB) from length "
+          f"{shape.seq_len // 2}: {LM_DECODE32K_STEPS} steps, launches a "
+          f"step {steps[0]}, CUDA-event times {[round(t, 3) for t in times]}",
+          flush=True)
+    if any(s != want_step for s in steps):
+        fail(f"decode_32k steps launched {steps}, expected {want_step}")
+    step_fn = lambda: transformer.decode_step(params, cache, tok, cfg)
+    out["decode_b16"] = lm_profile(f"decode step B={B} (cache 32,768)",
+                                   step_fn, min(times[-3:]))
+    out["decode_b16"]["tokens_per_s"] = B * 1e3 / out["decode_b16"]["ms"]
+    del cache
+    if not bool(torch.stack(finite).all()):
+        fail("non-finite logits on the LM main path")
+    torch.cuda.empty_cache()
+    out["kernels"], out["max_abs_err"] = lm_kernel_rows(kept, dev)
+    out["launches"] = {name: out["prefill_launches"][name]
+                       + LM_GREEDY_STEPS * out["decode_launches"][name]
+                       + LM_DECODE32K_STEPS * out["decode_32k_launches"][name]
+                       for name in LM_COUNTERS}
+    return out
+
+
+def lm_phase(dev) -> dict:
+    """Phase 4h; returns the LM's rows for the kernels line."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.time()
+    g, meta = lm_golden()
+    out = dict(golden=granite_golden_check(g, meta, dev),
+               smoke_max_abs_err=lm_smoke_check(g, meta, dev))
+    print(f"lm golden checks: {time.time() - t_phase:.1f} s", flush=True)
+    out.update(lm_main_path(dev))
+    print(f"lm phase: {time.time() - t_phase:.1f} s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the entry-point kernels
 # ---------------------------------------------------------------------------
 ENTRY_POINTS = {"fleet_feasibility": ad_mod.fleet_feasibility,
@@ -3981,6 +4681,9 @@ def main() -> int:
           f"(fleet_feasibility: one launch for each of the heap router's "
           f"{want['fleet_feasibility']} decisions)", flush=True)
 
+    # -- 4h. the language-model serve path: rmsnorm's and moe_gemm's path
+    lm = lm_phase(dev)
+
     # -- 5. the entry points
     t0 = time.time()
     routed = heap.pop("router_inputs")
@@ -3994,6 +4697,27 @@ def main() -> int:
         "the event heap's batched_feasible router (phase 3f: "
         "orchestration/router.py), one launch a decision")
     entries["fleet_feasibility"]["router"] = heap.pop("router")
+    # rmsnorm and moe_gemm: their path is the LM's (phase 4h); the headline
+    # numbers are the LM's own shapes, phase 5's rows stay under "shapes"
+    for name in ("rmsnorm", "moe_gemm"):
+        top = lm["kernels"][name][0]
+        entries[name].update(
+            launches=lm["launches"][name],
+            max_abs_err=max(entries[name]["max_abs_err"],
+                            lm["max_abs_err"][name]),
+            path="the LM serve path (phase 4h: models/transformer.py, "
+                 "models/moe.py; Granite-3.0 MoE prefill and decode)",
+            lm_shapes=lm["kernels"][name],
+            **{k: top[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "ratio")})
+    fl = entries["flash_attention"]
+    fl["launches"] += lm["launches"]["flash_attention"]
+    fl["max_abs_err"] = max(fl["max_abs_err"],
+                            lm["max_abs_err"]["flash_attention"])
+    fl["lm"] = dict(launches=lm["launches"]["flash_attention"],
+                    shapes=lm["kernels"]["flash_attention"])
+    lm.pop("kernels")
+    entries["flash_attention"]["lm"]["run"] = lm
 
     # -- 6. the records
     print(f"card: {card}", flush=True)

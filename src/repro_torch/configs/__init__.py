@@ -2,53 +2,44 @@
 
 ``get_config(arch)`` / ``get_smoke_config(arch)`` return the published
 configuration / the reduced same-family smoke configuration, as
-``repro.configs`` does.  The port has the vision families (the vision
-transformers and ResNet-50) and the diffusion family (DiT-XL/2, the SD 1.5
-UNet); the language models of the reference raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+``repro.configs`` does, for all ten of the reference's architectures: the
+language models, the diffusion family, the vision transformers and
+ResNet-50.
 """
 from __future__ import annotations
 
 import importlib
 from typing import Dict, List, Union
 
-from repro_torch.configs.base import (DiTConfig, ResNetConfig, UNetConfig,
-                                      ViTConfig)
+from repro_torch.configs.base import (DiTConfig, LMConfig, ResNetConfig,
+                                      UNetConfig, ViTConfig)
 from repro_torch.configs.shapes import (FAMILY_SHAPES, ShapeSpec,
                                         cell_is_applicable, shapes_for)
 
 _MODULES: Dict[str, str] = {
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "granite-moe-3b-a800m": "granite_moe_3b_a800m",
+    "starcoder2-7b": "starcoder2_7b",
+    "gemma3-27b": "gemma3_27b",
+    "dit-xl2": "dit_xl2",
+    "unet-sd15": "unet_sd15",
     "vit-l16": "vit_l16",
     "vit-h14": "vit_h14",
     "deit-b": "deit_b",
     "resnet-50": "resnet50",
-    "dit-xl2": "dit_xl2",
-    "unet-sd15": "unet_sd15",
-}
-
-# the reference's other architectures, with the ROADMAP open item that
-# ports each (the language models, item 8)
-_WAITING: Dict[str, str] = {
-    "kimi-k2-1t-a32b": "ROADMAP open item 8 (models/transformer.py, moe.py)",
-    "granite-moe-3b-a800m": "ROADMAP open item 8 (models/transformer.py, moe.py)",
-    "starcoder2-7b": "ROADMAP open item 8 (models/transformer.py)",
-    "gemma3-27b": "ROADMAP open item 8 (models/transformer.py)",
 }
 
 ARCHS: List[str] = list(_MODULES)
 
 
 def _module(arch: str):
-    if arch in _WAITING:
-        raise NotImplementedError(
-            f"{arch!r} is not ported to repro_torch yet: {_WAITING[arch]}")
     if arch not in _MODULES:
         raise ValueError(f"unknown arch {arch!r}; options: {ARCHS}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
 
 
 VisionConfig = Union[ViTConfig, ResNetConfig]
-ArchConfig = Union[ViTConfig, ResNetConfig, DiTConfig, UNetConfig]
+ArchConfig = Union[LMConfig, ViTConfig, ResNetConfig, DiTConfig, UNetConfig]
 
 
 def get_config(arch: str) -> ArchConfig:
@@ -59,7 +50,21 @@ def get_smoke_config(arch: str) -> ArchConfig:
     return _module(arch).SMOKE_CONFIG
 
 
-__all__ = ["ARCHS", "ArchConfig", "DiTConfig", "FAMILY_SHAPES",
+def all_cells():
+    """Every applicable (arch, shape) dry-run cell + skip notes."""
+    cells, skips = [], []
+    for arch in ARCHS:
+        cfg = get_config(arch)
+        for sname, shape in shapes_for(cfg).items():
+            ok, why = cell_is_applicable(cfg, shape)
+            if ok:
+                cells.append((arch, sname))
+            else:
+                skips.append((arch, sname, why))
+    return cells, skips
+
+
+__all__ = ["ARCHS", "ArchConfig", "DiTConfig", "FAMILY_SHAPES", "LMConfig",
            "ResNetConfig", "ShapeSpec", "UNetConfig", "ViTConfig",
-           "VisionConfig", "cell_is_applicable", "get_config",
+           "VisionConfig", "all_cells", "cell_is_applicable", "get_config",
            "get_smoke_config", "shapes_for"]

@@ -1,12 +1,98 @@
-"""Architecture configurations of the vision and diffusion families (the
-port's copies of ``ViTConfig``, ``ResNetConfig``, ``DiTConfig`` and
-``UNetConfig`` from ``repro/configs/base.py``: the same fields, defaults
-and helpers).  The language models' ``LMConfig`` waits for its models
-(ROADMAP open item 8c)."""
+"""Architecture configurations (the port's copies of ``LMConfig``,
+``ViTConfig``, ``ResNetConfig``, ``DiTConfig`` and ``UNetConfig`` from
+``repro/configs/base.py``: the same fields, defaults and helpers; dtypes
+are named by strings, as the reference's configs name them)."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    """Decoder-only transformer LM (dense or MoE)."""
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int                      # per-expert d_ff for MoE
+    vocab_size: int
+    head_dim: Optional[int] = None  # default d_model // n_heads
+    # MoE
+    moe: bool = False
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    n_shared_experts: int = 0      # DeepSeek/Kimi-style shared expert(s)
+    # attention flavor
+    rope_theta: float = 10_000.0
+    sliding_window: Optional[int] = None   # window size for local layers
+    global_every: int = 0          # every Nth layer is global (gemma3: 6)
+    # MLP flavor: swiglu (llama-family) | gelu (starcoder2)
+    mlp: str = "swiglu"
+    # MoE weight sharding: expert (E over tp) | ffn (per-expert d_ff over tp)
+    moe_shard: str = "expert"
+    # MoE dispatch: global (one dispatch over all tokens) | shard_map (local
+    # dispatch + psum combine under a device mesh: ROADMAP open item 10)
+    moe_impl: str = "global"
+    # pad the expert dimension to this count (0 = off): makes a non-divisible
+    # expert count (granite's 40) expert-shardable over a 16-way model axis;
+    # without a mesh the padded experts are routed to as real ones, as in
+    # the reference (models/moe.py)
+    n_experts_pad: int = 0
+
+    @property
+    def n_experts_eff(self) -> int:
+        return max(self.n_experts, self.n_experts_pad)
+    # ZeRO: additionally shard weights/opt-state over the pod axis
+    zero_over_pods: bool = False
+    # numerics
+    param_dtype: str = "bfloat16"
+    opt_state_dtype: str = "float32"
+    remat: bool = True
+    attn_impl: str = "chunked"     # naive | chunked | pallas
+    attn_chunk: int = 1024
+    family: str = "lm"
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    def mlp_gelu(self) -> bool:
+        return self.mlp == "gelu"
+
+    def moe_shard_mode(self) -> str:
+        return self.moe_shard
+
+    def active_params(self) -> int:
+        """Approximate active parameter count (per-token) for MODEL_FLOPS."""
+        d, hd = self.d_model, self.hd
+        attn = d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd) \
+            + (self.n_heads * hd) * d
+        nmat = 2 if self.mlp == "gelu" else 3
+        if self.moe:
+            ffn = nmat * d * self.d_ff * (self.top_k + self.n_shared_experts)
+            router = d * self.n_experts
+        else:
+            ffn = nmat * d * self.d_ff
+            router = 0
+        per_layer = attn + ffn + router + 2 * d
+        return self.n_layers * per_layer + 2 * self.vocab_size * d
+
+    def total_params(self) -> int:
+        d, hd = self.d_model, self.hd
+        attn = d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd) \
+            + (self.n_heads * hd) * d
+        nmat = 2 if self.mlp == "gelu" else 3
+        if self.moe:
+            ffn = nmat * d * self.d_ff * (self.n_experts + self.n_shared_experts)
+            router = d * self.n_experts
+        else:
+            ffn = nmat * d * self.d_ff
+            router = 0
+        per_layer = attn + ffn + router + 2 * d
+        return self.n_layers * per_layer + 2 * self.vocab_size * d
 
 
 @dataclasses.dataclass(frozen=True)

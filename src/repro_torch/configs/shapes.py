@@ -6,9 +6,6 @@ Each shape names a *step kind*:
 * ``prefill`` — lowers ``prefill_step`` (forward, builds KV cache)
 * ``decode``  — lowers ``serve_step``  (one new token against a KV cache)
 * ``serve``   — lowers ``serve_step``  (pure forward)
-
-``all_cells`` comes with the language-model configs (ROADMAP open item
-8c).
 """
 from __future__ import annotations
 

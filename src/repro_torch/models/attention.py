@@ -1,6 +1,5 @@
-"""Attention with GQA and causal / sliding-window masks (the port of
-``repro/models/attention.py``; RoPE and decode come with the language
-models, ROADMAP open item 8).
+"""Attention: GQA, RoPE, causal / sliding-window masks, and single-token
+decode against a KV cache (the port of ``repro/models/attention.py``).
 
 Three interchangeable implementations (``impl``):
 
@@ -24,6 +23,30 @@ import torch
 from repro_torch.kernels import ops as kops
 
 NEG_INF = -1e30
+
+
+def rope_frequencies(head_dim: int, theta: float = 10_000.0,
+                     device=None) -> torch.Tensor:
+    """(head_dim / 2,) f32 rotary frequencies ``theta ** (-i / half)``."""
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                         device=device) / half))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10_000.0) -> torch.Tensor:
+    """Rotary embedding of x (B, S, H, D) at ``positions`` (B, S) or (S,),
+    the halves rotated in f32 (angles ``position * frequency``), cast back
+    to x's dtype."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    angles = positions.float()[:, :, None] * freqs[None, None, :]
+    cos = torch.cos(angles)[:, :, None, :]      # (B, S, 1, D/2)
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
 
 
 def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
@@ -111,6 +134,33 @@ def attention_chunked(q, k, v, *, causal=True, window=None,
         outs.append(out.permute(0, 3, 1, 2, 4))              # (B,qc,KV,G,D)
     out = torch.cat(outs, dim=1)[:, :Sq].reshape(B, Sq, H, D)
     return out.to(q.dtype)
+
+
+def attention_decode(q, k_cache, v_cache, cache_len, *, window=None
+                     ) -> torch.Tensor:
+    """Single-token decode: q (B, 1, H, D) against (B, S, KV, D) caches, of
+    which the first ``cache_len`` entries (an int, a 0-d tensor or (B,))
+    are valid; with ``window`` only the last ``window`` of them.  Linear
+    in S, f32 scores and softmax, the probabilities rounded to the cache's
+    dtype before the product with V (the reference's plain form: no
+    kernel stands behind it)."""
+    B, _, H, D = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    scale = D ** -0.5
+    qg = q.reshape(B, 1, KV, G, D)
+    s = _gqa_scores(qg, k_cache, scale)[..., 0, :]           # (B,KV,G,S)
+    k_pos = torch.arange(S, device=q.device)
+    # an int stays a Python scalar (no copy to the device, no wait)
+    n = cache_len if isinstance(cache_len, int) else \
+        torch.as_tensor(cache_len, device=q.device).reshape(-1, 1)
+    valid = k_pos[None, :] < n                              # (B,S) or (1,S)
+    if window is not None:
+        valid &= k_pos[None, :] >= n - window
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(v_cache.dtype)
+    out = torch.einsum("bkgs,bskd->bkgd", p, v_cache)
+    return out.reshape(B, 1, H, D).to(q.dtype)
 
 
 def attention(q, k, v, *, causal=True, window=None, impl="chunked",

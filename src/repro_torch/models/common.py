@@ -48,20 +48,24 @@ def _std(d: ParamDef) -> float:
 def init_params(defs: Dict[str, ParamDef], generator: torch.Generator,
                 device: DeviceLike = None) -> PyTree:
     """Random parameters: zeros / ones, else normal with std ``scale /
-    sqrt(fan_in)`` drawn in f32 from ``generator`` (a CPU generator; the
-    tensors then move to ``device``), cast to each def's dtype."""
+    sqrt(fan_in)`` drawn in f32 from ``generator`` on the generator's own
+    device, cast to each def's dtype, then moved to ``device``.  A
+    generator on the card draws the weights where they live (a full-depth
+    language model has billions of values); a CPU generator draws them on
+    the host and copies them."""
     dev = resolve_device(device)
     out: Dict[str, Any] = {}
     for path, d in sorted(defs.items()):
         dt = torch_dtype(d.dtype)
         if d.init == "zeros":
-            val = torch.zeros(d.shape, dtype=dt)
+            val = torch.zeros(d.shape, dtype=dt, device=dev)
         elif d.init == "ones":
-            val = torch.ones(d.shape, dtype=dt)
+            val = torch.ones(d.shape, dtype=dt, device=dev)
         else:
-            val = (torch.randn(d.shape, generator=generator,
-                               dtype=torch.float32) * _std(d)).to(dt)
-        assign(out, path, val.to(dev))
+            val = torch.randn(d.shape, generator=generator,
+                              dtype=torch.float32, device=generator.device)
+            val = val.mul_(_std(d)).to(dt).to(dev)
+        assign(out, path, val)
     return out
 
 
@@ -145,13 +149,21 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 # RMSNorm over the last axis in f32, scaled by ``1 + scale``, cast back to
 # ``x``'s dtype (``repro.models.common.rms_norm``): the rmsnorm kernel's
-# plain version; as in the reference, no model calls the kernel
+# plain version.  The language models call the kernel's entry point
+# instead (``kernels.ops.rmsnorm``, the same function; a port choice, see
+# ``models/transformer.py``)
 rms_norm = ref.rmsnorm_ref
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """The tanh form, as ``jax.nn.gelu(approximate=True)``."""
     return F.gelu(x, approximate="tanh")
+
+
+def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    """SiLU of ``gate`` in f32, cast back to ``gate``'s dtype, times ``up``
+    — ``repro.models.common.swiglu``."""
+    return silu32(gate) * up
 
 
 def silu32(x: torch.Tensor) -> torch.Tensor:
@@ -183,3 +195,23 @@ def timestep_embedding(t: torch.Tensor, dim: int,
                                      device=t.device) / half)
     args = t.float()[:, None] * freqs[None, :]
     return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+
+
+def leaves(tree: PyTree):
+    """The tensors of a nested dict, in insertion order."""
+    if isinstance(tree, Mapping):
+        for v in tree.values():
+            yield from leaves(v)
+    else:
+        yield tree
+
+
+def count_params(tree: PyTree) -> int:
+    """The number of values in a parameter tree."""
+    return sum(int(x.numel()) for x in leaves(tree))
+
+
+def check_finite(tree: PyTree) -> torch.Tensor:
+    """A 0-d bool tensor: whether every value of the tree is finite."""
+    flags = [torch.isfinite(x.float()).all() for x in leaves(tree)]
+    return torch.stack(flags).all()

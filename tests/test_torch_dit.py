@@ -163,14 +163,15 @@ def test_configs_match_reference(arch):
 
 
 def test_registry_matches_reference():
-    """Every arch of the reference's registry is either ported (the
-    vision and diffusion families) or names its ROADMAP item (the
-    language models)."""
+    """The port's registry is the reference's, in its order: every arch
+    ported (the language models since ROADMAP item 8c), each with the
+    reference's family."""
     from repro.configs import ARCHS as JARCHS
-    from repro_torch.configs import ARCHS, _WAITING
-    assert sorted(ARCHS + list(_WAITING)) == sorted(JARCHS)
+    from repro_torch.configs import ARCHS
+    assert ARCHS == JARCHS
     assert {"dit-xl2", "unet-sd15"} <= set(ARCHS)
-    assert all(jax_config(a).family == "lm" for a in _WAITING)
+    assert all(get_config(a).family == jax_config(a).family for a in ARCHS)
+    assert sum(jax_config(a).family == "lm" for a in ARCHS) == 4
 
 
 def test_full_width_parameter_counts():

@@ -1,8 +1,8 @@
 """The port on an NVIDIA GPU: the hand-written kernels against their plain
 PyTorch versions, the simulator (the event_scan kernel), the ViT, ResNet,
-DiT and UNet on the card against the same code on the CPU (or DiT's
-kernel path against its plain path), and the graphed serve step against
-the eager one.
+DiT, UNet and language models on the card against the same code on the
+CPU (or DiT's and Granite's kernel paths against their plain paths), and
+the graphed serve step against the eager one.
 Imports no JAX, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -15,16 +15,19 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import (deit_b, dit_xl2, get_smoke_config, resnet50,
-                                 vit_h14)
+from repro_torch.configs import (deit_b, dit_xl2, get_config,
+                                 get_smoke_config, resnet50, vit_h14)
 from repro_torch.fleetsim import simulate, topology_arrays
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import event_scan as scan
 from repro_torch.kernels import event_select as es
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import moe_gemm as moe_gemm_mod
+from repro_torch.kernels import rmsnorm as rmsnorm_mod
 from repro_torch.launch import serve
 from repro_torch.launch.graphs import GraphedStep
-from repro_torch.models import common, dit, resnet, unet, vit
+from repro_torch.models import (common, dit, moe, resnet, transformer, unet,
+                                 vit)
 from repro_torch.netsim import LinkModel
 from repro_torch.orchestration import Topology, UniformWorkload
 
@@ -1291,3 +1294,152 @@ def test_diffusion_params_default_to_cuda(monkeypatch, mod, arch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         mod.params_from_numpy(tree, cfg)
+
+
+# ---------------------------------------------------------------------------
+# the language models: prefill and decode through the flash, rmsnorm and
+# moe_gemm kernels
+# ---------------------------------------------------------------------------
+LM_ARCHS = ("granite-moe-3b-a800m", "starcoder2-7b", "gemma3-27b",
+            "kimi-k2-1t-a32b")
+
+
+def _lm_counts():
+    return (fa.flash_attention.launches, rmsnorm_mod.rmsnorm.launches,
+            moe_gemm_mod.moe_gemm.launches)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_smoke_on_gpu_matches_cpu(arch):
+    """Each SMOKE LM in f32 (TF32 off), every weight leaf random, on the
+    card (rmsnorm and moe_gemm through their kernels) against the CPU (the
+    plain versions): the prefill's last logits and cache and three decode
+    steps within 1e-5; gemma3-smoke's ring-buffer decode past its window."""
+    _need_gpu()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke_config(arch), param_dtype="float32")
+    tree = transformer.numpy_params(cfg, 0, 0.02)
+    cpu_p = transformer.params_from_numpy(tree, cfg, "cpu")
+    gpu_p = transformer.params_from_numpy(tree, cfg)
+    tok = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 12)))
+    close = lambda g, c: torch.testing.assert_close(g.float().cpu(),
+                                                    c.float(), rtol=0,
+                                                    atol=1e-5)
+    before = _lm_counts()
+    lc, cc = transformer.prefill(cpu_p, tok, cfg, max_len=16)
+    lg, cg = transformer.prefill(gpu_p, tok.cuda(), cfg, max_len=16)
+    close(lg, lc)
+    close(cg["k"], cc["k"])
+    close(cg["v"], cc["v"])
+    L = cfg.n_layers
+    assert _lm_counts()[1] - before[1] == 2 * L + 1
+    assert _lm_counts()[2] - before[2] == (3 * L if cfg.moe else 0)
+    for s in ([1, 2], [3, 4], [5, 6]):
+        lc, cc = transformer.decode_step(cpu_p, cc, torch.tensor(s), cfg)
+        lg, cg = transformer.decode_step(gpu_p, cg, torch.tensor(s).cuda(),
+                                         cfg)
+        close(lg, lc)
+    if cfg.sliding_window and cfg.global_every:
+        cc = transformer.init_sliding_cache(cfg, 2, 16, "cpu")
+        cg = transformer.init_sliding_cache(cfg, 2, 16)
+        for i in range(12):
+            s = torch.tensor([i, 2 * i + 1])
+            lc, cc = transformer.decode_step_sliding(cpu_p, cc, s, cfg)
+            lg, cg = transformer.decode_step_sliding(gpu_p, cg, s.cuda(), cfg)
+            close(lg, lc)
+
+
+@pytest.mark.gpu
+def test_granite_layers_run_the_three_kernels():
+    """Granite-3.0 MoE at full width, 2 layers, bf16, attn_impl "pallas":
+    a 1,100-token prefill launches flash once a layer, rmsnorm 2L + 1 and
+    moe_gemm 3L times; a decode step no flash and the same norms and
+    products; the prefill's last logits within 0.05 (rms, relative) of the
+    plain path's (chunked attention, the plain rmsnorm and moe_gemm),
+    routed as the kernel path was (a routing flip at a near-tie drops the
+    last token's copy from a full expert: ``chip_smoke.pinned_routing``)."""
+    _need_gpu()
+    cfg = dataclasses.replace(get_config("granite-moe-3b-a800m"),
+                              n_layers=2, attn_impl="pallas")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = transformer.init_params(cfg, gen)
+    assert params["layers"]["we_gate"].device.type == "cuda"
+    tok = torch.randint(0, cfg.vocab_size, (1, 1100), generator=gen,
+                        device="cuda")
+    routing, real_route = [], moe.route_topk
+
+    def recording(logits, top_k, n_real=None):
+        gates, experts = real_route(logits, top_k, n_real)
+        routing.append(experts)
+        return gates, experts
+
+    def pinned(logits, top_k, n_real=None):
+        e = routing.pop(0)
+        gates = torch.softmax(logits.float(), -1).gather(1, e.long())
+        return gates / gates.sum(-1, keepdim=True), e
+
+    before = _lm_counts()
+    moe.route_topk = recording
+    try:
+        last, cache = transformer.prefill(params, tok, cfg, max_len=1102)
+    finally:
+        moe.route_topk = real_route
+    assert tuple(np.subtract(_lm_counts(), before)) == (2, 5, 6)
+    before = _lm_counts()
+    logits, cache = transformer.decode_step(params, cache,
+                                            last.argmax(-1), cfg)
+    assert tuple(np.subtract(_lm_counts(), before)) == (0, 5, 6)
+    assert torch.isfinite(logits).all() and logits.dtype == torch.float32
+    real_norm, real_gemm = ops.rmsnorm, ops.moe_gemm
+    ops.rmsnorm, ops.moe_gemm = ref.rmsnorm_ref, ref.moe_gemm_ref
+    moe.route_topk = pinned
+    try:
+        want, _ = transformer.prefill(params, tok, dataclasses.replace(
+            cfg, attn_impl="chunked"))
+    finally:
+        ops.rmsnorm, ops.moe_gemm = real_norm, real_gemm
+        moe.route_topk = real_route
+    assert not routing
+    assert float((last - want).pow(2).mean().sqrt()
+                 / want.pow(2).mean().sqrt()) < 0.05
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [1, 4, 6826])
+@pytest.mark.parametrize("which", ["gate", "down"])
+def test_moe_gemm_at_granite_capacities(C, which):
+    """The grouped product at Granite's 48 experts and the capacities its
+    serve path gives (decode at B = 1 and 16: C = 1 and 4, where the
+    tensor map's 128-row box passes the tensor's extent; the 32k prefill:
+    6,826) on tma_wgmma, against the plain version."""
+    _need_gpu()
+    d, f = (1536, 512) if which == "gate" else (512, 1536)
+    g = torch.Generator(device="cuda").manual_seed(C)
+    x = (torch.randn(48, C, d, generator=g, device="cuda") * 0.1).bfloat16()
+    w = (torch.randn(48, d, f, generator=g, device="cuda") * 0.1).bfloat16()
+    assert moe_gemm_mod.variant(x, w) == "tma_wgmma"
+    got = moe_gemm_mod.moe_gemm(x, w)
+    want = ref.moe_gemm_ref(x, w)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **ref.moe_gemm_tolerance(x, w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_no_window_equals_no_window_at_all(dtype):
+    """The window a language model without a sliding window passes every
+    layer (``transformer.NO_WINDOW``, 1 << 30) on causal GQA as Granite's
+    prefill gives it: the output without a window, bit for bit, and the
+    plain version's within its tolerance."""
+    _need_gpu()
+    g = torch.Generator().manual_seed(4)
+    q, k, v = (torch.randn(1, 1100, h, 64, generator=g).to("cuda", dtype)
+               for h in (24, 8, 8))
+    got = fa.flash_attention(q, k, v, causal=True,
+                             window=transformer.NO_WINDOW)
+    assert torch.equal(got, fa.flash_attention(q, k, v, causal=True))
+    want = ref.flash_attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **ref.flash_attention_tolerance(want, v))

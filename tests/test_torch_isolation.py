@@ -16,7 +16,7 @@ from repro_torch.core import torch_queue as tq
 from repro_torch.device import resolve_device
 from repro_torch.fleetsim import simulate, to_device, topology_arrays
 from repro_torch.launch import serve
-from repro_torch.models import dit, unet, vit
+from repro_torch.models import dit, transformer, unet, vit
 from repro_torch.orchestration import Router, Topology, UniformWorkload
 from repro_torch.serving import DeadlineAwareEngine, ServingReplica
 
@@ -99,6 +99,43 @@ def test_probe_walks_the_diffusion_modules():
         "assert type(get_config('unet-sd15')) is UNetConfig\n"
         "assert DiTConfig.__module__ == 'repro_torch.configs.base'")
     assert bad.strip() == "[]"
+
+
+def test_probe_walks_the_language_model_modules():
+    """The transformer, the MoE layer, the KV-cache pool and the four LM
+    configs are the port's own (the reference's ``LMConfig`` is not
+    imported)."""
+    _, bad = _run_probe(
+        "assert {'repro_torch.models.transformer', 'repro_torch.models.moe', "
+        "'repro_torch.serving.kv_cache', "
+        "'repro_torch.configs.granite_moe_3b_a800m', "
+        "'repro_torch.configs.starcoder2_7b', 'repro_torch.configs.gemma3_27b', "
+        "'repro_torch.configs.kimi_k2_1t_a32b'} <= set(names)\n"
+        "from repro_torch.configs import LMConfig, all_cells, get_config\n"
+        "assert LMConfig.__module__ == 'repro_torch.configs.base'\n"
+        "assert type(get_config('kimi-k2-1t-a32b')) is LMConfig\n"
+        "assert len(all_cells()[0]) == 37\n"
+        "from repro_torch.serving import KVCachePool\n"
+        "assert KVCachePool.__module__ == 'repro_torch.serving.kv_cache'")
+    assert bad.strip() == "[]"
+
+
+def test_lm_entry_points_raise_without_cuda(monkeypatch):
+    """``params_from_numpy`` and the caches' ``device=None`` mean CUDA and
+    raise without it; the CPU, asked for, runs the model."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke_config("granite-moe-3b-a800m")
+    tree = transformer.numpy_params(cfg, 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        transformer.params_from_numpy(tree, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        transformer.init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        transformer.init_params(cfg, torch.Generator())
+    params = transformer.params_from_numpy(tree, cfg, "cpu")
+    logits, cache = transformer.prefill(params, torch.tensor([[1, 2, 3]]),
+                                        cfg, max_len=4)
+    assert logits.device.type == "cpu" and cache["k"].device.type == "cpu"
 
 
 def test_chip_smoke_imports_neither_jax_nor_repro():

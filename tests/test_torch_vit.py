@@ -197,15 +197,28 @@ def test_configs_match_reference(arch):
 
 
 def test_other_archs_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="open item 8"):
-        get_config("starcoder2-7b")
-    with pytest.raises(NotImplementedError, match="open item 8"):
-        get_smoke_config("gemma3-27b")
+    """Every architecture of the reference resolves in the port (the
+    language models since ROADMAP item 8c), with the family the
+    reference's config names, and ``model_module`` maps each family, the
+    LMs' ``"lm"`` to ``models.transformer``; an unknown arch or family
+    still raises."""
+    from repro.configs import ARCHS as REFERENCE_ARCHS
+    from repro.configs import get_config as reference_config
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import transformer
+    assert ARCHS == REFERENCE_ARCHS
+    for arch in REFERENCE_ARCHS:
+        for cfg in (get_config(arch), get_smoke_config(arch)):
+            assert cfg.family == reference_config(arch).family
+            assert model_module(cfg).param_defs(cfg)
+    assert model_module(get_config("starcoder2-7b")) is transformer
+    assert model_module(dataclasses.replace(get_config("deit-b"),
+                                            family="lm")) is transformer
     with pytest.raises(ValueError, match="unknown arch"):
         get_config("vit-b32")
-    with pytest.raises(NotImplementedError, match="open item 8"):
+    with pytest.raises(ValueError, match="unknown model family"):
         model_module(dataclasses.replace(get_config("deit-b"),
-                                         family="lm"))
+                                         family="rnn"))
 
 
 def test_deit_b_serving_shapes():
