@@ -22,11 +22,11 @@ final line:
              a. ``event_select`` against its plain PyTorch version on
                 random fleets (K in {3, 6, 32}, W in {64, 512}) with
                 head-pointer rows, ties and a priced network;
-             b. for each main-path run, its first 500 events through the
+             b. for each main-path run, its first 250 events through the
                 eager per-event loop on the card (``fleetsim.core.
                 _simulate_eager``, ``event_scan``'s plain version): wall
-                time per event, keeping every 150th ``event_select``
-                input; then its first 100 events profiled (device busy,
+                time per event, keeping every 75th ``event_select``
+                input; then its first 25 events profiled (device busy,
                 idle share, launches per event);
              c. the main path: ``paper/scenario1..3`` and the full
                 16,000-request 32-node fleet, then ``paper/scenario1``,
@@ -46,7 +46,7 @@ final line:
                 reject a planted fault (one request's ``served_by``
                 changed, one request's deadline moved);
              e. ``event_scan``'s time: each whole run in one launch, and
-                each run's first 500 events beside the eager loop's time
+                each run's first 250 events beside the eager loop's time
                 there, with the bound per event (the bytes of one step,
                 the live blocks it scores counted by the kernel, at the
                 HBM rate) beside the serial chain between events;
@@ -118,7 +118,7 @@ final line:
                 each, held to the reference's digests, then timed: us per
                 event (CUDA events around one launch), ``simulate``'s
                 wall, requests/s, the bytes bound, the live blocks scored
-                a step, the ring's memory; the eager loop's first 500
+                a step, the ring's memory; the eager loop's first 250
                 events of the ``batched_feasible`` run beside the
                 kernel's; ``run_validation`` on the mobile radio workload
                 under ``random``, its report the reference's;
@@ -319,14 +319,50 @@ final line:
                 as many input copies as exceed the 50 MB L2 twice over,
                 rotated inside the graph), each pair timed in turns
                 (kernel, library, library, kernel; the better of two each);
-6. the ``{"kernels": [...]}`` line (one entry a kernel; ``flash_attention``
+6. train    — training (``repro_torch.training``, ``launch.train``):
+             a. the ``rmsnorm`` backward kernel (``rmsnorm_bwd``, one
+                cooperative launch) against its plain version
+                (``ref.rmsnorm_bwd_ref``) at (8192, 1536), (4096, 1536)
+                (Granite's rows at B = 2 / 1), (7, 7168) and (1000, 1023),
+                f32 and bf16, bit-equal over two launches, held to
+                ``ref.rmsnorm_bwd_tolerance``, shown to reject a dscale
+                without its last row and a dscale of 0; ``ops.moe_gemm``'s
+                gradients (dx = moe_gemm(dy, w^T), dW = moe_gemm(x^T, dy)
+                with C padded to a multiple of 8) against autograd of the
+                plain version at Granite's expert products with C = 853 and
+                1,706, bf16 and f32, each product's variant printed, the dW
+                check shown to reject a dW without the last 8 rows of C;
+                each timed beside its plain version, the library call
+                (``F.rms_norm``'s autograd backward, ``torch.bmm``) and the
+                bound;
+             b. the golden train steps of ``tests/data/
+                torch_train_golden.npz`` (Granite-3.0 MoE at full width,
+                depth 2, 1,100 tokens, f32 and bf16; DeiT-B at full width,
+                depth 2, B = 2; the smoke DeiT, ResNet and Granite over 3
+                steps) within ``tests/train_golden.py``'s limits, with six
+                planted faults (no dscale, a wrapper without autograd, the
+                aux term dropped, no bias correction, a misordered loss
+                remainder, an embedding backward that overwrites rows)
+                each rejected, the last against the bf16 section too;
+             c. the main path through ``launch.train``'s ``run``: Granite-3.0
+                MoE at full width and depth (bf16 weights, f32 moments,
+                remat) on ``train_4k``'s 4,096-token sequences with the
+                global batch cut 256 -> 2, one warm step (profiled: device
+                time by kind), three timed (ms a step, tokens/s, peak
+                memory), each kernel's launches a step as the counters saw
+                them (set to 0 before the run), every leaf changed; DeiT-B
+                ``cls_224`` at its full batch of 256, 2 steps against 1
+                step, a checkpoint, and a fresh run resumed to 2: equal bit
+                for bit;
+7. the ``{"kernels": [...]}`` line (one entry a kernel; ``flash_attention``
    one a variant: ``tma_wgmma`` at D = 64 (DeiT-B and Granite's prefill,
    phase 4h), 80 (ViT-H/14) and 72 (DiT-XL/2's steps, phase 4g), each
    with its main-path launches, and ``mma_sync`` and ``f32_regtile``,
    which no served path launches; ``fleet_feasibility`` with its path,
    the heap router, and that path's launches; ``rmsnorm`` and
-   ``moe_gemm`` with theirs, the LM's, its launches and its shapes' times),
-   then the ``{"ok": true, ...}`` line.
+   ``moe_gemm`` with theirs, the LM's and the train step's, their
+   launches and their shapes' times; ``rmsnorm_backward`` with the train
+   step's), then the ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -410,6 +446,9 @@ KERNELS = {           # name: (source, the TPU kernel it replaces)
     "link_cost": (CSRC + "admission.cu", "src/repro/kernels/link_cost.py:40"),
     "rmsnorm": (CSRC + "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:16"),
     "moe_gemm": (CSRC + "moe_gemm.cu", "src/repro/kernels/moe_gemm.py:18"),
+    # the port's backward of the rmsnorm kernel (the reference has none)
+    "rmsnorm_backward": (CSRC + "rmsnorm.cu",
+                         "src/repro/kernels/rmsnorm.py:16"),
 }
 SOURCES = sorted({os.path.basename(src)[:-3] for src, _ in KERNELS.values()})
 # On the served inputs attention is near uniform over 578 keys, so one key
@@ -467,8 +506,10 @@ VIT_H14_LOGIT_RMS = {("float32", 224): 3e-6, ("float32", 384): 3e-6,
 # (0.200 / 0.144) exceeds this tolerance.
 VIT_H14_FRAME_ATOL = 0.07
 # the eager loop's segment of each main-path run, how often it keeps an
-# event_select input there, and how much of it is profiled
-SEGMENT_EVENTS, FLEET_CAPTURE_EVERY, PROFILED_EVENTS = 500, 150, 100
+# event_select input there, and how much of it is profiled (cut from 500,
+# 150, 100 in PR 25 for the time budget: the profiler took ~0.1 s an event
+# to digest, ~40 of phase 3b's 57 s; the kept inputs are as many)
+SEGMENT_EVENTS, FLEET_CAPTURE_EVERY, PROFILED_EVENTS = 250, 75, 25
 # the forwarding policies that draw from threefry (the golden file's runs
 # that name one of them)
 STOCHASTIC = ("random", "power_of_two")
@@ -2263,19 +2304,21 @@ def graph_equals_eager(name, mod, params, cfg, step, spec, served, dev):
           flush=True)
 
 
-def profiled(fn):
+def profiled(fn, cpu: bool = True):
     """One call of ``fn`` under torch.profiler: its wall time, the device's
     busy time (its own entries: kernels, copies, fills), and each device
     entry's count and time by name.  Now and then the profiler records no
     device entry at all for a window (late in a long process); such a
     window is profiled again, up to ``PROFILE_TRIES`` times in all, and a
-    window with any device entry is taken as it is."""
+    window with any device entry is taken as it is.  ``cpu=False`` traces
+    the device alone (a train step's ~10^5 host ops take the profiler
+    tens of seconds to digest)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU] if cpu else []
     for tries in range(1, PROFILE_TRIES + 1):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
+        with profile(activities=activities + [ProfilerActivity.CUDA],
                      acc_events=True) as prof:
             t0 = time.perf_counter()
             fn()
@@ -3368,12 +3411,11 @@ def dit_steps(tree, dev):
             fail(f"a profiled DiT-XL/2 {s.name} step shows {flash}, expected "
                  f"{cfg.n_layers} tma_wgmma kernels of width {D}")
         row["flash_share"] = row["flash_attention_ms"] / row["busy_ms"]
-        row["plain_ms"] = events_ms(lambda s=s: dit.serve_step(
-            params, *inputs[s.name], plain_cfg))
+        # the plain step is no longer timed (cut in PR 25 for the time
+        # budget; PR 23's times are in PERF.md), only checked above
         print(f"diffusion DiT-XL/2 {s.name}: {sum(flash.values())} "
               f"flash_attention kernels on the device {flash}; flash share of "
-              f"the device time {row['flash_share']:.3f}; the plain step "
-              f"{row['plain_ms']:.3f} ms", flush=True)
+              f"the device time {row['flash_share']:.3f}", flush=True)
         del row["device_counts"]
         out["steps"].append(row)
     # the kernel on the inputs the model gave it, against its plain version
@@ -4405,34 +4447,43 @@ def drive_entry_points(dev, fleet):
     return launches
 
 
+def one_call_kernels(fn) -> dict:
+    """The device kernels of one call of ``fn`` (warm), by name: a window
+    that records no device entry is profiled again, up to
+    ``PROFILE_TRIES`` windows (``profiled``)."""
+    fn()
+    p = profiled(fn)
+    return p["device_counts"]
+
+
 def rmsnorm_device_kernels(dev) -> dict:
     """Phase 2b: the device kernels one ``rmsnorm`` call runs at each of
     ``RMSNORM_SHAPES``, f32 and bf16 with the scale in x's dtype, which
     must be one (the kernel reads the scale in its own dtype: no cast
-    beside it).  Profiled before anything else in the run is.
-    Returns the counts."""
-    from torch.profiler import ProfilerActivity, profile
-    from torch.autograd import DeviceType
+    beside it), and one ``rmsnorm_bwd`` call at the train step's rows,
+    also one (dx and dscale in one cooperative launch).  Profiled before
+    anything else in the run is.  Returns the counts."""
     counts = {}
     for R, d in RMSNORM_SHAPES:
         for dt in (torch.bfloat16, torch.float32):
             x, s = rmsnorm_inputs(R, d, dt, dev)
-            rn_mod.rmsnorm(x, s)                       # built and warm
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA],
-                         acc_events=True) as prof:
-                rn_mod.rmsnorm(x, s)
-                torch.cuda.synchronize()
-            names = {e.key: e.count for e in prof.key_averages()
-                     if e.device_type == DeviceType.CUDA}
+            names = one_call_kernels(lambda: rn_mod.rmsnorm(x, s))
             if sum(names.values()) != 1:
                 fail(f"rmsnorm ({R}, {d}) {dt} with a {s.dtype} scale ran "
                      f"device kernels {names}, not one")
             counts[(R, d, dt)] = 1
+    for R, d in RMSNORM_BWD_SHAPES[:2]:
+        for dt in (torch.bfloat16, torch.float32):
+            x, s, dy = rmsnorm_bwd_inputs(R, d, dt, dev)
+            names = one_call_kernels(lambda: rn_mod.rmsnorm_bwd(x, s, dy))
+            if sum(names.values()) != 1:
+                fail(f"rmsnorm_bwd ({R}, {d}) {dt} ran device kernels "
+                     f"{names}, not one")
+            counts[("bwd", R, d, dt)] = 1
     print(f"entry kernels: one rmsnorm call is one device kernel at (R, d) "
-          f"{RMSNORM_SHAPES}, f32 and bf16, the scale in x's dtype "
-          f"(profiled)", flush=True)
+          f"{RMSNORM_SHAPES}, f32 and bf16, the scale in x's dtype, and one "
+          f"rmsnorm_bwd call at {RMSNORM_BWD_SHAPES[:2]} (profiled)",
+          flush=True)
     return counts
 
 
@@ -4608,6 +4659,467 @@ def entry_point_phase(dev, kept, one_kernel, routed):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: training
+# ---------------------------------------------------------------------------
+TRAIN_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_train_golden.npz")
+TRAIN_CKPT_DIR = os.path.join(ROOT, "build", "train_ckpt")
+# the rmsnorm backward kernel at the train step's rows ((B S, d) of
+# Granite's norms at B = 2 and 1, S = 4,096), a wide row and an odd width
+RMSNORM_BWD_SHAPES = ((8192, 1536), (4096, 1536), (7, 7168), (1000, 1023))
+# moe_gemm's backward products at Granite's expert products, (E, C, d, f)
+# of the forward x (E, C, d) w (E, d, f): C = 853 for one 4,096-token
+# sequence, 1,706 for two (the main path's B = 2)
+MOE_BWD_SHAPES = {"gate_up/853": (48, 853, 1536, 512),
+                  "down/853": (48, 853, 512, 1536),
+                  "gate_up/1706": (48, 1706, 1536, 512),
+                  "down/1706": (48, 1706, 512, 1536)}
+# the main path: Granite-3.0 MoE at full width and depth, train_4k's
+# 4,096-token sequences with its global batch cut 256 -> TRAIN_BATCH;
+# one warm step (profiled), TRAIN_TIMED timed
+TRAIN_BATCH, TRAIN_WARM, TRAIN_TIMED = 2, 1, 3
+# DeiT-B cls_224 at its full global batch: DEIT_STEPS steps, a checkpoint
+# after DEIT_CKPT_AT, a fresh run resumed from it
+DEIT_STEPS, DEIT_CKPT_AT = 2, 1
+TRAIN_COUNTERS = {"rmsnorm": rn_mod.rmsnorm,
+                  "rmsnorm_backward": rn_mod.rmsnorm_bwd,
+                  "moe_gemm": mg_mod.moe_gemm,
+                  "flash_attention": fa_mod.flash_attention}
+
+
+def train_golden_module():
+    """``tests/train_golden.py``: the golden's record, limits and faults
+    (numpy and torch only)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import train_golden
+    return train_golden
+
+
+def train_counts(zero=False) -> dict:
+    if zero:
+        for fn in TRAIN_COUNTERS.values():
+            fn.launches = 0
+    return {name: fn.launches for name, fn in TRAIN_COUNTERS.items()}
+
+
+def rmsnorm_bwd_bound_ms(R, d, itemsize):
+    """x and dy read and dx written once (the scale read and dscale
+    written once); ~12 f32 operations an element at the f32 peak."""
+    bytes_ms = (3 * R * d * itemsize + 8 * d) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 12 * R * d / F32_FLOP_PER_S * 1e3
+    return bound(bytes_ms, ops_ms)
+
+
+def rmsnorm_bwd_inputs(R, d, dtype, dev):
+    x, s = rmsnorm_inputs(R, d, dtype, dev)
+    return x, s, randn((R, d), R + d + 1, dev, dtype)
+
+
+def rmsnorm_bwd_checks(dev) -> dict:
+    """Phase 6a: the backward kernel against its plain version at
+    ``RMSNORM_BWD_SHAPES``, f32 and bf16, deterministic; the dscale check
+    shown to reject a dscale without its last row, and one of 0; times at
+    the train shapes beside the plain version, the library's backward of
+    ``F.rms_norm`` and the bound."""
+    err, rows = 0.0, []
+    for R, d in RMSNORM_BWD_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            x, s, dy = rmsnorm_bwd_inputs(R, d, dt, dev)
+            dx, ds = rn_mod.rmsnorm_bwd(x, s, dy)
+            want_dx, want_ds = ref.rmsnorm_bwd_ref(x, s, dy)
+            tol = ref.rmsnorm_bwd_tolerance(x, s, dy)
+            err = max(err, check_close(f"rmsnorm_bwd dx ({R}, {d}) {dt}", dx,
+                                       want_dx, tol["dx"]),
+                      check_close(f"rmsnorm_bwd dscale ({R}, {d}) {dt}", ds,
+                                  want_ds, tol["dscale"]))
+            dx2, ds2 = rn_mod.rmsnorm_bwd(x, s, dy)
+            if not (torch.equal(dx, dx2) and torch.equal(ds, ds2)):
+                fail(f"rmsnorm_bwd ({R}, {d}) {dt}: two launches differ")
+    R, d = RMSNORM_BWD_SHAPES[0]
+    x, s, dy = rmsnorm_bwd_inputs(R, d, torch.float32, dev)
+    _, want_ds = ref.rmsnorm_bwd_ref(x, s, dy)
+    tol = ref.rmsnorm_bwd_tolerance(x, s, dy)["dscale"]
+    r = torch.rsqrt(x.square().mean(-1, keepdim=True) + rn_mod.EPS)
+    no_last = want_ds - (dy * x * r)[-1]
+    shares = (tolerance_share(no_last, want_ds, tol),
+              tolerance_share(torch.zeros_like(want_ds), want_ds, tol))
+    if not min(shares) > 1.0:
+        fail(f"the rmsnorm_bwd dscale check passes a dropped dscale: {shares}")
+    print(f"train kernels: rmsnorm_bwd matches its plain version at (R, d) "
+          f"{RMSNORM_BWD_SHAPES}, f32 and bf16, bit-equal over two launches; "
+          f"max abs err {err}; a dscale without its last row errs by "
+          f"{shares[0]:.2f} of the tolerance, a dscale of 0 by "
+          f"{shares[1]:.2f} (both rejected)", flush=True)
+    for R, d in RMSNORM_BWD_SHAPES[:2]:
+        for dt in (torch.bfloat16, torch.float32):
+            x, s, dy = rmsnorm_bwd_inputs(R, d, dt, dev)
+            xl = x.clone().requires_grad_()
+            wl = (1.0 + s.float()).to(dt).requires_grad_()
+            y = torch.nn.functional.rms_norm(xl, (d,), weight=wl,
+                                             eps=rn_mod.EPS)
+            ms = timed_ms(lambda: rn_mod.rmsnorm_bwd(x, s, dy), 50)
+            plain_ms = timed_ms(lambda: ref.rmsnorm_bwd_ref(x, s, dy), 20)
+            library_ms = timed_ms(lambda: torch.autograd.grad(
+                y, (xl, wl), dy, retain_graph=True), 50)
+            b_ms, b_by = rmsnorm_bwd_bound_ms(R, d, x.element_size())
+            row = dict(shape=[R, d], dtype=str(dt), ms=ms, plain_ms=plain_ms,
+                       library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+                       ratio=ms / library_ms)
+            rows.append(row)
+            print(f"train kernels: rmsnorm_bwd ({R}, {d}) {dt}: {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, F.rms_norm's autograd backward "
+                  f"{library_ms:.4f} ms (kernel / library {row['ratio']:.3f}),"
+                  f" bound {b_ms:.4f} ms ({b_by})", flush=True)
+            del y, xl, wl
+    return dict(max_abs_err=err, rows=rows)
+
+
+def moe_bwd_products(x, w, dy):
+    """The two backward products of y = x w as ``ops.MoEGemmFn`` forms
+    them on the card: (dy, w^T) and (x^T, dy) with C padded to a multiple
+    of 8."""
+    wt = w.transpose(1, 2).contiguous()
+    xt = ops._pad_rows(x.transpose(1, 2).contiguous(), 8, 2)
+    return (dy, wt), (xt, ops._pad_rows(dy, 8, 1))
+
+
+def moe_bwd_checks(dev) -> dict:
+    """Phase 6a: ``ops.moe_gemm``'s gradients on the card (three launches:
+    the forward and the two backward products) against autograd of the
+    plain version at ``MOE_BWD_SHAPES``, bf16 and f32, each product with
+    its variant; the dW check shown to reject a dW without the last 8 rows
+    of C; times of each product beside the plain version, ``torch.bmm``
+    and the bound."""
+    err, rows = 0.0, []
+    for name, (E, C, d, f) in MOE_BWD_SHAPES.items():
+        for dt in (torch.bfloat16, torch.float32):
+            x, w = moe_inputs(E, C, d, f, dt, dev)
+            dy = randn((E, C, f), C + f + 2, dev, dt, 0.1)
+            lx, lw = x.clone().requires_grad_(), w.clone().requires_grad_()
+            n0 = mg_mod.moe_gemm.launches
+            ops.moe_gemm(lx, lw).backward(dy)
+            if mg_mod.moe_gemm.launches - n0 != 3:
+                fail(f"moe_gemm backward {name} {dt}: "
+                     f"{mg_mod.moe_gemm.launches - n0} launches, not 3")
+            px, pw = x.clone().requires_grad_(), w.clone().requires_grad_()
+            ref.moe_gemm_ref(px, pw).backward(dy)
+            (a1, b1), (a2, b2) = moe_bwd_products(x, w, dy)
+            tol_dx, tol_dw = (ref.moe_gemm_tolerance(a1, b1),
+                              ref.moe_gemm_tolerance(a2, b2))
+            e = max(check_close(f"moe_gemm dx {name} {dt}", lx.grad, px.grad,
+                                tol_dx),
+                    check_close(f"moe_gemm dw {name} {dt}", lw.grad, pw.grad,
+                                tol_dw))
+            err = max(err, e)
+            variants = (mg_mod.variant(a1, b1), mg_mod.variant(a2, b2))
+            share = None
+            if dt == torch.bfloat16 and name == "gate_up/853":
+                bad = ref.moe_gemm_ref(x.transpose(1, 2)[..., :-8]
+                                       .contiguous(), dy[:, :-8])
+                share = tolerance_share(bad, pw.grad, tol_dw)
+                if share <= 1.0:
+                    fail("the moe_gemm dW check passes a dW without the last "
+                         "8 rows of C")
+            print(f"train kernels: moe_gemm backward {name} {(E, C, d, f)} "
+                  f"{dt}: dx ({tuple(a1.shape)} x {tuple(b1.shape)}) "
+                  f"variant {variants[0]}, dW ({tuple(a2.shape)} x "
+                  f"{tuple(b2.shape)}) variant {variants[1]}; max abs err {e}"
+                  + ("" if share is None else f"; a dW without the last 8 "
+                     f"rows of C errs by {share:.1f} of its tolerance "
+                     f"(rejected)"), flush=True)
+            if dt == torch.bfloat16:
+                for what, (a, b) in (("dx", (a1, b1)), ("dW", (a2, b2))):
+                    ms = timed_ms(lambda: mg_mod.moe_gemm(a, b), 20)
+                    plain_ms = timed_ms(lambda: ref.moe_gemm_ref(a, b), 10)
+                    lib_ms = timed_ms(lambda: torch.bmm(a, b), 20)
+                    b_ms, b_by = moe_bound_ms(a.shape[0], a.shape[1],
+                                              a.shape[2], b.shape[2], 2)
+                    rows.append(dict(product=f"{name} {what}",
+                                     shape=[*a.shape, b.shape[2]],
+                                     variant=mg_mod.variant(a, b), ms=ms,
+                                     plain_ms=plain_ms, library_ms=lib_ms,
+                                     bound_ms=b_ms, bound_by=b_by,
+                                     ratio=ms / lib_ms))
+                    print(f"train kernels: moe_gemm {name} {what} "
+                          f"{tuple(rows[-1]['shape'])} "
+                          f"({rows[-1]['variant']}): {ms:.4f} ms, plain "
+                          f"{plain_ms:.4f} ms, torch.bmm {lib_ms:.4f} ms "
+                          f"(kernel / library {ms / lib_ms:.3f}), bound "
+                          f"{b_ms:.4f} ms ({b_by})", flush=True)
+            del x, w, dy, lx, lw, px, pw, a1, b1, a2, b2
+    return dict(max_abs_err=err, rows=rows)
+
+
+def train_golden_checks(dev) -> dict:
+    """Phase 6b: the port's train steps on the card against the
+    reference's in ``tests/data/torch_train_golden.npz`` (Granite at full
+    width, 2 layers, f32 and bf16; DeiT-B at full width, 2 layers; the
+    smoke configs over 3 steps), each within ``tests/train_golden.py``'s
+    limits; the planted faults of ``train_golden.FAULTS`` each rejected
+    on Granite's f32 section, and the embedding's on its bf16 one (the
+    limit of its own that the bf16 embedding gradient has)."""
+    tg = train_golden_module()
+    want = np.load(TRAIN_GOLDEN)
+    cfgs = tg.port_configs()
+    out = {}
+    granite_tree = None
+    for name, cfg in cfgs.items():
+        t0 = time.time()
+        tree = None
+        if name.startswith("granite/"):
+            granite_tree = granite_tree or tg.numpy_weights(cfg)
+            tree = granite_tree
+        rec, losses = tg.port_record(name, cfg, want, device=dev, tree=tree)
+        shares = tg.compare(rec, want, name, cfg.param_dtype)
+        bad = tg.fails(shares)
+        worst = max(shares, key=shares.get)
+        if bad:
+            fail(f"train golden {name}: {len(bad)} checks past their limits, "
+                 f"e.g. {dict(list(bad.items())[:6])}")
+        out[name] = dict(worst=worst, share=shares[worst], losses=losses,
+                         s=time.time() - t0)
+        print(f"train golden {name}: every check within its limit (the "
+              f"nearest: {worst} at {shares[worst]:.3f} of its limit); "
+              f"losses {losses} (reference {list(want[name + '/losses'])}); "
+              f"{time.time() - t0:.1f} s", flush=True)
+    faults = {}
+    runs = [("granite/float32", f) for f in tg.FAULTS] + [
+        ("granite/bfloat16", "embed_overwrite")]
+    for name, fault in runs:
+        with tg.planted(fault):
+            rec, _ = tg.port_record(name, cfgs[name], want, device=dev,
+                                    tree=granite_tree)
+        bad = tg.fails(tg.compare(rec, want, name, cfgs[name].param_dtype))
+        if not bad:
+            fail(f"train golden: the planted fault {fault} passes {name}")
+        faults[f"{name} {fault}"] = len(bad)
+    print(f"train golden: each planted fault fails (checks past their "
+          f"limits: {faults})", flush=True)
+    out["faults"] = faults
+    return out
+
+
+def leaf_samples(params) -> list:
+    """A strided sample of at most 2^20 values of each leaf (clones)."""
+    out = []
+    for p in model_common.leaves(params):
+        flat = p.reshape(-1)
+        out.append(flat[::max(1, flat.numel() >> 20)].clone())
+    return out
+
+
+def train_cell(arch, cfg, shape):
+    from repro_torch.launch import steps as S
+    S.shapes_for(cfg)[shape.name] = shape
+    try:
+        return S.build_cell(arch, shape.name, cfg=cfg)
+    finally:
+        S.shapes_for(cfg).pop(shape.name, None)
+
+
+def granite_train(dev) -> dict:
+    """Phase 6c: Granite-3.0 MoE at full width and depth through
+    ``launch.train``'s ``run``: 4,096-token sequences at B =
+    ``TRAIN_BATCH``, bf16 weights, f32 moments, remat; one warm step
+    (profiled: device time by kind), ``TRAIN_TIMED`` timed (CUDA events
+    around each); every leaf changed, finite loss and gradient norm, each
+    kernel's launches a step as the counters saw them."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.training.train_loop import TrainLoopConfig, run
+    cfg = granite_moe_3b_a800m.CONFIG
+    shape = ShapeSpec("chip_train", "train", seq_len=LM_SHAPES[
+        "train_4k"].seq_len, global_batch=TRAIN_BATCH)
+    cell = train_cell(cfg.name, cfg, shape)
+    init, made = cell.make_args, {}
+
+    def make_args(seed, device):
+        """The run's own initial weights, sampled before its first step."""
+        args = init(seed, device)
+        made["before"] = leaf_samples(args[0])
+        made["n_params"] = model_common.count_params(args[0])
+        made["state_bytes"] = sum(t.numel() * t.element_size() for t in
+                                  itertools.chain(*(model_common.leaves(x)
+                                                    for x in (args[0],
+                                                              args[1].m,
+                                                              args[1].v))))
+        made["t_init"] = time.time() - t_run
+        return args
+
+    cell.make_args = make_args
+    steps, real = [], cell.step_fn
+
+    def step_fn(params, opt_state, batch):
+        k = len(steps)
+        c0 = train_counts()
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        if k == 0:
+            holder = {}
+
+            def once():            # a retried profiler window runs nothing
+                if not holder:
+                    holder["out"] = real(params, opt_state, batch)
+            prof = profiled(once, cpu=False)
+            out = holder["out"]
+        else:
+            prof = None
+            t0.record()
+            out = real(params, opt_state, batch)
+            t1.record()
+        torch.cuda.synchronize()
+        c1 = train_counts()
+        steps.append(dict(
+            ms=None if prof else t0.elapsed_time(t1), prof=prof,
+            launches={n: c1[n] - c0[n] for n in c1},
+            loss=float(out[2]["loss"]), grad_norm=float(out[2]["grad_norm"]),
+            aux=float(out[2]["aux_loss"])))
+        return out
+
+    cell.step_fn = step_fn
+    torch.cuda.reset_peak_memory_stats()
+    train_counts(zero=True)
+    t0 = t_run = time.time()
+    res = run(cell, TrainLoopConfig(total_steps=TRAIN_WARM + TRAIN_TIMED,
+                                    log_every=1, seed=0),
+              log_fn=lambda m: print(f"granite train: {m}", flush=True),
+              device=dev)
+    wall = time.time() - t0
+    counts = train_counts()
+    peak = torch.cuda.max_memory_allocated()
+    after = leaf_samples(res["params"])
+    before, n_params = made["before"], made["n_params"]
+    state_bytes = made["state_bytes"]
+    unchanged = [i for i, (a, b) in enumerate(zip(before, after))
+                 if torch.equal(a, b)]
+    if unchanged:
+        fail(f"granite train: {len(unchanged)} leaves unchanged after "
+             f"{len(steps)} steps")
+    if not all(np.isfinite([s["loss"], s["grad_norm"]]).all()
+               for s in steps):
+        fail(f"granite train: a loss or gradient norm is not finite: {steps}")
+    L = cfg.n_layers
+    want = {"rmsnorm": 2 * L + 1 + 2 * L, "rmsnorm_backward": 2 * L + 1,
+            "moe_gemm": 4 * 3 * L, "flash_attention": 0}
+    for i, s in enumerate(steps):
+        if s["launches"] != want:
+            fail(f"granite train step {i}: launches {s['launches']}, not "
+                 f"{want} (rmsnorm 2L + 1 forward and 2L again under remat; "
+                 f"its backward 2L + 1; moe_gemm 3L forward, 3L under remat "
+                 f"and 6L backward)")
+    timed = [s["ms"] for s in steps[TRAIN_WARM:TRAIN_WARM + TRAIN_TIMED]]
+    ms = float(np.median(timed))
+    tokens = TRAIN_BATCH * shape.seq_len
+    prof = steps[0]["prof"]
+    kinds = dict.fromkeys(("rmsnorm", "rmsnorm_backward", "moe_gemm",
+                           "matmul", "other"), 0.0)
+    for name, us in prof["device_us"].items():
+        n = name.lower()
+        kind = ("rmsnorm_backward" if "rmsnorm_bwd" in n else
+                "rmsnorm" if "rmsnorm" in n else "moe_gemm" if "moe_gemm" in n
+                else "matmul" if any(k in n for k in (
+                    "gemm", "xmma", "cutlass", "nvjet", "matmul"))
+                else "other")
+        kinds[kind] += us / 1e3
+    busy = prof["busy_us"] / 1e3
+    top = sorted(prof["device_us"].items(), key=lambda kv: -kv[1])[:8]
+    row = dict(batch=TRAIN_BATCH, seq=shape.seq_len, n_params=n_params,
+               state_gb=state_bytes / 1e9, step_ms=timed, ms=ms,
+               tokens_per_s=tokens / (ms / 1e3), peak_gb=peak / 1e9,
+               busy_ms=busy, profiled_ms=prof["wall_us"] / 1e3,
+               idle=max(0.0, 1.0 - busy / (prof["wall_us"] / 1e3)),
+               kinds_ms=kinds, launches_per_step=want, wall_s=wall,
+               init_s=made["t_init"],
+               losses=[s["loss"] for s in steps],
+               grad_norms=[s["grad_norm"] for s in steps],
+               top_kernels_ms={k[:90]: v / 1e3 for k, v in top},
+               counts=counts)
+    print(f"granite train (full width and depth, {n_params} parameters, "
+          f"B={TRAIN_BATCH} x {shape.seq_len} tokens; parameters and AdamW "
+          f"state {row['state_gb']:.2f} GB): step {ms:.1f} ms (median of "
+          f"{[round(t, 1) for t in timed]}), {row['tokens_per_s']:.0f} "
+          f"tokens/s, peak memory {row['peak_gb']:.2f} GB; the warm step, "
+          f"profiled: {row['profiled_ms']:.1f} ms, device busy {busy:.1f} ms "
+          f"(idle {row['idle']:.3f}), by kind "
+          + ", ".join(f"{k} {v:.1f} ms ({v / max(busy, 1e-9):.3f})"
+                      for k, v in kinds.items())
+          + "; largest: " + "; ".join(f"{k} {v:.2f} ms" for k, v in
+                                      row["top_kernels_ms"].items()),
+          flush=True)
+    print(f"granite train: launches a step {want} on every step; losses "
+          f"{row['losses']}, grad norms {row['grad_norms']}; every leaf "
+          f"changed; run() {wall:.1f} s, of which the weights' and the "
+          f"optimizer state's initialisation {made['t_init']:.1f} s",
+          flush=True)
+    return row
+
+
+def deit_train(dev) -> dict:
+    """Phase 6c: DeiT-B ``cls_224`` at its full global batch through
+    ``run``: ``DEIT_STEPS`` steps uninterrupted, against ``DEIT_CKPT_AT``
+    steps ending in a checkpoint, then a fresh run resumed from that
+    checkpoint to ``DEIT_STEPS``: every parameter and moment equal bit for
+    bit."""
+    import shutil
+    from repro_torch.configs.shapes import VISION_SHAPES
+    from repro_torch.training.train_loop import TrainLoopConfig, run
+    cfg = deit_b.CONFIG
+    cell = train_cell(cfg.name, cfg, VISION_SHAPES["cls_224"])
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    logs = []
+    quiet = dict(log_fn=logs.append, device=dev)
+    # checkpoints only where the run ends (ckpt_every past the end)
+    once = dict(ckpt_every=DEIT_STEPS + 1, log_every=1,
+                ckpt_dir=TRAIN_CKPT_DIR)
+    t0 = time.time()
+    full = run(cell, TrainLoopConfig(total_steps=DEIT_STEPS, log_every=1),
+               **quiet)
+    t_full = time.time() - t0
+    t0 = time.time()
+    run(cell, TrainLoopConfig(total_steps=DEIT_CKPT_AT, **once), **quiet)
+    resumed = run(cell, TrainLoopConfig(total_steps=DEIT_STEPS, **once),
+                  **quiet)
+    t_resumed = time.time() - t0
+    if f"[train] resumed from step {DEIT_CKPT_AT}" not in logs:
+        fail(f"deit train: the fresh run did not resume: {logs}")
+    got, want = ([*model_common.leaves(r["params"]),
+                  *model_common.leaves(r["opt_state"].m),
+                  *model_common.leaves(r["opt_state"].v)]
+                 for r in (resumed, full))
+    differ = sum(not torch.equal(a, b) for a, b in zip(got, want))
+    if differ or int(resumed["opt_state"].step) != DEIT_STEPS:
+        fail(f"deit train: the resumed run differs from the uninterrupted "
+             f"one in {differ} of {len(got)} leaves")
+    losses = [l for _, l in full["losses"]]
+    if not np.isfinite(losses).all():
+        fail(f"deit train: losses {losses}")
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    print(f"deit train (cls_224, B=256, full width and depth): {DEIT_STEPS} "
+          f"steps in {t_full:.1f} s, losses {losses}; a run to step "
+          f"{DEIT_CKPT_AT} and its checkpoint, then a fresh run resumed from "
+          f"it to {DEIT_STEPS} ({t_resumed:.1f} s with the two checkpoints' "
+          f"writes and one read): equal to the uninterrupted run bit for bit "
+          f"in all {len(got)} parameter and moment leaves", flush=True)
+    return dict(steps=DEIT_STEPS, resumed_from=DEIT_CKPT_AT, losses=losses,
+                wall_s=t_full, resumed_s=t_resumed, bit_equal=True)
+
+
+def train_phase(dev) -> dict:
+    """Phase 6: the kernel checks (a), the golden (b), the main path (c)."""
+    t0 = time.time()
+    rb = rmsnorm_bwd_checks(dev)
+    mb = moe_bwd_checks(dev)
+    golden = train_golden_checks(dev)
+    print(f"train phase a-b: {time.time() - t0:.1f} s", flush=True)
+    t1 = time.time()
+    granite = granite_train(dev)
+    torch.cuda.empty_cache()
+    deit = deit_train(dev)
+    torch.cuda.empty_cache()
+    print(f"train phase c: {time.time() - t1:.1f} s; train phase: "
+          f"{time.time() - t0:.1f} s", flush=True)
+    return dict(rmsnorm_bwd=rb, moe_bwd=mb, golden=golden, granite=granite,
+                deit=deit, s=time.time() - t0)
+
+
 def timed_build(name: str) -> float:
     t0 = time.time()
     build.load(name)
@@ -4719,7 +5231,41 @@ def main() -> int:
     lm.pop("kernels")
     entries["flash_attention"]["lm"]["run"] = lm
 
-    # -- 6. the records
+    # -- 6. training (phase 6): the rmsnorm backward kernel, moe_gemm's
+    # backward products, the golden train steps, Granite-3.0 MoE and DeiT-B
+    # trained at full width through launch.train
+    train = train_phase(dev)
+    g = train["granite"]
+    path = ("the train step (phase 6c: launch.train's run, Granite-3.0 MoE "
+            "at full width and depth, B=2 x 4,096 tokens)")
+    for name in ("rmsnorm", "moe_gemm"):
+        e = entries[name]
+        e["launches"] += g["counts"][name]
+        e["path"] += "; " + path
+        e["train"] = dict(launches=g["counts"][name],
+                          launches_per_step=g["launches_per_step"][name])
+    L = granite_moe_3b_a800m.CONFIG.n_layers
+    mg = entries["moe_gemm"]
+    mg["max_abs_err"] = max(mg["max_abs_err"], train["moe_bwd"]["max_abs_err"])
+    mg["train"].update(forward_per_step=6 * L, backward_per_step=6 * L,
+                       backward_products=train["moe_bwd"]["rows"])
+    rb = train["rmsnorm_bwd"]
+    top = rb["rows"][0]
+    entries["rmsnorm_backward"] = dict(
+        launches=g["counts"]["rmsnorm_backward"],
+        max_abs_err=rb["max_abs_err"], path=path,
+        note="the port's backward of the rmsnorm kernel: the reference "
+             "differentiates its jnp rms_norm and has no backward kernel",
+        launches_per_step=g["launches_per_step"]["rmsnorm_backward"],
+        **{k: top[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms", "ratio", "shape", "dtype")},
+        shapes=rb["rows"])
+    entries["flash_attention"]["train"] = dict(
+        launches=g["counts"]["flash_attention"],
+        note="none: the train step takes the chunked attention (the "
+             "published config), and the kernel raises under grad")
+
+    # -- 7. the records
     print(f"card: {card}", flush=True)
     # an entry a kernel, and for flash_attention one a variant: "name
     # (variant, ...)" is the kernel "name"

@@ -37,6 +37,24 @@
 // than tpr * kCache vectors read the rest again in the second pass, with
 // their scale, without the prefetch.
 //
+// The backward (rmsnorm_bwd_launch, below the forward) is the port's own:
+// the reference differentiates its jnp rms_norm, and no TPU kernel has a
+// backward.  Given dy, it recomputes r = 1 / sqrt(mean(x^2) + eps) per row
+// rather than storing it and writes
+//
+//   g         = dy * (1 + scale)
+//   dx        = r * g - x * (r * r * r * mean(g * x))
+//   dscale[c] = sum over rows of dy * x * r
+//
+// (ref.py::rmsnorm_bwd_ref, the same formula written out), all in f32,
+// dx rounded once to x's dtype and dscale once to the scale's.  One
+// cooperative launch: each block takes rows blockIdx.x + k * gridDim.x and
+// sums its rows' dscale terms for the columns each thread owns in shared
+// memory; after a grid barrier the blocks' partial rows are summed column
+// by column in block order.  No float atomics, so the result does not
+// depend on timing: a recompute under remat or a resumed run gives the same
+// bits.  Bound: bytes (x and dy read, dx written).
+//
 // Arithmetic: built with --fmad=false, never fast math.  The inverse root
 // is 1.0f / sqrtf(var + eps): IEEE square root and division, each
 // correctly rounded (the approximate rsqrtf is off by up to 2 ulp); each
@@ -45,6 +63,7 @@
 // PyTorch's CUDA rsqrt is correctly rounded, so the kernel agrees with the
 // plain version to a few ulp, not bit for bit (ref.py::rmsnorm_tolerance).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -310,6 +329,228 @@ int launch_aligned(const void* x, const void* scale, void* out, int R, int d,
   return launch<T, S, 1>(x, scale, out, R, d, eps, stream);
 }
 
+// ---------------------------------------------------------------------------
+// Backward
+// ---------------------------------------------------------------------------
+constexpr int kBwdThreads = 256;
+
+template <typename T, int V>
+__device__ __forceinline__ void load_vec(const T* p, float (&out)[V]) {
+  Raw<T, V> raw;
+  if constexpr (V == 1) {
+    raw = *p;
+  } else {
+    raw = *reinterpret_cast<const uint4*>(p);
+  }
+  unpack<T, V>(raw, out);
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void store_vec(T* p, const float (&in)[V]) {
+  if constexpr (V == 1) {
+    *p = from_float<T>(in[0]);
+  } else {
+    uint4 raw;
+    T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < V; ++i) e[i] = from_float<T>(in[i]);
+    *reinterpret_cast<uint4*>(p) = raw;
+  }
+}
+
+// the sum of two values over the block (kBwdThreads threads), the warps'
+// sums added in warp order; `buf` alternates between calls (parity)
+__device__ __forceinline__ void block_sum2(float& a, float& b,
+                                           float (*buf)[2][kBwdThreads / 32]) {
+  for (int o = 16; o > 0; o >>= 1) {
+    a = __fadd_rn(a, __shfl_xor_sync(kFull, a, o));
+    b = __fadd_rn(b, __shfl_xor_sync(kFull, b, o));
+  }
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) {
+    (*buf)[0][warp] = a;
+    (*buf)[1][warp] = b;
+  }
+  __syncthreads();
+  a = 0.0f;
+  b = 0.0f;
+  for (int i = 0; i < kBwdThreads / 32; ++i) {
+    a = __fadd_rn(a, (*buf)[0][i]);
+    b = __fadd_rn(b, (*buf)[1][i]);
+  }
+}
+
+// grid: G co-resident blocks (a cooperative launch) of kBwdThreads; thread
+// t owns the vectors v = t + k * kBwdThreads of every row (V elements a
+// vector), and their dscale sums in shared memory (d floats), so no two
+// threads touch one column.  partial: (G, d) f32.
+template <typename T, typename S, int V>
+__global__ void __launch_bounds__(kBwdThreads)
+rmsnorm_bwd_kernel(const T* __restrict__ x, const S* __restrict__ scale,
+                   const T* __restrict__ dy, T* __restrict__ dx,
+                   S* __restrict__ dscale, float* __restrict__ partial,
+                   int R, int d, float eps) {
+  extern __shared__ float acc[];               // d: this block's dscale sums
+  __shared__ float red[2][2][kBwdThreads / 32];
+  const int tid = threadIdx.x;
+  const int nvec = d / V;
+  for (int v = tid; v < nvec; v += kBwdThreads) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc[v * V + i] = 0.0f;
+  }
+  int parity = 0;
+  for (int row = blockIdx.x; row < R; row += gridDim.x, parity ^= 1) {
+    const T* xr = x + static_cast<size_t>(row) * d;
+    const T* gr = dy + static_cast<size_t>(row) * d;
+    T* dr = dx + static_cast<size_t>(row) * d;
+    float ss = 0.0f, dot = 0.0f;
+    for (int v = tid; v < nvec; v += kBwdThreads) {
+      float xv[V], gv[V], w[V];
+      load_vec<T, V>(xr + v * V, xv);
+      load_vec<T, V>(gr + v * V, gv);
+      load_scale<S, V>(scale + v * V, w);
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        ss = __fadd_rn(ss, __fmul_rn(xv[i], xv[i]));
+        dot = __fadd_rn(dot, __fmul_rn(__fmul_rn(gv[i], w[i]), xv[i]));
+      }
+    }
+    block_sum2(ss, dot, &red[parity]);
+    const float r = 1.0f / sqrtf(__fadd_rn(__fdiv_rn(ss, static_cast<float>(d)),
+                                           eps));
+    const float c = __fmul_rn(__fmul_rn(__fmul_rn(r, r), r),
+                              __fdiv_rn(dot, static_cast<float>(d)));
+    for (int v = tid; v < nvec; v += kBwdThreads) {
+      float xv[V], gv[V], w[V], out[V];
+      load_vec<T, V>(xr + v * V, xv);
+      load_vec<T, V>(gr + v * V, gv);
+      load_scale<S, V>(scale + v * V, w);
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const float g = __fmul_rn(gv[i], w[i]);
+        out[i] = __fsub_rn(__fmul_rn(r, g), __fmul_rn(xv[i], c));
+        acc[v * V + i] = __fadd_rn(acc[v * V + i],
+                                   __fmul_rn(__fmul_rn(gv[i], xv[i]), r));
+      }
+      store_vec<T, V>(dr + v * V, out);
+    }
+  }
+  for (int v = tid; v < nvec; v += kBwdThreads) {
+#pragma unroll
+    for (int i = 0; i < V; ++i)
+      partial[static_cast<size_t>(blockIdx.x) * d + v * V + i] = acc[v * V + i];
+  }
+  cooperative_groups::this_grid().sync();
+  // each column's blocks summed in block order
+  for (int c = blockIdx.x * kBwdThreads + tid; c < d;
+       c += gridDim.x * kBwdThreads) {
+    float s = 0.0f;
+    for (int b = 0; b < static_cast<int>(gridDim.x); ++b)
+      s = __fadd_rn(s, partial[static_cast<size_t>(b) * d + c]);
+    dscale[c] = from_float<S>(s);
+  }
+}
+
+template <typename T, typename S, int V>
+int bwd_grid(int R, int d, int* grid, size_t* smem) {
+  auto kernel = rmsnorm_bwd_kernel<T, S, V>;
+  *smem = static_cast<size_t>(d) * sizeof(float);
+  int device, sms, resident, max_smem;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&max_smem,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                 device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (*smem + sizeof(float) * 4 * (kBwdThreads / 32) >
+      static_cast<size_t>(max_smem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (*smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(*smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel,
+                                                      kBwdThreads, *smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (resident < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  *grid = R < sms * resident ? R : sms * resident;
+  return 0;
+}
+
+template <typename T, typename S, int V>
+int bwd_launch(const void* x, const void* scale, const void* dy, void* dx,
+               void* dscale, float* partial, int R, int d, float eps,
+               int grid, cudaStream_t stream) {
+  int g;
+  size_t smem;
+  int err = bwd_grid<T, S, V>(R, d, &g, &smem);
+  if (err != 0) return err;
+  if (grid != g) return static_cast<int>(cudaErrorInvalidValue);
+  const T* xp = static_cast<const T*>(x);
+  const S* sp = static_cast<const S*>(scale);
+  const T* gp = static_cast<const T*>(dy);
+  T* dxp = static_cast<T*>(dx);
+  S* dsp = static_cast<S*>(dscale);
+  void* args[] = {&xp, &sp, &gp, &dxp, &dsp, &partial, &R, &d, &eps};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(rmsnorm_bwd_kernel<T, S, V>),
+      dim3(grid), dim3(kBwdThreads), args, smem, stream));
+}
+
+// vectors where d is a multiple of the width and x, dy, dx are 16-byte
+// aligned, single elements otherwise
+template <typename T>
+bool bwd_vectors(const void* x, const void* dy, const void* dx, int d) {
+  constexpr int kVec = 16 / sizeof(T);
+  return d % kVec == 0 &&
+         ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(dy) |
+           reinterpret_cast<uintptr_t>(dx)) & 15) == 0;
+}
+
+template <typename T, typename S>
+int bwd_dispatch(const void* x, const void* scale, const void* dy, void* dx,
+                 void* dscale, float* partial, int R, int d, float eps,
+                 int grid, cudaStream_t stream, int* grid_out) {
+  constexpr int kVec = 16 / sizeof(T);
+  const bool vec = bwd_vectors<T>(x, dy, dx, d);
+  if (grid_out != nullptr) {
+    size_t smem;
+    return vec ? bwd_grid<T, S, kVec>(R, d, grid_out, &smem)
+               : bwd_grid<T, S, 1>(R, d, grid_out, &smem);
+  }
+  return vec ? bwd_launch<T, S, kVec>(x, scale, dy, dx, dscale, partial, R, d,
+                                      eps, grid, stream)
+             : bwd_launch<T, S, 1>(x, scale, dy, dx, dscale, partial, R, d,
+                                   eps, grid, stream);
+}
+
+int bwd_entry(const void* x, const void* scale, const void* dy, void* dx,
+              void* dscale, float* partial, int R, int d, float eps, int bf16,
+              int scale_bf16, int grid, int device, cudaStream_t stream,
+              int* grid_out) {
+  if (R < 1 || d < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (bf16)
+    return scale_bf16
+        ? bwd_dispatch<__nv_bfloat16, __nv_bfloat16>(
+              x, scale, dy, dx, dscale, partial, R, d, eps, grid, stream,
+              grid_out)
+        : bwd_dispatch<__nv_bfloat16, float>(x, scale, dy, dx, dscale,
+                                             partial, R, d, eps, grid, stream,
+                                             grid_out);
+  return scale_bf16
+      ? bwd_dispatch<float, __nv_bfloat16>(x, scale, dy, dx, dscale, partial,
+                                           R, d, eps, grid, stream, grid_out)
+      : bwd_dispatch<float, float>(x, scale, dy, dx, dscale, partial, R, d,
+                                   eps, grid, stream, grid_out);
+}
+
 }  // namespace
 
 // x (R, d) and out (R, d) contiguous, of one dtype (bf16 = 1: bf16, else
@@ -333,4 +574,27 @@ extern "C" int rmsnorm_launch(const void* x, const void* scale, void* out,
   return scale_bf16
       ? launch_aligned<float, __nv_bfloat16>(x, scale, out, R, d, eps, stream)
       : launch_aligned<float, float>(x, scale, out, R, d, eps, stream);
+}
+
+// The backward's grid for x, dy and dx at these addresses (the blocks that
+// are resident at once, at most R): the rows of the (grid, d) f32 partial
+// buffer that rmsnorm_bwd_launch needs.  Returns a cudaError_t.
+extern "C" int rmsnorm_bwd_grid(const void* x, const void* dy,
+                                const void* dx, int R, int d, int bf16,
+                                int scale_bf16, int device, int* grid) {
+  return bwd_entry(x, nullptr, dy, const_cast<void*>(dx), nullptr, nullptr, R,
+                   d, 0.0f, bf16, scale_bf16, 0, device, nullptr, grid);
+}
+
+// x, dy, dx (R, d) contiguous, of one dtype (bf16 = 1: bf16, else f32);
+// scale and dscale (d,) contiguous, bf16 (scale_bf16 = 1) or f32; partial
+// (grid, d) f32 scratch, grid from rmsnorm_bwd_grid.  One cooperative
+// launch.  Returns a cudaError_t (0 on a good launch).
+extern "C" int rmsnorm_bwd_launch(const void* x, const void* scale,
+                                  const void* dy, void* dx, void* dscale,
+                                  float* partial, int R, int d, float eps,
+                                  int bf16, int scale_bf16, int grid,
+                                  int device, cudaStream_t stream) {
+  return bwd_entry(x, scale, dy, dx, dscale, partial, R, d, eps, bf16,
+                   scale_bf16, grid, device, stream, nullptr);
 }

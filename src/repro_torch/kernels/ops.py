@@ -2,6 +2,18 @@
 device: a CUDA tensor launches the Hopper kernel (or raises), a CPU
 tensor runs the plain PyTorch version.  There is no fallback between the
 two and no error is caught here.
+
+Gradients.  ``rmsnorm`` and ``moe_gemm`` are differentiable: under grad,
+with an input that requires it, each runs as a
+``torch.autograd.Function`` whose backward is the kernels' on the card
+(the rmsnorm backward kernel; ``moe_gemm`` launched on the transposed
+operands) and their plain versions on the CPU.  The other entry points
+have no backward: ``flash_attention`` on the card raises under grad (the
+reference's Pallas kernel has no backward either; its plain version on
+the CPU stays differentiable, as the reference's plain paths are), and
+``event_select``, ``fleet_feasibility`` and ``link_cost`` raise under
+grad on either device, rather than hand back a result that silently
+drops the gradient.
 """
 from __future__ import annotations
 
@@ -32,7 +44,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "cuda":
         _fa.check_args(q, k, v, window)
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    if _wants_grad(q, k, v):
+        raise RuntimeError(
+            "flash_attention has no backward: the CUDA kernel is forward "
+            "only, as the reference's Pallas kernel is (it defines no VJP); "
+            "train with attn_impl='chunked' or run under torch.no_grad()")
     return _fa.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def _wants_grad(*tensors) -> bool:
+    """Whether grad mode is on and any of ``tensors`` requires grad."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+def _no_grad(kernel: str, *tensors) -> None:
+    """Raise if a gradient would be asked of an entry point without one."""
+    if _wants_grad(*tensors):
+        raise RuntimeError(f"{kernel} has no backward (neither has the "
+                           f"reference's kernel); call it under "
+                           f"torch.no_grad() or on detached tensors")
 
 
 def candidate_buffers(t_a, node_a, d_a, p_a, pay_a, avail_a,
@@ -71,6 +102,8 @@ def event_select(t_a, node_a, d_a, p_a, pay_a, avail_a,
     the simulator's eager loop (the plain version of ``event_scan``)
     still calls it, as the reference's step does.
     """
+    _no_grad("event_select", t_a, d_a, p_a, pay_a, t_b, d_b, p_b, pay_b,
+             starts, ends, sizes, speeds, busy, latency, inv_bw)
     if head is None:
         head = torch.zeros_like(n, dtype=torch.int32)
     if starts.device.type != "cuda":
@@ -90,24 +123,99 @@ def event_select(t_a, node_a, d_a, p_a, pay_a, avail_a,
             *rest)
 
 
+def _rmsnorm_rows(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    if x.device.type != "cuda":
+        return ref.rmsnorm_ref(x, scale, eps=_rn.EPS)
+    return _rn.rmsnorm(x, scale)
+
+
+class RMSNormFn(torch.autograd.Function):
+    """rmsnorm on rows x (R, d) with its backward: on the card the forward
+    and backward kernels, on the CPU their plain versions
+    (:func:`ref.rmsnorm_ref`, :func:`ref.rmsnorm_bwd_ref`).  Saves x and
+    the scale; the backward recomputes each row's r."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.save_for_backward(x, scale)
+        return _rmsnorm_rows(x, scale)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        dy = dy.contiguous()
+        if x.device.type != "cuda":
+            dx, ds = ref.rmsnorm_bwd_ref(x, scale, dy, eps=_rn.EPS)
+        else:
+            dx, ds = _rn.rmsnorm_bwd(x, scale, dy)
+        return dx, ds
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """x (..., d) RMS-normalised over its last axis and scaled by ``1 +
     scale``, with the signature of ``repro.kernels.ops.rmsnorm``: f32 math,
     eps 1e-6, the result in x's dtype (f32 or bf16 on the card).  Leading
-    axes are flattened into rows, as the reference does."""
-    if x.device.type != "cuda":
-        return ref.rmsnorm_ref(x, scale, eps=_rn.EPS)
+    axes are flattened into rows, as the reference does.  Differentiable
+    in x and scale (:class:`RMSNormFn`)."""
     shape = x.shape
-    return _rn.rmsnorm(x.reshape(-1, shape[-1]), scale).reshape(shape)
+    rows = x.reshape(-1, shape[-1])
+    if _wants_grad(x, scale):
+        return RMSNormFn.apply(rows, scale).reshape(shape)
+    return _rmsnorm_rows(rows, scale).reshape(shape)
+
+
+def _moe_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    if x.device.type != "cuda":
+        return ref.moe_gemm_ref(x, w)
+    return _mg.moe_gemm(x, w)
+
+
+def _pad_rows(x: torch.Tensor, n: int, dim: int) -> torch.Tensor:
+    """``x`` with zeros appended along ``dim`` up to a multiple of ``n``."""
+    extra = -x.shape[dim] % n
+    if not extra:
+        return x
+    pad = [0, 0] * (x.dim() - 1 - dim) + [0, extra]
+    return torch.nn.functional.pad(x, pad)
+
+
+class MoEGemmFn(torch.autograd.Function):
+    """``moe_gemm`` with its backward as two more grouped products, for
+    y = x w: dx = moe_gemm(dy, w^T), (E, C, f) x (E, f, d), and dw =
+    moe_gemm(x^T, dy), (E, d, C) x (E, C, f), each operand made
+    contiguous.  On the card the contraction over C of dw is padded with
+    zero rows to a multiple of 8 in both operands (zeros add exactly), so
+    that bf16 dw takes the ``tma_wgmma`` kernel: C is 853 a 4,096-token
+    Granite sequence, which ``variant`` would send to ``mma_sync``."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _moe_gemm(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _moe_gemm(dy, w.transpose(1, 2).contiguous())
+        if ctx.needs_input_grad[1]:
+            xt = x.transpose(1, 2).contiguous()
+            if x.device.type == "cuda":
+                xt, dy = _pad_rows(xt, 8, 2), _pad_rows(dy, 8, 1)
+            dw = _moe_gemm(xt, dy)
+        return dx, dw
 
 
 def moe_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(E, C, d) x (E, d, f) -> (E, C, f) grouped GEMM with f32
     accumulation and the result in x's dtype, with the signature of
-    ``repro.kernels.ops.moe_gemm``."""
-    if x.device.type != "cuda":
-        return ref.moe_gemm_ref(x, w)
-    return _mg.moe_gemm(x, w)
+    ``repro.kernels.ops.moe_gemm``.  Differentiable in x and w
+    (:class:`MoEGemmFn`)."""
+    if _wants_grad(x, w):
+        return MoEGemmFn.apply(x, w)
+    return _moe_gemm(x, w)
 
 
 def _ledger_args(starts, n, ps, head):
@@ -139,6 +247,7 @@ def fleet_feasibility(starts: torch.Tensor, ends: torch.Tensor,
     (head-pointer rows; ``None`` means 0); a full row is infeasible.  The
     event heap's ``batched_feasible`` router scores each decision with
     it (:mod:`repro_torch.orchestration.router`)."""
+    _no_grad("fleet_feasibility", starts, ends, sizes, ps, d, cpu_free)
     if starts.device.type != "cuda":
         return ref.fleet_feasibility_ref(starts, ends, sizes, n, ps, d,
                                          cpu_free, head, eps=_ad.EPS)
@@ -157,6 +266,8 @@ def link_cost(starts: torch.Tensor, ends: torch.Tensor, sizes: torch.Tensor,
     the wire cost ``lat_row + payload * inv_bw_row`` (the source's rows of
     the network tensors, one rounding) and admitted from ``max(arrive,
     busy)``.  Returns ``((K,) feasible, (K,) arrive, (K,) load)``."""
+    _no_grad("link_cost", starts, ends, sizes, ps, d, busy, t_src, lat_row,
+             inv_bw_row, payload)
     if starts.device.type != "cuda":
         return ref.link_cost_ref(starts, ends, sizes, n, ps, d, busy, head,
                                  t_src, lat_row, inv_bw_row, payload,

@@ -92,6 +92,58 @@ def rmsnorm_tolerance(dtype: torch.dtype) -> dict:
     return dict(rtol=2.0 ** -7, atol=0.0)
 
 
+def rmsnorm_bwd_ref(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
+                    eps: float = 1e-6):
+    """The backward of :func:`rmsnorm_ref` written out in f32, without
+    autograd: with r = rsqrt(mean(x^2) + eps) per row and g = dy * (1 +
+    scale),
+
+        dx     = r * g - x * (r * r * r * mean(g * x))
+        dscale = sum over rows of dy * x * r
+
+    dx in ``x``'s dtype, dscale in ``scale``'s (the rmsnorm backward
+    kernel's plain version; the reference gets the same function from
+    ``jax.vjp`` of its ``rms_norm``).  x and dy (..., d), scale (d,)."""
+    d = x.shape[-1]
+    x32, dy32 = x.float(), dy.float()
+    r = torch.rsqrt(x32.square().mean(-1, keepdim=True) + eps)
+    g = dy32 * (1.0 + scale.float())
+    c = r * r * r * (g * x32).mean(-1, keepdim=True)
+    dx = r * g - x32 * c
+    ds = (dy32 * x32 * r).reshape(-1, d).sum(0)
+    return dx.to(x.dtype), ds.to(scale.dtype)
+
+
+def rmsnorm_bwd_tolerance(x: torch.Tensor, scale: torch.Tensor,
+                          dy: torch.Tensor, eps: float = 1e-6) -> dict:
+    """``{"dx": tol, "dscale": tol}``, each the ``rtol`` / ``atol`` of
+    ``torch.allclose`` for an rmsnorm backward against
+    :func:`rmsnorm_bwd_ref` on the same inputs.
+
+    dx is a difference of two f32 terms of the size of r |g| (1 + |x r|),
+    each a few roundings deep, so ``atol = 2^-18`` of that size's largest
+    value (16 times a few ulp) and ``rtol`` 1e-5 in f32, one bf16 unit
+    (2^-7) in bf16, where each side rounds once.  dscale sums R terms
+    ``dy x r`` per column in another order (the kernel: each block's rows,
+    then the blocks): ``atol = 2^-16`` of the largest column's sum of
+    |terms| (a sequential f32 sum of R terms errs by ~sqrt(R) 2^-24 of it
+    on random inputs, 2^-17.5 at R = 8192), ``rtol`` as for dx by the
+    scale's dtype.  A dscale without its last row errs by one term, about
+    R 2^-16 = 8 times this ``atol`` at R = 8192; a dscale of 0 by ~sqrt(R)
+    terms."""
+    d = x.shape[-1]
+    x32, dy32 = x.float().reshape(-1, d), dy.float().reshape(-1, d)
+    r = torch.rsqrt(x32.square().mean(-1, keepdim=True) + eps)
+    g = dy32 * (1.0 + scale.float())
+    size = float((r * g.abs() * (1.0 + (x32 * r).abs())).max())
+    col = float((dy32 * x32 * r).abs().sum(0).max())
+
+    def rtol(dt):
+        return 1e-5 if dt == torch.float32 else 2.0 ** -7
+    return {"dx": dict(rtol=rtol(x.dtype), atol=2.0 ** -18 * size),
+            "dscale": dict(rtol=rtol(scale.dtype), atol=2.0 ** -16 * col)}
+
+
 def moe_gemm_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Grouped per-expert GEMM ``(E, C, d) @ (E, d, f) -> (E, C, f)``: the
     inputs upcast to f32, contracted in f32 (the reference's

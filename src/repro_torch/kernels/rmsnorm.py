@@ -15,6 +15,15 @@ current stream and raises on a refused launch.  It never synchronises
 and never falls back: a CPU tensor is refused here (the dispatch in
 :mod:`repro_torch.kernels.ops` sends those to the plain version).
 ``rmsnorm.launches`` counts the launches.
+
+:func:`rmsnorm_bwd` launches the backward kernel of the same source (the
+port's own: the reference differentiates its jnp ``rms_norm``; its plain
+version is :func:`repro_torch.kernels.ref.rmsnorm_bwd_ref`): dx and
+dscale in one cooperative launch, dscale summed without float atomics
+(per-block partial rows, then the blocks in order), so it is
+deterministic.  Bound by bytes: x and dy read and dx written once, 75.5
+MB at (8192, 1536) bf16, 22.5 us at 3.35 TB/s.  ``rmsnorm_bwd.launches``
+counts its launches.
 """
 from __future__ import annotations
 
@@ -32,10 +41,20 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _I, _P]
 
 
-def _lib():
-    fn = build.load("rmsnorm").rmsnorm_launch
+# x, scale, dy, dx, dscale, partial, R, d, eps, x is bf16, scale is bf16,
+# grid, device, stream; and the grid query's x, dy, dx, R, d, x is bf16,
+# scale is bf16, device, &grid
+_BWD_ARGTYPES = {
+    "rmsnorm_bwd_launch": [_P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float,
+                           _I, _I, _I, _I, _P],
+    "rmsnorm_bwd_grid": [_P, _P, _P, _I, _I, _I, _I, _I,
+                         ctypes.POINTER(_I)]}
+
+
+def _lib(name: str = "rmsnorm_launch"):
+    fn = getattr(build.load("rmsnorm"), name)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = _BWD_ARGTYPES.get(name, _ARGTYPES)
         fn.restype = ctypes.c_int
     return fn
 
@@ -85,3 +104,52 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 rmsnorm.launches = 0
+
+
+def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor):
+    """Launch the backward kernel on CUDA x (R, d) and dy (R, d) of one
+    dtype, f32 or bf16, contiguous, and scale (d,) of any float dtype;
+    returns (dx (R, d) in x's dtype, dscale (d,) in scale's dtype)."""
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"rmsnorm_bwd launches on CUDA tensors, got {dev}")
+    if x.dim() != 2 or dy.shape != x.shape:
+        raise ValueError(f"rmsnorm_bwd: x {tuple(x.shape)} and dy "
+                         f"{tuple(dy.shape)} must be one (R, d)")
+    R, d = x.shape
+    if x.dtype not in DTYPES or dy.dtype != x.dtype:
+        raise TypeError(f"rmsnorm_bwd: x is {x.dtype}, dy {dy.dtype}; the "
+                        f"kernel takes one of {DTYPES} for both")
+    if not scale.dtype.is_floating_point or tuple(scale.shape) != (d,):
+        raise ValueError(f"rmsnorm_bwd: scale is {scale.dtype}"
+                         f"{tuple(scale.shape)}, expected a float ({d},)")
+    for name, t in (("dy", dy), ("scale", scale)):
+        if t.device != dev:
+            raise ValueError(f"rmsnorm_bwd: {name} is on {t.device}, x on "
+                             f"{dev}")
+    for name, t in (("x", x), ("dy", dy)):
+        if not t.is_contiguous():
+            raise ValueError(f"rmsnorm_bwd: {name} is not contiguous")
+    s = kernel_scale(scale)
+    dx = torch.empty_like(x)
+    ds = torch.empty_like(s)
+    if R == 0:
+        return dx, torch.zeros_like(scale)
+    if d == 0:
+        return dx, ds.to(scale.dtype)
+    bf16, sbf16 = int(x.dtype == torch.bfloat16), int(s.dtype == torch.bfloat16)
+    index, stream = build.stream_of(dev)
+    grid = ctypes.c_int(0)
+    build.raise_on("rmsnorm_bwd (grid)", _lib("rmsnorm_bwd_grid")(
+        x.data_ptr(), dy.data_ptr(), dx.data_ptr(), R, d, bf16, sbf16, index,
+        ctypes.byref(grid)))
+    partial = torch.empty((grid.value, d), dtype=torch.float32, device=dev)
+    build.raise_on("rmsnorm_bwd", _lib("rmsnorm_bwd_launch")(
+        x.data_ptr(), s.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+        ds.data_ptr(), partial.data_ptr(), R, d, EPS, bf16, sbf16,
+        grid.value, index, stream))
+    rmsnorm_bwd.launches += 1
+    return dx, ds.to(scale.dtype)
+
+
+rmsnorm_bwd.launches = 0

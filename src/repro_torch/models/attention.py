@@ -5,8 +5,10 @@ Three interchangeable implementations (``impl``):
 
 * ``naive``   — materialises the (S, S) score matrix;
 * ``chunked`` — online softmax over query chunks and KV chunks in plain
-  PyTorch, as the reference writes it in XLA (inference only, so no
-  checkpointing of the KV step);
+  PyTorch, as the reference writes it in XLA; under grad each KV step is
+  checkpointed (recomputed in the backward), as the reference's
+  ``jax.checkpoint`` on its ``kv_step`` does, so the backward keeps no
+  (q chunk x kv chunk) score block;
 * ``pallas``  — the reference's name for its kernel; here it selects
   :func:`repro_torch.kernels.ops.flash_attention`, the hand-written Hopper
   kernel on a CUDA tensor (its plain version on a CPU tensor).
@@ -21,6 +23,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.models.common import checkpointed
 
 NEG_INF = -1e30
 
@@ -86,6 +89,23 @@ def attention_naive(q, k, v, *, causal=True, window=None,
     return out.reshape(B, Sq, H, D)
 
 
+def _kv_step(m, l, acc, q_blk, k_blk, v_blk, q_pos, k0: int, Sk: int,
+             scale: float, causal: bool, window):
+    """One KV chunk of the online softmax: the running max ``m``, sum
+    ``l`` and f32 accumulator ``acc`` updated with keys ``k0 ...``."""
+    k_pos = k0 + torch.arange(k_blk.shape[1], device=q_blk.device)
+    s = _gqa_scores(q_blk, k_blk, scale)
+    s = s + _mask_bias(q_pos, k_pos, causal, window)
+    s = torch.where(k_pos < Sk, s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(-1))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(s - m_new[..., None])
+    l = l * alpha + p.sum(-1)
+    acc = acc * alpha[..., None] + torch.einsum(
+        "bkgqs,bskd->bkgqd", p.to(v_blk.dtype), v_blk).float()
+    return m_new, l, acc
+
+
 def attention_chunked(q, k, v, *, causal=True, window=None,
                       q_chunk: int = 1024, kv_chunk: int = 1024,
                       q_offset: int = 0) -> torch.Tensor:
@@ -117,19 +137,11 @@ def attention_chunked(q, k, v, *, causal=True, window=None,
         acc = torch.zeros((B, KV, G, q_chunk, D), dtype=torch.float32,
                           device=dev)
         for ki in range(nk):
-            k_blk = kp[:, ki * kv_chunk:(ki + 1) * kv_chunk]
-            v_blk = vp[:, ki * kv_chunk:(ki + 1) * kv_chunk]
-            k_pos = ki * kv_chunk + torch.arange(kv_chunk, device=dev)
-            s = _gqa_scores(q_blk, k_blk, scale)
-            s = s + _mask_bias(q_pos, k_pos, causal, window)
-            s = torch.where(k_pos < Sk, s, NEG_INF)
-            m_new = torch.maximum(m, s.amax(-1))
-            alpha = torch.exp(m - m_new)
-            p = torch.exp(s - m_new[..., None])
-            l = l * alpha + p.sum(-1)
-            acc = acc * alpha[..., None] + torch.einsum(
-                "bkgqs,bskd->bkgqd", p.to(v_blk.dtype), v_blk).float()
-            m = m_new
+            m, l, acc = checkpointed(
+                _kv_step, m, l, acc, q_blk, kp[:, ki * kv_chunk:
+                                               (ki + 1) * kv_chunk],
+                vp[:, ki * kv_chunk:(ki + 1) * kv_chunk], q_pos,
+                ki * kv_chunk, Sk, scale, causal, window)
         out = acc / torch.clamp(l, min=1e-30)[..., None]
         outs.append(out.permute(0, 3, 1, 2, 4))              # (B,qc,KV,G,D)
     out = torch.cat(outs, dim=1)[:, :Sq].reshape(B, Sq, H, D)

@@ -9,6 +9,7 @@ them to the JAX reference too).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Dict, Mapping, Optional, Tuple
@@ -16,6 +17,7 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ref
@@ -195,6 +197,89 @@ def timestep_embedding(t: torch.Tensor, dim: int,
                                      device=t.device) / half)
     args = t.float()[:, None] * freqs[None, :]
     return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy of f32 logits (..., V) against int labels (...):
+    the f32 logsumexp minus the gold logit, averaged —
+    ``repro.models.common.softmax_xent``."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return (logz - gold).mean()
+
+
+def checkpointed(fn, *args):
+    """``fn(*args)``, recomputed in the backward instead of keeping its
+    intermediates (``torch.utils.checkpoint``, non-reentrant: the
+    reference's ``jax.checkpoint``) when grad mode is on; a plain call
+    otherwise."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+
+def _grad_leaf(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    leaf = p.detach().requires_grad_(True)
+    leaf.grad = g
+    return leaf
+
+
+def _live(params: PyTree, grads: PyTree, stacked: bool) -> PyTree:
+    if isinstance(params, Mapping):
+        return {k: _live(v, grads[k], stacked or k == "layers")
+                for k, v in params.items()}
+    if stacked:
+        return [_grad_leaf(p, g) for p, g in zip(params, grads)]
+    return _grad_leaf(params, grads)
+
+
+def value_and_grad(loss_fn, params: PyTree, *args):
+    """``((loss, metrics), grads)`` of ``loss_fn(params, *args) -> (loss,
+    metrics)``, as ``jax.value_and_grad(..., has_aux=True)``: the loss and
+    metrics detached, the gradient of every leaf (zeros where the loss does
+    not reach it) in a tree like ``params``, each leaf in its parameter's
+    dtype; cuDNN's TF32 off throughout (:func:`exact_f32`).
+
+    Each gradient is a preallocated buffer that the backward adds into in
+    place.  A stacked leaf under ``"layers"`` (layers on its leading axis)
+    reaches ``loss_fn`` as a list of its layers, each a leaf whose
+    gradient is its row of the stacked buffer: the models index
+    ``w[l]`` alike in both forms, and no layer's backward materialises a
+    zero tensor of the whole stack (what the backward of ``w[l]`` on one
+    stacked leaf does, 2.4 GB a layer for a Granite expert leaf).  Needs
+    no ``requires_grad`` on ``params``; changes none of them."""
+    grads = tree_map(lambda p: torch.zeros_like(
+        p, memory_format=torch.preserve_format), params)
+    live = _live(params, grads, False)
+    with torch.enable_grad(), exact_f32():
+        loss, metrics = loss_fn(live, *args)
+        loss.backward()
+    return ((loss.detach(), {k: v.detach() for k, v in metrics.items()}),
+            grads)
+
+
+@contextlib.contextmanager
+def exact_f32():
+    """cuDNN's f32 convolutions in f32, not TF32, inside the block
+    (restored after): the backward of an f32 forward runs outside the
+    forward's own guard (``resnet._exact_f32``), after it returns.
+    cuBLAS's TF32 is off by PyTorch's default and left alone."""
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+
+
+def tree_map(fn, tree: PyTree, *rest: PyTree) -> PyTree:
+    """``fn`` over the leaves of nested dicts (and of ``rest``, trees of
+    the same structure), into a tree of the same structure."""
+    if isinstance(tree, Mapping):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def leaves(tree: PyTree):

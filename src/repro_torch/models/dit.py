@@ -8,9 +8,9 @@ Parameters are a nested dict of tensors in the reference's layouts (HWIO
 patch kernel, ``(d_in, d_out)`` projections, per-layer weights stacked on a
 leading L axis), so :func:`params_from_numpy` carries one set of numpy
 weights into either package.  The reference's ``shd.hint`` annotations
-(no-ops without a device mesh) and ``remat`` (training only) are dropped,
-as in :mod:`repro_torch.models.vit`; ``loss_fn`` and ``make_train_step``
-are training (ROADMAP open item 9).
+(no-ops without a device mesh) and ``remat`` (training only) are dropped;
+``loss_fn`` and ``make_train_step`` wait for ROADMAP open item 9b (their
+``t`` and ``eps`` are JAX threefry draws over arrays).
 
 With ``attn_impl="pallas"`` a sequence longer than ``attn_chunk`` (512)
 takes the hand-written flash-attention kernel: DiT-XL/2's heads are 1152 /

@@ -108,13 +108,14 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
     cap = capacity(T, E, top_k, capacity_factor)
 
     eid, slot, keep = dispatch_indices(experts, E, cap)
-    tok = torch.arange(T, device=x.device).repeat_interleave(top_k)
     dest = torch.where(keep, eid.long() * cap + slot.long(), 0)
 
     # scatter tokens into the (E, C, d) buffer (dropped copies add 0 at
     # (0, 0); the kept (expert, slot) pairs are distinct, so each sum is
-    # exact and the order of the adds cannot matter)
-    contrib = torch.where(keep[:, None], x[tok], 0).to(x.dtype)
+    # exact and the order of the adds cannot matter); each token's top_k
+    # copies as a repeat, whose backward sums them
+    copies = x.repeat_interleave(top_k, dim=0)                # (T*K, d)
+    contrib = torch.where(keep[:, None], copies, 0).to(x.dtype)
     buf = torch.zeros(E * cap, d, dtype=x.dtype, device=x.device)
     buf.index_add_(0, dest, contrib)
     buf = buf.view(E, cap, d)
@@ -126,7 +127,9 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
     y = kops.moe_gemm(h, w_down)
 
     # combine back with gates, in f32
-    gathered = y.view(E * cap, d)[dest]                      # (T*K, d)
+    # (T*K, d); the backward adds each copy's gradient back at its slot,
+    # every kept slot once (a dropped copy's gradient is 0)
+    gathered = torch.index_select(y.view(E * cap, d), 0, dest)
     weighted = gathered.float() * torch.where(
         keep, gates.reshape(-1), 0.0)[:, None]
     weighted = weighted.view(T, top_k, d)

@@ -28,7 +28,9 @@ Three of the reference's semantics the port keeps:
 
 The reference's ``shd.hint`` is a no-op without a device mesh and is
 dropped, as in :mod:`repro_torch.models.vit`.  ``loss_fn`` and
-``make_train_step`` are training (ROADMAP open item 9).
+``make_train_step`` train on batch statistics, as the reference does (and
+as the port serves).  The gradients are in the port's layout; the
+checkpoints of a train loop hold the reference's (``launch.steps``).
 """
 from __future__ import annotations
 
@@ -222,3 +224,29 @@ def forward(params: PyTree, images: torch.Tensor, cfg: ResNetConfig
 def serve_step(params: PyTree, images: torch.Tensor, cfg: ResNetConfig
                ) -> torch.Tensor:
     return forward(params, images, cfg)
+
+
+def loss_fn(params: PyTree, batch: Dict[str, torch.Tensor],
+            cfg: ResNetConfig):
+    """(xent, {"loss", "accuracy"}) of a batch of ``images`` (B, H, W, C)
+    and ``labels`` (B,)."""
+    logits = forward(params, batch["images"], cfg)
+    loss = common.softmax_xent(logits, batch["labels"])
+    acc = (logits.argmax(-1) == batch["labels"]).float().mean()
+    return loss, {"loss": loss, "accuracy": acc}
+
+
+def make_train_step(cfg: ResNetConfig, opt_cfg):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``, the update applied in place (as in
+    :func:`repro_torch.models.transformer.make_train_step`)."""
+    from repro_torch.training.optimizer import adamw_update
+
+    def train_step(params, opt_state, batch):
+        (_, metrics), grads = common.value_and_grad(
+            lambda p: loss_fn(p, batch, cfg), params)
+        params, opt_state, opt_metrics = adamw_update(params, grads,
+                                                      opt_state, opt_cfg)
+        return params, opt_state, dict(metrics, **opt_metrics)
+
+    return train_step

@@ -8,6 +8,7 @@ weights into either package; the reference's ``lax.scan`` over layers is
 a Python loop over ``params["layers"][name][l]`` (contiguous slices).
 
 * ``hidden_states`` / ``logits_fn`` — the forward.
+* ``make_train_step``  — forward + chunked-vocab loss + AdamW.
 * ``prefill``          — forward returning the filled KV cache + last logits.
 * ``decode_step``      — one token against a full KV cache.
 * ``decode_step_sliding`` — gemma3 path: ring-buffer window caches for local
@@ -29,16 +30,21 @@ with each layer's window as an int (``NO_WINDOW`` for full causal).  The
 reference's own ``pallas`` LM path raises (its scan passes the window
 traced, and its Pallas kernel captures it as a constant), so the
 reference that the kernel path is held against is its ``chunked`` path,
-the same function.  Training (``chunked_lm_loss``, ``loss_fn``,
-``make_train_step``) waits for ROADMAP open item 9; the sharding tables
-(``param_specs``, ``param_logical``, ``cache_logical``) and the mesh's MoE
-dispatch for item 10.
+the same function.  Training differentiates the same code: both kernels
+carry gradients (``ops.RMSNormFn``, ``ops.MoEGemmFn``); the flash kernel
+has no backward (neither has the reference's), and the published configs
+train on the ``chunked`` path.  With ``cfg.remat`` each layer is
+recomputed in the backward (the reference's ``jax.checkpoint`` on its
+scan body).  The sharding tables (``param_specs``, ``param_logical``,
+``cache_logical``) and the mesh's MoE dispatch wait for ROADMAP open
+item 10.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -137,7 +143,8 @@ def layer_is_global(cfg: LMConfig) -> torch.Tensor:
 
 
 def _layer(params: PyTree, l: int) -> Dict[str, torch.Tensor]:
-    """Layer ``l``'s weights: a view of each stacked leaf."""
+    """Layer ``l``'s weights: a view of each stacked leaf (or its ``l``-th
+    entry, where a leaf is a list of layers: ``common.value_and_grad``)."""
     return {name: w[l] for name, w in params["layers"].items()}
 
 
@@ -148,8 +155,13 @@ def _embed(params: PyTree, tokens: torch.Tensor, cfg: LMConfig
            ) -> torch.Tensor:
     """Embedding rows scaled by sqrt(d_model), the constant rounded to the
     activations' dtype first as the reference's ``jnp.asarray(d ** 0.5,
-    h.dtype)`` does (39.25 in bf16 for d = 1536)."""
-    h = params["embed"][tokens].to(common.torch_dtype(cfg.param_dtype))
+    h.dtype)`` does (39.25 in bf16 for d = 1536).  ``F.embedding`` is the
+    reference's ``jnp.take`` (a gather); its backward sums each row's
+    gradients as a sorted segment reduction, where an indexing backward
+    would add the (B S) rows onto a few (SyntheticSource draws 8 token
+    ids) one after another."""
+    h = F.embedding(tokens, params["embed"]).to(
+        common.torch_dtype(cfg.param_dtype))
     return h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype)
 
 
@@ -216,7 +228,12 @@ def hidden_states(params: PyTree, tokens: torch.Tensor, cfg: LMConfig
     positions = torch.arange(S, device=h.device)
     aux = torch.zeros((), device=h.device)
     for l, window in enumerate(_layer_windows(cfg)):
-        h, a, _ = _block(h, _layer(params, l), window, cfg, positions)
+        lp = _layer(params, l)
+
+        def body(h, lp=lp, window=window):
+            return _block(h, lp, window, cfg, positions)[:2]
+
+        h, a = common.checkpointed(body, h) if cfg.remat else body(h)
         aux = aux + a
     return kops.rmsnorm(h, params["final_norm"]), aux
 
@@ -226,6 +243,61 @@ def logits_fn(params: PyTree, tokens: torch.Tensor, cfg: LMConfig
     """(B, S) tokens -> (B, S, V) f32 logits."""
     h, _ = hidden_states(params, tokens, cfg)
     return _head(params, h)
+
+
+def _chunk_xent(h: torch.Tensor, head: torch.Tensor, labels: torch.Tensor
+                ) -> torch.Tensor:
+    """Summed xent of one chunk: f32 logits (the inputs upcast, as
+    ``_head``), logsumexp minus the gold logit."""
+    logits = h.float() @ head.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return (logz - gold).sum()
+
+
+def chunked_lm_loss(h: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+                    chunk: int = 512) -> torch.Tensor:
+    """Mean xent without materialising (B, S, V): the sequence in
+    ``chunk``-token chunks, each checkpointed under grad (its logits
+    recomputed in the backward), summed in order; the ``S % chunk``
+    tokens left over as one more, unchecked chunk, as the reference's
+    ``chunked_lm_loss`` does after its scan."""
+    B, S, _ = h.shape
+    chunk = min(chunk, S)
+    n = S // chunk
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(n):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        tot = tot + common.checkpointed(_chunk_xent, h[:, sl], head,
+                                        labels[:, sl])
+    if S - n * chunk:
+        tot = tot + _chunk_xent(h[:, n * chunk:], head, labels[:, n * chunk:])
+    return tot / (B * S)
+
+
+def loss_fn(params: PyTree, batch: Dict[str, torch.Tensor], cfg: LMConfig
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(loss + 0.01 aux, {"loss", "aux_loss"}) of a batch of ``tokens``
+    and ``labels`` (B, S)."""
+    h, aux = hidden_states(params, batch["tokens"], cfg)
+    loss = chunked_lm_loss(h, params["lm_head"], batch["labels"])
+    return loss + 0.01 * aux, {"loss": loss, "aux_loss": aux}
+
+
+def make_train_step(cfg: LMConfig, opt_cfg):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``: the gradient of :func:`loss_fn` and one AdamW update
+    (applied in place: the reference donates both trees)."""
+    from repro_torch.training.optimizer import adamw_update
+
+    def train_step(params, opt_state, batch):
+        (_, metrics), grads = common.value_and_grad(
+            lambda p: loss_fn(p, batch, cfg), params)
+        params, opt_state, opt_metrics = adamw_update(params, grads,
+                                                      opt_state, opt_cfg)
+        return params, opt_state, dict(metrics, **opt_metrics)
+
+    return train_step
 
 
 # ---------------------------------------------------------------------------

@@ -15,9 +15,9 @@ norms are f32 (``common.group_norm``, ``common.layer_norm``) with f32
 scales and biases beside bf16 kernels, as the reference's ``param_defs``
 types them.  Self-attention is the reference's hard-coded ``chunked``
 (q_chunk 1024) and cross-attention its naive path: no kernel is on this
-model's path.  ``shd.hint`` and ``remat`` are dropped, as in
-:mod:`repro_torch.models.resnet`; ``loss_fn`` and ``make_train_step`` are
-training (ROADMAP open item 9).
+model's path.  ``shd.hint`` and ``remat`` are dropped; ``loss_fn`` and
+``make_train_step`` wait for ROADMAP open item 9b (their ``t`` and
+``eps`` are JAX threefry draws over arrays).
 """
 from __future__ import annotations
 

@@ -8,8 +8,9 @@ nested dict of tensors in the reference's layouts (HWIO patch kernel,
 ``(d_in, d_out)`` projections, per-layer weights stacked on a leading L
 axis), so :func:`params_from_numpy` carries one set of numpy weights into
 either package.  The reference's ``shd.hint`` sharding annotations are
-no-ops without a device mesh and are dropped here; so is ``remat``,
-which only matters for training.
+no-ops without a device mesh and are dropped here.  With ``cfg.remat``
+each layer is recomputed in the backward under grad (the reference's
+``jax.checkpoint`` on its scan body).
 """
 from __future__ import annotations
 
@@ -119,6 +120,30 @@ def _patch_embed(images: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return x @ w.reshape(patch * patch * C, -1) + b
 
 
+def _at(node, i: int):
+    """Layer ``i`` of a stacked leaf, or of each leaf of a nested dict."""
+    if isinstance(node, Mapping):
+        return {k: _at(v, i) for k, v in node.items()}
+    return node[i]
+
+
+def _layer(x: torch.Tensor, lp: PyTree, cfg: ViTConfig) -> torch.Tensor:
+    """One pre-LN block on x (B, S, d) with layer weights ``lp``."""
+    B, S, d = x.shape
+    nh = cfg.n_heads
+    hd = d // nh
+    y = common.layer_norm(x, lp["ln1"]["scale"], lp["ln1"]["bias"])
+    q = (y @ lp["wq"] + lp["bq"]).reshape(B, S, nh, hd)
+    k = (y @ lp["wk"] + lp["bk"]).reshape(B, S, nh, hd)
+    v = (y @ lp["wv"] + lp["bv"]).reshape(B, S, nh, hd)
+    o = attn.attention(q, k, v, causal=False, impl=cfg.attn_impl,
+                       q_chunk=cfg.attn_chunk)
+    x = x + o.reshape(B, S, d) @ lp["wo"] + lp["bo"]
+    y2 = common.layer_norm(x, lp["ln2"]["scale"], lp["ln2"]["bias"])
+    z = common.gelu(y2 @ lp["w_in"] + lp["b_in"])
+    return x + z @ lp["w_out"] + lp["b_out"]
+
+
 def forward(params: PyTree, images: torch.Tensor, cfg: ViTConfig
             ) -> torch.Tensor:
     """images (B, H, W, C) -> logits (B, n_classes) in f32, on the
@@ -129,8 +154,7 @@ def forward(params: PyTree, images: torch.Tensor, cfg: ViTConfig
     if H != W:
         raise ValueError(f"square images only (the pos-embed grid is "
                          f"square), got {H}x{W}")
-    d, nh = cfg.d_model, cfg.n_heads
-    hd = d // nh
+    d = cfg.d_model
     n_extra = 1 + int(cfg.distill_token)
     dt = common.torch_dtype(cfg.param_dtype)
 
@@ -142,20 +166,12 @@ def forward(params: PyTree, images: torch.Tensor, cfg: ViTConfig
     pos = _interp_pos_embed(params["pos_embed"], n_extra,
                             cfg.img_res // cfg.patch, gh)
     x = x + pos[None]
-    S = x.shape[1]
 
     lay = params["layers"]
     for i in range(cfg.n_layers):
-        y = common.layer_norm(x, lay["ln1"]["scale"][i], lay["ln1"]["bias"][i])
-        q = (y @ lay["wq"][i] + lay["bq"][i]).reshape(B, S, nh, hd)
-        k = (y @ lay["wk"][i] + lay["bk"][i]).reshape(B, S, nh, hd)
-        v = (y @ lay["wv"][i] + lay["bv"][i]).reshape(B, S, nh, hd)
-        o = attn.attention(q, k, v, causal=False, impl=cfg.attn_impl,
-                           q_chunk=cfg.attn_chunk)
-        x = x + o.reshape(B, S, d) @ lay["wo"][i] + lay["bo"][i]
-        y2 = common.layer_norm(x, lay["ln2"]["scale"][i], lay["ln2"]["bias"][i])
-        z = common.gelu(y2 @ lay["w_in"][i] + lay["b_in"][i])
-        x = x + z @ lay["w_out"][i] + lay["b_out"][i]
+        lp = {k: _at(v, i) for k, v in lay.items()}
+        x = common.checkpointed(_layer, x, lp, cfg) if cfg.remat \
+            else _layer(x, lp, cfg)
     x = common.layer_norm(x, params["final_ln"]["scale"],
                           params["final_ln"]["bias"])
     # DeiT averages its cls and distill heads at inference; the reference
@@ -168,3 +184,28 @@ def forward(params: PyTree, images: torch.Tensor, cfg: ViTConfig
 def serve_step(params: PyTree, images: torch.Tensor, cfg: ViTConfig
                ) -> torch.Tensor:
     return forward(params, images, cfg)
+
+
+def loss_fn(params: PyTree, batch: Dict[str, torch.Tensor], cfg: ViTConfig):
+    """(xent, {"loss", "accuracy"}) of a batch of ``images`` (B, H, W, C)
+    and ``labels`` (B,)."""
+    logits = forward(params, batch["images"], cfg)
+    loss = common.softmax_xent(logits, batch["labels"])
+    acc = (logits.argmax(-1) == batch["labels"]).float().mean()
+    return loss, {"loss": loss, "accuracy": acc}
+
+
+def make_train_step(cfg: ViTConfig, opt_cfg):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``, the update applied in place (as in
+    :func:`repro_torch.models.transformer.make_train_step`)."""
+    from repro_torch.training.optimizer import adamw_update
+
+    def train_step(params, opt_state, batch):
+        (_, metrics), grads = common.value_and_grad(
+            lambda p: loss_fn(p, batch, cfg), params)
+        params, opt_state, opt_metrics = adamw_update(params, grads,
+                                                      opt_state, opt_cfg)
+        return params, opt_state, dict(metrics, **opt_metrics)
+
+    return train_step

@@ -1,0 +1,155 @@
+"""Write ``tests/data/torch_train_golden.npz``: the JAX reference's train
+steps, which ``chip_smoke.py`` (phase 6b) holds the port's to on the
+card, where JAX is not installed, and ``tests/test_torch_train_step.py``
+on the CPU.
+
+Not a test (it imports JAX).  Both packages get the same inputs, made with
+numpy (``tests/train_golden.py``): weights from
+``common.numpy_params(param_defs, WEIGHT_SEED, constant_std=0.02)``
+(every leaf random), each cast to its def's dtype; batches from
+``SyntheticSource(seed=INPUT_SEED)`` (the same bytes in both packages);
+AdamW as ``opt_cfg_for`` gives it but with one warmup step (lr 3e-4).
+The reference's step is ``make_train_step``'s body under ``jax.jit``
+(``value_and_grad`` of ``loss_fn``, then ``adamw_update``), returning its
+gradient too.  Sections:
+
+* ``granite/float32``, ``granite/bfloat16`` — Granite-3.0 MoE at full
+  width with its depth cut 32 -> 2 (390,233,088 parameters), B = 1,
+  1,100 tokens (past ``attn_chunk`` 1,024: the chunked attention runs,
+  and ``chunked_lm_loss`` takes two 512-token chunks and a remainder of
+  76), ``remat`` on as published;
+* ``deit/float32`` — DeiT-B at full width with its depth cut 12 -> 2, B =
+  2, 224 px;
+* ``smoke/deit-smoke``, ``smoke/resnet-smoke``, ``smoke/granite-moe-smoke``
+  — the smoke configs in f32 over 3 steps (B = 2; 24 tokens), the last
+  one recorded, ``<section>/losses`` every step's loss.
+
+What a step's record holds and the limits a run is held to:
+``tests/train_golden.py``.
+
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/make_torch_train_golden.py \\
+        [--only granite deit smoke]
+
+About 3 minutes and 9 GB of host memory on a 6-core CPU, most of it the
+f32 granite section.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+import time
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import train_golden as tg  # noqa: E402
+from repro.configs import get_config, get_smoke_config  # noqa: E402
+from repro.launch.steps import model_module  # noqa: E402
+from repro.training.optimizer import (AdamWConfig, adamw_update,  # noqa: E402
+                                      init_opt_state)
+from repro_torch.models import common as torch_common  # noqa: E402
+
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                      "torch_train_golden.npz")
+SECTIONS = ("granite", "deit", "smoke")
+
+
+def reference_config(name, tcfg):
+    """The reference's config of a section (the port's ``tcfg``'s
+    fields)."""
+    if name.startswith("smoke/"):
+        arch = {"deit-smoke": "deit-b", "resnet-smoke": "resnet-50",
+                "granite-moe-smoke": "granite-moe-3b-a800m"}[tcfg.name]
+        cfg = get_smoke_config(arch)
+    else:
+        cfg = get_config("granite-moe-3b-a800m" if name.startswith("granite")
+                         else "deit-b")
+        cfg = dataclasses.replace(cfg, n_layers=tcfg.n_layers)
+    return dataclasses.replace(cfg, param_dtype=tcfg.param_dtype)
+
+
+def reference_params(tree, defs):
+    out = {}
+    for path, d in defs.items():
+        torch_common.assign(out, path, jnp.asarray(
+            torch_common.nested(tree, path)).astype(d.dtype))
+    return out
+
+
+def to_numpy(tree):
+    return jax.tree_util.tree_map(lambda x: np.asarray(x, np.float32), tree)
+
+
+def reference_record(name, tcfg):
+    cfg = reference_config(name, tcfg)
+    mod = model_module(cfg)
+    tree = tg.numpy_weights(tcfg)
+    from repro_torch.launch.steps import model_module as torch_module
+    params = reference_params(tree, torch_module(tcfg).param_defs(tcfg))
+    del tree
+    ocfg = AdamWConfig(state_dtype=jnp.dtype(getattr(cfg, "opt_state_dtype",
+                                                     "float32")), **tg.OPT)
+    state = init_opt_state(params, ocfg)
+
+    def step(params, state, batch):
+        (_, metrics), grads = jax.value_and_grad(
+            lambda p: mod.loss_fn(p, batch, cfg), has_aux=True)(params)
+        new_p, new_s, om = adamw_update(params, grads, state, ocfg)
+        return grads, new_p, new_s, dict(metrics, **om)
+
+    step = jax.jit(step)
+    losses = []
+    batches = tg.section_batches(name, tcfg)
+    for b in batches:
+        before = to_numpy(params)
+        grads, params, state, metrics = step(
+            params, state, {k: jnp.asarray(v) for k, v in b.items()})
+        losses.append(float(metrics["loss"]))
+    metrics = {k: v for k, v in metrics.items() if k != "accuracy"}
+    rec = tg.record(name, metrics, before, to_numpy(grads), to_numpy(params),
+                    to_numpy(state.m), to_numpy(state.v))
+    rec[name + "/losses"] = np.asarray(losses, np.float64)
+    return rec
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", nargs="*", choices=SECTIONS)
+    args = ap.parse_args()
+    only = set(args.only or SECTIONS)
+    arrays = {}
+    if os.path.exists(GOLDEN) and args.only:
+        with np.load(GOLDEN) as old:
+            arrays = {k: old[k] for k in old.files
+                      if k.split("/")[0] not in only and k != "meta"}
+    for name, tcfg in tg.port_configs().items():
+        if name.split("/")[0] not in only:
+            continue
+        t0 = time.time()
+        rec = reference_record(name, tcfg)
+        assert all(np.isfinite(a).all() for a in rec.values()), name
+        arrays.update(rec)
+        print(f"{name}: {time.time() - t0:.1f} s, loss "
+              f"{float(rec[name + '/metrics/loss']):.6f}", flush=True)
+        os.makedirs(os.path.dirname(GOLDEN), exist_ok=True)
+        meta = dict(weight_seed=tg.WEIGHT_SEED, input_seed=tg.INPUT_SEED,
+                    constant_std=tg.CONSTANT_STD, opt=tg.OPT,
+                    granite=dict(n_layers=tg.GRANITE_LAYERS,
+                                 tokens=tg.GRANITE_TOKENS, batch=1,
+                                 cut="depth 32 -> 2 layers; full width"),
+                    deit=dict(n_layers=tg.DEIT_LAYERS, batch=tg.DEIT_BATCH,
+                              cut="depth 12 -> 2 layers; full width"),
+                    smoke=dict(archs=list(tg.SMOKE_ARCHS),
+                               batch=tg.SMOKE_BATCH, seq=tg.SMOKE_SEQ,
+                               steps=tg.SMOKE_STEPS))
+        np.savez_compressed(GOLDEN, meta=np.asarray(json.dumps(meta)),
+                            **arrays)
+
+
+if __name__ == "__main__":
+    main()

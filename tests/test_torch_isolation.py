@@ -120,6 +120,27 @@ def test_probe_walks_the_language_model_modules():
     assert bad.strip() == "[]"
 
 
+def test_probe_walks_the_training_modules():
+    """The optimizer, data pipeline, checkpoints, compression, train loop,
+    cell builder and train launcher are the port's own, and a train step
+    runs with ``jax`` unimportable (the checkpoints' bf16 leaves without
+    ``ml_dtypes``)."""
+    _, bad = _run_probe(
+        "assert {'repro_torch.training.optimizer', "
+        "'repro_torch.training.data', 'repro_torch.training.checkpoint', "
+        "'repro_torch.training.compression', "
+        "'repro_torch.training.train_loop', 'repro_torch.launch.steps', "
+        "'repro_torch.launch.train'} <= set(names)\n"
+        "import contextlib, io, tempfile\n"
+        "from repro_torch.launch import train\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    train.main(['--arch', 'granite-moe-3b-a800m', '--steps', '1', "
+        "'--batch', '1', '--seq', '8', '--device', 'cpu', '--ckpt-dir', "
+        "tempfile.mkdtemp()])\n"
+        "assert 'ml_dtypes' not in sys.modules")
+    assert bad.strip() == "[]"
+
+
 def test_lm_entry_points_raise_without_cuda(monkeypatch):
     """``params_from_numpy`` and the caches' ``device=None`` mean CUDA and
     raise without it; the CPU, asked for, runs the model."""

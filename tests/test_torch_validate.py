@@ -124,3 +124,76 @@ def test_unported_and_cuda_paths_raise(monkeypatch):
         validate.run_validation(THOT, 0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         validate.run_validation(THOT, 0, device="cuda")
+
+
+# tests/test_fleetsim.py::test_property_random_fleets_match_host's stored
+# counterexample (the reference's own test fails on it): one node,
+# `random`, seed 0, (service time, deadline, arrival) a request
+PROPERTY_MIX = [(5.0, 60.0, 0.0), (5.0, 60.0, 0.5), (180.0, 60.0, 0.0),
+                (5.0, 60.0, 0.0), (5.0, 60.0, 0.0)]
+
+
+def _fixed(pkg_request, pkg_workload, mix, n_nodes):
+    import random as pyrandom
+
+    class Fixed(pkg_workload):
+        name = "prop"
+
+        def __init__(self):
+            self.n_nodes = n_nodes
+
+        def generate(self, s):
+            rng = pyrandom.Random(s)
+            reqs = [pkg_request.Request(
+                service=pkg_request.Service(f"p{p}d{d}", 1, "x", p, d),
+                arrival_time=t, origin_node=rng.randrange(n_nodes))
+                for (p, d, t) in mix]
+            return self._finish(reqs)
+    return Fixed()
+
+
+def test_port_inherits_the_reference_property_counterexample(monkeypatch):
+    """On the workload where the reference's fleetsim and its heap disagree
+    (3 outcomes), the port's fleet simulator equals the reference's JAX
+    fleetsim and the port's heap the reference's heap, request by
+    request: the port inherits the disagreement, it does not add to it."""
+    import numpy as np
+    from repro.core import request as jreq
+    from repro.fleetsim import validate as jval
+    from repro.orchestration import Workload as JWorkload
+    from repro_torch.core import request as treq
+    from repro_torch.orchestration import Workload as TWorkload
+
+    seen = {}
+    for tag, mod in (("ref", jval), ("port", validate)):
+        real_sim, real_host = mod.fcore.simulate, mod._host_outcomes
+
+        def sim(*a, _tag=tag, _real=real_sim, **kw):
+            seen.setdefault(_tag + "/fleet", _real(*a, **kw))
+            return seen[_tag + "/fleet"]
+
+        def host(*a, _tag=tag, _real=real_host):
+            seen[_tag + "/host"] = _real(*a)
+            return seen[_tag + "/host"]
+        monkeypatch.setattr(mod.fcore, "simulate", sim)
+        monkeypatch.setattr(mod, "_host_outcomes", host)
+    a = jval.run_validation(_fixed(jreq, JWorkload, PROPERTY_MIX, 1), 0,
+                            policy="random")
+    b = validate.run_validation(_fixed(treq, TWorkload, PROPERTY_MIX, 1), 0,
+                                policy="random", device="cpu")
+    assert not a.exact and a.outcome_mismatches == 3
+    assert (b.outcome_mismatches, b.node_mismatches) == \
+        (a.outcome_mismatches, a.node_mismatches)
+    assert b.host == a.host
+    for k, v in a.fleet.items():
+        assert abs(b.fleet[k] - v) <= 1e-5 * abs(v), k
+    for part in (0, 1):                      # outcome, serving node
+        np.testing.assert_array_equal(seen["port/host"][part],
+                                      seen["ref/host"][part])
+    for f in ("outcome", "served_by", "forwards_used"):
+        np.testing.assert_array_equal(
+            np.asarray(getattr(seen["port/fleet"], f)),
+            np.asarray(getattr(seen["ref/fleet"], f)))
+    np.testing.assert_allclose(
+        np.asarray(seen["port/fleet"].completion, np.float64),
+        np.asarray(seen["ref/fleet"].completion, np.float64), rtol=1e-6)
