@@ -232,11 +232,13 @@ final line:
                 ``DIFFUSION_SHAPES``' ``gen_fast`` (B=16, 512 px) and
                 ``gen_1024`` (B=4, 1024 px) with the launch count from 0,
                 28 a step, each held against the plain ``chunked`` step
-                within ``DIT_STEP_REL_RMS``; each step of both models
-                timed (CUDA events, best of 3) and profiled (device busy,
-                idle share, device time by kind: matrix products, flash,
-                other; 28 ``tma_wgmma`` kernels of width 72 on the device
-                a DiT step); the kernel's inputs from each DiT shape
+                within ``DIT_STEP_REL_RMS``; each DiT step and the UNet's
+                ``gen_fast`` step timed (CUDA events, best of 3) and
+                profiled (device busy, idle share, device time by kind:
+                matrix products, flash, other; 28 ``tma_wgmma`` kernels of
+                width 72 on the device a DiT step), the UNet's
+                ``gen_1024`` step run and checked, not timed; the kernel's
+                inputs from each DiT shape
                 against its plain version (elementwise and by rms error);
                 the kernel at (16, 1024, 16, 72) and (4, 4096, 16, 72)
                 beside its plain version, SDPA and the bound;
@@ -334,26 +336,52 @@ final line:
                 check shown to reject a dW without the last 8 rows of C;
                 each timed beside its plain version, the library call
                 (``F.rms_norm``'s autograd backward, ``torch.bmm``) and the
-                bound;
-             b. the golden train steps of ``tests/data/
-                torch_train_golden.npz`` (Granite-3.0 MoE at full width,
-                depth 2, 1,100 tokens, f32 and bf16; DeiT-B at full width,
-                depth 2, B = 2; the smoke DeiT, ResNet and Granite over 3
-                steps) within ``tests/train_golden.py``'s limits, with six
-                planted faults (no dscale, a wrapper without autograd, the
-                aux term dropped, no bias correction, a misordered loss
-                remainder, an embedding backward that overwrites rows)
-                each rejected, the last against the bf16 section too;
-             c. the main path through ``launch.train``'s ``run``: Granite-3.0
-                MoE at full width and depth (bf16 weights, f32 moments,
-                remat) on ``train_4k``'s 4,096-token sequences with the
-                global batch cut 256 -> 2, one warm step (profiled: device
-                time by kind), three timed (ms a step, tokens/s, peak
-                memory), each kernel's launches a step as the counters saw
-                them (set to 0 before the run), every leaf changed; DeiT-B
-                ``cls_224`` at its full batch of 256, 2 steps against 1
-                step, a checkpoint, and a fresh run resumed to 2: equal bit
-                for bit;
+                bound; the embedding's backward (``common.row_order_sum``,
+                the reference's row-order bf16 sum) at Granite's B = 2 x
+                4,096 and the golden's 1,100 tokens on ``SyntheticSource``'s
+                8 token ids, equal to the CPU's bit for bit, timed beside
+                ``F.embedding``'s backward (f32 sums) and its distance;
+             b. the diffusion losses' noise (``models.prng``: ``t`` and
+                ``eps`` at DiT-XL/2's train_256 shapes) on the card equal
+                to the CPU's bit for bit, timed; the golden train steps of
+                ``tests/data/torch_train_golden.npz`` (Granite-3.0 MoE at
+                full width, depth 2, 1,100 tokens, f32 and bf16; DeiT-B at
+                full width, depth 2, B = 2; DiT-XL/2 at full width, depth
+                2, B = 2 at 256 px, and the SD 1.5 UNet at full width with
+                one ResBlock a level, B = 1 at latent 16, f32 and bf16; the
+                smoke DeiT, ResNet, Granite, DiT and UNet over 3 steps)
+                within ``tests/train_golden.py``'s limits (the bf16
+                embedding gradient under the general one), with six planted
+                faults (no dscale, a wrapper without autograd, the aux term
+                dropped, no bias correction, a misordered loss remainder,
+                an embedding backward that overwrites rows) each rejected,
+                the last against the bf16 section too, and the six of
+                ``train_golden.DIFFUSION_FAULTS`` (noise keys swapped,
+                ``torch.randn`` noise, ``alphas[t + 1]``, DiT's loss on the
+                sigma half, the UNet's context ignored, DiT without remat
+                and a changed layer body) on their f32 sections; the
+                embedding's share of its limit with ``F.embedding``'s f32
+                sums beside the port's;
+             c. the main paths through ``launch.train``'s ``run``:
+                Granite-3.0 MoE at full width and depth (bf16 weights, f32
+                moments, remat) on ``train_4k``'s 4,096-token sequences
+                with the global batch cut 256 -> 2, one warm step, three
+                timed (ms a step, tokens/s, peak memory), each kernel's
+                launches a step as the counters saw them (set to 0 before
+                the run), every leaf changed; DeiT-B ``cls_224`` at its
+                full batch of 256, 2 steps against 1 step, a checkpoint,
+                and a fresh run resumed to 2: equal bit for bit; DiT-XL/2
+                ``train_256`` at full width, depth and batch (28 layers,
+                B = 256 x 256 tokens, remat) and the SD 1.5 UNet at full
+                width and depth at 256 px with the batch cut 256 ->
+                ``UNET_TRAIN_BATCH``: a warm step, a profiled one (device
+                busy, idle share, kernels a step, device time by kind:
+                matrix products, softmax, other; DiT's attention timed
+                alone), two timed (ms a step, images/s), the peak memory,
+                every leaf reached by a gradient, no repo kernel launched;
+                DiT-XL/2 at full width and batch with its depth cut to 2,
+                2 steps against 1, a checkpoint and a fresh run resumed to
+                2: equal bit for bit;
 7. the ``{"kernels": [...]}`` line (one entry a kernel; ``flash_attention``
    one a variant: ``tma_wgmma`` at D = 64 (DeiT-B and Granite's prefill,
    phase 4h), 80 (ViT-H/14) and 72 (DiT-XL/2's steps, phase 4g), each
@@ -372,6 +400,7 @@ import collections
 import concurrent.futures
 import contextlib
 import dataclasses
+import gc
 import hashlib
 import itertools
 import json
@@ -414,7 +443,7 @@ from repro_torch.kernels import rmsnorm as rn_mod  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import common as model_common  # noqa: E402
-from repro_torch.models import dit, resnet, unet, vit  # noqa: E402
+from repro_torch.models import diffusion, dit, resnet, unet, vit  # noqa: E402
 from repro_torch.models import moe as lm_moe  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.core.scenarios import SCENARIOS  # noqa: E402
@@ -3449,8 +3478,9 @@ def dit_steps(tree, dev):
 
 def unet_steps(tree, dev):
     """The UNet's bf16 serve step at gen_fast and gen_1024 (no kernel on
-    its path: the reference's chunked and naive attention), timed and
-    profiled."""
+    its path: the reference's chunked and naive attention), each checked;
+    gen_fast timed and profiled (gen_1024 is not timed, for the time
+    budget: PERF.md keeps its earlier time)."""
     cfg = unet_sd15.CONFIG
     params = unet.params_from_numpy(tree, cfg, dev)
     rows = []
@@ -3463,6 +3493,8 @@ def unet_steps(tree, dev):
                 or got.shape != args[0].shape:
             fail(f"UNet {name}: output {tuple(got.shape)} not finite or not "
                  f"the latents' shape, or a flash_attention launch")
+        if name == "gen_1024":
+            continue
         row = step_row("UNet", s, lambda: unet.serve_step(params, *args, cfg))
         del row["device_counts"]
         rows.append(row)
@@ -4676,11 +4708,28 @@ MOE_BWD_SHAPES = {"gate_up/853": (48, 853, 1536, 512),
                   "down/1706": (48, 1706, 512, 1536)}
 # the main path: Granite-3.0 MoE at full width and depth, train_4k's
 # 4,096-token sequences with its global batch cut 256 -> TRAIN_BATCH;
-# one warm step (profiled), TRAIN_TIMED timed
+# one warm step, TRAIN_TIMED timed
 TRAIN_BATCH, TRAIN_WARM, TRAIN_TIMED = 2, 1, 3
 # DeiT-B cls_224 at its full global batch: DEIT_STEPS steps, a checkpoint
 # after DEIT_CKPT_AT, a fresh run resumed from it
 DEIT_STEPS, DEIT_CKPT_AT = 2, 1
+# the diffusion train steps at train_256 (256 px, latent 32): DiT-XL/2 at
+# full width, depth and batch; the SD 1.5 UNet at full width and depth
+# with its global batch cut 256 -> UNET_TRAIN_BATCH, its activations kept
+# without remat as the reference keeps them: 0.698 GB a sample beside
+# 10.06 GB of weights, gradients and moments on an NVIDIA H100 80GB HBM3
+# at 700.00 W (``tools/train_batch_scan.py``), so B = 96 peaks at ~77 GB
+# of the card's 85 (PERF.md section 4); a warm step each, one profiled,
+# DIFF_TIMED timed.  UNET_PEAK_GB: the largest peak seen at B = 96 (in
+# this script, on that card; 77.10 GB in a process of its own), which
+# the card's free memory is held to before the run
+UNET_TRAIN_BATCH, DIFF_TIMED, UNET_PEAK_GB = 96, 2, 78.18
+# resumed = uninterrupted: DiT-XL/2 at full width and batch, depth cut
+# 28 -> DIT_RESUME_LAYERS, DIT_RESUME_STEPS steps, a checkpoint after one
+DIT_RESUME_LAYERS, DIT_RESUME_STEPS = 2, 2
+# the embedding's backward at Granite's train step (B = 2 x 4,096 tokens
+# onto the 8 ids SyntheticSource draws) and at the golden's 1,100 tokens
+EMBED_BWD_TOKENS = ((2, 4096), (1, 1100))
 TRAIN_COUNTERS = {"rmsnorm": rn_mod.rmsnorm,
                   "rmsnorm_backward": rn_mod.rmsnorm_bwd,
                   "moe_gemm": mg_mod.moe_gemm,
@@ -4774,6 +4823,76 @@ def rmsnorm_bwd_checks(dev) -> dict:
     return dict(max_abs_err=err, rows=rows)
 
 
+def embedding_bwd_rows(dev) -> dict:
+    """Phase 6a: the embedding's backward, ``common.row_order_sum`` (each
+    token id's rows added in row order in bf16, one ``index_add_`` a
+    rank: the reference's scatter-add), at ``EMBED_BWD_TOKENS`` of
+    Granite's table (bf16, d 1,536) on ``SyntheticSource``'s token ids:
+    the card's sums equal the CPU's bit for bit (the same function;
+    ``index_add_`` rounds each exact add once); their distance from
+    ``F.embedding``'s backward (f32 sums); both timed (CUDA events) beside
+    the bound (dy read once, the 8 rows written)."""
+    from repro_torch.training.data import Spec, SyntheticSource
+    cfg = granite_moe_3b_a800m.CONFIG
+    V, d = cfg.vocab_size, cfg.d_model
+    rows = []
+    for B, S in EMBED_BWD_TOKENS:
+        ids = SyntheticSource({"t": Spec((B, S), np.int32)}, 0).batch_at(
+            0)["t"].reshape(-1)
+        ids = torch.from_numpy(ids).long()
+        dy = randn((B * S, d), B * S, "cpu", torch.bfloat16)
+        want = model_common.row_order_sum(ids, dy, V)
+        ids_d, dy_d = ids.to(dev), dy.to(dev)
+        got = model_common.row_order_sum(ids_d, dy_d, V)
+        if not torch.equal(got.cpu(), want):
+            fail(f"embedding backward ({B} x {S}): the card's row-order sum "
+                 f"differs from the CPU's in "
+                 f"{int((got.cpu() != want).sum())} values")
+        lib = torch.ops.aten.embedding_dense_backward(dy_d, ids_d, V, -1,
+                                                      False)
+        used = torch.unique(ids)
+        gap = float((lib[used.to(dev)].float() - got[used.to(dev)].float())
+                    .abs().max() / got[used.to(dev)].float().abs().max())
+        ms = timed_ms(lambda: model_common.row_order_sum(ids_d, dy_d, V), 5)
+        library_ms = timed_ms(lambda: torch.ops.aten.embedding_dense_backward(
+            dy_d, ids_d, V, -1, False), 20)
+        b_ms, b_by = bound((B * S * d * 2 + len(used) * d * 2)
+                           / HBM_BYTES_PER_S * 1e3,
+                           B * S * d / F32_FLOP_PER_S * 1e3)
+        per_id = torch.bincount(ids).max().item()
+        row = dict(tokens=[B, S], ids=int(len(used)), most_rows_an_id=per_id,
+                   ms=ms, library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+                   f32_sum_gap=gap)
+        rows.append(row)
+        print(f"train embedding backward ({B} x {S} tokens onto "
+              f"{len(used)} ids, at most {per_id} rows an id; V {V}, d {d}, "
+              f"bf16): the card's row-order sum equals the CPU's bit for bit; "
+              f"{ms:.3f} ms ({per_id} index_add_ launches), F.embedding's "
+              f"backward (f32 sums) {library_ms:.3f} ms and "
+              f"{gap:.4f} of the largest |g| away, bound {b_ms:.4f} ms "
+              f"({b_by})", flush=True)
+    return dict(rows=rows)
+
+
+def prng_checks(dev) -> dict:
+    """Phase 6b: the diffusion losses' noise on the card (``models.prng``:
+    ``t`` (256,) and ``eps`` (256, 32, 32, 4) of DiT-XL/2's train_256 at
+    steps 0 and 1) equal to the CPU's bit for bit (the CPU's equal JAX's:
+    ``tests/test_torch_prng.py``), and its time a step."""
+    x = torch.zeros(256, 32, 32, 4, device=dev)
+    for step in (0, 1):
+        t, eps = diffusion.diffusion_noise(step, x)
+        t_c, eps_c = diffusion.diffusion_noise(step, x.cpu())
+        if not (torch.equal(t.cpu(), t_c) and torch.equal(eps.cpu(), eps_c)):
+            fail(f"diffusion noise at step {step}: the card's t / eps differ "
+                 f"from the CPU's")
+    ms = timed_ms(lambda: diffusion.diffusion_noise(2, x), 5)
+    print(f"train noise: t (256,) and eps (256, 32, 32, 4) drawn on the card "
+          f"equal the CPU's bit for bit at steps 0 and 1 (threefry, erf_inv "
+          f"with fused multiply-adds in f64); {ms:.3f} ms a draw", flush=True)
+    return dict(bit_equal=True, ms=ms)
+
+
 def moe_bwd_products(x, w, dy):
     """The two backward products of y = x w as ``ops.MoEGemmFn`` forms
     them on the card: (dy, w^T) and (x^T, dy) with C padded to a multiple
@@ -4856,19 +4975,29 @@ def train_golden_checks(dev) -> dict:
     width, 2 layers, f32 and bf16; DeiT-B at full width, 2 layers; the
     smoke configs over 3 steps), each within ``tests/train_golden.py``'s
     limits; the planted faults of ``train_golden.FAULTS`` each rejected
-    on Granite's f32 section, and the embedding's on its bf16 one (the
-    limit of its own that the bf16 embedding gradient has)."""
+    on Granite's f32 section, and the embedding's on its bf16 one (under
+    the general limit: the row-order bf16 sum); the diffusion
+    sections (DiT-XL/2 at full width with 2 layers, the UNet at full width
+    with one ResBlock a level, f32 and bf16; their smoke configs) and
+    ``train_golden.DIFFUSION_FAULTS``, each on its family's f32
+    section."""
     tg = train_golden_module()
     want = np.load(TRAIN_GOLDEN)
     cfgs = tg.port_configs()
     out = {}
-    granite_tree = None
+    trees = {}          # the full-width sections' weights, f32 numpy
+
+    def tree_of(name):
+        group = name.split("/")[0]
+        if group == "smoke":
+            return None
+        if group not in trees:
+            trees[group] = tg.numpy_weights(cfgs[name])
+        return trees[group]
+
     for name, cfg in cfgs.items():
         t0 = time.time()
-        tree = None
-        if name.startswith("granite/"):
-            granite_tree = granite_tree or tg.numpy_weights(cfg)
-            tree = granite_tree
+        tree = tree_of(name)
         rec, losses = tg.port_record(name, cfg, want, device=dev, tree=tree)
         shares = tg.compare(rec, want, name, cfg.param_dtype)
         bad = tg.fails(shares)
@@ -4878,17 +5007,22 @@ def train_golden_checks(dev) -> dict:
                  f"e.g. {dict(list(bad.items())[:6])}")
         out[name] = dict(worst=worst, share=shares[worst], losses=losses,
                          s=time.time() - t0)
+        embed = shares.get(f"{name}/embed/g")
         print(f"train golden {name}: every check within its limit (the "
-              f"nearest: {worst} at {shares[worst]:.3f} of its limit); "
-              f"losses {losses} (reference {list(want[name + '/losses'])}); "
-              f"{time.time() - t0:.1f} s", flush=True)
+              f"nearest: {worst} at {shares[worst]:.3f} of its limit"
+              + ("" if embed is None else
+                 f"; the embedding's gradient at {embed:.3f}")
+              + f"); losses {losses} (reference "
+              f"{list(want[name + '/losses'])}); {time.time() - t0:.1f} s",
+              flush=True)
     faults = {}
     runs = [("granite/float32", f) for f in tg.FAULTS] + [
-        ("granite/bfloat16", "embed_overwrite")]
+        ("granite/bfloat16", "embed_overwrite")] + [
+        (f"{fam}/float32", f) for f, fam in tg.DIFFUSION_FAULTS.items()]
     for name, fault in runs:
         with tg.planted(fault):
             rec, _ = tg.port_record(name, cfgs[name], want, device=dev,
-                                    tree=granite_tree)
+                                    tree=tree_of(name))
         bad = tg.fails(tg.compare(rec, want, name, cfgs[name].param_dtype))
         if not bad:
             fail(f"train golden: the planted fault {fault} passes {name}")
@@ -4896,6 +5030,7 @@ def train_golden_checks(dev) -> dict:
     print(f"train golden: each planted fault fails (checks past their "
           f"limits: {faults})", flush=True)
     out["faults"] = faults
+    trees.clear()
     return out
 
 
@@ -4920,10 +5055,11 @@ def train_cell(arch, cfg, shape):
 def granite_train(dev) -> dict:
     """Phase 6c: Granite-3.0 MoE at full width and depth through
     ``launch.train``'s ``run``: 4,096-token sequences at B =
-    ``TRAIN_BATCH``, bf16 weights, f32 moments, remat; one warm step
-    (profiled: device time by kind), ``TRAIN_TIMED`` timed (CUDA events
-    around each); every leaf changed, finite loss and gradient norm, each
-    kernel's launches a step as the counters saw them."""
+    ``TRAIN_BATCH``, bf16 weights, f32 moments, remat; one warm step,
+    ``TRAIN_TIMED`` timed (CUDA events around each); every leaf changed,
+    finite loss and gradient norm, each kernel's launches a step as the
+    counters saw them.  (The warm step is not profiled, for the time
+    budget: PERF.md section 5 keeps its earlier device time by kind.)"""
     from repro_torch.configs.shapes import ShapeSpec
     from repro_torch.training.train_loop import TrainLoopConfig, run
     cfg = granite_moe_3b_a800m.CONFIG
@@ -4949,26 +5085,15 @@ def granite_train(dev) -> dict:
     steps, real = [], cell.step_fn
 
     def step_fn(params, opt_state, batch):
-        k = len(steps)
         c0 = train_counts()
         t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        if k == 0:
-            holder = {}
-
-            def once():            # a retried profiler window runs nothing
-                if not holder:
-                    holder["out"] = real(params, opt_state, batch)
-            prof = profiled(once, cpu=False)
-            out = holder["out"]
-        else:
-            prof = None
-            t0.record()
-            out = real(params, opt_state, batch)
-            t1.record()
+        t0.record()
+        out = real(params, opt_state, batch)
+        t1.record()
         torch.cuda.synchronize()
         c1 = train_counts()
         steps.append(dict(
-            ms=None if prof else t0.elapsed_time(t1), prof=prof,
+            ms=t0.elapsed_time(t1),
             launches={n: c1[n] - c0[n] for n in c1},
             loss=float(out[2]["loss"]), grad_norm=float(out[2]["grad_norm"]),
             aux=float(out[2]["aux_loss"])))
@@ -5008,42 +5133,19 @@ def granite_train(dev) -> dict:
     timed = [s["ms"] for s in steps[TRAIN_WARM:TRAIN_WARM + TRAIN_TIMED]]
     ms = float(np.median(timed))
     tokens = TRAIN_BATCH * shape.seq_len
-    prof = steps[0]["prof"]
-    kinds = dict.fromkeys(("rmsnorm", "rmsnorm_backward", "moe_gemm",
-                           "matmul", "other"), 0.0)
-    for name, us in prof["device_us"].items():
-        n = name.lower()
-        kind = ("rmsnorm_backward" if "rmsnorm_bwd" in n else
-                "rmsnorm" if "rmsnorm" in n else "moe_gemm" if "moe_gemm" in n
-                else "matmul" if any(k in n for k in (
-                    "gemm", "xmma", "cutlass", "nvjet", "matmul"))
-                else "other")
-        kinds[kind] += us / 1e3
-    busy = prof["busy_us"] / 1e3
-    top = sorted(prof["device_us"].items(), key=lambda kv: -kv[1])[:8]
     row = dict(batch=TRAIN_BATCH, seq=shape.seq_len, n_params=n_params,
                state_gb=state_bytes / 1e9, step_ms=timed, ms=ms,
                tokens_per_s=tokens / (ms / 1e3), peak_gb=peak / 1e9,
-               busy_ms=busy, profiled_ms=prof["wall_us"] / 1e3,
-               idle=max(0.0, 1.0 - busy / (prof["wall_us"] / 1e3)),
-               kinds_ms=kinds, launches_per_step=want, wall_s=wall,
+               warm_ms=steps[0]["ms"], launches_per_step=want, wall_s=wall,
                init_s=made["t_init"],
                losses=[s["loss"] for s in steps],
-               grad_norms=[s["grad_norm"] for s in steps],
-               top_kernels_ms={k[:90]: v / 1e3 for k, v in top},
-               counts=counts)
+               grad_norms=[s["grad_norm"] for s in steps], counts=counts)
     print(f"granite train (full width and depth, {n_params} parameters, "
           f"B={TRAIN_BATCH} x {shape.seq_len} tokens; parameters and AdamW "
           f"state {row['state_gb']:.2f} GB): step {ms:.1f} ms (median of "
           f"{[round(t, 1) for t in timed]}), {row['tokens_per_s']:.0f} "
-          f"tokens/s, peak memory {row['peak_gb']:.2f} GB; the warm step, "
-          f"profiled: {row['profiled_ms']:.1f} ms, device busy {busy:.1f} ms "
-          f"(idle {row['idle']:.3f}), by kind "
-          + ", ".join(f"{k} {v:.1f} ms ({v / max(busy, 1e-9):.3f})"
-                      for k, v in kinds.items())
-          + "; largest: " + "; ".join(f"{k} {v:.2f} ms" for k, v in
-                                      row["top_kernels_ms"].items()),
-          flush=True)
+          f"tokens/s, peak memory {row['peak_gb']:.2f} GB; the warm step "
+          f"{row['warm_ms']:.1f} ms", flush=True)
     print(f"granite train: launches a step {want} on every step; losses "
           f"{row['losses']}, grad norms {row['grad_norms']}; every leaf "
           f"changed; run() {wall:.1f} s, of which the weights' and the "
@@ -5102,11 +5204,194 @@ def deit_train(dev) -> dict:
                 wall_s=t_full, resumed_s=t_resumed, bit_equal=True)
 
 
+def attention_ms(cfg, B, dev) -> float:
+    """One layer's attention at the train step's shapes (``cfg``'s impl,
+    bf16, B x n_tokens, heads of d / n_heads) as the step runs it: two
+    forwards (the second remat's, where ``cfg.remat``) and one backward
+    (CUDA events; the kernels are the step's matrix products and its
+    softmax, which the profile cannot tell from the others')."""
+    S, nh = cfg.n_tokens(), cfg.n_heads
+    hd = cfg.d_model // nh
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn(B, S, nh, hd, generator=gen, device=dev,
+                           dtype=torch.bfloat16).requires_grad_()
+               for _ in range(3))
+    dy = torch.randn(B, S, nh, hd, generator=gen, device=dev,
+                     dtype=torch.bfloat16)
+
+    def once():
+        kw = dict(causal=False, impl=cfg.attn_impl, q_chunk=cfg.attn_chunk)
+        if cfg.remat:
+            with torch.no_grad():
+                attn_mod.attention(q, k, v, **kw)
+        torch.autograd.grad(attn_mod.attention(q, k, v, **kw), (q, k, v), dy)
+    return timed_ms(once, 3)
+
+
+def diffusion_train(arch, cfg, B, dev) -> dict:
+    """Phase 6c: ``arch`` at full width and depth at train_256's 256 px
+    (latent 32) and global batch ``B`` through ``launch.train``'s ``run``,
+    bf16 weights, f32 moments: one warm step, one profiled (device time
+    by kind, the device's busy share, kernels a step), ``DIFF_TIMED``
+    timed (CUDA events around each); the peak memory; finite losses;
+    every leaf's first moment nonzero (the gradient reached every leaf:
+    the UNet's zero-initialised ``c2`` and ``conv_out`` hold it back for
+    the first two steps) and the leaves that moved counted (a bf16 weight
+    keeps its value under the warm-up's updates of ~lr = 3e-6 .. 1.2e-5
+    unless it is near 0); no repo kernel launched (none is on these
+    paths)."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.training.train_loop import TrainLoopConfig, run
+    shape = ShapeSpec("chip_train", "train", img_res=256, global_batch=B)
+    cell = train_cell(arch, cfg, shape)
+    init, made, steps, real = cell.make_args, {}, [], cell.step_fn
+
+    def make_args(seed, device):
+        args = init(seed, device)
+        made["before"] = leaf_samples(args[0])
+        made["n_params"] = model_common.count_params(args[0])
+        return args
+
+    def step_fn(params, opt_state, batch):
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        holder, prof = {}, None
+        if len(steps) == 1:
+            def once():            # a retried profiler window runs nothing
+                if not holder:
+                    holder["out"] = real(params, opt_state, batch)
+            prof = profiled(once, cpu=False)
+        else:
+            t0.record()
+            holder["out"] = real(params, opt_state, batch)
+            t1.record()
+        torch.cuda.synchronize()
+        out = holder["out"]
+        steps.append(dict(ms=None if prof else t0.elapsed_time(t1),
+                          prof=prof, loss=float(out[2]["loss"]),
+                          grad_norm=float(out[2]["grad_norm"])))
+        return out
+
+    cell.make_args, cell.step_fn = make_args, step_fn
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    train_counts(zero=True)
+    t0 = time.time()
+    res = run(cell, TrainLoopConfig(total_steps=2 + DIFF_TIMED, log_every=1,
+                                    seed=0),
+              log_fn=lambda m: print(f"{arch} train: {m}", flush=True),
+              device=dev)
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = train_counts()
+    after = leaf_samples(res["params"])
+    moved = sum(not torch.equal(a, b) for a, b in zip(made["before"], after))
+    no_grad = [i for i, m in enumerate(model_common.leaves(res["opt_state"].m))
+               if not bool(m.ne(0).any())]
+    del res, after
+    if no_grad or not moved or any(counts.values()) or not np.isfinite(
+            [[x["loss"], x["grad_norm"]] for x in steps]).all():
+        fail(f"{arch} train: leaves {no_grad} never had a gradient, {moved} "
+             f"moved, repo kernels launched {counts}, or losses {steps}")
+    timed = [x["ms"] for x in steps[2:]]
+    ms = float(np.median(timed))
+    prof = steps[1]["prof"]
+    kinds = dict.fromkeys(("matmul", "softmax", "other"), 0.0)
+    for name, us in prof["device_us"].items():
+        n = name.lower()
+        kind = ("softmax" if "softmax" in n else "matmul" if any(
+            k in n for k in ("gemm", "xmma", "cutlass", "nvjet", "matmul",
+                             "conv", "fprop", "dgrad", "wgrad")) else "other")
+        kinds[kind] += us / 1e3
+    busy = prof["busy_us"] / 1e3
+    att = attention_ms(cfg, B, dev) * cfg.n_layers \
+        if cfg.family == "dit" else None
+    top = sorted(prof["device_us"].items(), key=lambda kv: -kv[1])[:6]
+    row = dict(batch=B, img_res=256, n_params=made["n_params"],
+               leaves=len(made["before"]), leaves_moved=moved,
+               warm_ms=steps[0]["ms"], step_ms=timed,
+               ms=ms, images_per_s=B / (ms / 1e3), peak_gb=peak / 1e9,
+               busy_ms=busy, profiled_ms=prof["wall_us"] / 1e3,
+               idle=max(0.0, 1.0 - busy / (prof["wall_us"] / 1e3)),
+               kinds_ms=kinds, kernels_per_step=sum(
+                   prof["device_counts"].values()), wall_s=wall,
+               losses=[x["loss"] for x in steps],
+               grad_norms=[x["grad_norm"] for x in steps],
+               top_kernels_ms={k[:90]: v / 1e3 for k, v in top})
+    if cfg.family == "dit":
+        row["attention_ms"] = att
+    print(f"{arch} train (full width and depth, {made['n_params']} "
+          f"parameters, B={B} at 256 px): step {ms:.1f} ms (median of "
+          f"{[round(t, 1) for t in timed]}), {row['images_per_s']:.1f} "
+          f"images/s, peak memory {row['peak_gb']:.2f} GB; the first step "
+          f"{row['warm_ms']:.1f} ms; the second, profiled: "
+          f"{row['profiled_ms']:.1f} ms, device busy {busy:.1f} ms "
+          f"(idle {row['idle']:.3f}), {row['kernels_per_step']} device "
+          f"kernels, by kind " + ", ".join(
+              f"{k} {v:.1f} ms ({v / max(busy, 1e-9):.3f})"
+              for k, v in kinds.items())
+          + (f"; attention (L x two forwards and a backward, alone) "
+             f"{att:.1f} ms ({att / max(busy, 1e-9):.3f})"
+             if cfg.family == "dit" else "")
+          + "; largest: " + "; ".join(f"{k} {v:.2f} ms" for k, v in
+                                      row["top_kernels_ms"].items())
+          + f"; losses {row['losses']}; every leaf had a gradient, "
+          f"{moved} of {len(made['before'])} moved; run() {wall:.1f} s",
+          flush=True)
+    return row
+
+
+def dit_resume(dev) -> dict:
+    """Phase 6c: DiT-XL/2 at full width and batch, depth cut to
+    ``DIT_RESUME_LAYERS``: ``DIT_RESUME_STEPS`` steps uninterrupted,
+    against a run to step 1 ending in a checkpoint and a fresh run
+    resumed from it: every parameter and moment equal bit for bit (step
+    1's noise drawn from its step after the restart)."""
+    import shutil
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.training.train_loop import TrainLoopConfig, run
+    cfg = dataclasses.replace(dit_xl2.CONFIG, n_layers=DIT_RESUME_LAYERS)
+    cell = train_cell(cfg.name, cfg, ShapeSpec("chip_resume", "train",
+                                               img_res=256, global_batch=256))
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    logs = []
+    quiet = dict(log_fn=logs.append, device=dev)
+    once = dict(ckpt_every=DIT_RESUME_STEPS + 1, log_every=1,
+                ckpt_dir=TRAIN_CKPT_DIR)
+    t0 = time.time()
+    full = run(cell, TrainLoopConfig(total_steps=DIT_RESUME_STEPS,
+                                     log_every=1), **quiet)
+    run(cell, TrainLoopConfig(total_steps=1, **once), **quiet)
+    resumed = run(cell, TrainLoopConfig(total_steps=DIT_RESUME_STEPS,
+                                        **once), **quiet)
+    if "[train] resumed from step 1" not in logs:
+        fail(f"dit train: the fresh run did not resume: {logs}")
+    got, want = ([*model_common.leaves(r["params"]),
+                  *model_common.leaves(r["opt_state"].m),
+                  *model_common.leaves(r["opt_state"].v)]
+                 for r in (resumed, full))
+    differ = sum(not torch.equal(a, b) for a, b in zip(got, want))
+    if differ:
+        fail(f"dit train: the resumed run differs from the uninterrupted one "
+             f"in {differ} of {len(got)} leaves")
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    losses = [l for _, l in full["losses"]]
+    print(f"dit train: DiT-XL/2 at full width, B=256, depth cut to "
+          f"{DIT_RESUME_LAYERS}: {DIT_RESUME_STEPS} steps uninterrupted "
+          f"(losses {losses}) equal, bit for bit in all {len(got)} parameter "
+          f"and moment leaves, a run to step 1 and a fresh run resumed from "
+          f"its checkpoint ({time.time() - t0:.1f} s in all)", flush=True)
+    return dict(n_layers=DIT_RESUME_LAYERS, steps=DIT_RESUME_STEPS,
+                losses=losses, bit_equal=True, s=time.time() - t0)
+
+
 def train_phase(dev) -> dict:
-    """Phase 6: the kernel checks (a), the golden (b), the main path (c)."""
+    """Phase 6: the kernel checks and the embedding's backward (a), the
+    noise and the golden (b), the main paths (c)."""
     t0 = time.time()
     rb = rmsnorm_bwd_checks(dev)
     mb = moe_bwd_checks(dev)
+    emb = embedding_bwd_rows(dev)
+    noise = prng_checks(dev)
     golden = train_golden_checks(dev)
     print(f"train phase a-b: {time.time() - t0:.1f} s", flush=True)
     t1 = time.time()
@@ -5114,10 +5399,31 @@ def train_phase(dev) -> dict:
     torch.cuda.empty_cache()
     deit = deit_train(dev)
     torch.cuda.empty_cache()
-    print(f"train phase c: {time.time() - t1:.1f} s; train phase: "
-          f"{time.time() - t0:.1f} s", flush=True)
-    return dict(rmsnorm_bwd=rb, moe_bwd=mb, golden=golden, granite=granite,
-                deit=deit, s=time.time() - t0)
+    t2 = time.time()
+    dit_row = diffusion_train("dit-xl2", dit_xl2.CONFIG, 256, dev)
+    torch.cuda.empty_cache()
+    resume = dit_resume(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"unet train: {free / 1e9:.2f} GB of the card's {total / 1e9:.2f} "
+          f"free before B={UNET_TRAIN_BATCH}, whose largest peak seen is "
+          f"{UNET_PEAK_GB} GB: a margin of {free / 1e9 - UNET_PEAK_GB:.2f} "
+          f"GB", flush=True)
+    if free / 1e9 < UNET_PEAK_GB:
+        fail(f"unet train: {free / 1e9:.2f} GB free, under the "
+             f"{UNET_PEAK_GB} GB that B={UNET_TRAIN_BATCH} has taken")
+    unet_row = diffusion_train("unet-sd15", unet_sd15.CONFIG,
+                               UNET_TRAIN_BATCH, dev)
+    unet_row["free_gb_before"] = free / 1e9
+    torch.cuda.empty_cache()
+    print(f"train phase c: {time.time() - t1:.1f} s (diffusion "
+          f"{time.time() - t2:.1f} s); train phase: {time.time() - t0:.1f} s",
+          flush=True)
+    return dict(rmsnorm_bwd=rb, moe_bwd=mb, embedding_bwd=emb, noise=noise,
+                golden=golden, granite=granite, deit=deit,
+                dit=dict(dit_row, resume=resume), unet=unet_row,
+                s=time.time() - t0)
 
 
 def timed_build(name: str) -> float:
@@ -5263,7 +5569,9 @@ def main() -> int:
     entries["flash_attention"]["train"] = dict(
         launches=g["counts"]["flash_attention"],
         note="none: the train step takes the chunked attention (the "
-             "published config), and the kernel raises under grad")
+             "published config), and the kernel raises under grad; none "
+             "on the DiT-XL/2 and UNet train steps either (256 tokens take "
+             "the plain path; the UNet's attention is plain)")
 
     # -- 7. the records
     print(f"card: {card}", flush=True)

@@ -8,7 +8,7 @@ and dtype, where the reference has ``ShapeDtypeStruct``s) and a
 real-input factory for the drivers and the tests.  Used by
 ``launch/train.py`` and the train loop.  The reference's logical sharding
 trees (``arg_logical``) and its dry-run wait for the distribution work
-(ROADMAP open item 10); its DiT and UNet train steps for item 9b.
+(ROADMAP open item 10).
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, shapes_for
-from repro_torch.configs.base import LMConfig
+from repro_torch.configs.base import DiTConfig, LMConfig, UNetConfig
 from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import common, dit, resnet, transformer, unet, vit
@@ -35,8 +35,8 @@ _MODULES = {"lm": transformer, "vit": vit, "resnet": resnet, "dit": dit,
 def model_module(cfg):
     """The module with ``param_defs`` and the steps for ``cfg.family``
     (``forward`` / ``serve_step`` / ``loss_fn`` / ``make_train_step`` for
-    the vision families; ``prefill`` / ``decode_step`` and the train step
-    for the language models; ``serve_step`` for the diffusion family)."""
+    the vision and diffusion families; ``prefill`` / ``decode_step`` and
+    the train step for the language models)."""
     if cfg.family in _MODULES:
         return _MODULES[cfg.family]
     raise ValueError(f"unknown model family {cfg.family!r}")
@@ -85,13 +85,39 @@ def _vision_batch_specs(cfg, shape: ShapeSpec) -> Dict[str, Spec]:
             "labels": Spec((B,), np.int32)}
 
 
+def _dit_batch_specs(cfg: DiTConfig, shape: ShapeSpec) -> Dict[str, Spec]:
+    B = shape.global_batch
+    lr = cfg.latent_res(shape.img_res)
+    return {"latents": Spec((B, lr, lr, cfg.latent_channels), np.float32),
+            "labels": Spec((B,), np.int32),
+            "step": Spec((), np.int32)}
+
+
+def _unet_batch_specs(cfg: UNetConfig, shape: ShapeSpec) -> Dict[str, Spec]:
+    B = shape.global_batch
+    lr = shape.img_res // 8 if shape.img_res else cfg.latent_res
+    return {"latents": Spec((B, lr, lr, cfg.latent_channels), np.float32),
+            "ctx": Spec((B, cfg.ctx_len, cfg.ctx_dim), np.float32),
+            "step": Spec((), np.int32)}
+
+
+_BATCH_SPECS = {"lm": _lm_batch_specs, "vit": _vision_batch_specs,
+                "resnet": _vision_batch_specs, "dit": _dit_batch_specs,
+                "unet": _unet_batch_specs}
+
+
 def batch_to(batch: Dict[str, np.ndarray], device: DeviceLike = None
-             ) -> Dict[str, torch.Tensor]:
+             ) -> Dict[str, Any]:
     """A numpy batch as tensors on ``device`` (``None``: CUDA); integer
-    entries as int64 (index tensors), the rest as they are."""
+    entries as int64 (index tensors), the rest as they are.  A scalar
+    entry (the diffusion batches' ``step``) stays a host int: the noise
+    keys are derived from it on the host, with no read from the card."""
     dev = resolve_device(device)
     out = {}
     for k, v in batch.items():
+        if np.ndim(v) == 0:
+            out[k] = int(v)
+            continue
         t = torch.from_numpy(np.require(v, requirements="C"))
         if not t.is_floating_point():
             t = t.long()
@@ -131,17 +157,9 @@ def build_cell(arch: str, shape_name: str, cfg=None) -> Cell:
     p_defs = mod.param_defs(cfg)
 
     if shape.kind == "train":
-        if cfg.family in ("dit", "unet"):
-            raise NotImplementedError(
-                f"{arch}: the {cfg.family} train step draws t and eps with "
-                f"JAX's threefry randint / normal, which the port does not "
-                f"reproduce yet (ROADMAP open item 9b)")
         ocfg = opt_cfg_for(cfg)
         step = mod.make_train_step(cfg, ocfg)
-        if cfg.family == "lm":
-            b_specs = _lm_batch_specs(cfg, shape)
-        else:
-            b_specs = _vision_batch_specs(cfg, shape)
+        b_specs = _BATCH_SPECS[cfg.family](cfg, shape)
 
         def make_args(seed: int = 0, device: DeviceLike = None):
             dev = resolve_device(device)
@@ -150,7 +168,7 @@ def build_cell(arch: str, shape_name: str, cfg=None) -> Cell:
                     batch_to(SyntheticSource(b_specs, seed).batch_at(0), dev))
 
         saved = {}
-        if cfg.family == "resnet":
+        if cfg.family in ("resnet", "unet"):
             saved = dict(
                 to_saved=lambda t: _saved_layout(
                     t, resnet.to_reference_layout),

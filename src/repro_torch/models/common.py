@@ -199,6 +199,60 @@ def timestep_embedding(t: torch.Tensor, dim: int,
     return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
 
 
+def row_order_sum(ids: torch.Tensor, rows: torch.Tensor, n: int
+                  ) -> torch.Tensor:
+    """(n, d) sums of ``rows`` (N, d) onto ``ids`` (N,), each id's rows
+    added in row order in ``rows``' dtype, one rounding per add: what
+    XLA's scatter-add (the gradient of ``jnp.take``) computes on the CPU.
+
+    A stable sort by id ranks each row within its id; the rows of one
+    rank fall on distinct ids, so one ``index_add_`` a rank adds each
+    exactly and rounds once.  ``max rank + 1`` adds (the most rows of one
+    id), after one host read of the ranks' sizes."""
+    g = rows.new_zeros((n, rows.shape[-1]))
+    if ids.numel() == 0:
+        return g
+    order = torch.argsort(ids, stable=True)
+    sid = ids[order]
+    pos = torch.arange(sid.numel(), device=sid.device)
+    first = torch.ones_like(sid, dtype=torch.bool)
+    first[1:] = sid[1:] != sid[:-1]
+    rank = pos - torch.cummax(torch.where(first, pos, 0), 0).values
+    by_rank = torch.argsort(rank, stable=True)
+    src, dst = order[by_rank], sid[by_rank]
+    start = 0
+    for count in torch.bincount(rank).tolist():
+        sl = slice(start, start + count)
+        g.index_add_(0, dst[sl], rows[src[sl]])
+        start += count
+    return g
+
+
+class _Embedding(torch.autograd.Function):
+    """``w[ids]`` whose backward is :func:`row_order_sum`."""
+
+    @staticmethod
+    def forward(ctx, w, ids):
+        ctx.save_for_backward(ids)
+        ctx.n = w.shape[0]
+        return F.embedding(ids, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (ids,) = ctx.saved_tensors
+        return row_order_sum(ids.reshape(-1), dy.reshape(-1, dy.shape[-1]),
+                             ctx.n), None
+
+
+def embedding(w: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``jnp.take(w, ids, axis=0)``, rows (V, d) -> (*ids.shape, d), with
+    the reference's gradient: each id's rows summed in row order in
+    ``w``'s dtype (:func:`row_order_sum`).  ``F.embedding``'s own
+    backward sums a bf16 table's rows in f32, another number after ~100
+    rows an id."""
+    return _Embedding.apply(w, ids)
+
+
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean cross-entropy of f32 logits (..., V) against int labels (...):
     the f32 logsumexp minus the gold logit, averaged —
@@ -257,6 +311,23 @@ def value_and_grad(loss_fn, params: PyTree, *args):
         loss.backward()
     return ((loss.detach(), {k: v.detach() for k, v in metrics.items()}),
             grads)
+
+
+def make_train_step(loss_fn, cfg, opt_cfg):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``: the gradient of ``loss_fn(params, batch, cfg)`` and one
+    AdamW update (applied in place: the reference donates both trees),
+    the loss's metrics merged with the optimizer's."""
+    from repro_torch.training.optimizer import adamw_update
+
+    def train_step(params, opt_state, batch):
+        (_, metrics), grads = value_and_grad(
+            lambda p: loss_fn(p, batch, cfg), params)
+        params, opt_state, opt_metrics = adamw_update(params, grads,
+                                                      opt_state, opt_cfg)
+        return params, opt_state, dict(metrics, **opt_metrics)
+
+    return train_step
 
 
 @contextlib.contextmanager

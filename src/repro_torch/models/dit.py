@@ -8,9 +8,11 @@ Parameters are a nested dict of tensors in the reference's layouts (HWIO
 patch kernel, ``(d_in, d_out)`` projections, per-layer weights stacked on a
 leading L axis), so :func:`params_from_numpy` carries one set of numpy
 weights into either package.  The reference's ``shd.hint`` annotations
-(no-ops without a device mesh) and ``remat`` (training only) are dropped;
-``loss_fn`` and ``make_train_step`` wait for ROADMAP open item 9b (their
-``t`` and ``eps`` are JAX threefry draws over arrays).
+(no-ops without a device mesh) are dropped.  ``loss_fn`` /
+``make_train_step`` train it as the reference does: ``t`` and ``eps`` are
+JAX's threefry draws, bit for bit (``models.diffusion``), and with ``cfg.remat`` each layer is recomputed in the
+backward (the reference's ``jax.checkpoint`` on its scan body; a no-op
+without grad, so the serve step is unchanged).
 
 With ``attn_impl="pallas"`` a sequence longer than ``attn_chunk`` (512)
 takes the hand-written flash-attention kernel: DiT-XL/2's heads are 1152 /
@@ -27,7 +29,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import DiTConfig
 from repro_torch.device import DeviceLike
 from repro_torch.models import attention as attn
-from repro_torch.models import common, vit
+from repro_torch.models import common, diffusion, vit
 
 PyTree = Any
 
@@ -112,6 +114,27 @@ def _unpatchify(out: torch.Tensor, gh: int, p: int) -> torch.Tensor:
     return out.reshape(B, gh * p, gh * p, c2)
 
 
+def _layer(x: torch.Tensor, lp: Dict[str, torch.Tensor],
+           cvec: torch.Tensor, cfg: DiTConfig) -> torch.Tensor:
+    """One DiT block (adaLN-Zero attention, then MLP) on x (B, S, d); the
+    reference's scan body."""
+    B, S, d = x.shape
+    nh = cfg.n_heads
+    hd = d // nh
+    mod = cvec @ lp["adaln"] + lp["adaln_b"]
+    sh1, sc1, g1, sh2, sc2, g2 = mod.chunk(6, dim=-1)
+    yx = _modulate(_ln(x), sh1, sc1)
+    q = (yx @ lp["wq"]).reshape(B, S, nh, hd)
+    k = (yx @ lp["wk"]).reshape(B, S, nh, hd)
+    v = (yx @ lp["wv"]).reshape(B, S, nh, hd)
+    o = attn.attention(q, k, v, causal=False, impl=cfg.attn_impl,
+                       q_chunk=cfg.attn_chunk)
+    x = x + g1[:, None, :] * (o.reshape(B, S, d) @ lp["wo"])
+    yx2 = _modulate(_ln(x), sh2, sc2)
+    z = common.gelu(yx2 @ lp["w_in"] + lp["b_in"])
+    return x + g2[:, None, :] * (z @ lp["w_out"] + lp["b_out"])
+
+
 def forward(params: PyTree, latents: torch.Tensor, t: torch.Tensor,
             y: torch.Tensor, cfg: DiTConfig) -> torch.Tensor:
     """latents (B, H, W, C), t (B,), y (B,) class labels (``n_classes``
@@ -121,8 +144,6 @@ def forward(params: PyTree, latents: torch.Tensor, t: torch.Tensor,
     if Hh != Ww:
         raise ValueError(f"square latents only (the pos-embed grid is "
                          f"square), got {Hh}x{Ww}")
-    d, nh = cfg.d_model, cfg.n_heads
-    hd = d // nh
     p = cfg.patch
     gh = Hh // p
     dt = common.torch_dtype(cfg.param_dtype)
@@ -136,23 +157,13 @@ def forward(params: PyTree, latents: torch.Tensor, t: torch.Tensor,
     tm = params["t_mlp"]
     cvec = F.silu(temb @ tm["w1"] + tm["b1"])
     cvec = cvec @ tm["w2"] + tm["b2"]
-    cvec = F.silu(cvec + params["y_embed"][y])
+    cvec = F.silu(cvec + common.embedding(params["y_embed"], y))
 
-    S = x.shape[1]
     lay = params["layers"]
     for i in range(cfg.n_layers):
-        mod = cvec @ lay["adaln"][i] + lay["adaln_b"][i]
-        sh1, sc1, g1, sh2, sc2, g2 = mod.chunk(6, dim=-1)
-        yx = _modulate(_ln(x), sh1, sc1)
-        q = (yx @ lay["wq"][i]).reshape(B, S, nh, hd)
-        k = (yx @ lay["wk"][i]).reshape(B, S, nh, hd)
-        v = (yx @ lay["wv"][i]).reshape(B, S, nh, hd)
-        o = attn.attention(q, k, v, causal=False, impl=cfg.attn_impl,
-                           q_chunk=cfg.attn_chunk)
-        x = x + g1[:, None, :] * (o.reshape(B, S, d) @ lay["wo"][i])
-        yx2 = _modulate(_ln(x), sh2, sc2)
-        z = common.gelu(yx2 @ lay["w_in"][i] + lay["b_in"][i])
-        x = x + g2[:, None, :] * (z @ lay["w_out"][i] + lay["b_out"][i])
+        lp = {k: w[i] for k, w in lay.items()}
+        x = common.checkpointed(_layer, x, lp, cvec, cfg) if cfg.remat \
+            else _layer(x, lp, cvec, cfg)
 
     fin = params["final"]
     sh, sc = (cvec @ fin["adaln"] + fin["adaln_b"]).chunk(2, dim=-1)
@@ -166,10 +177,19 @@ def serve_step(params: PyTree, latents: torch.Tensor, t: torch.Tensor,
     return forward(params, latents, t, y, cfg)
 
 
-def ddpm_alphas(n_steps: int = 1000) -> torch.Tensor:
-    """The cumulative products of (1 - beta) over the linear beta schedule
-    1e-4 .. 0.02, in f32 on the CPU (XLA's linspace and cumulative product
-    round otherwise than PyTorch's: within 3.1e-7 relative of the
-    reference's)."""
-    betas = torch.linspace(1e-4, 0.02, n_steps, dtype=torch.float32)
-    return torch.cumprod(1.0 - betas, dim=0)
+def loss_fn(params: PyTree, batch: Dict[str, Any], cfg: DiTConfig):
+    """Epsilon-prediction MSE of a batch of ``latents`` (B, H, W, C) f32,
+    ``labels`` (B,) and ``step`` (a host int): ``(loss, {"loss"})``, the
+    prediction the first C output channels in f32."""
+    t, eps, noised = diffusion.noised_latents(batch)
+    out = forward(params, noised, t, batch["labels"], cfg)
+    pred_eps = out[..., :cfg.latent_channels].float()
+    loss = torch.mean(torch.square(pred_eps - eps))
+    return loss, {"loss": loss}
+
+
+def make_train_step(cfg: DiTConfig, opt_cfg):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``: the gradient of :func:`loss_fn` and one AdamW update,
+    applied in place (:func:`common.make_train_step`)."""
+    return common.make_train_step(loss_fn, cfg, opt_cfg)

@@ -238,15 +238,6 @@ def loss_fn(params: PyTree, batch: Dict[str, torch.Tensor],
 
 def make_train_step(cfg: ResNetConfig, opt_cfg):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
-    metrics)``, the update applied in place (as in
-    :func:`repro_torch.models.transformer.make_train_step`)."""
-    from repro_torch.training.optimizer import adamw_update
-
-    def train_step(params, opt_state, batch):
-        (_, metrics), grads = common.value_and_grad(
-            lambda p: loss_fn(p, batch, cfg), params)
-        params, opt_state, opt_metrics = adamw_update(params, grads,
-                                                      opt_state, opt_cfg)
-        return params, opt_state, dict(metrics, **opt_metrics)
-
-    return train_step
+    metrics)``: the gradient of :func:`loss_fn` and one AdamW update,
+    applied in place (:func:`common.make_train_step`)."""
+    return common.make_train_step(loss_fn, cfg, opt_cfg)

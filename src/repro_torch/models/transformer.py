@@ -44,7 +44,6 @@ from __future__ import annotations
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -155,12 +154,11 @@ def _embed(params: PyTree, tokens: torch.Tensor, cfg: LMConfig
            ) -> torch.Tensor:
     """Embedding rows scaled by sqrt(d_model), the constant rounded to the
     activations' dtype first as the reference's ``jnp.asarray(d ** 0.5,
-    h.dtype)`` does (39.25 in bf16 for d = 1536).  ``F.embedding`` is the
-    reference's ``jnp.take`` (a gather); its backward sums each row's
-    gradients as a sorted segment reduction, where an indexing backward
-    would add the (B S) rows onto a few (SyntheticSource draws 8 token
-    ids) one after another."""
-    h = F.embedding(tokens, params["embed"]).to(
+    h.dtype)`` does (39.25 in bf16 for d = 1536).  ``common.embedding``
+    is the reference's ``jnp.take`` (a gather) with its gradient: each
+    token id's rows summed in row order in the table's dtype, as XLA's
+    scatter-add sums them (``F.embedding``'s backward sums in f32)."""
+    h = common.embedding(params["embed"], tokens).to(
         common.torch_dtype(cfg.param_dtype))
     return h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype)
 
@@ -286,18 +284,9 @@ def loss_fn(params: PyTree, batch: Dict[str, torch.Tensor], cfg: LMConfig
 
 def make_train_step(cfg: LMConfig, opt_cfg):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
-    metrics)``: the gradient of :func:`loss_fn` and one AdamW update
-    (applied in place: the reference donates both trees)."""
-    from repro_torch.training.optimizer import adamw_update
-
-    def train_step(params, opt_state, batch):
-        (_, metrics), grads = common.value_and_grad(
-            lambda p: loss_fn(p, batch, cfg), params)
-        params, opt_state, opt_metrics = adamw_update(params, grads,
-                                                      opt_state, opt_cfg)
-        return params, opt_state, dict(metrics, **opt_metrics)
-
-    return train_step
+    metrics)``: the gradient of :func:`loss_fn` and one AdamW update,
+    applied in place (:func:`common.make_train_step`)."""
+    return common.make_train_step(loss_fn, cfg, opt_cfg)
 
 
 # ---------------------------------------------------------------------------

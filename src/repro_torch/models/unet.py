@@ -15,9 +15,11 @@ norms are f32 (``common.group_norm``, ``common.layer_norm``) with f32
 scales and biases beside bf16 kernels, as the reference's ``param_defs``
 types them.  Self-attention is the reference's hard-coded ``chunked``
 (q_chunk 1024) and cross-attention its naive path: no kernel is on this
-model's path.  ``shd.hint`` and ``remat`` are dropped; ``loss_fn`` and
-``make_train_step`` wait for ROADMAP open item 9b (their ``t`` and
-``eps`` are JAX threefry draws over arrays).
+model's path.  ``shd.hint`` is dropped, and ``cfg.remat`` is not read,
+as the reference reads it nowhere.  ``loss_fn`` / ``make_train_step``
+train it on the reference's noise (``diffusion.noised_latents``: JAX's
+threefry ``t`` and ``eps``, bit for bit); the backward's f32 convolutions
+stay f32 (``common.value_and_grad`` runs it under ``exact_f32``).
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import UNetConfig
 from repro_torch.device import DeviceLike
 from repro_torch.models import attention as attn
-from repro_torch.models import common, resnet
+from repro_torch.models import common, diffusion, resnet
 
 PyTree = Any
 
@@ -250,3 +252,20 @@ def serve_step(params: PyTree, latents: torch.Tensor, t: torch.Tensor,
                ctx: torch.Tensor, cfg: UNetConfig) -> torch.Tensor:
     """One denoising step's network evaluation."""
     return forward(params, latents, t, ctx, cfg)
+
+
+def loss_fn(params: PyTree, batch: Dict[str, Any], cfg: UNetConfig):
+    """Epsilon-prediction MSE of a batch of ``latents`` (B, h, w, 4) f32,
+    ``ctx`` (B, ctx_len, ctx_dim) and ``step`` (a host int), on the
+    reference's noise: ``(loss, {"loss"})``."""
+    t, eps, noised = diffusion.noised_latents(batch)
+    pred = forward(params, noised, t, batch["ctx"], cfg).float()
+    loss = torch.mean(torch.square(pred - eps))
+    return loss, {"loss": loss}
+
+
+def make_train_step(cfg: UNetConfig, opt_cfg):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``: the gradient of :func:`loss_fn` and one AdamW update,
+    applied in place (:func:`common.make_train_step`)."""
+    return common.make_train_step(loss_fn, cfg, opt_cfg)

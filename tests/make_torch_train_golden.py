@@ -20,18 +20,29 @@ gradient too.  Sections:
   76), ``remat`` on as published;
 * ``deit/float32`` — DeiT-B at full width with its depth cut 12 -> 2, B =
   2, 224 px;
-* ``smoke/deit-smoke``, ``smoke/resnet-smoke``, ``smoke/granite-moe-smoke``
-  — the smoke configs in f32 over 3 steps (B = 2; 24 tokens), the last
-  one recorded, ``<section>/losses`` every step's loss.
+* ``dit/float32``, ``dit/bfloat16`` — DiT-XL/2 at full width (d 1,152,
+  16 heads of 72, patch 2) with its depth cut 28 -> 2 (53,586,464
+  parameters), B = 2 at 256 px (latent 32, 256 tokens: the ``chunked``
+  attention's naive path), ``remat`` on as published; the loss's ``t``
+  and ``eps`` drawn at the batch's ``step`` 0;
+* ``unet/float32``, ``unet/bfloat16`` — the SD 1.5 UNet at full width
+  (320 channels, mult 1-2-4-4, ctx 768, 8 heads) with ``n_res_blocks``
+  cut 2 -> 1 (530,702,400 parameters), B = 1 at latent 16 (128 px);
+* ``smoke/deit-smoke``, ``smoke/resnet-smoke``, ``smoke/granite-moe-smoke``,
+  ``smoke/dit-smoke``, ``smoke/unet-smoke`` — the smoke configs in f32
+  over 3 steps (B = 2; 24 tokens), the last one recorded,
+  ``<section>/losses`` every step's loss.
 
 What a step's record holds and the limits a run is held to:
 ``tests/train_golden.py``.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/make_torch_train_golden.py \\
-        [--only granite deit smoke]
+        [--only granite deit dit unet smoke smoke/dit-smoke ...]
 
-About 3 minutes and 9 GB of host memory on a 6-core CPU, most of it the
-f32 granite section.
+``--only`` takes groups (the name before the ``/``) or whole section
+names, and keeps the other sections of the file.  About 6 minutes and
+12 GB of host memory on an 8-core CPU, most of it the f32 granite and
+unet sections.
 """
 from __future__ import annotations
 
@@ -56,7 +67,7 @@ from repro_torch.models import common as torch_common  # noqa: E402
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                       "torch_train_golden.npz")
-SECTIONS = ("granite", "deit", "smoke")
+SECTIONS = ("granite", "deit", "dit", "unet", "smoke")
 
 
 def reference_config(name, tcfg):
@@ -64,12 +75,17 @@ def reference_config(name, tcfg):
     fields)."""
     if name.startswith("smoke/"):
         arch = {"deit-smoke": "deit-b", "resnet-smoke": "resnet-50",
-                "granite-moe-smoke": "granite-moe-3b-a800m"}[tcfg.name]
+                "granite-moe-smoke": "granite-moe-3b-a800m",
+                "dit-smoke": "dit-xl2", "unet-smoke": "unet-sd15"}[tcfg.name]
         cfg = get_smoke_config(arch)
+    elif name.startswith("unet/"):
+        cfg = dataclasses.replace(
+            get_config("unet-sd15"), n_res_blocks=tcfg.n_res_blocks,
+            latent_res=tcfg.latent_res, img_res=tcfg.img_res)
     else:
-        cfg = get_config("granite-moe-3b-a800m" if name.startswith("granite")
-                         else "deit-b")
-        cfg = dataclasses.replace(cfg, n_layers=tcfg.n_layers)
+        arch = {"granite": "granite-moe-3b-a800m", "deit": "deit-b",
+                "dit": "dit-xl2"}[name.split("/")[0]]
+        cfg = dataclasses.replace(get_config(arch), n_layers=tcfg.n_layers)
     return dataclasses.replace(cfg, param_dtype=tcfg.param_dtype)
 
 
@@ -119,16 +135,25 @@ def reference_record(name, tcfg):
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", nargs="*", choices=SECTIONS)
+    ap.add_argument("--only", nargs="*",
+                    help=f"groups {SECTIONS} or section names")
     args = ap.parse_args()
     only = set(args.only or SECTIONS)
+    names = list(tg.port_configs())
+
+    def chosen(name):
+        return name in only or name.split("/")[0] in only
+
+    unknown = only - set(SECTIONS) - set(names)
+    if unknown:
+        ap.error(f"unknown sections {sorted(unknown)}")
     arrays = {}
     if os.path.exists(GOLDEN) and args.only:
         with np.load(GOLDEN) as old:
-            arrays = {k: old[k] for k in old.files
-                      if k.split("/")[0] not in only and k != "meta"}
+            arrays = {k: old[k] for k in old.files if k != "meta" and
+                      not chosen("/".join(k.split("/")[:2]))}
     for name, tcfg in tg.port_configs().items():
-        if name.split("/")[0] not in only:
+        if not chosen(name):
             continue
         t0 = time.time()
         rec = reference_record(name, tcfg)
@@ -144,6 +169,13 @@ def main() -> None:
                                  cut="depth 32 -> 2 layers; full width"),
                     deit=dict(n_layers=tg.DEIT_LAYERS, batch=tg.DEIT_BATCH,
                               cut="depth 12 -> 2 layers; full width"),
+                    dit=dict(n_layers=tg.DIT_LAYERS, batch=tg.DIT_BATCH,
+                             img_res=256,
+                             cut="depth 28 -> 2 layers; full width"),
+                    unet=dict(n_res_blocks=tg.UNET_RES_BLOCKS,
+                              latent=tg.UNET_LATENT, batch=tg.UNET_BATCH,
+                              cut="n_res_blocks 2 -> 1, latent 64 -> 16; "
+                                  "full width"),
                     smoke=dict(archs=list(tg.SMOKE_ARCHS),
                                batch=tg.SMOKE_BATCH, seq=tg.SMOKE_SEQ,
                                steps=tg.SMOKE_STEPS))

@@ -33,7 +33,7 @@ from repro_torch.configs import (FAMILY_SHAPES, cell_is_applicable,
                                  get_config, get_smoke_config, shapes_for)
 from repro_torch.configs import shapes as tshapes
 from repro_torch.launch.steps import model_module
-from repro_torch.models import common, dit, unet
+from repro_torch.models import common, diffusion, dit, unet
 
 ATOL = {"float32": 1e-5, "bfloat16": 1e-2}
 CONSTANT_STD = 0.02
@@ -131,7 +131,7 @@ def test_timestep_embedding_matches_reference(dim):
 
 def test_ddpm_alphas_match_reference():
     want = np.asarray(jdit.ddpm_alphas())
-    got = dit.ddpm_alphas()
+    got = diffusion.ddpm_alphas()
     assert got.dtype == torch.float32 and got.shape == (1000,)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0)
 

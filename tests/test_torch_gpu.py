@@ -26,8 +26,8 @@ from repro_torch.kernels import moe_gemm as moe_gemm_mod
 from repro_torch.kernels import rmsnorm as rmsnorm_mod
 from repro_torch.launch import serve
 from repro_torch.launch.graphs import GraphedStep
-from repro_torch.models import (common, dit, moe, resnet, transformer, unet,
-                                 vit)
+from repro_torch.models import (common, diffusion, dit, moe, resnet,
+                                transformer, unet, vit)
 from repro_torch.netsim import LinkModel
 from repro_torch.orchestration import Topology, UniformWorkload
 
@@ -1223,6 +1223,40 @@ def test_granite_train_step_on_gpu_matches_cpu():
     assert moe_gemm_mod.moe_gemm.launches > counts[1]
     assert not tg.fails(tg.compare(rec, g, name, "float32"))
     np.testing.assert_allclose(losses, g[name + "/losses"], rtol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["smoke/dit-smoke", "smoke/unet-smoke"])
+def test_diffusion_train_step_on_gpu_matches_golden(name):
+    """The smoke DiT's and UNet's three train steps on the card in f32
+    (their noise drawn there) within the golden's limits."""
+    _need_gpu()
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import train_golden as tg
+    g = np.load(Path(__file__).resolve().parent / "data"
+                / "torch_train_golden.npz")
+    cfg = tg.port_configs()[name]
+    rec, losses = tg.port_record(name, cfg, g, device="cuda")
+    assert not tg.fails(tg.compare(rec, g, name, "float32"))
+    np.testing.assert_allclose(losses, g[name + "/losses"], rtol=2e-5)
+
+
+@pytest.mark.gpu
+def test_noise_and_embedding_backward_on_gpu_equal_cpu():
+    """The diffusion losses' threefry draws and the embedding's row-order
+    bf16 backward give the CPU's bits on the card."""
+    _need_gpu()
+    x = torch.zeros(16, 8, 8, 4)
+    t, eps = diffusion.diffusion_noise(3, x)
+    tg_, eg = diffusion.diffusion_noise(3, x.cuda())
+    assert torch.equal(tg_.cpu(), t) and torch.equal(eg.cpu(), eps)
+    ids = torch.from_numpy(np.random.default_rng(0).integers(0, 8, 3000))
+    dy = torch.randn(3000, 96).bfloat16()
+    want = common.row_order_sum(ids, dy, 50)
+    assert torch.equal(common.row_order_sum(ids.cuda(), dy.cuda(), 50).cpu(),
+                       want)
 
 
 # ---------------------------------------------------------------------------

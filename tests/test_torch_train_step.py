@@ -8,7 +8,13 @@ train loop runs it): every gradient leaf within 2e-5 of its largest |g|
 (~1e-6 seen: the same arithmetic, sums in another order), never below
 1e-6 of the step's gradient norm (a gradient that is 0 in exact
 arithmetic, such as DeiT's key bias, is rounding noise on both sides);
-the moments within 2e-5 of their largest value; the new parameters by
+the moments within 2e-5 of their largest value, never below the floor
+squared, and the first moment equal to the port's own first step,
+``(1 - b1)`` times its clipped gradient, bit for bit (where a case's
+gradients at the floor are noise that the floor squared cannot hold,
+the smoke UNet's time-embedding projections ahead of a GroupNorm of one
+channel a group, that exact step is their moments' only check, the
+gradient check tying them to the reference's); the new parameters by
 their update over the learning rate, ``(p_new - p_old) / lr``, within
 1e-3 plus one f32 unit of the value (over ``lr``) wherever the gradient
 is above 1e-3 of the leaf's largest (and the noise floor), and within
@@ -55,7 +61,8 @@ def both_configs(arch, **kw):
 
 
 def batch(cfg, B=2, S=24, seed=3):
-    specs = tg.batch_specs(cfg.family, B, S, getattr(cfg, "img_res", 0))
+    specs = tg.batch_specs(cfg.family, B, S, getattr(cfg, "img_res", 0),
+                           cfg)
     return SyntheticSource({k: Spec(*v) for k, v in specs.items()},
                            seed).batch_at(0)
 
@@ -98,7 +105,10 @@ def port_step(tcfg, tree, b, ocfg_kw):
         dict(metrics, **om)
 
 
-def check_step(arch, S=24, **cfg_kw):
+def check_step(arch, S=24, own_noise_moments=False, **cfg_kw):
+    """One step of ``arch``'s smoke config in f32 against the reference;
+    ``own_noise_moments``: a leaf whose gradient is at most the floor has
+    its first moment held to the port's own step alone."""
     jcfg, tcfg = both_configs(arch, **cfg_kw)
     tree = tg.numpy_weights(tcfg)
     b = batch(tcfg, S=S)
@@ -110,6 +120,8 @@ def check_step(arch, S=24, **cfg_kw):
                                    rtol=2e-5, err_msg=k)
     lr = float(jmet["lr"])
     floor = NOISE * float(jmet["grad_norm"])
+    ocfg = opt.AdamWConfig(**ocfg_kw)
+    clip = opt._clip_scale(tmet["grad_norm"], ocfg.grad_clip)
     assert sorted(tgr) == sorted(jg)
     before = {k: np.asarray(v, np.float32)
               for k, v in tg.flat_leaves(tree)}
@@ -119,7 +131,11 @@ def check_step(arch, S=24, **cfg_kw):
         np.testing.assert_allclose(tgr[name], g, rtol=0,
                                    atol=max(GRAD_REL * top, floor),
                                    err_msg=f"{arch} grad {name}")
-        for mine, want in ((tm, jm), (tv, jv)):
+        # the first step's first moment from the port's own clipped gradient
+        assert torch.equal(torch.from_numpy(tm[name]), (1 - ocfg.b1) * (
+            torch.from_numpy(tgr[name]) * clip)), f"{arch} moment {name}"
+        noise = own_noise_moments and np.abs(g).max() <= floor
+        for mine, want in ((tm, jm), (tv, jv))[int(noise):]:
             np.testing.assert_allclose(
                 mine[name], want[name], rtol=0,
                 atol=max(MOM_REL * float(np.abs(want[name]).max()),
@@ -223,6 +239,34 @@ def test_moe_gemm_gradients_match_jax_vjp(dtype):
                                      ops._pad_rows(g, 8, 1)),
                        ops._moe_gemm(xt, g))
     assert ops._pad_rows(xt, 8, 2).shape[-1] == 16
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", [(2, 550), (1100,), (3, 7)])
+def test_embedding_backward_matches_jax_vjp_bit_for_bit(shape, dtype):
+    """``common.embedding``'s gradient equals ``jax.vjp`` of the
+    reference's ``jnp.take`` (jitted: XLA's scatter-add) bit for bit: each
+    id's rows summed in row order in the table's dtype; on 8 ids as
+    ``SyntheticSource`` draws them, ~137 rows an id at 1,100 tokens.
+    ``F.embedding``'s backward on the card sums a bf16 table's rows in
+    f32 (``chip_smoke.py`` phase 6a measures the gap there)."""
+    rng = np.random.default_rng(len(shape))
+    V, d = 50, 16
+    w = rng.standard_normal((V, d)).astype(np.float32)
+    tok = rng.integers(0, 8, shape).astype(np.int32)
+    dy = rng.standard_normal(shape + (d,)).astype(np.float32)
+    jdt = jnp.dtype(dtype)
+    want = jax.jit(lambda w, dy: jax.vjp(
+        lambda w: jnp.take(w, jnp.asarray(tok), axis=0), w)[1](dy)[0])(
+        jnp.asarray(w).astype(jdt), jnp.asarray(dy).astype(jdt))
+    tdt = getattr(torch, dtype)
+    tw = torch.from_numpy(w).to(tdt).requires_grad_()
+    out = common.embedding(tw, torch.from_numpy(tok).long())
+    assert torch.equal(out.detach(), tw.detach()[torch.from_numpy(tok).long()])
+    out.backward(torch.from_numpy(dy).to(tdt))
+    assert tw.grad.dtype == tdt
+    assert np.array_equal(tw.grad.float().numpy(),
+                          np.asarray(want.astype(jnp.float32)))
 
 
 def test_chunked_lm_loss_with_a_remainder_matches_reference():

@@ -347,12 +347,6 @@ def test_cli_needs_a_card_unless_told_cpu():
         train_cli.main(["--arch", "deit-b", "--steps", "1"])
 
 
-@pytest.mark.parametrize("arch", ["dit-xl2", "unet-sd15"])
-def test_diffusion_train_cells_name_their_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match="9b"):
-        S.build_cell(arch, "train_256")
-
-
 @pytest.mark.parametrize("arch,shape", [
     ("granite-moe-3b-a800m", "prefill_32k"), ("granite-moe-3b-a800m",
                                               "decode_32k"),
