@@ -135,7 +135,8 @@ final line:
                 each case; and causal GQA at (1, 1100, 24 / 8, 64) with
                 the window a language model without a sliding window
                 passes (``transformer.NO_WINDOW``, 1 << 30), f32 and bf16,
-                equal bit for bit to no window;
+                and at Granite's (1, 32768, 24 / 8, 64) in bf16, equal bit
+                for bit to no window;
              b. DeiT-B logits (seeded weights, two seeded images at 224
                 and 384 px, f32 and bf16) against the JAX reference's in
                 ``tests/data/torch_vit_golden.json``, with 0 kernel
@@ -273,7 +274,20 @@ final line:
                 and both decodes' rows and ``moe_gemm`` at C = 6,826, 1
                 and 4, each on its main-path input, against the plain
                 version, then timed beside it, SDPA (causal) /
-                ``F.rms_norm`` / ``torch.bmm`` and the bound;
+                ``F.rms_norm`` / ``torch.bmm`` and the bound; flash's layer
+                0 input also timed without the mask, the causal launch
+                held within ``LM_CAUSAL_SHARE`` of it (the key band skips
+                the tiles past the diagonal); then ``LM_FLASH_SHAPES``, the
+                heads item 8d's models give the kernel at 32k on random
+                inputs, StarCoder2-7B's causal (36 / 4, D = 128) and
+                Gemma-3 27B's local layers (32 / 16, D = 128, window
+                1,024), each against the plain version by blocks, timed
+                beside SDPA (under the window the faster of its cuDNN and
+                memory-efficient backends on a (S, S) bool mask) and the
+                bound, the windowed
+                launch held within ``LM_WINDOW_SHARE`` of the causal one;
+                each flash row's key tiles walked and TFLOP/s on them
+                printed as modelled from ``key_tile_band``;
 5. entry points — the kernels that ``repro_torch.kernels.ops`` exposes
              (their launch counts, set to 0 before phase 3, are 0 after
              phase 4g but for ``fleet_feasibility``'s, which must equal
@@ -385,8 +399,9 @@ final line:
 7. the ``{"kernels": [...]}`` line (one entry a kernel; ``flash_attention``
    one a variant: ``tma_wgmma`` at D = 64 (DeiT-B and Granite's prefill,
    phase 4h), 80 (ViT-H/14) and 72 (DiT-XL/2's steps, phase 4g), each
-   with its main-path launches, and ``mma_sync`` and ``f32_regtile``,
-   which no served path launches; ``fleet_feasibility`` with its path,
+   with its main-path launches, and at D = 128 (phase 4h's StarCoder2-7B
+   and Gemma-3 27B shapes), ``mma_sync`` and ``f32_regtile``, which no
+   served path launches; ``fleet_feasibility`` with its path,
    the heap router, and that path's launches; ``rmsnorm`` and
    ``moe_gemm`` with theirs, the LM's and the train step's, their
    launches and their shapes' times; ``rmsnorm_backward`` with the train
@@ -2237,8 +2252,18 @@ def flash_sweep(dev) -> float:
         if not torch.equal(a, fa_mod.flash_attention(q, k, v, causal=True)):
             fail(f"flash_attention with window 1 << 30 differs from no "
                  f"window ({dt})")
+    # and at Granite's 32k prefill, where the band is the causal triangle
+    dgen = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn(1, 32768, h, 64, generator=dgen, device=dev,
+                           dtype=torch.bfloat16) for h in (24, 8, 8))
+    if not torch.equal(fa_mod.flash_attention(q, k, v, causal=True,
+                                              window=transformer.NO_WINDOW),
+                       fa_mod.flash_attention(q, k, v, causal=True)):
+        fail("flash_attention with window 1 << 30 differs from no window at "
+             "(1, 32768, 24 / 8, 64)")
     print("vision kernel: causal GQA (1, 1100, 24 / 8, 64) with window "
-          "1 << 30 equals no window bit for bit, f32 and bf16", flush=True)
+          "1 << 30 equals no window bit for bit, f32 and bf16; so does "
+          "(1, 32768, 24 / 8, 64) in bf16", flush=True)
     return err
 
 
@@ -2766,10 +2791,11 @@ def vit_serving(name, params, cfg, spec, frames, dev, expect=None) -> dict:
           f"flash_attention kernels on the device {flash} (profiler "
           f"windows: {replay['tries']})", flush=True)
     if n_replayed != cfg.n_layers or not all(
-            "flash_attention_wgmma_kernel" in n and f"{D}>" in n
+            "flash_attention_wgmma_kernel" in n and f", {D}, false>" in n
             for n in flash):
         fail(f"a profiled {name} replay shows {flash}, expected "
-             f"{cfg.n_layers} tma_wgmma kernels of width {D}")
+             f"{cfg.n_layers} tma_wgmma kernels of width {D} without the "
+             f"band")
 
     sizes = sorted(args[0].shape[0] for args, _ in kept)
     served = sorted({s for q in spec["runs"].values()
@@ -3435,10 +3461,11 @@ def dit_steps(tree, dev):
                  if "flash_attention" in n.lower()}
         row["flash_kernels"] = flash
         if sum(flash.values()) != cfg.n_layers or not all(
-                "flash_attention_wgmma_kernel" in n and f"{D}>" in n
+                "flash_attention_wgmma_kernel" in n and f", {D}, false>" in n
                 for n in flash):
             fail(f"a profiled DiT-XL/2 {s.name} step shows {flash}, expected "
-                 f"{cfg.n_layers} tma_wgmma kernels of width {D}")
+                 f"{cfg.n_layers} tma_wgmma kernels of width {D} without the "
+                 f"band")
         row["flash_share"] = row["flash_attention_ms"] / row["busy_ms"]
         # the plain step is no longer timed (cut in PR 25 for the time
         # budget; PR 23's times are in PERF.md), only checked above
@@ -3850,25 +3877,131 @@ def lm_smoke_check(g, meta, dev) -> float:
     return worst
 
 
-def flash_by_blocks(q, k, v, window, block=1024) -> torch.Tensor:
-    """Causal attention by the kernel's plain version a block of ``block``
-    query rows at a time, against the keys up to the block's end
-    (``models.attention.attention_naive`` with a query offset: the same
-    f32 scores, softmax and rounding as ``ref.flash_attention_ref``, which
-    at 32k tokens would hold (B, KV, G, S, S) f32 scores, 103 GB)."""
-    S = q.shape[1]
-    return torch.cat([attn_mod.attention_naive(
-        q[:, i:i + block], k[:, :i + block], v[:, :i + block], causal=True,
-        window=window, q_offset=i) for i in range(0, S, block)], dim=1)
-
-
-def lm_flash_bound_ms(B, S, H, KV, D):
-    """Causal bf16 attention: 4 B H D S (S + 1) / 2 products (the lower
-    triangle the mask keeps) at the bf16 peak, or q, k, v read and out
-    written once."""
-    ops_ms = 4 * B * H * D * S * (S + 1) / 2 / BF16_FLOP_PER_S * 1e3
+def lm_flash_bound_ms(B, S, H, KV, D, window=None):
+    """Causal bf16 attention: 4 B H D products for each (query, key) pair
+    the masks keep, S (S + 1) / 2 (the lower triangle), or S W - W (W - 1)
+    / 2 under a window W < S (the band), at the bf16 peak; or q, k, v
+    read and out written once."""
+    pairs = S * (S + 1) / 2 if not window or window >= S else \
+        S * window - window * (window - 1) / 2
+    ops_ms = 4 * B * H * D * pairs / BF16_FLOP_PER_S * 1e3
     bytes_ms = B * S * (2 * H + 2 * KV) * D * 2 / HBM_BYTES_PER_S * 1e3
     return bound(bytes_ms, ops_ms)
+
+
+# phase 4h's flash shapes beside Granite's prefill, at its 32,768 tokens on
+# random bf16 inputs (seed LM_FLASH_SEED), the ones item 8d's models give
+# the kernel: StarCoder2-7B's causal attention (configs/starcoder2_7b.py:
+# 36 query heads on 4 KV heads, 128 wide) and Gemma-3 27B's local layers
+# (configs/gemma3_27b.py: 32 on 16, 128 wide, a sliding window of 1,024)
+LM_FLASH_SHAPES = {"StarCoder2-7B": (36, 4, 128, None),
+                   "Gemma-3 27B local": (32, 16, 128, 1024)}
+LM_FLASH_SEED = 27
+# the band's skip, held on the card: a causal launch within this share of
+# the non-causal one on the same inputs (Granite's shape), a windowed one
+# (window 1,024) within this share of the causal one (Gemma-3's shape)
+LM_CAUSAL_SHARE, LM_WINDOW_SHARE = 0.6, 0.1
+
+
+def flash_band_work(B, S, H, D, causal, window):
+    """The key tiles the tma_wgmma kernel's warpgroups walk, modelled from
+    the band (``fa_mod.key_tile_band``, the Python statement of the
+    kernel's loop bounds, for each query tile over the B H heads; not
+    counted on the card), and the operations of their two products, 4 x
+    64 x 64 x D a tile."""
+    tiles = B * H * sum(len(fa_mod.key_tile_band(i, fa_mod.ROWS, S, causal,
+                                                 window))
+                        for i in range(0, S, fa_mod.ROWS))
+    return tiles, 4 * fa_mod.ROWS * 64 * D * tiles
+
+
+def lm_flash_row(model, q, k, v, window) -> dict:
+    """One causal flash shape of phase 4h timed: the kernel (CUDA events,
+    3 launches), the plain version by blocks of 1,024 query rows, SDPA
+    causal on the KV heads repeated, or under a window the faster of
+    SDPA's cuDNN and memory-efficient backends with the window as a (S, S)
+    bool mask built outside the timed call, and the bound.  The tiles
+    walked and the rate on them are modelled from the band and printed,
+    not returned."""
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    row = dict(model=model, B=B, S=S, H=H, KV=KV, D=D, causal=True,
+               window=window, variant=fa_mod.variant(q, k, v),
+               ms=timed_ms(lambda: fa_mod.flash_attention(
+                   q, k, v, causal=True, window=window), 3),
+               plain_ms=events_ms(lambda: ref.flash_attention_ref_by_blocks(
+                   q, k, v, causal=True, window=window), 1),
+               plain="ref.flash_attention_ref by blocks of 1,024 query rows")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (x.repeat_interleave(H // KV, dim=2).transpose(1, 2)
+              .contiguous() for x in (k, v))
+    if window is None or window >= S:
+        row["library_ms"] = timed_ms(lambda: sdpa(qt, kt, vt,
+                                                  is_causal=True), 3)
+        row["library"] = "scaled_dot_product_attention, is_causal"
+    else:
+        # the backends that take a mask, each alone (none falls back to
+        # the math backend's (B, H, S, S) f32 scores); the faster one is
+        # the library call
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+        mask = ref.flash_attention_mask(S, S, True, window, q.device)
+        backends = {"cuDNN": SDPBackend.CUDNN_ATTENTION,
+                    "memory-efficient": SDPBackend.EFFICIENT_ATTENTION}
+        lib = {}
+        for name, backend in backends.items():
+            try:
+                with sdpa_kernel(backend):
+                    lib[name] = timed_ms(
+                        lambda: sdpa(qt, kt, vt, attn_mask=mask), 3)
+            except RuntimeError as err:
+                print(f"lm kernel: SDPA's {name} backend takes no mask "
+                      f"here: {err}", flush=True)
+        best = min(lib, key=lib.get)
+        with sdpa_kernel(backends[best]):
+            lib_out = sdpa(qt, kt, vt, attn_mask=mask).transpose(1, 2)
+        row["library_ms"] = lib[best]
+        row["library_backends_ms"] = lib
+        row["library"] = (f"scaled_dot_product_attention ({best} backend), "
+                          f"the window as a (S, S) bool attn_mask")
+        got = fa_mod.flash_attention(q, k, v, causal=True, window=window)
+        print(f"lm kernel: flash_attention {model} window {window}: SDPA "
+              f"with the mask " + ", ".join(
+                  f"{n} {t:.3f} ms" for n, t in lib.items())
+              + f"; {best}'s max abs difference from the kernel "
+              f"{float((lib_out.float() - got.float()).abs().max())}",
+              flush=True)
+        del mask, lib_out, got
+    del qt, kt, vt
+    row["bound_ms"], row["bound_by"] = lm_flash_bound_ms(B, S, H, KV, D,
+                                                         window)
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    tiles, flops = flash_band_work(B, S, H, D, True, window)
+    print(f"lm kernel: flash_attention {model} (modelled from "
+          f"key_tile_band, not counted on the card): {tiles:,} key tiles "
+          f"walked, {flops / row['ms'] / 1e9:.1f} TFLOP/s on them",
+          flush=True)
+    return row
+
+
+def lm_flash_check(label, q, k, v, window) -> tuple:
+    """The kernel against the plain version by blocks of query rows on one
+    causal input; returns the max abs error and the share of the
+    tolerance."""
+    got = fa_mod.flash_attention(q, k, v, causal=True, window=window)
+    want = ref.flash_attention_ref_by_blocks(q, k, v, causal=True,
+                                             window=window)
+    share = tolerance_share(got, want, ref.flash_attention_tolerance(want, v))
+    e = float((got.float() - want.float()).abs().max())
+    print(f"lm kernel: flash_attention {label} q {tuple(q.shape)} kv heads "
+          f"{k.shape[2]} causal window {window} "
+          f"({fa_mod.variant(q, k, v)}): max abs err {e}, {share:.3f} of "
+          f"the tolerance, by blocks of 1,024 query rows", flush=True)
+    if fa_mod.variant(q, k, v) != "tma_wgmma" or not share <= 1.0 or \
+            not torch.isfinite(got).all():
+        fail(f"flash_attention {label}: {share} of the tolerance, variant "
+             f"{fa_mod.variant(q, k, v)}")
+    return e, share
 
 
 def lm_kinds(device_us) -> dict:
@@ -3910,46 +4043,56 @@ def lm_kernel_rows(kept, dev) -> dict:
     """Phase 4h c-d on the kernel inputs kept from the main path: each
     against its plain version, then timed beside it, the library call and
     the bound."""
-    rows, errs = {"flash_attention": [], "rmsnorm": [], "moe_gemm": []}, {}
+    rows = {"flash_attention": [], "flash_attention_d128": [],
+            "rmsnorm": [], "moe_gemm": []}
+    errs = {}
     # flash, layers 0 and 31 of the 32k prefill
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     for layer, ((q, k, v), kw) in zip(kept["layers"], kept["flash"]):
         window = kw.get("window")
-        got = fa_mod.flash_attention(q, k, v, causal=True, window=window)
-        want = flash_by_blocks(q, k, v, window)
-        share = tolerance_share(got, want,
-                                ref.flash_attention_tolerance(want, v))
-        e = float((got.float() - want.float()).abs().max())
-        del want
-        B, S, H, D = q.shape
-        KV = k.shape[2]
-        print(f"lm kernel: flash_attention layer {layer} q {tuple(q.shape)} "
-              f"kv heads {KV} causal window {window} "
-              f"({fa_mod.variant(q, k, v)}): max abs err {e}, "
-              f"{share:.3f} of the tolerance, by blocks of 1,024 query rows",
-              flush=True)
-        if fa_mod.variant(q, k, v) != "tma_wgmma" or share > 1.0:
-            fail(f"flash_attention at layer {layer}: {share} of the "
-                 f"tolerance, variant {fa_mod.variant(q, k, v)}")
+        e, _ = lm_flash_check(f"layer {layer}", q, k, v, window)
         errs["flash_attention"] = max(errs.get("flash_attention", 0.0), e)
-        del got
         if layer:
             continue
-        qt = q.transpose(1, 2).contiguous()
-        kt, vt = (x.repeat_interleave(H // KV, dim=2).transpose(1, 2)
-                  .contiguous() for x in (k, v))
-        row = dict(B=B, S=S, H=H, KV=KV, D=D, causal=True,
-                   variant=fa_mod.variant(q, k, v),
-                   ms=timed_ms(lambda: fa_mod.flash_attention(
-                       q, k, v, causal=True, window=window), 3),
-                   plain_ms=events_ms(lambda: flash_by_blocks(
-                       q, k, v, window), 1),
-                   plain="attention_naive by blocks of 1,024 query rows",
-                   library_ms=timed_ms(lambda: sdpa(qt, kt, vt,
-                                                    is_causal=True), 3))
-        row["bound_ms"], row["bound_by"] = lm_flash_bound_ms(B, S, H, KV, D)
+        row = lm_flash_row("Granite-3.0 MoE", q, k, v, window)
+        # the same inputs without the mask: every key tile of every row
+        row["non_causal_ms"] = timed_ms(lambda: fa_mod.flash_attention(
+            q, k, v, causal=False), 3)
+        row["causal_share"] = row["ms"] / row["non_causal_ms"]
+        tiles = [flash_band_work(*q.shape[:3], q.shape[3], c, window)[0]
+                 for c in (True, False)]
+        print(f"lm kernel: flash_attention causal {row['ms']:.3f} ms "
+              f"against {row['non_causal_ms']:.3f} ms non-causal: "
+              f"{row['causal_share']:.3f} (limit {LM_CAUSAL_SHARE}); the "
+              f"band modelled by key_tile_band: {tiles[0]:,} of "
+              f"{tiles[1]:,} key tiles ({tiles[0] / tiles[1]:.3f})",
+              flush=True)
+        if not row["causal_share"] <= LM_CAUSAL_SHARE:
+            fail(f"the causal flash launch takes {row['causal_share']} of "
+                 f"the non-causal one")
         rows["flash_attention"].append(row)
-        del qt, kt, vt
+    # StarCoder2-7B's and Gemma-3 27B's local attention at 32k (D = 128)
+    gen = torch.Generator(device=dev).manual_seed(LM_FLASH_SEED)
+    S = kept["flash"][0][0][0].shape[1]
+    for model, (H, KV, D, window) in LM_FLASH_SHAPES.items():
+        q, k, v = (torch.randn(1, S, h, D, generator=gen, device=dev,
+                               dtype=torch.bfloat16) for h in (H, KV, KV))
+        e, _ = lm_flash_check(model, q, k, v, window)
+        errs["flash_attention_d128"] = max(
+            errs.get("flash_attention_d128", 0.0), e)
+        row = lm_flash_row(model, q, k, v, window)
+        if window is not None:
+            row["causal_ms"] = timed_ms(lambda: fa_mod.flash_attention(
+                q, k, v, causal=True), 3)
+            row["window_share"] = row["ms"] / row["causal_ms"]
+            print(f"lm kernel: flash_attention {model} window {window} "
+                  f"{row['ms']:.3f} ms against {row['causal_ms']:.3f} ms "
+                  f"causal without it: {row['window_share']:.4f} (limit "
+                  f"{LM_WINDOW_SHARE})", flush=True)
+            if not row["window_share"] <= LM_WINDOW_SHARE:
+                fail(f"the windowed flash launch takes "
+                     f"{row['window_share']} of the causal one")
+        rows["flash_attention_d128"].append(row)
+        del q, k, v
     # rmsnorm: the prefill's first norm, decode rows at B = 1 and 16
     lib = torch.nn.functional.rms_norm
     for label, (x, s) in kept["rmsnorm"]:
@@ -3994,15 +4137,21 @@ def lm_kernel_rows(kept, dev) -> dict:
         del got, want
     for name, rs in rows.items():
         for r in rs:
-            r["ratio"] = r["ms"] / r["library_ms"]
+            lib = r["library_ms"]
+            r["ratio"] = None if lib is None else r["ms"] / lib
             shape = ", ".join(f"{k}={v}" for k, v in r.items()
                               if not k.endswith(("ms", "_by", "ratio",
-                                                 "err", "plain")))
+                                                 "err", "plain", "share",
+                                                 "library")))
+            more = (f", {r['bound_share']:.3f} of the bound"
+                    if "bound_share" in r else "")
             print(f"lm kernel time {name} {shape}: {r['ms'] * 1e3:.2f} us, "
                   f"plain {r['plain_ms'] * 1e3:.2f} us, library "
-                  f"{r['library_ms'] * 1e3:.2f} us, kernel / library "
-                  f"{r['ratio']:.3f}, bound {r['bound_ms'] * 1e3:.2f} us "
-                  f"({r['bound_by']})", flush=True)
+                  + ("none" if lib is None else
+                     f"{lib * 1e3:.2f} us, kernel / library "
+                     f"{r['ratio']:.3f}")
+                  + f", bound {r['bound_ms'] * 1e3:.2f} us "
+                  f"({r['bound_by']}){more}", flush=True)
     return rows, errs
 
 
@@ -5534,6 +5683,15 @@ def main() -> int:
                             lm["max_abs_err"]["flash_attention"])
     fl["lm"] = dict(launches=lm["launches"]["flash_attention"],
                     shapes=lm["kernels"]["flash_attention"])
+    # D = 128 (StarCoder2-7B's and Gemma-3 27B's heads): phase 4h's rows on
+    # random inputs; no model of the main path has these heads yet
+    d128 = lm["kernels"]["flash_attention_d128"]
+    entries["flash_attention (tma_wgmma, D=128)"] = dict(
+        launches=0, max_abs_err=lm["max_abs_err"]["flash_attention_d128"],
+        **{k: d128[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "variant", "D", "ratio")},
+        shapes=d128, path="none yet: StarCoder2-7B's causal and Gemma-3 "
+        "27B's windowed attention at 32k on random inputs (phase 4h)")
     lm.pop("kernels")
     entries["flash_attention"]["lm"]["run"] = lm
 

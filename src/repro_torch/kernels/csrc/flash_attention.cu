@@ -16,8 +16,22 @@
 // product (l sums them unrounded), and the result is acc / max(l, 1e-30)
 // cast to q's dtype last.  A key tile that is fully masked for a row
 // gives p = exp(0) = 1 there until a later valid tile wipes it with
-// alpha = exp(-1e30 - m) = 0, exactly as in the Pallas kernel; every tile
-// is visited, none skipped.
+// alpha = exp(-1e30 - m) = 0, exactly as in the Pallas kernel.
+//
+// The key band.  Each kernel walks only the key tiles that some row of its
+// query rows [q_lo, q_hi] (q_hi < S) can see (key_band below;
+// flash_attention.py::key_tile_band states the same bounds): under a
+// causal mask none past the tile of key q_hi, under a window none before
+// the tile of key max(0, q_lo - window + 1).  Skipping the rest is exact.
+// A tile past the diagonal comes after every live tile of every row, and
+// there it adds nothing: m is unchanged, alpha = exp(0) = 1 and p =
+// exp(-1e30 - m) = 0.  A tile before the window comes before every live
+// tile, and the first live tile wipes whatever it added (alpha =
+// exp(-1e30 - m) = 0).  So the output equals, bit for bit, a walk over
+// every tile, which is what the Pallas kernel does (its key axis is a
+// sequential grid axis); at Granite's 32k causal prefill the band is
+// 131,328 of 262,144 tile products a head, and under Gemma-3's window of
+// 1,024 at most 17 key tiles of a query tile's 512.
 //
 // Design.  The TPU kernel walks a sequential grid axis over KV blocks and
 // keeps (m, l, acc) in VMEM scratch between grid steps.  Here a CTA owns
@@ -44,8 +58,14 @@
 //     four lanes of a quad), and acc += P V by wgmma with P from registers
 //     (the C layout of S is the register A layout, so the bf16-rounded p
 //     never leaves registers) and V from shared memory as an MN-major B
-//     (no transposed copy).  P V is left running while the next tile's
-//     Q K^T is issued; one wait takes both.  Only a tile that some mask
+//     (no transposed copy).  Heads 72, 80 and 128 wide (one block an SM)
+//     issue a tile's P V after the next tile's Q K^T and wait for Q K^T
+//     alone, so P V runs under that tile's softmax (FlashAttention-3's
+//     intra-warpgroup overlap, arXiv:2407.08608 3.2); at D = 64 (two
+//     blocks an SM, 96 registers a thread: no room for a second product
+//     in flight, which ptxas would serialise) each product is waited for
+//     at once, and the SM's other three warpgroups fill the softmax's
+//     gap.  Only a tile that some mask
 //     reaches (the tail of S, keys past the diagonal or outside the window
 //     of a row of the tile) is masked element by element.  Where one
 //     warpgroup per 64-row query tile would fill less than two waves of
@@ -109,11 +129,17 @@
 // us at 3.35 TB/s.  So about 8.5 us, bytes by a hair.  The tma_wgmma
 // kernel's products take a small share of its time: the softmax's
 // instructions between the two products and the wgmma latency within a
-// warpgroup hold it (at 96 registers ptxas serialises the wgmma groups);
-// PERF.md has the measurements.  At ViT-H/14's served shape (B=8,
-// S=730, H=KV=16, D=80, bf16): 21.83 GFLOP, 22.1 us at 989 TFLOP/s,
-// against 59.8 MB, 17.9 us at 3.35 TB/s: operations.  At (8, 578, 16,
-// 80): 13.68 GFLOP, 13.8 us, against 47.3 MB, 14.13 us: bytes.  At
+// warpgroup hold it; PERF.md has the measurements.  A 64 x 64 tile's softmax takes 4,096
+// ex2 on the SFUs, 16 a cycle an SM: 256 cycles, as long as its two
+// products at D = 64 on the tensor cores (2 x 64^3 multiply-adds, ~245
+// cycles at the bf16 peak), so at D = 64 the softmax costs as much as
+// the products even when it overlaps them.  Causal at Granite-3.0 MoE's
+// 32k prefill (1, 32768, 24 / 8 heads, D = 64): the band holds 3.30
+// TFLOP, 3.34 ms at the peak (q, k, v, out: 268 MB, 0.08 ms): operations.
+// At ViT-H/14's served shape (B=8, S=730, H=KV=16, D=80, bf16): 21.83
+// GFLOP, 22.1 us at 989 TFLOP/s, against 59.8 MB, 17.9 us at 3.35 TB/s:
+// operations.  At (8, 578, 16, 80): 13.68 GFLOP, 13.8 us, against 47.3
+// MB, 14.13 us: bytes.  At
 // DiT-XL/2's (8, 1024, 16, 72): 38.65 GFLOP, 39.1 us (75.5 MB, 22.5
 // us): operations.  The exponentials alone, ex2 on the SFUs at 16 a
 // cycle an SM, take ~20 us at (8, 730, 16, 80), so the softmax again
@@ -141,6 +167,22 @@
 namespace {
 
 constexpr float kNeg = -1e30f;   // the reference's finite mask value
+
+// The key tiles [lo, hi] of `keys` keys that some query row in [q_lo,
+// q_hi] sees (the header's band); none (lo > hi) if q_lo >= S, rows that
+// are never stored
+__host__ __device__ __forceinline__ void key_band(int q_lo, int q_hi, int S,
+                                                  int causal, int window,
+                                                  int keys, int& lo,
+                                                  int& hi) {
+  if (q_lo >= S) {
+    lo = 0;
+    hi = -1;
+    return;
+  }
+  hi = (causal ? (q_hi < S - 1 ? q_hi : S - 1) : S - 1) / keys;
+  lo = window > 0 && q_lo - window + 1 > 0 ? (q_lo - window + 1) / keys : 0;
+}
 
 // ---------------------------------------------------------------------------
 // f32 (f32_regtile): register tiles on the FMA pipes, cp.async ring of 2
@@ -212,12 +254,15 @@ flash_attention_f32_kernel(const float* __restrict__ q,
   const float* kh = k + (static_cast<size_t>(b) * S * KV + kvh) * D;
   const float* vh = v + (static_cast<size_t>(b) * S * KV + kvh) * D;
 
-  // two cp.async groups in flight: K of a tile loads while the previous
-  // tile's P V runs, V while this tile's Q K^T and softmax run
+  // the key band (q0 < S: never empty); two cp.async groups in flight: K
+  // of a tile loads while the previous tile's P V runs, V while this
+  // tile's Q K^T and softmax run
+  int t_lo, t_hi;
+  key_band(q0, q0 + kRows - 1, S, causal, window, L::kKeys, t_lo, t_hi);
   load_tile<VEC, DP, kRows>(qs, qh, static_cast<size_t>(H) * D, q0, S, D);
-  load_tile<VEC, DP, L::kKeys>(ks, kh, kv_stride, 0, S, D);
+  load_tile<VEC, DP, L::kKeys>(ks, kh, kv_stride, t_lo * L::kKeys, S, D);
   hopper::cp_async_commit();
-  load_tile<VEC, DP, L::kKeys>(vs, vh, kv_stride, 0, S, D);
+  load_tile<VEC, DP, L::kKeys>(vs, vh, kv_stride, t_lo * L::kKeys, S, D);
   hopper::cp_async_commit();
 
   float acc[4][4 * L::kGroups];
@@ -230,8 +275,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,
     for (int c = 0; c < 4 * L::kGroups; ++c) acc[i][c] = 0.0f;
   }
 
-  const int n_tiles = (S + L::kKeys - 1) / L::kKeys;
-  for (int t = 0; t < n_tiles; ++t) {
+  for (int t = t_lo; t <= t_hi; ++t) {
     const int k0 = t * L::kKeys;
     const int k_next = k0 + L::kKeys;
     hopper::cp_async_wait<1>();
@@ -318,7 +362,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,
           make_float4(sc[0][j], sc[1][j], sc[2][j], sc[3][j]);
     hopper::cp_async_wait<0>();
     __syncthreads();   // P is complete, V of tile t is in, K is free
-    if (k_next < S) {
+    if (t < t_hi) {
       load_tile<VEC, DP, L::kKeys>(ks, kh, kv_stride, k_next, S, D);
       hopper::cp_async_commit();
     }
@@ -344,7 +388,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,
     }
     // -- end P V
     __syncthreads();   // V and P are free
-    if (k_next < S) {
+    if (t < t_hi) {
       load_tile<VEC, DP, L::kKeys>(vs, vh, kv_stride, k_next, S, D);
       hopper::cp_async_commit();
     }
@@ -521,7 +565,9 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
   float m0 = kNeg, m1 = kNeg, l0 = 0.0f, l1 = 0.0f;   // l: this thread's part
 
-  for (int k0 = 0; k0 < S; k0 += kMK) {
+  int t_lo, t_hi;                    // the key band (q0 < S: never empty)
+  key_band(q0, q0 + kMQ - 1, S, causal, window, kMK, t_lo, t_hi);
+  for (int k0 = t_lo * kMK; k0 <= t_hi * kMK; k0 += kMK) {
     __syncthreads();                 // the previous K, V tiles are consumed
     if (vec) {
       for (int e = tid; e < kMK * DP / 8; e += kMThreads) {
@@ -725,42 +771,189 @@ __device__ __forceinline__ float exp_ex2(float x) {
 }
 
 // p = exp(s - m) of a thread's 32 scores (rows g and g + 8 of its warp,
-// m = mn0 / mn1), summed unrounded into ls0 / ls1 and rounded to bf16
-// into the A fragments pa of the P V product.  kRaw: the scores are
-// unscaled (an unmasked tile) and p = 2^(s (scale log2 e) - m log2 e),
-// one fused multiply-add; else they are scaled or the mask's -1e30, and
-// p = exp_ex2(s - m), which keeps exp(-1e30 - (-1e30)) = 1
+// m = mn0 / mn1), in place, summed unrounded into ls0 / ls1.  kRaw: the
+// scores are unscaled (an unmasked tile) and p = 2^(s (scale log2 e) - m
+// log2 e), one fused multiply-add; else they are scaled or the mask's
+// -1e30, and p = exp_ex2(s - m), which keeps exp(-1e30 - (-1e30)) = 1
 template <bool kRaw>
-__device__ __forceinline__ void probs(const float (&sc)[kKeys / 2], float mn0,
-                                      float mn1, float scale,
-                                      uint32_t (&pa)[kKeys / 16][4],
-                                      float& ls0, float& ls1) {
+__device__ __forceinline__ void probs(float (&sc)[kKeys / 2], float mn0,
+                                      float mn1, float scale, float& ls0,
+                                      float& ls1) {
   constexpr float kLog2e = 1.4426950408889634f;
   const float c = scale * kLog2e;
   const float b0 = -mn0 * kLog2e, b1 = -mn1 * kLog2e;
-  float p[kKeys / 2];
 #pragma unroll
   for (int i = 0; i < kKeys / 2; ++i) {
     const bool hi = (i & 2) != 0;            // row g + 8
-    p[i] = kRaw ? ex2(__fmaf_rn(sc[i], c, hi ? b1 : b0))
-                : exp_ex2(sc[i] - (hi ? mn1 : mn0));
+    sc[i] = kRaw ? ex2(__fmaf_rn(sc[i], c, hi ? b1 : b0))
+                 : exp_ex2(sc[i] - (hi ? mn1 : mn0));
   }
 #pragma unroll
   for (int n = 0; n < kKeys / 8; ++n) {
-    ls0 += p[4 * n];
-    ls0 += p[4 * n + 1];
-    ls1 += p[4 * n + 2];
-    ls1 += p[4 * n + 3];
+    ls0 += sc[4 * n];
+    ls0 += sc[4 * n + 1];
+    ls1 += sc[4 * n + 2];
+    ls1 += sc[4 * n + 3];
+  }
+}
+
+// p rounded to bf16 into the A fragments pa of the P V product (the C
+// layout of S is the register A layout of wgmma)
+__device__ __forceinline__ void pack_p(const float (&p)[kKeys / 2],
+                                       uint32_t (&pa)[kKeys / 16][4]) {
+#pragma unroll
+  for (int n = 0; n < kKeys / 8; ++n) {
     pa[n / 2][(n & 1) * 2] = pack_bf16(p[4 * n], p[4 * n + 1]);
     pa[n / 2][(n & 1) * 2 + 1] = pack_bf16(p[4 * n + 2], p[4 * n + 3]);
   }
 }
 
+// acc += P V, committed as one group: V MN-major (d contiguous), 16 keys
+// (rows) a step, an N = D product (the d of the next box kBox further), P
+// from registers
+template <int N>
+__device__ __forceinline__ void pv_product(float (&acc)[N],
+                                           const uint32_t (&pa)[kKeys / 16][4],
+                                           const unsigned char* vs) {
+#pragma unroll
+  for (int kk = 0; kk < kKeys / 16; ++kk)
+    hopper::wgmma_rs<1>(acc, pa[kk],
+                        hopper::desc_mn_major(vs + kk * 16 * 128, kBox), 1);
+  hopper::wgmma_commit();
+}
+
+// as hopper::fence_regs, for the P fragments
+__device__ __forceinline__ void fence_frags(uint32_t (&pa)[kKeys / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kKeys / 16; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(pa[kk][e]) :: "memory");
+}
+
+// the largest of a thread's 16 scores of row g (mx0) and of row g + 8
+// (mx1), as a tree: fmaxf is exact, so any order gives the same maximum,
+// and the tree's depth is 4 where a chain's is 16
+__device__ __forceinline__ void row_max(const float (&sc)[kKeys / 2],
+                                        float& mx0, float& mx1) {
+  float a[kKeys / 8], b[kKeys / 8];
+#pragma unroll
+  for (int n = 0; n < kKeys / 8; ++n) {
+    a[n] = fmaxf(sc[4 * n], sc[4 * n + 1]);
+    b[n] = fmaxf(sc[4 * n + 2], sc[4 * n + 3]);
+  }
+#pragma unroll
+  for (int w = kKeys / 16; w > 0; w /= 2)
+#pragma unroll
+    for (int n = 0; n < w; ++n) {
+      a[n] = fmaxf(a[n], a[n + w]);
+      b[n] = fmaxf(b[n], b[n + w]);
+    }
+  mx0 = a[0];
+  mx1 = b[0];
+}
+
+// S = Q K^T into sc, committed as one group: both K-major over d, 16 deep
+// a step (32 bytes into the 128-byte rows of a box, the next box every 4
+// steps), ceil(D / 16) steps: past D both tiles hold TMA's zeros
+template <int D>
+__device__ __forceinline__ void qk_product(float (&sc)[kKeys / 2],
+                                           const unsigned char* qs,
+                                           const unsigned char* ks) {
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < (D + 15) / 16; ++kk) {
+    const int off = (kk / 4) * kBox + (kk % 4) * 32;
+    hopper::wgmma_ss<0>(sc, hopper::desc_k_major(qs + off),
+                        hopper::desc_k_major(ks + off), kk > 0);
+  }
+  hopper::wgmma_commit();
+}
+
+// The online softmax of one key tile (keys k0...) for a thread's rows
+// row0 and row1 of the query tile whose first row is q_lo: sc becomes p =
+// exp(s - m_new), l = l alpha + sum p (p unrounded), m = m_new; alpha0 /
+// alpha1 are the factors for acc.  Masked element by element only where
+// a mask reaches the tile: the tail of S, or keys past the diagonal or
+// outside the window of some row of the query tile (rows past S are never
+// stored).  An unmasked tile stays unscaled until the exponent: rounding
+// is monotonic, so max(s * scale) = max(s) * scale.  The row max and sum
+// run over the four lanes (t) of a quad.
+__device__ __forceinline__ void softmax_tile(
+    float (&sc)[kKeys / 2], int k0, int q_lo, int row0, int row1, int t,
+    int S, int causal, int window, float scale, float& m0, float& m1,
+    float& l0, float& l1, float& alpha0, float& alpha1) {
+  // -- softmax
+  const bool masked = k0 + kKeys > S ||
+                      (causal && k0 + kKeys - 1 > q_lo) ||
+                      (window > 0 && q_lo + kRows - 1 - k0 >= window);
+  if (masked) {
+#pragma unroll
+    for (int n = 0; n < kKeys / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qp = e < 2 ? row0 : row1;
+        const int kp = k0 + n * 8 + t * 2 + (e & 1);
+        bool ok = kp < S;
+        if (causal) ok = ok && qp >= kp;
+        if (window > 0) ok = ok && qp - kp < window;
+        sc[4 * n + e] = ok ? sc[4 * n + e] * scale : kNeg;
+      }
+  }
+  float mx0, mx1;
+  row_max(sc, mx0, mx1);
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  if (!masked) {
+    mx0 *= scale;
+    mx1 *= scale;
+  }
+  const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+  alpha0 = exp_ex2(m0 - mn0);
+  alpha1 = exp_ex2(m1 - mn1);
+  float ls0 = 0.0f, ls1 = 0.0f;
+  if (masked)
+    probs<false>(sc, mn0, mn1, scale, ls0, ls1);
+  else
+    probs<true>(sc, mn0, mn1, scale, ls0, ls1);
+  l0 = l0 * alpha0 + ls0;
+  l1 = l1 * alpha1 + ls1;
+  m0 = mn0;
+  m1 = mn1;
+  // -- end softmax
+}
+
+// acc rows g (the even pairs) by alpha0 and g + 8 by alpha1
+template <int N>
+__device__ __forceinline__ void rescale(float (&acc)[N], float alpha0,
+                                        float alpha1) {
+#pragma unroll
+  for (int n = 0; n < N / 4; ++n) {
+    acc[4 * n] *= alpha0;
+    acc[4 * n + 1] *= alpha0;
+    acc[4 * n + 2] *= alpha1;
+    acc[4 * n + 3] *= alpha1;
+  }
+}
+
 // grid (query-tile groups, B * H); split: both consumer warpgroups on
-// query tile blockIdx.x, warpgroup w taking the key tiles i with i % 2 ==
-// w; else warpgroup w on query tile 2 blockIdx.x + w, both on every key
-// tile of one ring
-template <int DP, int D>
+// query tile j, warpgroup w taking the key tiles i of the band with i % 2
+// == w; else warpgroup w on query tile 2 j + w, both through one ring of
+// the block's band (the union of theirs), a warpgroup only releasing the
+// tiles outside its own.  Causal, group j = gridDim.x - 1 - blockIdx.x:
+// blocks are issued in order of blockIdx.x, so the heaviest (the longest
+// band) go first and the light ones fill the last wave (0.7-1.4% off
+// Granite's 32k prefill on an H100, medians of ten sweeps against index
+// order, tools/kernel_ablation.py flash_causal); the heads stay in
+// the order of blockIdx.y, so the query heads of one KV head run together
+// and share its K / V tiles in L2.  kBand: a causal mask or a window may
+// cut the key loop (the launcher picks the instantiation from the
+// inputs); without either every tile is live for every row and the band
+// is known at compile time: computed at run time, ptxas kept the
+// producer's tile index out of the uniform registers, which cost the
+// non-causal shapes up to 4.5% (DeiT-B, ViT-H/14, DiT-XL/2) on an H100
+template <int DP, int D, bool kBand>
 __global__ void __launch_bounds__(kThreads, DP == 64 ? 2 : 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
                              const __grid_constant__ CUtensorMap tmk,
@@ -776,13 +969,20 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
   uint64_t* empty = full + kStages;
   uint64_t* qbar = empty + kStages;
 
+  if constexpr (!kBand) {
+    causal = 0;
+    window = 0;
+  }
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh - b * H;
   const int kvh = h / (H / KV);
-  const int qt0 = split ? blockIdx.x : 2 * blockIdx.x;
-  const int n_kv = (S + kKeys - 1) / kKeys;
+  const int n_q = split ? 1 : 2;               // query tiles of the block
+  const int qt0 = n_q * (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
   const int wgi = threadIdx.x / 128;
+  int lo, hi;                                  // the block's band
+  key_band(qt0 * kRows, (qt0 + n_q) * kRows - 1, S, causal, window, kKeys,
+           lo, hi);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -795,9 +995,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
   __syncthreads();
 
   if (wgi == 2) {
-    // -- producer: the Q tile(s), then every K / V tile through the ring
+    // -- producer: the Q tile(s), then the band's K / V tiles through the
+    // ring
     if (threadIdx.x == 256) {
-      const int n_q = split ? 1 : 2;
       hopper::mbar_arrive_expect_tx(qbar, n_q * L::kTile);
       for (int qi = 0; qi < n_q; ++qi)
         for (int x = 0; x < DP / 64; ++x)
@@ -805,7 +1005,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
                               64 * x, h, (qt0 + qi) * kRows, b);
       int stage = 0;
       uint32_t phase = 0;
-      for (int i = 0; i < n_kv; ++i) {
+      for (int i = lo; i <= hi; ++i) {
         hopper::mbar_wait(&empty[stage], phase ^ 1);
         unsigned char* st = smem + L::kRing + stage * L::kStage;
         hopper::mbar_arrive_expect_tx(&full[stage], L::kStage);
@@ -831,124 +1031,134 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
   const unsigned char* qs = smem + (split ? 0 : wgi * L::kTile);
   const int row0 = qt * kRows + warp * 16 + g;   // this thread's two rows
   const int row1 = row0 + 8;
+  // this warpgroup's band [my_lo, my_hi]: in the full grid it differs
+  // from the block's by at most the first or the last tile (the two query
+  // tiles are one key tile apart); the tiles of the block's band outside it
+  // are only released, in loops of their own before and after, so the loop
+  // over the band tests no more than the split's parity (a band test in
+  // it cost the one-block-an-SM layout 3-4% on an H100, at ViT-H/14's and
+  // DiT-XL/2's shapes)
+  int my_lo, my_hi;
+  key_band(qt * kRows, qt * kRows + kRows - 1, S, causal, window, kKeys,
+           my_lo, my_hi);
 
   float acc[D / 2], sc[kKeys / 2];
+  uint32_t pa[kKeys / 16][4];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
 #pragma unroll
   for (int i = 0; i < kKeys / 2; ++i) sc[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kKeys / 16; ++i)
+    pa[i][0] = pa[i][1] = pa[i][2] = pa[i][3] = 0u;
   float m0 = kNeg, m1 = kNeg, l0 = 0.0f, l1 = 0.0f;  // l: this thread's part
+  float alpha0, alpha1;
+  const int q_lo = qt * kRows;
 
   hopper::mbar_wait(qbar, 0);
   const bool leader = threadIdx.x % 128 == 0;
-  int stage = 0, pending = -1;   // pending: the stage whose P V may run on
+  // a key tile of this warpgroup's band is its own but, split, for the
+  // other warpgroup's parity
+  auto own = [&](int i) { return !split || (i & 1) == wgi; };
+  int stage = 0, i = lo;
   uint32_t phase = 0;
-  for (int i = 0; i < n_kv; ++i) {
-    hopper::mbar_wait(&full[stage], phase);
-    if (split && (i & 1) != wgi) {           // the other warpgroup's tile
-      if (leader) hopper::mbar_arrive(&empty[stage]);
-    } else {
-      const unsigned char* ks = smem + L::kRing + stage * L::kStage;
-      const unsigned char* vs = ks + L::kTile;
-      const int k0 = i * kKeys;
-
-      // S = Q K^T: both K-major over d, 16 deep a step (32 bytes into the
-      // 128-byte rows of a box, the next box every 4 steps), ceil(D / 16)
-      // steps: past D both tiles hold TMA's zeros.  The last tile's P V
-      // runs on the tensor cores meanwhile; the wait takes both.
-      hopper::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < (D + 15) / 16; ++kk) {
-        const int off = (kk / 4) * kBox + (kk % 4) * 32;
-        hopper::wgmma_ss<0>(sc, hopper::desc_k_major(qs + off),
-                            hopper::desc_k_major(ks + off), kk > 0);
-      }
-      hopper::wgmma_commit();
-      hopper::wgmma_wait<0>();
-      hopper::fence_regs(sc);
-      hopper::fence_regs(acc);
-      if (pending >= 0 && leader) hopper::mbar_arrive(&empty[pending]);
-
-      // mask (only a tile that some mask reaches: the tail of S, or keys
-      // past the diagonal or outside the window of some row of this query
-      // tile; rows past S are never stored) and scale; row max over the
-      // quad that shares a row.  An unmasked tile stays unscaled here:
-      // rounding is monotonic, so max(s * scale) = max(s) * scale
-      const int q_lo = qt * kRows;
-      const bool masked = k0 + kKeys > S ||
-                          (causal && k0 + kKeys - 1 > q_lo) ||
-                          (window > 0 && q_lo + kRows - 1 - k0 >= window);
-      float mx0 = kNeg, mx1 = kNeg;
-      if (masked) {
-#pragma unroll
-        for (int n = 0; n < kKeys / 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int qp = e < 2 ? row0 : row1;
-            const int kp = k0 + n * 8 + t * 2 + (e & 1);
-            bool ok = kp < S;
-            if (causal) ok = ok && qp >= kp;
-            if (window > 0) ok = ok && qp - kp < window;
-            sc[4 * n + e] = ok ? sc[4 * n + e] * scale : kNeg;
-          }
-      }
-#pragma unroll
-      for (int n = 0; n < kKeys / 8; ++n) {
-        mx0 = fmaxf(mx0, fmaxf(sc[4 * n], sc[4 * n + 1]));
-        mx1 = fmaxf(mx1, fmaxf(sc[4 * n + 2], sc[4 * n + 3]));
-      }
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-      if (!masked) {
-        mx0 *= scale;
-        mx1 *= scale;
-      }
-      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-      const float alpha0 = exp_ex2(m0 - mn0), alpha1 = exp_ex2(m1 - mn1);
-
-      // p = exp(s - m_new): summed unrounded into l, rounded to bf16 into
-      // the A fragments of the PV product (the C layout of S is the
-      // register A layout of wgmma)
-      uint32_t pa[kKeys / 16][4];
-      float ls0 = 0.0f, ls1 = 0.0f;
-      if (masked)
-        probs<false>(sc, mn0, mn1, scale, pa, ls0, ls1);
-      else
-        probs<true>(sc, mn0, mn1, scale, pa, ls0, ls1);
-      l0 = l0 * alpha0 + ls0;
-      l1 = l1 * alpha1 + ls1;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        acc[4 * n] *= alpha0;
-        acc[4 * n + 1] *= alpha0;
-        acc[4 * n + 2] *= alpha1;
-        acc[4 * n + 3] *= alpha1;
-      }
-
-      // acc += P V: V MN-major (d contiguous), 16 keys (rows) a step, an
-      // N = D product (the d of the next box kBox further); left running
-      // into the next tile's Q K^T
-      hopper::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kKeys / 16; ++kk)
-        hopper::wgmma_rs<1>(acc, pa[kk],
-                            hopper::desc_mn_major(vs + kk * 16 * 128, kBox),
-                            1);
-      hopper::wgmma_commit();
-      pending = stage;
-      m0 = mn0;
-      m1 = mn1;
-    }
+  auto next = [&]() {
+    ++i;
     if (++stage == kStages) {
       stage = 0;
       phase ^= 1;
     }
+  };
+  // the block's tiles up to (not including) tile `stop`, released unread
+  auto release_to = [&](int stop) {
+    for (; i < stop; next()) {
+      hopper::mbar_wait(&full[stage], phase);
+      if (leader) hopper::mbar_arrive(&empty[stage]);
+    }
+  };
+  release_to(my_lo);
+  const int end = my_hi + 1;
+  if constexpr (DP == 128 && kBand) {
+    // One block an SM (heads 72, 80, 128 wide) under a mask: a tile's P V
+    // is issued after the next tile's Q K^T, and the wait takes Q K^T
+    // alone (groups end in order), so P V runs on the tensor cores under
+    // that tile's softmax (FlashAttention-3's intra-warpgroup overlap).
+    // The first own tile has no P V before it, so its loop is peeled off:
+    // a wgmma in a branch of its own makes ptxas serialise them all.
+    // Without the band the loop below measured faster at heads 72 and 80
+    // (tools/kernel_ablation.py flash_causal)
+    int pending = -1;        // the stage whose p waits in pa
+    const unsigned char* vs = qs;
+    for (bool first = true; first && i < end; next()) {
+      hopper::mbar_wait(&full[stage], phase);
+      if (!own(i)) {
+        if (leader) hopper::mbar_arrive(&empty[stage]);
+        continue;
+      }
+      const unsigned char* ks = smem + L::kRing + stage * L::kStage;
+      qk_product<D>(sc, qs, ks);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+      softmax_tile(sc, i * kKeys, q_lo, row0, row1, t, S, causal, window,
+                   scale, m0, m1, l0, l1, alpha0, alpha1);
+      pack_p(sc, pa);                  // acc is still 0: nothing to rescale
+      pending = stage;
+      vs = ks + L::kTile;
+      first = false;
+    }
+    for (; i < end; next()) {
+      hopper::mbar_wait(&full[stage], phase);
+      if (!own(i)) {
+        if (leader) hopper::mbar_arrive(&empty[stage]);
+        continue;
+      }
+      const unsigned char* ks = smem + L::kRing + stage * L::kStage;
+      qk_product<D>(sc, qs, ks);
+      pv_product(acc, pa, vs);
+      hopper::wgmma_wait<1>();
+      hopper::fence_regs(sc);
+      softmax_tile(sc, i * kKeys, q_lo, row0, row1, t, S, causal, window,
+                   scale, m0, m1, l0, l1, alpha0, alpha1);
+      hopper::wgmma_wait<0>();         // the pending P V: its stage is free
+      hopper::fence_regs(acc);
+      fence_frags(pa);
+      if (leader) hopper::mbar_arrive(&empty[pending]);
+      rescale(acc, alpha0, alpha1);
+      pack_p(sc, pa);
+      pending = stage;
+      vs = ks + L::kTile;
+    }
+    // the last own tile's P V (zeros on the Q tile if there was none)
+    hopper::wgmma_fence();
+    pv_product(acc, pa, vs);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    if (pending >= 0 && leader) hopper::mbar_arrive(&empty[pending]);
+  } else {
+    // Each product waited for at once and the stage released after P V.
+    // D = 64, two blocks an SM at 96 registers a thread, has no room for
+    // a second accumulator in flight (ptxas would serialise the wgmma):
+    // the SM's other three warpgroups fill the softmax's gap
+    for (; i < end; next()) {
+      hopper::mbar_wait(&full[stage], phase);
+      if (own(i)) {
+        const unsigned char* ks = smem + L::kRing + stage * L::kStage;
+        qk_product<D>(sc, qs, ks);
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(sc);
+        softmax_tile(sc, i * kKeys, q_lo, row0, row1, t, S, causal, window,
+                     scale, m0, m1, l0, l1, alpha0, alpha1);
+        rescale(acc, alpha0, alpha1);
+        pack_p(sc, pa);
+        hopper::wgmma_fence();
+        pv_product(acc, pa, ks + L::kTile);
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(acc);
+      }
+      if (leader) hopper::mbar_arrive(&empty[stage]);
+    }
   }
-  hopper::wgmma_wait<0>();
-  hopper::fence_regs(acc);
-  if (pending >= 0 && leader) hopper::mbar_arrive(&empty[pending]);
+  release_to(hi + 1);
 
   l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
@@ -1040,7 +1250,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   if (code == 0) code = encode_bshd(&tmk, k, B, S, KV, D);
   if (code == 0) code = encode_bshd(&tmv, v, B, S, KV, D);
   if (code != 0) return code;
-  auto kernel = flash_attention_wgmma_kernel<DP, D>;
+  auto kernel = causal || window > 0
+                    ? flash_attention_wgmma_kernel<DP, D, true>
+                    : flash_attention_wgmma_kernel<DP, D, false>;
   const size_t smem = Layout<DP, D>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

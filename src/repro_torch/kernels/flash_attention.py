@@ -22,7 +22,15 @@ maps of its true width into 128-wide tiles, zero past D, and its P V is
 one ``wgmma`` of width D); ``mma_sync`` for other bf16 inputs (D below
 64 or outside those four, views off 16-byte alignment, B * H past the
 grid);
-``f32_regtile`` for every f32 input.  The f32 kernel is bound by
+``f32_regtile`` for every f32 input.
+
+Every variant walks only the key tiles that some row of its query tile(s)
+can see, :func:`key_tile_band`: under ``causal`` none past the tile of
+the last row's own key, under a ``window`` none before the tile of the
+first row's first key.  Skipping the rest is exact (a tile past the
+diagonal adds zeros, one before the window is wiped by the first live
+tile), so the output equals a walk over every tile bit for bit.  The
+f32 kernel is bound by
 operations on the FMA pipes (TF32 would round the inputs): 122.5 us at
 DeiT-B's B=8, S=578, H=12, D=64 on an H100 (67 TFLOP/s).  It holds 4 x 8
 register tiles of scores a thread, so each shared-memory read feeds 8 to
@@ -77,6 +85,23 @@ def variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
             and all(t.data_ptr() % 16 == 0 for t in (q, k, v)):
         return "tma_wgmma"
     return "mma_sync"
+
+
+def key_tile_band(q_lo: int, rows: int, S: int, causal: bool,
+                  window: Optional[int], keys: int = 64) -> range:
+    """The key tiles of ``keys`` keys that the kernels walk for query
+    rows ``[q_lo, q_lo + rows)`` of a sequence of ``S``: those that some
+    row below ``S`` can see.  Under ``causal`` the last is the tile of key
+    ``min(S - 1, q_hi)``, else the last tile of ``S``; under a ``window``
+    (``window > 0``; ``None`` or ``0`` is none) the first is the tile of
+    key ``max(0, q_lo - window + 1)``, else tile 0.  Empty where ``q_lo >=
+    S``.  The Python statement of ``csrc/flash_attention.cu::key_band``."""
+    if q_lo >= S:
+        return range(0)
+    q_hi = min(S - 1, q_lo + rows - 1)
+    hi = (q_hi if causal else S - 1) // keys
+    lo = max(0, q_lo - window + 1) // keys if window and window > 0 else 0
+    return range(lo, hi + 1)
 
 
 def split_keys(B: int, S: int, H: int, sm_count: int) -> bool:

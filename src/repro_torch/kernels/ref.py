@@ -16,30 +16,57 @@ import torch
 BIG = 1e30
 
 
+def flash_attention_mask(Sq: int, Sk: int, causal: bool,
+                         window: Optional[int], device=None,
+                         q_offset: int = 0) -> torch.Tensor:
+    """(Sq, Sk) bool: key j is live for query row i, at position
+    ``q_offset + i``, under :func:`flash_attention_ref`'s masks (``i >=
+    j`` under ``causal``, ``i - j < window`` under a window)."""
+    qpos = q_offset + torch.arange(Sq, device=device)[:, None]
+    kpos = torch.arange(Sk, device=device)[None, :]
+    ok = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        ok &= qpos >= kpos
+    if window is not None:
+        ok &= qpos - kpos < window
+    return ok
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True,
-                        window: Optional[int] = None) -> torch.Tensor:
+                        window: Optional[int] = None,
+                        q_offset: int = 0) -> torch.Tensor:
     """q (B,S,H,D); k,v (B,S,KV,D) -> (B,S,H,D).  f32 scores and softmax,
     masked entries -1e30, GQA by head grouping (q head h reads kv head
     h // (H // KV)); the probabilities are rounded to v's dtype before the
-    PV product and the result is cast to q's dtype."""
+    PV product and the result is cast to q's dtype.  Query row i sits at
+    position ``q_offset + i`` of the keys' sequence."""
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
     qg = q.reshape(B, Sq, KV, G, D)
     s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) \
         * (D ** -0.5)
-    qpos = torch.arange(Sq, device=q.device)[:, None]
-    kpos = torch.arange(Sk, device=q.device)[None, :]
-    ok = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
-    if causal:
-        ok &= qpos >= kpos
-    if window is not None:
-        ok &= qpos - kpos < window
+    ok = flash_attention_mask(Sq, Sk, causal, window, q.device, q_offset)
     s = torch.where(ok, s, -BIG)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype), v)
     return out.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def flash_attention_ref_by_blocks(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, *, causal: bool = True,
+                                  window: Optional[int] = None,
+                                  block: int = 1024) -> torch.Tensor:
+    """:func:`flash_attention_ref` a block of ``block`` query rows at a
+    time, each at its offset, against the keys up to the block's end under
+    ``causal`` (every key otherwise): no head holds an (S, S) score matrix
+    at once, which at 32k tokens would take ~100 GB of f32 scores."""
+    S = q.shape[1]
+    return torch.cat([flash_attention_ref(
+        q[:, i:i + block], k[:, :i + block if causal else S],
+        v[:, :i + block if causal else S], causal=causal, window=window,
+        q_offset=i) for i in range(0, S, block)], dim=1)
 
 
 def flash_attention_tolerance(want: torch.Tensor, v: torch.Tensor) -> dict:

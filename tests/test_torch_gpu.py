@@ -971,6 +971,73 @@ def test_flash_edge_cases_take_both_paths():
     assert paths == {True, False}
 
 
+# (B, S, H, KV, D, causal, window) where the key band (the tiles some row
+# of a query tile sees) has its edges: causal GQA past the served lengths
+# at Granite's 24 / 8 and StarCoder2's 36 / 4 heads; windows of 1, 63, 64,
+# 65 and 1,024 keys at S = 1,100 (not a multiple of 64), causal and not,
+# in the split mode (B = 1, 4 heads) and the full grid (B = 2, 12 heads)
+_FLASH_BANDS = [
+    (1, 4097, 24, 8, 64, True, None), (1, 8192, 24, 8, 64, True, None),
+    (1, 4097, 36, 4, 128, True, None), (1, 8192, 36, 4, 128, True, None),
+    *[(B, 1100, H, KV, None, causal, w) for w in (1, 63, 64, 65, 1024)
+      for causal in (True, False) for B, H, KV in ((1, 4, 2), (2, 12, 4))]]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,KV,D,causal,window", _FLASH_BANDS)
+def test_flash_attention_wgmma_kernel_on_its_key_bands(B, S, H, KV, D,
+                                                       causal, window):
+    """The tma_wgmma kernel where the band cuts the key loop (the causal
+    diagonal, the window's first key, both), in both grid modes, against
+    the plain attention by blocks of query rows; D = 64 and 128 where the
+    case names none."""
+    _need_gpu()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for d in (64, 128) if D is None else (D,):
+        g = torch.Generator().manual_seed(B * S + d + H * KV + (window or 0))
+        q, k, v = (torch.randn(B, S, h, d, generator=g).to("cuda",
+                                                           torch.bfloat16)
+                   for h in (H, KV, KV))
+        assert fa.variant(q, k, v) == "tma_wgmma"
+        if D is None:
+            assert fa.split_keys(B, S, H, sms) == (B == 1)
+        got = ops.flash_attention(q, k, v, causal=causal, window=window)
+        want = ref.flash_attention_ref_by_blocks(q, k, v, causal=causal,
+                                                 window=window)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **ref.flash_attention_tolerance(want, v))
+
+
+@pytest.mark.gpu
+def test_flash_attention_causal_launch_skips_the_masked_tiles():
+    """At (1, 8192, 24 / 8, 64) bf16 the causal launch walks 8,256 of the
+    16,384 key-tile products a head and takes under 0.7 of the non-causal
+    launch on the same inputs (CUDA events, the median of 5; 128 query
+    tiles a head leave a longer tail than Granite's 32k prefill)."""
+    _need_gpu()
+    g = torch.Generator().manual_seed(27)
+    q, k, v = (torch.randn(1, 8192, h, 64, generator=g).to("cuda",
+                                                           torch.bfloat16)
+               for h in (24, 8, 8))
+
+    def median_ms(causal):
+        fa.flash_attention(q, k, v, causal=causal)
+        times = []
+        for _ in range(5):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            fa.flash_attention(q, k, v, causal=causal)
+            e1.record()
+            torch.cuda.synchronize()
+            times.append(e0.elapsed_time(e1))
+        return sorted(times)[2]
+
+    causal, full = median_ms(True), median_ms(False)
+    assert causal < 0.7 * full, (causal, full)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,S,H,KV,D,causal,window", [
     (8, 578, 12, 12, 64, False, None), (2, 1, 4, 4, 80, True, None),
@@ -1358,7 +1425,8 @@ def vit_h14_model():
 def test_graphed_vit_h14_runs_the_d80_kernel_in_each_layer(vit_h14_model):
     """A 384-px graph (730 tokens, heads 80 wide) holds one flash_attention
     launch per layer, 32, and a profiled replay shows 32 tma_wgmma kernels
-    of width 80 on the device; its logits equal the eager step's bit for
+    of width 80 on the device, the instantiation without the key band (no
+    mask); its logits equal the eager step's bit for
     bit; a 224-px graph (257 tokens, the naive path) holds none."""
     params, cfg = vit_h14_model
     step = GraphedStep.for_model(vit, params, cfg)
@@ -1372,7 +1440,7 @@ def test_graphed_vit_h14_runs_the_d80_kernel_in_each_layer(vit_h14_model):
     flash = {k: n for k, n in kernels.items() if "flash_attention" in k}
     assert list(flash.values()) == [cfg.n_layers], kernels
     name = next(iter(flash))
-    assert "wgmma" in name and "128, 80>" in name, name
+    assert "wgmma" in name and "128, 80, false>" in name, name
     assert step.launches() == (1 + tries) * cfg.n_layers
     step(x[:, :224, :224].contiguous())
     assert sorted(g.flash_launches
@@ -1445,7 +1513,8 @@ def test_flash_attention_wgmma_kernel_at_4096_keys(B, causal):
 def test_dit_runs_the_d72_kernel_in_each_layer(px):
     """DiT-XL/2's width (d 1152, 16 heads 72 wide) at 2 layers, bf16,
     every weight leaf random: at 512 px (1,024 tokens) and 1024 px (4,096)
-    a profiled step shows one tma_wgmma kernel of width 72 a layer, and
+    a profiled step shows one tma_wgmma kernel of width 72 a layer (the
+    instantiation without the key band), and
     the step equals the plain path (``chunked``) within 1% rms of its
     output."""
     _need_gpu()
@@ -1462,7 +1531,7 @@ def test_dit_runs_the_d72_kernel_in_each_layer(px):
     flash = {k: n for k, n in kernels.items() if "flash_attention" in k}
     assert list(flash.values()) == [cfg.n_layers], kernels
     name = next(iter(flash))
-    assert "wgmma" in name and "72>" in name, name
+    assert "wgmma" in name and "128, 72, false>" in name, name
     assert fa.flash_attention.launches == before + tries * cfg.n_layers
     want = dit.serve_step(params, lat, t, y, dataclasses.replace(
         cfg, attn_impl="chunked")).float()

@@ -6,7 +6,7 @@ Builds versions of the kernel sources from patched copies of
 ``src/repro_torch/kernels/csrc`` (under ``build/ablation/``) and times
 each with CUDA events around launches replayed from one CUDA graph.
 ``--root`` takes the sources and the wrappers from another checkout (an
-unpacked older commit, to measure the kernels it had).  Five groups:
+unpacked older commit, to measure the kernels it had).  Six groups:
 
 - ``wgmma``: the TMA / ``wgmma`` kernels of ``moe_gemm`` (Granite-3.0 MoE
   gate/up and down, bf16) and ``flash_attention`` (DeiT-B's attention at
@@ -27,6 +27,35 @@ unpacked older commit, to measure the kernels it had).  Five groups:
   in ``wgmma``); and the ``mma_sync`` kernel on the same aligned inputs
   (called through its C launcher: the wrapper sends these to
   ``tma_wgmma``), the kernel these heads took before;
+- ``flash_causal``: the bf16 ``tma_wgmma`` ``flash_attention`` kernel at
+  Granite-3.0 MoE's 32k causal prefill, (1, 32768, 24 query / 8 KV heads,
+  D=64), and at DiT-XL/2's ``gen_1024``, (4, 4096, 16 / 16, 72),
+  non-causal: as built, without the products, without the softmax (p taken
+  as the raw scores, no max, exponential, sum or rescale), and with launch
+  bounds of one block an SM (the registers of D = 128's layout at D = 64);
+  the causal grid issued in index order (the lightest query tiles first)
+  at Granite's, StarCoder2-7B's (1, 32768, 36 / 4, 128) and Gemma-3 27B's
+  local (1, 32768, 32 / 16, 128, window 1,024) causal shapes; every key
+  tile walked (the band widened to the whole sequence) at Granite's; each
+  product waited for at once at every width and mask at the three 32k
+  causal shapes; the banded instantiation at every mask (the band computed
+  at run time where no mask cuts it) and P V left running under the next
+  tile's softmax at heads 72-128 wide without a mask too, at the served
+  non-causal shapes (DeiT-B's (B, 578, 12, 64) at B = 1, 2, 3, 5, 8,
+  ViT-H/14's (8, 578 / 730, 16, 80), DiT-XL/2's ``gen_fast`` (16, 1024,
+  16, 72) and ``gen_1024``); the exact versions' outputs held to the
+  as-built one's bit for bit; with ``--baseline CHECKOUT`` (an unpacked
+  older commit) also that checkout's ``flash_attention.cu`` through the
+  same wrapper, its output held to this one's bit for bit, and both timed
+  at every shape (the ones above, and Granite's prefill non-causal); every
+  version timed in turns (forward, then backward through the list, five
+  times over: the best and the median of the ten, and in how many of the
+  ten sweeps the as-built kernel beat each other version, with the median
+  of its ratios), beside SDPA, each version's ``ptxas`` lines for the
+  kernel (registers, and whether it serialised the ``wgmma``) and its SASS
+  (``cuobjdump``, kept beside the version's patched sources under
+  ``build/ablation/``; the instructions of each ``tma_wgmma``
+  instantiation printed);
 - ``rmsnorm``: ``rmsnorm`` at (4096, 5376), (4096, 1536) and (7, 7168),
   bf16 and f32, as built (the wrapper called as a user calls it, scale
   in x's dtype), with the scale cast to f32 outside the timed call, and
@@ -51,6 +80,7 @@ import argparse
 import json
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 from pathlib import Path
@@ -100,6 +130,39 @@ CONST_SCALE = {"rmsnorm": [
     [(r"load_scale<V>\(s_ptr, s\);",
       "for (int i = 0; i < V; ++i) s[i] = 0.1f;")],
 ]}
+# flash_attention.cu (tma_wgmma): p taken as the raw scores (packed to
+# bf16 as they are), with no mask, max, exponential or sum (acc rescaled
+# by 1)
+NO_SOFTMAX = {"flash_attention": [[
+    (r"// -- softmax\n.*?// -- end softmax\n", "alpha0 = alpha1 = 1.0f;\n")]]}
+# flash_attention.cu (tma_wgmma): one block an SM at every head width
+ONE_BLOCK = {"flash_attention": [[
+    (r"__launch_bounds__\(kThreads, DP == 64 \? 2 : 1\)",
+     "__launch_bounds__(kThreads, 1)")]]}
+# flash_attention.cu (tma_wgmma): the causal grid's query-tile groups in
+# index order, the lightest first (exact)
+INDEX_ORDER = {"flash_attention": [[
+    (r"const int qt0 = n_q \* \(causal \? gridDim\.x - 1 - blockIdx\.x "
+     r": blockIdx\.x\);", "const int qt0 = n_q * blockIdx.x;")]]}
+# flash_attention.cu: every key tile walked, the band widened to the whole
+# sequence (exact: the walk the Pallas kernel makes)
+FULL_WALK = {"flash_attention": [[
+    (r"  hi = \(causal \? .*?\n  lo = window > 0 .*?;\n",
+     "  hi = (S - 1) / keys;\n  lo = 0;\n")]]}
+# flash_attention.cu (tma_wgmma): the banded instantiation at every mask,
+# the band computed at run time where no mask cuts it (exact)
+BANDED = {"flash_attention": [[
+    (r"causal \|\| window > 0\s*\? (flash_attention_wgmma_kernel<DP, D, true>)"
+     r"\s*: flash_attention_wgmma_kernel<DP, D, false>", r"\1")]]}
+# flash_attention.cu (tma_wgmma): each product waited for at once and the
+# stage released after P V at every head width and mask, or P V left
+# running under the next tile's softmax at heads 72-128 wide without a
+# mask too (exact)
+WAITED = {"flash_attention": [[
+    (r"if constexpr \(DP == 128 && kBand\) \{", "if constexpr (false) {")]]}
+OVERLAPPED = {"flash_attention": [[
+    (r"if constexpr \(DP == 128 && kBand\) \{",
+     "if constexpr (DP == 128) {")]]}
 # admission.cu: the passes read the row where it lies in global memory
 IN_PLACE = {"admission": [[
     (r"// -- staged loads\n.*?// -- end staged loads\n",
@@ -124,6 +187,13 @@ VERSIONS = {
     "constant scale": merge(CONST_SCALE),
     "rows in place": merge(IN_PLACE),
     "empty kernel": merge(EMPTY_BODY),
+    "no softmax": merge(NO_SOFTMAX),
+    "one block an SM": merge(ONE_BLOCK),
+    "index order": merge(INDEX_ORDER),
+    "full walk": merge(FULL_WALK),
+    "banded at every mask": merge(BANDED),
+    "products waited at once": merge(WAITED),
+    "P V overlapped at every mask": merge(OVERLAPPED),
 }
 GROUP_VERSIONS = {
     "wgmma": ("as built", "no products", "no loads", "neither"),
@@ -131,7 +201,42 @@ GROUP_VERSIONS = {
     "flash_wide": ("as built", "no products", "no loads"),
     "rmsnorm": ("as built", "constant scale"),
     "admission": ("as built", "rows in place", "empty kernel", "baseline"),
+    "flash_causal": ("as built", "no products", "no softmax",
+                     "one block an SM", "index order", "full walk",
+                     "banded at every mask",
+                     "products waited at once",
+                     "P V overlapped at every mask", "baseline"),
 }
+# flash_causal's shapes, (B, S, H, KV, D, causal, window)
+CAUSAL_SHAPES = {"granite_prefill_32k": (1, 32768, 24, 8, 64, True, None),
+                 "dit_gen_1024": (4, 4096, 16, 16, 72, False, None)}
+SERVED_SHAPES = {**{f"deit_b_{B}": (B, 578, 12, 12, 64, False, None)
+                    for B in (1, 2, 3, 5, 8)},
+                 "vit_h14_578": (8, 578, 16, 16, 80, False, None),
+                 "vit_h14_730": (8, 730, 16, 16, 80, False, None),
+                 "dit_gen_fast": (16, 1024, 16, 16, 72, False, None)}
+LM_SHAPES = {"granite_prefill_32k_full": (1, 32768, 24, 8, 64, False, None),
+             "starcoder2_32k": (1, 32768, 36, 4, 128, True, None),
+             "gemma3_local_32k": (1, 32768, 32, 16, 128, True, 1024)}
+# the shapes each version is timed at (as built and the baseline: all)
+VERSION_SHAPES = {
+    "no products": tuple(CAUSAL_SHAPES),
+    "no softmax": tuple(CAUSAL_SHAPES),
+    "one block an SM": tuple(CAUSAL_SHAPES),
+    "index order": ("granite_prefill_32k", "starcoder2_32k",
+                    "gemma3_local_32k"),
+    "full walk": ("granite_prefill_32k",),
+    "banded at every mask": ("dit_gen_1024", *SERVED_SHAPES),
+    "products waited at once": ("granite_prefill_32k", "starcoder2_32k",
+                                "gemma3_local_32k"),
+    "P V overlapped at every mask": ("dit_gen_1024", *SERVED_SHAPES)}
+# passes in turns (each a forward and a backward sweep of the versions)
+CAUSAL_PAIRS = 5
+# the versions whose output equals the as-built kernel's bit for bit (at
+# the shapes they are timed at)
+EXACT = ("index order", "full walk", "banded at every mask",
+         "products waited at once", "P V overlapped at every mask",
+         "baseline")
 ADMISSION_SHAPES = ((256, 1024), (32, 512), (3, 1024), (6, 1024),
                     (2, 256), (2, 512), (2, 1024), (5, 256))
 
@@ -166,7 +271,7 @@ def admission_inputs(gen, K, N, dev):
 
 def patched_csrc(csrc: Path, name: str, cuts) -> Path:
     """A copy of ``csrc`` with ``cuts`` applied, under build/ablation."""
-    out = ROOT / "build" / "ablation" / name.replace(" ", "_") / "csrc"
+    out = ROOT / "build" / "ablation" / re.sub(r"\W+", "_", name) / "csrc"
     if out.exists():
         shutil.rmtree(out)
     shutil.copytree(csrc, out)
@@ -211,6 +316,100 @@ def emit(**row) -> None:
     print(json.dumps(row), flush=True)
 
 
+def flash_causal(dirs, gen, dev) -> None:
+    """The ``flash_causal`` group: each version of ``dirs`` it names built
+    and timed in turns at its shapes; the exact versions' outputs held to
+    the as-built kernel's bit for bit."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    inputs = {}
+    order = [v for v in dirs if v in GROUP_VERSIONS["flash_causal"]]
+    every = dict(CAUSAL_SHAPES, **SERVED_SHAPES, **LM_SHAPES)
+    wanted = set(CAUSAL_SHAPES) | (set(every) if "baseline" in order else
+                                   {n for v in order
+                                    for n in VERSION_SHAPES.get(v, ())})
+    shapes = {n: s for n, s in every.items() if n in wanted}
+    for name, (B, S, H, KV, D, causal, window) in shapes.items():
+        if name == "granite_prefill_32k_full":    # the causal inputs
+            inputs[name] = (*inputs["granite_prefill_32k"][:3], causal,
+                            window)
+        else:
+            inputs[name] = tuple(
+                torch.randn(B, S, h, D, generator=gen, device=dev)
+                .bfloat16() for h in (H, KV, KV)) + (causal, window)
+        if window is not None:      # SDPA takes no window but as a mask
+            continue
+        q, k, v, _, _ = inputs[name]
+        qt = q.transpose(1, 2).contiguous()
+        kt, vt = (x.repeat_interleave(H // KV, dim=2).transpose(1, 2)
+                  .contiguous() for x in (k, v))
+        emit(flash_causal=name, library="sdpa", causal=causal,
+             ms=graph_ms(lambda: sdpa(qt, kt, vt, is_causal=causal),
+                         5 if S * B > 20000 else 100))
+        del qt, kt, vt
+    times, outs = {}, {}
+    # in turns: forward, then backward through the list, CAUSAL_PAIRS times
+    for turn, version in enumerate((order + order[::-1]) * CAUSAL_PAIRS):
+        build.CSRC = dirs[version]
+        build._loaded.clear()
+        build.load("flash_attention")
+        if turn < len(order):        # the tma_wgmma kernels' lines, once
+            lines, mine = [], False
+            for line in build.ptxas_report("flash_attention").splitlines():
+                if "Compiling" in line or "Potential" in line:
+                    mine = "wgmma" in line
+                if mine and "Function properties" not in line:
+                    lines.append(line.strip())
+            emit(flash_causal="ptxas", version=version, lines=lines)
+            sass = subprocess.run(
+                [str(Path(build.nvcc_path()).parent / "cuobjdump"), "-sass",
+                 str(build._library("flash_attention"))],
+                capture_output=True, text=True).stdout
+            (dirs[version].parent / "flash_attention.sass").write_text(sass)
+            counts = {}
+            for part in sass.split("Function : ")[1:]:
+                m = re.match(r"\S*wgmma_kernelILi(\d+)ELi(\d+)E(?:Lb(\d))?",
+                             part)
+                if m:
+                    counts[f"D={m[2]}" + (" banded" if m[3] == "1" else
+                                          "")] = len(re.findall(
+                        r"^\s+/\*[0-9a-f]{4,}\*/\s", part, flags=re.MULTILINE))
+            emit(flash_causal="sass", version=version, instructions=counts)
+        for name, (q, k, v, causal, window) in inputs.items():
+            if version in VERSION_SHAPES and \
+                    name not in VERSION_SHAPES[version]:
+                continue
+            assert fa.variant(q, k, v) == "tma_wgmma"
+            fn = lambda: fa.flash_attention(q, k, v, causal=causal,
+                                            window=window)
+            if (version == "as built" or version in EXACT) and \
+                    (version, name) not in outs:
+                outs[version, name] = fn()
+            times.setdefault((name, version), []).append(
+                graph_ms(fn, 5 if q.shape[0] * q.shape[1] > 20000 else 100))
+    for (name, version), ms in times.items():
+        emit(flash_causal=name, version=version, ms=min(ms),
+             median_ms=statistics.median(ms), n=len(ms))
+        # each version against the as-built kernel timed in the same pass
+        if version != "as built":
+            ratios = [a / b for a, b in zip(times[name, "as built"], ms)]
+            emit(flash_causal=name, version=version,
+                 as_built_faster_in=sum(r < 1.0 for r in ratios),
+                 of=len(ratios), median_as_built_ratio=statistics.median(
+                     ratios))
+    for (version, name), b in outs.items():
+        if version == "as built":
+            continue
+        a = outs["as built", name]
+        emit(flash_causal=name, version=version,
+             bit_equal_to_as_built=bool(torch.equal(
+                 a.view(torch.int16), b.view(torch.int16))),
+             values_equal=bool(torch.equal(a, b)),
+             max_abs_diff=float((a.float() - b.float()).abs().max()))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", type=Path, default=ROOT,
@@ -218,8 +417,9 @@ def main() -> int:
     ap.add_argument("--only", nargs="+", choices=sorted(GROUP_VERSIONS),
                     default=sorted(GROUP_VERSIONS))
     ap.add_argument("--baseline", type=Path, default=None,
-                    help="checkout whose admission.cu the admission group "
-                         "times beside this one's")
+                    help="checkout whose admission.cu (admission group) or "
+                         "flash_attention.cu (flash_causal group) is timed "
+                         "beside this one's")
     args = ap.parse_args()
     sys.path.insert(0, str(args.root.resolve() / "src"))
     import torch
@@ -239,7 +439,8 @@ def main() -> int:
     wanted = [v for v in VERSIONS
               if any(v in GROUP_VERSIONS[g] for g in args.only)]
     dirs = {v: patched_csrc(csrc, v, VERSIONS[v]) for v in wanted}
-    if "admission" in args.only and args.baseline is not None:
+    if args.baseline is not None and {"admission", "flash_causal"} & set(
+            args.only):
         dirs["baseline"] = patched_csrc(
             args.baseline / "src" / "repro_torch" / "kernels" / "csrc",
             "baseline", {})
@@ -290,6 +491,13 @@ def main() -> int:
             emit(rmsnorm=[R, d], dtype=str(dt)[6:], library="F.rms_norm",
                  ms=graph_ms(lambda: rms(x, (d,), weight=weight,
                                          eps=rn.EPS), 200))
+
+    if "flash_causal" in args.only:
+        flash_causal(dirs, gen, dev)
+        dirs = {v: p for v, p in dirs.items()
+                if v not in GROUP_VERSIONS["flash_causal"] or any(
+                    v in GROUP_VERSIONS[g] for g in args.only
+                    if g != "flash_causal")}
 
     if "admission" in args.only:
         adm_in = {KN: admission_inputs(gen, *KN, dev)
