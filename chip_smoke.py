@@ -222,9 +222,10 @@ final line:
                 16 heads 72 wide, 675 M parameters) and the SD 1.5 UNet
                 (785 M), built on the host from seeded numpy weights with
                 every leaf random (the golden's ``constant_std``), held
-                (f32 with TF32 off, and bf16) against the JAX reference's
-                outputs in ``tests/data/torch_diffusion_golden.npz``
-                within ``DIT_ATOL`` / ``DIT_RMS`` and ``UNET_ATOL`` /
+                (f32 with TF32 off, and bf16; the UNet f32 alone) against
+                the JAX reference's outputs in
+                ``tests/data/torch_diffusion_golden.npz`` within
+                ``DIT_ATOL`` / ``DIT_RMS`` and ``UNET_ATOL`` /
                 ``UNET_RMS`` (DiT at 256 px, no launch, and 512 px, 28
                 launches; the UNet at latent 64), each limit shown to
                 reject the planted faults of ``dit_faults`` /
@@ -288,6 +289,39 @@ final line:
                 launch held within ``LM_WINDOW_SHARE`` of the causal one;
                 each flash row's key tiles walked and TFLOP/s on them
                 printed as modelled from ``key_tile_band``;
+             i. distribution, on an NCCL group of one rank made from an
+                in-memory store (no network) and the 1 x 1 (data, model)
+                mesh over it (``launch.mesh.make_host_mesh``), with
+                ``install_rules`` (so each MoE layer of a
+                ``moe_impl="shard_map"`` config runs
+                ``moe.moe_ffn_sharded`` under ``local_map``:
+                ``_local_dispatch_ffn``'s three ``moe_gemm`` launches, the
+                FSDP all-gathers and one all-reduce over 'model'):
+                Granite-3.0 MoE at 2 of its 32 layers, f32 (TF32 off) and
+                bf16, against the golden's ``granite_mesh`` section (the
+                reference's jitted prefill, logits at 3 positions and aux
+                loss under its own one-device mesh) within
+                ``GRANITE_ATOL`` / ``GRANITE_RMS``, the launches and the
+                branch's calls counted, no copy routed to a padded expert
+                (ids 40-47), the bf16 routing flips printed, and the
+                unmeshed ``moe_ffn`` in the sharded path's place rejected
+                in both dtypes; then phase 4h's weights at full width and
+                depth and its 32,768-token prompt through the mesh branch
+                (32 flash, 65 ``rmsnorm``, 96 ``moe_gemm`` launches, 32
+                ``moe_ffn_sharded`` calls and all-reduces, the counts from
+                0; no padded expert routed), layer 0's gate and down
+                ``moe_gemm`` inputs at the mesh's capacity (8,192, from the
+                40 real experts) kept and held against the plain version
+                (``tma_wgmma`` required) and timed, the prefill timed with
+                CUDA events beside 4h's unmeshed one, its last logits'
+                distance from 4h's printed (they route differently by
+                design), and the meshed kernel prefill at S = 4,096 held to
+                the meshed plain one (plain ``rmsnorm`` and ``moe_gemm``,
+                chunked attention, routed as the kernel one) within
+                ``LM_PREFILL_REL_RMS``, as 4h holds the unmeshed; and a DeiT-B
+                checkpoint (full width, ``training/checkpoint.py``)
+                restored and placed on the mesh by
+                ``training.elastic.replace_mesh``: equal bit for bit;
 5. entry points — the kernels that ``repro_torch.kernels.ops`` exposes
              (their launch counts, set to 0 before phase 3, are 0 after
              phase 4g but for ``fleet_feasibility``'s, which must equal
@@ -379,7 +413,7 @@ final line:
              c. the main paths through ``launch.train``'s ``run``:
                 Granite-3.0 MoE at full width and depth (bf16 weights, f32
                 moments, remat) on ``train_4k``'s 4,096-token sequences
-                with the global batch cut 256 -> 2, one warm step, three
+                with the global batch cut 256 -> 2, one warm step, two
                 timed (ms a step, tokens/s, peak memory), each kernel's
                 launches a step as the counters saw them (set to 0 before
                 the run), every leaf changed; DeiT-B ``cls_224`` at its
@@ -403,8 +437,8 @@ final line:
    and Gemma-3 27B shapes), ``mma_sync`` and ``f32_regtile``, which no
    served path launches; ``fleet_feasibility`` with its path,
    the heap router, and that path's launches; ``rmsnorm`` and
-   ``moe_gemm`` with theirs, the LM's and the train step's, their
-   launches and their shapes' times; ``rmsnorm_backward`` with the train
+   ``moe_gemm`` with theirs, the LM's (phase 4h and the meshed prefill of
+   4i) and the train step's, their launches and their shapes' times; ``rmsnorm_backward`` with the train
    step's), then the ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX or of the JAX package.
@@ -415,6 +449,7 @@ import collections
 import concurrent.futures
 import contextlib
 import dataclasses
+import functools
 import gc
 import hashlib
 import itertools
@@ -567,22 +602,20 @@ PROFILE_TRIES = 3
 # outputs of rms ~0.70.  Held by the largest error and by the rms error.
 # f32 with TF32 off: DiT max 1.0e-5 / 1.1e-5, rms 1.7e-6 at 256 / 512 px,
 # the UNet max 1.8e-5, rms 3.5e-6 on an H100; held at 5e-5 / rms 5e-6 and
-# 1e-4 / rms 1.5e-5.  bf16: DiT max 0.027 / 0.031, rms 0.0063; the UNet
-# max 0.051, rms 0.0095; held at 0.08 / rms 0.015 and 0.12 / rms 0.02.
+# 1e-4 / rms 1.5e-5.  bf16: DiT max 0.027 / 0.031, rms 0.0063, held at
+# 0.08 / rms 0.015 (the UNet's bf16 golden is cut for the time budget).
 # Every planted fault of dit_faults / unet_faults must fail f32 (on an
 # H100 the smallest are DiT's transposed pos-embed, max 2.3e-3, rms
 # 4.1e-4, and the UNet's GroupNorm eps, max 4.3e-3, rms 7.7e-4); bf16 must
 # reject those that move the output past its own rounding (DiT's smallest
-# there, the last layer skipped, is max 0.203 / 0.266, rms 0.037; the
-# UNet's, the downsample padded (1, 1), rms 0.81).  bf16 cannot see DiT's
-# transposed pos-embed (rms 0.0063, as sound), nor the UNet's swapped skips
-# (rms 0.0125) or its GroupNorm eps (0.0093): f32 holds those.
+# there, the last layer skipped, is max 0.203 / 0.266, rms 0.037).  bf16
+# cannot see DiT's transposed pos-embed (rms 0.0063, as sound): f32 holds
+# it.
 DIT_ATOL = {("float32", 256): 5e-5, ("float32", 512): 5e-5,
             ("bfloat16", 256): 0.08, ("bfloat16", 512): 0.08}
 DIT_RMS = {("float32", 256): 5e-6, ("float32", 512): 5e-6,
            ("bfloat16", 256): 0.015, ("bfloat16", 512): 0.015}
-UNET_ATOL = {("float32", 64): 1e-4, ("bfloat16", 64): 0.12}
-UNET_RMS = {("float32", 64): 1.5e-5, ("bfloat16", 64): 0.02}
+UNET_ATOL, UNET_RMS = 1e-4, 1.5e-5          # f32 alone (the bf16 golden cut)
 # DiT-XL/2's bf16 serve step through the flash kernel against the port's
 # plain path (attn_impl "chunked") on the same inputs and weights, at
 # gen_fast and gen_1024: the rms of the difference over the rms of the
@@ -597,6 +630,40 @@ def fleet256(spec) -> bool:
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
+
+
+# The seeded numpy weight trees of phases 4 to 4i, drawn on a thread of
+# their own while phase 3 runs: numpy's normal fill releases the GIL, so
+# the draws (ViT-H/14 13.1 s, DiT-XL/2 and the UNet 29.0 s, the LM
+# golden's Granite 7.7 s when each was drawn in its phase) leave the
+# path.  Each tree has its own seeded stream: the values are the ones a
+# draw in place gives.
+TREE_DRAWS: dict = {}
+
+
+def start_tree_draws(pool) -> None:
+    """Submit the later phases' weight draws to ``pool``, in the order the
+    phases take them (:func:`host_tree`)."""
+    with open(VIT_GOLDEN) as f:
+        vseed = json.load(f)["vit_h14"]["weight_seed"]
+    with np.load(DIFFUSION_GOLDEN) as f:
+        dmeta = json.loads(str(f["meta"]))
+    with np.load(LM_GOLDEN) as f:
+        lmeta = json.loads(str(f["meta"]))
+    draws = [(vit.numpy_params, vit_h14.CONFIG, vseed)] + [
+        (mod.numpy_params, cfg, dmeta["weight_seed"], dmeta["constant_std"])
+        for mod, cfg in ((dit, dit_xl2.CONFIG), (unet, unet_sd15.CONFIG))] + [
+        (golden_tree, granite_golden_config(lmeta["sections"]["granite"]),
+         lmeta["weight_seed"], lmeta["constant_std"])]
+    for fn, *args in draws:
+        TREE_DRAWS[(fn, *args)] = pool.submit(fn, *args)
+
+
+def host_tree(fn, *args):
+    """``fn(*args)``, a seeded numpy weight tree: the one drawn by
+    :func:`start_tree_draws` for the same call where there is one."""
+    fut = TREE_DRAWS.pop((fn, *args), None)
+    return fn(*args) if fut is None else fut.result()
 
 
 def card_line() -> str:
@@ -2987,9 +3054,10 @@ def vit_h14_phase(vgold, spec, frames, dev) -> dict:
     step times and the graphs' capture cost."""
     t0 = time.time()
     hgold = vgold["vit_h14"]
-    tree = vit.numpy_params(vit_h14.CONFIG, hgold["weight_seed"])
-    print(f"vision weights: ViT-H/14 seed {hgold['weight_seed']}, "
-          f"{time.time() - t0:.1f} s", flush=True)
+    tree = host_tree(vit.numpy_params, vit_h14.CONFIG, hgold["weight_seed"])
+    print(f"vision weights: ViT-H/14 seed {hgold['weight_seed']}, ready "
+          f"in {time.time() - t0:.1f} s (drawn on the host beside phase 3)",
+          flush=True)
     out = dict(logits=vit_h14_logits_check(tree, hgold, dev))
     cfg = dataclasses.replace(vit_h14.CONFIG, attn_impl="pallas")
     params = vit.params_from_numpy(tree, cfg, dev)
@@ -3332,18 +3400,18 @@ def dit_golden_check(tree, g, dev) -> dict:
 
 def unet_golden_check(tree, g, dev) -> dict:
     """The SD 1.5 UNet at full width against the golden outputs, f32 (TF32
-    off) and bf16, at its latent 64."""
-    out = {}
-    for dt in ("float32", "bfloat16"):
-        cfg = dataclasses.replace(unet_sd15.CONFIG, param_dtype=dt)
-        params = unet.params_from_numpy(tree, cfg, dev)
-        side = cfg.latent_res
-        out[f"{dt} {side}"] = golden_check(
-            "UNet", unet, params, cfg, g, "unet", side, dt,
-            ("latents", "t", "ctx"), unet_faults(cfg), UNET_ATOL[dt, side],
-            UNET_RMS[dt, side], dev, 0)
-        del params
-    return out
+    off), at its latent 64.  (Its bf16 golden was cut for the time budget:
+    bf16 must reject only the padded downsample, which f32 rejects too;
+    ``tests/test_torch_gpu.py::test_unet_on_gpu_matches_cpu`` holds the
+    bf16 UNet on the card against the CPU.)"""
+    dt = "float32"
+    cfg = dataclasses.replace(unet_sd15.CONFIG, param_dtype=dt)
+    params = unet.params_from_numpy(tree, cfg, dev)
+    side = cfg.latent_res
+    return {f"{dt} {side}": golden_check(
+        "UNet", unet, params, cfg, g, "unet", side, dt,
+        ("latents", "t", "ctx"), unet_faults(cfg), UNET_ATOL, UNET_RMS,
+        dev, 0)}
 
 
 def step_inputs(family, cfg, shape, dev, seed):
@@ -3534,17 +3602,18 @@ def diffusion_phase(dev) -> dict:
     t_phase = time.time()
     g, meta = diffusion_golden()
     t0 = time.time()
-    dit_tree = dit.numpy_params(dit_xl2.CONFIG, meta["weight_seed"],
-                                meta["constant_std"])
-    unet_tree = unet.numpy_params(unet_sd15.CONFIG, meta["weight_seed"],
-                                  meta["constant_std"])
+    dit_tree = host_tree(dit.numpy_params, dit_xl2.CONFIG,
+                         meta["weight_seed"], meta["constant_std"])
+    unet_tree = host_tree(unet.numpy_params, unet_sd15.CONFIG,
+                          meta["weight_seed"], meta["constant_std"])
     n = {k: sum(int(np.prod(d.shape)) for d in mod.param_defs(c).values())
          for k, mod, c in (("dit", dit, dit_xl2.CONFIG),
                            ("unet", unet, unet_sd15.CONFIG))}
     print(f"diffusion weights: DiT-XL/2 {n['dit']:,} and UNet "
           f"{n['unet']:,} parameters, seed {meta['weight_seed']}, every leaf "
-          f"random (constants' std {meta['constant_std']}), on the host in "
-          f"{time.time() - t0:.1f} s", flush=True)
+          f"random (constants' std {meta['constant_std']}), ready in "
+          f"{time.time() - t0:.1f} s (drawn on the host beside phase 3)",
+          flush=True)
     if n != {k: meta["sections"][k]["n_params"] for k in n}:
         fail(f"parameter counts {n} are not the golden's")
     out = dict(golden=dict(dit=dit_golden_check(dit_tree, g, dev),
@@ -3625,6 +3694,20 @@ def lm_golden():
     return g, json.loads(str(g.pop("meta")))
 
 
+def granite_golden_config(sec):
+    """Granite at the golden section ``sec``'s depth, ``attn_impl="pallas"``
+    (the 1,100-token prompts run the flash kernel once a layer)."""
+    return dataclasses.replace(granite_moe_3b_a800m.CONFIG,
+                               n_layers=sec["n_layers"], attn_impl="pallas")
+
+
+@functools.lru_cache(maxsize=1)
+def golden_tree(cfg, seed: int, constant_std: float):
+    """The LM golden's seeded numpy weights (``transformer.numpy_params``),
+    drawn once for phases 4h and 4i (390 M values at Granite's cut)."""
+    return transformer.numpy_params(cfg, seed, constant_std)
+
+
 def lm_counts(zero=False) -> dict:
     """The three kernels' launch counts (set to 0 first with ``zero``)."""
     if zero:
@@ -3668,14 +3751,16 @@ def pinned_routing(experts):
     In bf16 a router logit that moves by rounding flips near-tied experts,
     and a flip into a full expert drops the last token routed there (the
     prompt's last, whose logits a prefill returns, first): two paths that
-    differ only in rounding are compared with one routing."""
-    real, calls = lm_moe.route_topk, dict(i=0, flips=0)
+    differ only in rounding are compared with one routing.  ``largest``
+    is the largest expert id of its own top-k."""
+    real, calls = lm_moe.route_topk, dict(i=0, flips=0, largest=0)
 
     def pinned(logits, top_k, n_real=None):
         _, own = real(logits, top_k, n_real)
         e = experts[calls["i"]]
         calls["i"] += 1
         calls["flips"] += int((own != e).sum())
+        calls["largest"] = max(calls["largest"], int(own.max()))
         gates = torch.softmax(logits.float(), dim=-1).gather(1, e.long())
         return gates / torch.clamp(gates.sum(-1, keepdim=True),
                                    min=1e-9), e
@@ -3772,16 +3857,16 @@ def granite_golden_check(g, meta, dev) -> dict:
     runs the flash kernel once a layer), against the reference's outputs;
     each planted fault rejected where its dtype must; the routing flips."""
     sec = meta["sections"]["granite"]
-    base = dataclasses.replace(granite_moe_3b_a800m.CONFIG,
-                               n_layers=sec["n_layers"], attn_impl="pallas")
+    base = granite_golden_config(sec)
     t0 = time.time()
-    tree = transformer.numpy_params(base, meta["weight_seed"],
-                                    meta["constant_std"])
+    tree = host_tree(golden_tree, base, meta["weight_seed"],
+                     meta["constant_std"])
     n = sum(int(np.prod(d.shape))
             for d in transformer.param_defs(base).values())
     print(f"lm golden: Granite-3.0 MoE, {sec['n_layers']} of 32 layers at "
           f"full width, {n:,} parameters (seed {meta['weight_seed']}, every "
-          f"leaf random), on the host in {time.time() - t0:.1f} s", flush=True)
+          f"leaf random), ready in {time.time() - t0:.1f} s (drawn on the "
+          f"host beside phase 3)", flush=True)
     if n != sec["n_params"]:
         fail(f"Granite golden: {n} parameters, the golden's {sec['n_params']}")
     out = {}
@@ -4039,6 +4124,57 @@ def lm_profile(name, fn, ms) -> dict:
     return row
 
 
+def moe_gemm_row(label, x, w) -> dict:
+    """``moe_gemm`` on inputs kept from a path: against its plain version
+    (the ``tma_wgmma`` variant required), then timed beside it, the
+    library call and the bound."""
+    E, C, d = x.shape
+    f = w.shape[2]
+    kind = mg_mod.variant(x, w)
+    got = mg_mod.moe_gemm(x, w)
+    want = ref.moe_gemm_ref(x, w)
+    tol = ref.moe_gemm_tolerance(x, w)
+    e = check_close(f"moe_gemm {label}", got, want, tol)
+    print(f"lm kernel: moe_gemm {label} ({E}, {C}, {d}) x ({E}, {d}, {f}), "
+          f"{kind}: max abs err {e}, "
+          f"{tolerance_share(got, want, tol):.3f} of the tolerance",
+          flush=True)
+    del got, want
+    if kind != "tma_wgmma":
+        fail(f"moe_gemm {label} took {kind}")
+    reps = 5 if C > 100 else 100
+    row = dict(label=label, E=E, C=C, d=d, f=f, variant=kind,
+               ms=graph_ms(lambda: mg_mod.moe_gemm(x, w), reps),
+               plain_ms=graph_ms(lambda: ref.moe_gemm_ref(x, w),
+                                 max(2, reps // 10)),
+               library_ms=graph_ms(lambda: torch.bmm(x, w), reps),
+               max_abs_err=e)
+    row["bound_ms"], row["bound_by"] = moe_bound_ms(E, C, d, f, 2)
+    return row
+
+
+def kernel_row_lines(rows) -> None:
+    """One line a timed kernel row: its time beside its plain version,
+    the library call and the bound (``ratio`` set on each row)."""
+    for name, rs in rows.items():
+        for r in rs:
+            lib = r["library_ms"]
+            r["ratio"] = None if lib is None else r["ms"] / lib
+            shape = ", ".join(f"{k}={v}" for k, v in r.items()
+                              if not k.endswith(("ms", "_by", "ratio",
+                                                 "err", "plain", "share",
+                                                 "library")))
+            more = (f", {r['bound_share']:.3f} of the bound"
+                    if "bound_share" in r else "")
+            print(f"lm kernel time {name} {shape}: {r['ms'] * 1e3:.2f} us, "
+                  f"plain {r['plain_ms'] * 1e3:.2f} us, library "
+                  + ("none" if lib is None else
+                     f"{lib * 1e3:.2f} us, kernel / library "
+                     f"{r['ratio']:.3f}")
+                  + f", bound {r['bound_ms'] * 1e3:.2f} us "
+                  f"({r['bound_by']}){more}", flush=True)
+
+
 def lm_kernel_rows(kept, dev) -> dict:
     """Phase 4h c-d on the kernel inputs kept from the main path: each
     against its plain version, then timed beside it, the library call and
@@ -4113,45 +4249,10 @@ def lm_kernel_rows(kept, dev) -> dict:
         rows["rmsnorm"].append(row)
     # moe_gemm at the prefill's capacity (gate, down) and decode's C=1, 4
     for label, (x, w) in kept["moe_gemm"]:
-        E, C, d = x.shape
-        f = w.shape[2]
-        kind = mg_mod.variant(x, w)
-        got = mg_mod.moe_gemm(x, w)
-        want = ref.moe_gemm_ref(x, w)
-        e = check_close(f"moe_gemm {label}", got, want,
-                        ref.moe_gemm_tolerance(x, w))
-        print(f"lm kernel: moe_gemm {label} ({E}, {C}, {d}) x ({E}, {d}, "
-              f"{f}), {kind}: max abs err {e}, {tolerance_share(got, want, ref.moe_gemm_tolerance(x, w)):.3f} of the tolerance", flush=True)
-        if kind != "tma_wgmma":
-            fail(f"moe_gemm {label} took {kind}")
-        errs["moe_gemm"] = max(errs.get("moe_gemm", 0.0), e)
-        reps = 5 if C > 100 else 100
-        row = dict(label=label, E=E, C=C, d=d, f=f, variant=kind,
-                   ms=graph_ms(lambda: mg_mod.moe_gemm(x, w), reps),
-                   plain_ms=graph_ms(lambda: ref.moe_gemm_ref(x, w),
-                                     max(2, reps // 10)),
-                   library_ms=graph_ms(lambda: torch.bmm(x, w), reps),
-                   max_abs_err=e)
-        row["bound_ms"], row["bound_by"] = moe_bound_ms(E, C, d, f, 2)
+        row = moe_gemm_row(label, x, w)
+        errs["moe_gemm"] = max(errs.get("moe_gemm", 0.0), row["max_abs_err"])
         rows["moe_gemm"].append(row)
-        del got, want
-    for name, rs in rows.items():
-        for r in rs:
-            lib = r["library_ms"]
-            r["ratio"] = None if lib is None else r["ms"] / lib
-            shape = ", ".join(f"{k}={v}" for k, v in r.items()
-                              if not k.endswith(("ms", "_by", "ratio",
-                                                 "err", "plain", "share",
-                                                 "library")))
-            more = (f", {r['bound_share']:.3f} of the bound"
-                    if "bound_share" in r else "")
-            print(f"lm kernel time {name} {shape}: {r['ms'] * 1e3:.2f} us, "
-                  f"plain {r['plain_ms'] * 1e3:.2f} us, library "
-                  + ("none" if lib is None else
-                     f"{lib * 1e3:.2f} us, kernel / library "
-                     f"{r['ratio']:.3f}")
-                  + f", bound {r['bound_ms'] * 1e3:.2f} us "
-                  f"({r['bound_by']}){more}", flush=True)
+    kernel_row_lines(rows)
     return rows, errs
 
 
@@ -4325,19 +4426,358 @@ def lm_main_path(dev) -> dict:
                        + LM_GREEDY_STEPS * out["decode_launches"][name]
                        + LM_DECODE32K_STEPS * out["decode_32k_launches"][name]
                        for name in LM_COUNTERS}
-    return out
+    return out, dict(params=params, cfg=cfg, tokens=tokens, last=last,
+                     prefill_ms=out["prefill"]["ms"])
 
 
-def lm_phase(dev) -> dict:
-    """Phase 4h; returns the LM's rows for the kernels line."""
+def lm_phase(dev):
+    """Phase 4h; returns the LM's rows for the kernels line, and the main
+    path's weights, prompt, last logits and prefill time for phase 4i."""
     torch.backends.cuda.matmul.allow_tf32 = False
     t_phase = time.time()
     g, meta = lm_golden()
     out = dict(golden=granite_golden_check(g, meta, dev),
                smoke_max_abs_err=lm_smoke_check(g, meta, dev))
     print(f"lm golden checks: {time.time() - t_phase:.1f} s", flush=True)
-    out.update(lm_main_path(dev))
+    main, weights = lm_main_path(dev)
+    out.update(main)
     print(f"lm phase: {time.time() - t_phase:.1f} s", flush=True)
+    return out, weights
+
+
+# ---------------------------------------------------------------------------
+# phase 4i: distribution (Granite-3.0 MoE's prefill under a device mesh:
+# moe_ffn_sharded -> _local_dispatch_ffn -> moe_gemm; elastic remesh)
+# ---------------------------------------------------------------------------
+# The meshed Granite golden (tests/data/torch_lm_golden.npz, section
+# granite_mesh: the reference's jitted prefill, logits and aux loss under a
+# one-device mesh with install_rules, the golden granite section's cut,
+# weights and prompts) is held to GRANITE_ATOL / GRANITE_RMS, and must
+# reject the unmeshed moe_ffn in place of the sharded path in both dtypes.
+# bf16 runs routed as each of the reference's compiled calls was
+# (pinned_routing on the golden's experts, logits_experts, aux_experts):
+# left to route itself, the port on the CPU flips ~1,760 of 35,200 routed
+# copies a forward at near-ties, and the flips that reach the prompts'
+# last token move its logits by up to 1.13 (rms 0.19), where the rows
+# before it stay within 0.056 (rms 0.012).  f32 routes itself (2 flips on
+# the CPU, within the limits).
+# Expert ids from this one up are Granite's padding (48 - 40): the mesh's
+# dispatch routes no copy to them.
+MESH_N_REAL = granite_moe_3b_a800m.CONFIG.n_experts
+MESH_CKPT_DIR = os.path.join(ROOT, "build", "elastic_ckpt")
+
+
+@contextlib.contextmanager
+def one_rank_mesh():
+    """An NCCL group of one rank from an in-memory store (no network) and
+    the 1 x 1 (data, model) mesh over it on the card; the rules cleared and
+    the group destroyed on the way out."""
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    dist.init_process_group(
+        "nccl", store=dist.HashStore(), rank=0, world_size=1,
+        device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        yield make_host_mesh()
+    finally:
+        shd.clear_rules()
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def mesh_calls():
+    """Counts of the mesh branch's calls: ``moe_ffn_sharded`` (one a MoE
+    layer), ``_local_dispatch_ffn`` (one a rank and layer) and the
+    functional all-reduce and all-gathers inside it."""
+    import torch.distributed._functional_collectives as funcol
+    with Spy(lm_moe, "moe_ffn_sharded") as sharded, \
+            Spy(lm_moe, "_local_dispatch_ffn") as local, \
+            Spy(funcol, "all_reduce") as reduce, \
+            Spy(funcol, "all_gather_tensor") as gathers:
+        counts = {}
+        yield counts
+    counts.update(moe_ffn_sharded=sharded.calls,
+                  _local_dispatch_ffn=local.calls, all_reduce=reduce.calls,
+                  all_gather=gathers.calls)
+
+
+def unmeshed_moe(x, router_w, w_gate, w_up, w_down, *, top_k,
+                 capacity_factor, n_real=None, **mesh_args):
+    """The planted fault: the unmeshed ``moe_ffn`` in the sharded path's
+    place (padded experts routed, capacity from 48)."""
+    return lm_moe.moe_ffn(x, router_w, w_gate, w_up, w_down, top_k=top_k,
+                          capacity_factor=capacity_factor, n_real=n_real)
+
+
+def granite_mesh_run(params, cfg, toks, rows):
+    """The golden's outputs under the installed mesh: the prefill's last
+    logits, ``logits_fn`` at ``rows`` and the aux loss, as f32 numpy."""
+    host = lambda t: t.float().cpu().numpy()  # noqa: E731
+    last, _ = transformer.prefill(params, toks, cfg)
+    logits = transformer.logits_fn(params, toks, cfg)[:, rows]
+    _, aux = transformer.hidden_states(params, toks, cfg)
+    return dict(prefill_logits=host(last), logits_rows=host(logits),
+                aux=host(aux))
+
+
+def granite_mesh_check(g, meta, mesh, dev) -> dict:
+    """Phase 4i a: Granite at full width, depth cut to the golden's, f32
+    (TF32 off) and bf16, ``attn_impl="pallas"``, under the 1 x 1 mesh with
+    ``install_rules`` (the golden's rules): each output within the Granite
+    golden's limits, the launches and the mesh branch's calls counted, no
+    copy routed to a padded expert, the routing flips against the
+    reference's printed, and the unmeshed MoE rejected."""
+    from repro_torch.launch.mesh import install_rules
+    sec = meta["sections"]["granite_mesh"]
+    base = granite_golden_config(sec)
+    tree = golden_tree(base, meta["weight_seed"], meta["constant_std"])
+    toks = torch.from_numpy(g["granite_mesh/tokens"]).long().to(dev)
+    rows, L, S = sec["logits_rows"], sec["n_layers"], toks.shape[1]
+    out = {}
+    for dt in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, param_dtype=dt)
+        params = transformer.params_from_numpy(tree, cfg, dev)
+        rules = install_rules(mesh, cfg, sec["batch"], kind="prefill")
+        if json.loads(json.dumps(rules)) != sec["rules"]:
+            fail(f"granite mesh: rules {rules}, the golden's {sec['rules']}")
+        prefix = f"granite_mesh/{dt}/"
+        atol, rms_tol = GRANITE_ATOL[dt], GRANITE_RMS[dt]
+        # the reference's routing of its three calls, in granite_mesh_run's
+        # order
+        want_r = np.concatenate([g[prefix + n] for n in (
+            "experts", "logits_experts", "aux_experts")]).astype(np.int64)
+        pin = [torch.from_numpy(e).to(dev) for e in want_r] \
+            if dt == "bfloat16" else None
+        routed = (lambda: pinned_routing(pin)) if pin else \
+            (lambda: recorded_routing(3 * L))
+        with routed() as seen, mesh_calls() as calls:
+            lm_counts(zero=True)
+            got = granite_mesh_run(params, cfg, toks, rows)
+            counts = lm_counts()
+        want_counts = {k: 3 * v for k, v in lm_forward_counts(cfg, S).items()}
+        want_calls = dict(moe_ffn_sharded=3 * L, _local_dispatch_ffn=3 * L,
+                          all_reduce=3 * L, all_gather=9 * L)
+        if counts != want_counts or calls != want_calls:
+            fail(f"granite mesh {dt}: launches {counts}, calls {calls}; "
+                 f"expected {want_counts}, {want_calls}")
+        if pin:
+            flips, largest = seen["flips"], seen["largest"]
+        else:
+            own = np.stack(seen)
+            flips, largest = int((own != want_r).sum()), int(own.max())
+        if largest >= MESH_N_REAL:
+            fail(f"granite mesh {dt}: a copy routed to padded expert "
+                 f"{largest}")
+        errs = lm_errors(got, g, prefix)
+        row = dict(errors=errs, atol=atol, rms_tol=rms_tol, launches=counts,
+                   calls=calls, pinned=bool(pin), routing_flips=flips,
+                   routed_copies=int(want_r.size), largest_expert=largest)
+        print(f"mesh golden Granite {dt} (rules {rules}; "
+              f"{'routed as the reference' if pin else 'own routing'}): "
+              + "; ".join(f"{k} max {e:.3g} rms {r:.3g}"
+                          for k, (e, r) in errs.items())
+              + f" (limits {atol} / rms {rms_tol}); launches {counts}; calls "
+              f"{calls}; largest expert id {largest}; its own routing "
+              f"differs from the reference's in {flips} of {want_r.size} "
+              f"routed copies", flush=True)
+        if not all(e <= atol and r <= rms_tol for e, r in errs.values()):
+            fail(f"granite mesh {dt}: outputs {errs} beyond {atol} / "
+                 f"{rms_tol}")
+        with routed(), patched(lm_moe, "moe_ffn_sharded", unmeshed_moe):
+            bad = granite_mesh_run(params, cfg, toks, rows)
+        berrs = lm_errors(bad, g, prefix)
+        caught = any(e > atol or r > rms_tol for e, r in berrs.values())
+        row["fault"] = dict(errors=berrs, rejected=caught)
+        print(f"mesh golden Granite {dt}, the unmeshed moe_ffn in place of "
+              f"the sharded path: " + "; ".join(
+                  f"{k} max {e:.3g} rms {r:.3g}" for k, (e, r) in
+                  berrs.items())
+              + f"; {'rejected' if caught else 'NOT rejected'}",
+              flush=True)
+        if not caught:
+            fail(f"granite mesh {dt}: the limits pass the unmeshed MoE")
+        out[dt] = row
+        del params
+    return out
+
+
+def mesh_main_path(w, mesh, dev) -> dict:
+    """Phase 4i b: phase 4h's Granite weights at full width and depth,
+    bf16, its 32,768-token prompt at B = 1 through the mesh branch: the
+    launches and the branch's calls counted from 0, no copy routed to a
+    padded expert, layer 0's gate and down ``moe_gemm`` inputs kept and
+    held against the plain version (their capacity is the mesh's, from
+    the 40 real experts), the prefill timed (CUDA events, best of 3)
+    beside 4h's unmeshed prefill and its last logits against 4h's (a
+    report: the two route differently by design); then the meshed kernel
+    prefill at S = 4,096 against the meshed plain one, routed as the
+    kernel one was."""
+    from repro_torch.launch.mesh import install_rules
+    params, cfg, tokens = w["params"], w["cfg"], w["tokens"]
+    L, S = cfg.n_layers, tokens.shape[1]
+    rules = install_rules(mesh, cfg, 1, kind="prefill")
+    with recorded_routing(L, host=False) as routing, mesh_calls() as calls, \
+            Spy(ops, "moe_gemm", lambda i, a: i in (0, 2)) as mspy:
+        lm_counts(zero=True)
+        t0 = time.time()
+        last, cache = transformer.prefill(params, tokens, cfg)
+        torch.cuda.synchronize()
+        first_s = time.time() - t0
+        counts = lm_counts()
+    want = lm_forward_counts(cfg, S)
+    want_calls = dict(moe_ffn_sharded=L, _local_dispatch_ffn=L,
+                      all_reduce=L, all_gather=3 * L)
+    largest = int(torch.stack([r.max() for r in routing]).max())
+    copies = sum(r.numel() for r in routing)
+    del cache, routing
+    diff = (last - w["last"]).abs()
+    out = dict(rules=rules, launches=counts, calls=calls, first_s=first_s,
+               largest_expert=largest, routed_copies=copies,
+               finite=bool(torch.isfinite(last).all()),
+               max_abs_diff_unmeshed=float(diff.max()),
+               argmax_equal_unmeshed=bool(
+                   (last.argmax(-1) == w["last"].argmax(-1)).all()),
+               capacity=lm_moe.capacity(S, MESH_N_REAL, cfg.top_k,
+                                        cfg.capacity_factor),
+               unmeshed_capacity=lm_moe.capacity(S, cfg.n_experts_eff,
+                                                 cfg.top_k,
+                                                 cfg.capacity_factor))
+    print(f"mesh main path: Granite-3.0 MoE at full width and depth, prefill "
+          f"B=1 S={S} under the 1 x 1 mesh (rules {rules}): launches "
+          f"{counts} (expected {want}); calls {calls} (expected "
+          f"{want_calls}); largest expert id {largest} of {copies} routed "
+          f"copies (padding from {MESH_N_REAL}); capacity {out['capacity']} "
+          f"(unmeshed {out['unmeshed_capacity']}); first call {first_s:.2f} "
+          f"s; last logits against 4h's unmeshed prefill: max |diff| "
+          f"{out['max_abs_diff_unmeshed']:.4g}, argmax equal "
+          f"{out['argmax_equal_unmeshed']} (a report, not a check)",
+          flush=True)
+    if counts != want or calls != want_calls:
+        fail(f"the meshed prefill launched {counts} with calls {calls}, "
+             f"expected {want} and {want_calls}")
+    if largest >= MESH_N_REAL or not out["finite"]:
+        fail(f"the meshed prefill routed to expert {largest} or is not "
+             f"finite")
+    # layer 0's expert products at the mesh's capacity, against the plain
+    # version
+    C = mspy.kept[0][0][0].shape[1]
+    if C != out["capacity"]:
+        fail(f"the meshed prefill's moe_gemm took capacity {C}, not "
+             f"{out['capacity']}")
+    out["kernels"] = [moe_gemm_row(f"meshed {part} C={C}", *args)
+                      for part, (args, _) in zip(("gate", "down"),
+                                                 mspy.kept)]
+    out["max_abs_err"] = max(r["max_abs_err"] for r in out["kernels"])
+    kernel_row_lines({"moe_gemm": out["kernels"]})
+    del mspy
+    pre_fn = lambda: transformer.prefill(params, tokens, cfg)  # noqa: E731
+    out["ms"] = events_ms(pre_fn)
+    out["tokens_per_s"] = S / out["ms"] * 1e3
+    out["unmeshed_ms"] = w["prefill_ms"]
+    out["ratio_to_unmeshed"] = out["ms"] / w["prefill_ms"]
+    print(f"mesh main path: prefill {out['ms']:.3f} ms "
+          f"({out['tokens_per_s']:.0f} tokens/s, CUDA events, best of 3) against phase 4h's unmeshed "
+          f"{w['prefill_ms']:.3f} ms: {out['ratio_to_unmeshed']:.3f}",
+          flush=True)
+
+    # the meshed kernel prefill against the meshed plain one at B = 1,
+    # S = 4,096, the plain one routed as the kernel one was (phase 4h's
+    # check under the mesh)
+    short = tokens[:, :LM_PLAIN_PREFILL]
+    with recorded_routing(L, host=False) as routing, mesh_calls() as kcalls:
+        got, _ = transformer.prefill(params, short, cfg)
+    with patched(ops, "rmsnorm", ref.rmsnorm_ref), \
+            patched(ops, "moe_gemm", ref.moe_gemm_ref), \
+            pinned_routing(routing) as pinned, mesh_calls() as pcalls:
+        lm_counts(zero=True)
+        want_l, _ = transformer.prefill(
+            params, short, dataclasses.replace(cfg, attn_impl="chunked"))
+        if any(lm_counts().values()):
+            fail(f"the meshed plain prefill launched {lm_counts()}")
+    rms = lambda x: float(x.float().pow(2).mean().sqrt())  # noqa: E731
+    rel = rms(got - want_l) / rms(want_l)
+    out["plain_prefill"] = dict(
+        S=LM_PLAIN_PREFILL, rel_rms=rel,
+        max_abs_err=float((got - want_l).abs().max()),
+        routing_flips=pinned["flips"], largest_expert=pinned["largest"],
+        routed_copies=L * LM_PLAIN_PREFILL * cfg.top_k)
+    print(f"mesh main path: the meshed kernel prefill at "
+          f"S={LM_PLAIN_PREFILL} against the meshed plain one (chunked "
+          f"attention, plain rmsnorm and moe_gemm, routed as the kernel "
+          f"one): last logits rms {rel:.4g} of theirs (limit "
+          f"{LM_PREFILL_REL_RMS}), max abs err "
+          f"{out['plain_prefill']['max_abs_err']:.4g}; its own routing "
+          f"would differ in {pinned['flips']} of "
+          f"{out['plain_prefill']['routed_copies']} routed copies; "
+          f"sharded calls {kcalls['moe_ffn_sharded']} / "
+          f"{pcalls['moe_ffn_sharded']}", flush=True)
+    if kcalls["moe_ffn_sharded"] != L or pcalls["moe_ffn_sharded"] != L:
+        fail(f"the S={LM_PLAIN_PREFILL} prefills left the mesh branch: "
+             f"{kcalls}, {pcalls}")
+    if pinned["largest"] >= MESH_N_REAL:
+        fail(f"the meshed plain prefill routed to expert "
+             f"{pinned['largest']}")
+    if not torch.isfinite(got).all() or not rel <= LM_PREFILL_REL_RMS:
+        fail(f"the meshed kernel prefill is {rel} (rms, relative) from the "
+             f"plain")
+    return out
+
+
+def elastic_check(mesh, dev) -> dict:
+    """Phase 4i c: DeiT-B at full width (weights drawn on the card) written
+    by ``training/checkpoint.py``, restored on the host and placed on the
+    1 x 1 mesh by ``replace_mesh`` with the specs of its logical tree
+    under ``install_rules``: every leaf equal bit for bit."""
+    import shutil
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import install_rules
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.elastic import replace_mesh
+    cfg = deit_b.CONFIG
+    params = vit.init_params(cfg, torch.Generator(device=dev).manual_seed(7),
+                             dev)
+    t0 = time.time()
+    shutil.rmtree(MESH_CKPT_DIR, ignore_errors=True)
+    ckpt.save_checkpoint(MESH_CKPT_DIR, 1, params)
+    template = model_common.tree_map(
+        lambda x: torch.empty(x.shape, dtype=x.dtype), params)
+    restored, _ = ckpt.restore_latest(MESH_CKPT_DIR, template)
+    install_rules(mesh, cfg, 1, kind="serve")
+    shardings = dryrun._to_shardings(
+        mesh, S._nest_logical(vit.param_logical(cfg)), vit.param_specs(cfg))
+    specs = model_common.tree_map(lambda s: s.spec, shardings)
+    placed = replace_mesh(restored, specs, mesh)
+    pairs = [(model_common.nested(params, path),
+              model_common.nested(placed, path)) for path in
+             vit.param_defs(cfg)]
+    equal = all(torch.equal(a, b.to_local()) and b.device_mesh == mesh
+                for a, b in pairs)
+    out = dict(leaves=len(pairs), n_params=model_common.count_params(params),
+               equal=equal, s=time.time() - t0)
+    print(f"mesh elastic: DeiT-B ({out['n_params']:,} parameters, "
+          f"{len(pairs)} leaves) checkpointed, restored and placed on the "
+          f"1 x 1 mesh by replace_mesh: equal bit for bit {equal} "
+          f"({out['s']:.1f} s)", flush=True)
+    if not equal:
+        fail("the DeiT-B checkpoint placed on the mesh differs")
+    shutil.rmtree(MESH_CKPT_DIR, ignore_errors=True)
+    return out
+
+
+def mesh_phase(dev, weights) -> dict:
+    """Phase 4i; returns the phase's rows (``moe_gemm``'s launches in
+    ``launches``)."""
+    t0 = time.time()
+    g, meta = lm_golden()
+    with one_rank_mesh() as mesh:
+        out = dict(golden=granite_mesh_check(g, meta, mesh, dev))
+        out["main"] = mesh_main_path(weights, mesh, dev)
+        out["elastic"] = elastic_check(mesh, dev)
+    out["launches"] = out["main"]["launches"]
+    out["s"] = time.time() - t0
+    print(f"mesh phase: {out['s']:.1f} s", flush=True)
     return out
 
 
@@ -4858,7 +5298,7 @@ MOE_BWD_SHAPES = {"gate_up/853": (48, 853, 1536, 512),
 # the main path: Granite-3.0 MoE at full width and depth, train_4k's
 # 4,096-token sequences with its global batch cut 256 -> TRAIN_BATCH;
 # one warm step, TRAIN_TIMED timed
-TRAIN_BATCH, TRAIN_WARM, TRAIN_TIMED = 2, 1, 3
+TRAIN_BATCH, TRAIN_WARM, TRAIN_TIMED = 2, 1, 2
 # DeiT-B cls_224 at its full global batch: DEIT_STEPS steps, a checkpoint
 # after DEIT_CKPT_AT, a fresh run resumed from it
 DEIT_STEPS, DEIT_CKPT_AT = 2, 1
@@ -5581,6 +6021,16 @@ def timed_build(name: str) -> float:
     return time.time() - t0
 
 
+def process_seconds() -> float:
+    """Wall seconds since this process started (the interpreter's start
+    and the imports included), from ``/proc``."""
+    with open("/proc/self/stat") as f:
+        start = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/uptime") as f:
+        up = float(f.read().split()[0])
+    return up - start / os.sysconf("SC_CLK_TCK")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -5604,6 +6054,8 @@ def main() -> int:
             print(f"build: {name} {fut.result():.2f} s", flush=True)
             print(build.ptxas_report(name), end="", flush=True)
         print(f"build: empty kernel {floor.result():.2f} s", flush=True)
+    draws = concurrent.futures.ThreadPoolExecutor(1)
+    start_tree_draws(draws)
 
     # -- 2b. one rmsnorm call, one device kernel (the first profiled)
     one_kernel = rmsnorm_device_kernels(dev)
@@ -5649,7 +6101,12 @@ def main() -> int:
           f"{want['fleet_feasibility']} decisions)", flush=True)
 
     # -- 4h. the language-model serve path: rmsnorm's and moe_gemm's path
-    lm = lm_phase(dev)
+    lm, lm_weights = lm_phase(dev)
+    # -- 4i. distribution: 4h's Granite prefill under a device mesh
+    mesh = mesh_phase(dev, lm_weights)
+    del lm_weights
+    golden_tree.cache_clear()
+    torch.cuda.empty_cache()
 
     # -- 5. the entry points
     t0 = time.time()
@@ -5677,8 +6134,20 @@ def main() -> int:
             lm_shapes=lm["kernels"][name],
             **{k: top[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms", "ratio")})
+    # phase 4i's meshed prefill launches the same three kernels
+    for name in ("rmsnorm", "moe_gemm"):
+        entries[name]["launches"] += mesh["launches"][name]
+        entries[name]["path"] += ("; the meshed prefill (phase 4i: "
+                                  "models/moe.py::moe_ffn_sharded under a "
+                                  "1 x 1 mesh)")
+    entries["moe_gemm"]["max_abs_err"] = max(
+        entries["moe_gemm"]["max_abs_err"], mesh["main"]["max_abs_err"])
+    entries["moe_gemm"]["mesh"] = dict(
+        launches=mesh["launches"]["moe_gemm"], prefill=mesh["main"],
+        golden=mesh["golden"], elastic=mesh["elastic"])
     fl = entries["flash_attention"]
-    fl["launches"] += lm["launches"]["flash_attention"]
+    fl["launches"] += lm["launches"]["flash_attention"] \
+        + mesh["launches"]["flash_attention"]
     fl["max_abs_err"] = max(fl["max_abs_err"],
                             lm["max_abs_err"]["flash_attention"])
     fl["lm"] = dict(launches=lm["launches"]["flash_attention"],
@@ -5739,7 +6208,10 @@ def main() -> int:
         dict(name=name, route="cuda", source=KERNELS[name.split(" (")[0]][0],
              replaces=KERNELS[name.split(" (")[0]][1], **entry)
         for name, entry in entries.items()]}), flush=True)
-    print(f"chip_smoke: {time.time() - t_start:.1f} s", file=sys.stderr)
+    draws.shutdown()
+    print(f"chip_smoke: {time.time() - t_start:.1f} s from the card's "
+          f"first call, {process_seconds():.1f} s since the process "
+          f"started", file=sys.stderr)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

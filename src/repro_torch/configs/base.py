@@ -34,12 +34,13 @@ class LMConfig:
     # MoE weight sharding: expert (E over tp) | ffn (per-expert d_ff over tp)
     moe_shard: str = "expert"
     # MoE dispatch: global (one dispatch over all tokens) | shard_map (local
-    # dispatch + psum combine under a device mesh: ROADMAP open item 10)
+    # dispatch + all-reduce combine under a device mesh:
+    # models/moe.py::moe_ffn_sharded)
     moe_impl: str = "global"
     # pad the expert dimension to this count (0 = off): makes a non-divisible
     # expert count (granite's 40) expert-shardable over a 16-way model axis;
-    # without a mesh the padded experts are routed to as real ones, as in
-    # the reference (models/moe.py)
+    # the mesh's dispatch masks the padded experts, and without a mesh they
+    # are routed to as real ones, as in the reference (models/moe.py)
     n_experts_pad: int = 0
 
     @property

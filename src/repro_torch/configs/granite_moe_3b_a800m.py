@@ -14,9 +14,9 @@ CONFIG = LMConfig(
     moe=True, n_experts=40, top_k=8,
     # 40 experts don't divide the 16-way model axis; pad to 48 dummy experts
     # so expert parallelism applies — EXPERIMENTS.md §Perf iteration A3.
-    # Only the mesh's dispatch masks them; without a mesh (always, in this
-    # package) the 8 padded experts are routed to like real ones, as the
-    # reference's moe_ffn does (models/moe.py).
+    # Only the mesh's dispatch (moe_ffn_sharded) masks them; without a mesh
+    # the 8 padded experts are routed to like real ones, as the reference's
+    # moe_ffn does (models/moe.py).
     moe_shard="expert", n_experts_pad=48, moe_impl="shard_map",
 )
 

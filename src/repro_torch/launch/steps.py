@@ -1,14 +1,17 @@
 """Cell builder: (architecture config x shape) -> step function, the
-shapes of its arguments and a factory of real ones (the port of
-``repro/launch/steps.py``).
+shapes of its arguments, their logical sharding and a factory of real
+ones (the port of ``repro/launch/steps.py``).
 
 One place defines, for every (arch, shape) cell: the step callable
 (train / prefill / decode / serve), the argument specs (a ``Spec``, shape
-and dtype, where the reference has ``ShapeDtypeStruct``s) and a
-real-input factory for the drivers and the tests.  Used by
-``launch/train.py`` and the train loop.  The reference's logical sharding
-trees (``arg_logical``) and its dry-run wait for the distribution work
-(ROADMAP open item 10).
+and dtype, where the reference has ``ShapeDtypeStruct``s: torch dtypes
+for parameters, moments and caches, numpy dtypes for batches), the
+logical sharding trees aligned with them (``arg_logical``, the
+reference's trees: ``launch.dryrun._to_shardings`` places them on a mesh)
+and a real-input factory for the drivers and the tests.  Used by
+``launch/train.py`` and the train loop.  :func:`_materialize` draws an
+argument tree from its specs as the reference's does, through JAX's
+threefry (``models/prng.py``), bit for bit.
 """
 from __future__ import annotations
 
@@ -22,9 +25,12 @@ from repro_torch.configs import get_config, shapes_for
 from repro_torch.configs.base import DiTConfig, LMConfig, UNetConfig
 from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import common, dit, resnet, transformer, unet, vit
+from repro_torch.fleetsim.rng import Key
+from repro_torch.models import (common, dit, prng, resnet, transformer, unet,
+                                vit)
 from repro_torch.training.data import Spec, SyntheticSource
-from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+from repro_torch.training.optimizer import (AdamWConfig, OptState,
+                                            init_opt_state, opt_state_specs)
 
 PyTree = Any
 
@@ -42,6 +48,13 @@ def model_module(cfg):
     raise ValueError(f"unknown model family {cfg.family!r}")
 
 
+def _nest_logical(flat: Dict[str, Tuple]) -> PyTree:
+    out: Dict[str, Any] = {}
+    for path, spec in flat.items():
+        common.assign(out, path, tuple(spec))
+    return out
+
+
 def opt_cfg_for(cfg) -> AdamWConfig:
     return AdamWConfig(state_dtype=getattr(cfg, "opt_state_dtype",
                                            "float32"))
@@ -57,7 +70,8 @@ class Cell:
     shape: ShapeSpec
     cfg: Any
     step_fn: Callable
-    arg_specs: Tuple             # param_defs, then the other args' Specs
+    arg_specs: Tuple             # abstract args (Specs)
+    arg_logical: Tuple           # logical sharding trees aligned with args
     make_args: Callable          # (seed, device) -> real args
     donate: Tuple[int, ...] = ()
     # a train cell's parameter tree as checkpoints hold it (the reference's
@@ -68,6 +82,18 @@ class Cell:
     @property
     def label(self) -> str:
         return f"{self.arch}:{self.shape.name}"
+
+
+def _batch_tree_logical(tree: PyTree) -> PyTree:
+    """Shard the leading dim of every array leaf over dp."""
+    def leaf(x):
+        nd = len(x.shape)
+        return ("dp",) + (None,) * (nd - 1) if nd else ()
+    return common.tree_map(leaf, tree)
+
+
+def _opt_logical(param_logical_tree: PyTree) -> OptState:
+    return OptState(step=(), m=param_logical_tree, v=param_logical_tree)
 
 
 # ---------------------------------------------------------------------------
@@ -99,6 +125,72 @@ def _unet_batch_specs(cfg: UNetConfig, shape: ShapeSpec) -> Dict[str, Spec]:
     return {"latents": Spec((B, lr, lr, cfg.latent_channels), np.float32),
             "ctx": Spec((B, cfg.ctx_len, cfg.ctx_dim), np.float32),
             "step": Spec((), np.int32)}
+
+
+def _spec_leaves(tree: PyTree, prefix: Tuple = ()):
+    """(path, Spec) pairs in ``jax.tree_util``'s order: a dict's keys
+    sorted, a NamedTuple's fields in order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _spec_leaves(tree[k], prefix + (k,))
+    elif isinstance(tree, OptState):
+        for f in tree._fields:
+            yield from _spec_leaves(getattr(tree, f), prefix + (f,))
+    else:
+        yield prefix, tree
+
+
+def _is_integer(dtype) -> bool:
+    if isinstance(dtype, torch.dtype):
+        return not (dtype.is_floating_point or dtype.is_complex)
+    return np.issubdtype(np.dtype(dtype), np.integer)
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return getattr(torch, np.dtype(dtype).name)
+
+
+def _materialize(specs: PyTree, key: Key, device: DeviceLike = None
+                 ) -> PyTree:
+    """Real arrays for a tree of ``Spec``s, as the reference's
+    ``_materialize`` draws them (bit for bit): the leaves in
+    ``jax.tree_util`` order, one key each from ``split(key, n)``; an
+    integer leaf ``randint(k, shape, 0, 8)`` (0 if it is a scalar), a
+    float one ``normal(k, shape)`` cast to its dtype and then times 0.1
+    in that dtype (the reference's weakly typed 0.1 takes the array's
+    dtype: bf16 0.1001 for a bf16 leaf)."""
+    dev = resolve_device(device)
+    pairs = list(_spec_leaves(specs))
+    keys = prng.split(key, len(pairs))
+    out: Dict[Tuple, Any] = {}
+    for (path, s), k in zip(pairs, keys):
+        dt = _torch_dtype(s.dtype)
+        if _is_integer(s.dtype):
+            val = torch.zeros(s.shape, dtype=dt, device=dev) if not s.shape \
+                else prng.randint(k, s.shape, 0, 8, dev).to(dt)
+        else:
+            val = prng.normal(k, s.shape, dev).to(dt) \
+                * torch.tensor(0.1, dtype=dt, device=dev)
+        out[path] = val
+    return _rebuild(specs, out)
+
+
+def _rebuild(tree: PyTree, values: Dict[Tuple, Any], prefix: Tuple = ()):
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, values, prefix + (k,)) for k, v in tree.items()}
+    if isinstance(tree, OptState):
+        return OptState(*(_rebuild(getattr(tree, f), values, prefix + (f,))
+                          for f in tree._fields))
+    return values[prefix]
+
+
+def _cache_specs(specs: Dict[str, Any]) -> Dict[str, Spec]:
+    """``transformer.cache_specs`` as ``Spec``s (``length`` an int32
+    scalar, as the reference's)."""
+    return {k: Spec(tuple(shape), torch.int32 if dt is int else dt)
+            for k, (shape, dt) in specs.items()}
 
 
 _BATCH_SPECS = {"lm": _lm_batch_specs, "vit": _vision_batch_specs,
@@ -154,12 +246,16 @@ def build_cell(arch: str, shape_name: str, cfg=None) -> Cell:
     cfg = cfg or get_config(arch)
     shape = shapes_for(cfg)[shape_name]
     mod = model_module(cfg)
-    p_defs = mod.param_defs(cfg)
+    p_specs = mod.param_specs(cfg)
+    p_logical = _nest_logical(mod.param_logical(cfg))
 
     if shape.kind == "train":
         ocfg = opt_cfg_for(cfg)
         step = mod.make_train_step(cfg, ocfg)
         b_specs = _BATCH_SPECS[cfg.family](cfg, shape)
+        arg_specs = (p_specs, opt_state_specs(p_specs, ocfg), b_specs)
+        arg_logical = (p_logical, _opt_logical(p_logical),
+                       _batch_tree_logical(b_specs))
 
         def make_args(seed: int = 0, device: DeviceLike = None):
             dev = resolve_device(device)
@@ -173,7 +269,7 @@ def build_cell(arch: str, shape_name: str, cfg=None) -> Cell:
                 to_saved=lambda t: _saved_layout(
                     t, resnet.to_reference_layout),
                 from_saved=lambda t: _saved_layout(t, resnet.to_port_layout))
-        return Cell(arch, shape, cfg, step, (p_defs, None, b_specs),
+        return Cell(arch, shape, cfg, step, arg_specs, arg_logical,
                     make_args, donate=(0, 1), **saved)
 
     if cfg.family == "lm":
@@ -194,12 +290,17 @@ def build_cell(arch: str, shape_name: str, cfg=None) -> Cell:
                 return (_init_params(mod, cfg, seed, dev),
                         tokens(seed, dev))
 
-            return Cell(arch, shape, cfg, step, (p_defs, t_spec), make_args)
+            return Cell(arch, shape, cfg, step, (p_specs, t_spec),
+                        (p_logical, ("dp", None)), make_args)
 
         # decode
         sliding = cfg.sliding_window is not None and cfg.global_every > 0
         init = transformer.init_sliding_cache if sliding \
             else transformer.init_cache
+        c_specs = _cache_specs((transformer.sliding_cache_specs if sliding
+                                else transformer.cache_specs)(cfg, B, S))
+        c_logical = transformer.sliding_cache_logical() if sliding \
+            else transformer.cache_logical()
         decode = transformer.decode_step_sliding if sliding \
             else transformer.decode_step
 
@@ -213,8 +314,8 @@ def build_cell(arch: str, shape_name: str, cfg=None) -> Cell:
             return (_init_params(mod, cfg, seed, dev), cache,
                     tokens(seed, dev))
 
-        return Cell(arch, shape, cfg, step, (p_defs, None, t_spec), make_args,
-                    donate=(1,))
+        return Cell(arch, shape, cfg, step, (p_specs, c_specs, t_spec),
+                    (p_logical, c_logical, ("dp",)), make_args, donate=(1,))
 
     B = shape.global_batch
     if cfg.family in ("vit", "resnet"):
@@ -229,7 +330,8 @@ def build_cell(arch: str, shape_name: str, cfg=None) -> Cell:
             return (_init_params(mod, cfg, seed, dev),
                     torch.randn(i_spec.shape, generator=g, device=dev))
 
-        return Cell(arch, shape, cfg, step, (p_defs, i_spec), make_args)
+        return Cell(arch, shape, cfg, step, (p_specs, i_spec),
+                    (p_logical, ("dp", None, None, None)), make_args)
 
     if cfg.family == "dit":
         lr = cfg.latent_res(shape.img_res)
@@ -247,7 +349,8 @@ def build_cell(arch: str, shape_name: str, cfg=None) -> Cell:
                     torch.zeros((B,), dtype=torch.int32, device=dev))
 
         return Cell(arch, shape, cfg, step,
-                    (p_defs, l_spec, Spec((B,), np.int32), Spec((B,), np.int32)),
+                    (p_specs, l_spec, Spec((B,), np.int32), Spec((B,), np.int32)),
+                    (p_logical, ("dp", None, None, None), ("dp",), ("dp",)),
                     make_args)
 
     # unet serve
@@ -267,4 +370,6 @@ def build_cell(arch: str, shape_name: str, cfg=None) -> Cell:
                 torch.randn(c_spec.shape, generator=g, device=dev))
 
     return Cell(arch, shape, cfg, step,
-                (p_defs, l_spec, Spec((B,), np.int32), c_spec), make_args)
+                (p_specs, l_spec, Spec((B,), np.int32), c_spec),
+                (p_logical, ("dp", "sp", None, None), ("dp",),
+                 ("dp", None, None)), make_args)

@@ -5,7 +5,9 @@ Parameters are nested dicts of tensors.  A model module defines a
 builds real tensors from it with an explicit ``torch.Generator``, and
 :func:`numpy_params` builds the same tree as seeded numpy arrays, the
 form both packages can consume (the tests and the golden generator feed
-them to the JAX reference too).
+them to the JAX reference too).  :func:`param_specs` gives each leaf's
+shape and dtype without allocating it: a ``Spec`` (shape, torch dtype),
+the port's counterpart of the reference's ``ShapeDtypeStruct``.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import torch.utils.checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ref
+from repro_torch.training.data import Spec
 
 PyTree = Any
 
@@ -40,6 +43,15 @@ def torch_dtype(name: str) -> torch.dtype:
     if not isinstance(dt, torch.dtype):
         raise ValueError(f"unknown dtype {name!r}")
     return dt
+
+
+def param_specs(defs: Dict[str, ParamDef]) -> Dict[str, Any]:
+    """The parameter tree's leaves as ``Spec(shape, torch dtype)``: no
+    allocation (the dry run's input)."""
+    out: Dict[str, Any] = {}
+    for path, d in defs.items():
+        assign(out, path, Spec(d.shape, torch_dtype(d.dtype)))
+    return out
 
 
 def _std(d: ParamDef) -> float:

@@ -21,7 +21,7 @@ takes the hand-written flash-attention kernel: DiT-XL/2's heads are 1152 /
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -66,6 +66,29 @@ def param_defs(cfg: DiTConfig) -> Dict[str, common.ParamDef]:
         "final/w": P((d, p * p * 2 * c), "zeros", dtype=dt),
         "final/b": P((p * p * 2 * c,), "zeros", dtype=dt),
     }
+
+
+def param_specs(cfg: DiTConfig) -> PyTree:
+    return common.param_specs(param_defs(cfg))
+
+
+def param_logical(cfg: DiTConfig) -> Dict[str, Tuple]:
+    """Logical sharding axes aligned with ``param_defs`` paths."""
+    log = {}
+    for path, d in param_defs(cfg).items():
+        if path.startswith("layers/"):
+            if path.endswith(("_b", "b_in", "b_out")):
+                log[path] = (None, "tp") if path.endswith(
+                    ("adaln_b", "b_in")) else (None, None)
+            elif path in ("layers/wo", "layers/w_out"):
+                log[path] = (None, "tp", "fsdp")
+            else:
+                log[path] = (None, "fsdp", "tp")
+        elif len(d.shape) == 2:
+            log[path] = ("fsdp", "tp") if d.shape[0] >= 256 else (None, None)
+        else:
+            log[path] = tuple(None for _ in d.shape)
+    return log
 
 
 def init_params(cfg: DiTConfig, generator: torch.Generator,

@@ -10,11 +10,16 @@ the card (its plain version on the CPU): a port choice, since the
 reference writes them as einsums (``moe.py:208-211``) that compute the
 same function, bf16 x bf16 summed in f32 and rounded to bf16.
 
-Without a device mesh (always, in this package: ``moe_ffn_sharded`` and
-its local dispatch wait for the distribution work, ROADMAP open item 10)
-the reference's ``moe_ffn`` drops its ``n_real`` argument: padded experts
-(``LMConfig.n_experts_pad``) are routed to as real ones and count in the
-capacity and the aux loss.  This port reproduces that.
+Without a device mesh the reference's ``moe_ffn`` drops its ``n_real``
+argument: padded experts (``LMConfig.n_experts_pad``) are routed to as
+real ones and count in the capacity and the aux loss.  This port
+reproduces that.  Under a mesh (``transformer._ffn`` with ``moe_impl ==
+"shard_map"`` and rules installed) :func:`moe_ffn_sharded` runs the
+reference's SPMD body under ``local_map``, torch's ``shard_map``: each
+(data, model) rank dispatches its own token shard to the experts it owns
+(:func:`_local_dispatch_ffn`), with the padded experts masked out of the
+routing, the capacity and the aux loss, and one all-reduce over
+``model`` combines the experts' contributions.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import swiglu
 
@@ -107,18 +113,10 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
     aux = load_balancing_loss(logits, experts, E)
     cap = capacity(T, E, top_k, capacity_factor)
 
+    # scatter tokens into the (E, C, d) buffer; each token's top_k copies
+    # as a repeat, whose backward sums them
     eid, slot, keep = dispatch_indices(experts, E, cap)
-    dest = torch.where(keep, eid.long() * cap + slot.long(), 0)
-
-    # scatter tokens into the (E, C, d) buffer (dropped copies add 0 at
-    # (0, 0); the kept (expert, slot) pairs are distinct, so each sum is
-    # exact and the order of the adds cannot matter); each token's top_k
-    # copies as a repeat, whose backward sums them
-    copies = x.repeat_interleave(top_k, dim=0)                # (T*K, d)
-    contrib = torch.where(keep[:, None], copies, 0).to(x.dtype)
-    buf = torch.zeros(E * cap, d, dtype=x.dtype, device=x.device)
-    buf.index_add_(0, dest, contrib)
-    buf = buf.view(E, cap, d)
+    buf, dest = _dispatch(x, keep, eid, slot, E, cap, top_k)
 
     # grouped expert FFN (SwiGLU) through the kernel
     g = kops.moe_gemm(buf, w_gate)
@@ -132,8 +130,152 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
     gathered = torch.index_select(y.view(E * cap, d), 0, dest)
     weighted = gathered.float() * torch.where(
         keep, gates.reshape(-1), 0.0)[:, None]
-    weighted = weighted.view(T, top_k, d)
-    out = torch.zeros(T, d, dtype=torch.float32, device=x.device)
+    return _sum_copies(weighted, top_k).to(x.dtype), aux
+
+
+def _sum_copies(weighted: torch.Tensor, top_k: int) -> torch.Tensor:
+    """Each token's ``top_k`` gated copies (T*K, d) summed in f32 from 0,
+    in k order: the reference's f32 scatter-add into zeros."""
+    weighted = weighted.float().view(-1, top_k, weighted.shape[-1])
+    out = torch.zeros(weighted.shape[0], weighted.shape[2],
+                      dtype=torch.float32, device=weighted.device)
     for k in range(top_k):
         out = out + weighted[:, k]
-    return out.to(x.dtype), aux
+    return out
+
+
+def _dispatch(x: torch.Tensor, keep: torch.Tensor, eid: torch.Tensor,
+              slot: torch.Tensor, n_buf: int, cap: int, top_k: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (n_buf, cap, d) buffer of the kept token copies (a copy not
+    kept adds 0 at (0, 0), as in the reference; the kept (expert, slot)
+    pairs are distinct, so each sum is exact), and each copy's flat
+    destination."""
+    T, d = x.shape
+    dest = torch.where(keep, eid.long() * cap + slot.long(), 0)
+    copies = x.repeat_interleave(top_k, dim=0)                # (T*K, d)
+    contrib = torch.where(keep[:, None], copies, 0).to(x.dtype)
+    buf = torch.zeros(n_buf * cap, d, dtype=x.dtype, device=x.device)
+    buf.index_add_(0, dest, contrib)
+    return buf.view(n_buf, cap, d), dest
+
+
+def _local_dispatch_ffn(x: torch.Tensor, router_w: torch.Tensor,
+                        w_gate: torch.Tensor, w_up: torch.Tensor,
+                        w_down: torch.Tensor, *, top_k: int,
+                        capacity_factor: float, n_experts: int,
+                        expert_offset: int, n_real: Optional[int] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-shard MoE: local tokens, local expert slice (E_loc, d, f).
+
+    ``expert_offset`` is this shard's first expert id (0 when experts are
+    replicated and only d_ff is sharded).  Returns the PARTIAL output in
+    x's dtype (the sum over the expert / ffn axis still required) and the
+    local aux loss.  Unlike :func:`moe_ffn`, ``n_real`` counts: experts
+    past it are masked out of the routing, the aux loss is taken over the
+    first ``n_real`` logits, and the capacity is sized from ``n_real``.
+    The combine rounds each gated copy to x's dtype (the gate rounded to
+    it first) before the f32 sum over the token's copies, as the
+    reference does (``moe.py:115-118``).
+    """
+    T, d = x.shape
+    E_loc = w_gate.shape[0]
+    n_real = n_real or n_experts
+    logits = x.float() @ router_w.float()
+    gates, experts = route_topk(logits, top_k, n_real=n_real)
+    aux = load_balancing_loss(logits[:, :n_real], experts, n_real)
+    cap = capacity(T, n_real, top_k, capacity_factor)
+
+    eid, slot, keep = dispatch_indices(experts, n_experts, cap)
+    mine = keep & (eid >= expert_offset) & (eid < expert_offset + E_loc)
+    buf, dest = _dispatch(x, mine, eid - expert_offset, slot, E_loc, cap,
+                          top_k)
+
+    g = kops.moe_gemm(buf, w_gate)
+    u = kops.moe_gemm(buf, w_up)
+    h = swiglu(g, u)
+    y = kops.moe_gemm(h, w_down)
+
+    gathered = torch.index_select(y.view(E_loc * cap, d), 0, dest)
+    gate = torch.where(mine, gates.reshape(-1), 0.0)[:, None]
+    weighted = gathered * gate.to(gathered.dtype)
+    return _sum_copies(weighted, top_k).to(x.dtype), aux
+
+
+def moe_ffn_sharded(x: torch.Tensor, router_w: torch.Tensor,
+                    w_gate: torch.Tensor, w_up: torch.Tensor,
+                    w_down: torch.Tensor, *, top_k: int,
+                    capacity_factor: float, mesh, dp_axes, model_axis: str,
+                    fsdp_axes, expert_sharded: bool,
+                    n_real: Optional[int] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``shard_map`` MoE under ``local_map``.
+
+    Dispatch is LOCAL to each data shard: tokens are replicated across
+    the model axis, so each (data, model) rank dispatches its own token
+    shard to the experts it owns and one all-reduce over ``model``
+    combines their contributions; the weights' FSDP shards are gathered
+    first.  ``expert_sharded``: experts split over ``model`` (E % mp ==
+    0); otherwise each expert's d_ff is split.
+
+    The arguments are DTensors of the reference's in-specs on ``mesh``
+    (the result then DTensors of its out-specs), or plain tensors that
+    every rank holds whole: each rank takes its blocks of them without
+    communication, and gets the whole output back.  Returns (out (T, d)
+    in x's dtype, the aux loss averaged over the data shards).
+    """
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import local_map
+
+    E = router_w.shape[-1]
+    dp = tuple(dp_axes) if dp_axes else ()
+    fa = (fsdp_axes,) if isinstance(fsdp_axes, str) else tuple(fsdp_axes or ())
+    x_spec = shd.spec(dp or None, None)
+    if expert_sharded:
+        w_spec = shd.spec(model_axis, fa or None, None)
+        wd_spec = shd.spec(model_axis, None, fa or None)
+    else:
+        w_spec = shd.spec(None, fa or None, model_axis)
+        wd_spec = shd.spec(None, model_axis, fa or None)
+    in_specs = (x_spec, (None, None), w_spec, w_spec, wd_spec)
+    out_specs = (x_spec, shd.spec(dp or None))
+
+    def waited(t):
+        return t.wait() if isinstance(t, funcol.AsyncCollectiveTensor) else t
+
+    def gather(w, dim):
+        # the FSDP shards, minor axis first: the block of the major-first
+        # ("a", "b") sharding at i_a * |b| + i_b
+        for a in reversed(fa):
+            w = waited(funcol.all_gather_tensor(w, dim,
+                                                mesh.get_group(a)))
+        return w
+
+    def local_fn(x_loc, rw, wg, wu, wd):
+        wg, wu, wd = gather(wg, 1), gather(wu, 1), gather(wd, 2)
+        off = mesh.get_local_rank(model_axis) * wg.shape[0] \
+            if expert_sharded else 0
+        out, aux = _local_dispatch_ffn(
+            x_loc, rw, wg, wu, wd, top_k=top_k,
+            capacity_factor=capacity_factor, n_experts=E,
+            expert_offset=off, n_real=n_real)
+        out = waited(funcol.all_reduce(out, "sum",
+                                       mesh.get_group(model_axis)))
+        return out, aux[None]
+
+    fn = local_map(local_fn,
+                   out_placements=tuple(shd.placements(mesh, s)
+                                        for s in out_specs),
+                   in_placements=tuple(shd.placements(mesh, s)
+                                       for s in in_specs),
+                   device_mesh=mesh)
+    args = (x, router_w, w_gate, w_up, w_down)
+    plain = not isinstance(x, DTensor)
+    if plain:
+        args = tuple(shd.distribute(a, mesh, s)
+                     for a, s in zip(args, in_specs))
+    out, aux = fn(*args)
+    if plain:
+        out, aux = shd.gathered(out), shd.gathered(aux)
+    return out, aux.mean()

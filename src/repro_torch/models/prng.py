@@ -14,6 +14,9 @@ of a draw of any shape is ``bits1 ^ bits2`` of ``threefry2x32(key, (hi,
 lo))`` at the 64-bit counter ``i`` (``iota_2x32_shape``), in row-major
 order.
 
+* :func:`split` is ``jax.random.split(key, num)``: key ``i`` is
+  ``threefry2x32(key, (0, i))``, the partitionable layout over a
+  ``(num,)`` counter (``fleetsim.rng.split`` is its ``num = 2``);
 * :func:`random_bits`, :func:`uniform` and :func:`randint` equal
   ``jax.random.bits`` / ``uniform`` / ``randint`` bit for bit;
 * :func:`normal` is ``sqrt(2) * erf_inv(u)``, ``u`` uniform on
@@ -28,18 +31,25 @@ order.
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import List, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.fleetsim.rng import Key, split, threefry2x32
+from repro_torch.fleetsim.rng import Key, threefry2x32
 from repro_torch.kernels.ref import fma32
 
 _MASK = 0xFFFFFFFF
 # normal against jax.random.normal, in f32 units of the larger value
 NORMAL_ULPS = 0
+
+
+def split(key: Key, num: int = 2) -> List[Key]:
+    """``jax.random.split(key, num)`` as ``num`` host keys."""
+    if not 0 <= num < 2 ** 32:
+        raise ValueError(f"split into {num} keys")
+    return [threefry2x32(key, 0, i) for i in range(num)]
 
 
 def random_bits(key: Key, shape: Sequence[int], device: DeviceLike = None

@@ -108,6 +108,24 @@ def to_reference_layout(w: torch.Tensor) -> torch.Tensor:
     return w.permute(2, 3, 1, 0) if w.dim() == 4 else w
 
 
+def param_specs(cfg: ResNetConfig) -> PyTree:
+    return common.param_specs(param_defs(cfg))
+
+
+def param_logical(cfg: ResNetConfig) -> Dict[str, Tuple]:
+    """Logical sharding axes aligned with ``param_defs`` paths (the
+    reference's HWIO kernels, as checkpoints hold them)."""
+    log: Dict[str, Tuple] = {}
+    for path, d in param_defs(cfg).items():
+        if path.endswith(("scale", "bias")) or path == "head/b":
+            log[path] = tuple(None for _ in d.shape)
+        elif path == "head/w":
+            log[path] = ("fsdp", "tp")
+        else:   # conv kernels: shard output channels
+            log[path] = tuple([None] * (len(d.shape) - 1) + ["tp"])
+    return log
+
+
 def init_params(cfg: ResNetConfig, generator: torch.Generator,
                 device: DeviceLike = None) -> PyTree:
     """Random weights from a ``torch.Generator`` (not the reference's

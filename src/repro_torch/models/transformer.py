@@ -35,9 +35,15 @@ carry gradients (``ops.RMSNormFn``, ``ops.MoEGemmFn``); the flash kernel
 has no backward (neither has the reference's), and the published configs
 train on the ``chunked`` path.  With ``cfg.remat`` each layer is
 recomputed in the backward (the reference's ``jax.checkpoint`` on its
-scan body).  The sharding tables (``param_specs``, ``param_logical``,
-``cache_logical``) and the mesh's MoE dispatch wait for ROADMAP open
-item 10.
+scan body).
+
+Distribution: ``param_specs`` / ``param_logical`` and the cache logicals
+are the reference's tables.  With a device mesh installed
+(``launch.mesh.install_rules``) a ``moe_impl="shard_map"`` config's MoE
+layers run :func:`moe.moe_ffn_sharded` on the installed rules, as the
+reference's ``_ffn`` does (Granite's 8 padded experts then masked); the
+rest of the forward runs on each rank's whole tensors, where the
+reference's activation hints are no-ops on one device.
 """
 from __future__ import annotations
 
@@ -47,6 +53,7 @@ import torch
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn
 from repro_torch.models import common, moe
@@ -96,6 +103,54 @@ def param_defs(cfg: LMConfig) -> Dict[str, common.ParamDef]:
             defs["layers/w_up"] = P((L, d, f), dtype=dt)
         defs["layers/w_down"] = P((L, f, d), dtype=dt)
     return defs
+
+
+def param_specs(cfg: LMConfig) -> PyTree:
+    return common.param_specs(param_defs(cfg))
+
+
+def param_logical(cfg: LMConfig) -> Dict[str, Tuple]:
+    """Logical sharding axes aligned with ``param_defs`` paths."""
+    log = {
+        "embed": ("tp", "fsdp"),
+        "final_norm": (None,),
+        "lm_head": ("fsdp", "tp"),
+        "layers/ln1": (None, None),
+        "layers/ln2": (None, None),
+        "layers/wq": (None, "fsdp", "tp"),
+        # kv projections shard over tp only when n_kv_heads divides the tp
+        # size (the 'tp_kv' rule, installed per mesh)
+        "layers/wk": (None, "fsdp", "tp_kv"),
+        "layers/wv": (None, "fsdp", "tp_kv"),
+        "layers/wo": (None, "tp", "fsdp"),
+    }
+    if cfg.moe:
+        if cfg.moe_shard_mode() == "expert":
+            log.update({
+                "layers/router": (None, "fsdp", None),
+                "layers/we_gate": (None, "tp", "fsdp", None),
+                "layers/we_up": (None, "tp", "fsdp", None),
+                "layers/we_down": (None, "tp", None, "fsdp"),
+            })
+        else:   # shard each expert's hidden dim instead (E not divisible)
+            log.update({
+                "layers/router": (None, "fsdp", None),
+                "layers/we_gate": (None, None, "fsdp", "tp"),
+                "layers/we_up": (None, None, "fsdp", "tp"),
+                "layers/we_down": (None, None, "tp", "fsdp"),
+            })
+        if cfg.n_shared_experts:
+            log.update({
+                "layers/ws_gate": (None, "fsdp", "tp"),
+                "layers/ws_up": (None, "fsdp", "tp"),
+                "layers/ws_down": (None, "tp", "fsdp"),
+            })
+    else:
+        log["layers/w_gate"] = (None, "fsdp", "tp")
+        if not cfg.mlp_gelu():
+            log["layers/w_up"] = (None, "fsdp", "tp")
+        log["layers/w_down"] = (None, "tp", "fsdp")
+    return log
 
 
 def init_params(cfg: LMConfig, generator: torch.Generator,
@@ -185,10 +240,23 @@ def _ffn(x2, lp, cfg: LMConfig):
             h = common.swiglu(g, x2 @ lp["w_up"])
         return h @ lp["w_down"], torch.zeros((), device=x2.device)
     flat = x2.reshape(B * S, d)
-    out, aux = moe.moe_ffn(flat, lp["router"], lp["we_gate"], lp["we_up"],
-                           lp["we_down"], top_k=cfg.top_k,
-                           capacity_factor=cfg.capacity_factor,
-                           n_real=cfg.n_experts)
+    mesh = shd.active_mesh()
+    if cfg.moe_impl == "shard_map" and mesh is not None:
+        rules = shd.get_rules()
+        dp = rules.get("dp")
+        dp_axes = (dp,) if isinstance(dp, str) else dp
+        out, aux = moe.moe_ffn_sharded(
+            flat, lp["router"], lp["we_gate"], lp["we_up"], lp["we_down"],
+            top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+            mesh=mesh, dp_axes=dp_axes, model_axis=rules.get("tp", "model"),
+            fsdp_axes=rules.get("fsdp"),
+            expert_sharded=cfg.moe_shard_mode() == "expert",
+            n_real=cfg.n_experts)
+    else:
+        out, aux = moe.moe_ffn(flat, lp["router"], lp["we_gate"],
+                               lp["we_up"], lp["we_down"], top_k=cfg.top_k,
+                               capacity_factor=cfg.capacity_factor,
+                               n_real=cfg.n_experts)
     if cfg.n_shared_experts:
         h = common.swiglu(flat @ lp["ws_gate"], flat @ lp["ws_up"])
         out = out + h @ lp["ws_down"]
@@ -299,6 +367,14 @@ def cache_specs(cfg: LMConfig, batch: int, max_len: int) -> Dict[str, Any]:
     return {"k": (shape, dt), "v": (shape, dt), "length": ((), int)}
 
 
+def cache_logical() -> Dict[str, Tuple]:
+    # 'cache_seq' / 'cache_kv' are installed per (mesh, config): KV-head
+    # sharding when n_kv_heads divides the model axis, else the sequence
+    return {"k": (None, "dp", "cache_seq", "cache_kv", None),
+            "v": (None, "dp", "cache_seq", "cache_kv", None),
+            "length": ()}
+
+
 def _zeros(specs: Dict[str, Any], dev) -> Dict[str, Any]:
     return {name: 0 if dt is int else torch.zeros(shape, dtype=dt, device=dev)
             for name, (shape, dt) in specs.items()}
@@ -381,6 +457,14 @@ def sliding_cache_specs(cfg: LMConfig, batch: int, max_len: int
         "v_local": ((n_local, batch, W, KV, hd), dt),
         "length": ((), int),
     }
+
+
+def sliding_cache_logical() -> Dict[str, Tuple]:
+    return {"k_global": (None, "dp", "cache_seq", "cache_kv", None),
+            "v_global": (None, "dp", "cache_seq", "cache_kv", None),
+            "k_local": (None, "dp", None, "cache_kv", None),
+            "v_local": (None, "dp", None, "cache_kv", None),
+            "length": ()}
 
 
 def init_sliding_cache(cfg: LMConfig, batch: int, max_len: int,

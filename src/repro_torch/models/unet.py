@@ -23,7 +23,7 @@ stay f32 (``common.value_and_grad`` runs it under ``exact_f32``).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping, Optional
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -108,6 +108,24 @@ def param_defs(cfg: UNetConfig) -> Dict[str, common.ParamDef]:
         if li > 0:
             defs[f"up{li}/upsample"] = conv(3, c, c)
     return defs
+
+
+def param_specs(cfg: UNetConfig) -> PyTree:
+    return common.param_specs(param_defs(cfg))
+
+
+def param_logical(cfg: UNetConfig) -> Dict[str, Tuple]:
+    """Logical sharding axes aligned with ``param_defs`` paths (the
+    reference's HWIO kernels: a checkpoint's layout)."""
+    log = {}
+    for path, d in param_defs(cfg).items():
+        if len(d.shape) == 4:       # conv: shard output channels
+            log[path] = (None, None, None, "tp")
+        elif len(d.shape) == 2:     # dense: shard columns
+            log[path] = ("fsdp", "tp") if d.shape[0] >= 512 else (None, "tp")
+        else:
+            log[path] = tuple(None for _ in d.shape)
+    return log
 
 
 def _pop_skips(skips: list, n: int) -> list:

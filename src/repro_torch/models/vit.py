@@ -14,7 +14,7 @@ each layer is recomputed in the backward under grad (the reference's
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -59,6 +59,32 @@ def param_defs(cfg: ViTConfig) -> Dict[str, common.ParamDef]:
         "layers/b_in": P((L, f), "zeros", dtype=dt),
         "layers/w_out": P((L, f, d), dtype=dt),
         "layers/b_out": P((L, d), "zeros", dtype=dt),
+    }
+
+
+def param_specs(cfg: ViTConfig) -> PyTree:
+    return common.param_specs(param_defs(cfg))
+
+
+def param_logical(cfg: ViTConfig) -> Dict[str, Tuple]:
+    """Logical sharding axes aligned with ``param_defs`` paths."""
+    return {
+        "patch_embed/w": (None, None, None, "tp"),
+        "patch_embed/b": ("tp",),
+        "cls_token": (None, None),
+        "pos_embed": (None, None),
+        "final_ln/scale": (None,), "final_ln/bias": (None,),
+        "head/w": ("fsdp", "tp"), "head/b": ("tp",),
+        "layers/ln1/scale": (None, None), "layers/ln1/bias": (None, None),
+        "layers/ln2/scale": (None, None), "layers/ln2/bias": (None, None),
+        "layers/wq": (None, "fsdp", "tp"),
+        "layers/wk": (None, "fsdp", "tp"),
+        "layers/wv": (None, "fsdp", "tp"),
+        "layers/wo": (None, "tp", "fsdp"),
+        "layers/bq": (None, "tp"), "layers/bk": (None, "tp"),
+        "layers/bv": (None, "tp"), "layers/bo": (None, None),
+        "layers/w_in": (None, "fsdp", "tp"), "layers/b_in": (None, "tp"),
+        "layers/w_out": (None, "tp", "fsdp"), "layers/b_out": (None, None),
     }
 
 

@@ -1,4 +1,3 @@
 """Training: AdamW, the synthetic data pipeline, checkpoints, gradient
-compression and the resumable train loop (the port of
-``repro/training``; ``elastic`` waits for the distribution work, ROADMAP
-open item 10)."""
+compression, the resumable train loop and elastic remeshing (the port of
+``repro/training``)."""

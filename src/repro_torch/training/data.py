@@ -20,7 +20,8 @@ PyTree = Any
 
 
 class Spec(NamedTuple):
-    """A batch entry's shape and numpy dtype."""
+    """A leaf's shape and dtype: a numpy dtype for a batch entry, a torch
+    dtype for a parameter (``models.common.param_specs``)."""
     shape: Tuple[int, ...]
     dtype: Any
 

@@ -33,6 +33,7 @@ from typing import Any, NamedTuple, Tuple
 import torch
 
 from repro_torch.models.common import leaves, torch_dtype, tree_map
+from repro_torch.training.data import Spec
 
 PyTree = Any
 # values of a leaf updated at once (a chunk of its leading axis)
@@ -70,6 +71,15 @@ def init_opt_state(params: PyTree, cfg: AdamWConfig) -> OptState:
     return OptState(step=torch.zeros((), dtype=torch.int32,
                                      device=first.device),
                     m=tree_map(zeros, params), v=tree_map(zeros, params))
+
+
+def opt_state_specs(param_specs: PyTree, cfg: AdamWConfig) -> OptState:
+    """``Spec`` mirror of :func:`init_opt_state` (shapes and torch dtypes,
+    no allocation) for the dry run."""
+    dt = torch_dtype(cfg.state_dtype)
+    spec = lambda p: Spec(tuple(p.shape), dt)  # noqa: E731
+    return OptState(step=Spec((), torch.int32), m=tree_map(spec, param_specs),
+                    v=tree_map(spec, param_specs))
 
 
 def _f32(x) -> torch.Tensor:

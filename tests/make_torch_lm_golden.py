@@ -27,6 +27,18 @@ cast to the dtype its ``param_defs`` entry names (the router stays f32).
   tokens): its ``pallas`` LM path raises (the scan passes each layer's
   window traced and the Pallas kernel captures it as a constant), and
   ``chunked`` computes the same function.
+* **granite_mesh** — the same Granite cut, weights and prompts through
+  the reference's device-mesh path: ``launch.mesh.install_rules`` on a
+  one-device CPU mesh (``make_host_mesh``, ``kind="prefill"``, global
+  batch 2), which sends each MoE layer through ``moe_ffn_sharded``
+  (``moe_impl="shard_map"``: the 8 padded experts masked, the capacity
+  from the 40 real ones); jitted ``prefill`` (its last logits,
+  ``prefill_logits``), ``logits_fn`` at the positions ``MESH_ROWS``
+  (``logits_rows``, (B, 3, V)) and ``hidden_states``' aux loss (``aux``),
+  in float32 and bfloat16, with the routing each of the three compiled
+  calls used (``experts``, ``logits_experts``, ``aux_experts``: recorded
+  inside the call by ``jax.debug.callback``), to which the card pins its
+  bf16 run (a near-tie that rounds the other way moves a token's experts).
 * **smoke** — the four SMOKE configs in float32 on a batch of 2 prompts of
   ``SMOKE_PROMPT`` tokens: ``logits_fn``, ``hidden_states`` and its aux,
   ``prefill`` into a cache of ``SMOKE_MAX_LEN`` (last logits, the whole
@@ -38,11 +50,11 @@ A JSON ``meta`` entry records the seeds, ``constant_std``, the shapes and
 the cut depth.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/make_torch_lm_golden.py \\
-        [--only granite smoke]
+        [--only granite granite_mesh smoke]
 
 ``--only`` recomputes the named sections and keeps the rest of the file.
-About 2 minutes and 6 GB of host memory on a 6-core CPU, most of it the
-granite section.
+About 4 minutes and 6 GB of host memory on a 6-core CPU, most of it the
+granite and granite_mesh sections.
 """
 from __future__ import annotations
 
@@ -59,6 +71,8 @@ import numpy as np
 
 from repro.configs import get_smoke_config as jax_smoke
 from repro.configs import granite_moe_3b_a800m
+from repro.distributed import sharding as shd
+from repro.launch import mesh as jmesh
 from repro.models import moe, transformer
 from repro_torch.configs import get_smoke_config
 from repro_torch.configs import granite_moe_3b_a800m as torch_granite
@@ -72,6 +86,7 @@ DTYPES = ("float32", "bfloat16")
 GRANITE_LAYERS = 2
 BATCH, PROMPT, MAX_LEN, DECODE_STEPS = 2, 1100, 1104, 4
 CACHE_ROWS = (0, PROMPT - 1, MAX_LEN - 1)
+MESH_ROWS = (0, PROMPT // 2, PROMPT - 1)
 SMOKE_ARCHS = ("granite-moe-3b-a800m", "starcoder2-7b", "gemma3-27b",
                "kimi-k2-1t-a32b")
 SMOKE_PROMPT, SMOKE_MAX_LEN, SMOKE_STEPS, SLIDING_STEPS = 12, 16, 3, 12
@@ -170,6 +185,80 @@ def granite_golden():
     return arrays, meta
 
 
+def jitted_routing(fn, *args):
+    """``jax.jit(fn)(*args)`` with ``moe.route_topk`` recorded inside the
+    compiled call (``jax.debug.callback``, in order): its output and the
+    experts (T, K) of each call, (L, B * S, K) int8 — the routing the
+    jitted forward itself used, near-ties rounded its way."""
+    seen, real = [], moe.route_topk
+
+    def keep(experts):
+        seen.append(np.asarray(experts, np.int8))
+
+    def recording(logits, top_k, n_real=None):
+        gates, experts = real(logits, top_k, n_real)
+        jax.debug.callback(keep, experts, ordered=True)
+        return gates, experts
+
+    moe.route_topk = recording
+    try:
+        out = jax.block_until_ready(jax.jit(fn)(*args))
+    finally:
+        moe.route_topk = real
+    return out, np.stack(seen)
+
+
+def granite_mesh_golden():
+    rng = np.random.default_rng(INPUT_SEED)
+    prompt = tokens(rng, torch_granite.CONFIG.vocab_size, BATCH, PROMPT)
+    arrays = {"granite_mesh/tokens": prompt}
+    _, tcfg = granite_config("float32")
+    tree = torch_transformer.numpy_params(tcfg, WEIGHT_SEED, CONSTANT_STD)
+    rules = None
+    for dt in DTYPES:
+        cfg, tcfg = granite_config(dt)
+        params = reference_params(tree, torch_transformer.param_defs(tcfg))
+        t0 = time.time()
+        rules = jmesh.install_rules(jmesh.make_host_mesh(), cfg, BATCH,
+                                    kind="prefill")
+        toks = jnp.asarray(prompt)
+        try:
+            (last, _), experts = jitted_routing(
+                lambda p, t: transformer.prefill(p, t, cfg), params, toks)
+            logits, logits_experts = jitted_routing(
+                lambda p, t: transformer.logits_fn(p, t, cfg), params, toks)
+            (_, aux), aux_experts = jitted_routing(
+                lambda p, t: transformer.hidden_states(p, t, cfg), params,
+                toks)
+        finally:
+            shd.clear_rules()
+        p = f"granite_mesh/{dt}/"
+        arrays.update({p + "prefill_logits": np.asarray(last, np.float32),
+                       p + "logits_rows": np.asarray(
+                           logits[:, list(MESH_ROWS)], np.float32),
+                       p + "aux": np.asarray(aux, np.float32),
+                       p + "experts": experts,
+                       p + "logits_experts": logits_experts,
+                       p + "aux_experts": aux_experts})
+        del logits
+        assert all(np.isfinite(a).all() for a in arrays.values())
+        assert max(e.max() for e in (experts, logits_experts,
+                                     aux_experts)) < cfg.n_experts
+        print(f"granite_mesh {dt}: {time.time() - t0:.1f} s, max |last "
+              f"logit| {np.abs(arrays[p + 'prefill_logits']).max():.4f}, "
+              f"aux {float(aux):.6f}", flush=True)
+        del params
+    meta = dict(arch="granite-moe-3b-a800m", n_layers=GRANITE_LAYERS,
+                cut="depth 32 -> 2 layers; full width", batch=BATCH,
+                prompt=PROMPT, logits_rows=list(MESH_ROWS),
+                mesh="one CPU device, (data, model) = (1, 1)",
+                rules={k: v for k, v in rules.items()},
+                moe="moe_ffn_sharded: padded experts masked, capacity "
+                    "from n_experts",
+                attention="chunked (the reference's pallas LM path raises)")
+    return arrays, meta
+
+
 def smoke_golden():
     arrays, meta = {}, {}
     for i, arch in enumerate(SMOKE_ARCHS):
@@ -219,7 +308,8 @@ def smoke_golden():
                         dtype="float32")
 
 
-SECTIONS = {"granite": granite_golden, "smoke": smoke_golden}
+SECTIONS = {"granite": granite_golden, "granite_mesh": granite_mesh_golden,
+           "smoke": smoke_golden}
 
 
 def main() -> int:

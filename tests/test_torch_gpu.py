@@ -1732,3 +1732,123 @@ def test_flash_no_window_equals_no_window_at_all(dtype):
     want = ref.flash_attention_ref(q, k, v, causal=True)
     torch.testing.assert_close(got.float(), want.float(),
                                **ref.flash_attention_tolerance(want, v))
+
+
+# ---------------------------------------------------------------------------
+# distribution (chip_smoke.py phase 4i): the sharded MoE on a 1 x 1 mesh of
+# an NCCL group of one rank
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def nccl_mesh():
+    """An NCCL group of one rank from an in-memory store and its 1 x 1
+    (data, model) mesh on the card; destroyed after the test."""
+    _need_gpu()
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    dist.init_process_group(
+        "nccl", store=dist.HashStore(), rank=0, world_size=1,
+        device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        yield make_host_mesh()
+    finally:
+        shd.clear_rules()
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2.0 ** -6)])
+def test_sharded_moe_on_an_nccl_mesh_matches_local_dispatch(nccl_mesh, dtype,
+                                                            atol):
+    """``moe_ffn_sharded`` on the card (Granite's 48 experts, 40 real,
+    top-8, expert-sharded over 'model', FSDP gathers over 'data') equals
+    ``_local_dispatch_ffn`` on the CPU (the plain ``moe_gemm``) on the
+    same inputs: three ``moe_gemm`` launches, no copy to a padded expert;
+    bf16 within 2^-6 (the products round to bf16 on both sides)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(4)
+    T, d, E, f = 512, 256, 48, 128
+    n = lambda *s, sc=0.1: torch.from_numpy(  # noqa: E731
+        (rng.standard_normal(s) * sc).astype(np.float32))
+    x, rw = n(T, d, sc=1.0).to(dtype), n(d, E)
+    w = [n(E, d, f).to(dtype), n(E, d, f).to(dtype), n(E, f, d).to(dtype)]
+    kw = dict(top_k=8, capacity_factor=1.25)
+    want, aux_want = moe._local_dispatch_ffn(x, rw, *w, n_experts=E,
+                                             expert_offset=0, n_real=40, **kw)
+    before = moe_gemm_mod.moe_gemm.launches
+    got, aux = moe.moe_ffn_sharded(
+        x.cuda(), rw.cuda(), *(a.cuda() for a in w), mesh=nccl_mesh,
+        dp_axes=("data",), model_axis="model", fsdp_axes="data",
+        expert_sharded=True, n_real=40, **kw)
+    assert moe_gemm_mod.moe_gemm.launches - before == 3
+    assert got.dtype == dtype and got.device.type == "cuda"
+    torch.testing.assert_close(got.float().cpu(), want.float(), rtol=0,
+                               atol=atol * float(want.float().abs().max()))
+    torch.testing.assert_close(aux.cpu(), aux_want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_granite_mesh_branch_on_gpu_matches_cpu(nccl_mesh):
+    """Granite's SMOKE config made a mesh config (``moe_impl="shard_map"``,
+    5 experts padded to 8) in f32 under the 1 x 1 mesh with
+    ``install_rules``: its prefill on the card against the CPU's, where the
+    MoE layer is ``_local_dispatch_ffn`` called directly (what the sharded
+    path computes on one rank), within 1e-5; one ``moe_ffn_sharded`` call a
+    layer."""
+    from repro_torch.launch.mesh import install_rules
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke_config("granite-moe-3b-a800m"),
+                              param_dtype="float32", moe_impl="shard_map",
+                              n_experts_pad=8, capacity_factor=1.25)
+    tree = transformer.numpy_params(cfg, 0, 0.02)
+    tok = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 12)))
+
+    def direct(x, rw, wg, wu, wd, *, top_k, capacity_factor, n_real=None,
+               **mesh_args):
+        return moe._local_dispatch_ffn(
+            x, rw, wg, wu, wd, top_k=top_k, capacity_factor=capacity_factor,
+            n_experts=rw.shape[-1], expert_offset=0, n_real=n_real)
+
+    install_rules(nccl_mesh, cfg, 2, kind="prefill")
+    real, calls = moe.moe_ffn_sharded, []
+    moe.moe_ffn_sharded = direct
+    try:
+        want, _ = transformer.prefill(
+            transformer.params_from_numpy(tree, cfg, "cpu"), tok, cfg)
+    finally:
+        moe.moe_ffn_sharded = real
+
+    def counted(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+
+    moe.moe_ffn_sharded = counted
+    try:
+        got, _ = transformer.prefill(transformer.params_from_numpy(tree, cfg),
+                                     tok.cuda(), cfg)
+    finally:
+        moe.moe_ffn_sharded = real
+    assert len(calls) == cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("E,C,d,f", [(48, 8192, 1536, 512),
+                                     (48, 8192, 512, 1536)])
+def test_moe_gemm_at_the_meshed_prefill_capacity(E, C, d, f):
+    """The meshed 32k prefill's gate and down products (capacity 8,192
+    from Granite's 40 real experts over its 48): the ``tma_wgmma`` variant,
+    within the tolerance of the plain version."""
+    _need_gpu()
+    from repro_torch.kernels import moe_gemm as mg
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(C + d)
+    x = torch.randn(E, C, d, generator=g, device="cuda").to(torch.bfloat16)
+    w = torch.randn(E, d, f, generator=g, device="cuda").to(torch.bfloat16)
+    assert mg.variant(x, w) == "tma_wgmma"
+    torch.testing.assert_close(ops.moe_gemm(x, w).float(),
+                               ref.moe_gemm_ref(x, w).float(),
+                               **ref.moe_gemm_tolerance(x, w))
+
