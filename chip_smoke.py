@@ -180,7 +180,7 @@ final line:
                 where the device time of one eager 384-px batch of 8
                 goes; the engine's measured step times per class and
                 batch size (graph replays); eager against graphed step
-                times at each class and batch size 1, 2, 4, 8 (wall in
+                times at each class and batch size 1 and 8 (wall in
                 turns; device busy and idle share, profiled); each
                 graph's capture time and memory;
              e. ResNet-50 logits (f32 with TF32 off, and bf16; the two
@@ -430,6 +430,24 @@ final line:
                 DiT-XL/2 at full width and batch with its depth cut to 2,
                 2 steps against 1, a checkpoint and a fresh run resumed to
                 2: equal bit for bit;
+             d. the roofline of the card's own steps: one bf16 matmul at
+                8192^3 and one 2 GiB copy beside the roofline's peaks
+                (``launch.roofline.PEAK_FLOPS`` / ``HBM_BW``; above 1.05 of
+                either fails); each run of ``ROOFLINE_RUNS`` (Granite's
+                32k prefill at B=1, DiT-XL/2's gen_fast and gen_1024, the
+                UNet's gen_fast, DiT-XL/2 and the UNet at train_256, Granite
+                at train_4k), counted unmeshed on fake CUDA tensors by the
+                dry run's cost model in a process of its own started
+                before phase 4g at a lower priority (``--count-runs``), beside its measured time: the
+                roofline share max(t_compute, t_memory) / measured (above
+                1.05 fails: the count would be wrong) and the useful share
+                model FLOPs / (PEAK_FLOPS x measured); ``python -m
+                repro_torch.launch.dryrun --arch granite-moe-3b-a800m
+                --shape prefill_32k --mesh both`` in another, held to
+                ``tests/data/torch_dryrun_golden.json``'s model FLOPs and
+                argument bytes; the host cost a ``torch.library``
+                operator adds to a kernel call, with Granite's decode step
+                at B=1 beside its time before the operators;
 7. the ``{"kernels": [...]}`` line (one entry a kernel; ``flash_attention``
    one a variant: ``tma_wgmma`` at D = 64 (DeiT-B and Granite's prefill,
    phase 4h), 80 (ViT-H/14) and 72 (DiT-XL/2's steps, phase 4g), each
@@ -2474,13 +2492,14 @@ def wall_ms(fn, reps=3) -> float:
 
 
 def step_table(name, eager_rb, graphed_rb, spec, frames):
-    """Eager against graphed step times at each class and batch size 1, 2,
-    4, 8: wall (in turns, eager, graphed, graphed, eager), then one call
+    """Eager against graphed step times at each class and batch size 1
+    and 8 (2 and 4 cut for the time budget; PERF.md keeps their earlier
+    rows): wall (in turns, eager, graphed, graphed, eager), then one call
     of each profiled: device busy and idle share (the profiler slows the
     host, so a profiled idle share is an upper bound)."""
     rows = []
     for c, frame in zip(spec["classes"], frames):
-        for b in (1, 2, 4, 8):
+        for b in (1, 8):
             calls = {m: (lambda rb=rb: rb(c["name"], [frame] * b))
                      for m, rb in (("eager", eager_rb),
                                    ("graphed", graphed_rb))}
@@ -5634,11 +5653,7 @@ def leaf_samples(params) -> list:
 
 def train_cell(arch, cfg, shape):
     from repro_torch.launch import steps as S
-    S.shapes_for(cfg)[shape.name] = shape
-    try:
-        return S.build_cell(arch, shape.name, cfg=cfg)
-    finally:
-        S.shapes_for(cfg).pop(shape.name, None)
+    return S.build_cell(arch, shape.name, cfg=cfg, shape=shape)
 
 
 def granite_train(dev) -> dict:
@@ -6015,6 +6030,266 @@ def train_phase(dev) -> dict:
                 s=time.time() - t0)
 
 
+# ---------------------------------------------------------------------------
+# Phase 6d: the roofline of the card's own steps
+# ---------------------------------------------------------------------------
+# (name, arch, kind, shape, config changes): the full-width runs whose time
+# phases 4g, 4h and 6c measure, at the batch and attn_impl each ran (4h's
+# prefill fills a cache of S + 35 slots, the counted one of S)
+ROOFLINE_RUNS = (
+    ("Granite-3.0 MoE prefill_32k B=1 (4h)", "granite-moe-3b-a800m",
+     "prefill", dict(seq_len=32768, global_batch=1),
+     dict(attn_impl="pallas")),
+    ("DiT-XL/2 gen_fast B=16 (4g)", "dit-xl2", "serve",
+     dict(img_res=512, global_batch=16), dict(attn_impl="pallas")),
+    ("DiT-XL/2 gen_1024 B=4 (4g)", "dit-xl2", "serve",
+     dict(img_res=1024, global_batch=4), dict(attn_impl="pallas")),
+    ("UNet gen_fast B=16 (4g)", "unet-sd15", "serve",
+     dict(img_res=512, global_batch=16), {}),
+    ("DiT-XL/2 train_256 B=256 (6c)", "dit-xl2", "train",
+     dict(img_res=256, global_batch=256), {}),
+    ("UNet train_256 B=96 (6c)", "unet-sd15", "train",
+     dict(img_res=256, global_batch=UNET_TRAIN_BATCH), {}),
+    ("Granite-3.0 MoE train_4k B=2 (6c)", "granite-moe-3b-a800m", "train",
+     dict(seq_len=4096, global_batch=TRAIN_BATCH), {}),
+)
+# a roofline share (the larger of the counted compute and memory times over
+# the measured time) above this means the count is wrong: it is repaired,
+# never this limit
+ROOFLINE_LIMIT = 1.05
+DRYRUN_OUT = os.path.join(ROOT, "build", "dryrun")
+DRYRUN_GOLDEN = os.path.join(ROOT, "tests", "data",
+                             "torch_dryrun_golden.json")
+DRYRUN_ARCH, DRYRUN_SHAPE = "granite-moe-3b-a800m", "prefill_32k"
+# Granite's decode step at B=1 before the kernels became torch.library
+# operators (PERF.md section 5, run CI: host-bound, device idle 0.644)
+DECODE_B1_BEFORE_MS = 138.517
+
+
+def count_runs(path: str) -> int:
+    """``chip_smoke.py --count-runs PATH``: each run of ``ROOFLINE_RUNS``
+    counted unmeshed (one chip) on fake CUDA tensors by the dry run's cost
+    model (``launch.dryrun.count_cell``: the kernels by their FLOP
+    formulas, no launch), written to ``PATH`` as JSON.  Phase 6d starts it
+    in its own process beside the other phases."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import dryrun, roofline, steps as S
+    rows = {}
+    for name, arch, kind, sk, ck in ROOFLINE_RUNS:
+        t0 = time.time()
+        cfg = dataclasses.replace(get_config(arch), **ck)
+        shape = ShapeSpec("chip_" + kind, kind, **sk)
+        cell = S.build_cell(arch, shape.name, cfg=cfg, shape=shape)
+        c = dryrun.count_cell(cell, "cuda")
+        rows[name] = dict(flops=c.costs.flops, bytes=c.costs.bytes,
+                          depths=list(c.depths),
+                          model_flops=roofline.model_flops_estimate(cfg,
+                                                                    shape),
+                          s=time.time() - t0)
+    with open(path, "w") as f:
+        json.dump(rows, f, indent=1)
+    return 0
+
+
+def start_counts() -> dict:
+    """The dry run of ``DRYRUN_ARCH`` / ``DRYRUN_SHAPE`` on both production
+    meshes (``python -m repro_torch.launch.dryrun``, a fake group of 512
+    ranks, fake CUDA tensors) and ``--count-runs``, each in a process of
+    its own, started before phase 4g (whose steps, and 4h's and 6's, keep
+    the card busy while the host has room), at a lower priority than this
+    process, and read by phase 6d; their output goes to ``build/dryrun/``."""
+    os.makedirs(DRYRUN_OUT, exist_ok=True)
+    # two host threads each, beside the main process's phases
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="2", MKL_NUM_THREADS="2")
+    cmds = {"dryrun": [sys.executable, "-m", "repro_torch.launch.dryrun",
+                       "--arch", DRYRUN_ARCH, "--shape", DRYRUN_SHAPE,
+                       "--mesh", "both", "--out", DRYRUN_OUT],
+            "runs": [sys.executable, os.path.abspath(__file__),
+                     "--count-runs", os.path.join(DRYRUN_OUT, "runs.json")]}
+    procs = {}
+    for name, cmd in cmds.items():
+        log = open(os.path.join(DRYRUN_OUT, f"{name}.log"), "w")
+        procs[name] = (subprocess.Popen(cmd, stdout=log,
+                                        stderr=subprocess.STDOUT, env=env,
+                                        cwd=ROOT,
+                                        preexec_fn=lambda: os.nice(10)),
+                       log)
+    return procs
+
+
+def stop_counts(procs) -> None:
+    for proc, log in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def peak_rates(dev) -> dict:
+    """One bf16 ``torch.matmul`` at 8192^3 and one 2 GiB device-to-device
+    copy, CUDA events, the best of 5 after a warm call: each rate beside
+    the roofline's peak (``PEAK_FLOPS``, ``HBM_BW``), and above 1.05 of it
+    a failure (the peaks would not bound the card)."""
+    from repro_torch.launch import roofline
+    n = 8192
+    a = torch.randn(n, n, device=dev, dtype=torch.bfloat16)
+    b = torch.randn(n, n, device=dev, dtype=torch.bfloat16)
+    src = torch.empty(1 << 30, device=dev, dtype=torch.bfloat16)
+    dst = torch.empty_like(src)
+
+    def best(fn):
+        fn()
+        times = []
+        for _ in range(5):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+            e0.record()
+            fn()
+            e1.record()
+            e1.synchronize()
+            times.append(e0.elapsed_time(e1) / 1e3)
+        return min(times)
+
+    t_mm = best(lambda: torch.matmul(a, b))
+    t_cp = best(lambda: dst.copy_(src))
+    flops, moved = 2.0 * n ** 3, 2.0 * src.numel() * src.element_size()
+    out = dict(matmul_s=t_mm, matmul_flops_per_s=flops / t_mm,
+               matmul_share=flops / t_mm / roofline.PEAK_FLOPS,
+               copy_s=t_cp, copy_bytes_per_s=moved / t_cp,
+               copy_share=moved / t_cp / roofline.HBM_BW)
+    print(f"roofline peaks ({card_line()}): bf16 matmul 8192^3 "
+          f"{t_mm * 1e3:.3f} ms = {out['matmul_flops_per_s'] / 1e12:.1f} "
+          f"TFLOP/s, {out['matmul_share']:.3f} of PEAK_FLOPS "
+          f"{roofline.PEAK_FLOPS / 1e12:.0f} TFLOP/s; 2 GiB copy "
+          f"{t_cp * 1e3:.3f} ms = {out['copy_bytes_per_s'] / 1e12:.3f} TB/s "
+          f"(read + write), {out['copy_share']:.3f} of HBM_BW "
+          f"{roofline.HBM_BW / 1e12:.2f} TB/s", flush=True)
+    for what in ("matmul_share", "copy_share"):
+        if out[what] > ROOFLINE_LIMIT:
+            fail(f"roofline: the card's {what} {out[what]:.3f} is above "
+                 f"{ROOFLINE_LIMIT} of the roofline's peak")
+    del a, b, src, dst
+    torch.cuda.empty_cache()
+    return out
+
+
+def dispatch_cost(dev, lm) -> dict:
+    """The host time a ``torch.library`` operator adds to a kernel's call:
+    ``rmsnorm`` at a decode row (1, 1536) bf16, called through the
+    operator and through its wrapper directly, 2,000 calls each, the best
+    of 3 (host clock, launches queued, one wait after each loop); with
+    Granite's decode step at B=1 (phase 4h) beside its time before the
+    operators."""
+    from repro_torch.kernels import library
+    x = torch.randn(1, 1536, device=dev, dtype=torch.bfloat16)
+    s = torch.zeros(1536, device=dev, dtype=torch.bfloat16)
+    calls = 2000
+
+    def per_call(fn):
+        best = float("inf")
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn(x, s)
+            torch.cuda.synchronize()
+            best = min(best, (time.perf_counter() - t0) / calls)
+        return best
+
+    op_us = per_call(library.ops.rmsnorm) * 1e6
+    wrap_us = per_call(rn_mod.rmsnorm) * 1e6
+    L = granite_moe_3b_a800m.CONFIG.n_layers
+    per_step = 2 * L + 1 + 3 * L           # rmsnorm and moe_gemm calls a step
+    decode = lm["decode_b1"]["ms"]
+    out = dict(operator_us=op_us, wrapper_us=wrap_us,
+               added_us=op_us - wrap_us, operator_calls_per_decode=per_step,
+               decode_b1_ms=decode, decode_b1_before_ms=DECODE_B1_BEFORE_MS)
+    print(f"operator dispatch: rmsnorm (1, 1536) bf16 {op_us:.2f} us a call "
+          f"through torch.ops.repro_torch, {wrap_us:.2f} us through its "
+          f"wrapper: {op_us - wrap_us:+.2f} us a call, x {per_step} kernel "
+          f"calls a Granite decode step = "
+          f"{(op_us - wrap_us) * per_step / 1e3:+.3f} ms; the decode step "
+          f"at B=1 {decode:.3f} ms (phase 4h) against "
+          f"{DECODE_B1_BEFORE_MS} ms before the operators ({card_line()})",
+          flush=True)
+    return out
+
+
+def roofline_phase(dev, procs, measured, lm) -> dict:
+    """Phase 6d: the peaks, each measured run's roofline and useful shares
+    from its count (``--count-runs``), the dry run on the card against the
+    reference's golden, and the operators' dispatch cost."""
+    from repro_torch.launch import roofline
+    t0 = time.time()
+    out = dict(peaks=peak_rates(dev), dispatch=dispatch_cost(dev, lm))
+    waits = {}
+    for name, (proc, _) in procs.items():
+        t1 = time.time()
+        rc = proc.wait(timeout=900)
+        waits[name] = time.time() - t1
+        if rc != 0:
+            with open(os.path.join(DRYRUN_OUT, f"{name}.log")) as f:
+                tail = f.read()[-3000:]
+            fail(f"roofline: the {name} process exited with {rc}: {tail}")
+    out["waited_s"] = waits
+    with open(os.path.join(DRYRUN_OUT, "runs.json")) as f:
+        counts = json.load(f)
+    card = card_line()
+    rows = []
+    for name, *_ in ROOFLINE_RUNS:
+        c, ms = counts[name], measured[name]
+        t_c, t_m = c["flops"] / roofline.PEAK_FLOPS, c["bytes"] / \
+            roofline.HBM_BW
+        share = max(t_c, t_m) / (ms / 1e3)
+        useful = c["model_flops"] / (roofline.PEAK_FLOPS * ms / 1e3)
+        rows.append(dict(run=name, ms=ms, t_compute_ms=t_c * 1e3,
+                         t_memory_ms=t_m * 1e3, roofline_share=share,
+                         useful_share=useful, **c))
+        print(f"roofline {name}: t_compute {t_c * 1e3:.3f} ms, t_memory "
+              f"{t_m * 1e3:.3f} ms, measured {ms:.3f} ms: roofline share "
+              f"{share:.4f}, useful share {useful:.4f} (counted at depths "
+              f"{c['depths']} in {c['s']:.1f} s, {c['flops']:.5g} FLOPs, "
+              f"{c['bytes']:.5g} bytes, model FLOPs {c['model_flops']:.5g}; "
+              f"{card})",
+              flush=True)
+        if share > ROOFLINE_LIMIT:
+            fail(f"roofline {name}: share {share:.4f} above "
+                 f"{ROOFLINE_LIMIT}: the count exceeds what the card did")
+    out["runs"] = rows
+    with open(DRYRUN_GOLDEN) as f:
+        golden = json.load(f)["pairs"]
+    dry = {}
+    for mesh in ("single", "multi"):
+        with open(os.path.join(DRYRUN_OUT, f"{DRYRUN_ARCH}__{DRYRUN_SHAPE}"
+                                           f"__{mesh}.json")) as f:
+            res = json.load(f)
+        want = golden[f"{DRYRUN_ARCH}:{DRYRUN_SHAPE}:{mesh}"]
+        got_b = res.get("memory", {}).get("argument_bytes")
+        print(f"dry run {DRYRUN_ARCH}:{DRYRUN_SHAPE} on {res.get('mesh')} "
+              f"({res.get('device')}, torch {torch.__version__}): "
+              f"{res.get('status')}, model FLOPs {res.get('model_flops')} "
+              f"(golden {want['model_flops']}), argument bytes {got_b} "
+              f"(golden {want['memory']['argument_bytes']}), "
+              f"{res.get('flops_per_chip', 0):.5g} FLOPs a chip (golden "
+              f"{want['flops_per_chip']:.5g}), counted in "
+              f"{res.get('compile_s')} s", flush=True)
+        if res.get("status") != "ok" or res.get("device") != "cuda" or \
+                res["model_flops"] != want["model_flops"] or \
+                got_b != want["memory"]["argument_bytes"]:
+            fail(f"dry run {mesh}: {res.get('status')}, not the golden's "
+                 f"model FLOPs and argument bytes")
+        dry[mesh] = {k: res[k] for k in (
+            "flops_per_chip", "hbm_bytes_per_chip",
+            "collective_bytes_per_chip", "collective_breakdown",
+            "model_flops", "memory", "compile_s")}
+    out["dryrun"] = dry
+    out["s"] = time.time() - t0
+    print(f"roofline phase: {out['s']:.1f} s (waited {waits} s for the "
+          f"count processes)", flush=True)
+    return out
+
+
 def timed_build(name: str) -> float:
     t0 = time.time()
     build.load(name)
@@ -6032,6 +6307,10 @@ def process_seconds() -> float:
 
 
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--count-runs":
+        if not torch.cuda.is_available():
+            return 2
+        return count_runs(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs the port on an NVIDIA GPU", file=sys.stderr)
@@ -6056,6 +6335,16 @@ def main() -> int:
         print(f"build: empty kernel {floor.result():.2f} s", flush=True)
     draws = concurrent.futures.ThreadPoolExecutor(1)
     start_tree_draws(draws)
+    counts = {}
+    try:
+        return run_phases(dev, t_start, card, draws, counts)
+    finally:
+        stop_counts(counts)
+
+
+def run_phases(dev, t_start, card, draws, counts) -> int:
+    """Phases 2b-7 (see the module's text); ``counts`` receives phase 6d's
+    background processes."""
 
     # -- 2b. one rmsnorm call, one device kernel (the first profiled)
     one_kernel = rmsnorm_device_kernels(dev)
@@ -6087,6 +6376,8 @@ def main() -> int:
     t0 = time.time()
     entries.update(vision_phase(dev))
     print(f"vision phase: {time.time() - t0:.1f} s", flush=True)
+    # phase 6d's counts, each in a process of its own beside phases 4g-6
+    counts.update(start_counts())
     entries.update(diffusion_phase(dev))
     on_paths = {name: fn.launches for name, fn in ENTRY_POINTS.items()}
     heap = entries["event_scan"]["heap"]
@@ -6199,6 +6490,20 @@ def main() -> int:
              "published config), and the kernel raises under grad; none "
              "on the DiT-XL/2 and UNet train steps either (256 tokens take "
              "the plain path; the UNet's attention is plain)")
+
+    # -- 6d. the roofline of the card's own steps
+    steps_rows = {(r["model"], r["shape"]): r["ms"] for r in entries[
+        "flash_attention (tma_wgmma, D=72)"]["dit_xl2"]["steps"]}
+    measured = {
+        ROOFLINE_RUNS[0][0]: lm["prefill"]["ms"],
+        ROOFLINE_RUNS[1][0]: steps_rows[("DiT-XL/2", "gen_fast")],
+        ROOFLINE_RUNS[2][0]: steps_rows[("DiT-XL/2", "gen_1024")],
+        ROOFLINE_RUNS[3][0]: steps_rows[("UNet", "gen_fast")],
+        ROOFLINE_RUNS[4][0]: train["dit"]["ms"],
+        ROOFLINE_RUNS[5][0]: train["unet"]["ms"],
+        ROOFLINE_RUNS[6][0]: train["granite"]["ms"]}
+    roof = roofline_phase(dev, counts, measured, lm)
+    print("roofline: " + json.dumps(roof), flush=True)
 
     # -- 7. the records
     print(f"card: {card}", flush=True)

@@ -22,11 +22,14 @@ tensor unchanged; a ``DTensor`` is redistributed to the hinted spec.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import itertools
 import math
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.placement_types import _StridedShard
 
 PyTree = Any
 Spec = Tuple[Any, ...]
@@ -38,6 +41,18 @@ Spec = Tuple[Any, ...]
 # ---------------------------------------------------------------------------
 _RULES: dict = {}
 _MESH = None
+# the dry run's cost model (``launch.op_cost.CostMode``) while it counts a
+# meshed step on whole fake tensors: hints become its constraints
+_COST = None
+
+
+def set_cost_tracker(mode):
+    """Install ``mode`` (a ``launch.op_cost.CostMode`` or ``None``) as the
+    one that sees the hints, ``distribute`` and ``gathered``; returns the
+    one it replaces."""
+    global _COST
+    prev, _COST = _COST, mode
+    return prev
 
 
 def set_rules(mesh=None, **mapping) -> None:
@@ -94,6 +109,9 @@ def shard_hint(x: torch.Tensor, spec_: Spec) -> torch.Tensor:
     """A ``DTensor`` redistributed to ``spec_`` on its own mesh; a plain
     tensor (one device, or each rank's whole copy) unchanged."""
     if not isinstance(x, DTensor):
+        if _COST is not None:
+            from repro_torch.launch.op_cost import spec_of_entries
+            return _COST.constrain(x, spec_of_entries(spec_))
         return x
     return x.redistribute(x.device_mesh, placements(x.device_mesh, spec_))
 
@@ -166,43 +184,98 @@ def fit(mesh, spec_: Spec, shape) -> Spec:
 # Specs as DTensor placements
 # ---------------------------------------------------------------------------
 def placements(mesh, spec_: Spec) -> Tuple[Any, ...]:
-    """DTensor placements for ``spec_`` on ``mesh``: ``Shard(d)`` on each
-    mesh dim that tensor dim ``d`` is sharded over, ``Replicate()`` on the
-    others.
+    """DTensor placements for ``spec_`` on ``mesh``: on each mesh dim that
+    tensor dim ``d`` is sharded over ``Shard(d)``, or ``_StridedShard(d,
+    split_factor=k)`` where the dim is split over axes against mesh order;
+    ``Replicate()`` on the others.
 
     A dim sharded over several axes is major-first in the reference: over
     ``("model", "data")`` block ``i_model * |data| + i_data``.  DTensor
-    splits a dim over its mesh dims in mesh-dim order instead, so both
-    give every rank the same block only when the axes of more than one
-    device come in mesh-dim order; otherwise this raises
-    ``NotImplementedError`` naming the spec, and never places another
-    layout.  An axis of one device moves no block and may stand anywhere.
+    splits a dim over its mesh dims in mesh-dim order, so an axis that
+    comes later in mesh order but earlier in the spec is expressed by a
+    ``_StridedShard`` on each earlier mesh dim, its ``split_factor`` the
+    product of the sizes of those axes (``("model", "data")`` on a
+    ``(data, model)`` mesh: ``_StridedShard(d, split_factor=|model|)`` on
+    ``data``, ``Shard(d)`` on ``model``).  Such placements are checked
+    against the reference's blocks for every mesh coordinate; a spec they
+    do not give exactly raises ``NotImplementedError`` naming it, and no
+    other layout is ever placed.
     """
     names = axis_names(mesh)
-    sizes = mesh_shape(mesh)
+    return _placements(names, tuple(mesh.shape), tuple(spec_))
+
+
+@functools.lru_cache(maxsize=None)
+def _placements(names: Tuple[str, ...], shape: Tuple[int, ...], spec_: Spec
+                ) -> Tuple[Any, ...]:
+    sizes = dict(zip(names, shape))
     out: List[Any] = [Replicate() for _ in names]
     seen = set()
+    strided = False
     for d, axes in enumerate(spec_):
-        axes = () if axes is None else (
-            (axes,) if isinstance(axes, str) else tuple(axes))
-        dims = []
-        for a in axes:
+        axes = _axes(axes)
+        for j, a in enumerate(axes):
             if a not in sizes:
                 raise ValueError(f"spec {spec_}: no mesh axis {a!r} in "
                                  f"{names}")
             if a in seen:
                 raise ValueError(f"spec {spec_}: mesh axis {a!r} used twice")
             seen.add(a)
-            dims.append(names.index(a))
-        live = [m for m in dims if sizes[names[m]] > 1]
-        if live != sorted(live):
-            raise NotImplementedError(
-                f"spec {spec_}: tensor dim {d} is sharded over {axes} "
-                f"major-first, which DTensor's Shard placements (split in "
-                f"mesh-dim order {names}) do not express")
-        for m in dims:
-            out[m] = Shard(d)
-    return tuple(out)
+            m = names.index(a)
+            # the axes before this one in the spec (more major) that DTensor
+            # splits later (a later mesh dim)
+            sf = math.prod(sizes[b] for b in axes[:j]
+                           if names.index(b) > m)
+            if sf == 1:
+                out[m] = Shard(d)
+            else:
+                out[m] = _StridedShard(d, split_factor=sf)
+                strided = True
+    out = tuple(out)
+    if strided and not _gives_reference_blocks(names, shape, spec_, out):
+        raise NotImplementedError(
+            f"spec {spec_}: DTensor placements {out} do not give every rank "
+            f"the block the reference's (major-first) spec gives it on the "
+            f"mesh {dict(sizes)}")
+    return out
+
+
+def _axes(axes) -> Tuple[str, ...]:
+    return () if axes is None else (
+        (axes,) if isinstance(axes, str) else tuple(axes))
+
+
+def _gives_reference_blocks(names, shape, spec_, pls) -> bool:
+    """Whether ``pls`` give each mesh coordinate the reference's block of
+    a tensor whose every dim is a multiple of its shard count: along dim
+    ``d`` over axes ``(a1, .., ak)`` block ``sum_j c(a_j) prod_{i>j}
+    |a_i|``."""
+    try:
+        from torch.distributed.tensor._utils import \
+            _compute_local_shape_and_global_offset as local_block
+    except ImportError:
+        return False
+    # integer arithmetic on real tensors, outside any fake or counting mode
+    from torch.utils._python_dispatch import _disable_current_modes
+    with _disable_current_modes():
+        return _blocks_match(local_block, names, shape, spec_, pls)
+
+
+def _blocks_match(local_block, names, shape, spec_, pls) -> bool:
+    sizes = dict(zip(names, shape))
+    counts = [math.prod(sizes[a] for a in _axes(ax)) for ax in spec_]
+    gshape = [2 * c for c in counts]
+    for coord in itertools.product(*(range(n) for n in shape)):
+        c = dict(zip(names, coord))
+        lshape, off = local_block(gshape, shape, list(coord), pls)
+        for d, ax in enumerate(spec_):
+            idx = 0
+            for a in _axes(ax):
+                idx = idx * sizes[a] + c[a]
+            blk = gshape[d] // counts[d]
+            if (lshape[d], off[d]) != (blk, idx * blk):
+                return False
+    return True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -260,6 +333,8 @@ def distribute(x: torch.Tensor, mesh, spec_: Spec) -> DTensor:
     if x.device.type != mesh.device_type:
         raise ValueError(f"a {x.device.type} tensor for a "
                          f"{mesh.device_type} mesh")
+    if _COST is not None:
+        return _COST.local_dtensor(x, mesh, placements(mesh, spec_))
     from torch.distributed.tensor import distribute_tensor
     return distribute_tensor(x, mesh, placements(mesh, spec_),
                              src_data_rank=None)
@@ -268,6 +343,8 @@ def distribute(x: torch.Tensor, mesh, spec_: Spec) -> DTensor:
 def gathered(x: DTensor) -> torch.Tensor:
     """The whole tensor of a DTensor on every rank: its local tensor where
     every mesh dim it is sharded over holds one device, else gathered."""
+    if _COST is not None:
+        return _COST.whole(x)
     mesh = x.device_mesh
     if all(not isinstance(p, Shard) or mesh.size(i) == 1
            for i, p in enumerate(x.placements)):

@@ -14,6 +14,13 @@ the CPU stays differentiable, as the reference's plain paths are), and
 ``event_select``, ``fleet_feasibility`` and ``link_cost`` raise under
 grad on either device, rather than hand back a result that silently
 drops the gradient.
+
+On CUDA tensors the model-path kernels (``flash_attention``, ``rmsnorm``
+and its backward, ``moe_gemm``) are reached through their
+``torch.library`` operators (:mod:`repro_torch.kernels.library`): a
+real tensor launches the kernel, a fake one (``FakeTensorMode``) gets
+the output's shape and dtype, and ``torch.utils.flop_counter`` the
+kernel's work, with no launch.
 """
 from __future__ import annotations
 
@@ -24,8 +31,7 @@ import torch
 from repro_torch.kernels import admission as _ad
 from repro_torch.kernels import event_select as _es
 from repro_torch.kernels import flash_attention as _fa
-from repro_torch.kernels import moe_gemm as _mg
-from repro_torch.kernels import ref
+from repro_torch.kernels import library, ref
 from repro_torch.kernels import rmsnorm as _rn
 
 
@@ -49,7 +55,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             "flash_attention has no backward: the CUDA kernel is forward "
             "only, as the reference's Pallas kernel is (it defines no VJP); "
             "train with attn_impl='chunked' or run under torch.no_grad()")
-    return _fa.flash_attention(q, k, v, causal=causal, window=window)
+    return library.ops.flash_attention(q, k, v, causal, window or 0)
 
 
 def _wants_grad(*tensors) -> bool:
@@ -126,7 +132,7 @@ def event_select(t_a, node_a, d_a, p_a, pay_a, avail_a,
 def _rmsnorm_rows(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     if x.device.type != "cuda":
         return ref.rmsnorm_ref(x, scale, eps=_rn.EPS)
-    return _rn.rmsnorm(x, scale)
+    return library.ops.rmsnorm(x, scale)
 
 
 class RMSNormFn(torch.autograd.Function):
@@ -147,7 +153,7 @@ class RMSNormFn(torch.autograd.Function):
         if x.device.type != "cuda":
             dx, ds = ref.rmsnorm_bwd_ref(x, scale, dy, eps=_rn.EPS)
         else:
-            dx, ds = _rn.rmsnorm_bwd(x, scale, dy)
+            dx, ds = library.ops.rmsnorm_bwd(x, scale, dy)
         return dx, ds
 
 
@@ -167,7 +173,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 def _moe_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.device.type != "cuda":
         return ref.moe_gemm_ref(x, w)
-    return _mg.moe_gemm(x, w)
+    return library.ops.moe_gemm(x, w)
 
 
 def _pad_rows(x: torch.Tensor, n: int, dim: int) -> torch.Tensor:

@@ -242,9 +242,12 @@ def _saved_layout(tree: PyTree, fn) -> PyTree:
 # ---------------------------------------------------------------------------
 # Cell construction
 # ---------------------------------------------------------------------------
-def build_cell(arch: str, shape_name: str, cfg=None) -> Cell:
+def build_cell(arch: str, shape_name: str, cfg=None,
+               shape: ShapeSpec = None) -> Cell:
+    """The cell of ``arch`` at the shape named ``shape_name`` (or at
+    ``shape`` itself: a cut batch, or a smoke shape)."""
     cfg = cfg or get_config(arch)
-    shape = shapes_for(cfg)[shape_name]
+    shape = shape or shapes_for(cfg)[shape_name]
     mod = model_module(cfg)
     p_specs = mod.param_specs(cfg)
     p_logical = _nest_logical(mod.param_logical(cfg))

@@ -224,6 +224,10 @@ def row_order_sum(ids: torch.Tensor, rows: torch.Tensor, n: int
     g = rows.new_zeros((n, rows.shape[-1]))
     if ids.numel() == 0:
         return g
+    if is_fake(rows):
+        # no data to rank by (the dry run's fake tensors): the same
+        # scatter-add in one pass, which is what a cost model counts
+        return g.index_add_(0, ids, rows)
     order = torch.argsort(ids, stable=True)
     sid = ids[order]
     pos = torch.arange(sid.numel(), device=sid.device)
@@ -238,6 +242,13 @@ def row_order_sum(ids: torch.Tensor, rows: torch.Tensor, n: int
         g.index_add_(0, dst[sl], rows[src[sl]])
         start += count
     return g
+
+
+def is_fake(x: torch.Tensor) -> bool:
+    """Whether ``x`` is a fake tensor (``FakeTensorMode``: shapes and
+    dtypes without data)."""
+    from torch._subclasses.fake_tensor import is_fake as _is_fake
+    return _is_fake(x)
 
 
 class _Embedding(torch.autograd.Function):

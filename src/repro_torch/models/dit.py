@@ -8,7 +8,9 @@ Parameters are a nested dict of tensors in the reference's layouts (HWIO
 patch kernel, ``(d_in, d_out)`` projections, per-layer weights stacked on a
 leading L axis), so :func:`params_from_numpy` carries one set of numpy
 weights into either package.  The reference's ``shd.hint`` annotations
-(no-ops without a device mesh) are dropped.  ``loss_fn`` /
+stand where its stand (after the positional embedding and after each
+block): no-ops without rules and on plain tensors, the dry run's
+constraints on a mesh.  ``loss_fn`` /
 ``make_train_step`` train it as the reference does: ``t`` and ``eps`` are
 JAX's threefry draws, bit for bit (``models.diffusion``), and with ``cfg.remat`` each layer is recomputed in the
 backward (the reference's ``jax.checkpoint`` on its scan body; a no-op
@@ -28,6 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import DiTConfig
 from repro_torch.device import DeviceLike
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import attention as attn
 from repro_torch.models import common, diffusion, vit
 
@@ -155,7 +158,8 @@ def _layer(x: torch.Tensor, lp: Dict[str, torch.Tensor],
     x = x + g1[:, None, :] * (o.reshape(B, S, d) @ lp["wo"])
     yx2 = _modulate(_ln(x), sh2, sc2)
     z = common.gelu(yx2 @ lp["w_in"] + lp["b_in"])
-    return x + g2[:, None, :] * (z @ lp["w_out"] + lp["b_out"])
+    return shd.hint(x + g2[:, None, :] * (z @ lp["w_out"] + lp["b_out"]),
+                    "dp", None, None)
 
 
 def forward(params: PyTree, latents: torch.Tensor, t: torch.Tensor,
@@ -174,7 +178,8 @@ def forward(params: PyTree, latents: torch.Tensor, t: torch.Tensor,
     pe = params["patch_embed"]
     x = vit._patch_embed(latents.to(dt), pe["w"], pe["b"], p)
     g0 = int(params["pos_embed"].shape[0] ** 0.5)
-    x = x + vit._interp_pos_embed(params["pos_embed"], 0, g0, gh)[None]
+    x = shd.hint(x + vit._interp_pos_embed(params["pos_embed"], 0, g0,
+                                           gh)[None], "dp", None, None)
 
     temb = common.timestep_embedding(t, 256).to(dt)
     tm = params["t_mlp"]

@@ -26,8 +26,9 @@ Three of the reference's semantics the port keeps:
   f32 forward turns that off for its duration (TF32 moves these logits by
   about 1e-3).  bf16 convolutions are unaffected.
 
-The reference's ``shd.hint`` is a no-op without a device mesh and is
-dropped, as in :mod:`repro_torch.models.vit`.  ``loss_fn`` and
+The reference's ``shd.hint`` after each stage stands (a no-op without
+rules and on plain tensors), on the NCHW view: ``(dp, tp, None, None)``
+for its NHWC ``(dp, None, None, tp)``.  ``loss_fn`` and
 ``make_train_step`` train on batch statistics, as the reference does (and
 as the port serves).  The gradients are in the port's layout; the
 checkpoints of a train loop hold the reference's (``launch.steps``).
@@ -42,6 +43,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ResNetConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import common
 
 PyTree = Any
@@ -235,6 +237,7 @@ def forward(params: PyTree, images: torch.Tensor, cfg: ResNetConfig
                 sc = _bn(_conv(x, bp["proj"], s), **bp["bnp"]) if bi == 0 \
                     else x
                 x = torch.relu(y + sc)
+            x = shd.hint(x, "dp", "tp", None, None)
         feat = x.float().mean(dim=(2, 3))
         return feat @ params["head"]["w"].float() + params["head"]["b"].float()
 

@@ -42,8 +42,10 @@ are the reference's tables.  With a device mesh installed
 (``launch.mesh.install_rules``) a ``moe_impl="shard_map"`` config's MoE
 layers run :func:`moe.moe_ffn_sharded` on the installed rules, as the
 reference's ``_ffn`` does (Granite's 8 padded experts then masked); the
-rest of the forward runs on each rank's whole tensors, where the
-reference's activation hints are no-ops on one device.
+rest of the forward runs on each rank's whole tensors.  The reference's
+activation and cache hints (``shd.hint``) stand where its stand: no-ops
+on plain tensors, the dry run's constraints on a mesh
+(:mod:`repro_torch.launch.op_cost`).
 """
 from __future__ import annotations
 
@@ -270,9 +272,9 @@ def _block(h, lp, window: int, cfg: LMConfig, positions):
     q, k, v = _qkv(x, lp, cfg, positions)
     o = attn.attention(q, k, v, causal=True, window=window,
                        impl=cfg.attn_impl, q_chunk=cfg.attn_chunk)
-    h = h + o.reshape(B, S, -1) @ lp["wo"]
+    h = shd.hint(h + o.reshape(B, S, -1) @ lp["wo"], "dp", None, None)
     f, aux = _ffn(kops.rmsnorm(h, lp["ln2"]), lp, cfg)
-    return h + f, aux, (k, v)
+    return shd.hint(h + f, "dp", None, None), aux, (k, v)
 
 
 def _head(params: PyTree, h: torch.Tensor) -> torch.Tensor:
@@ -290,7 +292,7 @@ def hidden_states(params: PyTree, tokens: torch.Tensor, cfg: LMConfig
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, S) tokens -> ((B, S, d) hidden, scalar aux loss)."""
     S = tokens.shape[1]
-    h = _embed(params, tokens, cfg)
+    h = shd.hint(_embed(params, tokens, cfg), "dp", None, None)
     positions = torch.arange(S, device=h.device)
     aux = torch.zeros((), device=h.device)
     for l, window in enumerate(_layer_windows(cfg)):
@@ -315,7 +317,7 @@ def _chunk_xent(h: torch.Tensor, head: torch.Tensor, labels: torch.Tensor
                 ) -> torch.Tensor:
     """Summed xent of one chunk: f32 logits (the inputs upcast, as
     ``_head``), logsumexp minus the gold logit."""
-    logits = h.float() @ head.float()
+    logits = shd.hint(h.float() @ head.float(), "dp", None, "tp")
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return (logz - gold).sum()
@@ -380,6 +382,14 @@ def _zeros(specs: Dict[str, Any], dev) -> Dict[str, Any]:
             for name, (shape, dt) in specs.items()}
 
 
+def _hint_cache(cache: Dict[str, Any]) -> Dict[str, Any]:
+    """The reference's hints on a cache's K / V (``cache_logical``): the
+    same dict (the tensors themselves) without rules."""
+    spec = cache_logical()["k"]
+    return dict(cache, k=shd.hint(cache["k"], *spec),
+                v=shd.hint(cache["v"], *spec))
+
+
 def init_cache(cfg: LMConfig, batch: int, max_len: int,
                device: DeviceLike = None) -> Dict[str, Any]:
     return _zeros(cache_specs(cfg, batch, max_len), resolve_device(device))
@@ -392,8 +402,8 @@ def prefill(params: PyTree, tokens: torch.Tensor, cfg: LMConfig,
     ``max_len``) and the last position's (B, V) f32 logits."""
     B, S = tokens.shape
     max_len = max_len or S
-    h = _embed(params, tokens, cfg)
-    cache = init_cache(cfg, B, max_len, h.device)
+    h = shd.hint(_embed(params, tokens, cfg), "dp", None, None)
+    cache = _hint_cache(init_cache(cfg, B, max_len, h.device))
     positions = torch.arange(S, device=h.device)
     for l, window in enumerate(_layer_windows(cfg)):
         h, _, (k, v) = _block(h, _layer(params, l), window, cfg, positions)
@@ -436,7 +446,7 @@ def decode_step(params: PyTree, cache: Dict[str, Any], tokens: torch.Tensor,
         h = _decode_layer(h, _layer(params, l), cfg, positions,
                           cache["k"][l], cache["v"][l], pos, pos + 1, window)
     h = kops.rmsnorm(h, params["final_norm"])
-    return _head(params, h[:, 0]), dict(cache, length=pos + 1)
+    return _head(params, h[:, 0]), dict(_hint_cache(cache), length=pos + 1)
 
 
 # ---------------------------------------------------------------------------
@@ -488,7 +498,8 @@ def decode_step_sliding(params: PyTree, cache: Dict[str, Any],
     pos, h, positions = _decode_input(params, cache, tokens, cfg)
     ring, n_ring = pos % W, min(pos + 1, W)
     li = gi = 0
-    for l, is_global in enumerate(layer_is_global(cfg).tolist()):
+    for l, window in enumerate(_layer_windows(cfg)):
+        is_global = window == NO_WINDOW
         if is_global:
             k_l, v_l = cache["k_global"][gi], cache["v_global"][gi]
             slot, n_valid, gi = pos, pos + 1, gi + 1

@@ -15,7 +15,8 @@ norms are f32 (``common.group_norm``, ``common.layer_norm``) with f32
 scales and biases beside bf16 kernels, as the reference's ``param_defs``
 types them.  Self-attention is the reference's hard-coded ``chunked``
 (q_chunk 1024) and cross-attention its naive path: no kernel is on this
-model's path.  ``shd.hint`` is dropped, and ``cfg.remat`` is not read,
+model's path.  ``shd.hint`` stands after each level, as the reference's
+(a no-op without rules and on plain tensors), and ``cfg.remat`` is not read,
 as the reference reads it nowhere.  ``loss_fn`` / ``make_train_step``
 train it on the reference's noise (``diffusion.noised_latents``: JAX's
 threefry ``t`` and ``eps``, bit for bit); the backward's f32 convolutions
@@ -30,6 +31,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import UNetConfig
 from repro_torch.device import DeviceLike
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import attention as attn
 from repro_torch.models import common, diffusion, resnet
 
@@ -244,6 +246,7 @@ def forward(params: PyTree, latents: torch.Tensor, t: torch.Tensor,
             if li < len(chans) - 1:
                 x = _conv(x, lvl["downsample"], stride=2)
                 skips.append(x)
+            x = shd.hint(x, "dp", "sp", None, "tp")
 
         mid = params["mid"]
         x = _res_block(x, mid["res0"], temb)
@@ -260,6 +263,7 @@ def forward(params: PyTree, latents: torch.Tensor, t: torch.Tensor,
                     x = _attn_block(x, lvl[f"attn{bi}"], ctx, cfg.n_heads)
             if li > 0:
                 x = _conv(_upsample(x), lvl["upsample"])
+            x = shd.hint(x, "dp", "sp", None, "tp")
 
         x = common.group_norm(x, params["norm_out"]["scale"],
                               params["norm_out"]["bias"])

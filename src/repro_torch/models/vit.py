@@ -7,8 +7,10 @@ MLP, and a classifier on the mean of the extra tokens.  Parameters are a
 nested dict of tensors in the reference's layouts (HWIO patch kernel,
 ``(d_in, d_out)`` projections, per-layer weights stacked on a leading L
 axis), so :func:`params_from_numpy` carries one set of numpy weights into
-either package.  The reference's ``shd.hint`` sharding annotations are
-no-ops without a device mesh and are dropped here.  With ``cfg.remat``
+either package.  The reference's ``shd.hint`` sharding annotations stand
+where its stand (after the positional embedding and after each block):
+no-ops without rules and on plain tensors, the dry run's constraints on
+a mesh.  With ``cfg.remat``
 each layer is recomputed in the backward under grad (the reference's
 ``jax.checkpoint`` on its scan body).
 """
@@ -21,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ViTConfig
 from repro_torch.device import DeviceLike
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import attention as attn
 from repro_torch.models import common
 
@@ -167,7 +170,7 @@ def _layer(x: torch.Tensor, lp: PyTree, cfg: ViTConfig) -> torch.Tensor:
     x = x + o.reshape(B, S, d) @ lp["wo"] + lp["bo"]
     y2 = common.layer_norm(x, lp["ln2"]["scale"], lp["ln2"]["bias"])
     z = common.gelu(y2 @ lp["w_in"] + lp["b_in"])
-    return x + z @ lp["w_out"] + lp["b_out"]
+    return shd.hint(x + z @ lp["w_out"] + lp["b_out"], "dp", None, None)
 
 
 def forward(params: PyTree, images: torch.Tensor, cfg: ViTConfig
@@ -191,7 +194,7 @@ def forward(params: PyTree, images: torch.Tensor, cfg: ViTConfig
     x = torch.cat([tok, x], dim=1)
     pos = _interp_pos_embed(params["pos_embed"], n_extra,
                             cfg.img_res // cfg.patch, gh)
-    x = x + pos[None]
+    x = shd.hint(x + pos[None], "dp", None, None)
 
     lay = params["layers"]
     for i in range(cfg.n_layers):

@@ -1852,3 +1852,86 @@ def test_moe_gemm_at_the_meshed_prefill_capacity(E, C, d, f):
                                ref.moe_gemm_ref(x, w).float(),
                                **ref.moe_gemm_tolerance(x, w))
 
+
+
+# ---------------------------------------------------------------------------
+# the model-path kernels as torch.library operators (kernels/library.py)
+# ---------------------------------------------------------------------------
+def _op_launches():
+    return (fa.flash_attention.launches, rmsnorm_mod.rmsnorm.launches,
+            rmsnorm_mod.rmsnorm_bwd.launches,
+            moe_gemm_mod.moe_gemm.launches)
+
+
+@pytest.mark.gpu
+def test_library_operators_launch_on_real_tensors():
+    """On real CUDA tensors each operator launches its kernel (one launch
+    a call, counted by its wrapper) and equals the plain version."""
+    _need_gpu()
+    from repro_torch.kernels import library
+    g = torch.Generator(device="cuda").manual_seed(29)
+    q = torch.randn(2, 600, 8, 64, device="cuda", generator=g,
+                    dtype=torch.bfloat16)
+    k = torch.randn(2, 600, 2, 64, device="cuda", generator=g,
+                    dtype=torch.bfloat16)
+    x = torch.randn(6, 100, 48, device="cuda", generator=g)
+    w = torch.randn(6, 48, 24, device="cuda", generator=g)
+    r = torch.randn(300, 48, device="cuda", generator=g)
+    s = torch.randn(48, device="cuda", generator=g) * 0.1
+    before = _op_launches()
+    o = library.ops.flash_attention(q, k, k, True, 0)
+    y = library.ops.moe_gemm(x, w)
+    n = library.ops.rmsnorm(r, s)
+    dx, ds = library.ops.rmsnorm_bwd(r, s, n)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_op_launches(), before)) == \
+        (1, 1, 1, 1)
+    want = ref.flash_attention_ref(q, k, k, causal=True)
+    assert torch.allclose(o.float(), want.float(),
+                          **ref.flash_attention_tolerance(want, k))
+    assert torch.allclose(y, ref.moe_gemm_ref(x, w), atol=1e-3, rtol=1e-3)
+    assert torch.allclose(n, ref.rmsnorm_ref(r, s, eps=rmsnorm_mod.EPS),
+                          atol=1e-5, rtol=1e-5)
+    pdx, pds = ref.rmsnorm_bwd_ref(r, s, n, eps=rmsnorm_mod.EPS)
+    assert torch.allclose(dx, pdx, atol=1e-4, rtol=1e-4)
+    assert torch.allclose(ds, pds, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.gpu
+def test_library_operators_on_fake_cuda_tensors_count_without_launch():
+    """On fake CUDA tensors the operators give shapes and their FLOP
+    formulas' counts, and launch nothing; the cost model counts a smoke
+    Granite prefill past 1,024 tokens through flash and moe_gemm."""
+    _need_gpu()
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.kernels import library
+    from repro_torch.launch import dryrun, steps
+    before = _op_launches()
+    with FakeTensorMode():
+        q = torch.empty(2, 1100, 8, 64, dtype=torch.bfloat16, device="cuda")
+        x = torch.empty(6, 100, 48, dtype=torch.bfloat16, device="cuda")
+        w = torch.empty(6, 48, 24, dtype=torch.bfloat16, device="cuda")
+        with FlopCounterMode(display=False) as fc:
+            o = ops.flash_attention(q, q, q, causal=True)
+            y = ops.moe_gemm(x, w)
+    assert o.shape == q.shape and y.shape == (6, 100, 24)
+    assert fc.get_total_flops() == \
+        4 * 2 * 8 * 64 * library.flash_pairs(1100, True, None) \
+        + 2 * 6 * 100 * 48 * 24
+    cfg = dataclasses.replace(get_smoke_config("granite-moe-3b-a800m"),
+                              attn_impl="pallas", attn_chunk=1024)
+    shape = ShapeSpec("smoke_pallas", "prefill", seq_len=1100,
+                      global_batch=1)
+    cell = steps.build_cell("granite-moe-3b-a800m", shape.name, cfg=cfg,
+                            shape=shape)
+    costs, mode, out = dryrun.count_step(cell, "cuda")
+    assert _op_launches() == before
+    flash = sum(p[3] for p in mode.products if p[0] == "flash_attention")
+    assert flash == cfg.n_layers * 4 * cfg.n_heads * cfg.hd * \
+        library.flash_pairs(1100, True, None)
+    assert any(p[0] == "moe_gemm" for p in mode.products)
+    plain, _, _ = dryrun.count_step(cell, "cpu")
+    assert plain.flops > costs.flops        # the plain attention's full square

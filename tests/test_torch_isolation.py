@@ -141,6 +141,22 @@ def test_probe_walks_the_training_modules():
     assert bad.strip() == "[]"
 
 
+def test_probe_walks_the_dry_run_modules():
+    """The dry run, the cost model, the roofline and the kernels' operator
+    library are the port's own, and a dry-run cell counts with ``jax``
+    unimportable (a fake group of 512 ranks, fake tensors)."""
+    _, bad = _run_probe(
+        "assert {'repro_torch.launch.dryrun', 'repro_torch.launch.op_cost', "
+        "'repro_torch.launch.roofline', "
+        "'repro_torch.kernels.library'} <= set(names)\n"
+        "from repro_torch.launch import dryrun, roofline\n"
+        "assert roofline.PEAK_FLOPS == 989e12 and roofline.HBM_BW == 3.35e12\n"
+        "res = dryrun.run_cell('deit-b', 'serve_b1', False, device='cpu')\n"
+        "assert res['status'] == 'ok' and res['flops_per_chip'] > 0\n"
+        "assert res['memory']['argument_bytes'] == 1866416")
+    assert bad.strip() == "[]"
+
+
 def test_lm_entry_points_raise_without_cuda(monkeypatch):
     """``params_from_numpy`` and the caches' ``device=None`` mean CUDA and
     raise without it; the CPU, asked for, runs the model."""

@@ -22,8 +22,10 @@ import pytest
 import torch
 import torch.distributed as dist
 from jax.sharding import PartitionSpec as P
+from torch.distributed.tensor import Shard
 from torch.distributed.tensor._utils import \
     compute_local_shape_and_global_offset
+from torch.distributed.tensor.placement_types import _StridedShard
 from torch.testing._internal.distributed.fake_pg import FakeStore
 
 from repro.configs import all_cells as jax_all_cells
@@ -280,11 +282,12 @@ class TestProductionMeshes:
             shd.distribute(torch.zeros(4, 4, device="meta"), m, (None, None))
 
     def test_refused_specs_are_the_reversed_major_orders(self, meshes):
-        """Every leaf of every cell places on both meshes, except the
-        multi-axis dims DTensor cannot express: dense-LM decode's
-        ``tp = ("model", "data")`` and the 1T MoE's ``fsdp = ("data",
-        "pod")`` on the multi-pod mesh; ``placements`` names the spec."""
-        refused = set()
+        """Every leaf of every cell places on both meshes.  The multi-axis
+        dims against mesh order, which ``placements`` once refused
+        (dense-LM decode's ``tp = ("model", "data")`` and the 1T MoE's
+        ``fsdp = ("data", "pod")`` on the multi-pod mesh), are exactly the
+        ones that now take ``_StridedShard`` placements."""
+        strided = set()
         for name, m in meshes.items():
             for arch, shape in CELLS:
                 cell = steps.build_cell(arch, shape)
@@ -293,15 +296,12 @@ class TestProductionMeshes:
                 tree = dryrun._to_shardings(m, cell.arg_logical,
                                             cell.arg_specs)
                 for sharding in sharding_leaves(tree):
-                    try:
-                        sharding.placements
-                    except NotImplementedError as err:
-                        assert str(sharding.spec) in str(err)
-                        refused.update(a for a in sharding.spec
+                    if any(isinstance(p, _StridedShard)
+                           for p in sharding.placements):
+                        strided.update(a for a in sharding.spec
                                        if isinstance(a, tuple))
                 shd.clear_rules()
-        assert refused == {("model", "data"), ("data", "pod")}
-
+        assert strided == {("model", "data"), ("data", "pod")}
 
 def sharding_leaves(tree):
     """The ``NamedSharding`` leaves of a tree of dicts and tuples."""
@@ -331,9 +331,12 @@ PLACE_CASES = [
     ("2x1x4", (("data", "pod"), None, "model")),
     ("2x1x4", (("model", "data"), "pod", None)),
 ]
+# dims sharded over axes against mesh order (``_StridedShard``)
 REFUSED_CASES = [("2x4", (("model", "data"), None, None)),
                  ("2x2x2", (None, ("data", "pod"), None)),
-                 ("2x2x2", (("model", "pod"), None, None))]
+                 ("2x2x2", (("model", "pod"), None, None)),
+                 ("2x2x2", (("model", "data", "pod"), None, None)),
+                 ("2x2x2", (("data", "pod"), ("model",), None))]
 
 _REFERENCE_MAPS = r"""
 import json, os
@@ -362,7 +365,8 @@ print(json.dumps(out))
 class TestPlacements:
     @pytest.fixture(scope="class")
     def reference_blocks(self):
-        code = _REFERENCE_MAPS.format(meshes=PLACE_MESHES, cases=PLACE_CASES,
+        code = _REFERENCE_MAPS.format(meshes=PLACE_MESHES,
+                                      cases=PLACE_CASES + REFUSED_CASES,
                                       shape=PLACE_SHAPE)
         env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                    JAX_PLATFORMS="cpu")
@@ -376,36 +380,70 @@ class TestPlacements:
     def port_blocks(self):
         """Each case's block of each rank (by mesh coordinate), from
         DTensor's own local shape and offset, under a fake group of 8 in
-        which this process is that rank."""
-        out = [dict() for _ in PLACE_CASES]
-        refused = []
+        which this process is that rank; the cases of ``PLACE_CASES``
+        then those of ``REFUSED_CASES``."""
+        cases = PLACE_CASES + REFUSED_CASES
+        out = [dict() for _ in cases]
         for rank in range(8):
             dist.init_process_group("fake", store=FakeStore(), rank=rank,
                                     world_size=8)
             try:
                 ms = {k: mesh.mesh_over(s, n, "cpu")
                       for k, (s, n) in PLACE_MESHES.items()}
-                for i, (mname, spec) in enumerate(PLACE_CASES):
+                for i, (mname, spec) in enumerate(cases):
                     m = ms[mname]
                     size, off = compute_local_shape_and_global_offset(
                         PLACE_SHAPE, m, shd.placements(m, spec))
                     key = ",".join(map(str, m.get_coordinate()))
                     out[i][key] = [[o, o + s] for o, s in zip(off, size)]
-                if rank == 0:
-                    for mname, spec in REFUSED_CASES:
-                        try:
-                            shd.placements(ms[mname], spec)
-                        except NotImplementedError as err:
-                            refused.append(str(spec) in str(err))
             finally:
                 dist.destroy_process_group()
-        return out, refused
+        return out
 
     @pytest.mark.parametrize("i", range(len(PLACE_CASES)),
                              ids=[f"{m}-{s}" for m, s in PLACE_CASES])
     def test_blocks_match_devices_indices_map(self, reference_blocks,
                                               port_blocks, i):
-        assert port_blocks[0][i] == reference_blocks[i]
+        assert port_blocks[i] == reference_blocks[i]
 
-    def test_reversed_major_order_refused(self, port_blocks):
-        assert port_blocks[1] == [True] * len(REFUSED_CASES)
+    def test_reversed_major_order_refused(self, reference_blocks,
+                                          port_blocks):
+        """The specs sharded against mesh order, once refused and now
+        placed by ``_StridedShard``, give every rank the reference's
+        block; a spec no placement expresses exactly still raises, naming
+        it (here: a strided split that is checked and found wrong)."""
+        n = len(PLACE_CASES)
+        for i, case in enumerate(REFUSED_CASES):
+            assert port_blocks[n + i] == reference_blocks[n + i], case
+        assert shd._gives_reference_blocks(
+            ("data", "model"), (2, 4), (("model", "data"), None),
+            (Shard(0), Shard(0))) is False
+
+    def test_strided_distribute_gathered_replace_mesh(self):
+        """``distribute``, ``gathered`` and ``elastic.replace_mesh`` on a
+        reversed-major spec, every rank simulated in one process
+        (``LocalTensorMode``): each rank's block is the reference's, and
+        gathering gives the whole tensor back on every rank."""
+        from torch.distributed._local_tensor import LocalTensorMode
+        from repro_torch.training import elastic
+        x = torch.arange(8 * 12 * 3, dtype=torch.float32).reshape(8, 12, 3)
+        spec = (("model", "data"), None, None)
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=8)
+        try:
+            with LocalTensorMode(8):
+                m = mesh.mesh_over((2, 4), ("data", "model"), "cpu")
+                for placed in (shd.distribute(x, m, spec),
+                               elastic.replace_mesh({"w": x}, {"w": spec},
+                                                    m)["w"]):
+                    assert any(isinstance(p, _StridedShard)
+                               for p in placed.placements)
+                    local = placed.to_local()._local_tensors
+                    for r, t in local.items():
+                        i_data, i_model = divmod(r, 4)
+                        blk = i_model * 2 + i_data
+                        assert torch.equal(t, x[blk:blk + 1]), r
+                    whole = shd.gathered(placed)._local_tensors
+                    assert all(torch.equal(t, x) for t in whole.values())
+        finally:
+            dist.destroy_process_group()
