@@ -373,11 +373,18 @@ final line:
              a. the ``rmsnorm`` backward kernel (``rmsnorm_bwd``, one
                 cooperative launch) against its plain version
                 (``ref.rmsnorm_bwd_ref``) at (8192, 1536), (4096, 1536)
-                (Granite's rows at B = 2 / 1), (7, 7168) and (1000, 1023),
-                f32 and bf16, bit-equal over two launches, held to
+                (Granite's rows at B = 2 / 1), (7, 7168), (1000, 1023),
+                the other LMs' train rows (8192, 4608 / 5376 / 7168) and
+                (3, 1536) (fewer rows than the grid), f32 and bf16,
+                bit-equal over two launches, held to
                 ``ref.rmsnorm_bwd_tolerance``, shown to reject a dscale
-                without its last row and a dscale of 0; ``ops.moe_gemm``'s
-                gradients (dx = moe_gemm(dy, w^T), dW = moe_gemm(x^T, dy)
+                without its last row and a dscale of 0; timed at all but
+                (7, 7168) and (1000, 1023) graph-replayed with L2 cold and
+                warm and in an eager loop, beside
+                ``aten._fused_rms_norm_backward`` (timed in turns with it),
+                ``F.rms_norm``'s autograd backward, the plain version and
+                the bound, each row's share of the bound printed;
+                ``ops.moe_gemm``'s gradients (dx = moe_gemm(dy, w^T), dW = moe_gemm(x^T, dy)
                 with C padded to a multiple of 8) against autograd of the
                 plain version at Granite's expert products with C = 853 and
                 1,706, bf16 and f32, each product's variant printed, the dW
@@ -413,8 +420,10 @@ final line:
              c. the main paths through ``launch.train``'s ``run``:
                 Granite-3.0 MoE at full width and depth (bf16 weights, f32
                 moments, remat) on ``train_4k``'s 4,096-token sequences
-                with the global batch cut 256 -> 2, one warm step, two
-                timed (ms a step, tokens/s, peak memory), each kernel's
+                with the global batch cut 256 -> 2, one warm step, one
+                profiled (device only: the ``rmsnorm_bwd`` kernels' count
+                and device time), two timed (ms a step, tokens/s, peak
+                memory), each kernel's
                 launches a step as the counters saw them (set to 0 before
                 the run), every leaf changed; DeiT-B ``cls_224`` at its
                 full batch of 256, 2 steps against 1 step, a checkpoint,
@@ -5304,9 +5313,15 @@ def entry_point_phase(dev, kept, one_kernel, routed):
 # ---------------------------------------------------------------------------
 TRAIN_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_train_golden.npz")
 TRAIN_CKPT_DIR = os.path.join(ROOT, "build", "train_ckpt")
-# the rmsnorm backward kernel at the train step's rows ((B S, d) of
-# Granite's norms at B = 2 and 1, S = 4,096), a wide row and an odd width
-RMSNORM_BWD_SHAPES = ((8192, 1536), (4096, 1536), (7, 7168), (1000, 1023))
+# the rmsnorm backward kernel at the train steps' rows ((B S, d) of
+# Granite's norms at B = 2 and 1, S = 4,096), a wide row and an odd width,
+# the other LMs' widths at B S = 8,192 (StarCoder2-7B, Gemma-3 27B,
+# Kimi-K2) and a row count under the grid; all but the wide and the odd
+# row timed
+RMSNORM_BWD_SHAPES = ((8192, 1536), (4096, 1536), (7, 7168), (1000, 1023),
+                      (8192, 4608), (8192, 5376), (8192, 7168), (3, 1536))
+RMSNORM_BWD_TIMED = tuple(s for s in RMSNORM_BWD_SHAPES
+                          if s not in ((7, 7168), (1000, 1023)))
 # moe_gemm's backward products at Granite's expert products, (E, C, d, f)
 # of the forward x (E, C, d) w (E, d, f): C = 853 for one 4,096-token
 # sequence, 1,706 for two (the main path's B = 2)
@@ -5376,8 +5391,13 @@ def rmsnorm_bwd_checks(dev) -> dict:
     """Phase 6a: the backward kernel against its plain version at
     ``RMSNORM_BWD_SHAPES``, f32 and bf16, deterministic; the dscale check
     shown to reject a dscale without its last row, and one of 0; times at
-    the train shapes beside the plain version, the library's backward of
-    ``F.rms_norm`` and the bound."""
+    ``RMSNORM_BWD_TIMED``, graph-replayed with L2 cold (``ms``: each call
+    on the next of as many input copies as exceed the L2 twice over) and
+    warm, and in an eager loop (the wrapper's host work included), beside
+    the plain version, the one PyTorch call for the same function
+    (``aten._fused_rms_norm_backward``, timed as the kernel), the
+    autograd backward of ``F.rms_norm`` (eager, as before) and the
+    bound."""
     err, rows = 0.0, []
     for R, d in RMSNORM_BWD_SHAPES:
         for dt in (torch.float32, torch.bfloat16):
@@ -5407,26 +5427,47 @@ def rmsnorm_bwd_checks(dev) -> dict:
           f"max abs err {err}; a dscale without its last row errs by "
           f"{shares[0]:.2f} of the tolerance, a dscale of 0 by "
           f"{shares[1]:.2f} (both rejected)", flush=True)
-    for R, d in RMSNORM_BWD_SHAPES[:2]:
+    fused = torch.ops.aten._fused_rms_norm_backward
+    for R, d in RMSNORM_BWD_TIMED:
         for dt in (torch.bfloat16, torch.float32):
             x, s, dy = rmsnorm_bwd_inputs(R, d, dt, dev)
-            xl = x.clone().requires_grad_()
-            wl = (1.0 + s.float()).to(dt).requires_grad_()
+            reps = max(10, min(100, int(3e8 // (3 * x.numel()
+                                                 * x.element_size()))))
+            kernel = rn_mod.rmsnorm_bwd
+            w = (1.0 + s.float()).to(dt)
+            rstd = torch.ops.aten._fused_rms_norm(x, [d], w, rn_mod.EPS)[1]
+            lib = lambda x, w, dy: fused(dy, x, [d], rstd, w, [True, True])
+            xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
             y = torch.nn.functional.rms_norm(xl, (d,), weight=wl,
                                              eps=rn_mod.EPS)
-            ms = timed_ms(lambda: rn_mod.rmsnorm_bwd(x, s, dy), 50)
-            plain_ms = timed_ms(lambda: ref.rmsnorm_bwd_ref(x, s, dy), 20)
-            library_ms = timed_ms(lambda: torch.autograd.grad(
-                y, (xl, wl), dy, retain_graph=True), 50)
+            ms, library_ms = in_turns(lambda: cold_ms(kernel, (x, s, dy)),
+                                      lambda: cold_ms(lib, (x, w, dy)))
+            warm_ms, library_warm_ms = in_turns(
+                lambda: graph_ms(lambda: kernel(x, s, dy), reps),
+                lambda: graph_ms(lambda: lib(x, w, dy), reps))
+            eager_ms = timed_ms(lambda: kernel(x, s, dy), reps)
+            plain_ms = timed_ms(lambda: ref.rmsnorm_bwd_ref(x, s, dy),
+                                min(reps, 20))
+            autograd_ms = timed_ms(lambda: torch.autograd.grad(
+                y, (xl, wl), dy, retain_graph=True), reps)
             b_ms, b_by = rmsnorm_bwd_bound_ms(R, d, x.element_size())
-            row = dict(shape=[R, d], dtype=str(dt), ms=ms, plain_ms=plain_ms,
-                       library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
-                       ratio=ms / library_ms)
+            row = dict(shape=[R, d], dtype=str(dt), ms=ms, warm_ms=warm_ms,
+                       eager_ms=eager_ms, plain_ms=plain_ms,
+                       library_ms=library_ms, library_warm_ms=library_warm_ms,
+                       autograd_ms=autograd_ms, bound_ms=b_ms, bound_by=b_by,
+                       share=b_ms / ms, ratio=ms / library_ms,
+                       autograd_ratio=eager_ms / autograd_ms)
             rows.append(row)
-            print(f"train kernels: rmsnorm_bwd ({R}, {d}) {dt}: {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms, F.rms_norm's autograd backward "
-                  f"{library_ms:.4f} ms (kernel / library {row['ratio']:.3f}),"
-                  f" bound {b_ms:.4f} ms ({b_by})", flush=True)
+            print(f"train kernels: rmsnorm_bwd ({R}, {d}) {dt}: "
+                  f"{ms * 1e3:.2f} us L2 cold ({warm_ms * 1e3:.2f} warm, "
+                  f"{eager_ms * 1e3:.2f} eager), {row['share']:.3f} of the "
+                  f"{b_ms * 1e3:.2f}-us bound ({b_by}); "
+                  f"aten._fused_rms_norm_backward {library_ms * 1e3:.2f} cold"
+                  f" ({library_warm_ms * 1e3:.2f} warm): kernel / library "
+                  f"{row['ratio']:.3f}; F.rms_norm's autograd backward "
+                  f"{autograd_ms * 1e3:.2f} eager: kernel / it "
+                  f"{row['autograd_ratio']:.3f}; plain "
+                  f"{plain_ms * 1e3:.2f} us", flush=True)
             del y, xl, wl
     return dict(max_abs_err=err, rows=rows)
 
@@ -5691,13 +5732,21 @@ def granite_train(dev) -> dict:
     def step_fn(params, opt_state, batch):
         c0 = train_counts()
         t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        t0.record()
-        out = real(params, opt_state, batch)
-        t1.record()
+        holder, prof = {}, None
+        if len(steps) == TRAIN_WARM:    # the step after the warm one
+            def once():            # a retried profiler window runs nothing
+                if not holder:
+                    holder["out"] = real(params, opt_state, batch)
+            prof = profiled(once, cpu=False)
+        else:
+            t0.record()
+            holder["out"] = real(params, opt_state, batch)
+            t1.record()
         torch.cuda.synchronize()
+        out = holder["out"]
         c1 = train_counts()
         steps.append(dict(
-            ms=t0.elapsed_time(t1),
+            ms=None if prof else t0.elapsed_time(t1), prof=prof,
             launches={n: c1[n] - c0[n] for n in c1},
             loss=float(out[2]["loss"]), grad_norm=float(out[2]["grad_norm"]),
             aux=float(out[2]["aux_loss"])))
@@ -5707,7 +5756,7 @@ def granite_train(dev) -> dict:
     torch.cuda.reset_peak_memory_stats()
     train_counts(zero=True)
     t0 = t_run = time.time()
-    res = run(cell, TrainLoopConfig(total_steps=TRAIN_WARM + TRAIN_TIMED,
+    res = run(cell, TrainLoopConfig(total_steps=TRAIN_WARM + 1 + TRAIN_TIMED,
                                     log_every=1, seed=0),
               log_fn=lambda m: print(f"granite train: {m}", flush=True),
               device=dev)
@@ -5734,14 +5783,24 @@ def granite_train(dev) -> dict:
                  f"{want} (rmsnorm 2L + 1 forward and 2L again under remat; "
                  f"its backward 2L + 1; moe_gemm 3L forward, 3L under remat "
                  f"and 6L backward)")
-    timed = [s["ms"] for s in steps[TRAIN_WARM:TRAIN_WARM + TRAIN_TIMED]]
+    timed = [s["ms"] for s in steps[TRAIN_WARM + 1:]]
     ms = float(np.median(timed))
     tokens = TRAIN_BATCH * shape.seq_len
+    # the profiled step: the backward kernel's launches and device time
+    prof = steps[TRAIN_WARM]["prof"]
+    bwd = [k for k in prof["device_us"] if "rmsnorm_bwd" in k]
+    if not bwd:
+        fail(f"granite train: the profiled step shows no rmsnorm_bwd kernel "
+             f"among {len(prof['device_us'])} device entries")
+    rms_bwd = dict(launches=sum(prof["device_counts"][k] for k in bwd),
+                   device_ms=sum(prof["device_us"][k] for k in bwd) / 1e3,
+                   busy_ms=prof["busy_us"] / 1e3,
+                   kernels=sum(prof["device_counts"].values()))
     row = dict(batch=TRAIN_BATCH, seq=shape.seq_len, n_params=n_params,
                state_gb=state_bytes / 1e9, step_ms=timed, ms=ms,
                tokens_per_s=tokens / (ms / 1e3), peak_gb=peak / 1e9,
                warm_ms=steps[0]["ms"], launches_per_step=want, wall_s=wall,
-               init_s=made["t_init"],
+               init_s=made["t_init"], rmsnorm_bwd_profiled=rms_bwd,
                losses=[s["loss"] for s in steps],
                grad_norms=[s["grad_norm"] for s in steps], counts=counts)
     print(f"granite train (full width and depth, {n_params} parameters, "
@@ -5749,7 +5808,11 @@ def granite_train(dev) -> dict:
           f"state {row['state_gb']:.2f} GB): step {ms:.1f} ms (median of "
           f"{[round(t, 1) for t in timed]}), {row['tokens_per_s']:.0f} "
           f"tokens/s, peak memory {row['peak_gb']:.2f} GB; the warm step "
-          f"{row['warm_ms']:.1f} ms", flush=True)
+          f"{row['warm_ms']:.1f} ms; the profiled step (the second): "
+          f"{rms_bwd['launches']} rmsnorm_bwd kernels, "
+          f"{rms_bwd['device_ms']:.3f} ms of device time of "
+          f"{rms_bwd['busy_ms']:.1f} ms busy ({rms_bwd['kernels']} device "
+          f"entries)", flush=True)
     print(f"granite train: launches a step {want} on every step; losses "
           f"{row['losses']}, grad norms {row['grad_norms']}; every leaf "
           f"changed; run() {wall:.1f} s, of which the weights' and the "
@@ -6483,7 +6546,9 @@ def run_phases(dev, t_start, card, draws, counts) -> int:
         launches_per_step=g["launches_per_step"]["rmsnorm_backward"],
         **{k: top[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms", "ratio", "shape", "dtype")},
-        shapes=rb["rows"])
+        library="aten._fused_rms_norm_backward, graph-replayed with L2 cold "
+                "as the kernel",
+        step_profiled=g["rmsnorm_bwd_profiled"], shapes=rb["rows"])
     entries["flash_attention"]["train"] = dict(
         launches=g["counts"]["flash_attention"],
         note="none: the train step takes the chunked attention (the "

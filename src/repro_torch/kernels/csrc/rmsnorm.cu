@@ -47,13 +47,34 @@
 //   dscale[c] = sum over rows of dy * x * r
 //
 // (ref.py::rmsnorm_bwd_ref, the same formula written out), all in f32,
-// dx rounded once to x's dtype and dscale once to the scale's.  One
-// cooperative launch: each block takes rows blockIdx.x + k * gridDim.x and
-// sums its rows' dscale terms for the columns each thread owns in shared
-// memory; after a grid barrier the blocks' partial rows are summed column
-// by column in block order.  No float atomics, so the result does not
-// depend on timing: a recompute under remat or a resumed run gives the same
-// bits.  Bound: bytes (x and dy read, dx written).
+// dx rounded once to x's dtype and dscale once to the scale's.
+//
+// Bound on this card: bytes.  x and dy are read once and dx written once:
+// at (8192, 1536) bf16, 75.5 MB, 22.5 us at 3.35 TB/s; at (8192, 7168)
+// bf16 352 MB, 105 us; ~12 flops an element are nothing beside that.
+// Design (for that bound).  Each row is read once: a row belongs to tpr
+// threads that hold its 16-byte vectors of x and of dy in registers,
+// PER each (the forward's split, with at most 256 threads a bf16 row and
+// 448 an f32 one so the registers fit; only a row past tpr * kCache
+// vectors reads its rest again, and keeps the rest's dscale sums in
+// shared memory); the two row sums and then dx come from those
+// registers.  Narrow rows share a block, and each block has its next
+// row's loads in flight, in a second set of registers, while the current
+// row reduces, as in the forward; x and dy are loaded streaming (evict
+// first) and dx stored so.  (A ring of three stages in shared memory
+// filled by cp.async, two rows ahead, measured slower on the card.)
+// Each thread keeps 1 + scale and the dscale sums of its own columns in
+// registers across all of its rows.  The grid is persistent, at most two
+// blocks an SM (one cooperative launch of G blocks), so at the end each
+// block adds its row slots in slot order into one row of a (G, d) f32
+// partial buffer, a few hundred rows (G = 1: dscale itself).  After a
+// grid barrier the whole grid sums the columns: for G >= 16, 16-column
+// tiles over the blocks, in a tile 16 chunks (half-warps) each summing
+// the partial rows b = k, k + 16, ... in order and then the chunks added
+// in order; for G < 16 a thread a column, the rows in order.  So the
+// order of every sum depends on (G, d) alone and no float atomic is
+// used: two launches give the same bits, as a recompute under remat or a
+// resumed run needs.
 //
 // Arithmetic: built with --fmad=false, never fast math.  The inverse root
 // is 1.0f / sqrtf(var + eps): IEEE square root and division, each
@@ -257,15 +278,15 @@ rmsnorm_kernel(const T* __restrict__ x, const S* __restrict__ scale,
 }
 
 // The row's split: PER vectors a thread (1..kCache) and tpr threads (a
-// multiple of 32, at most kMaxTpr) with the fewest idle vector slots, the
-// larger PER on a tie; rows past kMaxTpr * kCache vectors take the widest.
-void split_row(int nvec, int* per_out, int* tpr_out) {
-  int best_per = kCache, best_tpr = kMaxTpr;
+// multiple of 32, at most max_tpr) with the fewest idle vector slots, the
+// larger PER on a tie; rows past max_tpr * kCache vectors take the widest.
+void split_row(int nvec, int* per_out, int* tpr_out, int max_tpr = kMaxTpr) {
+  int best_per = kCache, best_tpr = max_tpr;
   long best_idle = -1;
   for (int per = 1; per <= kCache; ++per) {
     const int need = (nvec + per - 1) / per;
     const int tpr = (need + 31) / 32 * 32;
-    if (tpr > kMaxTpr) continue;
+    if (tpr > max_tpr) continue;
     const long idle = static_cast<long>(tpr) * per - nvec;
     if (best_idle < 0 || idle <= best_idle) {
       best_idle = idle;
@@ -332,223 +353,323 @@ int launch_aligned(const void* x, const void* scale, void* out, int R, int d,
 // ---------------------------------------------------------------------------
 // Backward
 // ---------------------------------------------------------------------------
-constexpr int kBwdThreads = 256;
+// threads a row at most, and so a block's: a bf16 thread holds per vector
+// x, dy, the next row's x and dy (16 registers) and 1 + scale and dscale
+// for 8 columns (16 more), so 256 leave it up to 255 registers; an f32
+// thread half that, and 448 threads leave it 146 (d = 7168 in f32 is 1792
+// vectors: 448 threads of 4)
+template <typename T>
+constexpr int kBwdMaxTpr = sizeof(T) == 2 ? 256 : 448;
+constexpr int kBwdBlocksPerSm = 2;   // the persistent grid: at most 2 an SM
+constexpr int kBwdMinThreads = 256;  // threads a block has at least
+constexpr int kColTile = 16;         // the column pass: columns a tile
+constexpr int kChunks = 16;          // and partial rows b = k mod kChunks
 
-template <typename T, int V>
-__device__ __forceinline__ void load_vec(const T* p, float (&out)[V]) {
-  Raw<T, V> raw;
-  if constexpr (V == 1) {
-    raw = *p;
-  } else {
-    raw = *reinterpret_cast<const uint4*>(p);
-  }
-  unpack<T, V>(raw, out);
-}
-
-template <typename T, int V>
-__device__ __forceinline__ void store_vec(T* p, const float (&in)[V]) {
-  if constexpr (V == 1) {
-    *p = from_float<T>(in[0]);
-  } else {
-    uint4 raw;
-    T* e = reinterpret_cast<T*>(&raw);
+// V dscale sums of columns c.. to the block's partial row (f32, 16 bytes
+// at a time where V allows), or, where the grid is one block, to dscale
+template <typename S, int V>
+__device__ __forceinline__ void store_sums(float* prow, S* dscale, int c,
+                                           const float* a) {
+  if (gridDim.x == 1) {
 #pragma unroll
-    for (int i = 0; i < V; ++i) e[i] = from_float<T>(in[i]);
-    *reinterpret_cast<uint4*>(p) = raw;
+    for (int i = 0; i < V; ++i) dscale[c + i] = from_float<S>(a[i]);
+  } else if constexpr (V % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < V; i += 4)
+      *reinterpret_cast<float4*>(prow + c + i) =
+          make_float4(a[i], a[i + 1], a[i + 2], a[i + 3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) prow[c + i] = a[i];
   }
 }
 
-// the sum of two values over the block (kBwdThreads threads), the warps'
-// sums added in warp order; `buf` alternates between calls (parity)
-__device__ __forceinline__ void block_sum2(float& a, float& b,
-                                           float (*buf)[2][kBwdThreads / 32]) {
-  for (int o = 16; o > 0; o >>= 1) {
-    a = __fadd_rn(a, __shfl_xor_sync(kFull, a, o));
-    b = __fadd_rn(b, __shfl_xor_sync(kFull, b, o));
-  }
-  const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) {
-    (*buf)[0][warp] = a;
-    (*buf)[1][warp] = b;
-  }
-  __syncthreads();
-  a = 0.0f;
-  b = 0.0f;
-  for (int i = 0; i < kBwdThreads / 32; ++i) {
-    a = __fadd_rn(a, (*buf)[0][i]);
-    b = __fadd_rn(b, (*buf)[1][i]);
+// the two sums of a row for V of its columns: x^2 and (dy (1 + s)) x
+template <typename T, int V>
+__device__ __forceinline__ void row_sums(const Raw<T, V>& xr,
+                                         const Raw<T, V>& gr,
+                                         const float (&w)[V], float& ss,
+                                         float& dot) {
+  float xv[V], gv[V];
+  unpack<T, V>(xr, xv);
+  unpack<T, V>(gr, gv);
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    ss = __fadd_rn(ss, __fmul_rn(xv[i], xv[i]));
+    dot = __fadd_rn(dot, __fmul_rn(__fmul_rn(gv[i], w[i]), xv[i]));
   }
 }
 
-// grid: G co-resident blocks (a cooperative launch) of kBwdThreads; thread
-// t owns the vectors v = t + k * kBwdThreads of every row (V elements a
-// vector), and their dscale sums in shared memory (d floats), so no two
-// threads touch one column.  partial: (G, d) f32.
-template <typename T, typename S, int V>
-__global__ void __launch_bounds__(kBwdThreads)
+// dx = r g - x c for V columns, stored (streaming); their dscale terms
+// (dy x) r added to acc
+template <typename T, int V>
+__device__ __forceinline__ void row_grads(T* o, const Raw<T, V>& xr,
+                                          const Raw<T, V>& gr,
+                                          const float (&w)[V], float r,
+                                          float c, float* acc) {
+  float xv[V], gv[V], out[V];
+  unpack<T, V>(xr, xv);
+  unpack<T, V>(gr, gv);
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const float g = __fmul_rn(gv[i], w[i]);
+    out[i] = __fsub_rn(__fmul_rn(r, g), __fmul_rn(xv[i], c));
+    acc[i] = __fadd_rn(acc[i], __fmul_rn(__fmul_rn(gv[i], xv[i]), r));
+  }
+  store_out<T, V>(o, out);
+}
+
+// blockDim = (tpr, rows a block), as the forward's; each thread holds PER
+// vectors v = tid + it * tpr of a row's x and dy (only those registers),
+// the next row's in a second set, and 1 + scale and the dscale sums of
+// those columns across all of its rows.  Vectors past PER * tpr (rows
+// wider than kBwdMaxTpr * kCache vectors, one row a block) are read again
+// and their dscale sums kept in shared memory.  A grid of G co-resident
+// blocks (a cooperative launch); partial: (G, d) f32, a block's row of
+// dscale sums, its row slots added in order; after the grid barrier the
+// whole grid sums the columns (the column pass).
+template <typename T, typename S, int V, int PER>
+__global__ void __launch_bounds__(kBwdMaxTpr<T>)
 rmsnorm_bwd_kernel(const T* __restrict__ x, const S* __restrict__ scale,
                    const T* __restrict__ dy, T* __restrict__ dx,
                    S* __restrict__ dscale, float* __restrict__ partial,
                    int R, int d, float eps) {
-  extern __shared__ float acc[];               // d: this block's dscale sums
-  __shared__ float red[2][2][kBwdThreads / 32];
+  // rows > 1: the block's dscale row; else the rest's dscale sums
+  extern __shared__ float acc_s[];
+  __shared__ float red[2][2][kMaxTpr / 32];    // two sums a warp, two rows
+  __shared__ float chunk[kChunks][kColTile];
+  const int tpr = blockDim.x;
   const int tid = threadIdx.x;
+  const int rows = blockDim.y;
   const int nvec = d / V;
-  for (int v = tid; v < nvec; v += kBwdThreads) {
+  const int cached = PER * tpr;
+  const int wpr = tpr >> 5;
+  const int warp = (threadIdx.y * tpr + tid) >> 5;
+  const int step = gridDim.x * rows;
+  const int nrows = R;                         // the rows walked
+
+  Raw<T, V> cx[PER], cg[PER], nx[PER], ng[PER];
+  int row = blockIdx.x * rows + threadIdx.y;
 #pragma unroll
-    for (int i = 0; i < V; ++i) acc[v * V + i] = 0.0f;
+  for (int it = 0; it < PER; ++it) {
+    const int v = tid + it * tpr;
+    if (row < nrows && v < nvec) {
+      const size_t o = static_cast<size_t>(row) * d + v * V;
+      load_x<T, V>(x + o, cx[it]);
+      load_x<T, V>(dy + o, cg[it]);
+    }
   }
-  int parity = 0;
-  for (int row = blockIdx.x; row < R; row += gridDim.x, parity ^= 1) {
-    const T* xr = x + static_cast<size_t>(row) * d;
-    const T* gr = dy + static_cast<size_t>(row) * d;
-    T* dr = dx + static_cast<size_t>(row) * d;
+  float w[PER][V], acc[PER][V];
+#pragma unroll
+  for (int it = 0; it < PER; ++it) {
+    const int v = tid + it * tpr;
+    if (v < nvec) load_scale<S, V>(scale + v * V, w[it]);
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc[it][i] = 0.0f;
+  }
+  for (int v = cached + tid; v < nvec; v += tpr) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc_s[(v - cached) * V + i] = 0.0f;
+  }
+
+  for (int base = blockIdx.x * rows, parity = 0; base < nrows;
+       base += step, parity ^= 1) {
+    const bool live = row < nrows;
+    const int next = row + step;
+    // the next row's loads go out before this row's sums need a barrier
+#pragma unroll
+    for (int it = 0; it < PER; ++it) {
+      const int v = tid + it * tpr;
+      if (next < nrows && v < nvec) {
+        const size_t o = static_cast<size_t>(next) * d + v * V;
+        load_x<T, V>(x + o, nx[it]);
+        load_x<T, V>(dy + o, ng[it]);
+      }
+    }
+    const size_t off = static_cast<size_t>(live ? row : 0) * d;
+
     float ss = 0.0f, dot = 0.0f;
-    for (int v = tid; v < nvec; v += kBwdThreads) {
-      float xv[V], gv[V], w[V];
-      load_vec<T, V>(xr + v * V, xv);
-      load_vec<T, V>(gr + v * V, gv);
-      load_scale<S, V>(scale + v * V, w);
+    if (live) {
 #pragma unroll
-      for (int i = 0; i < V; ++i) {
-        ss = __fadd_rn(ss, __fmul_rn(xv[i], xv[i]));
-        dot = __fadd_rn(dot, __fmul_rn(__fmul_rn(gv[i], w[i]), xv[i]));
+      for (int it = 0; it < PER; ++it) {
+        const int v = tid + it * tpr;
+        if (v < nvec) row_sums<T, V>(cx[it], cg[it], w[it], ss, dot);
+      }
+      for (int v = cached + tid; v < nvec; v += tpr) {
+        Raw<T, V> xr, gr;
+        float ws[V];
+        load_x<T, V>(x + off + v * V, xr);
+        load_x<T, V>(dy + off + v * V, gr);
+        load_scale<S, V>(scale + v * V, ws);
+        row_sums<T, V>(xr, gr, ws, ss, dot);
       }
     }
-    block_sum2(ss, dot, &red[parity]);
-    const float r = 1.0f / sqrtf(__fadd_rn(__fdiv_rn(ss, static_cast<float>(d)),
-                                           eps));
-    const float c = __fmul_rn(__fmul_rn(__fmul_rn(r, r), r),
-                              __fdiv_rn(dot, static_cast<float>(d)));
-    for (int v = tid; v < nvec; v += kBwdThreads) {
-      float xv[V], gv[V], w[V], out[V];
-      load_vec<T, V>(xr + v * V, xv);
-      load_vec<T, V>(gr + v * V, gv);
-      load_scale<S, V>(scale + v * V, w);
-#pragma unroll
-      for (int i = 0; i < V; ++i) {
-        const float g = __fmul_rn(gv[i], w[i]);
-        out[i] = __fsub_rn(__fmul_rn(r, g), __fmul_rn(xv[i], c));
-        acc[v * V + i] = __fadd_rn(acc[v * V + i],
-                                   __fmul_rn(__fmul_rn(gv[i], xv[i]), r));
+
+    // the row's two sums: over the warp, then over the row's warps
+    for (int o = 16; o > 0; o >>= 1) {
+      ss = __fadd_rn(ss, __shfl_xor_sync(kFull, ss, o));
+      dot = __fadd_rn(dot, __shfl_xor_sync(kFull, dot, o));
+    }
+    if (wpr > 1) {
+      if ((tid & 31) == 0) {
+        red[parity][0][warp] = ss;
+        red[parity][1][warp] = dot;
       }
-      store_vec<T, V>(dr + v * V, out);
+      __syncthreads();
+      ss = 0.0f;
+      dot = 0.0f;
+      for (int i = 0; i < wpr; ++i) {
+        ss = __fadd_rn(ss, red[parity][0][threadIdx.y * wpr + i]);
+        dot = __fadd_rn(dot, red[parity][1][threadIdx.y * wpr + i]);
+      }
+    }
+
+    if (live) {
+      const float r = 1.0f / sqrtf(__fadd_rn(
+          __fdiv_rn(ss, static_cast<float>(d)), eps));
+      const float c = __fmul_rn(__fmul_rn(__fmul_rn(r, r), r),
+                                __fdiv_rn(dot, static_cast<float>(d)));
+#pragma unroll
+      for (int it = 0; it < PER; ++it) {
+        const int v = tid + it * tpr;
+        if (v < nvec)
+          row_grads<T, V>(dx + off + v * V, cx[it], cg[it], w[it], r, c,
+                          acc[it]);
+      }
+      for (int v = cached + tid; v < nvec; v += tpr) {
+        Raw<T, V> xr, gr;
+        float ws[V];
+        load_x<T, V>(x + off + v * V, xr);
+        load_x<T, V>(dy + off + v * V, gr);
+        load_scale<S, V>(scale + v * V, ws);
+        row_grads<T, V>(dx + off + v * V, xr, gr, ws, r, c,
+                        acc_s + (v - cached) * V);
+      }
+    }
+#pragma unroll
+    for (int it = 0; it < PER; ++it) {
+      cx[it] = nx[it];
+      cg[it] = ng[it];
+    }
+    row = next;
+  }
+
+  // the block's partial row: its row slots added in slot order through
+  // shared memory (rows > 1 leaves no rest), the last slot storing
+  float* prow = partial + static_cast<size_t>(blockIdx.x) * d;
+  for (int y = 0; y < rows; ++y) {
+    if (threadIdx.y == y) {
+#pragma unroll
+      for (int it = 0; it < PER; ++it) {
+        const int v = tid + it * tpr;
+        if (v >= nvec) continue;
+        if (y > 0) {
+#pragma unroll
+          for (int i = 0; i < V; ++i)
+            acc[it][i] = __fadd_rn(acc_s[v * V + i], acc[it][i]);
+        }
+        if (y + 1 < rows) {
+#pragma unroll
+          for (int i = 0; i < V; ++i) acc_s[v * V + i] = acc[it][i];
+        } else {
+          store_sums<S, V>(prow, dscale, v * V, acc[it]);
+        }
+      }
+    }
+    if (y + 1 < rows) __syncthreads();
+  }
+  for (int v = cached + tid; v < nvec; v += tpr)
+    store_sums<S, V>(prow, dscale, v * V, acc_s + (v - cached) * V);
+
+  // -- column pass
+  const int G = gridDim.x;
+  if (G > 1) {
+    cooperative_groups::this_grid().sync();
+    const int threads = tpr * rows;
+    const int me = threadIdx.y * tpr + tid;
+    if (G < kChunks) {
+      // a thread a column, the partial rows in order
+      for (int c = blockIdx.x * threads + me; c < d; c += G * threads) {
+        float s = 0.0f;
+        for (int b = 0; b < G; ++b)
+          s = __fadd_rn(s, __ldcg(partial + static_cast<size_t>(b) * d + c));
+        dscale[c] = from_float<S>(s);
+      }
+    } else {
+      // column tiles of kColTile over the blocks; in a tile, chunk k (a
+      // half-warp) sums the partial rows b = k, k + kChunks, ... in
+      // order, then the chunks are added in order
+      const int lane = me & 31;
+      const int col_in = lane & (kColTile - 1);
+      const int warps = threads >> 5;
+      for (int t = blockIdx.x; t * kColTile < d; t += G) {
+        const int col = t * kColTile + col_in;
+        for (int k = 2 * warp + (lane >> 4); k < kChunks; k += 2 * warps) {
+          float s = 0.0f;
+          if (col < d) {
+#pragma unroll 8
+            for (int b = k; b < G; b += kChunks)
+              s = __fadd_rn(s, __ldcg(partial + static_cast<size_t>(b) * d +
+                                      col));
+          }
+          chunk[k][col_in] = s;
+        }
+        __syncthreads();
+        if (me < kColTile && t * kColTile + me < d) {
+          float s = chunk[0][me];
+#pragma unroll
+          for (int k = 1; k < kChunks; ++k) s = __fadd_rn(s, chunk[k][me]);
+          dscale[t * kColTile + me] = from_float<S>(s);
+        }
+        __syncthreads();
+      }
     }
   }
-  for (int v = tid; v < nvec; v += kBwdThreads) {
-#pragma unroll
-    for (int i = 0; i < V; ++i)
-      partial[static_cast<size_t>(blockIdx.x) * d + v * V + i] = acc[v * V + i];
-  }
-  cooperative_groups::this_grid().sync();
-  // each column's blocks summed in block order
-  for (int c = blockIdx.x * kBwdThreads + tid; c < d;
-       c += gridDim.x * kBwdThreads) {
-    float s = 0.0f;
-    for (int b = 0; b < static_cast<int>(gridDim.x); ++b)
-      s = __fadd_rn(s, partial[static_cast<size_t>(b) * d + c]);
-    dscale[c] = from_float<S>(s);
-  }
+  // -- end column pass
 }
 
-template <typename T, typename S, int V>
-int bwd_grid(int R, int d, int* grid, size_t* smem) {
-  auto kernel = rmsnorm_bwd_kernel<T, S, V>;
-  *smem = static_cast<size_t>(d) * sizeof(float);
-  int device, sms, resident, max_smem;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                 device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&max_smem,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                                 device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (*smem + sizeof(float) * 4 * (kBwdThreads / 32) >
-      static_cast<size_t>(max_smem))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (*smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(*smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel,
-                                                      kBwdThreads, *smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (resident < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  *grid = R < sms * resident ? R : sms * resident;
-  return 0;
-}
-
-template <typename T, typename S, int V>
-int bwd_launch(const void* x, const void* scale, const void* dy, void* dx,
-               void* dscale, float* partial, int R, int d, float eps,
-               int grid, cudaStream_t stream) {
-  int g;
+// The instantiation, block shape and dynamic shared memory for rows of d
+// elements (V a vector), the forward's split with the backward's width
+struct BwdShape {
+  const void* fn;
+  int tpr, rows;
   size_t smem;
-  int err = bwd_grid<T, S, V>(R, d, &g, &smem);
-  if (err != 0) return err;
-  if (grid != g) return static_cast<int>(cudaErrorInvalidValue);
-  const T* xp = static_cast<const T*>(x);
-  const S* sp = static_cast<const S*>(scale);
-  const T* gp = static_cast<const T*>(dy);
-  T* dxp = static_cast<T*>(dx);
-  S* dsp = static_cast<S*>(dscale);
-  void* args[] = {&xp, &sp, &gp, &dxp, &dsp, &partial, &R, &d, &eps};
-  return static_cast<int>(cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(rmsnorm_bwd_kernel<T, S, V>),
-      dim3(grid), dim3(kBwdThreads), args, smem, stream));
-}
+};
 
-// vectors where d is a multiple of the width and x, dy, dx are 16-byte
-// aligned, single elements otherwise
-template <typename T>
-bool bwd_vectors(const void* x, const void* dy, const void* dx, int d) {
-  constexpr int kVec = 16 / sizeof(T);
-  return d % kVec == 0 &&
-         ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(dy) |
-           reinterpret_cast<uintptr_t>(dx)) & 15) == 0;
+template <typename T, typename S, int V>
+BwdShape bwd_shape(int d) {
+  int per, tpr;
+  split_row(d / V, &per, &tpr, kBwdMaxTpr<T>);
+  BwdShape s;
+  switch (per) {
+    case 1: s.fn = reinterpret_cast<const void*>(
+        rmsnorm_bwd_kernel<T, S, V, 1>); break;
+    case 2: s.fn = reinterpret_cast<const void*>(
+        rmsnorm_bwd_kernel<T, S, V, 2>); break;
+    case 3: s.fn = reinterpret_cast<const void*>(
+        rmsnorm_bwd_kernel<T, S, V, 3>); break;
+    default: s.fn = reinterpret_cast<const void*>(
+        rmsnorm_bwd_kernel<T, S, V, kCache>); break;
+  }
+  s.tpr = tpr;
+  s.rows = tpr >= kBwdMinThreads ? 1 : kBwdMinThreads / tpr;
+  const int rest = d / V - per * tpr;           // > 0 only at one row a block
+  s.smem = sizeof(float) * static_cast<size_t>(
+      s.rows > 1 ? d : (rest > 0 ? rest * V : 0));
+  return s;
 }
 
 template <typename T, typename S>
-int bwd_dispatch(const void* x, const void* scale, const void* dy, void* dx,
-                 void* dscale, float* partial, int R, int d, float eps,
-                 int grid, cudaStream_t stream, int* grid_out) {
-  constexpr int kVec = 16 / sizeof(T);
-  const bool vec = bwd_vectors<T>(x, dy, dx, d);
-  if (grid_out != nullptr) {
-    size_t smem;
-    return vec ? bwd_grid<T, S, kVec>(R, d, grid_out, &smem)
-               : bwd_grid<T, S, 1>(R, d, grid_out, &smem);
-  }
-  return vec ? bwd_launch<T, S, kVec>(x, scale, dy, dx, dscale, partial, R, d,
-                                      eps, grid, stream)
-             : bwd_launch<T, S, 1>(x, scale, dy, dx, dscale, partial, R, d,
-                                   eps, grid, stream);
+BwdShape bwd_shape_of(int vec, int d) {
+  return vec ? bwd_shape<T, S, 16 / sizeof(T)>(d) : bwd_shape<T, S, 1>(d);
 }
 
-int bwd_entry(const void* x, const void* scale, const void* dy, void* dx,
-              void* dscale, float* partial, int R, int d, float eps, int bf16,
-              int scale_bf16, int grid, int device, cudaStream_t stream,
-              int* grid_out) {
-  if (R < 1 || d < 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+BwdShape bwd_shape_for(int bf16, int scale_bf16, int vec, int d) {
   if (bf16)
-    return scale_bf16
-        ? bwd_dispatch<__nv_bfloat16, __nv_bfloat16>(
-              x, scale, dy, dx, dscale, partial, R, d, eps, grid, stream,
-              grid_out)
-        : bwd_dispatch<__nv_bfloat16, float>(x, scale, dy, dx, dscale,
-                                             partial, R, d, eps, grid, stream,
-                                             grid_out);
-  return scale_bf16
-      ? bwd_dispatch<float, __nv_bfloat16>(x, scale, dy, dx, dscale, partial,
-                                           R, d, eps, grid, stream, grid_out)
-      : bwd_dispatch<float, float>(x, scale, dy, dx, dscale, partial, R, d,
-                                   eps, grid, stream, grid_out);
+    return scale_bf16 ? bwd_shape_of<__nv_bfloat16, __nv_bfloat16>(vec, d)
+                      : bwd_shape_of<__nv_bfloat16, float>(vec, d);
+  return scale_bf16 ? bwd_shape_of<float, __nv_bfloat16>(vec, d)
+                    : bwd_shape_of<float, float>(vec, d);
 }
 
 }  // namespace
@@ -576,25 +697,67 @@ extern "C" int rmsnorm_launch(const void* x, const void* scale, void* out,
       : launch_aligned<float, float>(x, scale, out, R, d, eps, stream);
 }
 
-// The backward's grid for x, dy and dx at these addresses (the blocks that
-// are resident at once, at most R): the rows of the (grid, d) f32 partial
-// buffer that rmsnorm_bwd_launch needs.  Returns a cudaError_t.
-extern "C" int rmsnorm_bwd_grid(const void* x, const void* dy,
-                                const void* dx, int R, int d, int bf16,
-                                int scale_bf16, int device, int* grid) {
-  return bwd_entry(x, nullptr, dy, const_cast<void*>(dx), nullptr, nullptr, R,
-                   d, 0.0f, bf16, scale_bf16, 0, device, nullptr, grid);
+// The backward's plan for rows of d elements of one dtype (bf16 = 1: bf16,
+// else f32), scale bf16 (scale_bf16 = 1) or f32, read as 16-byte vectors
+// (vec = 1: d a multiple of the width and x, dy, dx 16-byte aligned) or
+// single elements: *cap, the blocks the card holds at once (at most
+// kBwdBlocksPerSm an SM), and *rows, the rows a block takes at a time.  A
+// launch on R rows takes grid = min(cap, ceil(R / rows)) blocks and a
+// (grid, d) f32 partial buffer.  Returns a cudaError_t.
+extern "C" int rmsnorm_bwd_plan(int d, int bf16, int scale_bf16, int vec,
+                                int device, int* cap, int* rows) {
+  if (d < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  const BwdShape s = bwd_shape_for(bf16, scale_bf16, vec, d);
+  int sms, max_smem, resident;
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, s.fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (s.smem + attr.sharedSizeBytes > static_cast<size_t>(max_smem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the most any d can ask of this instantiation (several d share it)
+  err = cudaFuncSetAttribute(
+      s.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      max_smem - static_cast<int>(attr.sharedSizeBytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &resident, s.fn, s.tpr * s.rows, s.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (resident < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  *cap = sms * (resident < kBwdBlocksPerSm ? resident : kBwdBlocksPerSm);
+  *rows = s.rows;
+  return 0;
 }
 
 // x, dy, dx (R, d) contiguous, of one dtype (bf16 = 1: bf16, else f32);
-// scale and dscale (d,) contiguous, bf16 (scale_bf16 = 1) or f32; partial
-// (grid, d) f32 scratch, grid from rmsnorm_bwd_grid.  One cooperative
-// launch.  Returns a cudaError_t (0 on a good launch).
+// scale and dscale (d,) contiguous, bf16 (scale_bf16 = 1) or f32; vec as
+// for rmsnorm_bwd_plan (refused where x, dy or dx is not 16-byte aligned
+// or d not a multiple of the width); partial (grid, d) f32 scratch, grid
+// at most the plan's cap.  One cooperative launch, no query.  Returns a
+// cudaError_t (0 on a good launch).
 extern "C" int rmsnorm_bwd_launch(const void* x, const void* scale,
                                   const void* dy, void* dx, void* dscale,
                                   float* partial, int R, int d, float eps,
-                                  int bf16, int scale_bf16, int grid,
-                                  int device, cudaStream_t stream) {
-  return bwd_entry(x, scale, dy, dx, dscale, partial, R, d, eps, bf16,
-                   scale_bf16, grid, device, stream, nullptr);
+                                  int bf16, int scale_bf16, int vec,
+                                  int grid, int device, cudaStream_t stream) {
+  if (R < 1 || d < 1 || grid < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int width = bf16 ? 8 : 4;
+  if (vec && (d % width != 0 ||
+              ((reinterpret_cast<uintptr_t>(x) |
+                reinterpret_cast<uintptr_t>(dy) |
+                reinterpret_cast<uintptr_t>(dx)) & 15) != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const BwdShape s = bwd_shape_for(bf16, scale_bf16, vec, d);
+  void* args[] = {&x, &scale, &dy, &dx, &dscale, &partial, &R, &d, &eps};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      s.fn, dim3(grid), dim3(s.tpr, s.rows), args, s.smem, stream));
 }

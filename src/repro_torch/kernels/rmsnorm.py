@@ -19,11 +19,17 @@ and never falls back: a CPU tensor is refused here (the dispatch in
 :func:`rmsnorm_bwd` launches the backward kernel of the same source (the
 port's own: the reference differentiates its jnp ``rms_norm``; its plain
 version is :func:`repro_torch.kernels.ref.rmsnorm_bwd_ref`): dx and
-dscale in one cooperative launch, dscale summed without float atomics
-(per-block partial rows, then the blocks in order), so it is
-deterministic.  Bound by bytes: x and dy read and dx written once, 75.5
-MB at (8192, 1536) bf16, 22.5 us at 3.35 TB/s.  ``rmsnorm_bwd.launches``
-counts its launches.
+dscale in one cooperative launch.  Bound by bytes: x and dy read and dx
+written once, 75.5 MB at (8192, 1536) bf16, 22.5 us at 3.35 TB/s.  The
+kernel reads each row once into registers, keeps several rows in flight
+and each thread's dscale sums in registers, and sums dscale over its
+persistent grid (at most two blocks an SM) in an order fixed by the grid
+and d, without float atomics, so it is deterministic (see the source's
+note).  The grid a call needs comes from a plan computed once per
+(library, device, dtype pair, vector path, d) and cached, so a call is
+one ctypes call and no occupancy query; the (grid, d) f32 partial buffer
+comes from PyTorch's caching allocator.  ``rmsnorm_bwd.launches`` counts
+its launches.
 """
 from __future__ import annotations
 
@@ -42,13 +48,16 @@ _ARGTYPES = [_P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _I, _P]
 
 
 # x, scale, dy, dx, dscale, partial, R, d, eps, x is bf16, scale is bf16,
-# grid, device, stream; and the grid query's x, dy, dx, R, d, x is bf16,
-# scale is bf16, device, &grid
+# vectors, grid, device, stream; and the plan's d, x is bf16, scale is
+# bf16, vectors, device, &cap, &rows
 _BWD_ARGTYPES = {
     "rmsnorm_bwd_launch": [_P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float,
-                           _I, _I, _I, _I, _P],
-    "rmsnorm_bwd_grid": [_P, _P, _P, _I, _I, _I, _I, _I,
+                           _I, _I, _I, _I, _I, _P],
+    "rmsnorm_bwd_plan": [_I, _I, _I, _I, _I, ctypes.POINTER(_I),
                          ctypes.POINTER(_I)]}
+# (library handle, device, x is bf16, scale is bf16, vectors, d) -> (the
+# blocks the card holds at once, rows a block takes at a time)
+_BWD_PLANS: dict = {}
 
 
 def _lib(name: str = "rmsnorm_launch"):
@@ -138,16 +147,23 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor):
     if d == 0:
         return dx, ds.to(scale.dtype)
     bf16, sbf16 = int(x.dtype == torch.bfloat16), int(s.dtype == torch.bfloat16)
+    vec = int(d % (16 // x.element_size()) == 0 and (
+        x.data_ptr() | dy.data_ptr() | dx.data_ptr()) % 16 == 0)
     index, stream = build.stream_of(dev)
-    grid = ctypes.c_int(0)
-    build.raise_on("rmsnorm_bwd (grid)", _lib("rmsnorm_bwd_grid")(
-        x.data_ptr(), dy.data_ptr(), dx.data_ptr(), R, d, bf16, sbf16, index,
-        ctypes.byref(grid)))
-    partial = torch.empty((grid.value, d), dtype=torch.float32, device=dev)
+    key = (build.load("rmsnorm")._handle, index, bf16, sbf16, vec, d)
+    plan = _BWD_PLANS.get(key)
+    if plan is None:
+        cap, rows = ctypes.c_int(0), ctypes.c_int(0)
+        build.raise_on("rmsnorm_bwd (plan)", _lib("rmsnorm_bwd_plan")(
+            d, bf16, sbf16, vec, index, ctypes.byref(cap),
+            ctypes.byref(rows)))
+        plan = _BWD_PLANS[key] = (cap.value, rows.value)
+    grid = min(plan[0], -(-R // plan[1]))
+    partial = torch.empty((grid, d), dtype=torch.float32, device=dev)
     build.raise_on("rmsnorm_bwd", _lib("rmsnorm_bwd_launch")(
         x.data_ptr(), s.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-        ds.data_ptr(), partial.data_ptr(), R, d, EPS, bf16, sbf16,
-        grid.value, index, stream))
+        ds.data_ptr(), partial.data_ptr(), R, d, EPS, bf16, sbf16, vec, grid,
+        index, stream))
     rmsnorm_bwd.launches += 1
     return dx, ds.to(scale.dtype)
 

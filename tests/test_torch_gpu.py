@@ -1083,8 +1083,13 @@ def test_flash_attention_f32_kernel_on_misaligned_tensors():
 
 
 RMSNORM_GRID = [(1000, 5376), (1, 5376), (300, 7), (333, 20008), (4096, 1536)]
-# the backward kernel at the train step's shapes (phase 6a of chip_smoke.py)
-RMSNORM_BWD_SHAPES = [(8192, 1536), (4096, 1536), (7, 7168), (1000, 1023)]
+# the backward kernel at the train steps' shapes (phase 6a of
+# chip_smoke.py: Granite-3.0 MoE's rows at B = 2 and 1, the other LMs'
+# widths at 8,192 rows), a wide and an odd row, and row counts under the
+# grid (1, 3) and a row of single elements (d = 7)
+RMSNORM_BWD_SHAPES = [(8192, 1536), (4096, 1536), (7, 7168), (1000, 1023),
+                      (8192, 4608), (8192, 5376), (8192, 7168), (3, 1536),
+                      (1, 1536), (64, 7)]
 # Profiles rmsnorm cases in fresh processes, a few each: in a long test
 # process the profiler's windows now and then record no device entry at all
 # (in 1, 19 and 20 of these 20 cases in full-file runs, three windows in a
@@ -1215,6 +1220,37 @@ def test_rmsnorm_backward_kernel_matches_plain(R, d, dtype,
     lx, ls = x.clone().requires_grad_(), s.clone().requires_grad_()
     ops.rmsnorm(lx, ls).backward(dy)
     assert torch.equal(lx.grad, dx) and torch.equal(ls.grad, ds)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,d", [(1000, 1536), (5, 7168)])
+def test_rmsnorm_backward_kernel_on_misaligned_views(R, d, dtype):
+    """x and dy as contiguous views that start one element past 16-byte
+    alignment take the single-element path: one launch against
+    ``ref.rmsnorm_bwd_ref``, bit-equal over two launches and through
+    ``ops.rmsnorm``'s autograd."""
+    _need_gpu()
+    from repro_torch.kernels import rmsnorm as rn
+    g = torch.Generator().manual_seed(R + d)
+    x = torch.randn(R * d + 1, generator=g).to("cuda", dtype)[1:].view(R, d)
+    dy = torch.randn(R * d + 1, generator=g).to("cuda", dtype)[1:].view(R, d)
+    s = (torch.randn(d, generator=g) * 0.1).to("cuda", dtype)
+    assert x.data_ptr() % 16 and dy.data_ptr() % 16
+    before = rn.rmsnorm_bwd.launches
+    dx, ds = rn.rmsnorm_bwd(x, s, dy)
+    assert rn.rmsnorm_bwd.launches == before + 1
+    want_dx, want_ds = ref.rmsnorm_bwd_ref(x, s, dy)
+    tol = ref.rmsnorm_bwd_tolerance(x, s, dy)
+    torch.testing.assert_close(dx.float(), want_dx.float(), **tol["dx"])
+    torch.testing.assert_close(ds.float(), want_ds.float(), **tol["dscale"])
+    dx2, ds2 = rn.rmsnorm_bwd(x, s, dy)
+    assert torch.equal(dx, dx2) and torch.equal(ds, ds2)
+    lx, ls = x.clone().requires_grad_(), s.clone().requires_grad_()
+    ops.rmsnorm(lx, ls).backward(dy)
+    torch.testing.assert_close(lx.grad.float(), want_dx.float(), **tol["dx"])
+    torch.testing.assert_close(ls.grad.float(), want_ds.float(),
+                               **tol["dscale"])
 
 
 @pytest.mark.gpu

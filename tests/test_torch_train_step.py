@@ -181,7 +181,8 @@ def test_remat_on_equals_remat_off_bit_for_bit():
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("R,d", [(6, 48), (5, 7), (3, 1536)])
+@pytest.mark.parametrize("R,d", [(6, 48), (5, 7), (3, 1536), (3, 4608),
+                                 (2, 5376), (2, 7168)])
 def test_rmsnorm_backward_matches_jax_vjp(R, d, dtype):
     rng = np.random.default_rng(R * d)
     x = rng.standard_normal((2, R, d)).astype(np.float32)
@@ -209,6 +210,33 @@ def test_rmsnorm_backward_matches_jax_vjp(R, d, dtype):
         tx.float().square().mean(-1, keepdim=True) + 1e-6))[-1, -1]
     with pytest.raises(AssertionError):
         torch.testing.assert_close(bad, ds.float(), **tol["dscale"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [1536, 4608, 5376, 7168])
+def test_rmsnorm_bwd_tolerance_rejects_a_dropped_dscale(d, dtype):
+    """``ref.rmsnorm_bwd_tolerance`` at the LM train steps' widths
+    (Granite-3.0 MoE, StarCoder2-7B, Gemma-3 27B, Kimi-K2), the check
+    phase 6a of ``chip_smoke.py`` makes on the card: the plain version's
+    dscale passes against the f64 sum of the same terms, and a dscale
+    without its last row or a dscale of 0 is rejected."""
+    R = 1024
+    rng = np.random.default_rng(d)
+    tdt = getattr(torch, dtype)
+    x, dy = (torch.from_numpy(rng.standard_normal((R, d)).astype(np.float32))
+             .to(tdt) for _ in range(2))
+    s = torch.from_numpy((rng.standard_normal(d) * 0.1).astype(np.float32)
+                         ).to(tdt)
+    _, ds = ref.rmsnorm_bwd_ref(x, s, dy)
+    tol = ref.rmsnorm_bwd_tolerance(x, s, dy)["dscale"]
+    x64, dy64 = x.double(), dy.double()
+    terms = dy64 * x64 * torch.rsqrt(x64.square().mean(-1, keepdim=True)
+                                     + 1e-6)
+    torch.testing.assert_close(ds.double(), terms.sum(0), **tol)
+    for bad in (terms[:-1].sum(0), torch.zeros(d, dtype=torch.float64)):
+        with pytest.raises(AssertionError):
+            torch.testing.assert_close(bad.to(tdt).double(), ds.double(),
+                                       **tol)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -6,7 +6,7 @@ Builds versions of the kernel sources from patched copies of
 ``src/repro_torch/kernels/csrc`` (under ``build/ablation/``) and times
 each with CUDA events around launches replayed from one CUDA graph.
 ``--root`` takes the sources and the wrappers from another checkout (an
-unpacked older commit, to measure the kernels it had).  Six groups:
+unpacked older commit, to measure the kernels it had).  Seven groups:
 
 - ``wgmma``: the TMA / ``wgmma`` kernels of ``moe_gemm`` (Granite-3.0 MoE
   gate/up and down, bf16) and ``flash_attention`` (DeiT-B's attention at
@@ -69,7 +69,25 @@ unpacked older commit, to measure the kernels it had).  Six groups:
   ``--baseline CHECKOUT`` (an unpacked older commit, e.g. PR 13's to PR
   21's one-warp-a-row design), that checkout's ``admission.cu`` through
   the same wrappers; every version timed in turns (forward, then
-  backward through the list; the better of the two).
+  backward through the list; the better of the two);
+- ``rmsnorm_bwd``: the ``rmsnorm`` backward kernel at the LM train
+  steps' rows, (8192, d) for d = 1,536 (Granite-3.0 MoE at B = 2 x
+  4,096), 4,608 (StarCoder2-7B), 5,376 (Gemma-3 27B) and 7,168
+  (Kimi-K2), (4096, 1536) and (3, 1536), bf16 and f32: as built, without
+  the column pass (no grid barrier, dscale left as the blocks' partial
+  rows), the column pass alone (no row walked), with a persistent grid of
+  one block an SM, with blocks of 128 threads (narrow rows two a block)
+  four an SM, and, with ``--baseline CHECKOUT``, that checkout's
+  ``rmsnorm.cu`` through its own wrapper; every version timed in turns
+  (forward, then backward; the better of the two) graph-replayed with
+  the same inputs every call (L2 warm where they fit) and with L2 cold
+  (each call on the next of as many input copies as exceed the L2 twice
+  over); the real versions also in
+  an eager loop (the wrapper's host work included); beside the one
+  PyTorch call for the same function, ``aten._fused_rms_norm_backward``
+  (graph-replayed, warm and cold), and ``F.rms_norm``'s autograd
+  backward (eager); the real versions' dx and dscale held to
+  ``ref.rmsnorm_bwd_ref`` at ``ref.rmsnorm_bwd_tolerance``.
 
 The patched kernels compute garbage; only their times mean anything.
 Prints one JSON object per line, the card's name and power limit first.
@@ -163,6 +181,23 @@ WAITED = {"flash_attention": [[
 OVERLAPPED = {"flash_attention": [[
     (r"if constexpr \(DP == 128 && kBand\) \{",
      "if constexpr (DP == 128) {")]]}
+# rmsnorm.cu's backward: no grid barrier and no column pass (dscale left
+# as the blocks' partial rows), or no row walked (the column pass alone)
+NO_COLUMN_PASS = {"rmsnorm": [
+    [(r"  // -- column pass\n.*?// -- end column pass\n", "")],
+    [(r"  cooperative_groups::this_grid\(\)\.sync\(\);\n.*?"
+      r"dscale\[c\] = from_float<S>\(s\);\n  \}\n", "")]]}
+COLUMN_PASS_ALONE = {"rmsnorm": [
+    [(r"const int nrows = R;", "const int nrows = 0;")],
+    [(r"row < R; row \+= gridDim\.x, parity \^= 1\)",
+      "row < 0; row += gridDim.x, parity ^= 1)")]]}
+# rmsnorm.cu's backward: a persistent grid of one block an SM, or of
+# blocks of 128 threads (narrow rows two a block), four an SM
+BWD_ONE_BLOCK = {"rmsnorm": [[
+    (r"kBwdBlocksPerSm = \d+;", "kBwdBlocksPerSm = 1;")]]}
+BWD_SMALL_BLOCKS = {"rmsnorm": [[
+    (r"kBwdBlocksPerSm = \d+;", "kBwdBlocksPerSm = 4;"),
+    (r"kBwdMinThreads = \d+;", "kBwdMinThreads = 128;")]]}
 # admission.cu: the passes read the row where it lies in global memory
 IN_PLACE = {"admission": [[
     (r"// -- staged loads\n.*?// -- end staged loads\n",
@@ -194,6 +229,10 @@ VERSIONS = {
     "banded at every mask": merge(BANDED),
     "products waited at once": merge(WAITED),
     "P V overlapped at every mask": merge(OVERLAPPED),
+    "no column pass": merge(NO_COLUMN_PASS),
+    "column pass alone": merge(COLUMN_PASS_ALONE),
+    "one block an SM (bwd)": merge(BWD_ONE_BLOCK),
+    "blocks of 128 threads": merge(BWD_SMALL_BLOCKS),
 }
 GROUP_VERSIONS = {
     "wgmma": ("as built", "no products", "no loads", "neither"),
@@ -206,6 +245,9 @@ GROUP_VERSIONS = {
                      "banded at every mask",
                      "products waited at once",
                      "P V overlapped at every mask", "baseline"),
+    "rmsnorm_bwd": ("as built", "no column pass", "column pass alone",
+                    "one block an SM (bwd)", "blocks of 128 threads",
+                    "baseline"),
 }
 # flash_causal's shapes, (B, S, H, KV, D, causal, window)
 CAUSAL_SHAPES = {"granite_prefill_32k": (1, 32768, 24, 8, 64, True, None),
@@ -239,6 +281,13 @@ EXACT = ("index order", "full walk", "banded at every mask",
          "baseline")
 ADMISSION_SHAPES = ((256, 1024), (32, 512), (3, 1024), (6, 1024),
                     (2, 256), (2, 512), (2, 1024), (5, 256))
+# rmsnorm_bwd's rows (R, d): the LM train steps' (B S, d) at B S = 8,192,
+# Granite's at B = 1, and a row count under the grid
+RMSNORM_BWD_SHAPES = ((8192, 1536), (4096, 1536), (8192, 4608),
+                      (8192, 5376), (8192, 7168), (3, 1536))
+# the versions that compute the backward (timed eagerly too, and checked)
+RMSNORM_BWD_REAL = ("as built", "baseline")
+L2_BYTES = 50e6                    # H100 SXM L2 cache
 
 
 def admission_inputs(gen, K, N, dev):
@@ -307,6 +356,32 @@ def graph_ms(fn, reps: int) -> float:
     t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     t0.record()
     g.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def cold_ms(fn, inputs) -> float:
+    """Device time per call with L2 cold for the inputs: one call on each
+    of as many copies of ``inputs`` as exceed twice the L2, captured in
+    one CUDA graph in turn and replayed under CUDA events."""
+    nbytes = sum(t.numel() * t.element_size() for t in inputs)
+    n = max(2, -(-int(2 * L2_BYTES) // nbytes))
+    copies = [tuple(t.clone() for t in inputs) for _ in range(n)]
+    it = iter(copies * 2)          # the warm-up call, then the n captured
+    return graph_ms(lambda: fn(*next(it)), n)
+
+
+def timed_ms(fn, reps: int) -> float:
+    """Device time per call of an eager loop: CUDA events around
+    ``reps`` calls, the host's work between launches included."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    for _ in range(reps):
+        fn()
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
@@ -410,6 +485,75 @@ def flash_causal(dirs, gen, dev) -> None:
              max_abs_diff=float((a.float() - b.float()).abs().max()))
 
 
+def bwd_reps(x) -> int:
+    """Calls a graph replays: ~0.5 GB of x, dy and dx, 10 to 200."""
+    return max(10, min(200, int(5e8 // (3 * x.numel() * x.element_size()))))
+
+
+def rmsnorm_bwd(dirs, baseline, gen, dev) -> None:
+    """The ``rmsnorm_bwd`` group: each version of ``dirs`` it names
+    built and timed in turns at ``RMSNORM_BWD_SHAPES``, bf16 and f32,
+    beside the library's backward; the real versions checked against the
+    plain version.  ``baseline``: the older checkout's wrapper module."""
+    import torch
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import rmsnorm as rn
+    order = [v for v in dirs if v in GROUP_VERSIONS["rmsnorm_bwd"]]
+    inputs = {}
+    for R, d in RMSNORM_BWD_SHAPES:
+        for dt in (torch.bfloat16, torch.float32):
+            x = torch.randn(R, d, generator=gen, device=dev).to(dt)
+            s = (torch.randn(d, generator=gen, device=dev) * 0.1).to(dt)
+            dy = torch.randn(R, d, generator=gen, device=dev).to(dt)
+            inputs[R, d, dt] = (x, s, dy)
+    fused = torch.ops.aten._fused_rms_norm_backward
+    for (R, d, dt), (x, s, dy) in inputs.items():
+        w = (1.0 + s.float()).to(dt)
+        rstd = torch.ops.aten._fused_rms_norm(x, [d], w, rn.EPS)[1]
+        lib = lambda x, w, dy: fused(dy, x, [d], rstd, w, [True, True])
+        reps = bwd_reps(x)
+        xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = torch.nn.functional.rms_norm(xl, (d,), weight=wl, eps=rn.EPS)
+        emit(rmsnorm_bwd=[R, d], dtype=str(dt)[6:],
+             library="aten._fused_rms_norm_backward",
+             ms=graph_ms(lambda: lib(x, w, dy), reps),
+             cold_ms=cold_ms(lib, (x, w, dy)),
+             autograd_eager_ms=timed_ms(lambda: torch.autograd.grad(
+                 y, (xl, wl), dy, retain_graph=True), reps))
+        del y, xl, wl
+    best = {}
+    for version in order + order[::-1]:          # in turns
+        build.CSRC = dirs[version]
+        build._loaded.clear()
+        call = baseline.rmsnorm_bwd if version == "baseline" \
+            else rn.rmsnorm_bwd
+        for (R, d, dt), (x, s, dy) in inputs.items():
+            key = (R, d, str(dt)[6:], version)
+            reps = bwd_reps(x)
+            row = dict(ms=graph_ms(lambda: call(x, s, dy), reps),
+                       cold_ms=cold_ms(call, (x, s, dy)))
+            if version in RMSNORM_BWD_REAL:
+                row["eager_ms"] = timed_ms(lambda: call(x, s, dy), reps)
+                if key not in best:
+                    dx, ds = call(x, s, dy)
+                    want_dx, want_ds = ref.rmsnorm_bwd_ref(x, s, dy)
+                    tol = ref.rmsnorm_bwd_tolerance(x, s, dy)
+                    row.update(
+                        dx_ok=bool(torch.allclose(dx.float(), want_dx.float(),
+                                                  **tol["dx"])),
+                        dscale_ok=bool(torch.allclose(
+                            ds.float(), want_ds.float(), **tol["dscale"])),
+                        max_abs_err=max(
+                            float((dx.float() - want_dx.float()).abs().max()),
+                            float((ds.float() - want_ds.float()).abs().max())))
+            old = best.get(key)
+            best[key] = row if old is None else dict(old, **{
+                k: min(v, old[k]) for k, v in row.items()
+                if k.endswith("ms")})
+    for (R, d, dt, version), row in best.items():
+        emit(rmsnorm_bwd=[R, d], dtype=dt, version=version, **row)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", type=Path, default=ROOT,
@@ -417,9 +561,10 @@ def main() -> int:
     ap.add_argument("--only", nargs="+", choices=sorted(GROUP_VERSIONS),
                     default=sorted(GROUP_VERSIONS))
     ap.add_argument("--baseline", type=Path, default=None,
-                    help="checkout whose admission.cu (admission group) or "
-                         "flash_attention.cu (flash_causal group) is timed "
-                         "beside this one's")
+                    help="checkout whose admission.cu (admission group), "
+                         "flash_attention.cu (flash_causal group) or "
+                         "rmsnorm.cu (rmsnorm_bwd group) is timed beside "
+                         "this one's")
     args = ap.parse_args()
     sys.path.insert(0, str(args.root.resolve() / "src"))
     import torch
@@ -439,8 +584,8 @@ def main() -> int:
     wanted = [v for v in VERSIONS
               if any(v in GROUP_VERSIONS[g] for g in args.only)]
     dirs = {v: patched_csrc(csrc, v, VERSIONS[v]) for v in wanted}
-    if args.baseline is not None and {"admission", "flash_causal"} & set(
-            args.only):
+    if args.baseline is not None and {"admission", "flash_causal",
+                                      "rmsnorm_bwd"} & set(args.only):
         dirs["baseline"] = patched_csrc(
             args.baseline / "src" / "repro_torch" / "kernels" / "csrc",
             "baseline", {})
@@ -498,6 +643,21 @@ def main() -> int:
                 if v not in GROUP_VERSIONS["flash_causal"] or any(
                     v in GROUP_VERSIONS[g] for g in args.only
                     if g != "flash_causal")}
+
+    if "rmsnorm_bwd" in args.only:
+        baseline = None
+        if "baseline" in dirs:      # the older wrapper, on this build module
+            import importlib.util
+            spec = importlib.util.spec_from_file_location(
+                "baseline_rmsnorm", args.baseline / "src" / "repro_torch"
+                / "kernels" / "rmsnorm.py")
+            baseline = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(baseline)
+        rmsnorm_bwd(dirs, baseline, gen, dev)
+        dirs = {v: p for v, p in dirs.items()
+                if v not in GROUP_VERSIONS["rmsnorm_bwd"] or any(
+                    v in GROUP_VERSIONS[g] for g in args.only
+                    if g != "rmsnorm_bwd")}
 
     if "admission" in args.only:
         adm_in = {KN: admission_inputs(gen, *KN, dev)
