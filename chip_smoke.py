@@ -262,7 +262,7 @@ final line:
                 width and depth (3.98 B parameters drawn on the card from
                 a seeded ``torch.Generator``), bf16: a prefill of 32,768
                 tokens (exactly 32 flash, 65 ``rmsnorm`` and 96
-                ``moe_gemm`` launches, the counts from 0), 32 greedy decode
+                ``moe_gemm`` launches, the counts from 0), 8 greedy decode
                 steps on its cache and ``decode_32k``'s 8 steps at B=16 on
                 a 32,768-slot cache at length 16,384 (65 and 96 launches a
                 step, no flash); finite logits throughout; the kernel
@@ -400,7 +400,10 @@ final line:
                 ``eps`` at DiT-XL/2's train_256 shapes) on the card equal
                 to the CPU's bit for bit, timed; the golden train steps of
                 ``tests/data/torch_train_golden.npz`` (Granite-3.0 MoE at
-                full width, depth 2, 1,100 tokens, f32 and bf16; DeiT-B at
+                full width, depth 2, 1,100 tokens, f32 and bf16, unmeshed
+                and under a 1 x 1 NCCL mesh with ``install_rules(kind=
+                "train")`` (the ``granite_mesh`` sections, which reject
+                the unmeshed step); DeiT-B at
                 full width, depth 2, B = 2; DiT-XL/2 at full width, depth
                 2, B = 2 at 256 px, and the SD 1.5 UNet at full width with
                 one ResBlock a level, B = 1 at latent 16, f32 and bf16; the
@@ -425,7 +428,15 @@ final line:
                 and device time), two timed (ms a step, tokens/s, peak
                 memory), each kernel's
                 launches a step as the counters saw them (set to 0 before
-                the run), every leaf changed; DeiT-B ``cls_224`` at its
+                the run), every leaf changed; then on the same weights and
+                moments the meshed step under a 1 x 1 NCCL mesh with
+                ``install_rules(kind="train")`` (the MoE through
+                ``moe_ffn_sharded`` and its backward, the capacity from the
+                40 real experts): a warm step whose gradient is checked
+                (finite loss and gradient norm, every real leaf reached,
+                the padded experts 40-47 exactly 0) and a timed one (ms,
+                tokens/s, peak memory), each kernel's launches a step;
+                DeiT-B ``cls_224`` at its
                 full batch of 256, 2 steps against 1 step, a checkpoint,
                 and a fresh run resumed to 2: equal bit for bit; DiT-XL/2
                 ``train_256`` at full width, depth and batch (28 layers,
@@ -445,7 +456,8 @@ final line:
                 either fails); each run of ``ROOFLINE_RUNS`` (Granite's
                 32k prefill at B=1, DiT-XL/2's gen_fast and gen_1024, the
                 UNet's gen_fast, DiT-XL/2 and the UNet at train_256, Granite
-                at train_4k), counted unmeshed on fake CUDA tensors by the
+                at train_4k unmeshed and under a 1 x 1 mesh), counted
+                (unmeshed but the last) on fake CUDA tensors by the
                 dry run's cost model in a process of its own started
                 before phase 4g at a lower priority (``--count-runs``), beside its measured time: the
                 roofline share max(t_compute, t_memory) / measured (above
@@ -3708,8 +3720,9 @@ LM_SMOKE_ATOL = 1e-5
 # to route itself, the plain path would flip 6% of the routed copies)
 LM_PREFILL_REL_RMS = 0.015
 LM_WEIGHT_SEED = 0
-# decode steps on the main path: greedy after the 32k prefill; decode_32k
-LM_GREEDY_STEPS, LM_DECODE32K_STEPS, LM_DECODE32K_BATCH = 32, 8, 16
+# decode steps on the main path: greedy after the 32k prefill (each step
+# launches and times as the others); decode_32k
+LM_GREEDY_STEPS, LM_DECODE32K_STEPS, LM_DECODE32K_BATCH = 8, 8, 16
 LM_PLAIN_PREFILL = 4096
 LM_COUNTERS = {"flash_attention": fa_mod.flash_attention,
                "rmsnorm": rn_mod.rmsnorm, "moe_gemm": mg_mod.moe_gemm}
@@ -4286,11 +4299,11 @@ def lm_kernel_rows(kept, dev) -> dict:
 
 def lm_main_path(dev) -> dict:
     """Phase 4h b-d: Granite-3.0 MoE at full width and depth, bf16,
-    attn_impl "pallas", weights drawn on the card: a 32k-token prefill, 32
-    greedy decode steps on its cache, and decode_32k's 8 steps at B=16 on a
-    half-full 32,768-slot cache, each run's launches counted from 0; then
-    the kept kernel inputs checked and the kernels, the prefill and the
-    steps timed."""
+    attn_impl "pallas", weights drawn on the card: a 32k-token prefill,
+    ``LM_GREEDY_STEPS`` greedy decode steps on its cache, and decode_32k's
+    8 steps at B=16 on a half-full 32,768-slot cache, each run's launches
+    counted from 0; then the kept kernel inputs checked and the kernels,
+    the prefill and the steps timed."""
     cfg = dataclasses.replace(granite_moe_3b_a800m.CONFIG, attn_impl="pallas")
     L = cfg.n_layers
     t0 = time.time()
@@ -4522,7 +4535,7 @@ def mesh_calls():
     with Spy(lm_moe, "moe_ffn_sharded") as sharded, \
             Spy(lm_moe, "_local_dispatch_ffn") as local, \
             Spy(funcol, "all_reduce") as reduce, \
-            Spy(funcol, "all_gather_tensor") as gathers:
+            Spy(funcol, "all_gather_tensor_autograd") as gathers:
         counts = {}
         yield counts
     counts.update(moe_ffn_sharded=sharded.calls,
@@ -5324,11 +5337,14 @@ RMSNORM_BWD_TIMED = tuple(s for s in RMSNORM_BWD_SHAPES
                           if s not in ((7, 7168), (1000, 1023)))
 # moe_gemm's backward products at Granite's expert products, (E, C, d, f)
 # of the forward x (E, C, d) w (E, d, f): C = 853 for one 4,096-token
-# sequence, 1,706 for two (the main path's B = 2)
+# sequence, 1,706 for two (the main path's B = 2), 2,048 for two under
+# the mesh (the capacity sized from the 40 real experts)
 MOE_BWD_SHAPES = {"gate_up/853": (48, 853, 1536, 512),
                   "down/853": (48, 853, 512, 1536),
                   "gate_up/1706": (48, 1706, 1536, 512),
-                  "down/1706": (48, 1706, 512, 1536)}
+                  "down/1706": (48, 1706, 512, 1536),
+                  "gate_up/2048": (48, 2048, 1536, 512),
+                  "down/2048": (48, 2048, 512, 1536)}
 # the main path: Granite-3.0 MoE at full width and depth, train_4k's
 # 4,096-token sequences with its global batch cut 256 -> TRAIN_BATCH;
 # one warm step, TRAIN_TIMED timed
@@ -5621,11 +5637,14 @@ def moe_bwd_checks(dev) -> dict:
 def train_golden_checks(dev) -> dict:
     """Phase 6b: the port's train steps on the card against the
     reference's in ``tests/data/torch_train_golden.npz`` (Granite at full
-    width, 2 layers, f32 and bf16; DeiT-B at full width, 2 layers; the
-    smoke configs over 3 steps), each within ``tests/train_golden.py``'s
-    limits; the planted faults of ``train_golden.FAULTS`` each rejected
-    on Granite's f32 section, and the embedding's on its bf16 one (under
-    the general limit: the row-order bf16 sum); the diffusion
+    width, 2 layers, f32 and bf16, unmeshed and, in the ``granite_mesh``
+    sections, under a 1 x 1 NCCL mesh with ``install_rules(kind=
+    "train")``; DeiT-B at full width, 2 layers; the smoke configs over 3
+    steps), each within ``tests/train_golden.py``'s limits; the planted
+    faults of ``train_golden.FAULTS`` each rejected on Granite's f32
+    section, and the embedding's on its bf16 one (under the general
+    limit: the row-order bf16 sum); the unmeshed step rejected by both
+    ``granite_mesh`` sections; the diffusion
     sections (DiT-XL/2 at full width with 2 layers, the UNet at full width
     with one ResBlock a level, f32 and bf16; their smoke configs) and
     ``train_golden.DIFFUSION_FAULTS``, each on its family's f32
@@ -5637,7 +5656,8 @@ def train_golden_checks(dev) -> dict:
     trees = {}          # the full-width sections' weights, f32 numpy
 
     def tree_of(name):
-        group = name.split("/")[0]
+        # the meshed Granite sections hold the unmeshed ones' weights
+        group = name.split("/")[0].replace("granite_mesh", "granite")
         if group == "smoke":
             return None
         if group not in trees:
@@ -5668,10 +5688,18 @@ def train_golden_checks(dev) -> dict:
     runs = [("granite/float32", f) for f in tg.FAULTS] + [
         ("granite/bfloat16", "embed_overwrite")] + [
         (f"{fam}/float32", f) for f, fam in tg.DIFFUSION_FAULTS.items()]
+    # the meshed sections must reject the unmeshed step (the padded
+    # experts routed, the capacity from 48)
+    runs += [(f"granite_mesh/{dt}", "unmeshed")
+             for dt in ("float32", "bfloat16")]
     for name, fault in runs:
-        with tg.planted(fault):
+        if fault == "unmeshed":
             rec, _ = tg.port_record(name, cfgs[name], want, device=dev,
-                                    tree=tree_of(name))
+                                    tree=tree_of(name), meshed=False)
+        else:
+            with tg.planted(fault):
+                rec, _ = tg.port_record(name, cfgs[name], want, device=dev,
+                                        tree=tree_of(name))
         bad = tg.fails(tg.compare(rec, want, name, cfgs[name].param_dtype))
         if not bad:
             fail(f"train golden: the planted fault {fault} passes {name}")
@@ -5818,7 +5846,109 @@ def granite_train(dev) -> dict:
           f"changed; run() {wall:.1f} s, of which the weights' and the "
           f"optimizer state's initialisation {made['t_init']:.1f} s",
           flush=True)
+    # the meshed step on the same weights and moments (the 3.3 B-parameter
+    # state is not built twice)
+    params, opt_state = res.pop("params"), res.pop("opt_state")
+    row["mesh"] = granite_mesh_train(cell, real, params, opt_state, want,
+                                     dev)
+    del params, opt_state
     return row
+
+
+def granite_mesh_train(cell, step_fn, params, opt_state, want, dev) -> dict:
+    """Phase 6c, meshed: Granite's train step at full width and depth
+    under a 1 x 1 NCCL mesh with ``install_rules(kind="train")`` (its MoE
+    through ``moe_ffn_sharded``: the padded experts 40-47 masked, the
+    capacity from the 40 real experts), on the unmeshed run's weights and
+    moments: one warm step (``value_and_grad`` of the loss, then AdamW, so
+    that its gradient is seen: finite loss and gradient norm, every real
+    leaf reached, the padded experts' gradient exactly 0), one timed step
+    through the cell's step (CUDA events; the peak memory of that step
+    alone); each kernel's launches a step as the counters saw them."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import steps as S
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.data import SyntheticSource
+    tg = train_golden_module()
+    cfg, shape = cell.cfg, cell.shape
+    n, L = cfg.n_experts, cfg.n_layers
+    batches = [S.batch_to(SyntheticSource(cell.arg_specs[2], 0).batch_at(i),
+                          dev) for i in range(2)]
+    with tg.one_rank_mesh(cfg, shape.global_batch, dev):
+        rules = shd.get_rules()
+        calls_c0 = train_counts()
+        with mesh_calls() as calls:
+            (loss, met), grads = model_common.value_and_grad(
+                lambda p: transformer.loss_fn(p, batches[0], cfg), params)
+            params, opt_state, om = opt.adamw_update(
+                params, grads, opt_state, S.opt_cfg_for(cfg))
+            torch.cuda.synchronize()
+        c1 = train_counts()
+        warm = {k: c1[k] - calls_c0[k] for k in c1}
+        layers = grads["layers"]
+        padded = {k: float(layers[k][:, n:].abs().max())
+                  for k in ("we_gate", "we_up", "we_down")}
+        padded["router"] = float(layers["router"][..., n:].abs().max())
+        real_max = {}
+        for path, g in tg.flat_leaves(grads):
+            if path.startswith("layers/we_"):
+                g = g[:, :n]
+            elif path == "layers/router":
+                g = g[..., :n]
+            real_max[path] = float(g.abs().max())
+        del grads, layers
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        c0 = train_counts()
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        params, opt_state, met2 = step_fn(params, opt_state, batches[1])
+        t1.record()
+        torch.cuda.synchronize()
+        ms = t0.elapsed_time(t1)
+        c1 = train_counts()
+        timed = {k: c1[k] - c0[k] for k in c1}
+        peak = torch.cuda.max_memory_allocated()
+    losses = [float(loss), float(met2["loss"])]
+    norms = [float(om["grad_norm"]), float(met2["grad_norm"])]
+    aux = [float(met["aux_loss"]), float(met2["aux_loss"])]
+    if not np.isfinite(losses + norms + aux).all():
+        fail(f"granite mesh train: not finite: losses {losses}, grad norms "
+             f"{norms}, aux {aux}")
+    unreached = [p for p, v in real_max.items() if not v > 0]
+    if unreached:
+        fail(f"granite mesh train: no gradient reached {unreached}")
+    if any(padded.values()):
+        fail(f"granite mesh train: the padded experts {n}-"
+             f"{cfg.n_experts_eff - 1} got a gradient: largest |g| {padded}")
+    for label, got in (("warm", warm), ("timed", timed)):
+        if got != want:
+            fail(f"granite mesh train: the {label} step launched {got}, not "
+                 f"{want}")
+    if calls["moe_ffn_sharded"] != 2 * L:
+        fail(f"granite mesh train: moe_ffn_sharded called "
+             f"{calls['moe_ffn_sharded']} times in the warm step, not 2L = "
+             f"{2 * L} (forward and remat)")
+    tokens = shape.global_batch * shape.seq_len
+    out = dict(ms=ms, tokens_per_s=tokens / (ms / 1e3), peak_gb=peak / 1e9,
+               losses=losses, grad_norms=norms, aux=aux,
+               launches_per_step=timed, padded_max=padded,
+               rules={k: v for k, v in rules.items()},
+               warm_calls=dict(calls), launches=sum(
+                   warm[k] + timed[k] for k in ("rmsnorm", "moe_gemm",
+                                                "rmsnorm_backward")),
+               counts={k: warm[k] + timed[k] for k in warm})
+    print(f"granite mesh train (1 x 1 NCCL mesh, rules {out['rules']}; "
+          f"B={shape.global_batch} x {shape.seq_len} tokens, capacity "
+          f"{lm_moe.capacity(tokens, n, cfg.top_k, cfg.capacity_factor)} "
+          f"from {n} experts): step {ms:.1f} ms, {out['tokens_per_s']:.0f} "
+          f"tokens/s, peak memory {out['peak_gb']:.2f} GB; losses "
+          f"{losses}, grad norms {norms}, aux {aux}; every real leaf "
+          f"reached, the padded experts' gradient exactly 0 "
+          f"({padded}); launches a step {timed} on both steps; the warm "
+          f"step's mesh calls {dict(calls)}; {card_line()}", flush=True)
+    return out
 
 
 def deit_train(dev) -> dict:
@@ -6098,7 +6228,10 @@ def train_phase(dev) -> dict:
 # ---------------------------------------------------------------------------
 # (name, arch, kind, shape, config changes): the full-width runs whose time
 # phases 4g, 4h and 6c measure, at the batch and attn_impl each ran (4h's
-# prefill fills a cache of S + 35 slots, the counted one of S)
+# prefill fills a cache of S + 11 slots, the counted one of S); the one
+# named MESH_TRAIN_RUN counted under a 1 x 1 mesh with install_rules(kind=
+# "train"), as phase 6c's meshed step runs
+MESH_TRAIN_RUN = "Granite-3.0 MoE train_4k B=2 under a 1 x 1 mesh (6c)"
 ROOFLINE_RUNS = (
     ("Granite-3.0 MoE prefill_32k B=1 (4h)", "granite-moe-3b-a800m",
      "prefill", dict(seq_len=32768, global_batch=1),
@@ -6114,6 +6247,8 @@ ROOFLINE_RUNS = (
     ("UNet train_256 B=96 (6c)", "unet-sd15", "train",
      dict(img_res=256, global_batch=UNET_TRAIN_BATCH), {}),
     ("Granite-3.0 MoE train_4k B=2 (6c)", "granite-moe-3b-a800m", "train",
+     dict(seq_len=4096, global_batch=TRAIN_BATCH), {}),
+    (MESH_TRAIN_RUN, "granite-moe-3b-a800m", "train",
      dict(seq_len=4096, global_batch=TRAIN_BATCH), {}),
 )
 # a roofline share (the larger of the counted compute and memory times over
@@ -6137,15 +6272,27 @@ def count_runs(path: str) -> int:
     in its own process beside the other phases."""
     from repro_torch.configs import get_config
     from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.distributed import sharding as shd
     from repro_torch.launch import dryrun, roofline, steps as S
+    from repro_torch.launch.mesh import install_rules, mesh_over
     rows = {}
     for name, arch, kind, sk, ck in ROOFLINE_RUNS:
         t0 = time.time()
         cfg = dataclasses.replace(get_config(arch), **ck)
         shape = ShapeSpec("chip_" + kind, kind, **sk)
         cell = S.build_cell(arch, shape.name, cfg=cfg, shape=shape)
-        c = dryrun.count_cell(cell, "cuda")
+        if name == MESH_TRAIN_RUN:
+            with dryrun.fake_group(1):
+                mesh = mesh_over((1, 1), ("data", "model"), "cuda")
+                install_rules(mesh, cfg, shape.global_batch, kind=kind)
+                try:
+                    c = dryrun.count_cell(cell, "cuda", mesh)
+                finally:
+                    shd.clear_rules()
+        else:
+            c = dryrun.count_cell(cell, "cuda")
         rows[name] = dict(flops=c.costs.flops, bytes=c.costs.bytes,
+                          collectives=c.costs.coll_by_kind,
                           depths=list(c.depths),
                           model_flops=roofline.model_flops_estimate(cfg,
                                                                     shape),
@@ -6549,6 +6696,23 @@ def run_phases(dev, t_start, card, draws, counts) -> int:
         library="aten._fused_rms_norm_backward, graph-replayed with L2 cold "
                 "as the kernel",
         step_profiled=g["rmsnorm_bwd_profiled"], shapes=rb["rows"])
+    # the meshed train step (phase 6c): the same three kernels, forward,
+    # recomputed and backward, under moe_ffn_sharded
+    gm = g["mesh"]
+    mpath = ("the meshed train step (phase 6c: Granite-3.0 MoE at full "
+             "width and depth under a 1 x 1 NCCL mesh, the MoE through "
+             "models/moe.py::moe_ffn_sharded and its backward)")
+    for name in ("rmsnorm", "moe_gemm", "rmsnorm_backward"):
+        e = entries[name]
+        e["launches"] += gm["counts"][name]
+        e["path"] += "; " + mpath
+        e["train_mesh"] = dict(launches=gm["counts"][name],
+                               launches_per_step=gm["launches_per_step"][
+                                   name],
+                               step_ms=gm["ms"], peak_gb=gm["peak_gb"])
+    if gm["counts"]["flash_attention"]:
+        fail(f"granite mesh train: {gm['counts']['flash_attention']} flash "
+             f"launches (the train step takes the chunked attention)")
     entries["flash_attention"]["train"] = dict(
         launches=g["counts"]["flash_attention"],
         note="none: the train step takes the chunked attention (the "
@@ -6566,7 +6730,8 @@ def run_phases(dev, t_start, card, draws, counts) -> int:
         ROOFLINE_RUNS[3][0]: steps_rows[("UNet", "gen_fast")],
         ROOFLINE_RUNS[4][0]: train["dit"]["ms"],
         ROOFLINE_RUNS[5][0]: train["unet"]["ms"],
-        ROOFLINE_RUNS[6][0]: train["granite"]["ms"]}
+        ROOFLINE_RUNS[6][0]: train["granite"]["ms"],
+        MESH_TRAIN_RUN: train["granite"]["mesh"]["ms"]}
     roof = roofline_phase(dev, counts, measured, lm)
     print("roofline: " + json.dumps(roof), flush=True)
 

@@ -329,15 +329,23 @@ def tree_shardings(mesh, spec_tree: PyTree) -> PyTree:
 def distribute(x: torch.Tensor, mesh, spec_: Spec) -> DTensor:
     """``x``, which every rank holds whole, as a DTensor of ``spec_``:
     each rank keeps its own block of its own copy (no communication).
-    ``x`` lies on the mesh's device type already: nothing is moved here."""
+    ``x`` lies on the mesh's device type already: nothing is moved here.
+
+    ``x`` is wrapped as replicated (``DTensor.from_local``) and
+    redistributed to ``spec_``, which only slices in the forward; so the
+    result stays on ``x``'s autograd graph, and its backward gathers:
+    ``x`` gets the whole gradient of the tensor every rank holds.
+    (``distribute_tensor`` would return a leaf, and ``x`` would get no
+    gradient.)"""
     if x.device.type != mesh.device_type:
         raise ValueError(f"a {x.device.type} tensor for a "
                          f"{mesh.device_type} mesh")
+    pls = placements(mesh, spec_)
     if _COST is not None:
-        return _COST.local_dtensor(x, mesh, placements(mesh, spec_))
-    from torch.distributed.tensor import distribute_tensor
-    return distribute_tensor(x, mesh, placements(mesh, spec_),
-                             src_data_rank=None)
+        return _COST.local_dtensor(x, mesh, pls)
+    whole = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    return whole.redistribute(mesh, pls)
 
 
 def gathered(x: DTensor) -> torch.Tensor:

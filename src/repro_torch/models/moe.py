@@ -19,7 +19,10 @@ reference's SPMD body under ``local_map``, torch's ``shard_map``: each
 (data, model) rank dispatches its own token shard to the experts it owns
 (:func:`_local_dispatch_ffn`), with the padded experts masked out of the
 routing, the capacity and the aux loss, and one all-reduce over
-``model`` combines the experts' contributions.
+``model`` combines the experts' contributions.  It is differentiable as
+the reference's ``jax.grad`` through ``shard_map`` is: the FSDP gathers
+transpose to reduce-scatters, the all-reduce to the identity, and the
+gradients of x and the router count the aux loss's part once.
 """
 from __future__ import annotations
 
@@ -160,6 +163,19 @@ def _dispatch(x: torch.Tensor, keep: torch.Tensor, eid: torch.Tensor,
     return buf.view(n_buf, cap, d), dest
 
 
+class _ScaleGrad(torch.autograd.Function):
+    """The identity, its gradient multiplied by ``scale``."""
+
+    @staticmethod
+    def forward(ctx, t, scale):
+        ctx.scale = scale
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
 def _local_dispatch_ffn(x: torch.Tensor, router_w: torch.Tensor,
                         w_gate: torch.Tensor, w_up: torch.Tensor,
                         w_down: torch.Tensor, *, top_k: int,
@@ -202,6 +218,32 @@ def _local_dispatch_ffn(x: torch.Tensor, router_w: torch.Tensor,
     return _sum_copies(weighted, top_k).to(x.dtype), aux
 
 
+def _funcol():
+    import torch.distributed._functional_collectives as funcol
+    return funcol
+
+
+def _waited(t):
+    return t.wait() if isinstance(t, _funcol().AsyncCollectiveTensor) else t
+
+
+class _SumOverModel(torch.autograd.Function):
+    """The all-reduce (sum) of the model ranks' partial outputs over
+    ``group``; its backward the identity: the transpose of JAX's ``psum``
+    of a value that varies over the axis (each rank's partial output gets
+    the whole output's gradient, which is the same on every model rank).
+    ``funcol.all_reduce``'s own backward is another all-reduce, which
+    would count that gradient |model| times."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        return _waited(_funcol().all_reduce(t, "sum", group))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
 def moe_ffn_sharded(x: torch.Tensor, router_w: torch.Tensor,
                     w_gate: torch.Tensor, w_up: torch.Tensor,
                     w_down: torch.Tensor, *, top_k: int,
@@ -223,9 +265,21 @@ def moe_ffn_sharded(x: torch.Tensor, router_w: torch.Tensor,
     every rank holds whole: each rank takes its blocks of them without
     communication, and gets the whole output back.  Returns (out (T, d)
     in x's dtype, the aux loss averaged over the data shards).
+
+    Differentiable as the reference's ``jax.grad`` through ``shard_map``
+    is: the gathers' backward is a reduce-scatter, the sum over
+    ``model``'s the identity; a rank's gradient of x and of the router
+    has a part through the dispatch, which differs between the model
+    ranks and is summed over them, and a part through the aux loss, which
+    every model rank computes alike and which is counted once (scaled by
+    1 / |model| before that sum).  The gradients' placements follow the
+    in-specs: x sharded over the dp axes and summed over ``model``; the
+    router summed over every axis; the expert weights sharded as they
+    are, summed over any dp axis that is not an FSDP axis.  From plain
+    tensors, each rank gets the whole gradient (:func:`shd.distribute`'s
+    backward gathers it).
     """
-    import torch.distributed._functional_collectives as funcol
-    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor import DTensor, Partial
     from torch.distributed.tensor.experimental import local_map
 
     E = router_w.shape[-1]
@@ -240,16 +294,33 @@ def moe_ffn_sharded(x: torch.Tensor, router_w: torch.Tensor,
         wd_spec = shd.spec(None, model_axis, fa or None)
     in_specs = (x_spec, (None, None), w_spec, w_spec, wd_spec)
     out_specs = (x_spec, shd.spec(dp or None))
+    names = shd.axis_names(mesh)
 
-    def waited(t):
-        return t.wait() if isinstance(t, funcol.AsyncCollectiveTensor) else t
+    def summed(spec_, axes):
+        """``spec_``'s placements with ``Partial`` on the mesh dims of
+        ``axes``: a gradient each rank holds a share of."""
+        return tuple(Partial() if n in axes else p for n, p in
+                     zip(names, shd.placements(mesh, spec_)))
+
+    w_sum = tuple(a for a in dp if a not in fa)
+    grad_placements = (summed(x_spec, (model_axis,)),
+                       summed((None, None), dp + (model_axis,)),
+                       summed(w_spec, w_sum), summed(w_spec, w_sum),
+                       summed(wd_spec, w_sum))
+    aux_scale = 1.0 / shd.axis_size(mesh, model_axis)
 
     def gather(w, dim):
         # the FSDP shards, minor axis first: the block of the major-first
-        # ("a", "b") sharding at i_a * |b| + i_b
+        # ("a", "b") sharding at i_a * |b| + i_b.  Gathered on dim 0 and
+        # the blocks concatenated on ``dim`` (funcol's own gather on
+        # another dim is ~10x slower on the CPU); the backward is a
+        # reduce-scatter, the transpose of the reference's tiled gather.
+        # The concatenation (a copy, even of one block) waits for the
+        # gather: ``wait()`` would leave the autograd graph.
         for a in reversed(fa):
-            w = waited(funcol.all_gather_tensor(w, dim,
-                                                mesh.get_group(a)))
+            group = mesh.get_group(a)
+            y = _funcol().all_gather_tensor_autograd(w.contiguous(), 0, group)
+            w = torch.cat(y.chunk(group.size(), 0), dim)
         return w
 
     def local_fn(x_loc, rw, wg, wu, wd):
@@ -260,8 +331,10 @@ def moe_ffn_sharded(x: torch.Tensor, router_w: torch.Tensor,
             x_loc, rw, wg, wu, wd, top_k=top_k,
             capacity_factor=capacity_factor, n_experts=E,
             expert_offset=off, n_real=n_real)
-        out = waited(funcol.all_reduce(out, "sum",
-                                       mesh.get_group(model_axis)))
+        # every model rank computes the aux loss alike: its part of the x
+        # and router gradients, summed over model, is counted once
+        aux = _ScaleGrad.apply(aux, aux_scale)
+        out = _SumOverModel.apply(out, mesh.get_group(model_axis))
         return out, aux[None]
 
     fn = local_map(local_fn,
@@ -269,6 +342,7 @@ def moe_ffn_sharded(x: torch.Tensor, router_w: torch.Tensor,
                                         for s in out_specs),
                    in_placements=tuple(shd.placements(mesh, s)
                                        for s in in_specs),
+                   in_grad_placements=grad_placements,
                    device_mesh=mesh)
     args = (x, router_w, w_gate, w_up, w_down)
     plain = not isinstance(x, DTensor)

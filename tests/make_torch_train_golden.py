@@ -18,6 +18,11 @@ gradient too.  Sections:
   1,100 tokens (past ``attn_chunk`` 1,024: the chunked attention runs,
   and ``chunked_lm_loss`` takes two 512-token chunks and a remainder of
   76), ``remat`` on as published;
+* ``granite_mesh/float32``, ``granite_mesh/bfloat16`` — the same cut,
+  weights and batch, the step jitted under the reference's one-device
+  mesh with ``install_rules(kind="train")``: its MoE through
+  ``moe_ffn_sharded``'s ``shard_map`` (the padded experts 40-47 masked,
+  the capacity from the 40 real ones), differentiated by ``jax.grad``;
 * ``deit/float32`` — DeiT-B at full width with its depth cut 12 -> 2, B =
   2, 224 px;
 * ``dit/float32``, ``dit/bfloat16`` — DiT-XL/2 at full width (d 1,152,
@@ -37,7 +42,7 @@ What a step's record holds and the limits a run is held to:
 ``tests/train_golden.py``.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/make_torch_train_golden.py \\
-        [--only granite deit dit unet smoke smoke/dit-smoke ...]
+        [--only granite granite_mesh deit dit unet smoke smoke/dit-smoke ...]
 
 ``--only`` takes groups (the name before the ``/``) or whole section
 names, and keeps the other sections of the file.  About 6 minutes and
@@ -60,6 +65,8 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import train_golden as tg  # noqa: E402
 from repro.configs import get_config, get_smoke_config  # noqa: E402
+from repro.distributed import sharding as jshd  # noqa: E402
+from repro.launch import mesh as jmesh  # noqa: E402
 from repro.launch.steps import model_module  # noqa: E402
 from repro.training.optimizer import (AdamWConfig, adamw_update,  # noqa: E402
                                       init_opt_state)
@@ -67,7 +74,7 @@ from repro_torch.models import common as torch_common  # noqa: E402
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                       "torch_train_golden.npz")
-SECTIONS = ("granite", "deit", "dit", "unet", "smoke")
+SECTIONS = ("granite", "granite_mesh", "deit", "dit", "unet", "smoke")
 
 
 def reference_config(name, tcfg):
@@ -83,7 +90,8 @@ def reference_config(name, tcfg):
             get_config("unet-sd15"), n_res_blocks=tcfg.n_res_blocks,
             latent_res=tcfg.latent_res, img_res=tcfg.img_res)
     else:
-        arch = {"granite": "granite-moe-3b-a800m", "deit": "deit-b",
+        arch = {"granite": "granite-moe-3b-a800m",
+                "granite_mesh": "granite-moe-3b-a800m", "deit": "deit-b",
                 "dit": "dit-xl2"}[name.split("/")[0]]
         cfg = dataclasses.replace(get_config(arch), n_layers=tcfg.n_layers)
     return dataclasses.replace(cfg, param_dtype=tcfg.param_dtype)
@@ -121,11 +129,20 @@ def reference_record(name, tcfg):
     step = jax.jit(step)
     losses = []
     batches = tg.section_batches(name, tcfg)
-    for b in batches:
-        before = to_numpy(params)
-        grads, params, state, metrics = step(
-            params, state, {k: jnp.asarray(v) for k, v in b.items()})
-        losses.append(float(metrics["loss"]))
+    meshed = name.startswith(tg.MESHED)
+    if meshed:
+        # the reference's own one-device mesh and train rules: its MoE
+        # through moe_ffn_sharded's shard_map
+        jmesh.install_rules(jmesh.make_host_mesh(), cfg, 1, kind="train")
+    try:
+        for b in batches:
+            before = to_numpy(params)
+            grads, params, state, metrics = step(
+                params, state, {k: jnp.asarray(v) for k, v in b.items()})
+            losses.append(float(metrics["loss"]))
+    finally:
+        if meshed:
+            jshd.clear_rules()
     metrics = {k: v for k, v in metrics.items() if k != "accuracy"}
     rec = tg.record(name, metrics, before, to_numpy(grads), to_numpy(params),
                     to_numpy(state.m), to_numpy(state.v))
@@ -167,6 +184,13 @@ def main() -> None:
                     granite=dict(n_layers=tg.GRANITE_LAYERS,
                                  tokens=tg.GRANITE_TOKENS, batch=1,
                                  cut="depth 32 -> 2 layers; full width"),
+                    granite_mesh=dict(
+                        n_layers=tg.GRANITE_LAYERS, tokens=tg.GRANITE_TOKENS,
+                        batch=1, cut="depth 32 -> 2 layers; full width",
+                        mesh="one CPU device, (data, model) = (1, 1), "
+                             "install_rules(kind='train')",
+                        moe="moe_ffn_sharded: padded experts masked, "
+                            "capacity from n_experts"),
                     deit=dict(n_layers=tg.DEIT_LAYERS, batch=tg.DEIT_BATCH,
                               cut="depth 12 -> 2 layers; full width"),
                     dit=dict(n_layers=tg.DIT_LAYERS, batch=tg.DIT_BATCH,

@@ -1825,6 +1825,46 @@ def test_sharded_moe_on_an_nccl_mesh_matches_local_dispatch(nccl_mesh, dtype,
 
 
 @pytest.mark.gpu
+def test_sharded_moe_backward_on_an_nccl_mesh_matches_local_dispatch(
+        nccl_mesh):
+    """The gradients of ``moe_ffn_sharded`` on the card (f32, TF32 off;
+    Granite's 48 experts, 40 real) for ``sum(out * r) + aux`` against
+    autograd of ``_local_dispatch_ffn`` on the CPU, which is what one rank
+    computes: x, the router and the three expert weights within 1e-5 of
+    each gradient's largest value; the padded experts' exactly 0; each
+    gradient in its input's dtype; the backward's ``moe_gemm`` launches (2
+    a product).  The inputs are the forward test's above (seed 4), whose
+    routing the card and the CPU agree on."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(4)
+    T, d, E, f = 512, 256, 48, 128
+    n = lambda *s, sc=0.1: torch.from_numpy(  # noqa: E731
+        (rng.standard_normal(s) * sc).astype(np.float32))
+    args = [n(T, d, sc=1.0), n(d, E), n(E, d, f), n(E, d, f), n(E, f, d)]
+    r = n(T, d, sc=1.0)
+    kw = dict(top_k=8, capacity_factor=1.25)
+    cpu = [a.clone().requires_grad_() for a in args]
+    out, aux = moe._local_dispatch_ffn(*cpu, n_experts=E, expert_offset=0,
+                                       n_real=40, **kw)
+    ((out * r).sum() + aux).backward()
+    card = [a.cuda().requires_grad_() for a in args]
+    out, aux = moe.moe_ffn_sharded(
+        *card, mesh=nccl_mesh, dp_axes=("data",), model_axis="model",
+        fsdp_axes="data", expert_sharded=True, n_real=40, **kw)
+    before = moe_gemm_mod.moe_gemm.launches
+    ((out * r.cuda()).sum() + aux).backward()
+    assert moe_gemm_mod.moe_gemm.launches - before == 6
+    for want, got in zip(cpu, card):
+        assert got.grad.dtype == want.dtype
+        top = float(want.grad.abs().max())
+        torch.testing.assert_close(got.grad.cpu(), want.grad, rtol=0,
+                                   atol=1e-5 * top)
+    for w in card[2:]:
+        assert not w.grad[40:].any()
+    assert not card[1].grad[:, 40:].any()
+
+
+@pytest.mark.gpu
 def test_granite_mesh_branch_on_gpu_matches_cpu(nccl_mesh):
     """Granite's SMOKE config made a mesh config (``moe_impl="shard_map"``,
     5 experts padded to 8) in f32 under the 1 x 1 mesh with

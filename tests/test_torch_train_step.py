@@ -22,6 +22,7 @@ is above 1e-3 of the leaf's largest (and the noise floor), and within
 rounding noise may flip.  The golden file's limits are
 ``tests/train_golden.py``'s.
 """
+import contextlib
 import dataclasses
 import sys
 from pathlib import Path
@@ -35,6 +36,8 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 import train_golden as tg  # noqa: E402
 from repro.configs import get_smoke_config as jax_smoke  # noqa: E402
+from repro.distributed import sharding as jshd  # noqa: E402
+from repro.launch import mesh as jmesh  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.launch.steps import model_module as jax_module  # noqa: E402
 from repro.models import common as jcommon  # noqa: E402
@@ -105,16 +108,33 @@ def port_step(tcfg, tree, b, ocfg_kw):
         dict(metrics, **om)
 
 
-def check_step(arch, S=24, own_noise_moments=False, **cfg_kw):
+@contextlib.contextmanager
+def reference_mesh(jcfg, B):
+    """The reference's one-device mesh with its train rules."""
+    jmesh.install_rules(tg.reference_one_device_mesh(), jcfg, B,
+                        kind="train")
+    try:
+        yield
+    finally:
+        jshd.clear_rules()
+
+
+def check_step(arch, S=24, own_noise_moments=False, mesh=False, **cfg_kw):
     """One step of ``arch``'s smoke config in f32 against the reference;
     ``own_noise_moments``: a leaf whose gradient is at most the floor has
-    its first moment held to the port's own step alone."""
+    its first moment held to the port's own step alone; ``mesh``: both
+    steps under a 1 x 1 mesh with ``install_rules(kind="train")`` (the
+    port's on one gloo rank)."""
     jcfg, tcfg = both_configs(arch, **cfg_kw)
     tree = tg.numpy_weights(tcfg)
     b = batch(tcfg, S=S)
     ocfg_kw = dict(lr=1e-3, warmup_steps=1)
-    jg, jp, jm, jv, jmet = reference_step(jcfg, tcfg, tree, b, ocfg_kw)
-    tgr, tp, tm, tv, tmet = port_step(tcfg, tree, b, ocfg_kw)
+    B = b["tokens"].shape[0] if "tokens" in b else 2
+    with (reference_mesh(jcfg, B) if mesh else contextlib.nullcontext()):
+        jg, jp, jm, jv, jmet = reference_step(jcfg, tcfg, tree, b, ocfg_kw)
+    with (tg.one_rank_mesh(tcfg, B, "cpu") if mesh
+          else contextlib.nullcontext()):
+        tgr, tp, tm, tv, tmet = port_step(tcfg, tree, b, ocfg_kw)
     for k in jmet:
         np.testing.assert_allclose(float(tmet[k]), float(jmet[k]),
                                    rtol=2e-5, err_msg=k)
@@ -161,6 +181,94 @@ def test_granite_train_step_chunked_remat_matches_reference():
     query chunks of 8 (each KV step checkpointed) and remat on."""
     check_step("granite-moe-3b-a800m", attn_impl="chunked", attn_chunk=8,
                remat=True)
+
+
+# the smoke Granite on the reference's meshed path: the MoE through
+# moe_ffn_sharded (3 padded experts, expert-sharded, copies dropped at
+# capacity factor 1.25), chunked attention, remat on
+MESH_SMOKE = dict(moe_impl="shard_map", n_experts_pad=8, moe_shard="expert",
+                  capacity_factor=1.25, attn_impl="chunked", attn_chunk=8,
+                  remat=True)
+
+
+def test_meshed_granite_train_step_matches_reference():
+    """The smoke Granite's train step under a 1 x 1 mesh (the port's on a
+    gloo rank, the reference's on its one-device mesh, each with
+    ``install_rules(kind="train")``) against the reference's jitted
+    step, within this file's limits; the padded experts' gradient exactly
+    0 on both sides."""
+    grads = check_step("granite-moe-3b-a800m", mesh=True, **MESH_SMOKE)
+    n = get_smoke_config("granite-moe-3b-a800m").n_experts
+    for name in ("we_gate", "we_up", "we_down"):
+        g = grads[f"layers/{name}"]
+        assert not g[:, n:].any() and g[:, :n].any(), name
+    assert not grads["layers/router"][..., n:].any()
+
+
+def test_meshed_train_step_differs_from_unmeshed():
+    """The same config without a mesh routes the padded experts (the
+    reference's ``moe_ffn`` quirk): its gradient gives them a share, so
+    the meshed check above tells the two paths apart."""
+    _, tcfg = both_configs("granite-moe-3b-a800m", **MESH_SMOKE)
+    tree = tg.numpy_weights(tcfg)
+    g = port_step(tcfg, tree, batch(tcfg), dict(lr=1e-3, warmup_steps=1))[0]
+    assert g["layers/we_gate"][:, tcfg.n_experts:].any()
+
+
+def test_meshed_remat_on_equals_remat_off_bit_for_bit():
+    """Under the 1 x 1 mesh remat recomputes each layer's sharded MoE,
+    its collectives and its routing in the backward: the loss and every
+    gradient equal the run without remat bit for bit."""
+    _, cfg = both_configs("granite-moe-3b-a800m", **MESH_SMOKE)
+    tree = tg.numpy_weights(cfg)
+    b = batch_to(batch(cfg), "cpu")
+    out = []
+    for remat in (False, True):
+        c = dataclasses.replace(cfg, remat=remat)
+        params = transformer.params_from_numpy(tree, c, "cpu")
+        with tg.one_rank_mesh(c, 2, "cpu"):
+            (loss, _), grads = common.value_and_grad(
+                lambda p: transformer.loss_fn(p, b, c), params)
+        out.append((loss, list(common.leaves(grads))))
+    assert torch.equal(out[0][0], out[1][0])
+    for x, y in zip(out[0][1], out[1][1]):
+        assert torch.equal(x, y)
+
+
+def test_train_cell_step_runs_the_sharded_moe_under_installed_rules():
+    """``build_cell``'s train step takes the mesh branch when rules with
+    a mesh are installed (one ``moe_ffn_sharded`` call a layer, and one
+    more under remat), as the reference's cell lowers under its mesh, and
+    the unmeshed ``moe_ffn`` without them."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import steps
+    from repro_torch.models import moe
+    _, cfg = both_configs("granite-moe-3b-a800m", **MESH_SMOKE)
+    shape = ShapeSpec("smoke_train", "train", seq_len=24, global_batch=2)
+    calls = {"sharded": 0, "plain": 0}
+    real = {"sharded": moe.moe_ffn_sharded, "plain": moe.moe_ffn}
+
+    def counted(kind):
+        def fn(*a, **k):
+            calls[kind] += 1
+            return real[kind](*a, **k)
+        return fn
+
+    moe.moe_ffn_sharded, moe.moe_ffn = counted("sharded"), counted("plain")
+    try:
+        for meshed in (True, False):
+            cell = steps.build_cell(cfg.name, shape.name, cfg=cfg,
+                                    shape=shape)
+            args = cell.make_args(0, "cpu")
+            with (tg.one_rank_mesh(cfg, 2, "cpu") if meshed
+                  else contextlib.nullcontext()):
+                _, _, met = cell.step_fn(*args)
+            assert np.isfinite(float(met["loss"]))
+            want = 2 * cfg.n_layers
+            assert calls == ({"sharded": want, "plain": 0} if meshed else
+                             {"sharded": want, "plain": want}), calls
+    finally:
+        moe.moe_ffn_sharded, moe.moe_ffn = real["sharded"], real["plain"]
 
 
 def test_remat_on_equals_remat_off_bit_for_bit():

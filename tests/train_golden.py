@@ -49,6 +49,7 @@ above 1 fails); ``fails`` lists those above 1.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict, Iterable, Tuple
 
@@ -235,10 +236,11 @@ def port_configs():
     import dataclasses
     from repro_torch.configs import get_config, get_smoke_config
     out = {}
-    for dt in ("float32", "bfloat16"):
-        out[f"granite/{dt}"] = dataclasses.replace(
-            get_config("granite-moe-3b-a800m"), n_layers=GRANITE_LAYERS,
-            param_dtype=dt)
+    for group in ("granite", "granite_mesh"):
+        for dt in ("float32", "bfloat16"):
+            out[f"{group}/{dt}"] = dataclasses.replace(
+                get_config("granite-moe-3b-a800m"), n_layers=GRANITE_LAYERS,
+                param_dtype=dt)
     out["deit/float32"] = dataclasses.replace(
         get_config("deit-b"), n_layers=DEIT_LAYERS, param_dtype="float32")
     for dt in ("float32", "bfloat16"):
@@ -262,7 +264,7 @@ def section_batches(name: str, cfg):
         specs = batch_specs(cfg.family, SMOKE_BATCH, SMOKE_SEQ,
                             getattr(cfg, "img_res", 0), cfg)
         n = SMOKE_STEPS
-    elif name.startswith("granite/"):
+    elif name.startswith(("granite/", "granite_mesh/")):
         specs, n = batch_specs("lm", 1, GRANITE_TOKENS), 1
     elif name.startswith("dit/"):
         specs, n = batch_specs("dit", DIT_BATCH, res=cfg.img_res, cfg=cfg), 1
@@ -293,13 +295,73 @@ def reference_layout(cfg, tree):
     return common.tree_map(resnet.to_reference_layout, tree)
 
 
+MESHED = ("granite_mesh/",)
+
+
+def reference_one_device_mesh():
+    """The reference's (data, model) mesh of 1 x 1 over its first device
+    (``jax.make_mesh``): one device even where the process has more, as
+    when a module imported earlier asked XLA for 512 host devices."""
+    import jax
+    from jax.sharding import AxisType
+    return jax.make_mesh((1, 1), ("data", "model"),
+                         axis_types=(AxisType.Auto,) * 2,
+                         devices=jax.devices()[:1])
+
+
+@contextlib.contextmanager
+def one_rank_mesh(cfg, batch: int, device):
+    """A process group of one rank (gloo on the CPU, NCCL on the card;
+    from an in-memory store, no network; the one already up is used where
+    there is one), the 1 x 1 (data, model) mesh over it on ``device`` and
+    ``install_rules(kind="train")`` for ``cfg`` at global batch
+    ``batch``; the rules cleared and a group started here destroyed on
+    the way out."""
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import mesh
+    dev = torch.device(device)
+    started = not dist.is_initialized()
+    if started:
+        kw = dict(device_id=torch.device("cuda", torch.cuda.current_device())
+                  ) if dev.type == "cuda" else {}
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                store=dist.HashStore(), rank=0, world_size=1,
+                                **kw)
+    try:
+        m = mesh.make_host_mesh(device=dev)
+        mesh.install_rules(m, cfg, batch, kind="train")
+        yield m
+    finally:
+        shd.clear_rules()
+        if started:
+            dist.destroy_process_group()
+
+
+def section_mesh(name: str, cfg, device, meshed: bool = True):
+    """The mesh a section's steps run under: :func:`one_rank_mesh` at the
+    section's batch of one for a ``granite_mesh`` section (and
+    ``meshed``), as the reference's generator installs its own; none
+    otherwise."""
+    if meshed and name.startswith(MESHED):
+        return one_rank_mesh(cfg, 1, device)
+    return contextlib.nullcontext()
+
+
 def port_record(name: str, cfg, want, device="cpu", tree=None,
-                loss_fn=None):
+                loss_fn=None, meshed: bool = True):
     """The port's record of a section on ``device``, made with the
     golden's sample indices: the section's steps through
     ``make_train_step``, the last one as its body (the gradient of
     ``loss_fn``, default the model's, then ``adamw_update``), so that its
-    gradient is seen.  Returns (record, the losses of every step)."""
+    gradient is seen; a ``granite_mesh`` section under its mesh
+    (:func:`section_mesh`; without it where ``meshed`` is false).
+    Returns (record, the losses of every step)."""
+    with section_mesh(name, cfg, device, meshed):
+        return _port_record(name, cfg, want, device, tree, loss_fn)
+
+
+def _port_record(name, cfg, want, device, tree, loss_fn):
     from repro_torch.launch.steps import batch_to, model_module
     from repro_torch.models import common
     from repro_torch.training import optimizer as opt
