@@ -22,7 +22,7 @@ final line:
              a. ``event_select`` against its plain PyTorch version on
                 random fleets (K in {3, 6, 32}, W in {64, 512}) with
                 head-pointer rows, ties and a priced network;
-             b. for each main-path run, its first 250 events through the
+             b. for each main-path run, its first 125 events through the
                 eager per-event loop on the card (``fleetsim.core.
                 _simulate_eager``, ``event_scan``'s plain version): wall
                 time per event, keeping every 75th ``event_select``
@@ -39,14 +39,14 @@ final line:
                 counts set to 0 before each run);
              d. ``event_scan`` against the eager loop on the CPU, on a hot
                 3-node fleet under the four deterministic policies and the
-                two stochastic ones, priced and not, and under the
+                two stochastic ones, each priced or not in turn, and under the
                 stochastic ones on a 2-node mesh, a 4-node star (degree 1)
                 and a 32-node mesh with four hot nodes (degree 31): every
                 per-request field and counter equal; the check is shown to
                 reject a planted fault (one request's ``served_by``
                 changed, one request's deadline moved);
              e. ``event_scan``'s time: each whole run in one launch, and
-                each run's first 250 events beside the eager loop's time
+                each run's first 125 events beside the eager loop's time
                 there, with the bound per event (the bytes of one step,
                 the live blocks it scores counted by the kernel, at the
                 HBM rate) beside the serial chain between events;
@@ -118,7 +118,7 @@ final line:
                 each, held to the reference's digests, then timed: us per
                 event (CUDA events around one launch), ``simulate``'s
                 wall, requests/s, the bytes bound, the live blocks scored
-                a step, the ring's memory; the eager loop's first 250
+                a step, the ring's memory; the eager loop's first 125
                 events of the ``batched_feasible`` run beside the
                 kernel's; ``run_validation`` on the mobile radio workload
                 under ``random``, its report the reference's;
@@ -245,50 +245,54 @@ final line:
                 the kernel at (16, 1024, 16, 72) and (4, 4096, 16, 72)
                 beside its plain version, SDPA and the bound;
              h. the language models (their launch counts of ``rmsnorm``
-                and ``moe_gemm`` checked 0 first, as in 5 below):
-                Granite-3.0 MoE at full width with 2 of its 32 layers,
-                seeded numpy weights with every leaf random, f32 (TF32
-                off) and bf16, ``attn_impl="pallas"``: a prefill of two
-                1,100-token prompts (one flash launch a layer, 2L + 1
-                ``rmsnorm``, 3L ``moe_gemm``) and 4 decode steps (no flash),
-                held against ``tests/data/torch_lm_golden.npz`` (the last
-                logits, each step's logits, the aux loss, layer 0's K / V
-                rows at 3 positions) within ``GRANITE_ATOL`` /
-                ``GRANITE_RMS``, each limit shown to reject the planted
-                faults of ``granite_faults``; the bf16 routing flips
+                and ``moe_gemm`` checked 0 first, as in 5 below), each
+                model of ``LM_MODELS`` through one golden check
+                (``lm_golden_check``) and one main path
+                (``lm_main_path``), Granite-3.0 MoE here and the dense
+                models in 4j.  The golden check: the model at full width
+                with its depth cut (Granite 2 of its 32 layers), seeded
+                numpy weights with every leaf random (drawn on the host
+                beside phase 3), f32 (TF32 off) and bf16,
+                ``attn_impl="pallas"``: a prefill of two 1,100-token
+                prompts (one flash launch a layer, 2L + 1 ``rmsnorm``, 3L
+                ``moe_gemm`` a MoE) and 4 decode steps (no flash), the
+                launches counted, held against
+                ``tests/data/torch_lm_golden.npz`` (Granite's last logits,
+                each step's logits, the aux loss, layer 0's K / V rows at
+                3 positions) within ``GRANITE_ATOL`` / ``GRANITE_RMS``,
+                each planted fault of ``lm_faults`` rejected by the
+                measures its dtype requires; the bf16 routing flips
                 against the reference's; the four SMOKE LMs in f32 within
                 ``LM_SMOKE_ATOL`` (gemma3-smoke's ring-buffer decode past
-                its window included); then the main path, Granite at full
-                width and depth (3.98 B parameters drawn on the card from
-                a seeded ``torch.Generator``), bf16: a prefill of 32,768
-                tokens (exactly 32 flash, 65 ``rmsnorm`` and 96
-                ``moe_gemm`` launches, the counts from 0), 8 greedy decode
-                steps on its cache and ``decode_32k``'s 8 steps at B=16 on
-                a 32,768-slot cache at length 16,384 (65 and 96 launches a
-                step, no flash); finite logits throughout; the kernel
-                prefill at 4,096 tokens against the plain one routed alike
-                within ``LM_PREFILL_REL_RMS``; the prefill and each decode
-                step timed (CUDA events) and profiled (busy, idle, device
-                time by kind: flash, ``moe_gemm``, ``rmsnorm``, other
-                matrix products, other); flash on layers 0 and 31 at 32k
-                (by blocks of query rows), ``rmsnorm`` on the prefill's
-                and both decodes' rows and ``moe_gemm`` at C = 6,826, 1
-                and 4, each on its main-path input, against the plain
-                version, then timed beside it, SDPA (causal) /
-                ``F.rms_norm`` / ``torch.bmm`` and the bound; flash's layer
-                0 input also timed without the mask, the causal launch
-                held within ``LM_CAUSAL_SHARE`` of it (the key band skips
-                the tiles past the diagonal); then ``LM_FLASH_SHAPES``, the
-                heads item 8d's models give the kernel at 32k on random
-                inputs, StarCoder2-7B's causal (36 / 4, D = 128) and
-                Gemma-3 27B's local layers (32 / 16, D = 128, window
-                1,024), each against the plain version by blocks, timed
-                beside SDPA (under the window the faster of its cuDNN and
-                memory-efficient backends on a (S, S) bool mask) and the
-                bound, the windowed
-                launch held within ``LM_WINDOW_SHARE`` of the causal one;
-                each flash row's key tiles walked and TFLOP/s on them
-                printed as modelled from ``key_tile_band``;
+                its window included).  The main path: the model at full
+                width and depth (Granite 3.98 B parameters drawn on the
+                card from a seeded ``torch.Generator``), bf16, each run's
+                peak memory printed: a prefill of ``LM_PREFILL`` tokens at
+                B=1 (Granite's 32,768: exactly 32 flash, 65 ``rmsnorm``
+                and 96 ``moe_gemm`` launches, the counts from 0, each
+                flash launch's window as the layer's), ``LM_STEPS`` greedy
+                decode steps on its cache and ``decode_32k``'s at
+                ``LM_DECODE32K_BATCH`` (Granite's 16) on a 32,768-slot
+                cache at length 16,384 (65 and 96 launches a step, no
+                flash), each run leaving ``LM_HEADROOM_GB`` free; finite
+                logits throughout; the kernel prefill at 4,096 tokens
+                against the plain one (a MoE routed alike) within
+                ``LM_PREFILL_REL_RMS``; the prefill and each decode step
+                timed (CUDA events) and profiled (busy, idle, device time
+                by kind: flash, ``moe_gemm``, ``rmsnorm``, other matrix
+                products, other); flash on layer 0, the last layer and the
+                first of each window (by blocks of query rows),
+                ``rmsnorm`` on the prefill's and the decodes' rows and
+                ``moe_gemm`` at the prefill's capacity and C = 1 and 4,
+                each on its main-path input, against the plain version,
+                then (flash on the first layer of each window) timed
+                beside it, SDPA / ``F.rms_norm`` / ``torch.bmm`` and the
+                bound; a causal flash input also timed without the mask,
+                the causal launch held within ``LM_CAUSAL_SHARE`` of it
+                (the key band skips the tiles past the diagonal); each
+                flash row's key tiles walked and TFLOP/s on them printed
+                as modelled from ``key_tile_band``; the launches on the
+                kernels line are the sums of the counts each run read;
              i. distribution, on an NCCL group of one rank made from an
                 in-memory store (no network) and the 1 x 1 (data, model)
                 mesh over it (``launch.mesh.make_host_mesh``), with
@@ -322,6 +326,40 @@ final line:
                 checkpoint (full width, ``training/checkpoint.py``)
                 restored and placed on the mesh by
                 ``training.elastic.replace_mesh``: equal bit for bit;
+             j. the dense language models at full width through 4h's
+                golden check and main path, each drawn, run and deleted
+                in turn: StarCoder2-7B (36 query heads on 4 KV heads 128
+                wide, GELU, d 4,608) and Gemma-3 27B (32 on 16, 128 wide,
+                window 1,024 on 5 of each 6 layers, d 5,376).  The golden
+                check at 2 of 32 and 6 of 62 layers (one global), f32 (the
+                ``f32_regtile`` D=128 kernel) and bf16 (``tma_wgmma``),
+                against the golden's ``starcoder2`` / ``gemma3`` sections,
+                for Gemma-3 also 4 ``decode_step_sliding`` steps from a
+                sliding cache built from the prefill's
+                (``tests/lm_helpers.py``), held at 8,192 seeded vocabulary
+                columns, by each row's largest logit, log-sum-exp and the
+                gap to its logit at the reference's argmax, and by layer
+                0's K / V rows, within ``DENSE_ATOL`` / ``DENSE_RMS`` (the
+                faults: the last key dropped, the GQA head map ``h % KV``,
+                the window off by one, every layer global, a ring slot off
+                by one, the norm scaled by ``scale``).  The main path on
+                weights drawn on the card (7.40 B / 28.4 B parameters):
+                the prefill at 32,768 / 16,384 tokens (Gemma-3's the most
+                that fits; 32 / 62 flash launches, Gemma-3's 52 with
+                window 1,024 and 10 without, 65 / 125 ``rmsnorm``); for
+                Gemma-3 the greedy tokens again through
+                ``decode_step_sliding`` on a sliding cache built from the
+                prefill's (logits within ``DENSE_SLIDING_ATOL`` /
+                ``DENSE_SLIDING_REL_RMS`` of ``decode_step``'s, the greedy
+                tokens equal but at near-ties within it; the same steps
+                with a ring slot off by one must fail those limits),
+                ``decode_32k`` at B = 16 / 4 and ``long_500k`` with the
+                context cut to ``DENSE_LONG_CONTEXT`` from half full, both
+                through ``decode_step_sliding``; flash on Gemma-3's local
+                layers at 32k on random inputs (``LM_FLASH_SHAPES``)
+                beside the faster of SDPA's cuDNN and memory-efficient
+                backends on a (S, S) bool mask, the windowed launch held
+                within ``LM_WINDOW_SHARE`` of the causal one;
 5. entry points — the kernels that ``repro_torch.kernels.ops`` exposes
              (their launch counts, set to 0 before phase 3, are 0 after
              phase 4g but for ``fleet_feasibility``'s, which must equal
@@ -425,7 +463,7 @@ final line:
                 moments, remat) on ``train_4k``'s 4,096-token sequences
                 with the global batch cut 256 -> 2, one warm step, one
                 profiled (device only: the ``rmsnorm_bwd`` kernels' count
-                and device time), two timed (ms a step, tokens/s, peak
+                and device time), one timed (ms a step, tokens/s, peak
                 memory), each kernel's
                 launches a step as the counters saw them (set to 0 before
                 the run), every leaf changed; then on the same weights and
@@ -453,8 +491,9 @@ final line:
              d. the roofline of the card's own steps: one bf16 matmul at
                 8192^3 and one 2 GiB copy beside the roofline's peaks
                 (``launch.roofline.PEAK_FLOPS`` / ``HBM_BW``; above 1.05 of
-                either fails); each run of ``ROOFLINE_RUNS`` (Granite's
-                32k prefill at B=1, DiT-XL/2's gen_fast and gen_1024, the
+                either fails); each run of ``ROOFLINE_RUNS`` (Granite's,
+                StarCoder2-7B's 32k and Gemma-3 27B's 16k prefills at B=1
+                (phases 4h, 4j), DiT-XL/2's gen_fast and gen_1024, the
                 UNet's gen_fast, DiT-XL/2 and the UNet at train_256, Granite
                 at train_4k unmeshed and under a 1 x 1 mesh), counted
                 (unmeshed but the last) on fake CUDA tensors by the
@@ -472,13 +511,14 @@ final line:
 7. the ``{"kernels": [...]}`` line (one entry a kernel; ``flash_attention``
    one a variant: ``tma_wgmma`` at D = 64 (DeiT-B and Granite's prefill,
    phase 4h), 80 (ViT-H/14) and 72 (DiT-XL/2's steps, phase 4g), each
-   with its main-path launches, and at D = 128 (phase 4h's StarCoder2-7B
-   and Gemma-3 27B shapes), ``mma_sync`` and ``f32_regtile``, which no
-   served path launches; ``fleet_feasibility`` with its path,
-   the heap router, and that path's launches; ``rmsnorm`` and
-   ``moe_gemm`` with theirs, the LM's (phase 4h and the meshed prefill of
-   4i) and the train step's, their launches and their shapes' times; ``rmsnorm_backward`` with the train
-   step's), then the ``{"ok": true, ...}`` line.
+   with its main-path launches, and at D = 128 (StarCoder2-7B's and
+   Gemma-3 27B's prefills, phase 4j, with theirs), ``mma_sync`` and
+   ``f32_regtile``, which no served path launches; ``fleet_feasibility``
+   with its path, the heap router, and that path's launches; ``rmsnorm``
+   and ``moe_gemm`` with theirs, the LM's (phases 4h and 4j and the meshed
+   prefill of 4i) and the train step's, their launches and their shapes'
+   times; ``rmsnorm_backward`` with the train step's), then the ``{"ok":
+   true, ...}`` line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -514,6 +554,7 @@ from repro_torch.core import torch_queue as tq  # noqa: E402
 from repro_torch.configs import deit_b, resnet50, vit_h14  # noqa: E402
 from repro_torch.configs import dit_xl2, unet_sd15  # noqa: E402
 from repro_torch.configs import granite_moe_3b_a800m  # noqa: E402
+from repro_torch.configs import gemma3_27b, starcoder2_7b  # noqa: E402
 from repro_torch.configs import get_smoke_config as get_lm_smoke  # noqa: E402
 from repro_torch.configs.shapes import DIFFUSION_SHAPES  # noqa: E402
 from repro_torch.configs.shapes import LM_SHAPES  # noqa: E402
@@ -626,8 +667,9 @@ VIT_H14_FRAME_ATOL = 0.07
 # the eager loop's segment of each main-path run, how often it keeps an
 # event_select input there, and how much of it is profiled (cut from 500,
 # 150, 100 in PR 25 for the time budget: the profiler took ~0.1 s an event
-# to digest, ~40 of phase 3b's 57 s; the kept inputs are as many)
-SEGMENT_EVENTS, FLEET_CAPTURE_EVERY, PROFILED_EVENTS = 250, 75, 25
+# to digest, ~40 of phase 3b's 57 s; the kept inputs are as many; the
+# segment cut 250 -> 125 in PR 32, for the time budget)
+SEGMENT_EVENTS, FLEET_CAPTURE_EVERY, PROFILED_EVENTS = 125, 75, 25
 # the forwarding policies that draw from threefry (the golden file's runs
 # that name one of them)
 STOCHASTIC = ("random", "power_of_two")
@@ -692,8 +734,10 @@ def start_tree_draws(pool) -> None:
     draws = [(vit.numpy_params, vit_h14.CONFIG, vseed)] + [
         (mod.numpy_params, cfg, dmeta["weight_seed"], dmeta["constant_std"])
         for mod, cfg in ((dit, dit_xl2.CONFIG), (unet, unet_sd15.CONFIG))] + [
-        (golden_tree, granite_golden_config(lmeta["sections"]["granite"]),
-         lmeta["weight_seed"], lmeta["constant_std"])]
+        (golden_tree, golden_config("granite", lmeta["sections"]["granite"]),
+         lmeta["weight_seed"], lmeta["constant_std"])] + [
+        (dense_tree, golden_config(name, lmeta["sections"][name]),
+         lmeta["weight_seed"], lmeta["constant_std"]) for name in DENSE_LMS]
     for fn, *args in draws:
         TREE_DRAWS[(fn, *args)] = pool.submit(fn, *args)
 
@@ -1103,9 +1147,10 @@ def fleet_diffs(got, want):
 def scan_vs_eager(dev) -> float:
     """Phase 3d: ``event_scan`` on the card against the eager loop on the
     CPU, on tests/test_fleetsim.py's hot 3-node fleet under the four
-    deterministic policies and the two stochastic ones, with and without
-    campus pricing, and under the stochastic ones on a 2-node mesh and a
-    4-node star (``power_of_two`` at degree 1) and a 32-node mesh with
+    deterministic policies and the two stochastic ones, each with or
+    without campus pricing in turn, and under the stochastic ones on a
+    2-node mesh and a 4-node star (``power_of_two`` at degree 1) and a
+    32-node mesh with
     four hot nodes (degree 31), priced; then the check's own test on two
     planted faults.  Returns the max abs error of the float fields
     (completion, transfer_used)."""
@@ -1122,10 +1167,12 @@ def scan_vs_eager(dev) -> float:
              Topology.full_mesh(32))):
         fleets[name] = (UniformWorkload(counts, window=1200.0,
                                         name=name).to_arrays(0)[0], t)
-    cases = [("hot mesh3", policy, net)
-             for policy in ("batched_feasible", "round_robin",
-                            "least_loaded", "trace", *STOCHASTIC)
-             for net in (False, True)]
+    # each policy once on the hot fleet, priced or not in turn (for the
+    # time budget; the trace run priced: the planted faults below use it)
+    cases = [("hot mesh3", policy, net) for policy, net in (
+        ("batched_feasible", True), ("round_robin", False),
+        ("least_loaded", True), ("trace", True), ("random", False),
+        ("power_of_two", True))]
     cases += [(name, policy, True) for name in ("mesh2", "star4", "mesh32")
               for policy in STOCHASTIC]
     for fleet, policy, priced in cases:
@@ -1162,7 +1209,7 @@ def scan_vs_eager(dev) -> float:
           f"the CPU on every per-request field and counter in {n_cases} "
           f"runs: the hot fleet ({R} requests) under batched_feasible, "
           f"round_robin, least_loaded, trace, random and power_of_two, "
-          f"priced and not; a 2-node mesh, a 4-node star and a 32-node "
+          f"priced or not in turn; a 2-node mesh, a 4-node star and a 32-node "
           f"mesh under random and power_of_two, priced; max abs err {err}",
           flush=True)
 
@@ -2515,7 +2562,9 @@ def wall_ms(fn, reps=3) -> float:
 def step_table(name, eager_rb, graphed_rb, spec, frames):
     """Eager against graphed step times at each class and batch size 1
     and 8 (2 and 4 cut for the time budget; PERF.md keeps their earlier
-    rows): wall (in turns, eager, graphed, graphed, eager), then one call
+    rows): wall (in turns, eager, graphed, graphed, eager, one call
+    each: the better of the two; cut from the best of 3 each for the time
+    budget), then one call
     of each profiled: device busy and idle share (the profiler slows the
     host, so a profiled idle share is an upper bound)."""
     rows = []
@@ -2526,8 +2575,8 @@ def step_table(name, eager_rb, graphed_rb, spec, frames):
                                    ("graphed", graphed_rb))}
             row = dict(model=name, cls=c["name"], res=c["model_res"], b=b)
             row["eager_ms"], row["graphed_ms"] = in_turns(
-                lambda: wall_ms(calls["eager"]),
-                lambda: wall_ms(calls["graphed"]))
+                lambda: wall_ms(calls["eager"], 1),
+                lambda: wall_ms(calls["graphed"], 1))
             for m, fn in calls.items():
                 p = profiled(fn)
                 row[m + "_busy_ms"] = p["busy_us"] / 1e3
@@ -3688,44 +3737,102 @@ def diffusion_phase(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 4h: the language-model serve path (Granite-3.0 MoE: prefill and
-# decode through flash_attention, rmsnorm and moe_gemm)
+# phases 4h and 4j: the language-model serve path, prefill and decode
+# through flash_attention, rmsnorm and moe_gemm (Granite-3.0 MoE in 4h;
+# StarCoder2-7B and Gemma-3 27B in 4j: the D=128 flash kernel, rmsnorm at
+# d = 4,608 / 5,376), each model through one golden check and one main path
 # ---------------------------------------------------------------------------
-# Granite-3.0 MoE at full width, 2 of its 32 layers, against the JAX
-# reference's outputs in tests/data/torch_lm_golden.npz (batch 2, 1,100-token
-# prompts into a 1,104-slot cache, 4 decode steps; every weight leaf random;
-# logits up to |4.7|, K / V rows ~1), by dtype: each output (the prefill's
-# last logits, the steps' logits, the aux loss, the layer-0 K / V rows at 3
-# positions) held by its largest error and its rms error.  f32 with TF32
-# off: max 1.4e-5 on the logits and 6.2e-5 on the K rows (RoPE at
+# The models, each with a section of tests/data/torch_lm_golden.npz: the
+# JAX reference's outputs at full width with the depth cut (Granite and
+# StarCoder2 2 of 32 layers, Gemma-3 6 of 62: layers 0-4 local, 5 global),
+# batch 2, 1,100-token prompts into a 1,104-slot cache, 4 decode steps
+# (Gemma-3 also 4 decode_step_sliding steps from a sliding cache built from
+# its prefill's), every weight leaf random.
+LM_MODELS = {"granite": ("Granite-3.0 MoE", granite_moe_3b_a800m.CONFIG),
+             "starcoder2": ("StarCoder2-7B", starcoder2_7b.CONFIG),
+             "gemma3": ("Gemma-3 27B", gemma3_27b.CONFIG)}
+DENSE_LMS = ("starcoder2", "gemma3")
+# Granite (logits up to |4.7|, K / V rows ~1), by dtype: each output (the
+# prefill's last logits, the steps' logits, the aux loss, the layer-0 K / V
+# rows at 3 positions) held by its largest error and its rms error.  f32
+# with TF32 off: max 1.4e-5 on the logits and 6.2e-5 on the K rows (RoPE at
 # positions up to 1,103: PyTorch's and XLA's f32 pow give frequencies an
 # ulp apart, and the angle multiplies that; the port on the CPU is as far,
 # 6.2e-5), rms 4.8e-6, on an H100; held at 1e-4 / rms 1e-5.  bf16: max
 # 0.073, rms 0.0147 on the prefill's last logits (1,606 of 35,200 routed
 # copies flip at near-ties against the reference's routing); held at 0.1 /
-# rms 0.017.  Every planted fault of granite_faults must fail both: in f32
-# the smallest is a flash kernel that drops the last key (rms 0.0128); in
-# bf16 the same fault is rms 0.0194, 14% above the limit, the sound run
-# 16% below it (on the CPU the port gives 0.0152 and 0.0200).
+# rms 0.017.  In f32 the smallest planted fault of lm_faults is a flash
+# kernel that drops the last key (rms 0.0128); in bf16 the same fault is
+# rms 0.0194, 14% above the limit, the sound run 16% below it (on the CPU
+# the port gives 0.0152 and 0.0200), and its largest error 0.089 under it.
 GRANITE_ATOL = {"float32": 1e-4, "bfloat16": 0.1}
 GRANITE_RMS = {"float32": 1e-5, "bfloat16": 0.017}
+# The dense sections keep the logits at 8,192 seeded vocabulary columns,
+# each row's largest logit and log-sum-exp over the whole vocabulary, and
+# the layer-0 K / V rows at 3 positions, each held by its largest error
+# and its rms error, and the gap from each row's largest logit to its
+# logit at the reference's argmax (0 where they agree; a near-tie flips it
+# in bf16) by its largest, by (model, dtype).  On an H100, f32 with TF32
+# off: the logits within 8.7e-6 / rms 2.2e-6 (StarCoder2) and 3.8e-5 /
+# rms 8.3e-6 (Gemma-3); the K rows the largest (RoPE, as Granite's:
+# 7.5e-5, rising with rope_theta to 1.7e-4 for Gemma-3's 1e6), held at
+# about 3x.  bf16: the logits' rms 0.0066 (StarCoder2) and 0.0154
+# (Gemma-3, 5,376 wide), the largest 0.027 / 0.067.  Every fault of
+# lm_faults fails both measures in f32 (the smallest, StarCoder2's dropped
+# last key, rms 0.0030, 200x its limit); in bf16 the ones that move the
+# output past its rounding (the rest are ROADMAP §3's weak spots with
+# their margins).
+DENSE_ATOL = {("starcoder2", "float32"): 2.5e-4,
+              ("starcoder2", "bfloat16"): 0.1,
+              ("gemma3", "float32"): 5e-4, ("gemma3", "bfloat16"): 0.1}
+DENSE_RMS = {("starcoder2", "float32"): 1.5e-5,
+             ("starcoder2", "bfloat16"): 0.009,
+             ("gemma3", "float32"): 3e-5, ("gemma3", "bfloat16"): 0.018}
 # the four SMOKE configs in f32 (TF32 off) against their golden entries:
 # 2.9e-6 at most on an H100; the CPU tests hold the port there within
 # 1e-5 (observed 3.3e-6)
 LM_SMOKE_ATOL = 1e-5
-# Granite's bf16 prefill at B=1, S=4,096 through the three kernels against
-# the plain path (attn_impl "chunked", the plain rmsnorm and moe_gemm),
-# routed as the kernel path was (pinned_routing): the rms of the
-# difference of the last logits over their rms, 0.0088 on an H100 (left
-# to route itself, the plain path would flip 6% of the routed copies)
-LM_PREFILL_REL_RMS = 0.015
+# the bf16 kernel prefill at B=1, S = LM_PLAIN_PREFILL against the plain
+# path (attn_impl "chunked", the plain rmsnorm and moe_gemm; a MoE routed
+# as the kernel path was, pinned_routing): the rms of the difference of
+# the last logits over their rms, on an H100 Granite-3.0 MoE 0.0088 (left
+# to route itself, the plain path would flip 6% of the routed copies),
+# StarCoder2-7B 0.0127 (32 layers), Gemma-3 27B 0.0294 (62), held at
+# about 1.7x, 2x and 1.5x
+LM_PREFILL_REL_RMS = {"granite": 0.015, "starcoder2": 0.025,
+                      "gemma3": 0.045}
 LM_WEIGHT_SEED = 0
-# decode steps on the main path: greedy after the 32k prefill (each step
-# launches and times as the others); decode_32k
-LM_GREEDY_STEPS, LM_DECODE32K_STEPS, LM_DECODE32K_BATCH = 8, 8, 16
 LM_PLAIN_PREFILL = 4096
 LM_COUNTERS = {"flash_attention": fa_mod.flash_attention,
                "rmsnorm": rn_mod.rmsnorm, "moe_gemm": mg_mod.moe_gemm}
+# The main path at full width and depth, bf16, weights drawn on the card:
+# the prefill at B=1, prefill_32k's 32,768 tokens, Gemma-3's halved to
+# 16,384 (at 32,768 its 56.84 GB of weights, 16.6 GB of cache and the
+# SwiGLU's f32 SiLU, 2.8 GB a copy, ask more than the card's 85.0 GB: out
+# of memory on an H100); LM_STEPS decode steps a run (each launches and
+# times as the others): greedy on the prefill's cache, decode_32k at
+# LM_DECODE32K_BATCH (the largest power of two whose cache fits beside the
+# dense models' weights: their published 128 needs 275 / 344 GB), and
+# Gemma-3's long_500k with the context cut 524,288 -> DENSE_LONG_CONTEXT
+# (its global caches 10.7 GB), each from a cache half full; every run
+# leaving LM_HEADROOM_GB of the card free.
+LM_PREFILL = {"granite": 32768, "starcoder2": 32768, "gemma3": 16384}
+LM_DECODE32K_BATCH = {"granite": 16, "starcoder2": 16, "gemma3": 4}
+DENSE_LONG_CONTEXT = 131072
+LM_STEPS = 8
+LM_HEADROOM_GB = 3.0
+# Gemma-3's decode_step_sliding on the sliding cache built from the
+# prefill's cache against decode_step on the full cache, the same tokens,
+# bf16 at full depth: the same keys summed in ring order and over the
+# whole cache, and a p that rounds to bf16 the other way moves a layer's
+# output by a unit, 62 layers over: the largest logit difference over the
+# steps 0.199, the rms of the difference 0.0344 of the logits' rms on an
+# H100 (the reference's own at 6 layers 0.059 / rms 0.011, the golden's
+# meta), held at 1.5x; the greedy tokens equal but at near-ties within
+# DENSE_SLIDING_ATOL (2 of 8 on an H100; the reference's own bf16 decodes
+# flip one of 8 at 6 layers).  The same steps with a ring slot off by one
+# (ring_shifted) must fail these limits.
+DENSE_SLIDING_ATOL, DENSE_SLIDING_REL_RMS = 0.3, 0.05
 
 
 def lm_golden():
@@ -3735,17 +3842,25 @@ def lm_golden():
     return g, json.loads(str(g.pop("meta")))
 
 
-def granite_golden_config(sec):
-    """Granite at the golden section ``sec``'s depth, ``attn_impl="pallas"``
-    (the 1,100-token prompts run the flash kernel once a layer)."""
-    return dataclasses.replace(granite_moe_3b_a800m.CONFIG,
-                               n_layers=sec["n_layers"], attn_impl="pallas")
+def golden_config(name, sec):
+    """The model of the golden section ``name`` (``sec``: its meta entry)
+    at its cut depth, ``attn_impl="pallas"`` (the 1,100-token prompts run
+    the flash kernel once a layer)."""
+    return dataclasses.replace(LM_MODELS[name][1], n_layers=sec["n_layers"],
+                               attn_impl="pallas")
 
 
 @functools.lru_cache(maxsize=1)
 def golden_tree(cfg, seed: int, constant_std: float):
-    """The LM golden's seeded numpy weights (``transformer.numpy_params``),
+    """Granite's golden seeded numpy weights (``transformer.numpy_params``),
     drawn once for phases 4h and 4i (390 M values at Granite's cut)."""
+    return transformer.numpy_params(cfg, seed, constant_std)
+
+
+def dense_tree(cfg, seed: int, constant_std: float):
+    """A dense golden section's seeded numpy weights (drawn on the host
+    beside phase 3, :func:`start_tree_draws`, and dropped once on the
+    card)."""
     return transformer.numpy_params(cfg, seed, constant_std)
 
 
@@ -3760,11 +3875,11 @@ def lm_counts(zero=False) -> dict:
 def lm_forward_counts(cfg, S: int) -> dict:
     """Launches of one forward of S tokens a row: flash once a layer past
     ``attn_chunk`` tokens under ``pallas``, rmsnorm twice a layer and once
-    at the end, moe_gemm three times a layer."""
+    at the end, moe_gemm three times a MoE layer."""
     L = cfg.n_layers
     flash = L if cfg.attn_impl == "pallas" and S > cfg.attn_chunk else 0
     return {"flash_attention": flash, "rmsnorm": 2 * L + 1,
-            "moe_gemm": 3 * L}
+            "moe_gemm": 3 * L if cfg.moe else 0}
 
 
 @contextlib.contextmanager
@@ -3810,149 +3925,321 @@ def pinned_routing(experts):
         yield calls
 
 
-def granite_run(params, cfg, g, sec, dev, check_counts=False):
-    """The golden's prefill, decode steps and hidden_states on the card
-    (``sec``: the meta entry of the golden's granite section); returns
-    each output as f32 numpy, and the routing of the prompts."""
-    toks = torch.from_numpy(g["granite/tokens"]).long().to(dev)
-    steps = torch.from_numpy(g["granite/decode_tokens"]).long().to(dev)
+def lm_helpers():
+    """``tests/lm_helpers.py``: the sliding cache from a full one and the
+    golden's views of logits (numpy and torch only)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import lm_helpers as helpers
+    return helpers
+
+
+def is_sliding(cfg) -> bool:
+    """Whether the model decodes through ``decode_step_sliding`` (local
+    layers with a window, every ``global_every``-th global)."""
+    return bool(cfg.sliding_window and cfg.global_every)
+
+
+def cast_params(params, cfg):
+    """Each leaf cast in place to the dtype its def names (the f32 golden
+    weights to bf16 on the card: the same values ``params_from_numpy``
+    gives, rounded to nearest even)."""
+    for path, d in transformer.param_defs(cfg).items():
+        parent, leaf = path.rsplit("/", 1) if "/" in path else ("", path)
+        node = model_common.nested(params, parent) if parent else params
+        node[leaf] = node[leaf].to(model_common.torch_dtype(d.dtype))
+    return params
+
+
+@contextlib.contextmanager
+def flash_windows(keep=()):
+    """The window of each ``ops.flash_attention`` call, and clones of the
+    inputs of the calls whose index is in ``keep``."""
+    real, seen = ops.flash_attention, dict(windows=[], kept={})
+
+    def recording(q, k, v, **kw):
+        i = len(seen["windows"])
+        seen["windows"].append(kw.get("window"))
+        if i in keep:
+            seen["kept"][i] = ((q.clone(), k.clone(), v.clone()), dict(kw))
+        return real(q, k, v, **kw)
+
+    with patched(ops, "flash_attention", recording):
+        yield seen
+
+
+def ring_shifted(W: int):
+    """``transformer._decode_layer`` with a local layer's ring slot off by
+    one (a planted fault of the sliding decode: the step's K / V written
+    at slot ``length % W + 1``)."""
+    real = transformer._decode_layer
+
+    def layer(h, lp, cfg, positions, k_l, v_l, slot, n_valid, window):
+        if k_l.shape[1] == W:                   # a local layer's ring
+            slot = (slot + 1) % W
+        return real(h, lp, cfg, positions, k_l, v_l, slot, n_valid, window)
+    return layer
+
+
+def golden_run(params, cfg, g, sec, name, dev,
+               runs=("decode", "sliding"), check_counts=False):
+    """The golden section ``name``'s prefill on the card, then its decode
+    steps (``decode``: with the layer-0 K / V rows and a MoE's aux loss
+    from ``hidden_states``) and, for a sliding-window model, its
+    ``decode_step_sliding`` steps from the prefill's cache (``sliding``);
+    returns each output as f32 numpy, and the routing of the prompts (a
+    MoE's; else None)."""
+    helpers = lm_helpers()
+    toks = torch.from_numpy(g[name + "/tokens"]).long().to(dev)
+    steps = torch.from_numpy(g[name + "/decode_tokens"]).long().to(dev)
     S = toks.shape[1]
+    host = lambda t: t.float().cpu().numpy()
+    counts = []
     with recorded_routing(cfg.n_layers) as routing:
         lm_counts(zero=True)
         last, cache = transformer.prefill(params, toks, cfg, sec["max_len"])
-        prefill_counts = lm_counts()
-    logits, step_counts = [], []
-    for s in steps:
-        lm_counts(zero=True)
-        out, cache = transformer.decode_step(params, cache, s, cfg)
-        step_counts.append(lm_counts())
-        logits.append(out)
-    _, aux = transformer.hidden_states(params, toks, cfg)
-    rows = sec["cache_rows"]
+        counts.append((S, lm_counts()))
+    out = dict(prefill_logits=host(last))
+    sl = None
+    if "sliding" in runs and is_sliding(cfg):
+        sl = helpers.sliding_from_full(cache["k"], cache["v"], S,
+                                       cfg.sliding_window, cfg.global_every)
+    if "decode" in runs:
+        logits = []
+        for s in steps:
+            lm_counts(zero=True)
+            o, cache = transformer.decode_step(params, cache, s, cfg)
+            counts.append((1, lm_counts()))
+            logits.append(o)
+        rows = sec["cache_rows"]
+        out.update(decode_logits=host(torch.stack(logits)),
+                   k_rows=host(cache["k"][0][:, rows]),
+                   v_rows=host(cache["v"][0][:, rows]))
+        if cfg.moe:
+            out["aux"] = host(transformer.hidden_states(params, toks,
+                                                        cfg)[1])
+    del cache
+    if sl is not None:
+        logits = []
+        for s in steps:
+            lm_counts(zero=True)
+            o, sl = transformer.decode_step_sliding(params, sl, s, cfg)
+            counts.append((1, lm_counts()))
+            logits.append(o)
+        out["sliding_logits"] = host(torch.stack(logits))
     if check_counts:
-        want = lm_forward_counts(cfg, S)
-        want1 = dict(lm_forward_counts(cfg, 1), flash_attention=0)
-        if prefill_counts != want or any(c != want1 for c in step_counts):
-            fail(f"Granite golden run launched {prefill_counts} in its "
-                 f"prefill and {step_counts} in its steps, expected {want} "
-                 f"and {want1}")
-    host = lambda t: t.float().cpu().numpy()
-    return dict(prefill_logits=host(last), decode_logits=host(
-        torch.stack(logits)), aux=host(aux), k_rows=host(
-        cache["k"][0][:, rows]), v_rows=host(cache["v"][0][:, rows])), \
-        np.stack(routing)
+        for n, c in counts:
+            want = lm_forward_counts(cfg, n)
+            if c != want:
+                fail(f"{name} golden run: {c} launches for {n} tokens a "
+                     f"row, expected {want}")
+    return out, np.stack(routing) if routing else None
 
 
-def granite_faults():
-    """The planted faults of the Granite golden check: name -> (the dtypes
-    whose limits must reject it, a context that plants it)."""
-    real_input, real_layer = transformer._decode_input, \
-        transformer._decode_layer
-    real_route, real_norm = lm_moe.route_topk, ops.rmsnorm
-
-    def rope_off(params, cache, tokens, cfg):
-        pos, h, positions = real_input(params, cache, tokens, cfg)
-        return pos, h, positions + 1
-
-    def shifted(h, lp, cfg, positions, k_l, v_l, slot, n_valid, window):
-        return real_layer(h, lp, cfg, positions, k_l, v_l,
-                          min(slot + 1, k_l.shape[1] - 1), n_valid, window)
+def lm_faults(name, cfg):
+    """The planted faults of a golden check: name -> (the measures that
+    must reject it by dtype, the runs it needs, a context that plants
+    it).  Every one fails both measures in f32; in bf16 a dropped last
+    key moves the logits about as far as their rounding: Granite's and
+    Gemma-3's rms rejects it, StarCoder2's limits do not (ROADMAP §3's
+    weak spots, with their margins)."""
+    real_flash, real_norm = ops.flash_attention, ops.rmsnorm
+    real_route, real_input = lm_moe.route_topk, transformer._decode_input
+    real_layer, real_windows = transformer._decode_layer, \
+        transformer._layer_windows
 
     def drop_last_key(q, k, v, *, causal=True, window=None, **kw):
         return ref.flash_attention_ref(q, k[:, :-1], v[:, :-1],
                                        causal=causal, window=window)
 
-    both = ("float32", "bfloat16")
-    return {
-        "decode's RoPE position off by one": (
-            both, lambda: patched(transformer, "_decode_input", rope_off)),
-        "the cache written at pos + 1": (
-            both, lambda: patched(transformer, "_decode_layer", shifted)),
-        "the router masked to 40 experts (the reference's padding fixed)": (
-            both, lambda: patched(lm_moe, "route_topk",
-                                  lambda lg, k, n_real=None:
-                                  real_route(lg, k, 40))),
-        "the norm scaled by scale, not 1 + scale": (
-            both, lambda: patched(ops, "rmsnorm",
-                                  lambda x, s: real_norm(x, s - 1))),
+    def head_mod_kv(q, k, v, **kw):
+        idx = torch.arange(q.shape[2], device=k.device) % k.shape[2]
+        return real_flash(q, k[:, :, idx].contiguous(),
+                          v[:, :, idx].contiguous(), **kw)
+
+    def rope_off(params, cache, tokens, c):
+        pos, h, positions = real_input(params, cache, tokens, c)
+        return pos, h, positions + 1
+
+    def shifted(h, lp, c, positions, k_l, v_l, slot, n_valid, window):
+        return real_layer(h, lp, c, positions, k_l, v_l,
+                          min(slot + 1, k_l.shape[1] - 1), n_valid, window)
+
+    def wider(c):
+        return [w if w == transformer.NO_WINDOW else w + 1
+                for w in real_windows(c)]
+
+    both = {"float32": ("max", "rms"), "bfloat16": ("max", "rms")}
+    decode = ("decode",)
+    faults = {
         "a flash kernel that drops the last key": (
-            both, lambda: patched(ops, "flash_attention", drop_last_key)),
+            {"float32": ("max", "rms"),
+             "bfloat16": () if name == "starcoder2" else ("rms",)}, decode,
+            lambda: patched(ops, "flash_attention", drop_last_key)),
+        "the norm scaled by scale, not 1 + scale": (
+            both, decode,
+            lambda: patched(ops, "rmsnorm", lambda x, s: real_norm(x, s - 1))),
     }
+    if name == "granite":
+        faults.update({
+            "decode's RoPE position off by one": (
+                both, decode,
+                lambda: patched(transformer, "_decode_input", rope_off)),
+            "the cache written at pos + 1": (
+                both, decode,
+                lambda: patched(transformer, "_decode_layer", shifted)),
+            "the router masked to 40 experts (the reference's padding "
+            "fixed)": (
+                both, decode,
+                lambda: patched(lm_moe, "route_topk",
+                                lambda lg, k, n_real=None:
+                                real_route(lg, k, 40))),
+        })
+    if name == "starcoder2":
+        faults["the GQA head map h % KV, not h // G (G = 9)"] = (
+            both, decode,
+            lambda: patched(ops, "flash_attention", head_mod_kv))
+    if is_sliding(cfg):
+        faults.update({
+            "the window off by one (1,025 keys)": (
+                both, decode,
+                lambda: patched(transformer, "_layer_windows", wider)),
+            "every layer global": (
+                both, decode,
+                lambda: patched(transformer, "_layer_windows",
+                                lambda c: [transformer.NO_WINDOW]
+                                * c.n_layers)),
+            "a ring slot off by one in the sliding decode": (
+                both, ("sliding",),
+                lambda: patched(transformer, "_decode_layer",
+                                ring_shifted(cfg.sliding_window))),
+        })
+    return faults
 
 
-def lm_errors(got, g, prefix):
-    """Largest and rms error of each output against the golden's."""
+def lm_errors(got, g, prefix, columns=None) -> dict:
+    """Largest and rms error of each output against the golden's.  A
+    logits output (``{run}_logits``) that the golden keeps as views (a
+    dense section: ``{run}_cols``) is held at the stored ``columns``, by
+    each row's largest logit and log-sum-exp, and by the gap from the
+    row's largest logit to its logit at the golden's argmax (held by its
+    largest alone, its rms reported as 0)."""
     out = {}
-    for name, a in got.items():
-        want = g[prefix + name]
+
+    def err(key, a, want, rms=True):
         if a.shape != want.shape or not np.isfinite(a).all():
-            fail(f"{prefix}{name}: {a.shape} not finite or not {want.shape}")
-        d = a - want
-        out[name] = (float(np.abs(d).max()), float(np.sqrt((d ** 2).mean())))
+            fail(f"{prefix}{key}: {a.shape} not finite or not {want.shape}")
+        d = np.asarray(a, np.float64) - want
+        out[key] = (float(np.abs(d).max()),
+                    float(np.sqrt((d ** 2).mean())) if rms else 0.0)
+
+    for key, a in got.items():
+        if prefix + key in g:
+            err(key, a, g[prefix + key])
+            continue
+        run = key.removesuffix("_logits")
+        views = lm_helpers().logit_views(a, columns)
+        for view in ("cols", "max", "lse"):
+            err(f"{run}_{view}", views[view], g[f"{prefix}{run}_{view}"])
+        arg = g[f"{prefix}{run}_argmax"].astype(np.int64)
+        at = np.take_along_axis(a, arg[..., None], -1)[..., 0]
+        err(f"{run}_argmax_gap", a.max(-1) - at, np.zeros(at.shape),
+            rms=False)
     return out
 
 
-def granite_golden_check(g, meta, dev) -> dict:
-    """Phase 4h a: Granite at full width, depth cut to the golden's layers,
-    f32 (TF32 off) and bf16, attn_impl "pallas" (the 1,100-token prefill
-    runs the flash kernel once a layer), against the reference's outputs;
-    each planted fault rejected where its dtype must; the routing flips."""
-    sec = meta["sections"]["granite"]
-    base = granite_golden_config(sec)
+def golden_limits(name, dt):
+    """The golden section ``name``'s limits in ``dt``: (largest, rms)."""
+    if name == "granite":
+        return GRANITE_ATOL[dt], GRANITE_RMS[dt]
+    return DENSE_ATOL[(name, dt)], DENSE_RMS[(name, dt)]
+
+
+def lm_golden_check(name, g, meta, dev) -> dict:
+    """Phases 4h a and 4j a: the golden section ``name``'s model at full
+    width, depth cut, f32 (TF32 off) and bf16, ``attn_impl="pallas"`` (the
+    1,100-token prefill runs the flash kernel once a layer), against the
+    reference's outputs, launches counted; each planted fault rejected by
+    the measures its dtype requires; a MoE's routing flips."""
+    label, full = LM_MODELS[name]
+    sec = meta["sections"][name]
+    base = golden_config(name, sec)
     t0 = time.time()
-    tree = host_tree(golden_tree, base, meta["weight_seed"],
-                     meta["constant_std"])
+    # Granite's tree stays cached for phase 4i
+    tree = host_tree(golden_tree if name == "granite" else dense_tree, base,
+                     meta["weight_seed"], meta["constant_std"])
     n = sum(int(np.prod(d.shape))
             for d in transformer.param_defs(base).values())
-    print(f"lm golden: Granite-3.0 MoE, {sec['n_layers']} of 32 layers at "
-          f"full width, {n:,} parameters (seed {meta['weight_seed']}, every "
-          f"leaf random), ready in {time.time() - t0:.1f} s (drawn on the "
-          f"host beside phase 3)", flush=True)
+    drawn_s = time.time() - t0
     if n != sec["n_params"]:
-        fail(f"Granite golden: {n} parameters, the golden's {sec['n_params']}")
+        fail(f"{label} golden: {n} parameters, the golden's "
+             f"{sec['n_params']}")
+    params = transformer.params_from_numpy(
+        tree, dataclasses.replace(base, param_dtype="float32"), dev)
+    del tree
+    torch.cuda.synchronize()
+    print(f"lm golden: {label}, {sec['n_layers']} of {full.n_layers} layers "
+          f"at full width, {n:,} parameters (seed {meta['weight_seed']}, "
+          f"every leaf random), ready in {drawn_s:.1f} s (drawn on the host "
+          f"beside phase 3), on the card in {time.time() - t0:.1f} s",
+          flush=True)
+    columns = g.get(name + "/columns")
     out = {}
     for dt in ("float32", "bfloat16"):
         cfg = dataclasses.replace(base, param_dtype=dt)
-        params = transformer.params_from_numpy(tree, cfg, dev)
-        prefix = f"granite/{dt}/"
-        atol, rms_tol = GRANITE_ATOL[dt], GRANITE_RMS[dt]
-        got, routing = granite_run(params, cfg, g, sec, dev,
-                                   check_counts=True)
-        errs = lm_errors(got, g, prefix)
-        ok = all(e <= atol and r <= rms_tol for e, r in errs.values())
-        want_r = g[prefix + "experts"].astype(np.int64)
-        flips = (routing != want_r)
-        sets = sum(int((np.sort(a, 1) != np.sort(b, 1)).any(1).sum())
-                   for a, b in zip(routing, want_r))
+        if dt == "bfloat16":
+            params = cast_params(params, cfg)
+        prefix = f"{name}/{dt}/"
+        atol, rms_tol = golden_limits(name, dt)
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.time()
+        got, routing = golden_run(params, cfg, g, sec, name, dev,
+                                  check_counts=True)
+        errs = lm_errors(got, g, prefix, columns)
         row = dict(errors=errs, atol=atol, rms_tol=rms_tol,
-                   routing_flips=int(flips.sum()),
-                   routing_flips_by_layer=flips.sum((1, 2)).tolist(),
-                   tokens_with_another_expert_set=sets,
-                   routed_copies=int(want_r.size), faults={})
-        print(f"lm golden Granite {dt}: " + "; ".join(
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   faults={})
+        routed = ""
+        if routing is not None:
+            want_r = g[prefix + "experts"].astype(np.int64)
+            flips = (routing != want_r)
+            sets = sum(int((np.sort(a, 1) != np.sort(b, 1)).any(1).sum())
+                       for a, b in zip(routing, want_r))
+            row.update(routing_flips=int(flips.sum()),
+                       routing_flips_by_layer=flips.sum((1, 2)).tolist(),
+                       tokens_with_another_expert_set=sets,
+                       routed_copies=int(want_r.size))
+            routed = (f"; routing flips against the reference: "
+                      f"{row['routing_flips']} of {want_r.size} routed "
+                      f"copies (by layer {row['routing_flips_by_layer']}), "
+                      f"{sets} token-layers with another expert set")
+        print(f"lm golden {label} {dt}: " + "; ".join(
             f"{k} max {e:.3g} rms {r:.3g}" for k, (e, r) in errs.items())
-            + f" (limits {atol} / rms {rms_tol}); routing flips against the "
-            f"reference: {row['routing_flips']} of {want_r.size} routed "
-            f"copies (by layer {row['routing_flips_by_layer']}), {sets} "
-            f"token-layers with another expert set", flush=True)
-        if not ok:
-            fail(f"Granite {dt}: outputs {errs} beyond {atol} / {rms_tol}")
-        for fault, (must, plant) in granite_faults().items():
+            + f" (limits {atol} / rms {rms_tol}); {time.time() - t1:.1f} s, "
+            f"peak {row['peak_gb']:.2f} GB{routed}", flush=True)
+        if not all(e <= atol and r <= rms_tol for e, r in errs.values()):
+            fail(f"{label} {dt}: outputs {errs} beyond {atol} / {rms_tol}")
+        for fault, (must, runs, plant) in lm_faults(name, cfg).items():
             with plant():
-                bad, _ = granite_run(params, cfg, g, sec, dev)
-            berrs = lm_errors(bad, g, prefix)
-            caught = any(e > atol or r > rms_tol for e, r in berrs.values())
+                bad, _ = golden_run(params, cfg, g, sec, name, dev, runs)
+            berrs = lm_errors(bad, g, prefix, columns)
+            seen = dict(max=any(e > atol for e, _ in berrs.values()),
+                        rms=any(r > rms_tol for _, r in berrs.values()))
             worst = max(berrs.items(), key=lambda kv: kv[1][1] / rms_tol)
-            row["faults"][fault] = dict(errors=berrs, rejected=caught)
-            need = "" if dt in must else f" (not required in {dt})"
-            print(f"lm golden Granite {dt}, {fault}: worst output "
+            row["faults"][fault] = dict(errors=berrs, by_max=seen["max"],
+                                        by_rms=seen["rms"])
+            need = must.get(dt, ())
+            print(f"lm golden {label} {dt}, {fault}: worst output "
                   f"{worst[0]} max {worst[1][0]:.3g} rms {worst[1][1]:.3g}; "
-                  f"{'rejected' if caught else 'NOT rejected'}{need}",
-                  flush=True)
-            if not caught and dt in must:
-                fail(f"Granite {dt}: the limits pass a forward where {fault}")
+                  f"largest errors " + ", ".join(
+                      f"{k} {e:.3g}" for k, (e, _) in berrs.items())
+                  + f"; rejected by the largest error: {seen['max']}, by "
+                  f"the rms error: {seen['rms']} (required: "
+                  f"{', '.join(need) or 'none'})", flush=True)
+            if not all(seen[m] for m in need):
+                fail(f"{label} {dt}: a limit passes a forward where {fault}")
         out[dt] = row
-        del params
+    del params
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4015,17 +4302,16 @@ def lm_flash_bound_ms(B, S, H, KV, D, window=None):
     return bound(bytes_ms, ops_ms)
 
 
-# phase 4h's flash shapes beside Granite's prefill, at its 32,768 tokens on
-# random bf16 inputs (seed LM_FLASH_SEED), the ones item 8d's models give
-# the kernel: StarCoder2-7B's causal attention (configs/starcoder2_7b.py:
-# 36 query heads on 4 KV heads, 128 wide) and Gemma-3 27B's local layers
-# (configs/gemma3_27b.py: 32 on 16, 128 wide, a sliding window of 1,024)
-LM_FLASH_SHAPES = {"StarCoder2-7B": (36, 4, 128, None),
-                   "Gemma-3 27B local": (32, 16, 128, 1024)}
+# flash shapes on random bf16 inputs beside a model's kept ones (seed
+# LM_FLASH_SEED), at prefill_32k's 32,768 tokens: Gemma-3 27B's local
+# layers (configs/gemma3_27b.py: 32 on 16, 128 wide, a sliding window of
+# 1,024), whose main path runs 16,384 tokens
+LM_FLASH_SHAPES = {"gemma3": (32, 16, 128, 1024)}
 LM_FLASH_SEED = 27
 # the band's skip, held on the card: a causal launch within this share of
-# the non-causal one on the same inputs (Granite's shape), a windowed one
-# (window 1,024) within this share of the causal one (Gemma-3's shape)
+# the non-causal one on the same inputs (each model's first causal
+# layer), a windowed one (window 1,024) within this share of the causal
+# one (Gemma-3's shape at 32k)
 LM_CAUSAL_SHARE, LM_WINDOW_SHARE = 0.6, 0.1
 
 
@@ -4194,6 +4480,27 @@ def moe_gemm_row(label, x, w) -> dict:
     return row
 
 
+def rmsnorm_row(label, x, s) -> dict:
+    """``rmsnorm`` on an input kept from a path (rows of x, on the card):
+    against its plain version, then timed beside it, ``F.rms_norm`` and
+    the bound."""
+    x2 = x.reshape(-1, x.shape[-1])
+    R, d = x2.shape
+    e = check_close(f"rmsnorm {label}", rn_mod.rmsnorm(x2, s),
+                    ref.rmsnorm_ref(x2, s), ref.rmsnorm_tolerance(x2.dtype))
+    weight = (1.0 + s.float()).to(x2.dtype)
+    lib = torch.nn.functional.rms_norm
+    row = dict(label=label, R=R, d=d, dtype=str(x2.dtype)[6:],
+               ms=graph_ms(lambda: rn_mod.rmsnorm(x2, s), 50),
+               plain_ms=graph_ms(lambda: ref.rmsnorm_ref(x2, s), 10),
+               library_ms=graph_ms(lambda: lib(x2, (d,), weight=weight,
+                                               eps=rn_mod.EPS), 50),
+               max_abs_err=e)
+    row["bound_ms"], row["bound_by"] = rmsnorm_bound_ms(R, d,
+                                                        x2.element_size())
+    return row
+
+
 def kernel_row_lines(rows) -> None:
     """One line a timed kernel row: its time beside its plain version,
     the library call and the bound (``ratio`` set on each row)."""
@@ -4216,180 +4523,304 @@ def kernel_row_lines(rows) -> None:
                   f"({r['bound_by']}){more}", flush=True)
 
 
-def lm_kernel_rows(kept, dev) -> dict:
-    """Phase 4h c-d on the kernel inputs kept from the main path: each
-    against its plain version, then timed beside it, the library call and
-    the bound."""
-    rows = {"flash_attention": [], "flash_attention_d128": [],
-            "rmsnorm": [], "moe_gemm": []}
-    errs = {}
-    # flash, layers 0 and 31 of the 32k prefill
-    for layer, ((q, k, v), kw) in zip(kept["layers"], kept["flash"]):
+def lm_kernel_rows(name, label, kept, dev) -> tuple:
+    """Phases 4h c-d and 4j d on the kernel inputs kept from one model's
+    main path: flash on each kept layer's prefill input against the plain
+    version by blocks of query rows, and on the first of each window
+    timed beside it, SDPA and the bound (a causal one also without the
+    mask, held within ``LM_CAUSAL_SHARE``); the model's
+    ``LM_FLASH_SHAPES`` on random inputs (the windowed launch held within
+    ``LM_WINDOW_SHARE`` of the causal one); ``rmsnorm`` and ``moe_gemm``
+    on the prefill's and the decodes' inputs.  Returns the rows and the
+    largest error of each kernel."""
+    rows = {"flash_attention": [], "rmsnorm": [], "moe_gemm": []}
+    errs = dict.fromkeys(rows, 0.0)
+    timed = set()
+    for layer, (q, k, v), kw in kept["flash"]:
         window = kw.get("window")
-        e, _ = lm_flash_check(f"layer {layer}", q, k, v, window)
-        errs["flash_attention"] = max(errs.get("flash_attention", 0.0), e)
-        if layer:
+        window = None if window == transformer.NO_WINDOW else window
+        e, _ = lm_flash_check(f"{label} layer {layer}", q, k, v, window)
+        errs["flash_attention"] = max(errs["flash_attention"], e)
+        if window in timed:
             continue
-        row = lm_flash_row("Granite-3.0 MoE", q, k, v, window)
-        # the same inputs without the mask: every key tile of every row
-        row["non_causal_ms"] = timed_ms(lambda: fa_mod.flash_attention(
-            q, k, v, causal=False), 3)
-        row["causal_share"] = row["ms"] / row["non_causal_ms"]
-        tiles = [flash_band_work(*q.shape[:3], q.shape[3], c, window)[0]
-                 for c in (True, False)]
-        print(f"lm kernel: flash_attention causal {row['ms']:.3f} ms "
-              f"against {row['non_causal_ms']:.3f} ms non-causal: "
-              f"{row['causal_share']:.3f} (limit {LM_CAUSAL_SHARE}); the "
-              f"band modelled by key_tile_band: {tiles[0]:,} of "
-              f"{tiles[1]:,} key tiles ({tiles[0] / tiles[1]:.3f})",
-              flush=True)
-        if not row["causal_share"] <= LM_CAUSAL_SHARE:
-            fail(f"the causal flash launch takes {row['causal_share']} of "
-                 f"the non-causal one")
+        timed.add(window)
+        row = lm_flash_row(f"{label} layer {layer}", q, k, v, window)
+        row["max_abs_err"] = e
+        if window is None:
+            # the same inputs without the mask: every key tile of every row
+            row["non_causal_ms"] = timed_ms(lambda: fa_mod.flash_attention(
+                q, k, v, causal=False), 3)
+            row["causal_share"] = row["ms"] / row["non_causal_ms"]
+            tiles = [flash_band_work(*q.shape[:3], q.shape[3], c, None)[0]
+                     for c in (True, False)]
+            print(f"lm kernel: flash_attention {label} layer {layer} causal "
+                  f"{row['ms']:.3f} ms against {row['non_causal_ms']:.3f} "
+                  f"ms non-causal: {row['causal_share']:.3f} (limit "
+                  f"{LM_CAUSAL_SHARE}); the band modelled by key_tile_band: "
+                  f"{tiles[0]:,} of {tiles[1]:,} key tiles "
+                  f"({tiles[0] / tiles[1]:.3f})", flush=True)
+            if not row["causal_share"] <= LM_CAUSAL_SHARE:
+                fail(f"{label}: the causal flash launch takes "
+                     f"{row['causal_share']} of the non-causal one")
         rows["flash_attention"].append(row)
-    # StarCoder2-7B's and Gemma-3 27B's local attention at 32k (D = 128)
-    gen = torch.Generator(device=dev).manual_seed(LM_FLASH_SEED)
-    S = kept["flash"][0][0][0].shape[1]
-    for model, (H, KV, D, window) in LM_FLASH_SHAPES.items():
+    if name in LM_FLASH_SHAPES:
+        H, KV, D, window = LM_FLASH_SHAPES[name]
+        S = LM_SHAPES["prefill_32k"].seq_len
+        gen = torch.Generator(device=dev).manual_seed(LM_FLASH_SEED)
         q, k, v = (torch.randn(1, S, h, D, generator=gen, device=dev,
                                dtype=torch.bfloat16) for h in (H, KV, KV))
-        e, _ = lm_flash_check(model, q, k, v, window)
-        errs["flash_attention_d128"] = max(
-            errs.get("flash_attention_d128", 0.0), e)
-        row = lm_flash_row(model, q, k, v, window)
-        if window is not None:
-            row["causal_ms"] = timed_ms(lambda: fa_mod.flash_attention(
-                q, k, v, causal=True), 3)
-            row["window_share"] = row["ms"] / row["causal_ms"]
-            print(f"lm kernel: flash_attention {model} window {window} "
-                  f"{row['ms']:.3f} ms against {row['causal_ms']:.3f} ms "
-                  f"causal without it: {row['window_share']:.4f} (limit "
-                  f"{LM_WINDOW_SHARE})", flush=True)
-            if not row["window_share"] <= LM_WINDOW_SHARE:
-                fail(f"the windowed flash launch takes "
-                     f"{row['window_share']} of the causal one")
-        rows["flash_attention_d128"].append(row)
+        what = f"{label} local, random inputs"
+        e, _ = lm_flash_check(what, q, k, v, window)
+        errs["flash_attention"] = max(errs["flash_attention"], e)
+        row = lm_flash_row(what, q, k, v, window)
+        row["max_abs_err"] = e
+        row["causal_ms"] = timed_ms(lambda: fa_mod.flash_attention(
+            q, k, v, causal=True), 3)
+        row["window_share"] = row["ms"] / row["causal_ms"]
+        print(f"lm kernel: flash_attention {what} window {window} "
+              f"{row['ms']:.3f} ms against {row['causal_ms']:.3f} ms "
+              f"causal without it: {row['window_share']:.4f} (limit "
+              f"{LM_WINDOW_SHARE})", flush=True)
+        if not row["window_share"] <= LM_WINDOW_SHARE:
+            fail(f"the windowed flash launch takes "
+                 f"{row['window_share']} of the causal one")
+        rows["flash_attention"].append(row)
         del q, k, v
-    # rmsnorm: the prefill's first norm, decode rows at B = 1 and 16
-    lib = torch.nn.functional.rms_norm
-    for label, (x, s) in kept["rmsnorm"]:
-        x2 = x.reshape(-1, x.shape[-1])
-        R, d = x2.shape
-        e = check_close(f"rmsnorm {label}", rn_mod.rmsnorm(x2, s),
-                        ref.rmsnorm_ref(x2, s),
-                        ref.rmsnorm_tolerance(x2.dtype))
-        errs["rmsnorm"] = max(errs.get("rmsnorm", 0.0), e)
-        weight = (1.0 + s.float()).to(x2.dtype)
-        row = dict(label=label, R=R, d=d, dtype=str(x2.dtype)[6:],
-                   ms=graph_ms(lambda: rn_mod.rmsnorm(x2, s), 50),
-                   plain_ms=graph_ms(lambda: ref.rmsnorm_ref(x2, s), 10),
-                   library_ms=graph_ms(lambda: lib(x2, (d,), weight=weight,
-                                                   eps=rn_mod.EPS), 50),
-                   max_abs_err=e)
-        row["bound_ms"], row["bound_by"] = rmsnorm_bound_ms(R, d, 2)
+    for what, (x, s) in kept["rmsnorm"]:
+        row = rmsnorm_row(f"{label} {what}", x, s)
+        errs["rmsnorm"] = max(errs["rmsnorm"], row["max_abs_err"])
         rows["rmsnorm"].append(row)
-    # moe_gemm at the prefill's capacity (gate, down) and decode's C=1, 4
-    for label, (x, w) in kept["moe_gemm"]:
-        row = moe_gemm_row(label, x, w)
-        errs["moe_gemm"] = max(errs.get("moe_gemm", 0.0), row["max_abs_err"])
+    for what, (x, w) in kept["moe_gemm"]:
+        row = moe_gemm_row(what, x, w)
+        errs["moe_gemm"] = max(errs["moe_gemm"], row["max_abs_err"])
         rows["moe_gemm"].append(row)
     kernel_row_lines(rows)
     return rows, errs
 
 
-def lm_main_path(dev) -> dict:
-    """Phase 4h b-d: Granite-3.0 MoE at full width and depth, bf16,
-    attn_impl "pallas", weights drawn on the card: a 32k-token prefill,
-    ``LM_GREEDY_STEPS`` greedy decode steps on its cache, and decode_32k's
-    8 steps at B=16 on a half-full 32,768-slot cache, each run's launches
-    counted from 0; then the kept kernel inputs checked and the kernels,
-    the prefill and the steps timed."""
-    cfg = dataclasses.replace(granite_moe_3b_a800m.CONFIG, attn_impl="pallas")
-    L = cfg.n_layers
+def lm_steps(params, cache, tok, cfg, step, n, feed=None):
+    """``n`` decode steps of ``step`` (``decode_step`` or
+    ``decode_step_sliding``), each between CUDA events, greedy or fed the
+    tokens ``feed``; the launches of each step counted from 0; the logits
+    finite.  Returns the cache, the fed tokens, the logits, the launches
+    and the times."""
+    fed, logits, counts, times, finite = [], [], [], [], []
+    for i in range(n):
+        if feed is not None:
+            tok = feed[i]
+        fed.append(tok)
+        lm_counts(zero=True)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        out, cache = step(params, cache, tok, cfg)
+        e1.record()
+        counts.append(lm_counts())
+        finite.append(torch.isfinite(out).all())
+        logits.append(out)
+        tok = out.argmax(-1)
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    if not bool(torch.stack(finite).all()):
+        fail(f"non-finite logits in {step.__name__}")
+    return cache, fed, logits, counts, times
+
+
+def check_step_counts(label, counts, want):
+    if any(c != want for c in counts):
+        fail(f"{label}: steps launched {counts}, expected {want}")
+
+
+def sliding_apart(slid, full, greedy) -> dict:
+    """``decode_step_sliding``'s logits (steps, B, V) against
+    ``decode_step``'s on the same tokens: the largest difference, its rms
+    over the logits' rms, the greedy tokens that differ, whether each
+    that differs is a near-tie within ``DENSE_SLIDING_ATOL`` in both runs,
+    and whether the limits pass them."""
+    apart = float((slid - full).abs().max())
+    rel = float((slid - full).pow(2).mean().sqrt()
+                / full.pow(2).mean().sqrt())
+    tok = slid.argmax(-1)
+    at = lambda x, t: x.gather(-1, t[..., None])[..., 0]
+    tie = (at(slid, tok) - at(slid, greedy) <= DENSE_SLIDING_ATOL) & \
+        (at(full, greedy) - at(full, tok) <= DENSE_SLIDING_ATOL)
+    ties = bool((tie | (tok == greedy)).all())
+    return dict(max_abs_diff=apart, rel_rms=rel,
+                differing_tokens=int((tok != greedy).sum()), near_ties=ties,
+                passes=apart <= DENSE_SLIDING_ATOL and ties
+                and rel <= DENSE_SLIDING_REL_RMS)
+
+
+def lm_main_path(name, dev, keep_weights=False):
+    """Phases 4h b-d and 4j b-d: one model at full width and depth, bf16,
+    ``attn_impl="pallas"``, weights drawn on the card: a prefill of
+    ``LM_PREFILL`` tokens at B=1 (one flash launch a layer with its
+    window), ``LM_STEPS`` greedy decode steps on its cache, for a
+    sliding-window model the same steps through ``decode_step_sliding``
+    on a sliding cache built from the prefill's (held to
+    ``decode_step``'s, and a ring slot off by one shown to fail that);
+    the prefill timed and profiled; the kernel prefill at
+    ``LM_PLAIN_PREFILL`` tokens against the plain one (a MoE routed as the
+    kernel one was); decode_32k at its batch and a sliding-window model's
+    cut long_500k, through its decode; every run's launches counted from
+    0 and its peak memory, each decode timed (CUDA events) and profiled
+    once; then the kept kernel inputs checked and timed.  Returns the
+    rows, and with ``keep_weights`` the weights, prompt, last logits and
+    prefill time (for phase 4i; else None)."""
+    helpers = lm_helpers()
+    label, base = LM_MODELS[name]
+    cfg = dataclasses.replace(base, attn_impl="pallas")
+    L, V, W = cfg.n_layers, cfg.vocab_size, cfg.sliding_window
+    sliding = is_sliding(cfg)
+    windows = transformer._layer_windows(cfg)
     t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device=dev).manual_seed(LM_WEIGHT_SEED)
     params = transformer.init_params(cfg, gen, dev)
     torch.cuda.synchronize()
     out = dict(init_s=time.time() - t0,
                n_params=model_common.count_params(params),
                weights_gb=sum(x.numel() * x.element_size() for x in
-                              model_common.leaves(params)) / 1e9)
-    print(f"lm main path: Granite-3.0 MoE at full width and depth, "
+                              model_common.leaves(params)) / 1e9,
+               init_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"lm main path: {label} at full width and depth, "
           f"{out['n_params']:,} parameters ({out['weights_gb']:.2f} GB), "
-          f"drawn on the card in {out['init_s']:.3f} s", flush=True)
-    want_fwd = lm_forward_counts(cfg, LM_SHAPES["prefill_32k"].seq_len)
-    want_step = dict(lm_forward_counts(cfg, 1), flash_attention=0)
-    finite, kept = [], dict(layers=(0, L - 1), rmsnorm=[], moe_gemm=[])
+          f"drawn on the card in {out['init_s']:.3f} s, peak "
+          f"{out['init_peak_gb']:.2f} GB", flush=True)
+    peaks, launches = {}, []
+    kept = dict(rmsnorm=[], moe_gemm=[])
+    total = torch.cuda.mem_get_info()[1] / 1e9
 
-    # prefill: B = 1, S = 32,768 (prefill_32k's length)
-    S = LM_SHAPES["prefill_32k"].seq_len
-    max_len = S + LM_GREEDY_STEPS + PROFILE_TRIES   # + the profiled step
-    tokens = torch.randint(0, cfg.vocab_size, (1, S), generator=gen,
-                           device=dev)
-    with Spy(ops, "flash_attention",
-             lambda i, a: i in kept["layers"]) as fspy, \
+    def peak(run):
+        peaks[run] = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        return peaks[run]
+
+    # the prefill at B = 1; flash's inputs kept at layer 0, the last layer
+    # and the first of each window
+    S = LM_PREFILL[name]
+    max_len = S + LM_STEPS + PROFILE_TRIES          # + the profiled step
+    tokens = torch.randint(0, V, (1, S), generator=gen, device=dev)
+    layers = sorted({0, L - 1} | {windows.index(w) for w in windows})
+    want_fwd = lm_forward_counts(cfg, S)
+    want_step = lm_forward_counts(cfg, 1)
+    torch.cuda.reset_peak_memory_stats()
+    with flash_windows(layers) as fw, \
             Spy(ops, "rmsnorm", lambda i, a: i == 0) as rspy, \
             Spy(ops, "moe_gemm", lambda i, a: i in (0, 2)) as mspy:
-        t0 = time.time()
+        t1 = time.time()
         lm_counts(zero=True)
         last, cache = transformer.prefill(params, tokens, cfg, max_len)
         torch.cuda.synchronize()
         counts = lm_counts()
-        first_s = time.time() - t0
-    finite.append(torch.isfinite(last).all())
-    kept["flash"] = fspy.kept
+        first_s = time.time() - t1
+    launches.append(counts)
+    kept["flash"] = [(layer, *fw["kept"][layer]) for layer in layers]
     kept["rmsnorm"].append((f"prefill B=1 S={S}", rspy.kept[0][0]))
-    C = mspy.kept[0][0][0].shape[1]
-    kept["moe_gemm"] += [(f"gate C={C}", mspy.kept[0][0]),
-                         (f"down C={C}", mspy.kept[1][0])]
+    if mspy.kept:
+        C = mspy.kept[0][0][0].shape[1]
+        kept["moe_gemm"] += [(f"gate C={C}", mspy.kept[0][0]),
+                             (f"down C={C}", mspy.kept[1][0])]
+    n_win = sum(w != transformer.NO_WINDOW for w in fw["windows"])
     out["prefill_launches"] = counts
-    print(f"lm main path: prefill B=1 S={S} (max_len {max_len}): launches "
-          f"{counts} (expected {want_fwd}); first call {first_s:.2f} s; "
-          f"cache {2 * cache['k'].numel() * 2 / 1e9:.2f} GB", flush=True)
-    if counts != want_fwd:
-        fail(f"the 32k prefill launched {counts}, expected {want_fwd}")
+    out["prefill_windowed"] = n_win
+    print(f"lm main path: {label} prefill B=1 S={S} (max_len {max_len}): "
+          f"launches {counts} (expected {want_fwd}), flash {n_win} times "
+          f"with window {W} and {len(fw['windows']) - n_win} times causal "
+          f"without one; first call {first_s:.2f} s; cache "
+          f"{2 * cache['k'].numel() * 2 / 1e9:.2f} GB; peak "
+          f"{peak('prefill'):.2f} GB", flush=True)
+    if counts != want_fwd or fw["windows"] != windows:
+        fail(f"{label} prefill launched {counts} with windows "
+             f"{fw['windows']}, expected {want_fwd} and {windows}")
+    if not torch.isfinite(last).all():
+        fail(f"{label}: non-finite prefill logits")
 
-    # greedy decode on the prefill's cache, each step between CUDA events
-    tok, steps, greedy, times = last.argmax(-1), [], [], []
+    # greedy decode on the prefill's cache
     with Spy(ops, "rmsnorm", lambda i, a: i == 0) as rspy, \
             Spy(ops, "moe_gemm", lambda i, a: i == 0) as mspy:
-        for _ in range(LM_GREEDY_STEPS):
-            lm_counts(zero=True)
-            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            e0.record()
-            logits, cache = transformer.decode_step(params, cache, tok, cfg)
-            e1.record()
-            steps.append(lm_counts())
-            finite.append(torch.isfinite(logits).all())
-            tok = logits.argmax(-1)
-            greedy.append(tok)
-            torch.cuda.synchronize()
-            times.append(e0.elapsed_time(e1))
+        cache, fed, logits, counts, times = lm_steps(
+            params, cache, last.argmax(-1), cfg, transformer.decode_step,
+            LM_STEPS)
+    launches += counts
     kept["rmsnorm"].append(("decode B=1", rspy.kept[0][0]))
-    kept["moe_gemm"].append((f"decode C={mspy.kept[0][0][0].shape[1]}",
-                             mspy.kept[0][0]))
-    out["greedy_tokens"] = torch.cat(greedy).tolist()
-    out["decode_launches"] = steps[0]
-    print(f"lm main path: {LM_GREEDY_STEPS} greedy decode steps at B=1, "
-          f"launches a step {steps[0]} (expected {want_step}); tokens "
-          f"{out['greedy_tokens'][:8]}...; CUDA-event times "
-          f"{[round(t, 3) for t in times]}", flush=True)
-    if any(s != want_step for s in steps):
-        fail(f"greedy decode steps launched {steps}, expected {want_step}")
-
-    # times at B = 1: a decode step (the best of the last 3), then the
-    # prefill; each profiled once more
-    step_fn = lambda: transformer.decode_step(params, cache, tok, cfg)
-    out["decode_b1"] = lm_profile(f"decode step B=1 (cache {max_len})",
-                                  step_fn, min(times[-3:]))
+    if mspy.kept:
+        kept["moe_gemm"].append((f"decode C={mspy.kept[0][0][0].shape[1]}",
+                                 mspy.kept[0][0]))
+    greedy = torch.stack([x.argmax(-1) for x in logits])
+    out["greedy_tokens"] = greedy[:, 0].tolist()
+    out["decode_launches"] = counts[0]
+    print(f"lm main path: {label} {LM_STEPS} greedy decode steps at B=1, "
+          f"launches a step {counts[0]} (expected {want_step}); tokens "
+          f"{out['greedy_tokens']}; CUDA-event times "
+          f"{[round(t, 3) for t in times]}; peak {peak('decode'):.2f} GB",
+          flush=True)
+    check_step_counts(f"{label} greedy decode", counts, want_step)
+    step_fn = lambda: transformer.decode_step(params, cache, greedy[-1], cfg)
+    out["decode_b1"] = lm_profile(f"{label} decode step B=1 (cache "
+                                  f"{max_len})", step_fn, min(times[-3:]))
     out["decode_b1"]["tokens_per_s"] = 1e3 / out["decode_b1"]["ms"]
-    del cache
-    pre_fn = lambda: transformer.prefill(params, tokens, cfg, max_len)
-    out["prefill"] = lm_profile(f"prefill B=1 S={S}", pre_fn,
-                                events_ms(pre_fn))
-    out["prefill"]["tokens_per_s"] = S / out["prefill"]["ms"] * 1e3
 
-    # the kernel prefill against the plain one at B = 1, S = 4,096, the
+    if sliding:
+        # the same steps through decode_step_sliding from the prefill's
+        # cache, then again with a ring slot off by one
+        sl, bad = (helpers.sliding_from_full(cache["k"], cache["v"], S, W,
+                                             cfg.global_every)
+                   for _ in range(2))
+        cache = None
+        torch.cuda.reset_peak_memory_stats()
+        step = transformer.decode_step_sliding
+        sl, _, slid, counts, times = lm_steps(params, sl, None, cfg, step,
+                                              LM_STEPS, feed=fed)
+        launches += counts
+        with patched(transformer, "_decode_layer", ring_shifted(W)):
+            _, _, wrong, _, _ = lm_steps(params, bad, None, cfg, step,
+                                         LM_STEPS, feed=fed)
+        del bad
+        full = torch.stack(logits)
+        sound = sliding_apart(torch.stack(slid), full, greedy)
+        planted = sliding_apart(torch.stack(wrong), full, greedy)
+        out["sliding"] = dict(sound, launches=counts[0], ms=times,
+                              ring_slot_off_by_one=planted)
+        print(f"lm main path: {label} decode_step_sliding from the "
+              f"prefill's cache (ring {W}, "
+              f"{len(helpers.layer_split(L, cfg.global_every)[1])} global "
+              f"layers), the same {LM_STEPS} tokens: logits within "
+              f"{sound['max_abs_diff']:.4g} of decode_step's (limit "
+              f"{DENSE_SLIDING_ATOL}), rms {sound['rel_rms']:.4g} of theirs "
+              f"(limit {DENSE_SLIDING_REL_RMS}), "
+              f"{sound['differing_tokens']} greedy tokens differ, each a "
+              f"near-tie within the limit: {sound['near_ties']}; launches "
+              f"a step {counts[0]}; CUDA-event times "
+              f"{[round(t, 3) for t in times]}; with a ring slot off by "
+              f"one: within {planted['max_abs_diff']:.4g}, rms "
+              f"{planted['rel_rms']:.4g}, {planted['differing_tokens']} "
+              f"tokens differ (near-ties: {planted['near_ties']}), "
+              f"{'passed' if planted['passes'] else 'rejected'}; peak "
+              f"{peak('sliding'):.2f} GB", flush=True)
+        check_step_counts(f"{label} sliding decode", counts, want_step)
+        if not sound["passes"]:
+            fail(f"{label}: decode_step_sliding against decode_step "
+                 f"{sound}")
+        if planted["passes"]:
+            fail(f"{label}: the sliding decode's limits pass a ring slot "
+                 f"off by one: {planted}")
+        del full, slid, wrong
+        step_fn = lambda: step(params, sl, greedy[-1], cfg)
+        out["sliding_b1"] = lm_profile(f"{label} sliding decode step B=1",
+                                       step_fn, min(times[-3:]))
+        del sl
+    del cache, logits
+    torch.cuda.empty_cache()
+
+    # the prefill timed and profiled
+    torch.cuda.reset_peak_memory_stats()
+    pre_fn = lambda: transformer.prefill(params, tokens, cfg, max_len)
+    out["prefill"] = lm_profile(f"{label} prefill B=1 S={S}", pre_fn,
+                                events_ms(pre_fn, 1))
+    out["prefill"]["tokens_per_s"] = S / out["prefill"]["ms"] * 1e3
+    out["prefill"]["peak_gb"] = peak("prefill timed")
+
+    # the kernel prefill against the plain one at S = LM_PLAIN_PREFILL, the
     # plain one routed as the kernel one was
     short = tokens[:, :LM_PLAIN_PREFILL]
     with recorded_routing(L, host=False) as routing:
@@ -4401,7 +4832,7 @@ def lm_main_path(dev) -> dict:
         want, want_cache = transformer.prefill(
             params, short, dataclasses.replace(cfg, attn_impl="chunked"))
         if any(lm_counts().values()):
-            fail(f"the plain prefill launched {lm_counts()}")
+            fail(f"{label}: the plain prefill launched {lm_counts()}")
     rms = lambda x: float(x.float().pow(2).mean().sqrt())
     rel = rms(got - want) / rms(want)
     out["plain_prefill"] = dict(
@@ -4409,78 +4840,96 @@ def lm_main_path(dev) -> dict:
         max_abs_err=float((got - want).abs().max()),
         cache_rel_rms=rms(got_cache["k"] - want_cache["k"])
         / rms(want_cache["k"]), routing_flips=calls["flips"],
-        routed_copies=L * LM_PLAIN_PREFILL * cfg.top_k)
-    print(f"lm main path: the kernel prefill at S={LM_PLAIN_PREFILL} "
-          f"against the plain one (chunked attention, plain rmsnorm and "
-          f"moe_gemm, routed as the kernel one): last logits rms {rel:.4g} "
-          f"of theirs (limit {LM_PREFILL_REL_RMS}), max abs err "
+        routed_copies=L * LM_PLAIN_PREFILL * cfg.top_k if cfg.moe else 0)
+    routed = (f"; its own routing would differ in {calls['flips']} of "
+              f"{out['plain_prefill']['routed_copies']} routed copies"
+              if cfg.moe else "")
+    print(f"lm main path: {label} kernel prefill at S={LM_PLAIN_PREFILL} "
+          f"against the plain one (chunked attention, the plain rmsnorm"
+          f"{' and moe_gemm, routed as the kernel one' if cfg.moe else ''}"
+          f"): last logits rms {rel:.4g} of theirs (limit "
+          f"{LM_PREFILL_REL_RMS[name]}), max abs err "
           f"{out['plain_prefill']['max_abs_err']:.4g}; K cache rms "
-          f"{out['plain_prefill']['cache_rel_rms']:.4g} of its own; its own "
-          f"routing would differ in {calls['flips']} of "
-          f"{out['plain_prefill']['routed_copies']} routed copies",
+          f"{out['plain_prefill']['cache_rel_rms']:.4g} of its own{routed}",
           flush=True)
-    if not torch.isfinite(got).all() or not rel <= LM_PREFILL_REL_RMS:
-        fail(f"the kernel prefill is {rel} (rms, relative) from the plain")
+    if not torch.isfinite(got).all() or \
+            not rel <= LM_PREFILL_REL_RMS[name]:
+        fail(f"{label}: the kernel prefill is {rel} (rms, relative) from "
+             f"the plain one")
     del got, want, got_cache, want_cache, routing
-
-    # decode_32k: B = 16 on a 32,768-slot cache at length 16,384
-    shape = LM_SHAPES["decode_32k"]
-    B = LM_DECODE32K_BATCH
-    cache = transformer.init_cache(cfg, B, shape.seq_len, dev)
-    cache["length"] = shape.seq_len // 2
-    tok = torch.randint(0, cfg.vocab_size, (B,), generator=gen, device=dev)
-    steps, times = [], []
-    with Spy(ops, "rmsnorm", lambda i, a: i == 0) as rspy, \
-            Spy(ops, "moe_gemm", lambda i, a: i == 0) as mspy:
-        for _ in range(LM_DECODE32K_STEPS):
-            lm_counts(zero=True)
-            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            e0.record()
-            logits, cache = transformer.decode_step(params, cache, tok, cfg)
-            e1.record()
-            steps.append(lm_counts())
-            finite.append(torch.isfinite(logits).all())
-            tok = logits.argmax(-1)
-            torch.cuda.synchronize()
-            times.append(e0.elapsed_time(e1))
-    kept["rmsnorm"].append((f"decode B={B}", rspy.kept[0][0]))
-    kept["moe_gemm"].append((f"decode C={mspy.kept[0][0][0].shape[1]}",
-                             mspy.kept[0][0]))
-    out["decode_32k_launches"] = steps[0]
-    print(f"lm main path: decode_32k, B={B} on a {shape.seq_len}-slot cache "
-          f"({2 * cache['k'].numel() * 2 / 1e9:.2f} GB) from length "
-          f"{shape.seq_len // 2}: {LM_DECODE32K_STEPS} steps, launches a "
-          f"step {steps[0]}, CUDA-event times {[round(t, 3) for t in times]}",
-          flush=True)
-    if any(s != want_step for s in steps):
-        fail(f"decode_32k steps launched {steps}, expected {want_step}")
-    step_fn = lambda: transformer.decode_step(params, cache, tok, cfg)
-    out["decode_b16"] = lm_profile(f"decode step B={B} (cache 32,768)",
-                                   step_fn, min(times[-3:]))
-    out["decode_b16"]["tokens_per_s"] = B * 1e3 / out["decode_b16"]["ms"]
-    del cache
-    if not bool(torch.stack(finite).all()):
-        fail("non-finite logits on the LM main path")
     torch.cuda.empty_cache()
-    out["kernels"], out["max_abs_err"] = lm_kernel_rows(kept, dev)
-    out["launches"] = {name: out["prefill_launches"][name]
-                       + LM_GREEDY_STEPS * out["decode_launches"][name]
-                       + LM_DECODE32K_STEPS * out["decode_32k_launches"][name]
-                       for name in LM_COUNTERS}
-    return out, dict(params=params, cfg=cfg, tokens=tokens, last=last,
-                     prefill_ms=out["prefill"]["ms"])
+
+    # decode_32k and a sliding-window model's long_500k, each from a cache
+    # half full, through its decode
+    runs = [("decode_32k", LM_DECODE32K_BATCH[name],
+             LM_SHAPES["decode_32k"].seq_len)]
+    if sliding:
+        runs.append(("long_500k", 1, DENSE_LONG_CONTEXT))
+    init = transformer.init_sliding_cache if sliding else \
+        transformer.init_cache
+    step = transformer.decode_step_sliding if sliding else \
+        transformer.decode_step
+    for run, B, T in runs:
+        torch.cuda.reset_peak_memory_stats()
+        cache = init(cfg, B, T, dev)
+        cache["length"] = T // 2
+        tok = torch.randint(0, V, (B,), generator=gen, device=dev)
+        with Spy(ops, "rmsnorm", lambda i, a: i == 0) as rspy, \
+                Spy(ops, "moe_gemm", lambda i, a: i == 0) as mspy:
+            cache, fed, _, counts, times = lm_steps(params, cache, tok, cfg,
+                                                    step, LM_STEPS)
+        launches += counts
+        if B > 1:
+            kept["rmsnorm"].append((f"decode B={B}", rspy.kept[0][0]))
+            if mspy.kept:
+                kept["moe_gemm"].append(
+                    (f"decode C={mspy.kept[0][0][0].shape[1]}",
+                     mspy.kept[0][0]))
+        gb = sum(v.numel() * v.element_size() for v in cache.values()
+                 if torch.is_tensor(v)) / 1e9
+        step_fn = lambda: step(params, cache, fed[-1], cfg)
+        row = lm_profile(f"{label} {run} step B={B} (cache {T:,} at "
+                         f"{T // 2:,}, {step.__name__})", step_fn,
+                         min(times[-3:]))
+        row.update(B=B, context=T, cache_gb=gb, launches=counts[0],
+                   tokens_per_s=B * 1e3 / row["ms"], peak_gb=peak(run),
+                   free_gb=total - peaks[run])
+        out[run] = row
+        print(f"lm main path: {label} {run}, B={B} on a {T:,}-slot cache "
+              f"({gb:.2f} GB) from length {T // 2:,}: {LM_STEPS} steps "
+              f"through {step.__name__}, launches a step {counts[0]}, "
+              f"CUDA-event times {[round(t, 3) for t in times]}; peak "
+              f"{row['peak_gb']:.2f} GB of {total:.2f} "
+              f"({row['free_gb']:.2f} GB free)", flush=True)
+        check_step_counts(f"{label} {run}", counts, want_step)
+        if row["free_gb"] < LM_HEADROOM_GB:
+            fail(f"{label} {run}: {row['free_gb']:.2f} GB left free, under "
+                 f"{LM_HEADROOM_GB}")
+        del cache
+        torch.cuda.empty_cache()
+    out["peaks_gb"] = peaks
+    # every launch the runs above counted (the profiled calls and the
+    # planted fault's steps are not counted)
+    out["launches"] = {k: sum(c[k] for c in launches) for k in LM_COUNTERS}
+    weights = dict(params=params, cfg=cfg, tokens=tokens, last=last,
+                   prefill_ms=out["prefill"]["ms"]) if keep_weights else None
+    del params
+    torch.cuda.empty_cache()
+    out["kernels"], out["max_abs_err"] = lm_kernel_rows(name, label, kept,
+                                                        dev)
+    return out, weights
 
 
 def lm_phase(dev):
-    """Phase 4h; returns the LM's rows for the kernels line, and the main
+    """Phase 4h; returns Granite's rows for the kernels line, and its main
     path's weights, prompt, last logits and prefill time for phase 4i."""
     torch.backends.cuda.matmul.allow_tf32 = False
     t_phase = time.time()
     g, meta = lm_golden()
-    out = dict(golden=granite_golden_check(g, meta, dev),
+    out = dict(golden=lm_golden_check("granite", g, meta, dev),
                smoke_max_abs_err=lm_smoke_check(g, meta, dev))
     print(f"lm golden checks: {time.time() - t_phase:.1f} s", flush=True)
-    main, weights = lm_main_path(dev)
+    main, weights = lm_main_path("granite", dev, keep_weights=True)
     out.update(main)
     print(f"lm phase: {time.time() - t_phase:.1f} s", flush=True)
     return out, weights
@@ -4571,7 +5020,7 @@ def granite_mesh_check(g, meta, mesh, dev) -> dict:
     reference's printed, and the unmeshed MoE rejected."""
     from repro_torch.launch.mesh import install_rules
     sec = meta["sections"]["granite_mesh"]
-    base = granite_golden_config(sec)
+    base = golden_config("granite", sec)
     tree = golden_tree(base, meta["weight_seed"], meta["constant_std"])
     toks = torch.from_numpy(g["granite_mesh/tokens"]).long().to(dev)
     rows, L, S = sec["logits_rows"], sec["n_layers"], toks.shape[1]
@@ -4747,7 +5196,7 @@ def mesh_main_path(w, mesh, dev) -> dict:
           f"S={LM_PLAIN_PREFILL} against the meshed plain one (chunked "
           f"attention, plain rmsnorm and moe_gemm, routed as the kernel "
           f"one): last logits rms {rel:.4g} of theirs (limit "
-          f"{LM_PREFILL_REL_RMS}), max abs err "
+          f"{LM_PREFILL_REL_RMS['granite']}), max abs err "
           f"{out['plain_prefill']['max_abs_err']:.4g}; its own routing "
           f"would differ in {pinned['flips']} of "
           f"{out['plain_prefill']['routed_copies']} routed copies; "
@@ -4759,7 +5208,8 @@ def mesh_main_path(w, mesh, dev) -> dict:
     if pinned["largest"] >= MESH_N_REAL:
         fail(f"the meshed plain prefill routed to expert "
              f"{pinned['largest']}")
-    if not torch.isfinite(got).all() or not rel <= LM_PREFILL_REL_RMS:
+    if not torch.isfinite(got).all() or \
+            not rel <= LM_PREFILL_REL_RMS["granite"]:
         fail(f"the meshed kernel prefill is {rel} (rms, relative) from the "
              f"plain")
     return out
@@ -4819,6 +5269,31 @@ def mesh_phase(dev, weights) -> dict:
     out["launches"] = out["main"]["launches"]
     out["s"] = time.time() - t0
     print(f"mesh phase: {out['s']:.1f} s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4j: the dense language models at full width (StarCoder2-7B and
+# Gemma-3 27B through phase 4h's golden check and main path)
+# ---------------------------------------------------------------------------
+def dense_phase(dev) -> dict:
+    """Phase 4j: the dense golden sections, then StarCoder2-7B and Gemma-3
+    27B at full width and depth, each drawn, run and deleted in turn."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.time()
+    g, meta = lm_golden()
+    out = dict(golden={name: lm_golden_check(name, g, meta, dev)
+                       for name in DENSE_LMS})
+    print(f"lm dense golden checks: {time.time() - t0:.1f} s", flush=True)
+    for name in DENSE_LMS:
+        t1 = time.time()
+        out[name], _ = lm_main_path(name, dev)
+        torch.cuda.empty_cache()
+        out[name]["s"] = time.time() - t1
+        print(f"lm dense {LM_MODELS[name][0]}: {out[name]['s']:.1f} s",
+              flush=True)
+    out["s"] = time.time() - t0
+    print(f"lm dense phase: {out['s']:.1f} s", flush=True)
     return out
 
 
@@ -5348,7 +5823,7 @@ MOE_BWD_SHAPES = {"gate_up/853": (48, 853, 1536, 512),
 # the main path: Granite-3.0 MoE at full width and depth, train_4k's
 # 4,096-token sequences with its global batch cut 256 -> TRAIN_BATCH;
 # one warm step, TRAIN_TIMED timed
-TRAIN_BATCH, TRAIN_WARM, TRAIN_TIMED = 2, 1, 2
+TRAIN_BATCH, TRAIN_WARM, TRAIN_TIMED = 2, 1, 1
 # DeiT-B cls_224 at its full global batch: DEIT_STEPS steps, a checkpoint
 # after DEIT_CKPT_AT, a fresh run resumed from it
 DEIT_STEPS, DEIT_CKPT_AT = 2, 1
@@ -5458,9 +5933,11 @@ def rmsnorm_bwd_checks(dev) -> dict:
                                              eps=rn_mod.EPS)
             ms, library_ms = in_turns(lambda: cold_ms(kernel, (x, s, dy)),
                                       lambda: cold_ms(lib, (x, w, dy)))
+            # warm, in turns at half the replays each (for the time
+            # budget)
             warm_ms, library_warm_ms = in_turns(
-                lambda: graph_ms(lambda: kernel(x, s, dy), reps),
-                lambda: graph_ms(lambda: lib(x, w, dy), reps))
+                lambda: graph_ms(lambda: kernel(x, s, dy), reps // 2),
+                lambda: graph_ms(lambda: lib(x, w, dy), reps // 2))
             eager_ms = timed_ms(lambda: kernel(x, s, dy), reps)
             plain_ms = timed_ms(lambda: ref.rmsnorm_bwd_ref(x, s, dy),
                                 min(reps, 20))
@@ -6227,14 +6704,22 @@ def train_phase(dev) -> dict:
 # Phase 6d: the roofline of the card's own steps
 # ---------------------------------------------------------------------------
 # (name, arch, kind, shape, config changes): the full-width runs whose time
-# phases 4g, 4h and 6c measure, at the batch and attn_impl each ran (4h's
-# prefill fills a cache of S + 11 slots, the counted one of S); the one
+# phases 4g, 4h, 4j and 6c measure, at the batch and attn_impl each ran
+# (4h's and 4j's prefills fill a cache of S + 11 slots, the counted one of
+# S); the one
 # named MESH_TRAIN_RUN counted under a 1 x 1 mesh with install_rules(kind=
 # "train"), as phase 6c's meshed step runs
 MESH_TRAIN_RUN = "Granite-3.0 MoE train_4k B=2 under a 1 x 1 mesh (6c)"
 ROOFLINE_RUNS = (
     ("Granite-3.0 MoE prefill_32k B=1 (4h)", "granite-moe-3b-a800m",
      "prefill", dict(seq_len=32768, global_batch=1),
+     dict(attn_impl="pallas")),
+    ("StarCoder2-7B prefill_32k B=1 (4j)", "starcoder2-7b", "prefill",
+     dict(seq_len=LM_PREFILL["starcoder2"], global_batch=1),
+     dict(attn_impl="pallas")),
+    ("Gemma-3 27B prefill_32k cut to 16,384 tokens B=1 (4j)", "gemma3-27b",
+     "prefill",
+     dict(seq_len=LM_PREFILL["gemma3"], global_batch=1),
      dict(attn_impl="pallas")),
     ("DiT-XL/2 gen_fast B=16 (4g)", "dit-xl2", "serve",
      dict(img_res=512, global_batch=16), dict(attn_impl="pallas")),
@@ -6608,6 +7093,9 @@ def run_phases(dev, t_start, card, draws, counts) -> int:
     del lm_weights
     golden_tree.cache_clear()
     torch.cuda.empty_cache()
+    # -- 4j. StarCoder2-7B and Gemma-3 27B at full width (the D=128 flash
+    # kernel, rmsnorm at d = 4,608 / 5,376)
+    dense = dense_phase(dev)
 
     # -- 5. the entry points
     t0 = time.time()
@@ -6653,15 +7141,34 @@ def run_phases(dev, t_start, card, draws, counts) -> int:
                             lm["max_abs_err"]["flash_attention"])
     fl["lm"] = dict(launches=lm["launches"]["flash_attention"],
                     shapes=lm["kernels"]["flash_attention"])
-    # D = 128 (StarCoder2-7B's and Gemma-3 27B's heads): phase 4h's rows on
-    # random inputs; no model of the main path has these heads yet
-    d128 = lm["kernels"]["flash_attention_d128"]
+    # D = 128 (StarCoder2-7B's and Gemma-3 27B's heads): phase 4j's
+    # prefills, one launch a layer; rows on each model's kept inputs
+    d128 = [r for name in DENSE_LMS
+            for r in dense[name]["kernels"]["flash_attention"]]
     entries["flash_attention (tma_wgmma, D=128)"] = dict(
-        launches=0, max_abs_err=lm["max_abs_err"]["flash_attention_d128"],
+        launches=sum(dense[name]["launches"]["flash_attention"]
+                     for name in DENSE_LMS),
+        max_abs_err=max(dense[name]["max_abs_err"]["flash_attention"]
+                        for name in DENSE_LMS),
         **{k: d128[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms", "variant", "D", "ratio")},
-        shapes=d128, path="none yet: StarCoder2-7B's causal and Gemma-3 "
-        "27B's windowed attention at 32k on random inputs (phase 4h)")
+        shapes=d128, path="the dense LM serve path (phase 4j: "
+        "models/transformer.py prefill; StarCoder2-7B's 32 causal layers, "
+        "Gemma-3 27B's 52 windowed and 10 causal layers); Gemma-3 27B's "
+        "windowed shape at 32k also on random inputs (phase 4j)")
+    # rmsnorm on the dense LMs' path (phase 4j): d = 4,608 and 5,376
+    rn = entries["rmsnorm"]
+    rn["launches"] += sum(dense[name]["launches"]["rmsnorm"]
+                          for name in DENSE_LMS)
+    rn["max_abs_err"] = max([rn["max_abs_err"]] + [
+        dense[name]["max_abs_err"]["rmsnorm"] for name in DENSE_LMS])
+    rn["path"] += ("; the dense LM serve path (phase 4j: StarCoder2-7B and "
+                   "Gemma-3 27B prefill and decode)")
+    rn["dense_shapes"] = [r for name in DENSE_LMS
+                          for r in dense[name]["kernels"]["rmsnorm"]]
+    for name in DENSE_LMS:
+        dense[name].pop("kernels")
+    entries["flash_attention"]["dense_lm"] = dense
     lm.pop("kernels")
     entries["flash_attention"]["lm"]["run"] = lm
 
@@ -6723,15 +7230,17 @@ def run_phases(dev, t_start, card, draws, counts) -> int:
     # -- 6d. the roofline of the card's own steps
     steps_rows = {(r["model"], r["shape"]): r["ms"] for r in entries[
         "flash_attention (tma_wgmma, D=72)"]["dit_xl2"]["steps"]}
-    measured = {
-        ROOFLINE_RUNS[0][0]: lm["prefill"]["ms"],
-        ROOFLINE_RUNS[1][0]: steps_rows[("DiT-XL/2", "gen_fast")],
-        ROOFLINE_RUNS[2][0]: steps_rows[("DiT-XL/2", "gen_1024")],
-        ROOFLINE_RUNS[3][0]: steps_rows[("UNet", "gen_fast")],
-        ROOFLINE_RUNS[4][0]: train["dit"]["ms"],
-        ROOFLINE_RUNS[5][0]: train["unet"]["ms"],
-        ROOFLINE_RUNS[6][0]: train["granite"]["ms"],
-        MESH_TRAIN_RUN: train["granite"]["mesh"]["ms"]}
+    measured = dict(zip((name for name, *_ in ROOFLINE_RUNS), (
+        lm["prefill"]["ms"], dense["starcoder2"]["prefill"]["ms"],
+        dense["gemma3"]["prefill"]["ms"],
+        steps_rows[("DiT-XL/2", "gen_fast")],
+        steps_rows[("DiT-XL/2", "gen_1024")],
+        steps_rows[("UNet", "gen_fast")], train["dit"]["ms"],
+        train["unet"]["ms"], train["granite"]["ms"],
+        train["granite"]["mesh"]["ms"])))
+    if len(measured) != len(ROOFLINE_RUNS):
+        fail(f"roofline: {len(measured)} measured runs for "
+             f"{len(ROOFLINE_RUNS)}")
     roof = roofline_phase(dev, counts, measured, lm)
     print("roofline: " + json.dumps(roof), flush=True)
 

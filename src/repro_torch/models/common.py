@@ -59,14 +59,44 @@ def _std(d: ParamDef) -> float:
     return d.scale / math.sqrt(max(1, fan_in))
 
 
+# the most values a normal draw of :func:`init_params` holds in f32 at once
+# (1 GiB): a larger leaf is drawn slice by slice along its leading axis
+# into its preallocated result (a full-width Gemma-3 27B MLP leaf is 7.2 G
+# values, whose whole f32 draw beside its bf16 result would not fit one
+# card)
+INIT_SLICE = 1 << 28
+
+
+def _fill_normal(out: torch.Tensor, std: float, generator: torch.Generator,
+                 limit: int) -> None:
+    """``out`` filled with normals of ``std`` drawn in f32 from
+    ``generator`` on the generator's device, then cast into ``out``'s
+    dtype and device, at most ``limit`` values a draw: whole leading-axis
+    rows a draw, a row larger than ``limit`` itself sliced the same way."""
+    if out.numel() <= limit:
+        val = torch.randn(out.shape, generator=generator,
+                          dtype=torch.float32, device=generator.device)
+        out.copy_(val.mul_(std))
+        return
+    row = out[0].numel()
+    if row > limit:
+        for i in range(out.shape[0]):
+            _fill_normal(out[i], std, generator, limit)
+        return
+    step = limit // row
+    for i in range(0, out.shape[0], step):
+        _fill_normal(out[i:i + step], std, generator, limit)
+
+
 def init_params(defs: Dict[str, ParamDef], generator: torch.Generator,
                 device: DeviceLike = None) -> PyTree:
     """Random parameters: zeros / ones, else normal with std ``scale /
     sqrt(fan_in)`` drawn in f32 from ``generator`` on the generator's own
-    device, cast to each def's dtype, then moved to ``device``.  A
-    generator on the card draws the weights where they live (a full-depth
-    language model has billions of values); a CPU generator draws them on
-    the host and copies them."""
+    device and cast to each def's dtype on ``device``, a leaf larger than
+    ``INIT_SLICE`` values slice by slice (:func:`_fill_normal`), so no f32
+    temporary exceeds 1 GiB.  A generator on the card draws the weights
+    where they live (a full-depth language model has billions of values);
+    a CPU generator draws them on the host and copies them."""
     dev = resolve_device(device)
     out: Dict[str, Any] = {}
     for path, d in sorted(defs.items()):
@@ -76,28 +106,18 @@ def init_params(defs: Dict[str, ParamDef], generator: torch.Generator,
         elif d.init == "ones":
             val = torch.ones(d.shape, dtype=dt, device=dev)
         else:
-            val = torch.randn(d.shape, generator=generator,
-                              dtype=torch.float32, device=generator.device)
-            val = val.mul_(_std(d)).to(dt).to(dev)
+            val = torch.empty(d.shape, dtype=dt, device=dev)
+            _fill_normal(val, _std(d), generator, INIT_SLICE)
         assign(out, path, val)
     return out
 
 
-def numpy_params(defs: Dict[str, ParamDef], seed: int,
-                 constant_std: Optional[float] = None) -> PyTree:
-    """Seeded f32 numpy weights in the same tree and layouts: one
-    ``np.random.default_rng(seed)`` stream over the defs in sorted path
-    order.  Each package casts them to the config's dtype itself (numpy
-    has no bfloat16).
-
-    ``constant_std`` makes every leaf random: a ``"zeros"`` or ``"ones"``
-    leaf becomes its constant plus normals of that std.  The parity checks
-    of models that zero-initialise their output paths need it (DiT's
-    adaLN-Zero gates and final layer, the UNet's ``c2`` and ``conv_out``):
-    with those leaves at 0 the output is 0 for every input, and any
-    forward at all would match.  Serving keeps the default."""
+def iter_numpy_params(defs: Dict[str, ParamDef], seed: int,
+                      constant_std: Optional[float] = None):
+    """The leaves of :func:`numpy_params` one at a time, ``(path,
+    array)`` in its order from its one stream: a caller that converts
+    each leaf and drops it holds one numpy leaf at a time."""
     rng = np.random.default_rng(seed)
-    out: Dict[str, Any] = {}
     for path, d in sorted(defs.items()):
         if d.init in ("zeros", "ones") and constant_std is not None:
             val = (rng.standard_normal(d.shape, dtype=np.float32)
@@ -110,6 +130,24 @@ def numpy_params(defs: Dict[str, ParamDef], seed: int,
         else:
             val = (rng.standard_normal(d.shape, dtype=np.float32)
                    * np.float32(_std(d)))
+        yield path, val
+
+
+def numpy_params(defs: Dict[str, ParamDef], seed: int,
+                 constant_std: Optional[float] = None) -> PyTree:
+    """Seeded f32 numpy weights in the same tree and layouts: one
+    ``np.random.default_rng(seed)`` stream over the defs in sorted path
+    order (:func:`iter_numpy_params`).  Each package casts them to the
+    config's dtype itself (numpy has no bfloat16).
+
+    ``constant_std`` makes every leaf random: a ``"zeros"`` or ``"ones"``
+    leaf becomes its constant plus normals of that std.  The parity checks
+    of models that zero-initialise their output paths need it (DiT's
+    adaLN-Zero gates and final layer, the UNet's ``c2`` and ``conv_out``):
+    with those leaves at 0 the output is 0 for every input, and any
+    forward at all would match.  Serving keeps the default."""
+    out: Dict[str, Any] = {}
+    for path, val in iter_numpy_params(defs, seed, constant_std):
         assign(out, path, val)
     return out
 

@@ -46,15 +46,39 @@ cast to the dtype its ``param_defs`` entry names (the router stays f32).
   ``gemma3-smoke`` also ``SLIDING_STEPS`` ``decode_step_sliding`` calls
   from an empty sliding cache, past its window of 8.
 
+* **starcoder2**, **gemma3** — StarCoder2-7B and Gemma-3 27B
+  (``repro.configs.{starcoder2_7b,gemma3_27b}.CONFIG``) at full width with
+  their depth cut (``FULL_WIDTH``: 32 -> 2 layers, 887,118,336
+  parameters; 62 -> 6, layers 0-4 local and 5 global, 5,295,902,976), in
+  float32 and bfloat16 (the f32 weights cast leaf by leaf), the granite
+  recipe: ``prefill`` of the same batch shape into a cache of
+  ``MAX_LEN``, ``DECODE_STEPS`` ``decode_step`` calls, the layer-0 K / V
+  rows at ``CACHE_ROWS``; Gemma-3 also ``DECODE_STEPS``
+  ``decode_step_sliding`` calls on the same tokens from a sliding cache
+  built from the prefill's full cache (``tests/lm_helpers.py::
+  sliding_from_full``: ring slot ``p % 1024`` holds position ``p`` for
+  ``p`` in [76, 1100), the global layer its full cache; the reference has
+  no such function), and in ``meta`` how far those logits are from
+  ``decode_step``'s (f32 8.0e-6; bf16 0.059, where a near-tie's argmax
+  flips).  1,100 tokens pass Gemma-3's window of 1,024.  Logits are stored
+  as ``lm_helpers.logit_views`` gives them: at ``COLUMNS`` vocabulary
+  columns drawn from ``default_rng(COLUMN_SEED)`` (``<section>/columns``),
+  and each row's largest logit, its argmax and its log-sum-exp over the
+  whole vocabulary.  The weights are drawn leaf by leaf
+  (``iter_numpy_params``, the same stream as ``numpy_params``), each numpy
+  leaf dropped once converted.
+
 A JSON ``meta`` entry records the seeds, ``constant_std``, the shapes and
 the cut depth.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/make_torch_lm_golden.py \\
-        [--only granite granite_mesh smoke]
+        [--only granite granite_mesh smoke starcoder2 gemma3]
 
-``--only`` recomputes the named sections and keeps the rest of the file.
-About 4 minutes and 6 GB of host memory on a 6-core CPU, most of it the
-granite and granite_mesh sections.
+``--only`` recomputes the named sections and keeps the rest of the file
+(a new section needs only itself).  About 4 minutes and 6 GB of host
+memory on a 6-core CPU for granite, granite_mesh and smoke; on 8 cores
+starcoder2 alone 52 s and 5.8 GB (peak RSS), gemma3 alone 256 s and 33.5
+GB (the f32 weights are 21.2 GB).
 """
 from __future__ import annotations
 
@@ -62,6 +86,7 @@ import argparse
 import dataclasses
 import json
 import os
+import resource
 import sys
 import time
 
@@ -70,14 +95,19 @@ import jax.numpy as jnp
 import numpy as np
 
 from repro.configs import get_smoke_config as jax_smoke
-from repro.configs import granite_moe_3b_a800m
+from repro.configs import gemma3_27b, granite_moe_3b_a800m, starcoder2_7b
 from repro.distributed import sharding as shd
 from repro.launch import mesh as jmesh
 from repro.models import moe, transformer
 from repro_torch.configs import get_smoke_config
+from repro_torch.configs import gemma3_27b as torch_gemma3
 from repro_torch.configs import granite_moe_3b_a800m as torch_granite
+from repro_torch.configs import starcoder2_7b as torch_starcoder2
 from repro_torch.models import common as torch_common
 from repro_torch.models import transformer as torch_transformer
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from lm_helpers import logit_views, sliding_from_full  # noqa: E402
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                       "torch_lm_golden.npz")
@@ -90,6 +120,14 @@ MESH_ROWS = (0, PROMPT // 2, PROMPT - 1)
 SMOKE_ARCHS = ("granite-moe-3b-a800m", "starcoder2-7b", "gemma3-27b",
                "kimi-k2-1t-a32b")
 SMOKE_PROMPT, SMOKE_MAX_LEN, SMOKE_STEPS, SLIDING_STEPS = 12, 16, 3, 12
+# the full-width dense sections: (the reference's config, the port's, the
+# cut depth); Gemma-3's 6 layers keep one global layer (layers 0-4 local)
+FULL_WIDTH = {"starcoder2": (starcoder2_7b.CONFIG, torch_starcoder2.CONFIG,
+                             2),
+              "gemma3": (gemma3_27b.CONFIG, torch_gemma3.CONFIG, 6)}
+# their logits are stored at this many vocabulary columns, drawn once
+# (without replacement, sorted) from default_rng(COLUMN_SEED)
+COLUMNS, COLUMN_SEED = 8192, 2
 
 
 def reference_params(tree, defs):
@@ -307,9 +345,133 @@ def smoke_golden():
                         max_len=SMOKE_MAX_LEN, decode_steps=SMOKE_STEPS,
                         dtype="float32")
 
+def reference_params_by_leaf(defs, seed):
+    """``reference_params`` of ``numpy_params(defs, seed, CONSTANT_STD)``
+    drawn leaf by leaf (``iter_numpy_params``: the same stream), each numpy
+    leaf dropped once converted: the host holds one numpy leaf beside the
+    converted ones."""
+    out = {}
+    for path, val in torch_common.iter_numpy_params(defs, seed,
+                                                    CONSTANT_STD):
+        torch_common.assign(out, path,
+                            jnp.asarray(val).astype(defs[path].dtype))
+        del val
+    return out
+
+
+def cast_params(params, defs):
+    """Each leaf of the reference's parameters cast to its def's dtype, in
+    place, the old leaf dropped as the new one is made."""
+    for path, d in defs.items():
+        parts = path.split("/")
+        node = params
+        for p in parts[:-1]:
+            node = node[p]
+        node[parts[-1]] = node[parts[-1]].astype(d.dtype)
+    return params
+
+
+def peak_rss_gb() -> float:
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+
+
+def full_width_golden(name):
+    """One dense model at full width with its depth cut (``FULL_WIDTH``),
+    float32 then bfloat16 (the f32 weights cast leaf by leaf)."""
+    jbase, tbase, layers = FULL_WIDTH[name]
+    V = tbase.vocab_size
+    rng = np.random.default_rng(INPUT_SEED)
+    prompt = tokens(rng, V, BATCH, PROMPT)
+    steps = tokens(rng, V, DECODE_STEPS, BATCH)
+    columns = np.sort(np.random.default_rng(COLUMN_SEED).choice(
+        V, COLUMNS, replace=False)).astype(np.int32)
+    arrays = {f"{name}/tokens": prompt, f"{name}/decode_tokens": steps,
+              f"{name}/columns": columns}
+    sliding = bool(tbase.sliding_window and tbase.global_every)
+    t0 = time.time()
+    params, meta = None, {}
+    for dt in DTYPES:
+        cfg = dataclasses.replace(jbase, n_layers=layers, param_dtype=dt,
+                                  attn_impl="chunked")
+        tcfg = dataclasses.replace(tbase, n_layers=layers, param_dtype=dt)
+        defs = torch_transformer.param_defs(tcfg)
+        params = (reference_params_by_leaf(defs, WEIGHT_SEED)
+                  if params is None else cast_params(params, defs))
+        t1 = time.time()
+        prefill = jax.jit(lambda p, t: transformer.prefill(p, t, cfg,
+                                                           MAX_LEN))
+        decode = jax.jit(lambda p, c, t: transformer.decode_step(p, c, t,
+                                                                 cfg))
+        last, cache = prefill(params, jnp.asarray(prompt))
+        full = {n: np.asarray(cache[n]) for n in ("k", "v")}
+        logits = []
+        for s in steps:
+            out, cache = decode(params, cache, jnp.asarray(s))
+            logits.append(np.asarray(out, np.float32))
+        p = f"{name}/{dt}/"
+        rows = list(CACHE_ROWS)
+        for key, val in (("prefill", np.asarray(last, np.float32)),
+                         ("decode", np.stack(logits))):
+            for view, a in logit_views(val, columns).items():
+                arrays[f"{p}{key}_{view}"] = a
+        arrays.update({
+            p + "k_rows": np.asarray(cache["k"][0][:, rows], np.float32),
+            p + "v_rows": np.asarray(cache["v"][0][:, rows], np.float32)})
+        del cache
+        entry = {}
+        if sliding:
+            # the same steps through decode_step_sliding from a sliding
+            # cache built from the prefill's full cache
+            sl = sliding_from_full(full["k"], full["v"], PROMPT,
+                                   cfg.sliding_window, cfg.global_every)
+            sl = {k: (jnp.asarray(v) if k != "length"
+                      else jnp.asarray(v, jnp.int32)) for k, v in sl.items()}
+            step = jax.jit(lambda p, c, t: transformer.decode_step_sliding(
+                p, c, t, cfg))
+            slid = []
+            for s in steps:
+                out, sl = step(params, sl, jnp.asarray(s))
+                slid.append(np.asarray(out, np.float32))
+            slid = np.stack(slid)
+            for view, a in logit_views(slid, columns).items():
+                arrays[f"{p}sliding_{view}"] = a
+            apart = np.abs(slid - np.stack(logits))
+            entry = dict(sliding_vs_full_max=float(apart.max()),
+                         sliding_vs_full_rms=float(np.sqrt(
+                             (apart ** 2).mean())),
+                         sliding_argmax_equal=bool(
+                             (slid.argmax(-1)
+                              == np.stack(logits).argmax(-1)).all()))
+            del sl
+        del full
+        assert all(np.isfinite(a).all() for a in arrays.values())
+        entry["s"] = round(time.time() - t1, 1)
+        meta[dt] = entry
+        print(f"{name} {dt}: {time.time() - t1:.1f} s, max |last logit| "
+              f"{np.abs(arrays[p + 'prefill_max']).max():.4f}, "
+              f"{entry}, peak RSS {peak_rss_gb():.1f} GB", flush=True)
+    del params
+    n = sum(int(np.prod(d.shape)) for d in defs.values())
+    meta.update(
+        arch=tbase.name, n_layers=layers,
+        cut=f"depth {tbase.n_layers} -> {layers} layers; full width",
+        batch=BATCH, prompt=PROMPT, max_len=MAX_LEN,
+        decode_steps=DECODE_STEPS, cache_rows=list(CACHE_ROWS),
+        columns=COLUMNS, column_seed=COLUMN_SEED,
+        attention="chunked (the reference's pallas LM path raises)",
+        n_params=n, seconds=round(time.time() - t0, 1),
+        peak_rss_gb=round(peak_rss_gb(), 1))
+    if sliding:
+        meta["sliding"] = ("decode_step_sliding from the prefill's cache "
+                           "(tests/lm_helpers.py::sliding_from_full), the "
+                           "decode tokens again")
+    return arrays, meta
+
 
 SECTIONS = {"granite": granite_golden, "granite_mesh": granite_mesh_golden,
-           "smoke": smoke_golden}
+           "smoke": smoke_golden,
+           "starcoder2": lambda: full_width_golden("starcoder2"),
+           "gemma3": lambda: full_width_golden("gemma3")}
 
 
 def main() -> int:
@@ -326,7 +488,7 @@ def main() -> int:
             kept = {k: f[k] for k in f.files}
         old = json.loads(str(kept.pop("meta")))
         for name in SECTIONS:
-            if name not in only:
+            if name not in only and name in old["sections"]:
                 meta["sections"][name] = old["sections"][name]
                 arrays.update({k: v for k, v in kept.items()
                                if k.startswith(name + "/")})

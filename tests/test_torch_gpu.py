@@ -1770,6 +1770,73 @@ def test_flash_no_window_equals_no_window_at_all(dtype):
                                **ref.flash_attention_tolerance(want, v))
 
 
+# StarCoder2-7B's and Gemma-3 27B's heads (36 on 4 / 32 on 16, 128 wide),
+# narrow elsewhere, on the kernel path (tests/test_torch_lm_geometry.py's
+# configs): the D=128 flash kernel once a layer past attn_chunk
+LM_GEOMETRIES = {"starcoder2-7b": dict(n_layers=2),
+                 "gemma3-27b": dict(n_layers=6, sliding_window=8)}
+LM_NARROW = dict(d_model=256, d_ff=512, vocab_size=512, attn_impl="pallas",
+                 attn_chunk=8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", sorted(LM_GEOMETRIES))
+def test_lm_real_heads_on_gpu_match_cpu(arch, dtype):
+    """A 20-token prefill on the card launches the D=128 flash kernel
+    once a layer (``tma_wgmma`` in bf16, ``f32_regtile`` in f32) with each
+    layer's window, a decode step none; the prefill's last logits and
+    cache, three ``decode_step`` steps and, for Gemma-3, three
+    ``decode_step_sliding`` steps from the prefill's cache
+    (``lm_helpers.sliding_from_full``) against the CPU's (the plain
+    versions): f32 (TF32 off) within 1e-5, bf16 within 0.1 and rms 0.02
+    (the CPU tests' bf16 limits against the reference)."""
+    _need_gpu()
+    from lm_helpers import sliding_from_full
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch), param_dtype=dtype,
+                              **LM_NARROW, **LM_GEOMETRIES[arch])
+    tree = transformer.numpy_params(cfg, 0, 0.02)
+    cpu_p = transformer.params_from_numpy(tree, cfg, "cpu")
+    gpu_p = transformer.params_from_numpy(tree, cfg)
+    tok = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 20)))
+
+    def close(g, c):
+        g, c = g.float().cpu(), c.float()
+        if dtype == "float32":
+            torch.testing.assert_close(g, c, rtol=0, atol=1e-5)
+        else:
+            assert float((g - c).abs().max()) <= 0.1
+            assert float((g - c).pow(2).mean().sqrt()) <= 0.02
+
+    before = _lm_counts()
+    lc, cc = transformer.prefill(cpu_p, tok, cfg, max_len=24)
+    lg, cg = transformer.prefill(gpu_p, tok.cuda(), cfg, max_len=24)
+    L = cfg.n_layers
+    assert tuple(np.subtract(_lm_counts(), before)) == (L, 2 * L + 1, 0)
+    close(lg, lc)
+    close(cg["k"], cc["k"])
+    close(cg["v"], cc["v"])
+    W, ge = cfg.sliding_window, cfg.global_every
+    if W:
+        sc = sliding_from_full(cc["k"], cc["v"], 20, W, ge)
+        sg = sliding_from_full(cg["k"], cg["v"], 20, W, ge)
+    for s in ([1, 2], [3, 4], [5, 6]):
+        before = _lm_counts()
+        lc, cc = transformer.decode_step(cpu_p, cc, torch.tensor(s), cfg)
+        lg, cg = transformer.decode_step(gpu_p, cg, torch.tensor(s).cuda(),
+                                         cfg)
+        assert tuple(np.subtract(_lm_counts(), before)) == (0, 2 * L + 1, 0)
+        close(lg, lc)
+        if W:
+            lc, sc = transformer.decode_step_sliding(cpu_p, sc,
+                                                     torch.tensor(s), cfg)
+            lg, sg = transformer.decode_step_sliding(
+                gpu_p, sg, torch.tensor(s).cuda(), cfg)
+            close(lg, lc)
+
+
 # ---------------------------------------------------------------------------
 # distribution (chip_smoke.py phase 4i): the sharded MoE on a 1 x 1 mesh of
 # an NCCL group of one rank

@@ -225,16 +225,34 @@ def test_kernel_path_matches_the_reference():
         assert seen == transformer._layer_windows(tcfg)
 
 
-@pytest.mark.parametrize("window", [transformer.NO_WINDOW, 5])
-def test_flash_kernel_at_the_lm_shapes_matches_the_reference_kernel(window):
-    """Causal GQA as Granite's prefill gives it to the kernel (heads 64
-    wide, three query heads a KV head; ``NO_WINDOW`` = 1 << 30 as an
-    int), narrow: the reference's Pallas kernel in interpret mode against
-    the port's entry point on CPU tensors (its plain version), f32
-    within 1e-5; ``window=NO_WINDOW`` equals ``window=None``."""
+# (B, H, KV, D, window): Granite's causal GQA (heads 64 wide, three query
+# heads a KV head), StarCoder2-7B's (36 on 4, 128 wide) and Gemma-3 27B's
+# (32 on 16, 128 wide, global and local layers); the Granite cases keep
+# the ids they had when they were the only ones
+FLASH_LM_SHAPES = [
+    pytest.param(2, 6, 2, 64, transformer.NO_WINDOW, id="1073741824"),
+    pytest.param(2, 6, 2, 64, 5, id="5"),
+    pytest.param(1, 36, 4, 128, transformer.NO_WINDOW,
+                 id="starcoder2-1073741824"),
+    pytest.param(1, 36, 4, 128, 5, id="starcoder2-5"),
+    pytest.param(1, 32, 16, 128, transformer.NO_WINDOW,
+                 id="gemma3-1073741824"),
+    pytest.param(1, 32, 16, 128, 5, id="gemma3-5"),
+]
+
+
+@pytest.mark.parametrize("B,H,KV,D,window", FLASH_LM_SHAPES)
+def test_flash_kernel_at_the_lm_shapes_matches_the_reference_kernel(
+        B, H, KV, D, window):
+    """Causal GQA as the LM prefills give it to the kernel (Granite's
+    heads 64 wide, StarCoder2-7B's and Gemma-3 27B's 128 wide; ``NO_WINDOW``
+    = 1 << 30 as an int, or a window), narrow: the reference's Pallas
+    kernel in interpret mode against the port's entry point on CPU tensors
+    (its plain version), f32 within 1e-5; ``window=NO_WINDOW`` equals
+    ``window=None``."""
     rng = np.random.default_rng(11)
-    q, k, v = (rng.standard_normal((2, 40, h, 64), dtype=np.float32)
-               for h in (6, 2, 2))
+    q, k, v = (rng.standard_normal((B, 40, h, D), dtype=np.float32)
+               for h in (H, KV, KV))
     want = jax_ops.flash_attention(jnp.asarray(q), jnp.asarray(k),
                                    jnp.asarray(v), causal=True,
                                    window=window)
@@ -398,6 +416,45 @@ def test_init_params_count_and_check_finite():
                                      torch.tensor([3.0, 4.0])),
                        torch.nn.functional.silu(torch.tensor([1.0, -2.0]))
                        * torch.tensor([3.0, 4.0]))
+
+
+def test_init_params_draws_large_leaves_slice_by_slice(monkeypatch):
+    """A leaf larger than ``common.INIT_SLICE`` values is drawn slice by
+    slice along its leading axis (a row larger than a slice itself sliced)
+    into its preallocated result: a spy on ``torch.randn`` sees no draw
+    larger than one slice, every value is drawn once, and the leaves keep
+    their shapes, dtypes, std ``scale / sqrt(fan_in)`` and determinism."""
+    limit = 1000
+    monkeypatch.setattr(common, "INIT_SLICE", limit)
+    sizes, real = [], torch.randn
+
+    def spy(*shape, **kw):
+        out = real(*shape, **kw)
+        sizes.append(out.numel())
+        return out
+
+    monkeypatch.setattr(torch, "randn", spy)
+    P = common.ParamDef
+    defs = {"rows": P((7, 40, 30), dtype="bfloat16"),      # a row > a slice
+            "wide": P((90, 50), dtype="float32"),          # 20 rows a slice
+            "flat": P((3000,), dtype="float32"),
+            "small": P((7, 100), dtype="bfloat16"),
+            "norm": P((64,), "zeros", dtype="bfloat16")}
+    a = common.init_params(defs, torch.Generator().manual_seed(3), "cpu")
+    assert sizes and max(sizes) <= limit
+    assert sum(sizes) == sum(int(np.prod(d.shape)) for d in defs.values()
+                             if d.init == "normal")
+    b = common.init_params(defs, torch.Generator().manual_seed(3), "cpu")
+    for name, d in defs.items():
+        assert tuple(a[name].shape) == d.shape
+        assert a[name].dtype == common.torch_dtype(d.dtype)
+        assert torch.equal(a[name], b[name])
+    assert not a["norm"].any()
+    for name in ("rows", "wide", "flat"):
+        x = a[name].float()
+        assert abs(float(x.std()) * (defs[name].shape[-2] if x.dim() > 1
+                                     else x.shape[0]) ** 0.5 - 1) < 0.05
+        assert abs(float(x.mean())) < 0.05 * float(x.std())
 
 
 def test_layer_windows_and_global_layers():
